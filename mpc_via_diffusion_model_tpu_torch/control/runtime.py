@@ -1,12 +1,14 @@
 """Receding-horizon diffusion-MPC loop: port of ``make_replan_fn`` and
 ``make_closed_loop`` of ``mpc_via_diffusion_model_tpu/control/runtime.py``
-for one candidate per replan (K = 1).
+with the ``ddpm`` sampler, best-of-K candidates and ``selection_horizon``.
 
-Each replan normalizes the plant state, samples one control horizon with
-the CFG DDPM chain, unnormalizes it and applies its first control. The JAX
-loop splits one key per replan; here each replan takes its own slice of
-staged noise (n_steps, n_total + 1, 1, H, du), or draws it from a
-``torch.Generator``.
+Each replan maps the plant state to the condition (``state_to_condition``,
+identity by default), normalizes it, samples K control horizons with the
+CFG DDPM chain, unnormalizes them and, for K > 1, applies the first control
+of the candidate whose rollout costs least. The JAX loop splits one key per
+replan; here each replan takes its own slice of staged noise
+(n_steps, n_total + 1, K, H, du), ``ddpm_cfg_sample``'s layout per replan,
+or draws it from a ``torch.Generator``.
 """
 from __future__ import annotations
 
@@ -16,9 +18,8 @@ from typing import Callable, Optional
 import torch
 
 from ..data.normalization import NormalizerStats, normalize, unnormalize
-from ..diffusion.gaussian_diffusion import GaussianDiffusion
+from ..diffusion.gaussian_diffusion import DenoiseFn, GaussianDiffusion
 from ..dynamics.base import Plant, QuadraticCost
-from ..models.temporal_unet import TemporalUnet
 from ..utils.device import resolve_device
 
 __all__ = ["ClosedLoopResult", "make_replan_fn", "make_closed_loop"]
@@ -30,53 +31,82 @@ SampleFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 class ClosedLoopResult:
     x_track: torch.Tensor      # (n_steps + 1, state_dim)
     u_track: torch.Tensor      # (n_steps, control_dim)
-    u_horizons: torch.Tensor   # (n_steps, horizon, control_dim) sampled plans
+    u_horizons: torch.Tensor   # (n_steps, horizon, control_dim) applied plans
     stage_costs: torch.Tensor  # (n_steps,)
 
 
-def make_replan_fn(diffusion: GaussianDiffusion, model: TemporalUnet,
+def make_replan_fn(diffusion: GaussianDiffusion, denoise: DenoiseFn,
                    inputs_stats: NormalizerStats, condition_stats: NormalizerStats,
                    horizon: int, control_dim: int = 1, w: float = 0.01,
-                   n_diffusion_steps_without_noise: int = 5,
-                   sample_override: Optional[SampleFn] = None):
-    """``replan(x0, noise) -> (u_horizon (H, du), u_candidates (1, H, du))``.
+                   n_diffusion_steps_without_noise: int = 5, n_candidates: int = 1,
+                   plant: Optional[Plant] = None, cost: Optional[QuadraticCost] = None,
+                   state_to_condition: Optional[Callable] = None,
+                   sample_override: Optional[SampleFn] = None,
+                   selection_horizon: Optional[int] = None):
+    """``replan(x0, noise) -> (u_horizon (H, du), u_candidates (K, H, du))``.
 
-    ``sample_override(context_norm (1, dx), noise) -> u_norm (1, H, du)``
-    replaces ``ddpm_cfg_sample``, e.g. a ``FusedCfgChain``."""
-    denoise = lambda x, t, c, m: model(x, t, c, m)
+    ``denoise(x, t, context, context_mask) -> eps`` is the denoiser: a
+    ``TemporalUnet``, or a ``FusedUnet`` as ``bench.py``'s
+    ``BENCH_FUSED=1`` passes it. ``sample_override(context_norm (K, dc),
+    noise) -> u_norm (K, H, du)`` replaces ``ddpm_cfg_sample``, e.g. a
+    ``FusedCfgChain``. For K > 1 candidates are scored by ``cost`` over
+    their rollout from the plant state, truncated to ``selection_horizon``
+    steps (terminal cost only when the whole plan is scored)."""
+    k = int(n_candidates)
+    if k > 1 and (plant is None or cost is None):
+        raise ValueError("candidate selection needs plant and cost")
+    to_cond = state_to_condition or (lambda x: x)
+    sel_h = int(selection_horizon or horizon)
+    if not 1 <= sel_h <= horizon:
+        raise ValueError(f"selection_horizon must be in 1..{horizon}, got {selection_horizon}")
 
     def replan(x0: torch.Tensor, noise: torch.Tensor):
-        ctx = normalize(condition_stats, x0)[None, :]
+        cond_norm = normalize(condition_stats, to_cond(x0))[None, :]
+        ctx = cond_norm.expand(k, cond_norm.shape[-1])
         if sample_override is not None:
             u_norm = sample_override(ctx, noise)
         else:
             u_norm = diffusion.ddpm_cfg_sample(
-                denoise, (1, horizon, control_dim), ctx, w=w,
+                denoise, (k, horizon, control_dim), ctx, w=w,
                 n_diffusion_steps_without_noise=n_diffusion_steps_without_noise, noise=noise)
         u_cand = unnormalize(inputs_stats, u_norm)
-        return u_cand[0], u_cand
+        if k == 1:
+            return u_cand[0], u_cand
+        x = x0.expand(k, x0.shape[-1])
+        acc = torch.zeros((k,), dtype=torch.float32, device=x0.device)
+        for i in range(sel_h):
+            u = u_cand[:, i, :]
+            acc = acc + cost.stage(x, u)
+            x = plant.step(x, u)
+        if sel_h == horizon:
+            acc = acc + cost.terminal(x)
+        # torch.argmin's rule is jnp.argmin's: the first minimum, and the first
+        # NaN when a score is NaN (tests/test_torch_port_episode.py pins it)
+        return u_cand[torch.argmin(acc)], u_cand
 
     return replan
 
 
-def make_closed_loop(diffusion: GaussianDiffusion, model: TemporalUnet,
+def make_closed_loop(diffusion: GaussianDiffusion, denoise: DenoiseFn,
                      inputs_stats: NormalizerStats, condition_stats: NormalizerStats,
                      plant: Plant, cost: QuadraticCost, horizon: int, n_steps: int = 80,
                      w: float = 0.01, n_diffusion_steps_without_noise: int = 5,
-                     sample_override: Optional[SampleFn] = None, device=None):
+                     n_candidates: int = 1, state_to_condition: Optional[Callable] = None,
+                     sample_override: Optional[SampleFn] = None,
+                     selection_horizon: Optional[int] = None, device=None):
     """``closed_loop(x0, noise=None, generator=None) -> ClosedLoopResult`` on
     ``device`` (``cuda`` unless given). ``noise`` is (n_steps, n_total + 1,
-    1, horizon, control_dim); without it each replan's noise is drawn from
+    K, horizon, control_dim); without it each replan's noise is drawn from
     ``generator``. Defaults are the flagship run's: 80 replans, T = 25 + 5,
-    w = 0.01."""
+    w = 0.01, K = 1."""
     dev = resolve_device(device)
     inputs_stats, condition_stats = inputs_stats.to(dev), condition_stats.to(dev)
     cost = cost.to(dev)
-    replan = make_replan_fn(diffusion, model, inputs_stats, condition_stats, horizon,
-                            plant.control_dim, w, n_diffusion_steps_without_noise,
-                            sample_override)
+    replan = make_replan_fn(diffusion, denoise, inputs_stats, condition_stats, horizon,
+                            plant.control_dim, w, n_diffusion_steps_without_noise, n_candidates,
+                            plant, cost, state_to_condition, sample_override, selection_horizon)
     n_total = diffusion.schedule.n_steps + n_diffusion_steps_without_noise
-    noise_shape = (n_steps, n_total + 1, 1, horizon, plant.control_dim)
+    noise_shape = (n_steps, n_total + 1, int(n_candidates), horizon, plant.control_dim)
 
     @torch.no_grad()
     def closed_loop(x0: torch.Tensor, noise: Optional[torch.Tensor] = None,
@@ -88,8 +118,8 @@ def make_closed_loop(diffusion: GaussianDiffusion, model: TemporalUnet,
         x = x0.to(device=dev, dtype=torch.float32)
         noise = noise.to(dev)
         xs, us, u_hors, stages = [x], [], [], []
-        for k in range(n_steps):
-            u_hor, _ = replan(x, noise[k])
+        for i in range(n_steps):
+            u_hor, _ = replan(x, noise[i])
             u0 = u_hor[0]
             stages.append(cost.stage(x, u0))
             x = plant.step(x, u0)

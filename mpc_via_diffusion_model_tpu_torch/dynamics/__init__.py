@@ -1,5 +1,5 @@
-from .base import Plant, QuadraticCost
+from .base import Plant, QuadraticCost, rollout, rollout_with_cost
 from .cartpole import cartpole_virtual_cost, cartpole_virtual_swingup, theta_to_red_theta
 
 __all__ = ["Plant", "QuadraticCost", "cartpole_virtual_cost", "cartpole_virtual_swingup",
-           "theta_to_red_theta"]
+           "rollout", "rollout_with_cost", "theta_to_red_theta"]

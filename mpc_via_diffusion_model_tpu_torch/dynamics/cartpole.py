@@ -1,7 +1,8 @@
 """The 5-state nonlinear swing-up cart-pole with the virtual angle state
 theta* (port of ``mpc_via_diffusion_model_tpu/dynamics/cartpole.py``:
 ``cartpole_virtual_swingup``, ``cartpole_virtual_cost``,
-``theta_to_red_theta``). Euler forward at dt=0.01, fp32."""
+``theta_to_red_theta``). Euler forward at dt=0.01, fp32. The step takes
+leading batch axes: x (..., 5), u (..., 1)."""
 from __future__ import annotations
 
 import math
@@ -33,18 +34,19 @@ _PI_UNDER_2 = 2.0 / math.pi
 
 def cartpole_virtual_swingup(dt: float = 0.01) -> Plant:
     def step(x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
-        uu = torch.reshape(u, (-1,))[0]
-        sin_t = torch.sin(x[2])
-        cos_t = torch.cos(x[2])
+        uu = u[..., 0]
+        x1, x2, x3 = x[..., 1], x[..., 2], x[..., 3]
+        sin_t = torch.sin(x2)
+        cos_t = torch.cos(x2)
         xdot = torch.stack([
-            x[1],
-            (_MPLP * -sin_t * x[3] ** 2 + _MPG * sin_t * cos_t + uu)
+            x1,
+            (_MPLP * -sin_t * x3 ** 2 + _MPG * sin_t * cos_t + uu)
             / (_M_TOTAL - _M_POLE * cos_t) ** 2,
-            x[3],
-            (-_MPLP * sin_t * cos_t * x[3] ** 2 - _MTG * sin_t - cos_t * uu)
+            x3,
+            (-_MPLP * sin_t * cos_t * x3 ** 2 - _MTG * sin_t - cos_t * uu)
             / (_MTLP - _MPLP * cos_t ** 2),
-            -_PI_UNDER_2 * (x[2] - math.pi) * x[3],
-        ])
+            -_PI_UNDER_2 * (x2 - math.pi) * x3,
+        ], dim=-1)
         return x + xdot * dt
 
     return Plant(name="cartpole_virtual_swingup", state_dim=5, control_dim=1, dt=dt, step=step)

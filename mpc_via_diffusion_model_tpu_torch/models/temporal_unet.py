@@ -87,7 +87,13 @@ class TemporalUnet(nn.Module):
     def forward(self, x: torch.Tensor, time: torch.Tensor, context: torch.Tensor,
                 context_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """x (B, H, D); time (B,); context (B, C); context_mask (B, 1), 1 = drop."""
-        c = self.conditioning(time, context, context_mask)
+        y = self.features(x, self.conditioning(time, context, context_mask))
+        return self.final_conv[1](y.transpose(1, 2)).transpose(1, 2)
+
+    def features(self, x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+        """The conv backbone up to the final Conv1dBlock: x (B, H, D) and the
+        conditioning vector c (B, cond_dim) -> (B, H, unet_input_dim), the
+        part of the forward that the U-Net pass kernel computes."""
         h = x.transpose(1, 2)
         skips = []
         for rb1, rb2, _, _, down in self.downs:
@@ -98,7 +104,7 @@ class TemporalUnet(nn.Module):
         for rb1, rb2, _, _, up in self.ups:
             h = torch.cat([h, skips.pop()], dim=1)
             h = up(rb2(rb1(h, c), c))
-        return self.final_conv(h).transpose(1, 2)
+        return self.final_conv[0](h).transpose(1, 2)
 
     def res_blocks(self):
         """The ResidualTemporalBlocks in call order: the flax package numbers

@@ -5,8 +5,10 @@ No PyTorch header is included and ``torch.utils.cpp_extension`` is not used:
 a source with a plain C interface builds in seconds, one that includes
 PyTorch's headers in minutes. A library is built at first use into
 ``build/torch_kernels/`` at the repository root (listed in ``.gitignore``),
-under a name that carries a hash of its source and flags, so an edited
-source is rebuilt and an unchanged one is reused.
+under a name that carries a hash of its source, of every header in
+``csrc/`` and of the flags, so an edited source or header is rebuilt and an
+unchanged one is reused. ``build_all`` builds every library at once, one nvcc
+process per source, all started together.
 """
 from __future__ import annotations
 
@@ -20,13 +22,14 @@ import subprocess
 import time
 from pathlib import Path
 
-__all__ = ["BuildResult", "build", "load", "BUILD_DIR", "NVCC_FLAGS"]
+__all__ = ["BuildResult", "build", "build_all", "load", "BUILD_DIR", "KERNELS", "NVCC_FLAGS"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC"]
 NVCC_TIMEOUT_S = 600
+KERNELS = ("cfg_chain", "fused_unet", "cfg_episode")  # csrc/<name>.cu
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,25 +46,67 @@ def _nvcc() -> str:
     return found
 
 
-def build(name: str) -> BuildResult:
-    """Compile ``csrc/<name>.cu`` for sm_90a unless this exact source and
-    flag set was built before."""
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"lib{name}-{digest}.so"
-    if out.exists():
-        return BuildResult(out, 0.0, "")
+def _target(name: str) -> Path:
+    """Where ``csrc/<name>.cu`` builds to: the name carries a hash of the
+    source, of every ``csrc/*.cuh`` (a source may include any of them) and
+    of the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def _start(name: str, out: Path):
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                          capture_output=True, text=True, timeout=NVCC_TIMEOUT_S)
+    proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc, tmp
+
+
+def _finish(name: str, out: Path, proc, tmp: Path, t0: float) -> BuildResult:
+    try:
+        report, _ = proc.communicate(timeout=NVCC_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc on {name}.cu took over {NVCC_TIMEOUT_S} s")
     seconds = time.perf_counter() - t0
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed on {src.name} ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
+        raise RuntimeError(f"nvcc failed on {name}.cu ({proc.returncode}):\n{report}")
     os.replace(tmp, out)
-    return BuildResult(out, seconds, (proc.stdout + proc.stderr).strip())
+    return BuildResult(out, seconds, report.strip())
+
+
+def build(name: str) -> BuildResult:
+    """Compile ``csrc/<name>.cu`` for sm_90a unless this exact source,
+    header set and flag set was built before."""
+    return build_all((name,))[name]
+
+
+def build_all(names=KERNELS) -> dict:
+    """Build the named libraries (all of them by default), one nvcc process
+    per source, all started together; returns name -> BuildResult."""
+    results, running = {}, {}
+    for name in names:
+        out = _target(name)
+        if out.exists():
+            results[name] = BuildResult(out, 0.0, "")
+        else:
+            running[name] = (out, *_start(name, out), time.perf_counter())
+    try:
+        for name, (out, proc, tmp, t0) in running.items():
+            results[name] = _finish(name, out, proc, tmp, t0)
+    finally:  # stop any nvcc still running when one failed
+        for _, proc, tmp, _ in running.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+                tmp.unlink(missing_ok=True)
+    return {name: results[name] for name in names}
 
 
 @functools.lru_cache(maxsize=None)

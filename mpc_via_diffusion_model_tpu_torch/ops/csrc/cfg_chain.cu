@@ -43,303 +43,10 @@
 //   the normalisation, Mish and the FiLM bias.
 // wgmma, TMA, clusters and bf16 are not used: making this fast is later work.
 //
-// The meta table (ops/unet_pack.py) holds the architecture, the weight offsets and the
-// shared-memory plan; the indices below mirror that file.
+// The U-Net body and the meta-table indices are in unet_body.cuh, shared with
+// cfg_episode.cu and fused_unet.cu.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-#define NT 512          // threads per block
-#define RPT 4           // output rows per thread in the conv loops
-#define HALO 2          // zero rows above and below each activation
-#define MAX_LEVELS 4
-#define MAX_RES (4 * MAX_LEVELS)
-#define RES_STRIDE 13
-
-// meta layout (ops/unet_pack.py)
-#define M_H 0
-#define M_D 1
-#define M_NLEV 2
-#define M_NRES 3
-#define M_MAXC 4
-#define M_BUF 5
-#define M_XS 6
-#define M_EPS 7
-#define M_STATS 8
-#define M_SMEM 9
-#define M_DIMS 10
-#define M_SKIP (M_DIMS + MAX_LEVELS + 1)
-#define M_DOWN (M_SKIP + MAX_LEVELS)
-#define M_UP (M_DOWN + 2 * MAX_LEVELS)
-#define M_FIN (M_UP + 2 * MAX_LEVELS)
-#define M_F1 (M_FIN + 5)
-#define M_RES (M_F1 + 2)
-#define M_LEN (M_RES + MAX_RES * RES_STRIDE)
-#define R_CIN 0
-#define R_COUT 1
-#define R_GROUPS 2
-#define R_W1 3
-#define R_B1 4
-#define R_G1 5
-#define R_BE1 6
-#define R_W2 7
-#define R_B2 8
-#define R_G2 9
-#define R_BE2 10
-#define R_WR 11
-#define R_BR 12
-
-// offset of row t (may be a halo row, -HALO <= t < h + HALO) of batch element b
-static __device__ __forceinline__ int row_off(int b, int h, int t, int c) {
-  return (b * (h + 2 * HALO) + HALO + t) * c;
-}
-
-static __device__ __forceinline__ float mish_f(float x) {
-  const float sp = fmaxf(x, 0.f) + log1pf(expf(-fabsf(x)));  // stable softplus
-  return x * tanhf(sp);
-}
-
-// out[b][t][co] = bias[co] + sum_k sum_ci in[b][stride*t + k - pad][ci] * w[k][ci][co]
-// for both batch elements; writes the interior rows of out only.
-static __device__ void conv(const float* __restrict__ in, int hin, int cin,
-                            float* __restrict__ out, int hout, int cout,
-                            const float* __restrict__ w, const float* __restrict__ bias,
-                            int ks, int stride, int pad) {
-  const int rows = 2 * hout;
-  const int items = ((rows + RPT - 1) / RPT) * cout;
-  for (int it = threadIdx.x; it < items; it += NT) {
-    const int co = it % cout;
-    const int r0 = (it / cout) * RPT;
-    int src[RPT];
-    float acc[RPT];
-    const float bv = __ldg(bias + co);
-#pragma unroll
-    for (int j = 0; j < RPT; ++j) {
-      const int r = min(r0 + j, rows - 1);  // a short last chunk repeats its last row
-      const int b = r / hout, t = r - b * hout;
-      src[j] = row_off(b, hin, stride * t - pad, cin);
-      acc[j] = bv;
-    }
-    for (int k = 0; k < ks; ++k) {
-      const float* wk = w + (size_t)k * cin * cout + co;
-      const int ko = k * cin;
-      for (int ci = 0; ci < cin; ++ci) {
-        const float wv = __ldg(wk + (size_t)ci * cout);
-#pragma unroll
-        for (int j = 0; j < RPT; ++j) acc[j] = fmaf(in[src[j] + ko + ci], wv, acc[j]);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < RPT; ++j) {
-      const int r = r0 + j;
-      if (r < rows) {
-        const int b = r / hout, t = r - b * hout;
-        out[row_off(b, hout, t, cout) + co] = acc[j];
-      }
-    }
-  }
-}
-
-// Upsample1d, the flax ConvTranspose(k4, s2, padding (2, 2)) without kernel flip:
-// out[2t] = b + w0 x[t-1] + w2 x[t],  out[2t+1] = b + w1 x[t] + w3 x[t+1].
-static __device__ void upsample(const float* __restrict__ in, int hin, int c,
-                                float* __restrict__ out,
-                                const float* __restrict__ w, const float* __restrict__ bias) {
-  const int hout = 2 * hin, rows = 2 * hout;
-  const int items = ((rows + RPT - 1) / RPT) * c;
-  for (int it = threadIdx.x; it < items; it += NT) {
-    const int co = it % c;
-    const int r0 = (it / c) * RPT;
-    int src[RPT];
-    bool odd[RPT];
-    float acc[RPT];
-    const float bv = __ldg(bias + co);
-#pragma unroll
-    for (int j = 0; j < RPT; ++j) {
-      const int r = min(r0 + j, rows - 1);
-      const int b = r / hout, t = r - b * hout;
-      odd[j] = t & 1;
-      // tap pair kk = 0, 1 reads input rows (t>>1) - 1 + odd + kk
-      src[j] = row_off(b, hin, (t >> 1) - 1 + (t & 1), c);
-      acc[j] = bv;
-    }
-    for (int kk = 0; kk < 2; ++kk) {
-      const float* we = w + (size_t)(2 * kk) * c * c + co;      // tap 2kk for even rows
-      const float* wo = w + (size_t)(2 * kk + 1) * c * c + co;  // tap 2kk+1 for odd rows
-      const int ko = kk * c;
-      for (int ci = 0; ci < c; ++ci) {
-        const float ve = __ldg(we + (size_t)ci * c);
-        const float vo = __ldg(wo + (size_t)ci * c);
-#pragma unroll
-        for (int j = 0; j < RPT; ++j) acc[j] = fmaf(in[src[j] + ko + ci], odd[j] ? vo : ve, acc[j]);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < RPT; ++j) {
-      const int r = r0 + j;
-      if (r < rows) {
-        const int b = r / hout, t = r - b * hout;
-        out[row_off(b, hout, t, c) + co] = acc[j];
-      }
-    }
-  }
-}
-
-static __device__ void zero_halo(float* buf, int h, int c) {
-  const int n = 2 * 2 * HALO * c;
-  for (int i = threadIdx.x; i < n; i += NT) {
-    const int ch = i % c, q = i / c;
-    const int b = q / (2 * HALO), s = q % (2 * HALO);
-    const int t = s < HALO ? s - HALO : h + s - HALO;
-    buf[row_off(b, h, t, c) + ch] = 0.f;
-  }
-}
-
-// GroupNorm (per batch element and group) -> Mish -> optional FiLM bias, in place.
-static __device__ void gn_mish(float* buf, int h, int c, int groups,
-                               const float* __restrict__ gamma, const float* __restrict__ beta,
-                               const float* __restrict__ film_c, const float* __restrict__ film_u,
-                               float* stats) {
-  const int cpg = c / groups, n = h * cpg;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int p = warp; p < 2 * groups; p += NT / 32) {
-    const int b = p / groups, g = p - b * groups;
-    float s = 0.f, sq = 0.f;
-    for (int e = lane; e < n; e += 32) {
-      const int t = e / cpg, ch = g * cpg + (e - t * cpg);
-      const float v = buf[row_off(b, h, t, c) + ch];
-      s += v;
-      sq = fmaf(v, v, sq);
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      s += __shfl_xor_sync(0xffffffffu, s, o);
-      sq += __shfl_xor_sync(0xffffffffu, sq, o);
-    }
-    if (lane == 0) {
-      const float mean = s / (float)n;
-      const float var = fmaxf(sq / (float)n - mean * mean, 0.f);
-      stats[2 * p] = mean;
-      stats[2 * p + 1] = 1.0f / sqrtf(var + 1e-5f);
-    }
-  }
-  __syncthreads();
-  const int total = 2 * h * c;
-  for (int i = threadIdx.x; i < total; i += NT) {
-    const int ch = i % c, r = i / c, b = r / h, t = r - b * h;
-    const int q = b * groups + ch / cpg;
-    float* p = buf + row_off(b, h, t, c) + ch;
-    float y = (*p - stats[2 * q]) * stats[2 * q + 1] * __ldg(gamma + ch) + __ldg(beta + ch);
-    y = mish_f(y);
-    if (film_c != nullptr) y += __ldg((b == 0 ? film_c : film_u) + ch);
-    *p = y;
-  }
-}
-
-// dst += src over the interior rows of a (2, h, c) activation
-static __device__ void add_into(float* dst, const float* src, int h, int c) {
-  const int total = 2 * h * c;
-  for (int i = threadIdx.x; i < total; i += NT) {
-    const int ch = i % c, r = i / c, b = r / h, t = r - b * h;
-    const int o = row_off(b, h, t, c) + ch;
-    dst[o] += src[o];
-  }
-}
-
-// ResidualTemporalBlock: in -> t2 (t1 is scratch). Returns t2.
-static __device__ float* res_block(const int* rm, const float* __restrict__ W, float* in, float* t1,
-                                   float* t2, int h, const float* film_c, const float* film_u,
-                                   float* stats) {
-  const int cin = rm[R_CIN], cout = rm[R_COUT], groups = rm[R_GROUPS];
-  conv(in, h, cin, t1, h, cout, W + rm[R_W1], W + rm[R_B1], 5, 1, 2);
-  zero_halo(t1, h, cout);
-  __syncthreads();
-  gn_mish(t1, h, cout, groups, W + rm[R_G1], W + rm[R_BE1], film_c, film_u, stats);
-  __syncthreads();
-  conv(t1, h, cout, t2, h, cout, W + rm[R_W2], W + rm[R_B2], 5, 1, 2);
-  zero_halo(t2, h, cout);
-  __syncthreads();
-  gn_mish(t2, h, cout, groups, W + rm[R_G2], W + rm[R_BE2], nullptr, nullptr, stats);
-  __syncthreads();
-  if (rm[R_WR] >= 0) {  // 1x1 residual conv when the channel count changes
-    conv(in, h, cin, t1, h, cout, W + rm[R_WR], W + rm[R_BR], 1, 1, 0);
-    __syncthreads();
-    add_into(t2, t1, h, cout);
-  } else {
-    add_into(t2, in, h, cout);
-  }
-  __syncthreads();
-  return t2;
-}
-
-// The conv backbone on the (2, H, D) rows in *cur; returns the buffer that holds the
-// final Conv1dBlock's output (2, H, dims[1]). films: this step's (n_res, 2B, max_c).
-static __device__ float* unet_body(const int* m, const float* __restrict__ W, float* smem,
-                                   float* cur, float* f1, float* f2, const float* films,
-                                   int n_samples, int sample, float* stats) {
-  const int nlev = m[M_NLEV], maxc = m[M_MAXC];
-  int h = m[M_H];
-  int r = 0;
-#define FILM(rr, bb) (films + ((size_t)(rr) * 2 * n_samples + (bb)) * maxc)
-#define RES_BLOCK()                                                                      \
-  {                                                                                      \
-    float* out = res_block(m + M_RES + r * RES_STRIDE, W, cur, f1, f2, h, FILM(r, sample), \
-                           FILM(r, n_samples + sample), stats);                          \
-    f2 = f1;                                                                             \
-    f1 = cur;                                                                            \
-    cur = out;                                                                           \
-    ++r;                                                                                 \
-  }
-  for (int lvl = 0; lvl < nlev; ++lvl) {
-    RES_BLOCK();
-    RES_BLOCK();
-    const int c = m[M_DIMS + lvl + 1];
-    if (lvl > 0) {  // keep the skip; level 0's is never read
-      float* skip = smem + m[M_SKIP + lvl];
-      const int n = 2 * (h + 2 * HALO) * c;
-      for (int i = threadIdx.x; i < n; i += NT) skip[i] = cur[i];
-    }
-    if (lvl < nlev - 1) {  // Downsample1d: conv k3 s2 p1
-      conv(cur, h, c, f1, h / 2, c, W + m[M_DOWN + 2 * lvl], W + m[M_DOWN + 2 * lvl + 1], 3, 2, 1);
-      zero_halo(f1, h / 2, c);
-      h /= 2;
-      float* tmp = cur; cur = f1; f1 = tmp;
-    }
-    __syncthreads();
-  }
-  RES_BLOCK();  // mid blocks
-  RES_BLOCK();
-  for (int u = 0; u < nlev - 1; ++u) {
-    const int lvl = nlev - 1 - u;
-    const int c = m[M_DIMS + lvl + 1];  // channels of cur and of skip[lvl]
-    const float* skip = smem + m[M_SKIP + lvl];
-    const int n = 2 * h * 2 * c;
-    for (int i = threadIdx.x; i < n; i += NT) {  // concat(cur, skip) along channels
-      const int ch = i % (2 * c), rr = i / (2 * c), b = rr / h, t = rr - b * h;
-      f1[row_off(b, h, t, 2 * c) + ch] =
-          ch < c ? cur[row_off(b, h, t, c) + ch] : skip[row_off(b, h, t, c) + ch - c];
-    }
-    zero_halo(f1, h, 2 * c);
-    __syncthreads();
-    { float* tmp = cur; cur = f1; f1 = tmp; }
-    RES_BLOCK();
-    RES_BLOCK();
-    const int cd = m[M_DIMS + lvl];
-    upsample(cur, h, cd, f1, W + m[M_UP + 2 * u], W + m[M_UP + 2 * u + 1]);
-    zero_halo(f1, 2 * h, cd);
-    __syncthreads();
-    h *= 2;
-    { float* tmp = cur; cur = f1; f1 = tmp; }
-  }
-#undef RES_BLOCK
-#undef FILM
-  const int cf = m[M_DIMS + 1];
-  conv(cur, h, cf, f1, h, cf, W + m[M_FIN], W + m[M_FIN + 1], 5, 1, 2);
-  __syncthreads();
-  gn_mish(f1, h, cf, m[M_FIN + 4], W + m[M_FIN + 2], W + m[M_FIN + 3], nullptr, nullptr, stats);
-  __syncthreads();
-  return f1;
-}
+#include "unet_body.cuh"
 
 // films (n_total, n_res, 2B, max_c); noise (n_total + 1, B, H, D) with row n_total = x_T;
 // coefs (n_total, 5) = sra, srm, c1, c2, sigma * gate; out (B, H, D).
@@ -351,9 +58,7 @@ cfg_chain_kernel(const float* __restrict__ W, const int* __restrict__ meta,
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int sample = blockIdx.x, n_samples = gridDim.x;
-  int* m = reinterpret_cast<int*>(smem + __ldg(meta + M_SMEM));
-  for (int i = threadIdx.x; i < M_LEN; i += NT) m[i] = __ldg(meta + i);
-  __syncthreads();
+  const int* m = load_meta(smem, meta, __ldg(meta + M_SMEM));
   const int H = m[M_H], D = m[M_D], n_res = m[M_NRES], maxc = m[M_MAXC], buf = m[M_BUF];
   const int hd = H * D;
   float* xs = smem + m[M_XS];
@@ -373,11 +78,11 @@ cfg_chain_kernel(const float* __restrict__ W, const int* __restrict__ meta,
       const int d = i % D, rr = i / D, b = rr / H, t = rr - b * H;
       in[row_off(b, H, t, D) + d] = xs[t * D + d];
     }
-    zero_halo(in, H, D);
+    zero_halo<2>(in, H, D);
     __syncthreads();
-    const float* y = unet_body(m, W, smem, in, smem + buf, smem + 2 * buf,
-                               films + (size_t)si * n_res * 2 * n_samples * maxc, n_samples,
-                               sample, stats);
+    const float* y = unet_body<2>(m, W, smem, in, smem + buf, smem + 2 * buf,
+                                  films + (size_t)si * n_res * 2 * n_samples * maxc,
+                                  2 * n_samples, sample, n_samples + sample, stats);
     for (int i = threadIdx.x; i < 2 * hd; i += NT) {  // final 1x1 conv
       const int d = i % D, rr = i / D, b = rr / H, t = rr - b * H;
       const float* yr = y + row_off(b, H, t, cf);

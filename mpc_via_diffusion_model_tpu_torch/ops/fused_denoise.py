@@ -33,7 +33,23 @@ from ..utils.device import resolve_device
 from . import _build
 from .unet_pack import M_LEN, PackedUnet, pack_unet
 
-__all__ = ["FusedCfgChain", "make_fused_cfg_chain"]
+__all__ = ["FusedCfgChain", "make_fused_cfg_chain", "step_coefficients"]
+
+
+def step_coefficients(schedule: DiffusionSchedule, n_tail: int):
+    """Per-step scalars of the chain, (n_total, 5) float64 rows of
+    sra, srm, c1, c2, sigma * gate, and the effective timesteps (n_total,),
+    built as mpc_via_diffusion_model_tpu/ops/fused_denoise.py:72-86 builds
+    them: the noise-free tail clamps t to 0 and gates the noise off."""
+    steps = np.arange(schedule.n_steps - 1, -n_tail - 1, -1)
+    t_eff = np.maximum(steps, 0)
+    tab = lambda a: a.double().numpy()[t_eff]
+    sig = np.exp(0.5 * tab(schedule.posterior_log_variance_clipped))
+    coefs = np.stack([
+        tab(schedule.sqrt_recip_alphas_cumprod), tab(schedule.sqrt_recipm1_alphas_cumprod),
+        tab(schedule.posterior_mean_coef1), tab(schedule.posterior_mean_coef2),
+        sig * (steps > 0)], axis=1)
+    return coefs, t_eff
 
 
 @functools.lru_cache(maxsize=None)
@@ -65,15 +81,8 @@ class FusedCfgChain:
         self.n_samples, self.w = n_samples, float(w)
         device = packed.weights.device
         self.n_total = schedule.n_steps + n_tail
-        steps = np.arange(schedule.n_steps - 1, -n_tail - 1, -1)
-        t_eff = np.maximum(steps, 0)
-        tab = lambda a: a.double().numpy()[t_eff]
-        sig = np.exp(0.5 * tab(schedule.posterior_log_variance_clipped))
-        # per-step scalars, built as mpc_via_diffusion_model_tpu/ops/fused_denoise.py:72-86 does
-        self.coefs = torch.tensor(np.stack([
-            tab(schedule.sqrt_recip_alphas_cumprod), tab(schedule.sqrt_recipm1_alphas_cumprod),
-            tab(schedule.posterior_mean_coef1), tab(schedule.posterior_mean_coef2),
-            sig * (steps > 0)], axis=1), dtype=torch.float32, device=device)
+        coefs, t_eff = step_coefficients(schedule, n_tail)
+        self.coefs = torch.tensor(coefs, dtype=torch.float32, device=device)
         self.t_eff = torch.as_tensor(t_eff, device=device)
         with torch.no_grad():
             self.t_embs = self.model.time_mlp(self.t_eff)  # (n_total, time_emb_dim)

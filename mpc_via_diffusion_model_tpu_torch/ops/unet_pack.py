@@ -1,4 +1,4 @@
-"""Packs a ``TemporalUnet`` for the CUDA chain kernel.
+"""Packs a ``TemporalUnet`` for the CUDA kernels (chain, episode, U-Net pass).
 
 Counterpart of ``build_unet_ops``, ``_extract_weights``,
 ``time_embedding_table`` and ``stack_film_weights`` in
@@ -7,8 +7,11 @@ weight goes into ONE contiguous fp32 device buffer in the flax layout
 (k, C_in, C_out), C_out fastest, so that neighbouring threads of the kernel,
 which own neighbouring output channels, read neighbouring weights. An int32
 table (``meta``) gives the kernel the architecture, the offset of every
-weight and the plan of its shared memory; ``ops/csrc/cfg_chain.cu`` reads it
-with the indices defined here.
+weight and the plans of the kernels' shared memory; ``ops/csrc/unet_body.cuh``
+reads it with the indices defined here, for every library that includes it.
+The FiLM Dense weights go into the same buffer, zero-padded to max_c
+channels, for the episode kernel, which computes FiLM from the plant state
+inside the kernel.
 
 The JAX package probes its resampling operators numerically from the flax
 layers. Here they are written out from the conv definitions instead, inside
@@ -18,7 +21,8 @@ the kernel: Downsample1d is ``out[t] = sum_k w[k] x[2t+k-1]`` and Upsample1d
 
 Activations in the kernel's shared memory are (2, h + 2*HALO, c): the
 conditional and unconditional copy of one sample, each with HALO zero rows
-above and below, so that the 'same' convs need no edge masks.
+above and below, so that the 'same' convs need no edge masks. The U-Net
+pass kernel uses the same plan with one row-set.
 """
 from __future__ import annotations
 
@@ -31,14 +35,14 @@ import torch
 from ..models.layers import group_norm_n_groups
 from ..models.temporal_unet import TemporalUnet
 
-__all__ = ["PackedUnet", "pack_unet"]
+__all__ = ["PackedUnet", "pack_unet", "align4"]
 
 HALO = 2
 MAX_LEVELS = 4
 MAX_RES = 4 * MAX_LEVELS
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper
 
-# meta layout; ops/csrc/cfg_chain.cu mirrors every index below
+# meta layout; ops/csrc/unet_body.cuh mirrors every index below
 (M_H, M_D, M_NLEV, M_NRES, M_MAXC, M_BUF, M_XS, M_EPS, M_STATS, M_SMEM) = range(10)
 M_DIMS = 10                          # channels: dims[0] = state_dim, dims[l+1] = level l
 M_SKIP = M_DIMS + MAX_LEVELS + 1     # shared offset of the skip kept for level l (l >= 1)
@@ -49,7 +53,19 @@ M_F1 = M_FIN + 5                     # final 1x1 conv: (w, b)
 M_RES = M_F1 + 2                     # RES_STRIDE ints per ResidualTemporalBlock
 (R_CIN, R_COUT, R_GROUPS, R_W1, R_B1, R_G1, R_BE1, R_W2, R_B2, R_G2, R_BE2, R_WR, R_BR) = range(13)
 RES_STRIDE = 13
-M_LEN = M_RES + MAX_RES * RES_STRIDE
+# conditioning widths, the FiLM Dense weights in the packed buffer, and the
+# episode kernel's shared-memory plan (FiLM of one step, mish(c_emb) of the
+# two groups, state and choice, its meta copy; the K candidate chains and
+# their scores follow the meta copy, sized per launch)
+M_COND = M_RES + MAX_RES * RES_STRIDE
+(M_TEMB, M_CTX, M_FW, M_FB, M_EP_FILM, M_EP_MC, M_EP_MISC, M_EP_SMEM) = range(M_COND + 1, M_COND + 9)
+M_LEN = M_COND + 9
+EP_MISC_LEN = 32  # state, context, first control, choice (cfg_episode.cu's X_* offsets)
+
+
+def align4(n: int) -> int:
+    """n rounded up to a multiple of 4 floats (16 bytes)."""
+    return -(-n // 4) * 4
 
 
 @dataclasses.dataclass
@@ -62,6 +78,14 @@ class PackedUnet:
     films_w: torch.Tensor          # (n_res, cond_dim, max_c) FiLM Dense kernels, zero-padded
     films_b: torch.Tensor          # (n_res, max_c)
     flops_per_pass: int            # conv FLOPs of one U-Net pass over one batch element
+    flops_final_1x1: int           # of which the final 1x1 conv, outside the U-Net pass kernel
+
+    def episode_smem_bytes(self, n_candidates: int) -> int:
+        """Dynamic shared memory of one block of the episode kernel."""
+        m = self.meta
+        n = (int(m[M_EP_SMEM]) + align4(M_LEN) + align4(n_candidates * self.horizon * self.state_dim)
+             + align4(n_candidates))
+        return 4 * n
 
     @property
     def horizon(self) -> int:
@@ -147,6 +171,17 @@ def pack_unet(model: TemporalUnet, device) -> PackedUnet:
     meta[M_FIN + 4] = fin[2].num_groups
     meta[M_F1] = push("final1x1.w", _flax_conv(f1)[0])
     meta[M_F1 + 1] = push("final1x1.b", _vec(f1.bias))
+    max_c = max(dims[1:])
+    films_w = torch.stack([
+        torch.nn.functional.pad(rb.cond_mlp[1].weight.detach().T, (0, max_c - rb.cond_mlp[1].out_features))
+        for rb in res])
+    films_b = torch.stack([
+        torch.nn.functional.pad(rb.cond_mlp[1].bias.detach(), (0, max_c - rb.cond_mlp[1].out_features))
+        for rb in res])
+    cond_dim = films_w.shape[1]
+    meta[M_COND], meta[M_TEMB], meta[M_CTX] = cond_dim, model.time_emb_dim, model.context_dim
+    meta[M_FW] = push("films.w", films_w.cpu().numpy())
+    meta[M_FB] = push("films.b", films_b.cpu().numpy())
 
     # shared-memory plan: three rotating activation buffers sized for the
     # largest (2, h + 2*HALO, c) the body writes, the skips the up path
@@ -161,7 +196,7 @@ def pack_unet(model: TemporalUnet, device) -> PackedUnet:
         h = hs[n_levels - 1 - u]
         sizes += [act(h, 2 * dout), act(h, din), act(2 * h, din)]
     sizes.append(act(horizon, dims[1]))
-    align = lambda n: -(-n // 4) * 4
+    align = align4
     buf = align(max(sizes))
     off = 3 * buf
     for lvl in range(1, n_levels):
@@ -178,6 +213,14 @@ def pack_unet(model: TemporalUnet, device) -> PackedUnet:
     smem_bytes = 4 * (off + M_LEN)
     if smem_bytes > SMEM_LIMIT:
         raise ValueError(f"the chain kernel needs {smem_bytes} B of shared memory, over {SMEM_LIMIT}")
+    # the episode kernel: its regions start where the chain's meta copy does
+    meta[M_EP_FILM] = off
+    off += align4(len(res) * 2 * max_c)
+    meta[M_EP_MC] = off
+    off += align4(2 * cond_dim)
+    meta[M_EP_MISC] = off
+    off += EP_MISC_LEN
+    meta[M_EP_SMEM] = off
     meta[[M_H, M_D, M_NLEV, M_NRES, M_MAXC, M_BUF]] = [
         horizon, d, n_levels, len(res), max(dims[1:]), buf]
     meta[M_DIMS:M_DIMS + n_levels + 1] = dims
@@ -196,13 +239,6 @@ def pack_unet(model: TemporalUnet, device) -> PackedUnet:
         flops += 2 * (2 * hs[n_levels - 1 - u]) * 2 * din * din
     flops += 2 * horizon * (5 * dims[1] ** 2 + dims[1] * d)
 
-    max_c = max(dims[1:])
-    films_w = torch.stack([
-        torch.nn.functional.pad(rb.cond_mlp[1].weight.detach().T, (0, max_c - rb.cond_mlp[1].out_features))
-        for rb in res])
-    films_b = torch.stack([
-        torch.nn.functional.pad(rb.cond_mlp[1].bias.detach(), (0, max_c - rb.cond_mlp[1].out_features))
-        for rb in res])
     return PackedUnet(
         model=model,
         weights=torch.from_numpy(np.concatenate(chunks)).to(device),
@@ -212,6 +248,7 @@ def pack_unet(model: TemporalUnet, device) -> PackedUnet:
         films_w=films_w.contiguous().to(device),
         films_b=films_b.contiguous().to(device),
         flops_per_pass=flops,
+        flops_final_1x1=2 * horizon * dims[1] * d,
     )
 
 

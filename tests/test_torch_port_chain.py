@@ -57,9 +57,18 @@ def test_unet_pack_segments_match_module(flagship):
     seen = 0
     for name, (off, shape) in packed.segments.items():
         assert off % 4 == 0
-        seen += int(np.prod(shape))
         got = W[off:off + int(np.prod(shape))].reshape(shape)
         kind, field = name.split(".")
+        if kind == "films":  # FiLM Dense of each block, zero-padded to max_c channels
+            res = flagship.res_blocks()
+            assert m[up.M_FW if field == "w" else up.M_FB] == off
+            for r, rb in enumerate(res):
+                lin = rb.cond_mlp[1]
+                want = lin.weight.detach().numpy().T if field == "w" else lin.bias.detach().numpy()
+                np.testing.assert_array_equal(got[r][..., :lin.out_features], want, err_msg=name)
+                assert not got[r][..., lin.out_features:].any()
+            continue
+        seen += int(np.prod(shape))
         if kind.startswith("res"):
             rb = flagship.res_blocks()[int(kind[3:])]
             conv = {"w1": rb.blocks[0].block[0], "w2": rb.blocks[1].block[0]}
@@ -103,11 +112,13 @@ def test_unet_pack_segments_match_module(flagship):
                     else conv.bias.detach().numpy())
             assert m[up.M_F1 + (field == "b")] == off
         np.testing.assert_array_equal(got, want, err_msg=name)
-    # every conv-backbone parameter is packed once (FiLM Dense and time MLP are not)
+    # every conv-backbone parameter is packed once, beside the FiLM Dense
+    # weights checked above (the time MLP is not packed)
     backbone = sum(p.numel() for n, p in flagship.named_parameters()
                    if "cond_mlp" not in n and "time_mlp" not in n)
     assert seen == backbone
     assert m[up.M_NRES] == 12 and m[up.M_MAXC] == 128
+    assert (m[up.M_COND], m[up.M_TEMB], m[up.M_CTX]) == (38, 32, 5)
     assert list(m[up.M_DIMS:up.M_DIMS + 4]) == [1, 32, 64, 128]
     assert packed.smem_bytes <= up.SMEM_LIMIT
 

@@ -1,6 +1,9 @@
 """The slice as a whole: the port's cart-pole CFG closed loop against the
 JAX package's ``make_closed_loop`` with the Pallas chain kernel (interpret
-mode) as its sampler, for 8 replans from x0 = [0, 0, 3.0, 0, theta*(3.0)].
+mode) as its sampler, for 8 replans from x0 = [0, 0, 3.0, 0, theta*(3.0)];
+best-of-K against the JAX loop with K = 3, with and without
+``selection_horizon``; and ``bench.py``'s ``BENCH_FUSED=1`` shape of the
+loop, the plain sampler with a ``FusedUnet`` as the denoiser.
 
 The U-Net is the small one of torch_port_util (interpret mode is slow at
 full width; tests/test_torch_port_models.py covers the full-width forward).
@@ -22,7 +25,7 @@ from mpc_via_diffusion_model_tpu.data.normalization import NormalizerStats as Ja
 from mpc_via_diffusion_model_tpu.diffusion import GaussianDiffusion as JaxDiffusion
 from mpc_via_diffusion_model_tpu.dynamics import cartpole as jax_cp
 from mpc_via_diffusion_model_tpu.ops.fused_denoise import make_fused_cfg_chain as jax_fused_chain
-from mpc_via_diffusion_model_tpu_torch.control import make_closed_loop
+from mpc_via_diffusion_model_tpu_torch.control import make_closed_loop, make_replan_fn
 from mpc_via_diffusion_model_tpu_torch.core import make_schedule
 from mpc_via_diffusion_model_tpu_torch.data import NormalizerStats
 from mpc_via_diffusion_model_tpu_torch.diffusion import GaussianDiffusion
@@ -30,6 +33,7 @@ from mpc_via_diffusion_model_tpu_torch.dynamics import (cartpole_virtual_cost,
                                                         cartpole_virtual_swingup,
                                                         theta_to_red_theta)
 from mpc_via_diffusion_model_tpu_torch.ops.fused_denoise import make_fused_cfg_chain
+from mpc_via_diffusion_model_tpu_torch.ops.fused_unet import make_fused_unet
 from torch_port_util import SMALL, small_models
 
 T, N_TAIL, W, N_STEPS = 25, 5, 0.01, 8
@@ -103,3 +107,89 @@ def test_closed_loop_draws_noise_from_generator(setup):
     assert not torch.equal(runs[0].u_track, runs[2].u_track)
     with pytest.raises(ValueError, match="noise must be"):
         loop(torch.from_numpy(x0), torch.zeros(2, 3, 1, H, 1))
+
+
+N_BEST = 4  # replans of the best-of-K loops
+
+
+def _jax_noise_k(key, k: int, n_steps: int) -> np.ndarray:
+    """(n_steps, n_total + 1, K, H, 1): the draw JAX's ddpm_cfg_sample makes
+    from each replan key."""
+    return np.stack([np.asarray(jax.random.normal(kk, (T + N_TAIL + 1, k, H, 1), jnp.float32))
+                     for kk in jax.random.split(key, n_steps)])
+
+
+@pytest.mark.parametrize("selection_horizon", [None, 6])
+def test_best_of_k_matches_jax_closed_loop(setup, selection_horizon):
+    """K = 3 candidates through the plain sampler, scored by the rollout
+    cost (terminal cost only over the whole horizon): the same plan is
+    applied at every replan as in the JAX loop, so u_horizons agree."""
+    jm, params, tm, x0, _, _ = setup
+    key = jax.random.PRNGKey(17)
+    schedule = jax_make_schedule("exponential", T)
+    loop = jax_closed_loop(JaxDiffusion(schedule=schedule), jm.apply, _stats("jax", -30.0, 30.0, 1),
+                           _stats("jax", -10.0, 10.0, 5), jax_cp.cartpole_virtual_swingup(),
+                           jax_cp.cartpole_virtual_cost(), horizon=H, n_steps=N_BEST, w=W,
+                           n_diffusion_steps_without_noise=N_TAIL, n_candidates=3,
+                           selection_horizon=selection_horizon)
+    want = jax.jit(loop)(params, jnp.asarray(x0), key)
+    noise = torch.from_numpy(_jax_noise_k(key, 3, N_BEST))
+    got = _port_loop(tm, n_steps=N_BEST, n_candidates=3,
+                     selection_horizon=selection_horizon)(torch.from_numpy(x0), noise)
+    for name in ("x_track", "u_track", "u_horizons", "stage_costs"):
+        np.testing.assert_allclose(getattr(got, name).numpy(), np.asarray(getattr(want, name)),
+                                   rtol=TOL, atol=TOL, err_msg=name)
+    # the applied plan is one of the replan's candidates, and not always the first
+    replan = make_replan_fn(GaussianDiffusion(make_schedule("exponential", T)), tm,
+                            _stats("torch", -30.0, 30.0, 1), _stats("torch", -10.0, 10.0, 5), H,
+                            w=W, n_diffusion_steps_without_noise=N_TAIL, n_candidates=3,
+                            plant=cartpole_virtual_swingup(), cost=cartpole_virtual_cost(),
+                            selection_horizon=selection_horizon)
+    picks = []
+    for i in range(N_BEST):
+        _, u_cand = replan(got.x_track[i], noise[i])
+        picks.append([bool(torch.equal(u_cand[j], got.u_horizons[i])) for j in range(3)].index(True))
+    assert set(picks) != {0}, picks
+
+
+def test_best_of_k_with_chain_override_matches_plain_sampler(setup):
+    """A FusedCfgChain with n_samples = K as the sampler of the best-of-K
+    loop gives the plain sampler's tracks."""
+    _, _, tm, x0, _, _ = setup
+    noise = torch.from_numpy(_jax_noise_k(jax.random.PRNGKey(2), 3, N_BEST))
+    chain = make_fused_cfg_chain(tm, make_schedule("exponential", T), n_samples=3, w=W,
+                                 n_tail=N_TAIL, device="cpu")
+    kw = dict(n_steps=N_BEST, n_candidates=3, selection_horizon=6)
+    a = _port_loop(tm, sample_override=chain, **kw)(torch.from_numpy(x0), noise)
+    b = _port_loop(tm, **kw)(torch.from_numpy(x0), noise)
+    assert chain.plain_calls == N_BEST
+    for name in ("x_track", "u_track", "u_horizons", "stage_costs"):
+        np.testing.assert_allclose(getattr(a, name).numpy(), getattr(b, name).numpy(),
+                                   rtol=TOL, atol=TOL, err_msg=name)
+
+
+def test_fused_unet_denoiser_drives_the_plain_sampler(setup):
+    """bench.py's BENCH_FUSED=1 path: the plain sampler with a FusedUnet
+    (batch 2, the CFG doubling) as its denoiser, one call per chain step;
+    on the CPU it runs the plain forward, with the module's tracks."""
+    _, _, tm, x0, _, noise = setup
+    fused = make_fused_unet(tm, batch_size=2, device="cpu")
+    a = _port_loop(tm, n_steps=2)(torch.from_numpy(x0), torch.from_numpy(noise[:2]))
+    loop = make_closed_loop(GaussianDiffusion(make_schedule("exponential", T)), fused,
+                            _stats("torch", -30.0, 30.0, 1), _stats("torch", -10.0, 10.0, 5),
+                            cartpole_virtual_swingup(), cartpole_virtual_cost(), horizon=H,
+                            n_steps=2, w=W, n_diffusion_steps_without_noise=N_TAIL, device="cpu")
+    b = loop(torch.from_numpy(x0), torch.from_numpy(noise[:2]))
+    assert (fused.launches, fused.plain_calls) == (0, 2 * (T + N_TAIL))
+    for name in ("x_track", "u_track", "u_horizons", "stage_costs"):
+        torch.testing.assert_close(getattr(b, name), getattr(a, name), rtol=0, atol=0)
+
+
+def test_selection_horizon_is_validated(setup):
+    tm = setup[2]
+    with pytest.raises(ValueError, match="selection_horizon"):
+        _port_loop(tm, n_candidates=3, selection_horizon=H + 1)
+    with pytest.raises(ValueError, match="plant and cost"):
+        make_replan_fn(GaussianDiffusion(make_schedule("exponential", T)), tm,
+                       _stats("torch", -30.0, 30.0, 1), _stats("torch", -10.0, 10.0, 5), H,
+                       n_candidates=3)
