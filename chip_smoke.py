@@ -2,10 +2,11 @@
 """Drives the PyTorch/CUDA port on one NVIDIA GPU.
 
 Run from the repository root: ``python3 chip_smoke.py``. It needs one card,
-nvcc (``/usr/local/cuda``) and the flagship weights in
-``artifacts/flagship/ema_params.pkl``, and writes nothing but the kernel
-builds under ``build/torch_kernels/``. Phases, each printing one line with
-its own seconds:
+nvcc (``/usr/local/cuda``), the flagship weights in
+``artifacts/flagship/ema_params.pkl`` and the distilled student's in
+``artifacts/onpolicy_cartpole/`` (``student_1eval.pkl``, ``report.json``), and
+writes nothing but the kernel builds under ``build/torch_kernels/``. Phases,
+each printing one line with its own seconds:
 
 1. device: the card's name, the device count, and nvidia-smi's name and
    power limit. Without a card the script exits non-zero and prints no result.
@@ -33,14 +34,43 @@ its own seconds:
 8. ``BENCH_FUSED=1``: the plain sampler's closed loop with the U-Net pass
    kernel as the denoiser, 10 replans (300 launches), against the same loop
    with the plain forward.
-9. timing: every kernel and its plain version by CUDA events at the main
-   path's shapes.
+
+The distilled student's path (``scripts/bench_deep_students.py``'s): the
+1-eval student ``student_1eval.pkl`` on its times grid [23], with its
+teacher's normalizer statistics (``data/teacher_stats.py``) and the
+collection cost it is scored with. The grid [23] is one step with c1 = 1 and
+c2 = 0, so every kernel check also runs the 3-step grid [23, 15, 7] on the
+same weights, which exercises the affine update and the step loop.
+
+9. student chain vs plain: the DDIM chain kernel against its plain version
+   on three contexts at B = 1 and B = 4, on both grids; and on [23] against
+   one pass of the U-Net pass kernel followed by the recon and clip.
+10. the student's per-replan path: ``make_closed_loop`` with the DDIM chain
+    kernel as its ``sample_override``, 80 replans from x0 at K = 1; the
+    counts are set to 0 just before and read just after (80 chain launches,
+    nothing else). The same loop through the plain chain must give the same
+    tracks.
+11. student episode: one launch of the DDIM episode kernel on phase 10's
+    noise, against the plain episode and phase 10's tracks; on the 3-step
+    grid against the plain episode; at K = 4 with selection_horizon 8, 8
+    replans on both grids, the chosen candidate of every replan equal.
+12. the student's sustained protocol: 10 dependent 80-replan K = 1 episodes
+    through the episode kernel, one sync; the counts are set to 0 just
+    before and read just after (10 episode launches, nothing else). It
+    prints the replans per second as ``student_closed_loop_control_hz``.
+13. student quality: 10 K = 1 episodes through the episode kernel from x0,
+    each on the draw of a seeded ``torch.Generator``; each seed's cost over
+    the expert's in ``report.json``, and their mean, which must be at most
+    1.05.
+14. timing: every kernel and its plain version by CUDA events at the main
+    paths' shapes.
 
 It then prints the ``kernels`` JSON line, the nvidia-smi line and, last, the
 result line. Any failure raises, and the exit code is then not 0.
 
-The normalizer statistics are the synthetic limits of ``bench.py`` (controls
-+-30, conditions +-10): the flagship dataset's own are not in the repository.
+The flagship's normalizer statistics are the synthetic limits of
+``bench.py`` (controls +-30, conditions +-10): the flagship dataset's own
+are not in the repository.
 """
 from __future__ import annotations
 
@@ -55,18 +85,27 @@ import torch
 from mpc_via_diffusion_model_tpu_torch.control import make_closed_loop
 from mpc_via_diffusion_model_tpu_torch.core import make_schedule
 from mpc_via_diffusion_model_tpu_torch.data import NormalizerStats, normalize
+from mpc_via_diffusion_model_tpu_torch.data.teacher_stats import teacher_stats
 from mpc_via_diffusion_model_tpu_torch.diffusion import GaussianDiffusion
-from mpc_via_diffusion_model_tpu_torch.dynamics import (cartpole_virtual_cost,
+from mpc_via_diffusion_model_tpu_torch.dynamics import (cartpole_virtual_collect_cost,
+                                                        cartpole_virtual_cost,
                                                         cartpole_virtual_swingup,
                                                         theta_to_red_theta)
-from mpc_via_diffusion_model_tpu_torch.models import load_flagship
+from mpc_via_diffusion_model_tpu_torch.models import load_flagship, load_student
 from mpc_via_diffusion_model_tpu_torch.ops import _build
-from mpc_via_diffusion_model_tpu_torch.ops.fused_denoise import make_fused_cfg_chain
-from mpc_via_diffusion_model_tpu_torch.ops.fused_episode import make_fused_cfg_episode
+from mpc_via_diffusion_model_tpu_torch.ops.fused_denoise import (make_fused_cfg_chain,
+                                                                 make_fused_ddim_chain)
+from mpc_via_diffusion_model_tpu_torch.ops.fused_episode import (make_fused_cfg_episode,
+                                                                 make_fused_ddim_episode)
 from mpc_via_diffusion_model_tpu_torch.ops.fused_unet import make_fused_unet
 
 ROOT = Path(__file__).resolve().parent
 FLAGSHIP = ROOT / "artifacts" / "flagship" / "ema_params.pkl"
+STUDENT = ROOT / "artifacts" / "onpolicy_cartpole" / "student_1eval.pkl"
+STUDENT_REPORT = ROOT / "artifacts" / "onpolicy_cartpole" / "report.json"
+GRID, GRID3 = [23], [23, 15, 7]   # the 1-eval student's times grid; the 3-eval grid
+N_QUALITY = 10             # seeds of the student's quality check
+QUALITY_MEAN_MAX = 1.05    # mean cost over the expert's (report: 1.0064 over 10 seeds)
 N_STEPS, HORIZON, T, N_TAIL, W = 80, 32, 25, 5, 0.01
 N_PLAIN_LOOP = 20          # replans of the plain per-replan loop (phase 4)
 K4, SEL_H, N_STEPS_K4 = 4, 8, 8
@@ -80,6 +119,10 @@ CHAIN_TOL = UNET_TOL = 1e-4
 # Tracks of closed loops, kernel vs plain: per-replan differences of ~1e-6
 # in u_norm (x30 after unnormalizing) pass through up to 80 plant steps.
 TRACK_TOL = 1e-3
+# The student's controls span its teacher's limits, +-3,381 on average
+# (data/teacher_stats.py), so the same ~1e-6 in u_norm is ~1e-2 in u: its
+# controls compare in the sampler's normalized units, u over the half-range,
+# at CHAIN_TOL; its states and costs at TRACK_TOL (student_close).
 # H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, HBM3
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
@@ -124,6 +167,14 @@ def assert_close(name: str, got: torch.Tensor, want: torch.Tensor, tol: float) -
         raise RuntimeError(f"{name}: non-finite values")
     torch.testing.assert_close(got, want, atol=tol, rtol=tol, msg=name)
     return (got.double() - want.double()).abs().max().item()
+
+
+def student_close(name: str, got: torch.Tensor, want: torch.Tensor, u_unit: torch.Tensor) -> float:
+    """assert_close for a track of the student: controls (u_track,
+    u_horizons) divided by ``u_unit`` at CHAIN_TOL, the rest at TRACK_TOL."""
+    if name.split()[-1].startswith("u_"):
+        return assert_close(name, got / u_unit, want / u_unit, CHAIN_TOL)
+    return assert_close(name, got, want, TRACK_TOL)
 
 
 def counts(*wrappers) -> list:
@@ -302,7 +353,147 @@ def main() -> None:
     log("unet-path", t0, f"{N_UNET_LOOP} replans: fused_unet launches={unet_launches}; tracks "
         f"equal the plain forward's to atol = rtol = {TRACK_TOL:.0e}")
 
-    # 9. timing at the main paths' shapes
+    # 9. the student's DDIM chain kernel vs its plain version, both grids
+    t0 = time.perf_counter()
+    student = load_student(STUDENT, device=dev)
+    s_ins, s_cond = (st.to(dev) for st in teacher_stats())
+    u_unit = 0.5 * (s_ins.maxs - s_ins.mins)
+    s_cost = cartpole_virtual_collect_cost()
+    schain = make_fused_ddim_chain(student, schedule, GRID, n_samples=1, device=dev)
+    spacked = schain.packed
+    ddim = lambda times, b: make_fused_ddim_chain(spacked, schedule, times, n_samples=b, device=dev)
+    sctx = normalize(s_cond, x0)[None]
+    sx_init = torch.randn(schain.noise_shape, generator=gen, device=dev)
+    schain_err = 0.0
+    for times in (GRID, GRID3):
+        for b in (1, 4):
+            ch = schain if (times, b) == (GRID, 1) else ddim(times, b)
+            ctxs = [sctx.expand(b, 5).contiguous()] + [
+                torch.randn((b, 5), generator=gen, device=dev) for _ in range(2)]
+            for ctx in ctxs:
+                x_init = torch.randn(ch.noise_shape, generator=gen, device=dev)
+                got, want = ch.kernel(ctx, x_init), ch.plain(ctx, x_init)
+                torch.cuda.synchronize()
+                schain_err = max(schain_err, assert_close(f"ddim_chain {times} B={b}", got, want,
+                                                          CHAIN_TOL))
+    # on [23] the chain is one recon step (c1 = 1, c2 = 0): one U-Net pass and the clip
+    sunet = make_fused_unet(spacked, batch_size=1, device=dev)
+    sra, srm = schain.coefs[0, 0], schain.coefs[0, 1]
+    eps = sunet.kernel(sx_init, schain.t_eval[:1], sctx, torch.zeros((1, 1), device=dev))
+    via_unet = torch.clamp(sra * sx_init - srm * eps, -1.0, 1.0)
+    got = schain.kernel(sctx, sx_init)
+    torch.cuda.synchronize()
+    vs_unet = assert_close("ddim_chain vs fused_unet pass", got, via_unet, CHAIN_TOL)
+    log("student-chain", t0, f"ddim_chain max |kernel - plain|={schain_err:.3e} over 3 contexts "
+        f"x B in (1, 4) x grids {GRID} and {GRID3}; vs one fused_unet pass + recon + clip on "
+        f"{GRID}: {vs_unet:.3e}; tol {CHAIN_TOL:.0e}")
+
+    # 10. the student's per-replan path: 80 replans through the DDIM chain kernel
+    t0 = time.perf_counter()
+    wrappers = [chain, unet, ep1, ep4, schain, sunet]
+    s_loop = lambda sampler: make_closed_loop(
+        diffusion, student, s_ins, s_cond, plant, s_cost, horizon=HORIZON, n_steps=N_STEPS,
+        sample_override=sampler, noise_shape=schain.noise_shape, device=dev)
+    s_noise = torch.randn((N_STEPS,) + schain.noise_shape, generator=gen, device=dev)
+    reset(*wrappers)
+    s_res = s_loop(schain)(x0, s_noise)
+    torch.cuda.synchronize()
+    s_chain_launches = schain.launches
+    if counts(*wrappers) != [(0, 0)] * 4 + [(N_STEPS, 0), (0, 0)]:
+        raise RuntimeError(f"student per-replan path: counts {counts(*wrappers)}; expected "
+                           f"{N_STEPS} ddim_chain launches and nothing else")
+    s_ref = s_loop(schain.plain)(x0, s_noise)
+    torch.cuda.synchronize()
+    for name in ("x_track", "u_track", "u_horizons", "stage_costs"):
+        student_close(f"student loop {name}", getattr(s_res, name), getattr(s_ref, name), u_unit)
+    # the controls' gap in u's own units and in u_norm's, the reading behind comparing them
+    # normalized: fp32 rounding in u_norm, scaled by the teacher's half-range
+    du = (s_res.u_horizons.double() - s_ref.u_horizons.double()).abs()
+    du_max, du_norm_max = du.max().item(), (du / u_unit.double()).max().item()
+    log("student-per-replan-path", t0, f"{N_STEPS} replans: ddim_chain launches="
+        f"{s_chain_launches}; total cost {s_res.stage_costs.sum().item():.6f}; equal to the plain "
+        f"chain's to atol = rtol = {TRACK_TOL:.0e} (controls {CHAIN_TOL:.0e} in normalized units); "
+        f"controls max |du|={du_max:.3e}, max |du_norm|={du_norm_max:.3e} over half-range "
+        f"{u_unit.max().item():.3f}, max |u|={s_ref.u_horizons.abs().max().item():.3f}; "
+        f"x_final={[round(v, 6) for v in s_res.x_track[-1].tolist()]}")
+
+    # 11. the student's episode kernel, K = 1 on phase 10's noise, and K = 4
+    t0 = time.perf_counter()
+    sepisode = lambda times, k, n_steps, sel_h=None: make_fused_ddim_episode(
+        spacked, schedule, times, s_ins, s_cond, plant, s_cost, n_steps=n_steps, n_candidates=k,
+        selection_horizon=sel_h, device=dev)
+    sep1 = sepisode(GRID, 1, N_STEPS)
+    sep_err, s_chosen = 0.0, []
+    for times in (GRID, GRID3):
+        for k, n_steps, sel_h in ((1, N_STEPS, None), (K4, N_STEPS_K4, SEL_H)):
+            ep = sep1 if (times, k) == (GRID, 1) else sepisode(times, k, n_steps, sel_h)
+            nz = s_noise if ep is sep1 else torch.randn(ep.noise_shape, generator=gen, device=dev)
+            got, want = ep.kernel(x0, nz), ep.plain(x0, nz)
+            torch.cuda.synchronize()
+            for name, g, w_ in zip(("x_track", "u_track", "stage_costs"), got, want):
+                sep_err = max(sep_err, student_close(f"ddim_episode {times} K={k} {name}", g, w_,
+                                                     u_unit))
+            if not torch.equal(got[3], want[3]):
+                raise RuntimeError(f"ddim_episode {times} K={k}: chosen {got[3].tolist()} vs "
+                                   f"plain {want[3].tolist()}")
+            if k > 1:
+                s_chosen.append(got[3].tolist())
+            if ep is sep1:
+                s_vs_loop = max(
+                    student_close(f"ddim_episode vs per-replan loop {name}", g,
+                                  getattr(s_res, name), u_unit)
+                    for name, g in zip(("x_track", "u_track", "stage_costs"), got))
+    log("student-episode", t0, f"{N_STEPS} replans in one launch on {GRID} and {GRID3}: max "
+        f"|kernel - plain|={sep_err:.3e}, max |episode - per-replan loop|={s_vs_loop:.3e}, "
+        f"atol = rtol = {TRACK_TOL:.0e} (controls {CHAIN_TOL:.0e} in normalized units); K={K4}, "
+        f"selection_horizon={SEL_H}, {N_STEPS_K4} replans: "
+        f"chosen {s_chosen} in both")
+
+    # 12. the student's sustained protocol through the episode kernel
+    t0 = time.perf_counter()
+    wrappers.append(sep1)
+    reset(*wrappers)
+    x_cur = x0
+    t1 = time.perf_counter()
+    for _ in range(N_CHAIN):
+        ep_nz = torch.randn(sep1.noise_shape, generator=gen, device=dev)
+        x_tr, _, _ = sep1(x_cur, ep_nz)
+        x_cur = x_tr[-1]
+    torch.cuda.synchronize()
+    s_sustained_s = time.perf_counter() - t1
+    s_episode_launches = sep1.launches
+    if counts(*wrappers) != [(0, 0)] * 6 + [(N_CHAIN, 0)]:
+        raise RuntimeError(f"student protocol: counts {counts(*wrappers)}; expected {N_CHAIN} "
+                           f"ddim_episode launches and nothing else")
+    if not torch.isfinite(x_cur).all():
+        raise RuntimeError("student protocol: non-finite final state")
+    s_control_hz = N_CHAIN * N_STEPS / s_sustained_s
+    print(json.dumps({"metric": "student_closed_loop_control_hz", "value": s_control_hz,
+                      "unit": "Hz", "protocol": "sustained_800step_dependent_chain",
+                      "times": GRID, "episode_launches": s_episode_launches,
+                      "seconds": s_sustained_s}), flush=True)
+    log("student-protocol", t0, f"{N_CHAIN} dependent episodes of {N_STEPS} replans: "
+        f"{s_sustained_s:.3f}s, {s_control_hz:.2f} replans/s; ddim_episode launches="
+        f"{s_episode_launches}; x_final={[round(v, 6) for v in x_cur.tolist()]}")
+
+    # 13. the student's control quality against the report's expert
+    t0 = time.perf_counter()
+    expert_cost = json.loads(STUDENT_REPORT.read_text())["expert_cost"]
+    ratios = []
+    for seed in range(N_QUALITY):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        _, _, costs = sep1(x0, torch.randn(sep1.noise_shape, generator=g, device=dev))
+        ratios.append(costs.sum().item() / expert_cost)
+    if not all(math.isfinite(r) for r in ratios):
+        raise RuntimeError(f"student quality: non-finite cost ratios {ratios}")
+    ratio_mean, ratio_max = sum(ratios) / len(ratios), max(ratios)
+    if ratio_mean > QUALITY_MEAN_MAX:
+        raise RuntimeError(f"student quality: mean cost ratio {ratio_mean:.5f} > {QUALITY_MEAN_MAX}")
+    log("student-quality", t0, f"{N_QUALITY} seeds, K=1, {N_STEPS} replans, cost over expert "
+        f"{expert_cost}: {[round(r, 5) for r in ratios]}; mean {ratio_mean:.5f}, max "
+        f"{ratio_max:.5f} (at most {QUALITY_MEAN_MAX} on the mean)")
+
+    # 14. timing at the main paths' shapes
     t0 = time.perf_counter()
     ctx = contexts[0]
     chain_ms = cuda_ms(lambda: chain.kernel(ctx, noise), n=20, warmup=3)
@@ -313,11 +504,26 @@ def main() -> None:
     episode_ms = cuda_ms(lambda: ep1.kernel(x0, ep_noise), n=2, warmup=0)
     episode_plain_ms = cuda_ms(lambda: ep1.plain(x0, ep_noise), n=1, warmup=0)
     episode4_ms = cuda_ms(lambda: ep4.kernel(x0, noise4), n=2, warmup=0)
+    schain_ms = cuda_ms(lambda: schain.kernel(sctx, sx_init), n=200, warmup=10)
+    schain_plain_ms = cuda_ms(lambda: schain.plain(sctx, sx_init), n=50, warmup=5)
+    sep_ms = cuda_ms(lambda: sep1.kernel(x0, s_noise), n=5, warmup=1)
+    sep_plain_ms = cuda_ms(lambda: sep1.plain(x0, s_noise), n=1, warmup=0)
+    sep3 = sepisode(GRID3, 1, N_STEPS)
+    sep3_ms = cuda_ms(lambda: sep3.kernel(x0, s_noise), n=3, warmup=1)
+    sep4 = sepisode(GRID, K4, N_STEPS_K4, SEL_H)
+    s_noise4 = torch.randn(sep4.noise_shape, generator=gen, device=dev)
+    sep4_ms = cuda_ms(lambda: sep4.kernel(x0, s_noise4), n=5, warmup=1)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     loop_kernel(x0, ep_noise)
     torch.cuda.synchronize()
     per_replan_hz = N_STEPS / (time.perf_counter() - t1)
+    s_loop_kernel = s_loop(schain)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    s_loop_kernel(x0, s_noise)
+    torch.cuda.synchronize()
+    s_per_replan_hz = N_STEPS / (time.perf_counter() - t1)
     log("timing", t0, f"cfg_chain {chain_ms:.4f} ms (plain {chain_plain_ms:.4f}) per replan; "
         f"fused_unet {unet_ms:.4f} ms (plain {unet_plain_ms:.4f}) per pass at batch 2; "
         f"cfg_episode K=1 {episode_ms:.3f} ms per {N_STEPS}-replan episode = "
@@ -325,6 +531,11 @@ def main() -> None:
         f"K={K4} {episode4_ms:.3f} ms per {N_STEPS_K4} replans = "
         f"{episode4_ms / N_STEPS_K4:.4f} ms per replan; per-replan loop through cfg_chain "
         f"{per_replan_hz:.2f} replans/s")
+    log("timing-student", t0, f"ddim_chain {GRID} {schain_ms:.4f} ms (plain {schain_plain_ms:.4f}) "
+        f"per replan; ddim_episode {GRID} K=1 {sep_ms:.3f} ms per {N_STEPS}-replan episode = "
+        f"{sep_ms / N_STEPS:.4f} ms per replan (plain {sep_plain_ms:.3f} ms); {GRID3} K=1 "
+        f"{sep3_ms / N_STEPS:.4f} ms per replan; {GRID} K={K4} {sep4_ms / N_STEPS_K4:.4f} ms per "
+        f"replan; per-replan loop through ddim_chain {s_per_replan_hz:.2f} replans/s")
 
     packed = chain.packed
     seg = lambda *prefixes: sum(math.prod(shape) for name, (_, shape) in packed.segments.items()
@@ -348,6 +559,17 @@ def main() -> None:
     ep_flops = N_STEPS * n_total * (chain_flops / n_total + film_flops)
     ep_bytes = 4 * (weights + meta_n + ep1.t_embs.numel() + ep_noise.numel() + ep1.coefs.numel()
                     + ep1.consts.numel() + 5 + (N_STEPS + 1) * 5 + N_STEPS * 3)
+    # ddim_chain: one replan on the student's grid, B = 1 (one row-set per step); the student
+    # has the flagship's architecture, so the weight counts above are its own
+    if spacked.weights.numel() != weights or spacked.meta.numel() != meta_n:
+        raise RuntimeError("the student's packed U-Net differs in size from the flagship's")
+    schain_flops = spacked.flops_per_pass * schain.n_samples * schain.n_total
+    schain_bytes = 4 * (chain_weights + meta_n + schain.films(sctx).numel() + sx_init.numel()
+                        + schain.coefs.numel() + HORIZON)
+    # ddim_episode: one 80-replan episode at K = 1, the FiLM of one group in the kernel included
+    sep_flops = N_STEPS * sep1.n_total * (spacked.flops_per_pass + film_flops / 2)
+    sep_bytes = 4 * (weights + meta_n + sep1.t_embs.numel() + s_noise.numel() + sep1.coefs.numel()
+                     + sep1.consts.numel() + 5 + (N_STEPS + 1) * 5 + N_STEPS * 3)
     rows = [
         {"name": "cfg_chain", "route": "cuda",
          "source": "mpc_via_diffusion_model_tpu_torch/ops/csrc/cfg_chain.cu",
@@ -368,6 +590,21 @@ def main() -> None:
          "plain_ms": episode_plain_ms, **bound(ep_flops, ep_bytes), "library_ms": None,
          "ms_per_replan": episode_ms / N_STEPS, "k4_ms_per_replan": episode4_ms / N_STEPS_K4,
          "closed_loop_control_hz": control_hz},
+        {"name": "ddim_chain", "route": "cuda",
+         "source": "mpc_via_diffusion_model_tpu_torch/ops/csrc/ddim_chain.cu",
+         "replaces": "mpc_via_diffusion_model_tpu/ops/fused_denoise.py:164",
+         "launches": s_chain_launches, "max_abs_err": schain_err, "ms": schain_ms,
+         "plain_ms": schain_plain_ms, **bound(schain_flops, schain_bytes), "library_ms": None,
+         "times": GRID, "per_replan_loop_hz": s_per_replan_hz},
+        {"name": "ddim_episode", "route": "cuda",
+         "source": "mpc_via_diffusion_model_tpu_torch/ops/csrc/ddim_episode.cu",
+         "replaces": "mpc_via_diffusion_model_tpu/ops/fused_episode.py:142",
+         "launches": s_episode_launches, "max_abs_err": sep_err, "ms": sep_ms,
+         "plain_ms": sep_plain_ms, **bound(sep_flops, sep_bytes), "library_ms": None,
+         "times": GRID, "ms_per_replan": sep_ms / N_STEPS,
+         "grid3_ms_per_replan": sep3_ms / N_STEPS, "k4_ms_per_replan": sep4_ms / N_STEPS_K4,
+         "student_closed_loop_control_hz": s_control_hz, "cost_ratio_mean": ratio_mean,
+         "cost_ratio_max": ratio_max},
     ]
     print(json.dumps({"kernels": rows}), flush=True)
     print(nvidia_smi(), flush=True)

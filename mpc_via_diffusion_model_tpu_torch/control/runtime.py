@@ -4,11 +4,14 @@ with the ``ddpm`` sampler, best-of-K candidates and ``selection_horizon``.
 
 Each replan maps the plant state to the condition (``state_to_condition``,
 identity by default), normalizes it, samples K control horizons with the
-CFG DDPM chain, unnormalizes them and, for K > 1, applies the first control
-of the candidate whose rollout costs least. The JAX loop splits one key per
-replan; here each replan takes its own slice of staged noise
-(n_steps, n_total + 1, K, H, du), ``ddpm_cfg_sample``'s layout per replan,
-or draws it from a ``torch.Generator``.
+CFG DDPM chain or a ``sample_override``, unnormalizes them and, for K > 1,
+applies the first control of the candidate whose rollout costs least. The
+JAX loop splits one key per replan and hands it to the sampler; here each
+replan takes its own slice of staged noise, or draws it from a
+``torch.Generator``, in the sampler's per-replan layout: (n_total + 1, K, H,
+du), ``ddpm_cfg_sample``'s, by default; the ``noise_shape`` the caller
+names for its override, e.g. (K, H, du), the ``x_init`` of a distilled
+student's DDIM chain.
 """
 from __future__ import annotations
 
@@ -49,7 +52,9 @@ def make_replan_fn(diffusion: GaussianDiffusion, denoise: DenoiseFn,
     ``TemporalUnet``, or a ``FusedUnet`` as ``bench.py``'s
     ``BENCH_FUSED=1`` passes it. ``sample_override(context_norm (K, dc),
     noise) -> u_norm (K, H, du)`` replaces ``ddpm_cfg_sample``, e.g. a
-    ``FusedCfgChain``. For K > 1 candidates are scored by ``cost`` over
+    ``FusedCfgChain``, or a distilled student's DDIM chain
+    (``FusedDdimChain``, ``make_student_ddim_sampler``) whose noise is its
+    x_init. For K > 1 candidates are scored by ``cost`` over
     their rollout from the plant state, truncated to ``selection_horizon``
     steps (terminal cost only when the whole plan is scored)."""
     k = int(n_candidates)
@@ -93,20 +98,25 @@ def make_closed_loop(diffusion: GaussianDiffusion, denoise: DenoiseFn,
                      w: float = 0.01, n_diffusion_steps_without_noise: int = 5,
                      n_candidates: int = 1, state_to_condition: Optional[Callable] = None,
                      sample_override: Optional[SampleFn] = None,
-                     selection_horizon: Optional[int] = None, device=None):
+                     selection_horizon: Optional[int] = None, noise_shape=None, device=None):
     """``closed_loop(x0, noise=None, generator=None) -> ClosedLoopResult`` on
-    ``device`` (``cuda`` unless given). ``noise`` is (n_steps, n_total + 1,
-    K, horizon, control_dim); without it each replan's noise is drawn from
-    ``generator``. Defaults are the flagship run's: 80 replans, T = 25 + 5,
-    w = 0.01, K = 1."""
+    ``device`` (``cuda`` unless given). ``noise`` is (n_steps, *noise_shape),
+    one replan's noise per row; without it each replan's noise is drawn from
+    ``generator``. ``noise_shape`` defaults to the ``noise_shape`` attribute
+    of ``sample_override`` where it has one (a ``FusedDdimChain``'s is its
+    x_init, (K, horizon, control_dim)), else to the CFG DDPM layout
+    (n_total + 1, K, horizon, control_dim). Defaults are the flagship run's:
+    80 replans, T = 25 + 5, w = 0.01, K = 1."""
     dev = resolve_device(device)
     inputs_stats, condition_stats = inputs_stats.to(dev), condition_stats.to(dev)
     cost = cost.to(dev)
     replan = make_replan_fn(diffusion, denoise, inputs_stats, condition_stats, horizon,
                             plant.control_dim, w, n_diffusion_steps_without_noise, n_candidates,
                             plant, cost, state_to_condition, sample_override, selection_horizon)
-    n_total = diffusion.schedule.n_steps + n_diffusion_steps_without_noise
-    noise_shape = (n_steps, n_total + 1, int(n_candidates), horizon, plant.control_dim)
+    if noise_shape is None:
+        n_total = diffusion.schedule.n_steps + n_diffusion_steps_without_noise
+        noise_shape = (n_total + 1, int(n_candidates), horizon, plant.control_dim)
+    noise_shape = (n_steps, *noise_shape)
 
     @torch.no_grad()
     def closed_loop(x0: torch.Tensor, noise: Optional[torch.Tensor] = None,

@@ -1,7 +1,7 @@
 """The 5-state nonlinear swing-up cart-pole with the virtual angle state
 theta* (port of ``mpc_via_diffusion_model_tpu/dynamics/cartpole.py``:
 ``cartpole_virtual_swingup``, ``cartpole_virtual_cost``,
-``theta_to_red_theta``). Euler forward at dt=0.01, fp32. The step takes
+``cartpole_virtual_collect_cost``, ``theta_to_red_theta``). Euler forward at dt=0.01, fp32. The step takes
 leading batch axes: x (..., 5), u (..., 1)."""
 from __future__ import annotations
 
@@ -11,7 +11,8 @@ import torch
 
 from .base import Plant, QuadraticCost
 
-__all__ = ["theta_to_red_theta", "cartpole_virtual_swingup", "cartpole_virtual_cost"]
+__all__ = ["theta_to_red_theta", "cartpole_virtual_swingup", "cartpole_virtual_cost",
+           "cartpole_virtual_collect_cost"]
 
 
 def theta_to_red_theta(theta):
@@ -58,4 +59,14 @@ def cartpole_virtual_cost(q_redundant: float = 1000.0, p_redundant: float = 1000
         q_diag=torch.tensor([0.01, 0.01, 0.0, 0.001, q_redundant], dtype=torch.float32),
         r=torch.tensor(0.1, dtype=torch.float32),
         p_diag=torch.tensor([0.01, 0.01, 0.0, 0.001, p_redundant], dtype=torch.float32),
+    )
+
+
+def cartpole_virtual_collect_cost() -> QuadraticCost:
+    """The data-collection cost the distilled students are scored with:
+    Q = diag(0.01, 0.01, 0, 0.01, 1000), R = 0.001, P = diag(0.01, 0.1, 0, 0.1, 1000)."""
+    return QuadraticCost(
+        q_diag=torch.tensor([0.01, 0.01, 0.0, 0.01, 1000.0], dtype=torch.float32),
+        r=torch.tensor(0.001, dtype=torch.float32),
+        p_diag=torch.tensor([0.01, 0.1, 0.0, 0.1, 1000.0], dtype=torch.float32),
     )

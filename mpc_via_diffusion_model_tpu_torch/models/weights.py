@@ -15,8 +15,12 @@ flax numbers the ResidualTemporalBlocks in call order: the down levels'
 blocks first (two per level), then the two mid blocks, then two per up
 level (``TemporalUnet.res_blocks`` lists them in that order).
 
-``load_flagship`` reads ``artifacts/flagship/ema_params.pkl``, a plain dict
-of float32 numpy arrays that needs neither jax nor flax to unpickle.
+``load_flagship`` reads ``artifacts/flagship/ema_params.pkl`` (the layout
+``{'ema_params', 'step', 'cfg_indicator'}``) and ``load_student`` a distilled
+student such as ``artifacts/onpolicy_cartpole/student_1eval.pkl`` (the
+layout ``{'params'}``, built with ``cfg_indicator=True`` as the students are
+trained). Both are plain dicts of float32 numpy arrays that need neither jax
+nor flax to unpickle, for the flagship architecture.
 """
 from __future__ import annotations
 
@@ -29,7 +33,7 @@ import torch
 from ..utils.device import resolve_device
 from .temporal_unet import TemporalUnet
 
-__all__ = ["FLAGSHIP_CONFIG", "from_flax_params", "load_flagship"]
+__all__ = ["FLAGSHIP_CONFIG", "from_flax_params", "load_flagship", "load_student"]
 
 # artifacts/flagship/args.yaml: horizon 32, unet_input_dim 32, dim_mults (1,2,4), context 5
 FLAGSHIP_CONFIG = dict(state_dim=1, n_support_points=32, unet_input_dim=32,
@@ -91,12 +95,26 @@ def from_flax_params(params: Mapping) -> Dict[str, torch.Tensor]:
     return sd
 
 
-def load_flagship(path, device=None) -> TemporalUnet:
-    """The trained flagship denoiser (1,001,825 params) from its EMA pickle,
-    in eval mode on ``device`` (``cuda`` unless given)."""
+def _load_unet(path, params_key: str, cfg_indicator, device) -> TemporalUnet:
+    """A flagship-architecture ``TemporalUnet`` from the pickle at ``path``,
+    its flax params under ``params_key``, in eval mode on ``device``
+    (``cuda`` unless given). ``cfg_indicator`` is a bool, or the key that
+    holds it."""
     dev = resolve_device(device)
     with open(path, "rb") as f:
         ckpt = pickle.load(f)
-    model = TemporalUnet(**FLAGSHIP_CONFIG, cfg_indicator=bool(ckpt["cfg_indicator"]))
-    model.load_state_dict(from_flax_params(ckpt["ema_params"]))
+    bit = ckpt[cfg_indicator] if isinstance(cfg_indicator, str) else cfg_indicator
+    model = TemporalUnet(**FLAGSHIP_CONFIG, cfg_indicator=bool(bit))
+    model.load_state_dict(from_flax_params(ckpt[params_key]))
     return model.to(dev).eval()
+
+
+def load_flagship(path, device=None) -> TemporalUnet:
+    """The trained flagship denoiser (1,001,825 params) from its EMA pickle."""
+    return _load_unet(path, "ema_params", "cfg_indicator", device)
+
+
+def load_student(path, device=None) -> TemporalUnet:
+    """A distilled student of the flagship (1,001,825 params) from its
+    ``{'params'}`` pickle; students are trained with the context-present bit."""
+    return _load_unet(path, "params", True, device)

@@ -22,14 +22,15 @@ import subprocess
 import time
 from pathlib import Path
 
-__all__ = ["BuildResult", "build", "build_all", "load", "BUILD_DIR", "KERNELS", "NVCC_FLAGS"]
+__all__ = ["BuildResult", "build", "build_all", "load", "bind", "launch", "BUILD_DIR", "KERNELS",
+           "NVCC_FLAGS"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC"]
 NVCC_TIMEOUT_S = 600
-KERNELS = ("cfg_chain", "fused_unet", "cfg_episode")  # csrc/<name>.cu
+KERNELS = ("cfg_chain", "fused_unet", "cfg_episode", "ddim_chain", "ddim_episode")  # csrc/<name>.cu
 
 
 @dataclasses.dataclass(frozen=True)
@@ -113,3 +114,29 @@ def build_all(names=KERNELS) -> dict:
 def load(name: str) -> ctypes.CDLL:
     """The built library of ``csrc/<name>.cu``, built first if needed."""
     return ctypes.CDLL(str(build(name).path))
+
+
+def bind(name: str, launch_argtypes, meta_len: int, queries=()) -> ctypes.CDLL:
+    """The built library of ``csrc/<name>.cu`` with its C interface
+    declared: ``<name>_launch(*launch_argtypes)`` returns a CUDA error code,
+    ``<name>_error_string(code)`` its text, and ``<name>_meta_len()`` and
+    each ``<name>_<query>()`` of ``queries`` an int. Raises unless the
+    library's meta length is ``meta_len``, the packer's."""
+    lib = load(name)
+    fn = getattr(lib, f"{name}_launch")
+    fn.argtypes, fn.restype = list(launch_argtypes), ctypes.c_int
+    fn = getattr(lib, f"{name}_error_string")
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_char_p
+    for query in ("meta_len", *queries):
+        fn = getattr(lib, f"{name}_{query}")
+        fn.argtypes, fn.restype = [], ctypes.c_int
+    if getattr(lib, f"{name}_meta_len")() != meta_len:
+        raise RuntimeError(f"{name}.cu and ops/unet_pack.py disagree on the meta layout")
+    return lib
+
+
+def launch(lib: ctypes.CDLL, name: str, *args) -> None:
+    """Calls ``<name>_launch(*args)``; raises with CUDA's text unless it launched."""
+    err = getattr(lib, f"{name}_launch")(*args)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: {getattr(lib, f'{name}_error_string')(err).decode()}")

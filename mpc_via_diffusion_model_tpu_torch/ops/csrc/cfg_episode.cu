@@ -38,35 +38,13 @@
 // coefficients and the 1x1 conv's pointers are read after the body, where they are used
 // (read before it, they made the episode take 18.9 instead of 17.7 ms per replan on the
 // H100; moving the body into a non-inlined function made it slower still, its
-// shared-memory accesses then going through generic pointers). Spreading candidates over a cluster of blocks, with
-// the plans in distributed shared memory, is later work.
+// shared-memory accesses then going through generic pointers). Spreading candidates over a
+// cluster of blocks, with the plans in distributed shared memory, is later work.
+//
+// The in-kernel FiLM and the end of each replan (unnormalize, best-of-K, stage cost, plant
+// step) are in episode.cuh, shared with ddim_episode.cu.
 
-#include "plants.cuh"
-#include "unet_body.cuh"
-
-typedef CartpoleSwingup Plant;
-#define DX Plant::DX
-#define DU Plant::DU
-
-// consts layout (ops/fused_episode.py): normalizer affines, reported and selection costs, dt
-#define C_CN_SHIFT 0
-#define C_CN_SCALE (C_CN_SHIFT + DX)
-#define C_UN_SHIFT (C_CN_SCALE + DX)
-#define C_UN_SCALE (C_UN_SHIFT + DU)
-#define C_Q (C_UN_SCALE + DU)
-#define C_R (C_Q + DX)
-#define C_SQ (C_R + DU)
-#define C_SR (C_SQ + DX)
-#define C_SP (C_SR + DU)
-#define C_DT (C_SP + DX)
-#define C_LEN (C_DT + 1)
-
-// misc region of shared memory (M_EP_MISC)
-#define X_STATE 0
-#define X_CTX 8
-#define X_U0 16
-#define X_BEST 24
-#define MISC_LEN 32
+#include "episode.cuh"
 
 // t_embs (n_total, temb); noise (n_steps, n_total + 1, K, H, D) with row n_total = x_T;
 // coefs (n_total, 5) = sra, srm, c1, c2, sigma * gate; consts (C_LEN); x0 (DX).
@@ -84,8 +62,8 @@ cfg_episode_kernel(const float* __restrict__ W, const int* __restrict__ meta,
   float* smem = reinterpret_cast<float*>(smem4);
   const int ep_meta = __ldg(meta + M_EP_SMEM);
   const int* m = load_meta(smem, meta, ep_meta);
-  const int H = m[M_H], D = m[M_D], n_res = m[M_NRES], maxc = m[M_MAXC], buf = m[M_BUF];
-  const int cond = m[M_COND], temb = m[M_TEMB], dctx = m[M_CTX];
+  const int H = m[M_H], D = m[M_D], buf = m[M_BUF];
+  const int temb = m[M_TEMB], dctx = m[M_CTX];
   const int hd = H * D, khd = K * hd, cf = m[M_DIMS + 1];
   float* eps = smem + m[M_EPS];
   float* stats = smem + m[M_STATS];
@@ -94,8 +72,6 @@ cfg_episode_kernel(const float* __restrict__ W, const int* __restrict__ meta,
   float* misc = smem + m[M_EP_MISC];
   float* xst = misc + X_STATE;
   float* ctx = misc + X_CTX;
-  float* u0 = misc + X_U0;
-  int* best_s = reinterpret_cast<int*>(misc + X_BEST);
   float* cand = smem + ep_meta + ((M_LEN + 3) / 4) * 4;  // (K, H, D) chains, then plans
   float* score = cand + ((khd + 3) / 4) * 4;            // (K,) candidate scores
 
@@ -114,28 +90,8 @@ cfg_episode_kernel(const float* __restrict__ W, const int* __restrict__ meta,
     __syncthreads();
 
     for (int si = 0; si < n_total; ++si) {
-      // mish(c_emb) of the two groups: [t_emb, ctx (, 1)] and [t_emb, 0 (, 0)]
-      for (int i = threadIdx.x; i < 2 * cond; i += NT) {
-        const int g = i / cond, j = i - g * cond;
-        float v;
-        if (j < temb) v = __ldg(t_embs + (size_t)si * temb + j);
-        else if (j < temb + dctx) v = g == 0 ? ctx[j - temb] : 0.f;
-        else v = g == 0 ? 1.f : 0.f;  // the context-present bit (cfg_indicator models)
-        mc[i] = mish_f(v);
-      }
-      __syncthreads();
-      // films (n_res, 2, max_c): Dense of each ResidualTemporalBlock on both groups
-      for (int i = threadIdx.x; i < n_res * 2 * maxc; i += NT) {
-        const int ch = i % maxc, rg = i / maxc, g = rg & 1, r = rg >> 1;
-        float acc = 0.f;
-        if (ch < m[M_RES + r * RES_STRIDE + R_COUT]) {
-          acc = __ldg(W + m[M_FB] + (size_t)r * maxc + ch);
-          const float* fw = W + m[M_FW] + (size_t)r * cond * maxc + ch;
-          for (int j = 0; j < cond; ++j) acc = fmaf(mc[g * cond + j], __ldg(fw + (size_t)j * maxc), acc);
-        }
-        films[i] = acc;
-      }
-      __syncthreads();
+      // films (n_res, 2, max_c) of the two groups: [t_emb, ctx (, 1)] and [t_emb, 0 (, 0)]
+      episode_films<2>(m, W, t_embs + (size_t)si * temb, ctx, mc, films);
       for (int k = 0; k < K; ++k) {
         float* xs = cand + (size_t)k * hd;
         float* in = smem;
@@ -174,66 +130,8 @@ cfg_episode_kernel(const float* __restrict__ W, const int* __restrict__ meta,
       }
     }
 
-    // unnormalize every plan: clip(u, -1, 1) * u_scale + u_shift
-    for (int i = threadIdx.x; i < khd; i += NT) {
-      const int d = i % D;
-      const float u = fminf(fmaxf(cand[i], -1.f), 1.f);
-      cand[i] = __fadd_rn(__fmul_rn(u, __ldg(consts + C_UN_SCALE + d)),
-                          __ldg(consts + C_UN_SHIFT + d));
-    }
-    __syncthreads();
-
-    if (K > 1) {  // score every candidate by its rollout, one thread each
-      for (int k = threadIdx.x; k < K; k += NT) {
-        float xc[DX], xn[DX];
-        for (int i = 0; i < DX; ++i) xc[i] = xst[i];
-        float acc = 0.f;
-        for (int t = 0; t < sel_h; ++t) {
-          const float* u = cand + (size_t)k * hd + t * D;
-          acc = __fadd_rn(acc, quad_stage<DX, DU>(consts + C_SQ, consts + C_SR, xc, u));
-          Plant::step(xc, u, __ldg(consts + C_DT), xn);
-          for (int i = 0; i < DX; ++i) xc[i] = xn[i];
-        }
-        if (sel_h == H) acc = __fadd_rn(acc, quad_terminal<DX>(consts + C_SP, xc));
-        score[k] = acc;
-      }
-      __syncthreads();
-    }
-
-    if (threadIdx.x == 0) {
-      int best = 0;
-      if (K > 1) {
-        // jnp.min propagates NaN; the first index equal to the min wins, none if it is NaN
-        float mn = score[0];
-        for (int k = 1; k < K; ++k) {
-          const float s = score[k];
-          mn = (isnan(mn) || isnan(s)) ? __int_as_float(0x7fc00000) : fminf(mn, s);
-        }
-        best = K;
-        for (int k = 0; k < K; ++k)
-          if (score[k] == mn) { best = k; break; }
-        for (int j = 0; j < DU; ++j) {  // the one-hot product of the JAX kernel
-          float acc = 0.f;
-          for (int k = 0; k < K; ++k)
-            acc = __fadd_rn(acc, __fmul_rn(k == best ? 1.f : 0.f, cand[(size_t)k * hd + j]));
-          u0[j] = acc;
-        }
-      } else {
-        for (int j = 0; j < DU; ++j) u0[j] = cand[j];
-      }
-      *best_s = best;
-      float xn[DX];
-      const float stage = stage_cost_unrolled<DX, DU>(consts + C_Q, consts + C_R, xst, u0);
-      Plant::step(xst, u0, __ldg(consts + C_DT), xn);
-      for (int i = 0; i < DX; ++i) {
-        xst[i] = xn[i];
-        x_track[(size_t)(step + 1) * DX + i] = xn[i];
-      }
-      for (int j = 0; j < DU; ++j) u_track[(size_t)step * DU + j] = u0[j];
-      costs[step] = stage;
-      chosen[step] = best;
-    }
-    __syncthreads();
+    episode_finish_replan(consts, cand, score, misc, K, sel_h, H, D, step, x_track, u_track,
+                          costs, chosen);
   }
 }
 

@@ -1,11 +1,13 @@
-// The conv backbone of the temporal U-Net as block-wide device functions, shared by
-// cfg_chain.cu, cfg_episode.cu and fused_unet.cu.
+// The conv backbone of the temporal U-Net as block-wide device functions, shared by every
+// kernel of the port: cfg_chain.cu, cfg_episode.cu, fused_unet.cu, ddim_chain.cu and
+// ddim_episode.cu.
 //
 // Port of the U-Net body that mpc_via_diffusion_model_tpu/ops/fused_unet.py::build_unet_ops
 // traces into every Pallas kernel of the JAX package. One block runs the body on NB row-sets
 // of one horizon each: NB = 2 in the chain and episode kernels (the conditional and the
 // unconditional copy of one sample, which the CFG combination needs together), NB = 1 in
-// the standalone U-Net kernel (one batch element per block).
+// the standalone U-Net kernel (one batch element per block) and in the DDIM chain and
+// episode kernels (a distilled student's sample is conditional only).
 //
 // Activations live in shared memory as (NB, h + 2*HALO, c) with HALO zero rows above and
 // below each row-set, so the 'same' convs need no edge masks. Weights stay in device memory
@@ -55,8 +57,8 @@
 #define M_CTX (M_COND + 2)                     // context_dim
 #define M_FW (M_COND + 3)                      // FiLM kernels (n_res, cond_dim, max_c)
 #define M_FB (M_COND + 4)                      // FiLM biases (n_res, max_c)
-#define M_EP_FILM (M_COND + 5)                 // shared: this step's FiLM (n_res, 2, max_c)
-#define M_EP_MC (M_COND + 6)                   // shared: mish(c_emb) of the 2 groups (2, cond_dim)
+#define M_EP_FILM (M_COND + 5)                 // shared: this step's FiLM (n_res, 2 or 1, max_c)
+#define M_EP_MC (M_COND + 6)                   // shared: mish(c_emb) of the groups (2 or 1, cond_dim)
 #define M_EP_MISC (M_COND + 7)                 // shared: state, context, first control, choice
 #define M_EP_SMEM (M_COND + 8)                 // shared: the episode kernel's meta copy
 #define M_LEN (M_COND + 9)

@@ -26,27 +26,17 @@ from torch import nn
 
 from ..models.layers import mish
 from ..models.temporal_unet import TemporalUnet
-from ..utils.device import resolve_device
 from . import _build
-from .unet_pack import M_LEN, PackedUnet, pack_unet
+from .unet_pack import M_LEN, PackedUnet, packed_on
 
 __all__ = ["FusedUnet", "make_fused_unet"]
 
 
 @functools.lru_cache(maxsize=None)
 def _kernel_lib() -> ctypes.CDLL:
-    """The built ``csrc/fused_unet.cu``, with its C signatures declared."""
-    lib = _build.load("fused_unet")
+    """The built ``csrc/fused_unet.cu``."""
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.fused_unet_launch.argtypes = [p, p, i, p, p, p, i, p]
-    lib.fused_unet_launch.restype = i
-    lib.fused_unet_error_string.argtypes = [i]
-    lib.fused_unet_error_string.restype = ctypes.c_char_p
-    lib.fused_unet_meta_len.argtypes = []
-    lib.fused_unet_meta_len.restype = i
-    if lib.fused_unet_meta_len() != M_LEN:
-        raise RuntimeError("fused_unet.cu and unet_pack.py disagree on the meta layout")
-    return lib
+    return _build.bind("fused_unet", [p, p, i, p, p, p, i, p], M_LEN)
 
 
 class FusedUnet(nn.Module):
@@ -104,13 +94,11 @@ class FusedUnet(nn.Module):
         x = x.contiguous()
         y = torch.empty((self.batch_size, self.packed.horizon, self.model.unet_input_dim),
                         dtype=torch.float32, device=x.device)
-        lib = _kernel_lib()
-        err = lib.fused_unet_launch(
+        _build.launch(
+            _kernel_lib(), "fused_unet",
             self.packed.weights.data_ptr(), self.packed.meta.data_ptr(), self.packed.smem_bytes,
             films.data_ptr(), x.data_ptr(), y.data_ptr(), self.batch_size,
             torch.cuda.current_stream(x.device).cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"fused_unet launch failed: {lib.fused_unet_error_string(err).decode()}")
         self.launches += 1
         return self.final_1x1(y)
 
@@ -130,11 +118,4 @@ def make_fused_unet(model_or_packed: Union[TemporalUnet, PackedUnet], batch_size
     """Build the U-Net forward for a fixed ``batch_size`` on ``device``
     (``cuda`` unless given). A ``TemporalUnet`` is moved to the device and
     packed."""
-    dev = resolve_device(device)
-    if isinstance(model_or_packed, PackedUnet):
-        packed = model_or_packed
-        if packed.weights.device.type != dev.type:
-            raise ValueError(f"the packed U-Net lies on {packed.weights.device}, not {dev}")
-    else:
-        packed = pack_unet(model_or_packed.to(dev).eval(), dev)
-    return FusedUnet(packed, batch_size)
+    return FusedUnet(packed_on(model_or_packed, device), batch_size)

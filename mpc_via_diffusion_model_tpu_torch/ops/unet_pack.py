@@ -1,4 +1,5 @@
-"""Packs a ``TemporalUnet`` for the CUDA kernels (chain, episode, U-Net pass).
+"""Packs a ``TemporalUnet`` for the CUDA kernels (the CFG and DDIM chains and
+episodes, the U-Net pass).
 
 Counterpart of ``build_unet_ops``, ``_extract_weights``,
 ``time_embedding_table`` and ``stack_film_weights`` in
@@ -22,20 +23,22 @@ the kernel: Downsample1d is ``out[t] = sum_k w[k] x[2t+k-1]`` and Upsample1d
 Activations in the kernel's shared memory are (2, h + 2*HALO, c): the
 conditional and unconditional copy of one sample, each with HALO zero rows
 above and below, so that the 'same' convs need no edge masks. The U-Net
-pass kernel uses the same plan with one row-set.
+pass kernel and the DDIM kernels, whose samples are conditional only, use
+the same plan with one row-set.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Dict, Tuple, Union
 
 import numpy as np
 import torch
 
 from ..models.layers import group_norm_n_groups
 from ..models.temporal_unet import TemporalUnet
+from ..utils.device import resolve_device
 
-__all__ = ["PackedUnet", "pack_unet", "align4"]
+__all__ = ["PackedUnet", "pack_unet", "packed_on", "align4"]
 
 HALO = 2
 MAX_LEVELS = 4
@@ -81,7 +84,10 @@ class PackedUnet:
     flops_final_1x1: int           # of which the final 1x1 conv, outside the U-Net pass kernel
 
     def episode_smem_bytes(self, n_candidates: int) -> int:
-        """Dynamic shared memory of one block of the episode kernel."""
+        """Dynamic shared memory of one block of either episode kernel. The
+        DDIM episode runs one row-set: its one FiLM group fills the first
+        n_res x max_c floats of the FiLM region (M_EP_FILM), and the first
+        cond_dim of the mish(c_emb) region (M_EP_MC)."""
         m = self.meta
         n = (int(m[M_EP_SMEM]) + align4(M_LEN) + align4(n_candidates * self.horizon * self.state_dim)
              + align4(n_candidates))
@@ -250,6 +256,18 @@ def pack_unet(model: TemporalUnet, device) -> PackedUnet:
         flops_per_pass=flops,
         flops_final_1x1=2 * horizon * dims[1] * d,
     )
+
+
+def packed_on(model_or_packed: Union[TemporalUnet, PackedUnet], device=None) -> PackedUnet:
+    """The packed U-Net on ``device`` (``cuda`` unless given), for the
+    kernels' make_* functions: a ``TemporalUnet`` is moved there and packed; a
+    ``PackedUnet`` is taken as it is, and must lie there already."""
+    dev = resolve_device(device)
+    if isinstance(model_or_packed, PackedUnet):
+        if model_or_packed.weights.device.type != dev.type:
+            raise ValueError(f"the packed U-Net lies on {model_or_packed.weights.device}, not {dev}")
+        return model_or_packed
+    return pack_unet(model_or_packed.to(dev).eval(), dev)
 
 
 def _res_heights(hs, n_levels):

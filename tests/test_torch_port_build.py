@@ -11,10 +11,12 @@ from mpc_via_diffusion_model_tpu_torch.ops import _build
 
 def test_every_kernel_source_is_built():
     assert sorted(_build.KERNELS) == sorted(p.stem for p in _build.CSRC.glob("*.cu"))
-    assert {"unet_body.cuh", "plants.cuh"} <= {p.name for p in _build.CSRC.glob("*.cuh")}
+    assert {"unet_body.cuh", "plants.cuh", "episode.cuh"} <= {p.name for p in _build.CSRC.glob("*.cuh")}
+    assert {"ddim_chain", "ddim_episode"} <= set(_build.KERNELS)
 
 
-@pytest.mark.parametrize("edit", ["unet_body.cuh", "plants.cuh", "cfg_chain.cu", "flags"])
+@pytest.mark.parametrize("edit", ["unet_body.cuh", "plants.cuh", "episode.cuh", "cfg_chain.cu",
+                                  "ddim_chain.cu", "ddim_episode.cu", "flags"])
 def test_library_name_follows_sources_headers_and_flags(tmp_path, monkeypatch, edit):
     csrc = tmp_path / "csrc"
     shutil.copytree(_build.CSRC, csrc)
@@ -28,4 +30,4 @@ def test_library_name_follows_sources_headers_and_flags(tmp_path, monkeypatch, e
     after = {name: _build._target(name) for name in _build.KERNELS}
     changed = {name for name in _build.KERNELS if after[name] != before[name]}
     # a header may be included by any source: every library is rebuilt
-    assert changed == ({"cfg_chain"} if edit == "cfg_chain.cu" else set(_build.KERNELS))
+    assert changed == ({edit[:-len(".cu")]} if edit.endswith(".cu") else set(_build.KERNELS))

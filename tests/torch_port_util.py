@@ -220,40 +220,41 @@ def cartpole_step_f32(x, u, dt):
     return (x + xdot * f(dt)).astype(np.float32)
 
 
-def emulate_cfg_episode_kernel(packed, t_embs, noise, coefs, consts, x0, w, n_candidates,
-                               selection_horizon, n_steps):
-    """Runs ``csrc/cfg_episode.cu``'s program in numpy: the affine normalize,
-    the per-step FiLM of the two groups from the FiLM weights the meta table
-    points at (M_FW, M_FB, M_COND, M_TEMB, M_CTX) written into the shared
-    image at M_EP_FILM and M_EP_MC, the chains of the K candidates, the
-    unnormalize, the candidate rollouts scored from ``consts`` and the
-    one-hot choice, the stage cost and the plant step. ``noise`` has the
-    wrapper's layout (n_steps, n_total + 1, K, H, D) with row n_total = x_T.
-    The shared image is sized by the episode plan and filled with NaN, so a
-    region that overlaps another or is read before it is written shows."""
+def _emulate_episode(packed, t_embs, consts, x0, n_candidates, selection_horizon, n_steps,
+                     n_groups, first_plans, chain_step):
+    """The program both episode kernels share (``csrc/episode.cuh`` and the
+    kernels' replan loops), in numpy: the affine normalize, the per-step
+    FiLM of ``n_groups`` groups from the FiLM weights the meta table points
+    at (M_FW, M_FB, M_COND, M_TEMB, M_CTX), written into the shared image at
+    M_EP_FILM and M_EP_MC, the chains of the K candidates
+    (``chain_step(W, m, smem, films, x, step, si, k)``, from
+    ``first_plans(step)``), the unnormalize, the candidate rollouts scored
+    from ``consts`` and the one-hot choice, the stage cost and the plant
+    step. The shared image is sized by the episode plan and filled with NaN,
+    so a region that overlaps another or is read before it is written shows."""
     W = packed.weights.cpu().numpy()
     m = packed.meta.cpu().numpy()
     K, sel_h = n_candidates, selection_horizon
     H, D, n_res, maxc = (int(m[k]) for k in (up.M_H, up.M_D, up.M_NRES, up.M_MAXC))
     cond, temb, dctx = (int(m[k]) for k in (up.M_COND, up.M_TEMB, up.M_CTX))
-    n_total = noise.shape[1] - 1
+    n_total = t_embs.shape[0]
     c = consts
     cn_shift, cn_scale, un_shift, un_scale = c[0:5], c[5:10], c[10:11], c[11:12]
     q, r, sq, sr, sp, dt = c[12:17], c[17:18], c[18:23], c[23:24], c[24:29], c[29]
     Fw = W[m[up.M_FW]:m[up.M_FW] + n_res * cond * maxc].reshape(n_res, cond, maxc)
     Fb = W[m[up.M_FB]:m[up.M_FB] + n_res * maxc].reshape(n_res, maxc)
     smem = _image(packed.episode_smem_bytes(K) // 4)
-    films = smem[m[up.M_EP_FILM]:m[up.M_EP_FILM] + n_res * 2 * maxc].reshape(n_res, 2, maxc)
-    mc = smem[m[up.M_EP_MC]:m[up.M_EP_MC] + 2 * cond].reshape(2, cond)
+    films = smem[m[up.M_EP_FILM]:m[up.M_EP_FILM] + n_res * n_groups * maxc].reshape(n_res, n_groups, maxc)
+    mc = smem[m[up.M_EP_MC]:m[up.M_EP_MC] + n_groups * cond].reshape(n_groups, cond)
     cand_off = int(m[up.M_EP_SMEM]) + up.align4(up.M_LEN)
     cand = smem[cand_off:cand_off + K * H * D].reshape(K, H, D)
     x = x0.astype(np.float32)
     xs, us, stages, chosen = [x], [], [], []
     for step in range(n_steps):
         ctx = (x - cn_shift) * cn_scale
-        cand[:] = noise[step, n_total]
+        cand[:] = first_plans(step)
         for si in range(n_total):
-            for g in range(2):
+            for g in range(n_groups):
                 bit = [np.float32(1.0 - g)] if cond > temb + dctx else []
                 mc[g] = _mish(np.concatenate([t_embs[si], ctx * np.float32(1 - g), bit]))
             films[:] = 0.0
@@ -261,8 +262,7 @@ def emulate_cfg_episode_kernel(packed, t_embs, noise, coefs, consts, x0, w, n_ca
                 cout = int(m[up.M_RES + rr * up.RES_STRIDE + up.R_COUT])
                 films[rr, :, :cout] = (mc @ Fw[rr] + Fb[rr])[:, :cout]
             for k in range(K):
-                cand[k] = _emulate_chain_step(W, m, smem, films, cand[k].copy(), coefs[si],
-                                              noise[step, si, k], w)
+                cand[k] = chain_step(W, m, smem, films, cand[k].copy(), step, si, k)
         plans = np.clip(cand, -1.0, 1.0) * un_scale + un_shift
         if K == 1:
             best, u0 = 0, plans[0, 0]
@@ -285,3 +285,58 @@ def emulate_cfg_episode_kernel(packed, t_embs, noise, coefs, consts, x0, w, n_ca
         us.append(u0)
         chosen.append(best)
     return np.stack(xs), np.stack(us), np.array(stages, np.float32), np.array(chosen)
+
+
+def emulate_cfg_episode_kernel(packed, t_embs, noise, coefs, consts, x0, w, n_candidates,
+                               selection_horizon, n_steps):
+    """Runs ``csrc/cfg_episode.cu``'s program in numpy (``_emulate_episode``
+    with the two FiLM groups and the CFG chain step on both row-sets).
+    ``noise`` has the wrapper's layout (n_steps, n_total + 1, K, H, D) with
+    row n_total = x_T."""
+    n_total = noise.shape[1] - 1
+
+    def step(W, m, smem, films, x, si_step, si, k):
+        return _emulate_chain_step(W, m, smem, films, x, coefs[si], noise[si_step, si, k], w)
+
+    return _emulate_episode(packed, t_embs, consts, x0, n_candidates, selection_horizon, n_steps,
+                            2, lambda s: noise[s, n_total], step)
+
+
+def _emulate_ddim_step(W, m, smem, film_rows, xs, coefs_si):
+    """One step of ddim_chain.cu / ddim_episode.cu on the sample xs: the
+    body on one row-set, the final 1x1 conv and the affine update."""
+    D = int(m[up.M_D])
+    cf = int(m[up.M_DIMS + 1])
+    y = _emulate_unet_body(W, m, smem, 1, film_rows, xs[None])
+    eps = y[0] @ W[m[up.M_F1]:m[up.M_F1] + cf * D].reshape(cf, D) + W[m[up.M_F1 + 1]:m[up.M_F1 + 1] + D]
+    sra, srm, c1, c2 = (np.float32(v) for v in coefs_si)
+    rec = np.clip(sra * xs - srm * eps, -1.0, 1.0)
+    return c1 * rec + c2 * xs
+
+
+def emulate_ddim_chain_kernel(packed, films, x_init, coefs):
+    """Runs ``csrc/ddim_chain.cu``'s program in numpy on a NaN-filled
+    shared image: one block per sample, ``unet_body<1>`` with FiLM row b of
+    each step's films (n_total, n_res, B, max_c), from x_init (B, H, D)."""
+    W = packed.weights.cpu().numpy()
+    m = packed.meta.cpu().numpy()
+    out = np.empty_like(x_init)
+    for b in range(x_init.shape[0]):
+        smem = _image(int(m[up.M_SMEM]))
+        xs = x_init[b].copy()
+        for si in range(coefs.shape[0]):
+            xs = _emulate_ddim_step(W, m, smem, films[si][:, [b]], xs, coefs[si])
+        out[b] = xs
+    return out
+
+
+def emulate_ddim_episode_kernel(packed, t_embs, noise, coefs, consts, x0, n_candidates,
+                                selection_horizon, n_steps):
+    """Runs ``csrc/ddim_episode.cu``'s program in numpy (``_emulate_episode``
+    with the one FiLM group and the DDIM step on one row-set). ``noise`` is
+    (n_steps, K, H, D), each replan's initial draw."""
+    def step(W, m, smem, films, x, si_step, si, k):
+        return _emulate_ddim_step(W, m, smem, films, x, coefs[si])
+
+    return _emulate_episode(packed, t_embs, consts, x0, n_candidates, selection_horizon, n_steps,
+                            1, lambda s: noise[s], step)
