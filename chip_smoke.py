@@ -65,12 +65,32 @@ same weights, which exercises the affine update and the step loop.
 14. timing: every kernel and its plain version by CUDA events at the main
     paths' shapes.
 
+The fused conv block and the port's ``bench_kernels``, the path that runs it:
+
+15. conv: the fused Conv1d + GroupNorm + Mish kernel against its plain
+    version at ``bench_kernels``' six shapes, with and without a FiLM
+    pre-bias, b, gamma and beta drawn, and once at eps 1e-3; the counts are
+    read back exactly.
+16. ``bench_kernels --quick``: every row of the port's kernel benchmark (the
+    conv rows, one U-Net pass, both chains, the CFG episode), each kernel
+    within its tolerance of its plain twin; the counts are set to 0 just
+    before and read just after.
+17. flagship quality: ``scripts/flagship_parity``'s protocol on the card, 10
+    torch-seeded K = 1 loops of 80 replans through the CFG chain kernel with
+    the flagship dataset's statistics (``data/flagship_stats.py``): the mean
+    closed-loop cost over the expert's in ``artifacts/flagship/report.json``
+    at most 1.01 and all 10 runs swinging left, the report's modality; the
+    horizon cost and the parity against the stored expert tracks printed
+    beside the report's.
+18. timing of the conv kernel, its plain version and the three PyTorch calls
+    that compute the same block, at the six shapes by CUDA events.
+
 It then prints the ``kernels`` JSON line, the nvidia-smi line and, last, the
 result line. Any failure raises, and the exit code is then not 0.
 
-The flagship's normalizer statistics are the synthetic limits of
-``bench.py`` (controls +-30, conditions +-10): the flagship dataset's own
-are not in the repository.
+Phases 3-8 and ``bench_kernels``' episode row run the flagship with the
+synthetic limits of ``bench.py`` (controls +-30, conditions +-10); phase 17
+with its dataset's own.
 """
 from __future__ import annotations
 
@@ -81,6 +101,7 @@ import time
 from pathlib import Path
 
 import torch
+import torch.nn.functional as F
 
 from mpc_via_diffusion_model_tpu_torch.control import make_closed_loop
 from mpc_via_diffusion_model_tpu_torch.core import make_schedule
@@ -92,12 +113,13 @@ from mpc_via_diffusion_model_tpu_torch.dynamics import (cartpole_virtual_collect
                                                         cartpole_virtual_swingup,
                                                         theta_to_red_theta)
 from mpc_via_diffusion_model_tpu_torch.models import load_flagship, load_student
-from mpc_via_diffusion_model_tpu_torch.ops import _build
+from mpc_via_diffusion_model_tpu_torch.ops import _build, fused_conv1d_gn_mish
 from mpc_via_diffusion_model_tpu_torch.ops.fused_denoise import (make_fused_cfg_chain,
                                                                  make_fused_ddim_chain)
 from mpc_via_diffusion_model_tpu_torch.ops.fused_episode import (make_fused_cfg_episode,
                                                                  make_fused_ddim_episode)
 from mpc_via_diffusion_model_tpu_torch.ops.fused_unet import make_fused_unet
+from mpc_via_diffusion_model_tpu_torch.scripts import bench_kernels, flagship_parity
 
 ROOT = Path(__file__).resolve().parent
 FLAGSHIP = ROOT / "artifacts" / "flagship" / "ema_params.pkl"
@@ -106,6 +128,8 @@ STUDENT_REPORT = ROOT / "artifacts" / "onpolicy_cartpole" / "report.json"
 GRID, GRID3 = [23], [23, 15, 7]   # the 1-eval student's times grid; the 3-eval grid
 N_QUALITY = 10             # seeds of the student's quality check
 QUALITY_MEAN_MAX = 1.05    # mean cost over the expert's (report: 1.0064 over 10 seeds)
+# The flagship's mean cost over its expert's (report: 784,747.4 / 784,750.6 over 10 JAX seeds)
+FLAGSHIP_MEAN_MAX, FLAGSHIP_MODALITY = 1.01, {"left": 10, "right": 0}
 N_STEPS, HORIZON, T, N_TAIL, W = 80, 32, 25, 5, 0.01
 N_PLAIN_LOOP = 20          # replans of the plain per-replan loop (phase 4)
 K4, SEL_H, N_STEPS_K4 = 4, 8, 8
@@ -116,6 +140,9 @@ N_UNET_LOOP = 10           # replans of the BENCH_FUSED=1 loop
 # tolerance. The first step's 1e6 coefficients are clipped right after and
 # amplify only elements with |x - eps| < ~1e-6. One U-Net pass: the same.
 CHAIN_TOL = UNET_TOL = 1e-4
+# The conv block, kernel vs plain: bench_kernels' tolerance, the JAX suite's for kernels
+CONV_TOL = bench_kernels.KERNEL_TOL
+CONV_SHAPES = bench_kernels.CONV_SHAPES
 # Tracks of closed loops, kernel vs plain: per-replan differences of ~1e-6
 # in u_norm (x30 after unnormalizing) pass through up to 80 plant steps.
 TRACK_TOL = 1e-3
@@ -537,6 +564,106 @@ def main() -> None:
         f"{sep3_ms / N_STEPS:.4f} ms per replan; {GRID} K={K4} {sep4_ms / N_STEPS_K4:.4f} ms per "
         f"replan; per-replan loop through ddim_chain {s_per_replan_hz:.2f} replans/s")
 
+    # 15. the fused conv block against its plain version at the bench's six shapes
+    t0 = time.perf_counter()
+    conv_inputs, conv_err = {}, 0.0
+    reset(fused_conv1d_gn_mish)
+    for bsz, h, cin, cout in CONV_SHAPES:
+        rnd = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+        c_args = (rnd(bsz, h, cin), rnd(5, cin, cout) * 0.1, rnd(cout), rnd(cout), rnd(cout),
+                8 if cout % 8 == 0 else 1)
+        conv_inputs[(bsz, h, cin, cout)] = c_args
+        for pb, eps in ((None, 1e-5), (rnd(bsz, cin), 1e-5)):
+            got = fused_conv1d_gn_mish.kernel(*c_args, pb, eps)
+            torch.cuda.synchronize()
+            conv_err = max(conv_err, assert_close(f"fused_conv {(bsz, h, cin, cout)} pre_bias="
+                                                  f"{pb is not None}", got,
+                                                  fused_conv1d_gn_mish.plain(*c_args, pb, eps),
+                                                  CONV_TOL))
+    c_args = conv_inputs[CONV_SHAPES[-1]]
+    pb = torch.randn((c_args[0].shape[0], c_args[0].shape[2]), generator=gen, device=dev)
+    got = fused_conv1d_gn_mish.kernel(*c_args, pb, 1e-3)
+    torch.cuda.synchronize()
+    conv_err = max(conv_err, assert_close("fused_conv eps=1e-3", got,
+                                          fused_conv1d_gn_mish.plain(*c_args, pb, 1e-3), CONV_TOL))
+    n_conv = 2 * len(CONV_SHAPES) + 1
+    if counts(fused_conv1d_gn_mish) != [(n_conv, n_conv)]:
+        raise RuntimeError(f"conv: counts {counts(fused_conv1d_gn_mish)}; expected {n_conv} "
+                           f"launches and {n_conv} plain calls")
+    log("conv", t0, f"fused_conv max |kernel - plain|={conv_err:.3e} at {len(CONV_SHAPES)} shapes "
+        f"with and without pre_bias and at eps 1e-3, atol = rtol = {CONV_TOL:.0e}; "
+        f"launches={n_conv}, plain calls={n_conv}")
+
+    # 16. the path that runs the conv kernel: the port's bench_kernels --quick
+    t0 = time.perf_counter()
+    wrappers.append(fused_conv1d_gn_mish)
+    reset(*wrappers)
+    bench_rows = bench_kernels.main(["--quick"])
+    torch.cuda.synchronize()
+    conv_launches = fused_conv1d_gn_mish.launches
+    conv_rows = [r for r in bench_rows if r["kernel"] == "conv1d_gn_mish"]
+    if (counts(*wrappers[:-1]) != [(0, 0)] * (len(wrappers) - 1) or not conv_launches
+            or conv_launches != sum(r["launches"] for r in conv_rows)):
+        raise RuntimeError(f"bench_kernels: counts {counts(*wrappers)}; expected the conv rows' "
+                           f"{sum(r['launches'] for r in conv_rows)} conv launches and nothing "
+                           f"of this script's other wrappers")
+    for r in bench_rows:
+        if r["kernel_us"] is None or r["max_abs_err"] is None or not r["max_abs_err"] <= r["tol"]:
+            raise RuntimeError(f"bench_kernels: row {r}")
+    log("bench-kernels", t0, f"{len(bench_rows)} rows, every kernel within its tolerance of its "
+        f"plain twin: " + "; ".join(
+            f"{r['kernel']}{r.get('shape', '')}{' +pre_bias' if r.get('pre_bias') else ''} "
+            f"{r['max_abs_err']:.3e} <= {r['tol']:.0e}, {r['kernel_us']:.1f} us "
+            f"(plain {r['plain_us']:.1f})" for r in bench_rows) + f"; fused_conv launches="
+        f"{conv_launches}")
+
+    # 17. the flagship's control quality with its dataset's statistics
+    t0 = time.perf_counter()
+    reset(*wrappers)
+    par = flagship_parity.run_parity(dev, n_seeds=N_QUALITY, n_steps=N_STEPS)
+    if counts(*wrappers) != [(0, 0)] * len(wrappers) or par["chain_launches"] != N_QUALITY * N_STEPS:
+        raise RuntimeError(f"flagship quality: {par['chain_launches']} chain launches, counts "
+                           f"{counts(*wrappers)}; expected {N_QUALITY * N_STEPS} launches of its "
+                           f"own chain and nothing else")
+    if not all(math.isfinite(c) for c in par["closed_loop_costs"]):
+        raise RuntimeError(f"flagship quality: non-finite costs {par['closed_loop_costs']}")
+    if not par["cost_over_expert"] <= FLAGSHIP_MEAN_MAX or par["modality"] != FLAGSHIP_MODALITY:
+        raise RuntimeError(f"flagship quality: mean cost over the expert's "
+                           f"{par['cost_over_expert']:.6f} (at most {FLAGSHIP_MEAN_MAX}), modality "
+                           f"{par['modality']} (expected {FLAGSHIP_MODALITY})")
+    log("flagship-quality", t0, f"{N_QUALITY} seeds, K=1, {N_STEPS} replans through cfg_chain "
+        f"({par['chain_launches']} launches), the flagship's statistics: closed-loop costs "
+        f"{[round(c, 3) for c in par['closed_loop_costs']]}; mean {par['closed_loop_cost_mean']:.3f} "
+        f"(report {par['closed_loop_cost_report']}, expert {par['closed_loop_cost_nmpc']}), over "
+        f"the expert's {par['cost_over_expert']:.6f} (at most {FLAGSHIP_MEAN_MAX}); modality "
+        f"{par['modality']} (report {par['modality_report']}); horizon cost mean "
+        f"{par['horizon_cost_mean']:.1f} (report {par['horizon_cost_report']}, expert "
+        f"{par['horizon_cost_nmpc']}); seed 0's parity with the expert's tracks "
+        f"{ {k: round(v, 5) for k, v in par['parity'].items()} } (report {par['parity_report']})")
+
+    # 18. timing of the conv kernel, its plain version and the PyTorch calls of the same block
+    t0 = time.perf_counter()
+    conv_times = []
+    for shape in CONV_SHAPES:
+        c_args = conv_inputs[shape]
+        x_c, w_c, b_c, g_c, be_c, groups = c_args
+        xt, wt = x_c.transpose(1, 2).contiguous(), w_c.permute(2, 1, 0).contiguous()
+        torch_seq = lambda: F.mish(F.group_norm(F.conv1d(xt, wt, b_c, padding=2), groups, g_c,
+                                                be_c, 1e-5))
+        seq_err = assert_close(f"torch_seq {shape}", torch_seq().transpose(1, 2),
+                               fused_conv1d_gn_mish.plain(*c_args), CONV_TOL)
+        bsz, h, cin, cout = shape
+        conv_times.append({
+            "shape": list(shape), "ms": cuda_ms(lambda: fused_conv1d_gn_mish.kernel(*c_args), 200, 10),
+            "plain_ms": cuda_ms(lambda: fused_conv1d_gn_mish.plain(*c_args), 50, 5),
+            "torch_seq_ms": cuda_ms(torch_seq, 200, 10), "torch_seq_max_abs_err": seq_err,
+            **bound(2 * bsz * h * 5 * cin * cout,
+                    4 * (bsz * h * cin + 5 * cin * cout + 3 * cout + bsz * h * cout))})
+    log("timing-conv", t0, "; ".join(
+        f"{c['shape']}: fused_conv {c['ms']:.4f} ms (plain {c['plain_ms']:.4f}, torch_seq "
+        f"{c['torch_seq_ms']:.4f}, bound {c['bound_ms']:.6f} by {c['bound_by']})"
+        for c in conv_times))
+
     packed = chain.packed
     seg = lambda *prefixes: sum(math.prod(shape) for name, (_, shape) in packed.segments.items()
                                 if name.split(".")[0] in prefixes)
@@ -605,6 +732,15 @@ def main() -> None:
          "grid3_ms_per_replan": sep3_ms / N_STEPS, "k4_ms_per_replan": sep4_ms / N_STEPS_K4,
          "student_closed_loop_control_hz": s_control_hz, "cost_ratio_mean": ratio_mean,
          "cost_ratio_max": ratio_max},
+        # at the bench's largest shape, (64, 8, 64, 128); every shape in "shapes"
+        {"name": "fused_conv", "route": "cuda",
+         "source": "mpc_via_diffusion_model_tpu_torch/ops/csrc/fused_conv.cu",
+         "replaces": "mpc_via_diffusion_model_tpu/ops/fused_conv.py:126",
+         "launches": conv_launches, "max_abs_err": conv_err,
+         **{k: conv_times[-1][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+         "library_ms": None, "torch_seq_ms": conv_times[-1]["torch_seq_ms"],
+         "shape": conv_times[-1]["shape"], "shapes": conv_times,
+         "flagship_cost_over_expert": par["cost_over_expert"]},
     ]
     print(json.dumps({"kernels": rows}), flush=True)
     print(nvidia_smi(), flush=True)

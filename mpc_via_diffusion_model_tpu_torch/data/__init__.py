@@ -1,3 +1,5 @@
-from .normalization import NormalizerStats, normalize, unnormalize
+from .normalization import (NORMALIZERS, DatasetNormalizer, NormalizerStats, canonical_kind,
+                            fit_normalizer, normalize, unnormalize)
 
-__all__ = ["NormalizerStats", "normalize", "unnormalize"]
+__all__ = ["NORMALIZERS", "DatasetNormalizer", "NormalizerStats", "canonical_kind",
+           "fit_normalizer", "normalize", "unnormalize"]

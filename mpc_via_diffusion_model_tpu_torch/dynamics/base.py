@@ -1,6 +1,6 @@
 """Plant and quadratic cost on torch tensors: port of
 ``mpc_via_diffusion_model_tpu/dynamics/base.py`` (``Plant``, ``QuadraticCost``,
-``rollout``, ``rollout_with_cost``). State stays fp32.
+``rollout``, ``rollout_with_cost``, ``reference_mpc_cost``). State stays fp32.
 
 Steps and costs take any leading batch axes: ``x`` is (..., state_dim) and
 ``u`` is (..., control_dim), which stands in for the JAX package's ``vmap``."""
@@ -11,7 +11,7 @@ from typing import Callable, Tuple
 
 import torch
 
-__all__ = ["Plant", "QuadraticCost", "rollout", "rollout_with_cost"]
+__all__ = ["Plant", "QuadraticCost", "rollout", "rollout_with_cost", "reference_mpc_cost"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,3 +66,23 @@ def rollout_with_cost(plant: Plant, cost: QuadraticCost, x0: torch.Tensor,
         acc = acc + cost.stage(xs[-1], u)
         xs.append(plant.step(xs[-1], u))
     return torch.stack(xs, dim=-2), acc + cost.terminal(xs[-1])
+
+
+def reference_mpc_cost(plant: Plant, cost: QuadraticCost, x0: torch.Tensor,
+                       u_seq: torch.Tensor) -> torch.Tensor:
+    """The reference's closed-loop cost metric ``calMPCCost``, quirks kept,
+    as mpc_via_diffusion_model_tpu/dynamics/base.py:126-159 keeps them: the
+    full Q cost of x0 plus R on u_0; stage terms for i = 1 .. H-2 that skip
+    state dimension 0 and add R u_i^2; the final P term on x_{H-2} rolled
+    one step, not on x_H. ``x0`` is (..., d), ``u_seq`` (..., H, m);
+    returns (...)."""
+    horizon = u_seq.shape[-2]
+    u_sq = lambda u: torch.sum(cost.r * torch.square(u), dim=-1)
+    acc = torch.sum(cost.q_diag * torch.square(x0), dim=-1) + u_sq(u_seq[..., 0, :])
+    x, u = x0, u_seq[..., 0, :]
+    for i in range(1, horizon - 1):
+        x = plant.step(x, u)
+        u = u_seq[..., i, :]
+        acc = acc + torch.sum(cost.q_diag[1:] * torch.square(x[..., 1:]), dim=-1)
+        acc = acc + u_sq(u)
+    return acc + torch.sum(cost.p_diag * torch.square(x), dim=-1)

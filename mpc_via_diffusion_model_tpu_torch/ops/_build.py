@@ -30,7 +30,8 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC"]
 NVCC_TIMEOUT_S = 600
-KERNELS = ("cfg_chain", "fused_unet", "cfg_episode", "ddim_chain", "ddim_episode")  # csrc/<name>.cu
+KERNELS = ("cfg_chain", "fused_unet", "cfg_episode", "ddim_chain", "ddim_episode",
+           "fused_conv")  # csrc/<name>.cu
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,6 +1,6 @@
 // The conv backbone of the temporal U-Net as block-wide device functions, shared by every
 // kernel of the port: cfg_chain.cu, cfg_episode.cu, fused_unet.cu, ddim_chain.cu and
-// ddim_episode.cu.
+// ddim_episode.cu run the whole body; fused_conv.cu runs one conv and one gn_mish.
 //
 // Port of the U-Net body that mpc_via_diffusion_model_tpu/ops/fused_unet.py::build_unet_ops
 // traces into every Pallas kernel of the JAX package. One block runs the body on NB row-sets
@@ -15,8 +15,8 @@
 // weight it loads feeds RPT FMAs, and the 32 lanes of a warp load 32 neighbouring weights
 // (C_out is the fastest axis of the flax layout (k, C_in, C_out)) while they read the same
 // activation, a shared-memory broadcast. GroupNorm per (row-set, group) takes one warp per
-// group (variance as E[y^2] - mean^2, eps 1e-5, as fused_unet.py:112-131), then one
-// elementwise pass does the normalisation, Mish and the FiLM bias.
+// group (variance as E[y^2] - mean^2, eps 1e-5 in the body, as fused_unet.py:112-131),
+// then one elementwise pass does the normalisation, Mish and the FiLM bias.
 //
 // The meta table (ops/unet_pack.py) holds the architecture, the weight offsets and the
 // shared-memory plans; the indices below mirror that file, and every library that includes
@@ -185,12 +185,13 @@ static __device__ void zero_halo(float* buf, int h, int c) {
   }
 }
 
-// GroupNorm (per row-set and group) -> Mish -> optional FiLM bias, in place. Row-set 0
-// takes film_c, row-set 1 film_u.
+// GroupNorm (per row-set and group, variance eps) -> Mish -> optional FiLM bias, in
+// place. Row-set 0 takes film_c, row-set 1 film_u. stats holds 2 * NB * groups floats.
 template <int NB>
 static __device__ void gn_mish(float* buf, int h, int c, int groups,
                                const float* __restrict__ gamma, const float* __restrict__ beta,
-                               const float* film_c, const float* film_u, float* stats) {
+                               const float* film_c, const float* film_u, float* stats,
+                               float eps) {
   const int cpg = c / groups, n = h * cpg;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   for (int p = warp; p < NB * groups; p += NT / 32) {
@@ -211,7 +212,7 @@ static __device__ void gn_mish(float* buf, int h, int c, int groups,
       const float mean = s / (float)n;
       const float var = fmaxf(sq / (float)n - mean * mean, 0.f);
       stats[2 * p] = mean;
-      stats[2 * p + 1] = 1.0f / sqrtf(var + 1e-5f);
+      stats[2 * p + 1] = 1.0f / sqrtf(var + eps);
     }
   }
   __syncthreads();
@@ -247,12 +248,14 @@ static __device__ float* res_block(const int* rm, const float* __restrict__ W, f
   conv<NB>(in, h, cin, t1, h, cout, W + rm[R_W1], W + rm[R_B1], 5, 1, 2);
   zero_halo<NB>(t1, h, cout);
   __syncthreads();
-  gn_mish<NB>(t1, h, cout, groups, W + rm[R_G1], W + rm[R_BE1], film_c, film_u, stats);
+  gn_mish<NB>(t1, h, cout, groups, W + rm[R_G1], W + rm[R_BE1], film_c, film_u, stats,
+              1e-5f);
   __syncthreads();
   conv<NB>(t1, h, cout, t2, h, cout, W + rm[R_W2], W + rm[R_B2], 5, 1, 2);
   zero_halo<NB>(t2, h, cout);
   __syncthreads();
-  gn_mish<NB>(t2, h, cout, groups, W + rm[R_G2], W + rm[R_BE2], nullptr, nullptr, stats);
+  gn_mish<NB>(t2, h, cout, groups, W + rm[R_G2], W + rm[R_BE2], nullptr, nullptr, stats,
+              1e-5f);
   __syncthreads();
   if (rm[R_WR] >= 0) {  // 1x1 residual conv when the channel count changes
     conv<NB>(in, h, cin, t1, h, cout, W + rm[R_WR], W + rm[R_BR], 1, 1, 0);
@@ -333,7 +336,7 @@ static __device__ float* unet_body(const int* m, const float* __restrict__ W, fl
   conv<NB>(cur, h, cf, f1, h, cf, W + m[M_FIN], W + m[M_FIN + 1], 5, 1, 2);
   __syncthreads();
   gn_mish<NB>(f1, h, cf, m[M_FIN + 4], W + m[M_FIN + 2], W + m[M_FIN + 3], nullptr, nullptr,
-              stats);
+              stats, 1e-5f);
   __syncthreads();
   return f1;
 }

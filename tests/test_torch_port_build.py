@@ -12,11 +12,11 @@ from mpc_via_diffusion_model_tpu_torch.ops import _build
 def test_every_kernel_source_is_built():
     assert sorted(_build.KERNELS) == sorted(p.stem for p in _build.CSRC.glob("*.cu"))
     assert {"unet_body.cuh", "plants.cuh", "episode.cuh"} <= {p.name for p in _build.CSRC.glob("*.cuh")}
-    assert {"ddim_chain", "ddim_episode"} <= set(_build.KERNELS)
+    assert {"ddim_chain", "ddim_episode", "fused_conv"} <= set(_build.KERNELS)
 
 
 @pytest.mark.parametrize("edit", ["unet_body.cuh", "plants.cuh", "episode.cuh", "cfg_chain.cu",
-                                  "ddim_chain.cu", "ddim_episode.cu", "flags"])
+                                  "ddim_chain.cu", "ddim_episode.cu", "fused_conv.cu", "flags"])
 def test_library_name_follows_sources_headers_and_flags(tmp_path, monkeypatch, edit):
     csrc = tmp_path / "csrc"
     shutil.copytree(_build.CSRC, csrc)

@@ -340,3 +340,31 @@ def emulate_ddim_episode_kernel(packed, t_embs, noise, coefs, consts, x0, n_cand
 
     return _emulate_episode(packed, t_embs, consts, x0, n_candidates, selection_horizon, n_steps,
                             1, lambda s: noise[s], step)
+
+
+def emulate_fused_conv_kernel(x, w, b, gamma, beta, n_groups, pre_bias=None, eps=1e-5):
+    """Runs ``csrc/fused_conv.cu``'s program in float32 numpy: per batch
+    element, x plus the pre-bias in the interior rows of a shared image in
+    the halo layout (the HALO rows above and below zeroed, the rest NaN),
+    ``conv<1>`` (k5, pad 2) into the output region, ``gn_mish<1>`` with the
+    variance as E[y^2] - mean^2 clamped at 0 and ``eps``, then the interior
+    rows out. A read of a row the kernel never wrote turns the output to NaN."""
+    halo = up.HALO
+    bsz, h, cin = x.shape
+    cout = w.shape[-1]
+    out = np.empty((bsz, h, cout), np.float32)
+    for bi in range(bsz):
+        smem = _image((h + 2 * halo) * (cin + cout) + 2 * n_groups)
+        inp = smem[:(h + 2 * halo) * cin].reshape(h + 2 * halo, cin)
+        y = smem[(h + 2 * halo) * cin:(h + 2 * halo) * (cin + cout)].reshape(h + 2 * halo, cout)
+        inp[halo:halo + h] = x[bi] + (0.0 if pre_bias is None else pre_bias[bi])
+        inp[:halo] = 0.0
+        inp[halo + h:] = 0.0
+        y[halo:halo + h] = b + sum(inp[k:k + h] @ w[k] for k in range(5))
+        v = y[halo:halo + h].reshape(h, n_groups, cout // n_groups)
+        mean = v.mean(axis=(0, 2), keepdims=True)
+        var = np.maximum((v * v).mean(axis=(0, 2), keepdims=True) - mean * mean, 0.0)
+        inv_std = np.float32(1.0) / np.sqrt(var + np.float32(eps))
+        y[halo:halo + h] = _mish(((v - mean) * inv_std).reshape(h, cout) * gamma + beta)
+        out[bi] = y[halo:halo + h]
+    return out
