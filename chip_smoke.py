@@ -12,7 +12,10 @@ each printing one line with its own seconds:
    power limit. Without a card the script exits non-zero and prints no result.
 2. build: nvcc on every ``ops/csrc/*.cu`` for sm_90a, one process per
    source, all started together, with each one's wall time and its
-   ``-Xptxas -v`` register, shared-memory and spill report.
+   ``-Xptxas -v`` register, shared-memory and spill report; the CFG episode
+   kernel's registers and spills again on one line, with the cluster
+   occupancy query (``cudaOccupancyMaxActiveClusters``) at the flagship
+   episode's shared memory for K = 1 and K = 4.
 3. kernel vs plain: the CFG chain kernel on three contexts, and the U-Net
    pass kernel on three (x, t, context, mask) draws at batch 2, each against
    its plain PyTorch version on the flagship weights at full width.
@@ -22,10 +25,11 @@ each printing one line with its own seconds:
    just after. The first 20 replans through the plain chain on the same
    noise must give the same tracks.
 5. episode, K = 1: the whole 80-replan loop as one launch of the episode
-   kernel, on phase 4's noise, against the plain episode and against
-   phase 4's tracks.
+   kernel (one cluster of 8 CTAs that splits the U-Net body by GroupNorm
+   group), on phase 4's noise, against the plain episode and against
+   phase 4's tracks; exactly one launch.
 6. episode, K = 4, selection_horizon 8: 8 replans against the plain
-   episode, the chosen candidate of every replan included.
+   episode, the chosen candidate of every replan included; one launch.
 7. bench.py's default path, the protocol ``sustained_800step_dependent_chain``:
    10 dependent 80-replan episodes through the episode kernel, each x0 the
    last episode's final state, one sync at the end; the counts are set to 0
@@ -81,7 +85,9 @@ The fused conv block and the port's ``bench_kernels``, the path that runs it:
     closed-loop cost over the expert's in ``artifacts/flagship/report.json``
     at most 1.01 and all 10 runs swinging left, the report's modality; the
     horizon cost and the parity against the stored expert tracks printed
-    beside the report's.
+    beside the report's. Then the same 10 seeds through the CFG episode
+    kernel (``flagship_parity.run_episode_quality``, 10 launches and nothing
+    else) under the same gate.
 18. timing of the conv kernel, its plain version and the three PyTorch calls
     that compute the same block, at the six shapes by CUDA events.
 
@@ -96,6 +102,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import time
 from pathlib import Path
@@ -116,9 +123,11 @@ from mpc_via_diffusion_model_tpu_torch.models import load_flagship, load_student
 from mpc_via_diffusion_model_tpu_torch.ops import _build, fused_conv1d_gn_mish
 from mpc_via_diffusion_model_tpu_torch.ops.fused_denoise import (make_fused_cfg_chain,
                                                                  make_fused_ddim_chain)
-from mpc_via_diffusion_model_tpu_torch.ops.fused_episode import (make_fused_cfg_episode,
+from mpc_via_diffusion_model_tpu_torch.ops.fused_episode import (cfg_episode_max_active_clusters,
+                                                                 make_fused_cfg_episode,
                                                                  make_fused_ddim_episode)
 from mpc_via_diffusion_model_tpu_torch.ops.fused_unet import make_fused_unet
+from mpc_via_diffusion_model_tpu_torch.ops.unet_pack import CLUSTER, pack_unet
 from mpc_via_diffusion_model_tpu_torch.scripts import bench_kernels, flagship_parity
 
 ROOT = Path(__file__).resolve().parent
@@ -228,7 +237,24 @@ def main() -> None:
     built = _build.build_all()
     for name, b in built.items():
         print(f"  {name}: nvcc {b.seconds:.3f}s -> {b.path.name}\n{b.report}", flush=True)
-    log("build", t0, f"{len(built)} libraries")
+    # the cluster episode: its registers and spills (from cuobjdump when the build was reused),
+    # and how many of its clusters fit at once
+    report = built["cfg_episode"].report or subprocess.run(
+        [str(Path(_build._nvcc()).with_name("cuobjdump")), "--dump-resource-usage",
+         str(built["cfg_episode"].path)], capture_output=True, text=True, timeout=60).stdout
+    regs = re.findall(r"Used (\d+) registers|REG:(\d+)", report)
+    spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads|LOCAL:(\d+)", report)
+    packed_cpu = pack_unet(load_flagship(FLAGSHIP, device="cpu"), "cpu")
+    ep_smem = {k: packed_cpu.episode_smem_bytes(k) for k in (1, K4)}
+    slots = {k: cfg_episode_max_active_clusters(b) for k, b in ep_smem.items()}
+    if not all(slots.values()):
+        raise RuntimeError(f"cfg_episode: no cluster of {CLUSTER} CTAs fits on the card: {slots}")
+    if not regs or not spills:
+        raise RuntimeError(f"cfg_episode: no register or spill report in\n{report}")
+    log("build", t0, f"{len(built)} libraries; cfg_episode registers "
+        f"{[int(a or b) for a, b in regs]}, spill stores and loads (or local bytes) "
+        f"{[[int(v) for v in t if v] for t in spills]}; clusters of {CLUSTER} CTAs that fit at once: "
+        + ", ".join(f"K={k} {slots[k]} at {ep_smem[k]} B per CTA" for k in slots))
 
     # 3. kernels vs plain versions, flagship weights, full width
     t0 = time.perf_counter()
@@ -301,6 +327,8 @@ def main() -> None:
     ep1 = episode(1, N_STEPS)
     got = ep1.kernel(x0, ep_noise)
     torch.cuda.synchronize()
+    if ep1.launches != 1:
+        raise RuntimeError(f"episode K=1: {ep1.launches} launches for one episode")
     t1 = time.perf_counter()
     want = ep1.plain(x0, ep_noise)
     torch.cuda.synchronize()
@@ -323,6 +351,8 @@ def main() -> None:
     noise4 = torch.randn(ep4.noise_shape, generator=gen, device=dev)
     got4 = ep4.kernel(x0, noise4)
     torch.cuda.synchronize()
+    if ep4.launches != 1:
+        raise RuntimeError(f"episode K={K4}: {ep4.launches} launches for one episode")
     want4 = ep4.plain(x0, noise4)
     torch.cuda.synchronize()
     for name, g, w_ in zip(("x_track", "u_track", "stage_costs"), got4, want4):
@@ -528,9 +558,9 @@ def main() -> None:
     args = unet_inputs[0]
     unet_ms = cuda_ms(lambda: unet.kernel(*args), n=200, warmup=10)
     unet_plain_ms = cuda_ms(lambda: unet.plain(*args), n=50, warmup=5)
-    episode_ms = cuda_ms(lambda: ep1.kernel(x0, ep_noise), n=2, warmup=0)
+    episode_ms = cuda_ms(lambda: ep1.kernel(x0, ep_noise), n=5, warmup=1)
     episode_plain_ms = cuda_ms(lambda: ep1.plain(x0, ep_noise), n=1, warmup=0)
-    episode4_ms = cuda_ms(lambda: ep4.kernel(x0, noise4), n=2, warmup=0)
+    episode4_ms = cuda_ms(lambda: ep4.kernel(x0, noise4), n=5, warmup=1)
     schain_ms = cuda_ms(lambda: schain.kernel(sctx, sx_init), n=200, warmup=10)
     schain_plain_ms = cuda_ms(lambda: schain.plain(sctx, sx_init), n=50, warmup=5)
     sep_ms = cuda_ms(lambda: sep1.kernel(x0, s_noise), n=5, warmup=1)
@@ -631,6 +661,18 @@ def main() -> None:
         raise RuntimeError(f"flagship quality: mean cost over the expert's "
                            f"{par['cost_over_expert']:.6f} (at most {FLAGSHIP_MEAN_MAX}), modality "
                            f"{par['modality']} (expected {FLAGSHIP_MODALITY})")
+    reset(*wrappers)
+    epq = flagship_parity.run_episode_quality(dev, n_seeds=N_QUALITY, n_steps=N_STEPS)
+    if counts(*wrappers) != [(0, 0)] * len(wrappers) or epq["episode_launches"] != N_QUALITY:
+        raise RuntimeError(f"flagship quality, episode: {epq['episode_launches']} episode "
+                           f"launches, counts {counts(*wrappers)}; expected {N_QUALITY} launches "
+                           f"of its own episode and nothing else")
+    if not all(math.isfinite(c) for c in epq["closed_loop_costs"]):
+        raise RuntimeError(f"flagship quality, episode: non-finite costs {epq['closed_loop_costs']}")
+    if not epq["cost_over_expert"] <= FLAGSHIP_MEAN_MAX or epq["modality"] != FLAGSHIP_MODALITY:
+        raise RuntimeError(f"flagship quality, episode: mean cost over the expert's "
+                           f"{epq['cost_over_expert']:.6f} (at most {FLAGSHIP_MEAN_MAX}), modality "
+                           f"{epq['modality']} (expected {FLAGSHIP_MODALITY})")
     log("flagship-quality", t0, f"{N_QUALITY} seeds, K=1, {N_STEPS} replans through cfg_chain "
         f"({par['chain_launches']} launches), the flagship's statistics: closed-loop costs "
         f"{[round(c, 3) for c in par['closed_loop_costs']]}; mean {par['closed_loop_cost_mean']:.3f} "
@@ -639,7 +681,11 @@ def main() -> None:
         f"{par['modality']} (report {par['modality_report']}); horizon cost mean "
         f"{par['horizon_cost_mean']:.1f} (report {par['horizon_cost_report']}, expert "
         f"{par['horizon_cost_nmpc']}); seed 0's parity with the expert's tracks "
-        f"{ {k: round(v, 5) for k, v in par['parity'].items()} } (report {par['parity_report']})")
+        f"{ {k: round(v, 5) for k, v in par['parity'].items()} } (report {par['parity_report']}); "
+        f"through cfg_episode ({epq['episode_launches']} launches): closed-loop costs "
+        f"{[round(c, 3) for c in epq['closed_loop_costs']]}; mean {epq['closed_loop_cost_mean']:.3f}, "
+        f"over the expert's {epq['cost_over_expert']:.6f} (at most {FLAGSHIP_MEAN_MAX}); modality "
+        f"{epq['modality']}")
 
     # 18. timing of the conv kernel, its plain version and the PyTorch calls of the same block
     t0 = time.perf_counter()
@@ -716,7 +762,8 @@ def main() -> None:
          "launches": episode_launches, "max_abs_err": ep_err, "ms": episode_ms,
          "plain_ms": episode_plain_ms, **bound(ep_flops, ep_bytes), "library_ms": None,
          "ms_per_replan": episode_ms / N_STEPS, "k4_ms_per_replan": episode4_ms / N_STEPS_K4,
-         "closed_loop_control_hz": control_hz},
+         "closed_loop_control_hz": control_hz, "cluster_ctas": CLUSTER,
+         "flagship_cost_over_expert": epq["cost_over_expert"]},
         {"name": "ddim_chain", "route": "cuda",
          "source": "mpc_via_diffusion_model_tpu_torch/ops/csrc/ddim_chain.cu",
          "replaces": "mpc_via_diffusion_model_tpu/ops/fused_denoise.py:164",

@@ -23,34 +23,46 @@
 // flagship shapes 1.09 GFLOP per candidate and replan, 87 GFLOP for an 80-replan episode at
 // K = 1, against about 4 MB of weights and 0.3 MB of staged noise per episode. Over the
 // whole card it is bound by operations (87 GFLOP at 67 TFLOP/s fp32 = 1.3 ms). But every
-// replan needs the state the last one left, every step of a chain the step before, and one
-// block does it all: at one SM's ~0.5 TFLOP/s an episode takes 170 ms at best, and the
-// kernel's time grows with K, since candidates run one after another.
+// replan needs the state the last one left, every step of a chain the step before, and
+// inside a U-Net pass every layer the one before: the work is a chain of small dependent
+// layers (36 MFLOP per pass of both row-sets), which one SM runs at best at its ~0.5 TFLOP/s.
 //
-// What the design does about it: the simple design first. grid = 1 block per episode; the
-// replan loop, the step loop and the candidate loop run inside the block, and every trip
-// count is fixed by the launch's arguments (no inter-block synchronisation, no cooperative
-// launch, no spin-wait). Activations reuse the chain kernel's shared-memory plan; the FiLM
-// vectors of the current step (n_res x 2 x max_c), the K candidate chains (K x H x D), the
-// state and the candidate scores sit beside it. Weights stay in device memory, served from
-// L2. A thread has 128 registers (512 threads, one block per SM), and the U-Net body's conv
-// loops need them: so the loops above the body keep little live across it, and the step's
-// coefficients and the 1x1 conv's pointers are read after the body, where they are used
-// (read before it, they made the episode take 18.9 instead of 17.7 ms per replan on the
-// H100; moving the body into a non-inlined function made it slower still, its
-// shared-memory accesses then going through generic pointers). Spreading candidates over a
-// cluster of blocks, with the plans in distributed shared memory, is later work.
+// What the design does about it: one episode is one thread-block cluster of CLUSTER = 8
+// CTAs on 8 SMs (__cluster_dims__, grid = 8), and the U-Net body is split over them by
+// output channel, one GroupNorm group per rank (unet_body_cluster.cuh): each rank computes an
+// eighth of every conv and pushes its final slices into every CTA's shared memory, with two
+// cluster barriers per residual block. Everything outside the body runs redundantly in
+// every CTA, on the same replicated data in the same order, so the 8 CTAs hold bit-identical
+// state and exchange nothing else: the affine normalize, the FiLM vectors (each rank's own
+// channels only), the final 1x1 conv, the recon and posterior lines, the unnormalize,
+// best-of-K, the stage cost and the plant step. Only rank 0 writes the tracks. The replan
+// loop, the step loop and the candidate loop run inside the cluster, every trip count is
+// fixed by the launch's arguments, and cluster barriers are the only synchronisation
+// between CTAs (the hardware co-schedules a cluster's CTAs; no grid-wide sync, no
+// cooperative launch, no spin-wait). Activations reuse the one-block plan of the other
+// kernels in every CTA; the FiLM vectors of the current step (n_res x 2 x max_c), the K
+// candidate chains (K x H x D), the state and the candidate scores sit beside it. Weights
+// stay in device memory, served from L2. The step's coefficients and the 1x1 conv's
+// pointers are read after the body, where they are used (read before it, they made the
+// one-block episode 7% slower on the H100). K candidates still run one after another.
+//
+// cfg_episode_max_active_clusters answers cudaOccupancyMaxActiveClusters at the episode's
+// shared memory: the wrapper refuses to launch when it is 0 (a card without clusters, or
+// not enough shared memory for 8 CTAs at once).
 //
 // The in-kernel FiLM and the end of each replan (unnormalize, best-of-K, stage cost, plant
 // step) are in episode.cuh, shared with ddim_episode.cu.
 
 #include "episode.cuh"
+#include "unet_body_cluster.cuh"
 
+// W is the packed buffer with the body's conv kernels rank-major (cluster_weights).
 // t_embs (n_total, temb); noise (n_steps, n_total + 1, K, H, D) with row n_total = x_T;
 // coefs (n_total, 5) = sra, srm, c1, c2, sigma * gate; consts (C_LEN); x0 (DX).
 // Outputs: x_track (n_steps + 1, DX), u_track (n_steps, DU), costs (n_steps),
-// chosen (n_steps) = index of the applied candidate, K when none was chosen.
-__global__ void __launch_bounds__(NT, 1)
+// chosen (n_steps) = index of the applied candidate, K when none was chosen. Rank 0 writes
+// the outputs.
+__global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(NT, 1)
 cfg_episode_kernel(const float* __restrict__ W, const int* __restrict__ meta,
                    const float* __restrict__ t_embs, const float* __restrict__ noise,
                    const float* __restrict__ coefs, const float* __restrict__ consts,
@@ -60,6 +72,7 @@ cfg_episode_kernel(const float* __restrict__ W, const int* __restrict__ meta,
                    float w, float wp1) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
+  const int rank = (int)cg::this_cluster().block_rank();
   const int ep_meta = __ldg(meta + M_EP_SMEM);
   const int* m = load_meta(smem, meta, ep_meta);
   const int H = m[M_H], D = m[M_D], buf = m[M_BUF];
@@ -77,9 +90,9 @@ cfg_episode_kernel(const float* __restrict__ W, const int* __restrict__ meta,
 
   if (threadIdx.x < DX) {
     xst[threadIdx.x] = __ldg(x0 + threadIdx.x);
-    x_track[threadIdx.x] = __ldg(x0 + threadIdx.x);
+    if (rank == 0) x_track[threadIdx.x] = __ldg(x0 + threadIdx.x);
   }
-  __syncthreads();
+  cg::this_cluster().sync();  // every CTA has started before any writes into its shared memory
 
   for (int step = 0; step < n_steps; ++step) {
     const float* nz_step = noise + (size_t)step * (n_total + 1) * khd;
@@ -91,7 +104,7 @@ cfg_episode_kernel(const float* __restrict__ W, const int* __restrict__ meta,
 
     for (int si = 0; si < n_total; ++si) {
       // films (n_res, 2, max_c) of the two groups: [t_emb, ctx (, 1)] and [t_emb, 0 (, 0)]
-      episode_films<2>(m, W, t_embs + (size_t)si * temb, ctx, mc, films);
+      episode_films_rank<2>(m, W, t_embs + (size_t)si * temb, ctx, mc, films, rank, CLUSTER);
       for (int k = 0; k < K; ++k) {
         float* xs = cand + (size_t)k * hd;
         float* in = smem;
@@ -101,8 +114,8 @@ cfg_episode_kernel(const float* __restrict__ W, const int* __restrict__ meta,
         }
         zero_halo<2>(in, H, D);
         __syncthreads();
-        const float* y = unet_body<2>(m, W, smem, in, smem + buf, smem + 2 * buf, films, 2, 0, 1,
-                                      stats);
+        const float* y = cunet_body<2>(m, W, smem, in, smem + buf, smem + 2 * buf, films, 2, 0, 1,
+                                       stats, rank);
         const float* w1 = W + m[M_F1];
         const float* b1 = W + m[M_F1 + 1];
         for (int i = threadIdx.x; i < 2 * hd; i += NT) {  // final 1x1 conv
@@ -112,7 +125,10 @@ cfg_episode_kernel(const float* __restrict__ W, const int* __restrict__ meta,
           for (int ci = 0; ci < cf; ++ci) acc = fmaf(yr[ci], __ldg(w1 + ci * D + d), acc);
           eps[i] = acc + __ldg(b1 + d);
         }
-        __syncthreads();
+        // The next pass pushes into the two buffers other than `in` before its first cluster
+        // barrier: when y is one of them, every CTA must have read it first.
+        if (y != in) cg::this_cluster().sync();
+        else __syncthreads();
         const float* cs = coefs + (size_t)si * 5;
         const float sra = __ldg(cs), srm = __ldg(cs + 1), c1 = __ldg(cs + 2), c2 = __ldg(cs + 3),
                     sg = __ldg(cs + 4);
@@ -131,8 +147,9 @@ cfg_episode_kernel(const float* __restrict__ W, const int* __restrict__ meta,
     }
 
     episode_finish_replan(consts, cand, score, misc, K, sel_h, H, D, step, x_track, u_track,
-                          costs, chosen);
+                          costs, chosen, rank == 0);
   }
+  cg::this_cluster().sync();  // no CTA leaves while another may still write into it
 }
 
 extern "C" {
@@ -146,11 +163,27 @@ int cfg_episode_launch(const float* W, const int* meta, int smem_bytes, const fl
   cudaError_t e = cudaFuncSetAttribute(cfg_episode_kernel,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (e != cudaSuccess) return (int)e;
-  cfg_episode_kernel<<<1, NT, smem_bytes, (cudaStream_t)stream>>>(
+  cfg_episode_kernel<<<CLUSTER, NT, smem_bytes, (cudaStream_t)stream>>>(
       W, meta, t_embs, noise, coefs, consts, x0, x_track, u_track, costs, chosen, n_steps,
       n_total, K, sel_h, w, wp1);
   return (int)cudaGetLastError();
 }
+
+// cudaOccupancyMaxActiveClusters for one episode's cluster at smem_bytes of dynamic shared
+// memory per CTA, into *n_clusters; returns the CUDA error code (0 = answered).
+int cfg_episode_max_active_clusters(int smem_bytes, int* n_clusters) {
+  *n_clusters = 0;
+  cudaError_t e = cudaFuncSetAttribute(cfg_episode_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(CLUSTER);
+  config.blockDim = dim3(NT);
+  config.dynamicSmemBytes = smem_bytes;  // the cluster shape is the kernel's __cluster_dims__
+  return (int)cudaOccupancyMaxActiveClusters(n_clusters, (void*)cfg_episode_kernel, &config);
+}
+
+int cfg_episode_cluster_size(void) { return CLUSTER; }
 
 const char* cfg_episode_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 

@@ -34,15 +34,12 @@ typedef CartpoleSwingup Plant;
 #define X_BEST 24
 #define MISC_LEN 32
 
-// FiLM biases of one denoising step for G groups, into films (n_res, G, max_c) via mc
-// (G, cond_dim): group 0 is [t_emb, ctx, 1], group 1 (the CFG episode's unconditional
-// rows) [t_emb, 0, 0]; the trailing bit exists for cfg_indicator models only. Each
-// ResidualTemporalBlock's Dense is mish(c_emb) @ Wf_r + bf_r; channels past its width are 0.
+// mish(c_emb) of G groups into mc (G, cond_dim): group 0 is [t_emb, ctx, 1], group 1 (the
+// CFG episode's unconditional rows) [t_emb, 0, 0]; the trailing bit exists for
+// cfg_indicator models only.
 template <int G>
-static __device__ void episode_films(const int* m, const float* __restrict__ W,
-                                     const float* __restrict__ t_emb, const float* ctx,
-                                     float* mc, float* films) {
-  const int n_res = m[M_NRES], maxc = m[M_MAXC];
+static __device__ void episode_film_inputs(const int* m, const float* __restrict__ t_emb,
+                                           const float* ctx, float* mc) {
   const int cond = m[M_COND], temb = m[M_TEMB], dctx = m[M_CTX];
   for (int i = threadIdx.x; i < G * cond; i += NT) {
     const int g = i / cond, j = i - g * cond;
@@ -53,6 +50,17 @@ static __device__ void episode_films(const int* m, const float* __restrict__ W,
     mc[i] = mish_f(v);
   }
   __syncthreads();
+}
+
+// FiLM biases of one denoising step for G groups, into films (n_res, G, max_c) via mc
+// (episode_film_inputs). Each ResidualTemporalBlock's Dense is mish(c_emb) @ Wf_r + bf_r;
+// channels past its width are 0.
+template <int G>
+static __device__ void episode_films(const int* m, const float* __restrict__ W,
+                                     const float* __restrict__ t_emb, const float* ctx,
+                                     float* mc, float* films) {
+  const int n_res = m[M_NRES], maxc = m[M_MAXC], cond = m[M_COND];
+  episode_film_inputs<G>(m, t_emb, ctx, mc);
   for (int i = threadIdx.x; i < n_res * G * maxc; i += NT) {
     const int ch = i % maxc, rg = i / maxc, g = rg % G, r = rg / G;
     float acc = 0.f;
@@ -66,6 +74,29 @@ static __device__ void episode_films(const int* m, const float* __restrict__ W,
   __syncthreads();
 }
 
+// episode_films for the cluster body (unet_body_cluster.cuh): only the channels of each
+// block that rank `rank` of CLUSTER owns, [rank * cout / CLUSTER, (rank + 1) * cout / CLUSTER),
+// are written; the rest of films is left as it is.
+template <int G>
+static __device__ void episode_films_rank(const int* m, const float* __restrict__ W,
+                                          const float* __restrict__ t_emb, const float* ctx,
+                                          float* mc, float* films, int rank, int n_ranks) {
+  const int n_res = m[M_NRES], maxc = m[M_MAXC], cond = m[M_COND];
+  episode_film_inputs<G>(m, t_emb, ctx, mc);
+  const int per = maxc / n_ranks;  // the most channels a rank owns in one block
+  for (int i = threadIdx.x; i < n_res * G * per; i += NT) {
+    const int j = i % per, rg = i / per, g = rg % G, r = rg / G;
+    const int nc = m[M_RES + r * RES_STRIDE + R_COUT] / n_ranks;
+    if (j >= nc) continue;
+    const int ch = rank * nc + j;
+    float acc = __ldg(W + m[M_FB] + (size_t)r * maxc + ch);
+    const float* fw = W + m[M_FW] + (size_t)r * cond * maxc + ch;
+    for (int q = 0; q < cond; ++q) acc = fmaf(mc[g * cond + q], __ldg(fw + (size_t)q * maxc), acc);
+    films[((size_t)r * G + g) * maxc + ch] = acc;
+  }
+  __syncthreads();
+}
+
 // The end of one replan, once the K normalized plans (K, H, D) are in cand, in the JAX
 // episodes' order:
 //   u_k   = clip(x_k, -1, 1) * u_scale + u_shift            unnormalize every plan
@@ -73,11 +104,12 @@ static __device__ void episode_films(const int* m, const float* __restrict__ W,
 //         selection cost (terminal cost only when the whole plan is scored); first-min
 //         argmin as a one-hot: a NaN score leaves it all zeros, so u0 = sum_k 0 * u_k[0]
 //   stage = sum_i (q_i x_i) x_i + (r u0) u0;  x <- plant.step(x, u0)
-// and writes the step's row of the tracks.
+// and, when `writer`, writes the step's row of the tracks. The CTAs of a cluster all hold the
+// same plans and state and all run it, each updating its own state; one of them writes.
 static __device__ void episode_finish_replan(
     const float* __restrict__ consts, float* cand, float* score, float* misc, int K, int sel_h,
     int H, int D, int step, float* __restrict__ x_track, float* __restrict__ u_track,
-    float* __restrict__ costs, int* __restrict__ chosen) {
+    float* __restrict__ costs, int* __restrict__ chosen, bool writer = true) {
   float* xst = misc + X_STATE;
   float* u0 = misc + X_U0;
   const int hd = H * D, khd = K * hd;
@@ -133,11 +165,13 @@ static __device__ void episode_finish_replan(
     Plant::step(xst, u0, __ldg(consts + C_DT), xn);
     for (int i = 0; i < DX; ++i) {
       xst[i] = xn[i];
-      x_track[(size_t)(step + 1) * DX + i] = xn[i];
+      if (writer) x_track[(size_t)(step + 1) * DX + i] = xn[i];
     }
-    for (int j = 0; j < DU; ++j) u_track[(size_t)step * DU + j] = u0[j];
-    costs[step] = stage;
-    chosen[step] = best;
+    if (writer) {
+      for (int j = 0; j < DU; ++j) u_track[(size_t)step * DU + j] = u0[j];
+      costs[step] = stage;
+      chosen[step] = best;
+    }
   }
   __syncthreads();
 }

@@ -12,6 +12,16 @@ a CUDA device and runs its ``plain`` version when they lie on the CPU. On a
 CUDA tensor it launches the kernel or raises: it never falls back to the
 plain version.
 
+The CFG episode kernel is a thread-block cluster of 8 CTAs that splits the
+U-Net body by output channel, one GroupNorm group per CTA
+(``csrc/unet_body_cluster.cuh``): it needs a card with clusters (sm_90), and
+a model whose convs and GroupNorms ``unet_pack.cluster_split`` accepts,
+which the maker checks. Before its first launch the wrapper asks CUDA
+(``cudaOccupancyMaxActiveClusters``) how many such clusters fit on the card
+at the episode's shared memory, and raises when none does.
+``cluster_split_features`` is the body computed as the 8 CTAs compute it,
+in plain PyTorch, for the tests.
+
 ``noise`` is staged per replan as the port's ``make_closed_loop`` takes it
 from the matching sampler. The CFG episode's is (n_steps, n_total + 1, K, H,
 du): per replan ``[0]`` is x_T and ``[1 + s]`` is injected at step s; the
@@ -42,18 +52,22 @@ from typing import Callable, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..core.schedules import DiffusionSchedule
 from ..data.normalization import NormalizerStats
 from ..diffusion.distillation import make_student_ddim_sampler
 from ..dynamics.base import Plant, QuadraticCost
+from ..models.layers import mish
 from ..models.temporal_unet import TemporalUnet
 from . import _build
 from .fused_denoise import ddim_step_coefficients, refuse_unported_ddim_options, step_coefficients
-from .unet_pack import M_LEN, SMEM_LIMIT, PackedUnet, packed_on
+from .unet_pack import (CLUSTER, M_LEN, SMEM_LIMIT, PackedUnet, cluster_split, cluster_weights,
+                        packed_on)
 
 __all__ = ["FusedCfgEpisode", "FusedDdimEpisode", "make_fused_cfg_episode",
-           "make_fused_ddim_episode", "affine_consts", "episode_choice"]
+           "make_fused_ddim_episode", "affine_consts", "episode_choice",
+           "cfg_episode_max_active_clusters", "cluster_split_features"]
 
 KERNEL_PLANTS = ("cartpole_virtual_swingup",)  # plants written in csrc/plants.cuh
 _QUERIES = ("consts_len", "plant_dims")
@@ -63,8 +77,27 @@ _QUERIES = ("consts_len", "plant_dims")
 def _cfg_lib() -> ctypes.CDLL:
     """The built ``csrc/cfg_episode.cu``."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    return _build.bind("cfg_episode", [p, p, i, p, p, p, p, p, p, p, p, p, i, i, i, i, f, f, p],
-                       M_LEN, _QUERIES)
+    lib = _build.bind("cfg_episode", [p, p, i, p, p, p, p, p, p, p, p, p, i, i, i, i, f, f, p],
+                      M_LEN, _QUERIES + ("cluster_size",))
+    lib.cfg_episode_max_active_clusters.argtypes = [i, ctypes.POINTER(i)]
+    lib.cfg_episode_max_active_clusters.restype = i
+    if lib.cfg_episode_cluster_size() != CLUSTER:
+        raise RuntimeError("cfg_episode.cu and ops/unet_pack.py disagree on the cluster size")
+    return lib
+
+
+def cfg_episode_max_active_clusters(smem_bytes: int) -> int:
+    """How many clusters of the CFG episode kernel fit on the current CUDA
+    device at once with ``smem_bytes`` of dynamic shared memory per CTA
+    (``cudaOccupancyMaxActiveClusters``); raises with CUDA's text when the
+    query fails. Builds the kernel first if needed."""
+    lib = _cfg_lib()
+    n = ctypes.c_int(0)
+    err = lib.cfg_episode_max_active_clusters(int(smem_bytes), ctypes.byref(n))
+    if err != 0:
+        raise RuntimeError("cudaOccupancyMaxActiveClusters failed for the cfg_episode kernel: "
+                           f"{lib.cfg_episode_error_string(err).decode()}")
+    return n.value
 
 
 @functools.lru_cache(maxsize=None)
@@ -118,6 +151,7 @@ class _Episode:
                  n_steps: int, n_candidates: int, selection_cost: QuadraticCost,
                  selection_horizon: int, coefs: np.ndarray, t_eval: np.ndarray):
         self.packed, self.model = packed, packed.model
+        self.weights = packed.weights  # the buffer the kernel reads
         self.plant, self.n_steps = plant, int(n_steps)
         self.n_candidates, self.selection_horizon = int(n_candidates), int(selection_horizon)
         device = packed.weights.device
@@ -179,7 +213,7 @@ class _Episode:
         x0 = x0.contiguous()
         _build.launch(
             lib, self.name,
-            self.packed.weights.data_ptr(), self.packed.meta.data_ptr(), self.smem_bytes,
+            self.weights.data_ptr(), self.packed.meta.data_ptr(), self.smem_bytes,
             self.t_embs.data_ptr(), noise_tab.data_ptr(), self.coefs.data_ptr(),
             self.consts.data_ptr(), x0.data_ptr(), x_track.data_ptr(), u_track.data_ptr(),
             costs.data_ptr(), chosen.data_ptr(), self.n_steps, self.n_total, self.n_candidates,
@@ -255,6 +289,9 @@ class FusedCfgEpisode(_Episode):
                          n_candidates, selection_cost, selection_horizon,
                          *step_coefficients(schedule, n_tail))
         self.w = float(w)
+        self.split = cluster_split(packed)  # raises for a body the cluster cannot split
+        self.weights = cluster_weights(packed, self.split)  # the kernel's rank-major copy
+        self._cluster_slots = None  # clusters that fit, asked before the first launch
 
     @property
     def noise_shape(self) -> Tuple[int, ...]:
@@ -263,8 +300,17 @@ class FusedCfgEpisode(_Episode):
 
     @torch.no_grad()
     def kernel(self, x0: torch.Tensor, noise: torch.Tensor):
-        """Launch ``csrc/cfg_episode.cu`` on the current stream."""
+        """Launch ``csrc/cfg_episode.cu``, one cluster of 8 CTAs, on the
+        current stream; raises when no such cluster fits on the card."""
         self._check(x0, noise)
+        if x0.is_cuda and self._cluster_slots is None:
+            slots = cfg_episode_max_active_clusters(self.smem_bytes)
+            if not slots:
+                raise RuntimeError(
+                    f"no cluster of {CLUSTER} CTAs with {self.smem_bytes} B of shared memory each "
+                    f"fits on {torch.cuda.get_device_name(x0.device)}: the cfg_episode kernel "
+                    "needs thread-block clusters (sm_90)")
+            self._cluster_slots = slots
         noise_tab = torch.cat([noise[:, 1:], noise[:, :1]], dim=1).contiguous()
         return self._launch(_cfg_lib, x0, noise_tab, self.w, float(np.float32(1.0 + self.w)))
 
@@ -291,6 +337,56 @@ class FusedCfgEpisode(_Episode):
             return u
 
         return self._plain_loop(x0, noise, sample)
+
+
+def cluster_split_features(model: TemporalUnet, x: torch.Tensor, c: torch.Tensor,
+                           n_ranks: int = CLUSTER) -> torch.Tensor:
+    """``model.features(x, c)`` computed as the cluster episode kernel's
+    ``n_ranks`` CTAs compute it (``csrc/unet_body_cluster.cuh``): every conv
+    and every GroupNorm per output-channel slice, each slice from the full
+    input, one GroupNorm group per slice, then the slices concatenated, which
+    is what the CTAs' pushes into each other's shared memory assemble. x (B,
+    H, D), c (B, cond_dim) -> (B, H, unet_input_dim). Runs nothing of the
+    kernel; the model must pass ``unet_pack.cluster_split``'s checks."""
+
+    def ranks(f, n_out):
+        nc = n_out // n_ranks
+        return torch.cat([f(slice(r * nc, (r + 1) * nc)) for r in range(n_ranks)], dim=1)
+
+    def conv(m, h):
+        return ranks(lambda sl: F.conv1d(h, m.weight[sl], m.bias[sl], m.stride, m.padding),
+                     m.out_channels)
+
+    def conv_block(blk, h):  # Conv1d -> GroupNorm -> Mish, one group per rank
+        cv, gn = blk.block[0], blk.block[2]
+        if gn.num_groups != n_ranks:
+            raise ValueError(f"{gn.num_groups} GroupNorm groups, not one per rank of {n_ranks}")
+        y = conv(cv, h)
+        return ranks(lambda sl: mish(F.group_norm(y[:, sl], 1, gn.weight[sl], gn.bias[sl],
+                                                  gn.eps)), cv.out_channels)
+
+    def res_block(rb, h):
+        film = rb.cond_mlp(c)
+        y = conv_block(rb.blocks[0], h) + film[:, :, None]
+        y = conv_block(rb.blocks[1], y)
+        res = conv(rb.residual_conv, h) if isinstance(rb.residual_conv, torch.nn.Conv1d) else h
+        return y + res
+
+    h = x.transpose(1, 2)
+    skips = []
+    for rb1, rb2, _, _, down in model.downs:
+        h = res_block(rb2, res_block(rb1, h))
+        skips.append(h)
+        if isinstance(down, torch.nn.Identity):
+            continue
+        h = conv(down.conv, h)
+    h = res_block(model.mid_block2, res_block(model.mid_block1, h))
+    for rb1, rb2, _, _, up in model.ups:
+        h = res_block(rb2, res_block(rb1, torch.cat([h, skips.pop()], dim=1)))
+        ct = up.conv
+        h = ranks(lambda sl: F.conv_transpose1d(h, ct.weight[:, sl], ct.bias[sl], ct.stride,
+                                                ct.padding), ct.out_channels)
+    return conv_block(model.final_conv[0], h).transpose(1, 2)
 
 
 class FusedDdimEpisode(_Episode):

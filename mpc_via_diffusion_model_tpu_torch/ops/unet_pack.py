@@ -38,12 +38,14 @@ from ..models.layers import group_norm_n_groups
 from ..models.temporal_unet import TemporalUnet
 from ..utils.device import resolve_device
 
-__all__ = ["PackedUnet", "pack_unet", "packed_on", "align4"]
+__all__ = ["PackedUnet", "pack_unet", "packed_on", "align4", "ClusterSplit", "cluster_split",
+           "cluster_weights", "CLUSTER"]
 
 HALO = 2
 MAX_LEVELS = 4
 MAX_RES = 4 * MAX_LEVELS
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper
+CLUSTER = 8  # CTAs of the CFG episode kernel's cluster (csrc/unet_body_cluster.cuh)
 
 # meta layout; ops/csrc/unet_body.cuh mirrors every index below
 (M_H, M_D, M_NLEV, M_NRES, M_MAXC, M_BUF, M_XS, M_EPS, M_STATS, M_SMEM) = range(10)
@@ -84,10 +86,11 @@ class PackedUnet:
     flops_final_1x1: int           # of which the final 1x1 conv, outside the U-Net pass kernel
 
     def episode_smem_bytes(self, n_candidates: int) -> int:
-        """Dynamic shared memory of one block of either episode kernel. The
-        DDIM episode runs one row-set: its one FiLM group fills the first
-        n_res x max_c floats of the FiLM region (M_EP_FILM), and the first
-        cond_dim of the mish(c_emb) region (M_EP_MC)."""
+        """Dynamic shared memory of one block of either episode kernel, and of
+        each CTA of the CFG episode's cluster. The DDIM episode runs one
+        row-set: its one FiLM group fills the first n_res x max_c floats of
+        the FiLM region (M_EP_FILM), and the first cond_dim of the
+        mish(c_emb) region (M_EP_MC)."""
         m = self.meta
         n = (int(m[M_EP_SMEM]) + align4(M_LEN) + align4(n_candidates * self.horizon * self.state_dim)
              + align4(n_candidates))
@@ -268,6 +271,75 @@ def packed_on(model_or_packed: Union[TemporalUnet, PackedUnet], device=None) -> 
             raise ValueError(f"the packed U-Net lies on {model_or_packed.weights.device}, not {dev}")
         return model_or_packed
     return pack_unet(model_or_packed.to(dev).eval(), dev)
+
+
+@dataclasses.dataclass(frozen=True)
+class ClusterSplit:
+    """How ``csrc/unet_body_cluster.cuh`` splits the U-Net body over the
+    ``n_ranks`` CTAs of a cluster: every conv by output channel, rank r
+    owning ``[r * cout / n_ranks, (r + 1) * cout / n_ranks)``, so that with
+    ``n_ranks`` GroupNorm groups a rank's channels are one group.
+    ``convs`` maps the packed segment of each conv kernel (``res{r}.w1``,
+    ``res{r}.w2``, ``res{r}.wr``, ``down{l}.w``, ``up{j}.w``, ``final.w``) to
+    its output channels, ``norms`` that of each GroupNorm's gamma
+    (``res{r}.g1``, ``res{r}.g2``, ``final.g``) to (channels, groups)."""
+    n_ranks: int
+    convs: Dict[str, int]
+    norms: Dict[str, Tuple[int, int]]
+
+    def channels(self, name: str, rank: int) -> range:
+        """The output channels of conv or GroupNorm ``name`` that ``rank`` computes."""
+        c = self.convs[name] if name in self.convs else self.norms[name][0]
+        nc = c // self.n_ranks
+        return range(rank * nc, (rank + 1) * nc)
+
+
+def cluster_split(packed: PackedUnet, n_ranks: int = CLUSTER) -> ClusterSplit:
+    """The cluster episode's split of ``packed``'s body, read from its meta
+    table as the kernel reads it. Raises ``ValueError`` unless ``n_ranks``
+    divides every conv's output channels and every GroupNorm has exactly
+    ``n_ranks`` groups: the kernel keeps each group inside one CTA."""
+    m = packed.meta.cpu().numpy()
+    n_levels, dims = int(m[M_NLEV]), [int(v) for v in m[M_DIMS:M_DIMS + int(m[M_NLEV]) + 1]]
+    convs, norms = {}, {}
+    for r in range(int(m[M_NRES])):
+        rm = m[M_RES + r * RES_STRIDE:]
+        cout, groups = int(rm[R_COUT]), int(rm[R_GROUPS])
+        convs[f"res{r}.w1"] = convs[f"res{r}.w2"] = cout
+        if rm[R_WR] >= 0:
+            convs[f"res{r}.wr"] = cout
+        norms[f"res{r}.g1"] = norms[f"res{r}.g2"] = (cout, groups)
+    for lvl in range(n_levels - 1):
+        convs[f"down{lvl}.w"] = dims[lvl + 1]
+        convs[f"up{lvl}.w"] = dims[n_levels - 1 - lvl]  # the lvl-th upsample
+    convs["final.w"] = dims[1]
+    norms["final.g"] = (dims[1], int(m[M_FIN + 4]))
+    for name, c in convs.items():
+        if c % n_ranks:
+            raise ValueError(f"the cluster episode splits every conv over {n_ranks} CTAs: {name} "
+                             f"has {c} output channels")
+    for name, (c, groups) in norms.items():
+        if groups != n_ranks:
+            raise ValueError(f"the cluster episode keeps one GroupNorm group per CTA: {name} has "
+                             f"{groups} groups over {c} channels, not {n_ranks}")
+    return ClusterSplit(n_ranks, convs, norms)
+
+
+def cluster_weights(packed: PackedUnet, split: ClusterSplit) -> torch.Tensor:
+    """The packed buffer as the cluster episode kernel reads it: every conv
+    kernel of the body, (rows, cout) with rows = k * C_in, stored rank-major
+    as (n_ranks, rows, cout / n_ranks) at its own offset, so that each rank's
+    slice is one dense block and neighbouring lanes read neighbouring
+    weights; every other segment as it is. The flax layout (C_out fastest)
+    leaves a rank 4-16 channels of every row, a 16-64 byte piece of each
+    128-byte line."""
+    w = packed.weights.clone()
+    for name in split.convs:
+        off, shape = packed.segments[name]
+        cout, n = shape[-1], int(np.prod(shape))
+        seg = w[off:off + n].view(n // cout, split.n_ranks, cout // split.n_ranks)
+        w[off:off + n] = seg.transpose(0, 1).reshape(-1)
+    return w
 
 
 def _res_heights(hs, n_levels):

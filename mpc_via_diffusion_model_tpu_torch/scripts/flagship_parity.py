@@ -15,7 +15,9 @@ numbers: the mean closed-loop cost against the diffusion controller's and the
 expert's, their ratio to the expert's, the mean horizon cost, the modality,
 and ``track_parity`` of seed 0 against the stored expert tracks
 (``x_mpc.npy``, ``u_mpc.npy``). The draws are torch's, not JAX's, so the
-comparison is distributional.
+comparison is distributional. ``run_episode_quality`` runs the same ten
+loops through the CFG episode kernel (one launch of 80 replans per seed) for
+``chip_smoke.py``, with the closed-loop costs and the modality.
 """
 from __future__ import annotations
 
@@ -35,6 +37,7 @@ from ..diffusion import GaussianDiffusion
 from ..dynamics import cartpole_virtual_cost, cartpole_virtual_swingup, theta_to_red_theta
 from ..models import load_flagship
 from ..ops.fused_denoise import make_fused_cfg_chain
+from ..ops.fused_episode import make_fused_cfg_episode
 from ..utils.device import resolve_device
 
 ARTIFACTS = Path(__file__).resolve().parents[2] / "artifacts" / "flagship"
@@ -77,6 +80,37 @@ def run_parity(device=None, n_seeds: int = 10, n_steps: int = 80) -> dict:
         "modality": count_swing_modes(torch.stack([r.x_track for r in runs])),
         "modality_report": report["modality"],
         "parity": track_parity(runs[0], expert), "parity_report": report["parity"],
+    }
+
+
+def run_episode_quality(device=None, n_seeds: int = 10, n_steps: int = 80) -> dict:
+    """The protocol's K = 1 loops through the CFG episode kernel on
+    ``device`` (``cuda`` unless given; its plain version on the CPU), each
+    seed's staged noise one draw of a ``torch.Generator`` seeded with its
+    index: the closed-loop costs, their mean over the expert's and the
+    modality, beside the report's. ``episode_launches`` counts the kernel's
+    launches."""
+    dev = resolve_device(device)
+    model = load_flagship(ARTIFACTS / "ema_params.pkl", device=dev)
+    inputs_stats, condition_stats = flagship_stats()
+    ep = make_fused_cfg_episode(model, make_schedule("exponential", T), inputs_stats,
+                                condition_stats, cartpole_virtual_swingup(), cartpole_virtual_cost(),
+                                n_steps=n_steps, w=W, n_diffusion_steps_without_noise=N_TAIL,
+                                device=dev)
+    x0 = torch.tensor([0.0, 0.0, 3.0, 0.0, theta_to_red_theta(3.0)], device=dev)
+    runs = [ep(x0, torch.randn(ep.noise_shape, generator=torch.Generator(device=dev).manual_seed(seed),
+                               device=dev)) for seed in range(n_seeds)]
+    report = json.loads((ARTIFACTS / "report.json").read_text())
+    closed_loop = [costs.double().sum().item() for _, _, costs in runs]
+    mean = float(np.mean(closed_loop))
+    return {
+        "device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
+        "seeds": n_seeds, "n_steps": n_steps, "episode_launches": ep.launches,
+        "closed_loop_costs": closed_loop, "closed_loop_cost_mean": mean,
+        "closed_loop_cost_nmpc": report["closed_loop_cost_nmpc"],
+        "cost_over_expert": mean / report["closed_loop_cost_nmpc"],
+        "modality": count_swing_modes(torch.stack([x for x, _, _ in runs])),
+        "modality_report": report["modality"],
     }
 
 

@@ -1,0 +1,251 @@
+"""The CFG episode kernel's cluster split (ops/csrc/unet_body_cluster.cuh) on
+the CPU: the U-Net body computed as its 8 CTAs compute it, one output-channel
+slice and one GroupNorm group per rank, against the plain ``TemporalUnet``
+body; the split's plan in ``ops/unet_pack.py``; and the kernel's program
+emulated in numpy over 8 shared-memory images, with every push between two
+cluster barriers checked for races. The CUDA checks are marked ``gpu``.
+"""
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from mpc_via_diffusion_model_tpu_torch.core import make_schedule
+from mpc_via_diffusion_model_tpu_torch.data import NormalizerStats
+from mpc_via_diffusion_model_tpu_torch.dynamics import (cartpole_virtual_cost,
+                                                        cartpole_virtual_swingup,
+                                                        theta_to_red_theta)
+from mpc_via_diffusion_model_tpu_torch.models import TemporalUnet, load_flagship
+from mpc_via_diffusion_model_tpu_torch.ops import unet_pack as up
+from mpc_via_diffusion_model_tpu_torch.ops.fused_episode import (cfg_episode_max_active_clusters,
+                                                                 cluster_split_features,
+                                                                 make_fused_cfg_episode)
+from torch_port_util import emulate_cfg_episode_kernel
+
+torch.set_num_threads(1)
+
+FLAGSHIP = Path(__file__).resolve().parents[1] / "artifacts" / "flagship" / "ema_params.pkl"
+X0 = np.array([0.0, 0.0, 3.0, 0.0, theta_to_red_theta(3.0)], np.float32)
+W = 0.01
+
+
+def _seeded_unet(seed: int = 3, **kw) -> TemporalUnet:
+    cfg = dict(state_dim=1, n_support_points=16, unet_input_dim=8, dim_mults=(1, 2, 4),
+               context_dim=5, cfg_indicator=True)
+    cfg.update(kw)
+    torch.manual_seed(seed)
+    tm = TemporalUnet(**cfg).eval()
+    rng = np.random.RandomState(seed)
+    with torch.no_grad():  # GroupNorm's affine and the biases drawn too, not left at 1 and 0
+        for p in tm.parameters():
+            p.copy_(torch.from_numpy((rng.randn(*p.shape) * 0.3).astype(np.float32)))
+    return tm
+
+
+def _model(which: str) -> TemporalUnet:
+    return load_flagship(FLAGSHIP, device="cpu") if which == "flagship" else _seeded_unet()
+
+
+def _stats():
+    return (NormalizerStats("limits", torch.full((1,), -30.0), torch.full((1,), 30.0)),
+            NormalizerStats("limits", torch.full((5,), -10.0), torch.full((5,), 10.0)))
+
+
+def _episode(tm, k=1, n_steps=1, t=2, n_tail=1, sel_h=None, device="cpu"):
+    ins, cs = _stats()
+    return make_fused_cfg_episode(tm, make_schedule("exponential", t), ins, cs,
+                                  cartpole_virtual_swingup(), cartpole_virtual_cost(),
+                                  n_steps=n_steps, w=W, n_diffusion_steps_without_noise=n_tail,
+                                  n_candidates=k, selection_horizon=sel_h, device=device)
+
+
+@pytest.mark.parametrize("which", ["flagship", "small"])
+def test_cluster_split_body_matches_temporal_unet(which):
+    """Every conv and GroupNorm per rank's output-channel slice from the
+    full input, the slices concatenated, equals the plain body: one group
+    per rank, so no statistic crosses a slice (atol 1e-6). In float64: the
+    split is exact in real arithmetic, and torch's CPU convs sum a slice of
+    one channel in another order than a full layer, which in float32 alone
+    reaches 1e-6 on the small model's drawn weights."""
+    tm = _model(which).double()
+    rng = np.random.RandomState(0)
+    h = tm.n_support_points
+    x = torch.from_numpy(rng.randn(2, h, 1))
+    c = torch.from_numpy(rng.randn(2, tm.time_emb_dim + tm.context_dim + 1))  # [t_emb, ctx, bit]
+    with torch.no_grad():
+        got, want = cluster_split_features(tm, x, c), tm.features(x, c)
+    assert got.shape == (2, h, tm.unet_input_dim)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("which", ["flagship", "small"])
+def test_cluster_split_plan_channel_ranges(which):
+    """The plan names every conv of the body, and the 8 ranks' channel
+    ranges of each tile its output channels in rank order."""
+    tm = _model(which)
+    split = up.cluster_split(up.pack_unet(tm, "cpu"))
+    n_res, n_lev = len(tm.res_blocks()), len(tm.in_out)
+    n_wr = sum(isinstance(rb.residual_conv, torch.nn.Conv1d) for rb in tm.res_blocks())
+    assert split.n_ranks == up.CLUSTER == 8
+    assert len(split.convs) == 2 * n_res + n_wr + 2 * (n_lev - 1) + 1
+    assert split.convs["final.w"] == tm.unet_input_dim
+    assert split.convs["down0.w"] == tm.in_out[0][1] and split.convs["up0.w"] == tm.in_out[-1][0]
+    for name, cout in split.convs.items():  # each names the packed kernel it splits
+        assert up.pack_unet(tm, "cpu").segments[name][1][-1] == cout, name
+    for name, cout in split.convs.items():
+        got = [ch for r in range(8) for ch in split.channels(name, r)]
+        assert got == list(range(cout)), name
+        assert all(len(split.channels(name, r)) == cout // 8 for r in range(8))
+
+
+@pytest.mark.parametrize("which", ["flagship", "small"])
+def test_cluster_split_group_is_the_rank_slice(which):
+    """Each GroupNorm's group g is exactly rank g's channel slice."""
+    tm = _model(which)
+    split = up.cluster_split(up.pack_unet(tm, "cpu"))
+    assert len(split.norms) == 2 * len(tm.res_blocks()) + 1
+    for name, (c, groups) in split.norms.items():
+        assert groups == 8, name
+        for g in range(groups):
+            group = range(g * c // groups, (g + 1) * c // groups)
+            assert split.channels(name, g) == group, (name, g)
+
+
+@pytest.mark.parametrize("case", ["width_12", "width_4", "groups_16"])
+def test_cluster_split_refuses_what_8_ranks_cannot_split(case):
+    """A width that 8 does not divide, or a GroupNorm without 8 groups,
+    raises ValueError in the plan and in the episode maker: no fallback."""
+    if case == "groups_16":
+        tm = _seeded_unet(unet_input_dim=32, dim_mults=(1, 2))
+        tm.final_conv[0].block[2].num_groups = 16
+        match = "16 groups"
+    else:
+        tm = _seeded_unet(unet_input_dim=int(case.split("_")[1]), dim_mults=(1, 2))
+        match = "output channels"
+    with pytest.raises(ValueError, match=match):
+        up.cluster_split(up.pack_unet(tm, "cpu"))
+    with pytest.raises(ValueError, match=match):
+        _episode(tm)
+
+
+@pytest.mark.parametrize("k", [1, 4])
+def test_cluster_episode_shared_memory_under_limit(k):
+    """Each CTA holds the whole one-block plan (replicated activations,
+    skips, halos) plus the episode's regions: at the flagship's widths and
+    K = 1 or 4 it fits one block's shared memory."""
+    ep = _episode(load_flagship(FLAGSHIP, device="cpu"), k=k)
+    assert ep.smem_bytes == ep.packed.episode_smem_bytes(k) <= up.SMEM_LIMIT
+    assert ep.split.n_ranks == 8
+
+
+@pytest.mark.parametrize("dim_mults,k,sel_h", [((1, 2), 1, None), ((1, 2, 4), 3, 5)])
+def test_cluster_program_is_race_free_and_matches_plain(dim_mults, k, sel_h):
+    """The kernel's program on 8 NaN-filled images: every push lands where
+    no CTA reads or writes between the same two cluster barriers, all 8 CTAs
+    end with the same activations, and the tracks equal the plain episode's.
+    29 barriers per pass at three levels (2 per residual block, 1 per down-
+    and upsample, 1 for the final block); at two levels the output lands in
+    a buffer the next pass pushes into, so one more (19 + 1)."""
+    tm = _seeded_unet(n_support_points=8, dim_mults=dim_mults)
+    n_steps, t, n_tail = 2, 2, 1
+    ep = _episode(tm, k=k, n_steps=n_steps, t=t, n_tail=n_tail, sel_h=sel_h)
+    noise = torch.from_numpy(np.random.RandomState(k).randn(*ep.noise_shape).astype(np.float32))
+    want = ep.plain(torch.from_numpy(X0), noise)
+    noise_tab = torch.cat([noise[:, 1:], noise[:, :1]], dim=1).numpy()
+    *got, barriers = emulate_cfg_episode_kernel(ep.packed, ep.weights, ep.t_embs.numpy(), noise_tab,
+                                                ep.coefs.numpy(), ep.consts.numpy(), X0, W, k,
+                                                ep.selection_horizon, n_steps)
+    for name, g, w_ in zip(("x_track", "u_track", "stage_costs"), got, want):
+        np.testing.assert_allclose(g, w_.numpy(), rtol=1e-4, atol=1e-4, err_msg=name)
+    np.testing.assert_array_equal(got[3], want[3].numpy())
+    per_pass = 29 if len(dim_mults) == 3 else 20
+    assert barriers == per_pass * n_steps * (t + n_tail) * k
+
+
+@pytest.mark.gpu
+def test_cluster_occupancy_query_on_gpu():
+    """At the flagship episode's shared memory a cluster of 8 CTAs fits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the cluster occupancy query runs on the card")
+    ep = _episode(load_flagship(FLAGSHIP, device="cuda"), device="cuda")
+    assert cfg_episode_max_active_clusters(ep.smem_bytes) >= 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 4])
+def test_cluster_episode_kernel_matches_plain_on_gpu(k):
+    """The cluster kernel against the plain episode at full width, 2 replans
+    of the 25 + 5 chain (chip_smoke.py's TRACK_TOL, 1e-3), one launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    ep = _episode(load_flagship(FLAGSHIP, device="cuda"), k=k, n_steps=2, t=25, n_tail=5,
+                  sel_h=8 if k > 1 else None, device="cuda")
+    noise = torch.randn(ep.noise_shape, generator=torch.Generator(device="cuda").manual_seed(1),
+                        device="cuda")
+    x0 = torch.from_numpy(X0).cuda()
+    got = ep.kernel(x0, noise)
+    torch.cuda.synchronize()
+    want = ep.plain(x0, noise)
+    assert ep.launches == 1
+    for g, w_ in zip(got[:3], want[:3]):
+        torch.testing.assert_close(g, w_, atol=1e-3, rtol=1e-3)
+    assert torch.equal(got[3], want[3])
+
+
+def test_flagship_episode_quality_runs_at_a_cut_size_on_cpu():
+    """``flagship_parity.run_episode_quality``, chip_smoke.py's phase 17
+    through the episode, at 2 seeds of 2 replans: its plain version here."""
+    from mpc_via_diffusion_model_tpu_torch.scripts import flagship_parity
+    out = flagship_parity.run_episode_quality("cpu", n_seeds=2, n_steps=2)
+    assert out["device"] == "cpu" and out["episode_launches"] == 0
+    assert len(out["closed_loop_costs"]) == 2 and all(np.isfinite(out["closed_loop_costs"]))
+    assert sum(out["modality"].values()) == 2 and out["closed_loop_cost_nmpc"] == 784750.6
+    assert out["cost_over_expert"] == out["closed_loop_cost_mean"] / 784750.6
+
+
+def test_episode_recut_cuts_and_refusal_without_a_card(tmp_path):
+    """scripts/episode_recut.py: its first cut is the port's own kernel (no
+    settings changed), every other cut is a copy of the sources whose header
+    differs from the committed one in just its settings' lines, and without
+    a card it raises before building anything."""
+    from mpc_via_diffusion_model_tpu_torch.ops import _build
+    from mpc_via_diffusion_model_tpu_torch.scripts import episode_recut
+    first, *others = episode_recut.CUTS.values()
+    assert first == {}
+    header = (_build.CSRC / "unet_body_cluster.cuh").read_text().splitlines()
+    copies = set()
+    for i, settings in enumerate(others):
+        out = tmp_path / str(i)
+        episode_recut.recut(_build.CSRC, out, settings)
+        assert (out / "cfg_episode.cu").read_bytes() == (_build.CSRC / "cfg_episode.cu").read_bytes()
+        got = (out / "unet_body_cluster.cuh").read_text()
+        changed = [(a, b) for a, b in zip(header, got.splitlines()) if a != b]
+        assert len(changed) == len(settings) == 1
+        (name, value), = settings.items()
+        assert changed[0][1].startswith(f"#define {name} {value}  //") and value != episode_recut.DEFAULTS[name]
+        copies.add(got)
+    assert len(copies) == len(others)  # each cut builds its own library
+    with pytest.raises(RuntimeError, match="expected 1"):  # a define not as written: refused
+        episode_recut.recut(tmp_path / "0", tmp_path / "bad", {"CL_RPT": 2})
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            episode_recut.main(["--replans", "1"])
+
+
+def test_episode_profile_marks_the_committed_sources(tmp_path):
+    """scripts/episode_profile.py instruments copies of the kernel sources by
+    text substitution: every marked line is found in the committed sources
+    (it raises otherwise), and the copy carries a mark after every barrier
+    of the cluster body."""
+    from mpc_via_diffusion_model_tpu_torch.ops import _build
+    from mpc_via_diffusion_model_tpu_torch.scripts import episode_profile
+    episode_profile.instrument(_build.CSRC, tmp_path / "csrc")
+    body = (tmp_path / "csrc" / "unet_body_cluster.cuh").read_text()
+    kernel = (tmp_path / "csrc" / "cfg_episode.cu").read_text()
+    committed = (_build.CSRC / "unet_body_cluster.cuh").read_text()
+    assert body.count("cg::this_cluster().sync(); PROF(") == committed.count("cg::this_cluster().sync();")
+    assert body.count("__syncthreads(); PROF(") == committed.count("  __syncthreads();")
+    assert kernel.count("PROF(") == 4 and "cfg_episode_profile_read" in kernel
+    with pytest.raises(RuntimeError, match="expected 1"):
+        episode_profile._sub("int x;", "float y;", "")

@@ -176,8 +176,9 @@ def test_episode_kernel_program_emulation_matches_plain(models, which, k, sel_h)
     noise = torch.from_numpy(np.random.RandomState(k).randn(*ep.noise_shape).astype(np.float32))
     want = ep.plain(torch.from_numpy(X0), noise)
     noise_tab = torch.cat([noise[:, 1:], noise[:, :1]], dim=1).numpy()
-    got = emulate_cfg_episode_kernel(ep.packed, ep.t_embs.numpy(), noise_tab, ep.coefs.numpy(),
-                                     ep.consts.numpy(), X0, W, k, ep.selection_horizon, n_steps)
+    got = emulate_cfg_episode_kernel(ep.packed, ep.weights, ep.t_embs.numpy(), noise_tab,
+                                     ep.coefs.numpy(), ep.consts.numpy(), X0, W, k,
+                                     ep.selection_horizon, n_steps)
     for name, g, w_ in zip(("x_track", "u_track", "stage_costs"), got, want):
         assert np.all(np.isfinite(g)), name
         np.testing.assert_allclose(g, w_.numpy(), rtol=TOL, atol=TOL, err_msg=name)

@@ -287,19 +287,230 @@ def _emulate_episode(packed, t_embs, consts, x0, n_candidates, selection_horizon
     return np.stack(xs), np.stack(us), np.array(stages, np.float32), np.array(chosen)
 
 
-def emulate_cfg_episode_kernel(packed, t_embs, noise, coefs, consts, x0, w, n_candidates,
-                               selection_horizon, n_steps):
-    """Runs ``csrc/cfg_episode.cu``'s program in numpy (``_emulate_episode``
-    with the two FiLM groups and the CFG chain step on both row-sets).
-    ``noise`` has the wrapper's layout (n_steps, n_total + 1, K, H, D) with
-    row n_total = x_T."""
+class _Cluster:
+    """The shared memory of the CTAs of one thread-block cluster, one
+    NaN-filled image each, and the check that keeps their pushes race-free:
+    between two cluster barriers no address of a CTA may be written by two
+    CTAs, nor written by another CTA and read by its own. ``read`` and
+    ``write`` record the flat indices an operation touches; ``barrier``
+    checks and starts the next interval."""
+
+    def __init__(self, n_floats: int, n_ranks: int):
+        self.n = n_ranks
+        self.smem = [_image(n_floats) for _ in range(n_ranks)]
+        self.barriers = 0
+        self._clear()
+
+    def _clear(self):
+        n = self.smem[0].size
+        self.rd = np.zeros((self.n, n), bool)
+        self.wr = np.zeros((self.n, self.n, n), bool)  # [CTA, writer]
+
+    def read(self, j, idx):
+        self.rd[j, idx] = True
+        return self.smem[j][idx]
+
+    def write(self, r, j, idx, values):
+        self.smem[j][idx] = values
+        self.wr[j, r, idx] = True
+
+    def barrier(self):
+        for j in range(self.n):
+            others = np.delete(self.wr[j], j, axis=0).any(axis=0)
+            assert not (others & self.rd[j]).any(), \
+                f"CTA {j} read what another CTA wrote between two cluster barriers"
+            assert (self.wr[j].sum(axis=0) <= 1).all(), \
+                f"two CTAs wrote one address of CTA {j} between two cluster barriers"
+        self.barriers += 1
+        self._clear()
+
+
+def _emulate_cluster_body(W, m, cl, nb, film_off, n_rows, x_rows, eps=1e-5):
+    """``cunet_body<nb>`` of ``csrc/unet_body_cluster.cuh`` in numpy on the
+    images of ``cl``: every CTA holds every activation in unet_body.cuh's
+    layout and buffers; rank r computes the channels [r c / n, (r + 1) c / n)
+    of every conv, the GroupNorm of its group, and stores its final slices
+    into every CTA. FiLM rows are read from each CTA's own image at
+    ``film_off`` ((n_res, n_rows, max_c), row-set b at row b), where only the
+    rank's channels are written. ``W`` is the kernel's buffer, the body's
+    conv kernels rank-major (``unet_pack.cluster_weights``): a conv's
+    (ks * cin, cout) kernel holds (n, ks * cin, cout / n) at its offset.
+    Every read and write goes through ``cl``,
+    which checks the pushes against the kernel's cluster barriers. Returns y
+    (nb, H, dims[1]), which every CTA must hold alike."""
+    halo, n = up.HALO, cl.n
+    H, D, nlev, buf, maxc = (int(m[k]) for k in (up.M_H, up.M_D, up.M_NLEV, up.M_BUF, up.M_MAXC))
+    ranks = range(n)
+
+    def ix(off, h, c, t, ch):
+        assert nb * (h + 2 * halo) * c <= buf or off >= 3 * buf, "activation larger than its buffer"
+        b = np.arange(nb)[:, None, None]
+        return off + (b * (h + 2 * halo) + halo + np.asarray(t)[None, :, None]) * c + np.asarray(ch)[None, None, :]
+
+    def own(c, r):
+        nc = c // n
+        return np.arange(r * nc, (r + 1) * nc)
+
+    def weights(off, shape):
+        return W[off:off + int(np.prod(shape))].reshape(shape)
+
+    def whole(off, h, c, r):
+        return cl.read(r, ix(off, h, c, np.arange(-halo, h + halo), np.arange(c)))
+
+    def conv(r, src, hin, cin, dst, hout, cout, w_off, b_off, ks, stride, pad, push):
+        x, sl = whole(src, hin, cin, r), own(cout, r)
+        wk = weights(w_off + sl[0] * ks * cin, (ks, cin, len(sl)))  # the rank's block, rank-major
+        bias = weights(b_off, (cout,))[sl]
+        rows = halo + stride * np.arange(hout) - pad
+        y = bias + sum(x[:, rows + k] @ wk[k] for k in range(ks))
+        for j in (ranks if push else [r]):
+            cl.write(r, j, ix(dst, hout, cout, np.arange(hout), sl), y)
+
+    def zero_halo(r, off, h, c):
+        cl.write(r, r, ix(off, h, c, np.r_[-halo:0, h:h + halo], np.arange(c)), 0.0)
+
+    def gn_push(r, off, h, c, g_off, be_off, film_r=None, res=None):
+        sl = own(c, r)
+        v = cl.read(r, ix(off, h, c, np.arange(h), sl))
+        mean = v.mean(axis=(1, 2), keepdims=True)
+        var = np.maximum((v * v).mean(axis=(1, 2), keepdims=True) - mean * mean, 0.0)
+        y = _mish((v - mean) / np.sqrt(var + eps) * weights(g_off, (c,))[sl] + weights(be_off, (c,))[sl])
+        if film_r is not None:
+            rows = film_off + (film_r * n_rows + np.arange(nb)[:, None]) * maxc + sl[None, :]
+            y = y + cl.read(r, rows)[:, None, :]
+        if res is not None:
+            y = y + cl.read(r, ix(res, h, c, np.arange(h), sl))
+        for j in ranks:
+            cl.write(r, j, ix(off, h, c, np.arange(h), sl), y)
+
+    def res_block(rr, src, t1, t2, h):
+        rm = m[up.M_RES + rr * up.RES_STRIDE:]
+        cin, cout = int(rm[up.R_CIN]), int(rm[up.R_COUT])
+        assert int(rm[up.R_GROUPS]) == n
+        for r in ranks:
+            conv(r, src, h, cin, t1, h, cout, rm[up.R_W1], rm[up.R_B1], 5, 1, 2, False)
+            zero_halo(r, t1, h, cout)
+        for r in ranks:
+            gn_push(r, t1, h, cout, rm[up.R_G1], rm[up.R_BE1], film_r=rr)
+        cl.barrier()
+        res = t1 if rm[up.R_WR] >= 0 else src
+        for r in ranks:
+            conv(r, t1, h, cout, t2, h, cout, rm[up.R_W2], rm[up.R_B2], 5, 1, 2, False)
+            zero_halo(r, t2, h, cout)
+        for r in ranks:  # after the block barrier that follows conv2
+            if rm[up.R_WR] >= 0:
+                conv(r, src, h, cin, t1, h, cout, rm[up.R_WR], rm[up.R_BR], 1, 1, 0, False)
+        for r in ranks:
+            gn_push(r, t2, h, cout, rm[up.R_G2], rm[up.R_BE2], res=res)
+        cl.barrier()
+
+    cur, f1, f2 = 0, buf, 2 * buf
+    for r in ranks:
+        cl.write(r, r, ix(cur, H, D, np.arange(H), np.arange(D)), x_rows)
+        zero_halo(r, cur, H, D)
+    h, rr = H, 0
+    for lvl in range(nlev):
+        for _ in range(2):
+            res_block(rr, cur, f1, f2, h)
+            cur, f1, f2 = f2, cur, f1
+            rr += 1
+        c = int(m[up.M_DIMS + lvl + 1])
+        if lvl > 0:
+            skip = int(m[up.M_SKIP + lvl])
+            for r in ranks:
+                cl.write(r, r, ix(skip, h, c, np.arange(-halo, h + halo), np.arange(c)),
+                         whole(cur, h, c, r))
+        if lvl < nlev - 1:
+            for r in ranks:
+                conv(r, cur, h, c, f1, h // 2, c, m[up.M_DOWN + 2 * lvl],
+                     m[up.M_DOWN + 2 * lvl + 1], 3, 2, 1, True)
+                zero_halo(r, f1, h // 2, c)
+            h //= 2
+            cur, f1 = f1, cur
+            cl.barrier()
+    for _ in range(2):
+        res_block(rr, cur, f1, f2, h)
+        cur, f1, f2 = f2, cur, f1
+        rr += 1
+    for u in range(nlev - 1):
+        lvl = nlev - 1 - u
+        c = int(m[up.M_DIMS + lvl + 1])
+        skip = int(m[up.M_SKIP + lvl])
+        for r in ranks:
+            a = cl.read(r, ix(cur, h, c, np.arange(h), np.arange(c)))
+            b = cl.read(r, ix(skip, h, c, np.arange(h), np.arange(c)))
+            cl.write(r, r, ix(f1, h, 2 * c, np.arange(h), np.arange(2 * c)), np.concatenate([a, b], -1))
+            zero_halo(r, f1, h, 2 * c)
+        cur, f1, f2 = f1, f2, cur
+        for _ in range(2):
+            res_block(rr, cur, f1, f2, h)
+            cur, f1, f2 = f2, cur, f1
+            rr += 1
+        cd = int(m[up.M_DIMS + lvl])
+        bu = weights(m[up.M_UP + 2 * u + 1], (cd,))
+        t = np.arange(h)
+        for r in ranks:
+            x, sl = whole(cur, h, cd, r), own(cd, r)
+            wu = weights(m[up.M_UP + 2 * u] + sl[0] * 4 * cd, (4, cd, len(sl)))
+            y = np.empty((nb, 2 * h, len(sl)), np.float32)
+            y[:, 0::2] = bu[sl] + x[:, halo + t - 1] @ wu[0] + x[:, halo + t] @ wu[2]
+            y[:, 1::2] = bu[sl] + x[:, halo + t] @ wu[1] + x[:, halo + t + 1] @ wu[3]
+            for j in ranks:
+                cl.write(r, j, ix(f1, 2 * h, cd, np.arange(2 * h), sl), y)
+            zero_halo(r, f1, 2 * h, cd)
+        h *= 2
+        cur, f1 = f1, cur
+        cl.barrier()
+    cf = int(m[up.M_DIMS + 1])
+    for r in ranks:
+        conv(r, cur, h, cf, f1, h, cf, m[up.M_FIN], m[up.M_FIN + 1], 5, 1, 2, False)
+    assert int(m[up.M_FIN + 4]) == n
+    for r in ranks:
+        gn_push(r, f1, h, cf, m[up.M_FIN + 2], m[up.M_FIN + 3])
+    cl.barrier()
+    ys = [cl.read(r, ix(f1, H, cf, np.arange(H), np.arange(cf))) for r in ranks]  # the 1x1 conv
+    if f1 != 0:  # the kernel's barrier when y is not the next pass's input buffer
+        cl.barrier()
+    for y in ys[1:]:
+        np.testing.assert_array_equal(y, ys[0])
+    return ys[0]
+
+
+def emulate_cfg_episode_kernel(packed, weights, t_embs, noise, coefs, consts, x0, w, n_candidates,
+                               selection_horizon, n_steps, n_ranks=up.CLUSTER):
+    """Runs ``csrc/cfg_episode.cu``'s program in numpy: ``_emulate_episode``
+    with the two FiLM groups, and for every chain step the cluster body
+    (``_emulate_cluster_body``) on the images of one cluster of ``n_ranks``
+    CTAs, which live through the whole episode, each with only its own
+    channels of the step's FiLM written (``episode_films_rank``), then the
+    final 1x1 conv and the CFG lines as ``_emulate_chain_step``. ``noise`` has
+    the wrapper's layout (n_steps, n_total + 1, K, H, D) with row n_total =
+    x_T; ``weights`` is the buffer the kernel reads (``FusedCfgEpisode.weights``).
+    Returns the tracks, the choices and the number of cluster barriers."""
     n_total = noise.shape[1] - 1
+    m = packed.meta.cpu().numpy()
+    cluster_w = weights.cpu().numpy()
+    cl = _Cluster(packed.episode_smem_bytes(n_candidates) // 4, n_ranks)
+    n_res, maxc, film_off = int(m[up.M_NRES]), int(m[up.M_MAXC]), int(m[up.M_EP_FILM])
 
     def step(W, m, smem, films, x, si_step, si, k):
-        return _emulate_chain_step(W, m, smem, films, x, coefs[si], noise[si_step, si, k], w)
+        for r in range(n_ranks):  # episode_films_rank: the rank's channels of each block
+            for rr in range(n_res):
+                nc = int(m[up.M_RES + rr * up.RES_STRIDE + up.R_COUT]) // n_ranks
+                sl = np.arange(r * nc, (r + 1) * nc)
+                for g in range(2):
+                    cl.smem[r][film_off + (rr * 2 + g) * maxc + sl] = films[rr, g, sl]
+        D, cf = int(m[up.M_D]), int(m[up.M_DIMS + 1])
+        y = _emulate_cluster_body(cluster_w, m, cl, 2, film_off, 2, np.stack([x, x]))
+        eps = y @ W[m[up.M_F1]:m[up.M_F1] + cf * D].reshape(cf, D) + W[m[up.M_F1 + 1]:m[up.M_F1 + 1] + D]
+        sra, srm, c1, c2, sg = (np.float32(v) for v in coefs[si])
+        rec = np.clip(np.float32(1.0 + w) * (sra * x - srm * eps[0]) - np.float32(w) * (sra * x - srm * eps[1]),
+                      -1.0, 1.0)
+        return (c1 * rec + c2 * x) + sg * noise[si_step, si, k]
 
-    return _emulate_episode(packed, t_embs, consts, x0, n_candidates, selection_horizon, n_steps,
-                            2, lambda s: noise[s, n_total], step)
+    out = _emulate_episode(packed, t_embs, consts, x0, n_candidates, selection_horizon, n_steps,
+                           2, lambda s: noise[s, n_total], step)
+    return out + (cl.barriers,)
 
 
 def _emulate_ddim_step(W, m, smem, film_rows, xs, coefs_si):
