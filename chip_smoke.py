@@ -12,11 +12,14 @@ each printing one line with its own seconds:
    power limit. Without a card the script exits non-zero and prints no result.
 2. build: nvcc on every ``ops/csrc/*.cu`` for sm_90a, one process per
    source, all started together, with each one's wall time and its
-   ``-Xptxas -v`` register, shared-memory and spill report; the CFG episode
-   kernel's registers and spills again on one line, with the cluster
-   occupancy query (``cudaOccupancyMaxActiveClusters``) at the flagship
-   episode's shared memory for K = 1 and K = 4.
-3. kernel vs plain: the CFG chain kernel on three contexts, and the U-Net
+   ``-Xptxas -v`` register, shared-memory and spill report; the three
+   cluster kernels' registers and spills again on one line (the CFG chain,
+   the CFG episode and the DDIM episode: clusters of 8 CTAs on
+   ``unet_body_cluster.cuh``), each with the cluster occupancy query
+   (``cudaOccupancyMaxActiveClusters``) at its shared memory at full width:
+   the chain's plan, the episodes' for K = 1 and K = 4.
+3. kernel vs plain: the CFG chain kernel (one cluster per sample) on three
+   contexts, and the U-Net
    pass kernel on three (x, t, context, mask) draws at batch 2, each against
    its plain PyTorch version on the flagship weights at full width.
 4. per-replan path (``BENCH_FUSED=chain``): the flagship cart-pole CFG
@@ -54,7 +57,8 @@ same weights, which exercises the affine update and the step loop.
     counts are set to 0 just before and read just after (80 chain launches,
     nothing else). The same loop through the plain chain must give the same
     tracks.
-11. student episode: one launch of the DDIM episode kernel on phase 10's
+11. student episode: one launch of the DDIM episode kernel (one cluster of 8
+    CTAs on the body's one row-set) on phase 10's
     noise, against the plain episode and phase 10's tracks; on the 3-step
     grid against the plain episode; at K = 4 with selection_horizon 8, 8
     replans on both grids, the chosen candidate of every replan equal.
@@ -121,9 +125,11 @@ from mpc_via_diffusion_model_tpu_torch.dynamics import (cartpole_virtual_collect
                                                         theta_to_red_theta)
 from mpc_via_diffusion_model_tpu_torch.models import load_flagship, load_student
 from mpc_via_diffusion_model_tpu_torch.ops import _build, fused_conv1d_gn_mish
-from mpc_via_diffusion_model_tpu_torch.ops.fused_denoise import (make_fused_cfg_chain,
+from mpc_via_diffusion_model_tpu_torch.ops.fused_denoise import (cfg_chain_max_active_clusters,
+                                                                 make_fused_cfg_chain,
                                                                  make_fused_ddim_chain)
 from mpc_via_diffusion_model_tpu_torch.ops.fused_episode import (cfg_episode_max_active_clusters,
+                                                                 ddim_episode_max_active_clusters,
                                                                  make_fused_cfg_episode,
                                                                  make_fused_ddim_episode)
 from mpc_via_diffusion_model_tpu_torch.ops.fused_unet import make_fused_unet
@@ -237,24 +243,35 @@ def main() -> None:
     built = _build.build_all()
     for name, b in built.items():
         print(f"  {name}: nvcc {b.seconds:.3f}s -> {b.path.name}\n{b.report}", flush=True)
-    # the cluster episode: its registers and spills (from cuobjdump when the build was reused),
-    # and how many of its clusters fit at once
-    report = built["cfg_episode"].report or subprocess.run(
-        [str(Path(_build._nvcc()).with_name("cuobjdump")), "--dump-resource-usage",
-         str(built["cfg_episode"].path)], capture_output=True, text=True, timeout=60).stdout
-    regs = re.findall(r"Used (\d+) registers|REG:(\d+)", report)
-    spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads|LOCAL:(\d+)", report)
+    # the cluster kernels: their registers and spills (from cuobjdump when the build was reused),
+    # and how many of their clusters fit at once at full width
     packed_cpu = pack_unet(load_flagship(FLAGSHIP, device="cpu"), "cpu")
-    ep_smem = {k: packed_cpu.episode_smem_bytes(k) for k in (1, K4)}
-    slots = {k: cfg_episode_max_active_clusters(b) for k, b in ep_smem.items()}
-    if not all(slots.values()):
-        raise RuntimeError(f"cfg_episode: no cluster of {CLUSTER} CTAs fits on the card: {slots}")
-    if not regs or not spills:
-        raise RuntimeError(f"cfg_episode: no register or spill report in\n{report}")
-    log("build", t0, f"{len(built)} libraries; cfg_episode registers "
-        f"{[int(a or b) for a, b in regs]}, spill stores and loads (or local bytes) "
-        f"{[[int(v) for v in t if v] for t in spills]}; clusters of {CLUSTER} CTAs that fit at once: "
-        + ", ".join(f"K={k} {slots[k]} at {ep_smem[k]} B per CTA" for k in slots))
+    ep_smem = [packed_cpu.episode_smem_bytes(k) for k in (1, K4)]
+    cluster_kernels = {  # name: (occupancy query, shared memory per CTA of each launch shape)
+        "cfg_chain": (cfg_chain_max_active_clusters, [packed_cpu.smem_bytes]),
+        "cfg_episode": (cfg_episode_max_active_clusters, ep_smem),
+        "ddim_episode": (ddim_episode_max_active_clusters, ep_smem)}
+    cluster_info, lines = {}, []
+    for name, (query, smems) in cluster_kernels.items():
+        report = built[name].report or subprocess.run(
+            [str(Path(_build._nvcc()).with_name("cuobjdump")), "--dump-resource-usage",
+             str(built[name].path)], capture_output=True, text=True, timeout=60).stdout
+        regs = [int(a or b) for a, b in re.findall(r"Used (\d+) registers|REG:(\d+)", report)]
+        spills = [[int(v) for v in t if v] for t in
+                  re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads|LOCAL:(\d+)", report)]
+        if not regs or not spills:
+            raise RuntimeError(f"{name}: no register or spill report in\n{report}")
+        slots = [query(b) for b in smems]
+        if not all(slots):
+            raise RuntimeError(f"{name}: no cluster of {CLUSTER} CTAs fits on the card: {slots} at "
+                               f"{smems} B per CTA")
+        cluster_info[name] = {"registers": regs, "spill_bytes": spills, "clusters_fit": slots,
+                              "smem_bytes_per_cta": smems}
+        lines.append(f"{name} registers {regs}, spill stores and loads (or local bytes) {spills}, "
+                     f"clusters of {CLUSTER} CTAs that fit at once "
+                     + ", ".join(f"{n} at {b} B per CTA" for n, b in zip(slots, smems)))
+    log("build", t0, f"{len(built)} libraries; " + "; ".join(lines)
+        + f" (episodes at K = 1 and K = {K4})")
 
     # 3. kernels vs plain versions, flagship weights, full width
     t0 = time.perf_counter()
@@ -749,7 +766,7 @@ def main() -> None:
          "replaces": "mpc_via_diffusion_model_tpu/ops/fused_denoise.py:47",
          "launches": chain_launches, "max_abs_err": chain_err, "ms": chain_ms,
          "plain_ms": chain_plain_ms, **bound(chain_flops, chain_bytes), "library_ms": None,
-         "per_replan_loop_hz": per_replan_hz},
+         "per_replan_loop_hz": per_replan_hz, "cluster_ctas": CLUSTER, **cluster_info["cfg_chain"]},
         {"name": "fused_unet", "route": "cuda",
          "source": "mpc_via_diffusion_model_tpu_torch/ops/csrc/fused_unet.cu",
          "replaces": "mpc_via_diffusion_model_tpu/ops/fused_unet.py:387",
@@ -763,7 +780,7 @@ def main() -> None:
          "plain_ms": episode_plain_ms, **bound(ep_flops, ep_bytes), "library_ms": None,
          "ms_per_replan": episode_ms / N_STEPS, "k4_ms_per_replan": episode4_ms / N_STEPS_K4,
          "closed_loop_control_hz": control_hz, "cluster_ctas": CLUSTER,
-         "flagship_cost_over_expert": epq["cost_over_expert"]},
+         "flagship_cost_over_expert": epq["cost_over_expert"], **cluster_info["cfg_episode"]},
         {"name": "ddim_chain", "route": "cuda",
          "source": "mpc_via_diffusion_model_tpu_torch/ops/csrc/ddim_chain.cu",
          "replaces": "mpc_via_diffusion_model_tpu/ops/fused_denoise.py:164",
@@ -778,7 +795,7 @@ def main() -> None:
          "times": GRID, "ms_per_replan": sep_ms / N_STEPS,
          "grid3_ms_per_replan": sep3_ms / N_STEPS, "k4_ms_per_replan": sep4_ms / N_STEPS_K4,
          "student_closed_loop_control_hz": s_control_hz, "cost_ratio_mean": ratio_mean,
-         "cost_ratio_max": ratio_max},
+         "cost_ratio_max": ratio_max, "cluster_ctas": CLUSTER, **cluster_info["ddim_episode"]},
         # at the bench's largest shape, (64, 8, 64, 128); every shape in "shapes"
         {"name": "fused_conv", "route": "cuda",
          "source": "mpc_via_diffusion_model_tpu_torch/ops/csrc/fused_conv.cu",

@@ -8,7 +8,8 @@ PyTorch's headers in minutes. A library is built at first use into
 under a name that carries a hash of its source, of every header in
 ``csrc/`` and of the flags, so an edited source or header is rebuilt and an
 unchanged one is reused. ``build_all`` builds every library at once, one nvcc
-process per source, all started together.
+process per source, all started together. ``ClusterLaunch`` is what the
+wrappers of the kernels launched as thread-block clusters share.
 """
 from __future__ import annotations
 
@@ -21,9 +22,14 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+from typing import Callable, Optional
 
-__all__ = ["BuildResult", "build", "build_all", "load", "bind", "launch", "BUILD_DIR", "KERNELS",
-           "NVCC_FLAGS"]
+import torch
+
+from .unet_pack import CLUSTER, ClusterSplit, PackedUnet, cluster_split, cluster_weights
+
+__all__ = ["BuildResult", "build", "build_all", "load", "bind", "launch", "max_active_clusters",
+           "ClusterLaunch", "BUILD_DIR", "KERNELS", "NVCC_FLAGS"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -117,12 +123,17 @@ def load(name: str) -> ctypes.CDLL:
     return ctypes.CDLL(str(build(name).path))
 
 
-def bind(name: str, launch_argtypes, meta_len: int, queries=()) -> ctypes.CDLL:
+def bind(name: str, launch_argtypes, meta_len: int, queries=(), cluster: int = 0) -> ctypes.CDLL:
     """The built library of ``csrc/<name>.cu`` with its C interface
     declared: ``<name>_launch(*launch_argtypes)`` returns a CUDA error code,
     ``<name>_error_string(code)`` its text, and ``<name>_meta_len()`` and
     each ``<name>_<query>()`` of ``queries`` an int. Raises unless the
-    library's meta length is ``meta_len``, the packer's."""
+    library's meta length is ``meta_len``, the packer's. A kernel launched
+    as thread-block clusters of ``cluster`` CTAs (when not 0) also declares
+    ``<name>_max_active_clusters(smem_bytes, int*)`` and
+    ``<name>_cluster_size()``, which must answer ``cluster``."""
+    if cluster:
+        queries = (*queries, "cluster_size")
     lib = load(name)
     fn = getattr(lib, f"{name}_launch")
     fn.argtypes, fn.restype = list(launch_argtypes), ctypes.c_int
@@ -133,7 +144,26 @@ def bind(name: str, launch_argtypes, meta_len: int, queries=()) -> ctypes.CDLL:
         fn.argtypes, fn.restype = [], ctypes.c_int
     if getattr(lib, f"{name}_meta_len")() != meta_len:
         raise RuntimeError(f"{name}.cu and ops/unet_pack.py disagree on the meta layout")
+    if cluster:
+        fn = getattr(lib, f"{name}_max_active_clusters")
+        fn.argtypes, fn.restype = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)], ctypes.c_int
+        if getattr(lib, f"{name}_cluster_size")() != cluster:
+            raise RuntimeError(f"{name}.cu and ops/unet_pack.py disagree on the cluster size")
     return lib
+
+
+def max_active_clusters(lib: ctypes.CDLL, name: str, smem_bytes: int) -> int:
+    """How many clusters of ``<name>``'s kernel fit on the current CUDA
+    device at once with ``smem_bytes`` of dynamic shared memory per CTA
+    (``cudaOccupancyMaxActiveClusters``, through
+    ``<name>_max_active_clusters``); raises with CUDA's text when the query
+    fails."""
+    n = ctypes.c_int(0)
+    err = getattr(lib, f"{name}_max_active_clusters")(int(smem_bytes), ctypes.byref(n))
+    if err != 0:
+        raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed for the {name} kernel: "
+                           f"{getattr(lib, f'{name}_error_string')(err).decode()}")
+    return n.value
 
 
 def launch(lib: ctypes.CDLL, name: str, *args) -> None:
@@ -141,3 +171,46 @@ def launch(lib: ctypes.CDLL, name: str, *args) -> None:
     err = getattr(lib, f"{name}_launch")(*args)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: {getattr(lib, f'{name}_error_string')(err).decode()}")
+
+
+class ClusterLaunch:
+    """What the wrappers of the three cluster kernels (``cfg_chain``,
+    ``cfg_episode``, ``ddim_episode``) share: the body's split and the
+    rank-major buffer the kernel reads, made when first asked for, so that a
+    body the cluster cannot split raises ``ValueError`` where the kernel
+    would be launched and not on the CPU path; and the kernel's occupancy
+    query (``query(smem_bytes)``, its wrapper module's
+    ``<name>_max_active_clusters``), asked once before the first launch,
+    which refuses with ``RuntimeError`` when no cluster fits on the card.
+    Nothing falls back to the plain version."""
+
+    def __init__(self, packed: PackedUnet, name: str, query: Callable[[int], int]):
+        self.packed, self.name, self._query = packed, name, query
+        self._split: Optional[ClusterSplit] = None
+        self._weights: Optional[torch.Tensor] = None
+        self.slots: Optional[int] = None  # clusters that fit at once, asked before the first launch
+
+    @property
+    def split(self) -> ClusterSplit:
+        if self._split is None:
+            self._split = cluster_split(self.packed)
+        return self._split
+
+    @property
+    def weights(self) -> torch.Tensor:
+        """The packed buffer with the body's conv kernels rank-major (``cluster_weights``)."""
+        if self._weights is None:
+            self._weights = cluster_weights(self.packed, self.split)
+        return self._weights
+
+    def require_fit(self, smem_bytes: int, device) -> None:
+        """Raises unless a cluster of CLUSTER CTAs with ``smem_bytes`` of
+        shared memory each fits on ``device``; asks CUDA the first time only."""
+        if self.slots is None:
+            slots = self._query(smem_bytes)
+            if not slots:
+                raise RuntimeError(
+                    f"no cluster of {CLUSTER} CTAs with {smem_bytes} B of shared memory each fits "
+                    f"on {torch.cuda.get_device_name(device)}: the {self.name} kernel needs "
+                    "thread-block clusters (sm_90)")
+            self.slots = slots

@@ -17,61 +17,57 @@
 // What bounds it on this card. At the flagship shapes (horizon 32, channels 32/64/128,
 // B = 1) one U-Net pass over one batch element is 18.2 MFLOP of conv FMAs
 // (ops/unet_pack.py counts them), so a replan is 18.2M x 2 (cond, uncond) x 30 steps
-// = 1.09 GFLOP. The weights are 3.83 MB of fp32, read once per step: 115 MB of L2
-// traffic per replan, or 3.83 MB of device memory once the first step has pulled them
-// into the 50 MB L2. Over the whole card the work is bound by operations (1.09 GFLOP at
-// 67 TFLOP/s fp32 = 16 us, against 4.2 MB at 3.35 TB/s = 1.3 us). But the chain is
-// sequential: step s+1 needs step s, and inside a step each layer needs the last. With
-// one block per sample, one SM does the whole replan: 1.09 GFLOP at one SM's 0.5 TFLOP/s
-// (67 / 132) is 2.1 ms at best.
+// = 1.09 GFLOP against 4.2 MB of weights, FiLM table and noise. Over the whole card it is
+// bound by operations (1.09 GFLOP at 67 TFLOP/s fp32 = 16 us). But the chain is
+// sequential: step s+1 needs step s, and inside a step each layer needs the last, so one
+// sample's work cannot spread over the card; on one SM (~0.5 TFLOP/s) it takes 2.1 ms at
+// best, and the one-block kernel of the first slices took 17 ms.
 //
-// What the design does about it. The first design is simple and correct:
-// - grid = n_samples; block b holds sample b's conditional and unconditional rows, because
-//   the CFG combination needs both. The loop over steps runs inside the block. There is
-//   no inter-block synchronisation, no cooperative launch and no spin-wait, and every
-//   loop's trip count is fixed by the launch's arguments.
-// - Activations live in shared memory as (2, h + 2*HALO, c) with zero halo rows, so the
-//   'same' convs need no edge masks: three rotating buffers, the skips of levels >= 1,
-//   x, eps and the GroupNorm statistics, about 96 KB at the flagship shapes (dynamic
-//   shared memory, so cudaFuncSetAttribute is called before the launch).
-// - Weights stay in device memory and are served from L2. A thread owns one output
-//   channel and RPT output rows, so each weight it loads feeds RPT FMAs, and the 32 lanes
-//   of a warp load 32 neighbouring weights (C_out is the fastest axis) while reading the
-//   same activation, a shared-memory broadcast.
-// - GroupNorm per (batch element, group) takes one warp per group (variance as
-//   E[y^2] - mean^2, eps 1e-5, as fused_unet.py:112-131), then one elementwise pass does
-//   the normalisation, Mish and the FiLM bias.
-// wgmma, TMA, clusters and bf16 are not used: making this fast is later work.
+// What the design does about it: cfg_episode.cu's body. Each sample is one thread-block
+// cluster of CLUSTER = 8 CTAs on 8 SMs (__cluster_dims__, grid = 8 x n_samples, sample =
+// blockIdx.x / CLUSTER), and the U-Net body is split over them by output channel, one
+// GroupNorm group per rank (unet_body_cluster.cuh): each rank computes an eighth of every
+// conv and pushes its final slices into every CTA's shared memory, with two cluster
+// barriers per residual block. Everything outside the body runs redundantly in every CTA,
+// on the same replicated data in the same order: the pass's input, the final 1x1 conv and
+// the recon, CFG, clip and posterior lines. Only rank 0 writes the output. The step loop
+// runs inside the cluster, its trip count fixed by the launch's arguments, and cluster
+// barriers are the only synchronisation between CTAs (no grid-wide sync, no cooperative
+// launch, no spin-wait). The FiLM table (n_total, n_res, 2B, max_c) comes from torch and
+// is read from device memory; conditional rows are row `sample`, unconditional rows row
+// n_samples + sample. Weights stay in device memory, served from L2, with the body's conv
+// kernels rank-major (ops/unet_pack.py::cluster_weights). Activations use the one-block
+// plan (unet_body.cuh's: three rotating buffers, the skips, x, eps and the GroupNorm
+// statistics, about 96 KB at the flagship shapes) in every CTA.
 //
-// The U-Net body and the meta-table indices are in unet_body.cuh, shared with
-// cfg_episode.cu and fused_unet.cu.
+// cfg_chain_max_active_clusters answers cudaOccupancyMaxActiveClusters at the chain's
+// shared memory: the wrapper refuses to launch when it is 0.
 
-#include "unet_body.cuh"
+#include "unet_body_cluster.cuh"
 
+// W is the packed buffer with the body's conv kernels rank-major (cluster_weights).
 // films (n_total, n_res, 2B, max_c); noise (n_total + 1, B, H, D) with row n_total = x_T;
 // coefs (n_total, 5) = sra, srm, c1, c2, sigma * gate; out (B, H, D).
-__global__ void __launch_bounds__(NT, 1)
+__global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(NT, 1)
 cfg_chain_kernel(const float* __restrict__ W, const int* __restrict__ meta,
                  const float* __restrict__ films, const float* __restrict__ noise,
                  const float* __restrict__ coefs, float* __restrict__ out, int n_total,
                  float w, float wp1) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  const int sample = blockIdx.x, n_samples = gridDim.x;
+  const int rank = (int)cg::this_cluster().block_rank();
+  const int sample = blockIdx.x / CLUSTER, n_samples = gridDim.x / CLUSTER;
   const int* m = load_meta(smem, meta, __ldg(meta + M_SMEM));
   const int H = m[M_H], D = m[M_D], n_res = m[M_NRES], maxc = m[M_MAXC], buf = m[M_BUF];
-  const int hd = H * D;
+  const int hd = H * D, cf = m[M_DIMS + 1];
   float* xs = smem + m[M_XS];
   float* eps = smem + m[M_EPS];
   float* stats = smem + m[M_STATS];
   const size_t noise_step = (size_t)n_samples * hd;
   for (int i = threadIdx.x; i < hd; i += NT)
-    xs[i] = noise[(size_t)n_total * noise_step + (size_t)sample * hd + i];
-  __syncthreads();
+    xs[i] = __ldg(noise + (size_t)n_total * noise_step + (size_t)sample * hd + i);
+  cg::this_cluster().sync();  // every CTA has started before any writes into its shared memory
 
-  const int cf = m[M_DIMS + 1];
-  const float* w1 = W + m[M_F1];
-  const float* b1 = W + m[M_F1 + 1];
   for (int si = 0; si < n_total; ++si) {
     float* in = smem;
     for (int i = threadIdx.x; i < 2 * hd; i += NT) {  // x twice: cond rows, uncond rows
@@ -80,9 +76,11 @@ cfg_chain_kernel(const float* __restrict__ W, const int* __restrict__ meta,
     }
     zero_halo<2>(in, H, D);
     __syncthreads();
-    const float* y = unet_body<2>(m, W, smem, in, smem + buf, smem + 2 * buf,
-                                  films + (size_t)si * n_res * 2 * n_samples * maxc,
-                                  2 * n_samples, sample, n_samples + sample, stats);
+    const float* y = cunet_body<2>(m, W, smem, in, smem + buf, smem + 2 * buf,
+                                   films + (size_t)si * n_res * 2 * n_samples * maxc,
+                                   2 * n_samples, sample, n_samples + sample, stats, rank);
+    const float* w1 = W + m[M_F1];
+    const float* b1 = W + m[M_F1 + 1];
     for (int i = threadIdx.x; i < 2 * hd; i += NT) {  // final 1x1 conv
       const int d = i % D, rr = i / D, b = rr / H, t = rr - b * H;
       const float* yr = y + row_off(b, H, t, cf);
@@ -90,7 +88,10 @@ cfg_chain_kernel(const float* __restrict__ W, const int* __restrict__ meta,
       for (int ci = 0; ci < cf; ++ci) acc = fmaf(yr[ci], __ldg(w1 + ci * D + d), acc);
       eps[i] = acc + __ldg(b1 + d);
     }
-    __syncthreads();
+    // The next pass pushes into the two buffers other than `in` before its first cluster
+    // barrier: when y is one of them, every CTA must have read it first.
+    if (y != in) cg::this_cluster().sync();
+    else __syncthreads();
     const float* cs = coefs + (size_t)si * 5;
     const float sra = __ldg(cs), srm = __ldg(cs + 1), c1 = __ldg(cs + 2), c2 = __ldg(cs + 3),
                 sg = __ldg(cs + 4);
@@ -106,22 +107,41 @@ cfg_chain_kernel(const float* __restrict__ W, const int* __restrict__ meta,
     }
     __syncthreads();
   }
-  for (int i = threadIdx.x; i < hd; i += NT) out[(size_t)sample * hd + i] = xs[i];
+  if (rank == 0)
+    for (int i = threadIdx.x; i < hd; i += NT) out[(size_t)sample * hd + i] = xs[i];
+  cg::this_cluster().sync();  // no CTA leaves while another may still write into it
 }
 
 extern "C" {
 
-// Launches the chain on `stream`; returns the CUDA error code (0 = launched).
+// Launches the chain, one cluster per sample, on `stream`; returns the CUDA error code
+// (0 = launched).
 int cfg_chain_launch(const float* W, const int* meta, int smem_bytes, const float* films,
                      const float* noise, const float* coefs, float* out, int n_total,
                      int n_samples, float w, float wp1, void* stream) {
   cudaError_t e = cudaFuncSetAttribute(cfg_chain_kernel,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (e != cudaSuccess) return (int)e;
-  cfg_chain_kernel<<<n_samples, NT, smem_bytes, (cudaStream_t)stream>>>(
+  cfg_chain_kernel<<<CLUSTER * n_samples, NT, smem_bytes, (cudaStream_t)stream>>>(
       W, meta, films, noise, coefs, out, n_total, w, wp1);
   return (int)cudaGetLastError();
 }
+
+// cudaOccupancyMaxActiveClusters for one sample's cluster at smem_bytes of dynamic shared
+// memory per CTA, into *n_clusters; returns the CUDA error code (0 = answered).
+int cfg_chain_max_active_clusters(int smem_bytes, int* n_clusters) {
+  *n_clusters = 0;
+  cudaError_t e = cudaFuncSetAttribute(cfg_chain_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(CLUSTER);
+  config.blockDim = dim3(NT);
+  config.dynamicSmemBytes = smem_bytes;  // the cluster shape is the kernel's __cluster_dims__
+  return (int)cudaOccupancyMaxActiveClusters(n_clusters, (void*)cfg_chain_kernel, &config);
+}
+
+int cfg_chain_cluster_size(void) { return CLUSTER; }
 
 const char* cfg_chain_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 

@@ -1,6 +1,7 @@
 // What the two episode kernels, cfg_episode.cu and ddim_episode.cu, share: the plant, the
-// consts and shared-memory layouts, the in-kernel FiLM of one denoising step and the end of
-// a replan (unnormalize, best-of-K, stage cost, plant step).
+// consts and shared-memory layouts, the in-kernel FiLM of one denoising step (each rank's
+// channels of the cluster body) and the end of a replan (unnormalize, best-of-K, stage
+// cost, plant step).
 //
 // Port of the parts of mpc_via_diffusion_model_tpu/ops/fused_episode.py that
 // make_fused_cfg_episode and make_fused_ddim_episode have in common (their replan bodies,
@@ -53,29 +54,9 @@ static __device__ void episode_film_inputs(const int* m, const float* __restrict
 }
 
 // FiLM biases of one denoising step for G groups, into films (n_res, G, max_c) via mc
-// (episode_film_inputs). Each ResidualTemporalBlock's Dense is mish(c_emb) @ Wf_r + bf_r;
-// channels past its width are 0.
-template <int G>
-static __device__ void episode_films(const int* m, const float* __restrict__ W,
-                                     const float* __restrict__ t_emb, const float* ctx,
-                                     float* mc, float* films) {
-  const int n_res = m[M_NRES], maxc = m[M_MAXC], cond = m[M_COND];
-  episode_film_inputs<G>(m, t_emb, ctx, mc);
-  for (int i = threadIdx.x; i < n_res * G * maxc; i += NT) {
-    const int ch = i % maxc, rg = i / maxc, g = rg % G, r = rg / G;
-    float acc = 0.f;
-    if (ch < m[M_RES + r * RES_STRIDE + R_COUT]) {
-      acc = __ldg(W + m[M_FB] + (size_t)r * maxc + ch);
-      const float* fw = W + m[M_FW] + (size_t)r * cond * maxc + ch;
-      for (int j = 0; j < cond; ++j) acc = fmaf(mc[g * cond + j], __ldg(fw + (size_t)j * maxc), acc);
-    }
-    films[i] = acc;
-  }
-  __syncthreads();
-}
-
-// episode_films for the cluster body (unet_body_cluster.cuh): only the channels of each
-// block that rank `rank` of CLUSTER owns, [rank * cout / CLUSTER, (rank + 1) * cout / CLUSTER),
+// (episode_film_inputs), for the cluster body (unet_body_cluster.cuh): each
+// ResidualTemporalBlock's Dense is mish(c_emb) @ Wf_r + bf_r, and only the channels of each
+// block that rank `rank` of n_ranks owns, [rank * cout / n_ranks, (rank + 1) * cout / n_ranks),
 // are written; the rest of films is left as it is.
 template <int G>
 static __device__ void episode_films_rank(const int* m, const float* __restrict__ W,

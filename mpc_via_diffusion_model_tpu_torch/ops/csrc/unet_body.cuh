@@ -1,13 +1,14 @@
-// The conv backbone of the temporal U-Net as block-wide device functions, shared by every
-// kernel of the port: cfg_chain.cu, cfg_episode.cu, fused_unet.cu, ddim_chain.cu and
-// ddim_episode.cu run the whole body; fused_conv.cu runs one conv and one gn_mish.
+// The conv backbone of the temporal U-Net as block-wide device functions: fused_unet.cu and
+// ddim_chain.cu run the whole body in one block; fused_conv.cu runs one conv and one gn_mish.
+// The cluster body of cfg_chain.cu, cfg_episode.cu and ddim_episode.cu
+// (unet_body_cluster.cuh) keeps this file's layout, plan, meta table and helpers.
 //
 // Port of the U-Net body that mpc_via_diffusion_model_tpu/ops/fused_unet.py::build_unet_ops
 // traces into every Pallas kernel of the JAX package. One block runs the body on NB row-sets
-// of one horizon each: NB = 2 in the chain and episode kernels (the conditional and the
-// unconditional copy of one sample, which the CFG combination needs together), NB = 1 in
-// the standalone U-Net kernel (one batch element per block) and in the DDIM chain and
-// episode kernels (a distilled student's sample is conditional only).
+// of one horizon each: NB = 1 in the standalone U-Net kernel (one batch element per block)
+// and in the DDIM chain kernel (a distilled student's sample is conditional only); NB = 2,
+// the conditional and the unconditional copy of one sample, which the CFG combination needs
+// together, in the cluster body of the CFG kernels.
 //
 // Activations live in shared memory as (NB, h + 2*HALO, c) with HALO zero rows above and
 // below each row-set, so the 'same' convs need no edge masks. Weights stay in device memory

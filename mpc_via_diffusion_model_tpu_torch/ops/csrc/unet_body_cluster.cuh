@@ -1,5 +1,6 @@
 // The conv backbone of the temporal U-Net split over a thread-block cluster of CLUSTER CTAs,
-// by output channel: the body of cfg_episode.cu.
+// by output channel: the body of cfg_episode.cu and cfg_chain.cu (two row-sets, NB = 2) and
+// of ddim_episode.cu (one, NB = 1).
 //
 // Port of the same U-Net body as unet_body.cuh (the one-block body of the other kernels,
 // from mpc_via_diffusion_model_tpu/ops/fused_unet.py::build_unet_ops), cut otherwise:

@@ -10,6 +10,15 @@ CUDA device and runs its ``plain`` version when they lie on the CPU. On a
 CUDA tensor it launches the kernel or raises: it never falls back to the
 plain version there.
 
+The CFG chain kernel runs each sample on a thread-block cluster of 8 CTAs
+that splits the U-Net body by output channel, one GroupNorm group per CTA
+(``csrc/unet_body_cluster.cuh``), as the CFG episode does: it needs a card
+with clusters (sm_90) and a model whose convs and GroupNorms
+``unet_pack.cluster_split`` accepts. Both are checked where the kernel
+would be launched (``_build.ClusterLaunch``), so the plain version on
+the CPU takes any model. The DDIM chain runs one block per sample
+(``csrc/unet_body.cuh``).
+
 As in the JAX package, the FiLM biases of every (step, ResidualTemporalBlock,
 row) depend only on the timestep and the context, so they are computed in
 torch ahead of the kernel in one einsum. The CFG chain's conditional rows use
@@ -35,10 +44,11 @@ from ..diffusion.distillation import ddim_affine_coefs, make_student_ddim_sample
 from ..models.layers import mish
 from ..models.temporal_unet import TemporalUnet
 from . import _build
-from .unet_pack import M_LEN, PackedUnet, packed_on
+from .unet_pack import CLUSTER, M_LEN, PackedUnet, packed_on
 
 __all__ = ["FusedCfgChain", "FusedDdimChain", "make_fused_cfg_chain", "make_fused_ddim_chain",
-           "step_coefficients", "ddim_step_coefficients", "film_table"]
+           "step_coefficients", "ddim_step_coefficients", "film_table",
+           "cfg_chain_max_active_clusters"]
 
 
 def step_coefficients(schedule: DiffusionSchedule, n_tail: int):
@@ -87,7 +97,15 @@ def film_table(packed: PackedUnet, t_embs: torch.Tensor, context: torch.Tensor,
 def _cfg_lib() -> ctypes.CDLL:
     """The built ``csrc/cfg_chain.cu``."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    return _build.bind("cfg_chain", [p, p, i, p, p, p, p, i, i, f, f, p], M_LEN)
+    return _build.bind("cfg_chain", [p, p, i, p, p, p, p, i, i, f, f, p], M_LEN, cluster=CLUSTER)
+
+
+def cfg_chain_max_active_clusters(smem_bytes: int) -> int:
+    """How many clusters of the CFG chain kernel (one per sample) fit on the
+    current CUDA device at once with ``smem_bytes`` of dynamic shared memory
+    per CTA (``cudaOccupancyMaxActiveClusters``); raises with CUDA's text
+    when the query fails. Builds the kernel first if needed."""
+    return _build.max_active_clusters(_cfg_lib(), "cfg_chain", smem_bytes)
 
 
 @functools.lru_cache(maxsize=None)
@@ -101,7 +119,8 @@ class FusedCfgChain:
     """``chain(context (B, C), noise (n_total+1, B, H, D)) -> u_norm (B, H, D)``.
 
     ``launches`` counts kernel launches and ``plain_calls`` calls of the
-    plain version; callers reset them to 0 to count one run.
+    plain version; callers reset them to 0 to count one run. ``cluster``
+    holds the rank-major weights the kernel reads and its occupancy check.
     """
 
     def __init__(self, packed: PackedUnet, schedule: DiffusionSchedule, n_samples: int,
@@ -115,6 +134,7 @@ class FusedCfgChain:
         self.t_eff = torch.as_tensor(t_eff, device=device)
         with torch.no_grad():
             self.t_embs = self.model.time_mlp(self.t_eff)  # (n_total, time_emb_dim)
+        self.cluster = _build.ClusterLaunch(packed, "cfg_chain", cfg_chain_max_active_clusters)
         self.launches = 0
         self.plain_calls = 0
 
@@ -144,17 +164,21 @@ class FusedCfgChain:
 
     @torch.no_grad()
     def kernel(self, context: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
-        """Launch ``csrc/cfg_chain.cu`` on the current stream."""
+        """Launch ``csrc/cfg_chain.cu``, one cluster of 8 CTAs per sample, on
+        the current stream; raises when the body cannot be split over the
+        cluster or no cluster fits on the card."""
         self._check(context, noise)
         if not context.is_cuda or context.device != self.packed.weights.device:
             raise ValueError("the cfg_chain kernel takes tensors on the packed weights' CUDA device")
+        weights = self.cluster.weights
+        self.cluster.require_fit(self.packed.smem_bytes, context.device)
         films = self.films(context).contiguous()
         noise_tab = torch.cat([noise[1:], noise[:1]], dim=0).contiguous()
         out = torch.empty((self.n_samples, self.packed.horizon, self.packed.state_dim),
                           dtype=torch.float32, device=context.device)
         _build.launch(
             _cfg_lib(), "cfg_chain",
-            self.packed.weights.data_ptr(), self.packed.meta.data_ptr(), self.packed.smem_bytes,
+            weights.data_ptr(), self.packed.meta.data_ptr(), self.packed.smem_bytes,
             films.data_ptr(), noise_tab.data_ptr(), self.coefs.data_ptr(), out.data_ptr(),
             self.n_total, self.n_samples, self.w, float(np.float32(1.0 + self.w)),
             torch.cuda.current_stream(context.device).cuda_stream)

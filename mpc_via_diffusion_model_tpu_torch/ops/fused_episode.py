@@ -12,15 +12,17 @@ a CUDA device and runs its ``plain`` version when they lie on the CPU. On a
 CUDA tensor it launches the kernel or raises: it never falls back to the
 plain version.
 
-The CFG episode kernel is a thread-block cluster of 8 CTAs that splits the
+Both episode kernels are a thread-block cluster of 8 CTAs that splits the
 U-Net body by output channel, one GroupNorm group per CTA
-(``csrc/unet_body_cluster.cuh``): it needs a card with clusters (sm_90), and
-a model whose convs and GroupNorms ``unet_pack.cluster_split`` accepts,
-which the maker checks. Before its first launch the wrapper asks CUDA
+(``csrc/unet_body_cluster.cuh``; two row-sets in the CFG episode, one in the
+DDIM episode): they need a card with clusters (sm_90), and a model whose
+convs and GroupNorms ``unet_pack.cluster_split`` accepts, which each
+wrapper checks where its kernel would be launched, so that its plain version
+on the CPU takes any model. Before its first launch each wrapper asks CUDA
 (``cudaOccupancyMaxActiveClusters``) how many such clusters fit on the card
-at the episode's shared memory, and raises when none does.
-``cluster_split_features`` is the body computed as the 8 CTAs compute it,
-in plain PyTorch, for the tests.
+at the episode's shared memory, and raises when none does
+(``_build.ClusterLaunch``). ``cluster_split_features`` is
+the body computed as the 8 CTAs compute it, in plain PyTorch, for the tests.
 
 ``noise`` is staged per replan as the port's ``make_closed_loop`` takes it
 from the matching sampler. The CFG episode's is (n_steps, n_total + 1, K, H,
@@ -62,12 +64,12 @@ from ..models.layers import mish
 from ..models.temporal_unet import TemporalUnet
 from . import _build
 from .fused_denoise import ddim_step_coefficients, refuse_unported_ddim_options, step_coefficients
-from .unet_pack import (CLUSTER, M_LEN, SMEM_LIMIT, PackedUnet, cluster_split, cluster_weights,
-                        packed_on)
+from .unet_pack import CLUSTER, M_LEN, SMEM_LIMIT, PackedUnet, packed_on
 
 __all__ = ["FusedCfgEpisode", "FusedDdimEpisode", "make_fused_cfg_episode",
            "make_fused_ddim_episode", "affine_consts", "episode_choice",
-           "cfg_episode_max_active_clusters", "cluster_split_features"]
+           "cfg_episode_max_active_clusters", "ddim_episode_max_active_clusters",
+           "cluster_split_features"]
 
 KERNEL_PLANTS = ("cartpole_virtual_swingup",)  # plants written in csrc/plants.cuh
 _QUERIES = ("consts_len", "plant_dims")
@@ -77,13 +79,8 @@ _QUERIES = ("consts_len", "plant_dims")
 def _cfg_lib() -> ctypes.CDLL:
     """The built ``csrc/cfg_episode.cu``."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib = _build.bind("cfg_episode", [p, p, i, p, p, p, p, p, p, p, p, p, i, i, i, i, f, f, p],
-                      M_LEN, _QUERIES + ("cluster_size",))
-    lib.cfg_episode_max_active_clusters.argtypes = [i, ctypes.POINTER(i)]
-    lib.cfg_episode_max_active_clusters.restype = i
-    if lib.cfg_episode_cluster_size() != CLUSTER:
-        raise RuntimeError("cfg_episode.cu and ops/unet_pack.py disagree on the cluster size")
-    return lib
+    return _build.bind("cfg_episode", [p, p, i, p, p, p, p, p, p, p, p, p, i, i, i, i, f, f, p],
+                       M_LEN, _QUERIES, cluster=CLUSTER)
 
 
 def cfg_episode_max_active_clusters(smem_bytes: int) -> int:
@@ -91,13 +88,7 @@ def cfg_episode_max_active_clusters(smem_bytes: int) -> int:
     device at once with ``smem_bytes`` of dynamic shared memory per CTA
     (``cudaOccupancyMaxActiveClusters``); raises with CUDA's text when the
     query fails. Builds the kernel first if needed."""
-    lib = _cfg_lib()
-    n = ctypes.c_int(0)
-    err = lib.cfg_episode_max_active_clusters(int(smem_bytes), ctypes.byref(n))
-    if err != 0:
-        raise RuntimeError("cudaOccupancyMaxActiveClusters failed for the cfg_episode kernel: "
-                           f"{lib.cfg_episode_error_string(err).decode()}")
-    return n.value
+    return _build.max_active_clusters(_cfg_lib(), "cfg_episode", smem_bytes)
 
 
 @functools.lru_cache(maxsize=None)
@@ -105,7 +96,12 @@ def _ddim_lib() -> ctypes.CDLL:
     """The built ``csrc/ddim_episode.cu``."""
     p, i = ctypes.c_void_p, ctypes.c_int
     return _build.bind("ddim_episode", [p, p, i, p, p, p, p, p, p, p, p, p, i, i, i, i, p],
-                       M_LEN, _QUERIES)
+                       M_LEN, _QUERIES, cluster=CLUSTER)
+
+
+def ddim_episode_max_active_clusters(smem_bytes: int) -> int:
+    """The same query for the DDIM episode kernel's cluster."""
+    return _build.max_active_clusters(_ddim_lib(), "ddim_episode", smem_bytes)
 
 
 def affine_consts(stats: NormalizerStats, dim: int):
@@ -140,18 +136,21 @@ def episode_choice(scores: torch.Tensor) -> int:
 
 class _Episode:
     """What the two episodes share: the consts table of the kernels
-    (``csrc/episode.cuh``, C_*), the shared-memory size, the checks, the
-    dispatch between kernel and plain version and, in the plain version,
-    the end of each replan."""
+    (``csrc/episode.cuh``, C_*), the shared-memory size, the cluster launch
+    (``cluster``: the rank-major weights and the occupancy check), the
+    checks, the dispatch between kernel and plain version and, in the plain
+    version, the end of each replan."""
 
     name = ""  # csrc/<name>.cu
+    lib: Callable[[], ctypes.CDLL]  # its built library
+    query: Callable[[int], int]  # its <name>_max_active_clusters
 
     def __init__(self, packed: PackedUnet, inputs_stats: NormalizerStats,
                  condition_stats: NormalizerStats, plant: Plant, cost: QuadraticCost,
                  n_steps: int, n_candidates: int, selection_cost: QuadraticCost,
                  selection_horizon: int, coefs: np.ndarray, t_eval: np.ndarray):
         self.packed, self.model = packed, packed.model
-        self.weights = packed.weights  # the buffer the kernel reads
+        self.cluster = _build.ClusterLaunch(packed, self.name, self.query)
         self.plant, self.n_steps = plant, int(n_steps)
         self.n_candidates, self.selection_horizon = int(n_candidates), int(selection_horizon)
         device = packed.weights.device
@@ -177,6 +176,12 @@ class _Episode:
         self.launches = 0
         self.plain_calls = 0
 
+    @property
+    def weights(self) -> torch.Tensor:
+        """The buffer the kernel reads: the packed weights with the body's
+        conv kernels rank-major."""
+        return self.cluster.weights
+
     def _check(self, x0: torch.Tensor, noise: torch.Tensor) -> None:
         if tuple(x0.shape) != (self.plant.state_dim,):
             raise ValueError(f"x0 must be ({self.plant.state_dim},), got {tuple(x0.shape)}")
@@ -193,19 +198,24 @@ class _Episode:
 
     __call__ = episode
 
-    def _launch(self, lib_fn: Callable[[], ctypes.CDLL], x0: torch.Tensor,
-                noise_tab: torch.Tensor, *scalars):
-        """Loads the library (``lib_fn``), checks it against this wrapper,
-        allocates the outputs and launches ``<name>_launch`` on the current
-        stream; returns (x_track, u_track, costs, chosen)."""
+    def _launch(self, x0: torch.Tensor, noise_tab: torch.Tensor, *scalars,
+                lib: Optional[ctypes.CDLL] = None):
+        """Checks the library (the port's ``lib()`` unless another build of
+        ``<name>.cu`` is given, as the scripts that time edited copies give
+        theirs) against this wrapper, asks once whether its cluster fits,
+        allocates the outputs and launches ``<name>_launch``, one cluster of
+        8 CTAs, on the current stream; returns (x_track, u_track, costs,
+        chosen)."""
         if not x0.is_cuda or x0.device != self.packed.weights.device:
             raise ValueError(f"the {self.name} kernel takes tensors on the packed weights' CUDA device")
-        lib = lib_fn()
+        weights = self.weights
+        lib = self.lib() if lib is None else lib
         dev, dx, du = x0.device, self.plant.state_dim, self.plant.control_dim
         if getattr(lib, f"{self.name}_plant_dims")() != 100 * dx + du:
             raise RuntimeError(f"{self.name}.cu was built for another plant")
         if getattr(lib, f"{self.name}_consts_len")() != self.consts.numel():
             raise RuntimeError(f"{self.name}.cu and fused_episode.py disagree on the consts layout")
+        self.cluster.require_fit(self.smem_bytes, x0.device)
         x_track = torch.empty((self.n_steps + 1, dx), dtype=torch.float32, device=dev)
         u_track = torch.empty((self.n_steps, du), dtype=torch.float32, device=dev)
         costs = torch.empty((self.n_steps,), dtype=torch.float32, device=dev)
@@ -213,7 +223,7 @@ class _Episode:
         x0 = x0.contiguous()
         _build.launch(
             lib, self.name,
-            self.weights.data_ptr(), self.packed.meta.data_ptr(), self.smem_bytes,
+            weights.data_ptr(), self.packed.meta.data_ptr(), self.smem_bytes,
             self.t_embs.data_ptr(), noise_tab.data_ptr(), self.coefs.data_ptr(),
             self.consts.data_ptr(), x0.data_ptr(), x_track.data_ptr(), u_track.data_ptr(),
             costs.data_ptr(), chosen.data_ptr(), self.n_steps, self.n_total, self.n_candidates,
@@ -280,6 +290,8 @@ class FusedCfgEpisode(_Episode):
     """
 
     name = "cfg_episode"
+    lib = staticmethod(_cfg_lib)
+    query = staticmethod(cfg_episode_max_active_clusters)
 
     def __init__(self, packed: PackedUnet, schedule: DiffusionSchedule,
                  inputs_stats: NormalizerStats, condition_stats: NormalizerStats, plant: Plant,
@@ -289,9 +301,6 @@ class FusedCfgEpisode(_Episode):
                          n_candidates, selection_cost, selection_horizon,
                          *step_coefficients(schedule, n_tail))
         self.w = float(w)
-        self.split = cluster_split(packed)  # raises for a body the cluster cannot split
-        self.weights = cluster_weights(packed, self.split)  # the kernel's rank-major copy
-        self._cluster_slots = None  # clusters that fit, asked before the first launch
 
     @property
     def noise_shape(self) -> Tuple[int, ...]:
@@ -301,18 +310,11 @@ class FusedCfgEpisode(_Episode):
     @torch.no_grad()
     def kernel(self, x0: torch.Tensor, noise: torch.Tensor):
         """Launch ``csrc/cfg_episode.cu``, one cluster of 8 CTAs, on the
-        current stream; raises when no such cluster fits on the card."""
+        current stream; raises when the body cannot be split over the
+        cluster or no cluster fits on the card."""
         self._check(x0, noise)
-        if x0.is_cuda and self._cluster_slots is None:
-            slots = cfg_episode_max_active_clusters(self.smem_bytes)
-            if not slots:
-                raise RuntimeError(
-                    f"no cluster of {CLUSTER} CTAs with {self.smem_bytes} B of shared memory each "
-                    f"fits on {torch.cuda.get_device_name(x0.device)}: the cfg_episode kernel "
-                    "needs thread-block clusters (sm_90)")
-            self._cluster_slots = slots
         noise_tab = torch.cat([noise[:, 1:], noise[:, :1]], dim=1).contiguous()
-        return self._launch(_cfg_lib, x0, noise_tab, self.w, float(np.float32(1.0 + self.w)))
+        return self._launch(x0, noise_tab, self.w, float(np.float32(1.0 + self.w)))
 
     @torch.no_grad()
     def plain(self, x0: torch.Tensor, noise: torch.Tensor):
@@ -402,6 +404,8 @@ class FusedDdimEpisode(_Episode):
     """
 
     name = "ddim_episode"
+    lib = staticmethod(_ddim_lib)
+    query = staticmethod(ddim_episode_max_active_clusters)
 
     def __init__(self, packed: PackedUnet, schedule: DiffusionSchedule, times: Sequence[int],
                  inputs_stats: NormalizerStats, condition_stats: NormalizerStats, plant: Plant,
@@ -418,9 +422,11 @@ class FusedDdimEpisode(_Episode):
 
     @torch.no_grad()
     def kernel(self, x0: torch.Tensor, noise: torch.Tensor):
-        """Launch ``csrc/ddim_episode.cu`` on the current stream."""
+        """Launch ``csrc/ddim_episode.cu``, one cluster of 8 CTAs, on the
+        current stream; raises when the body cannot be split over the
+        cluster or no cluster fits on the card."""
         self._check(x0, noise)
-        return self._launch(_ddim_lib, x0, noise.contiguous())
+        return self._launch(x0, noise.contiguous())
 
     @torch.no_grad()
     def plain(self, x0: torch.Tensor, noise: torch.Tensor):

@@ -45,7 +45,7 @@ HALO = 2
 MAX_LEVELS = 4
 MAX_RES = 4 * MAX_LEVELS
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper
-CLUSTER = 8  # CTAs of the CFG episode kernel's cluster (csrc/unet_body_cluster.cuh)
+CLUSTER = 8  # CTAs of the cluster kernels' clusters (csrc/unet_body_cluster.cuh)
 
 # meta layout; ops/csrc/unet_body.cuh mirrors every index below
 (M_H, M_D, M_NLEV, M_NRES, M_MAXC, M_BUF, M_XS, M_EPS, M_STATS, M_SMEM) = range(10)
@@ -86,8 +86,8 @@ class PackedUnet:
     flops_final_1x1: int           # of which the final 1x1 conv, outside the U-Net pass kernel
 
     def episode_smem_bytes(self, n_candidates: int) -> int:
-        """Dynamic shared memory of one block of either episode kernel, and of
-        each CTA of the CFG episode's cluster. The DDIM episode runs one
+        """Dynamic shared memory of each CTA of either episode kernel's
+        cluster. The DDIM episode runs one
         row-set: its one FiLM group fills the first n_res x max_c floats of
         the FiLM region (M_EP_FILM), and the first cond_dim of the
         mish(c_emb) region (M_EP_MC)."""
@@ -295,7 +295,7 @@ class ClusterSplit:
 
 
 def cluster_split(packed: PackedUnet, n_ranks: int = CLUSTER) -> ClusterSplit:
-    """The cluster episode's split of ``packed``'s body, read from its meta
+    """The cluster kernels' split of ``packed``'s body, read from its meta
     table as the kernel reads it. Raises ``ValueError`` unless ``n_ranks``
     divides every conv's output channels and every GroupNorm has exactly
     ``n_ranks`` groups: the kernel keeps each group inside one CTA."""
@@ -316,17 +316,17 @@ def cluster_split(packed: PackedUnet, n_ranks: int = CLUSTER) -> ClusterSplit:
     norms["final.g"] = (dims[1], int(m[M_FIN + 4]))
     for name, c in convs.items():
         if c % n_ranks:
-            raise ValueError(f"the cluster episode splits every conv over {n_ranks} CTAs: {name} "
+            raise ValueError(f"the cluster kernels split every conv over {n_ranks} CTAs: {name} "
                              f"has {c} output channels")
     for name, (c, groups) in norms.items():
         if groups != n_ranks:
-            raise ValueError(f"the cluster episode keeps one GroupNorm group per CTA: {name} has "
+            raise ValueError(f"the cluster kernels keep one GroupNorm group per CTA: {name} has "
                              f"{groups} groups over {c} channels, not {n_ranks}")
     return ClusterSplit(n_ranks, convs, norms)
 
 
 def cluster_weights(packed: PackedUnet, split: ClusterSplit) -> torch.Tensor:
-    """The packed buffer as the cluster episode kernel reads it: every conv
+    """The packed buffer as the cluster kernels read it: every conv
     kernel of the body, (rows, cout) with rows = k * C_in, stored rank-major
     as (n_ranks, rows, cout / n_ranks) at its own offset, so that each rank's
     slice is one dense block and neighbouring lanes read neighbouring

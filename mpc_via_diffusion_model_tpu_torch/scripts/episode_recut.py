@@ -29,7 +29,6 @@ import subprocess
 from pathlib import Path
 from typing import Dict, List, Optional
 
-import numpy as np
 import torch
 
 from ..core import make_schedule
@@ -39,7 +38,7 @@ from ..models import load_flagship
 from ..ops import _build
 from ..ops.fused_episode import make_fused_cfg_episode
 from ..utils.device import resolve_device
-from .episode_profile import _sub, build_copy
+from .episode_profile import _sub, build_copy, launch_copy
 
 ARTIFACTS = Path(__file__).resolve().parents[2] / "artifacts" / "flagship"
 TRACK_TOL = 1e-3
@@ -101,9 +100,8 @@ def main(argv: Optional[List[str]] = None) -> List[dict]:
     noise = torch.randn(ep.noise_shape, generator=torch.Generator(device=dev).manual_seed(0),
                         device=dev)
     noise_tab = torch.cat([noise[:, 1:], noise[:, :1]], dim=1).contiguous()
-    wp1 = float(np.float32(1.0 + ep.w))
     run = {own: lambda: ep.kernel(x0, noise),
-           **{n: (lambda lib=lib: ep._launch(lambda: lib, x0, noise_tab, ep.w, wp1))
+           **{n: (lambda lib=lib: launch_copy(ep, lib, x0, noise_tab))
               for n, (lib, _) in copies.items()}}
     ref = run[own]()
     rows = {}

@@ -125,8 +125,9 @@ def test_unet_pack_segments_match_module(flagship):
 
 @pytest.mark.parametrize("which", ["small", "flagship"])
 def test_kernel_program_emulation_matches_plain(which, small, flagship):
-    """The kernel's op program, run in numpy on the packed buffer and the
-    meta table, equals the plain chain: the layout the kernel reads is
+    """The kernel's op program, run in numpy on the rank-major buffer and
+    the meta table over the 8 NaN-filled shared-memory images of each
+    sample's cluster, equals the plain chain: the layout the kernel reads is
     right, so the CUDA kernel can only be wrong in its arithmetic."""
     model = small[2] if which == "small" else flagship
     chain = make_fused_cfg_chain(model, make_schedule("exponential", T), n_samples=2, w=W,
@@ -139,7 +140,8 @@ def test_kernel_program_emulation_matches_plain(which, small, flagship):
     with torch.no_grad():
         films = chain.films(ctx).numpy()
     noise_tab = torch.cat([noise[1:], noise[:1]]).numpy()
-    got = emulate_cfg_chain_kernel(chain.packed, films, noise_tab, chain.coefs.numpy(), W)
+    got, _ = emulate_cfg_chain_kernel(chain.packed, chain.cluster.weights, films, noise_tab,
+                                      chain.coefs.numpy(), W)
     assert np.all(np.isfinite(got))
     np.testing.assert_allclose(got, want, atol=TOL, rtol=0)
 
@@ -204,20 +206,22 @@ def test_chain_wrapper_runs_plain_version_on_cpu(small):
 
 
 @pytest.mark.gpu
-def test_cfg_chain_kernel_matches_plain_on_gpu():
-    """The CUDA kernel against its plain version on the card, at the
-    flagship's full width. The plain version runs cuDNN convolutions in
-    fp32 (TF32 off), the kernel FMA loops: sums in other orders, 1e-4."""
+@pytest.mark.parametrize("n_samples", [2, 1, 3])
+def test_cfg_chain_kernel_matches_plain_on_gpu(n_samples):
+    """The CUDA kernel, one cluster of 8 CTAs per sample, against its plain
+    version on the card, at the flagship's full width. The plain version
+    runs cuDNN convolutions in fp32 (TF32 off), the kernel FMA loops: sums
+    in other orders, 1e-4."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
     chain = make_fused_cfg_chain(load_flagship(FLAGSHIP, device="cuda"),
-                                 make_schedule("exponential", T), n_samples=2, w=W,
+                                 make_schedule("exponential", T), n_samples=n_samples, w=W,
                                  n_tail=N_TAIL, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(0)
-    ctx = torch.randn((2, 5), generator=gen, device="cuda")
-    noise = torch.randn((T + N_TAIL + 1, 2, 32, 1), generator=gen, device="cuda")
+    ctx = torch.randn((n_samples, 5), generator=gen, device="cuda")
+    noise = torch.randn((T + N_TAIL + 1, n_samples, 32, 1), generator=gen, device="cuda")
     got = chain(ctx, noise)
     torch.cuda.synchronize()
     want = chain.plain(ctx, noise)
-    assert chain.launches == 1
+    assert chain.launches == 1 and chain.cluster.slots >= 1
     torch.testing.assert_close(got, want, atol=TOL, rtol=0)

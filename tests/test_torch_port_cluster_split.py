@@ -1,10 +1,12 @@
-"""The CFG episode kernel's cluster split (ops/csrc/unet_body_cluster.cuh) on
-the CPU: the U-Net body computed as its 8 CTAs compute it, one output-channel
-slice and one GroupNorm group per rank, against the plain ``TemporalUnet``
-body; the split's plan in ``ops/unet_pack.py``; and the kernel's program
-emulated in numpy over 8 shared-memory images, with every push between two
-cluster barriers checked for races. The CUDA checks are marked ``gpu``.
+"""The cluster kernels' split (ops/csrc/unet_body_cluster.cuh: the CFG
+episode, the CFG chain and the DDIM episode) on the CPU: the U-Net body
+computed as its 8 CTAs compute it, one output-channel slice and one GroupNorm
+group per rank, against the plain ``TemporalUnet`` body; the split's plan in
+``ops/unet_pack.py``; and each kernel's program emulated in numpy over 8
+shared-memory images, with every push between two cluster barriers checked
+for races. The CUDA checks are marked ``gpu``.
 """
+import inspect
 from pathlib import Path
 
 import numpy as np
@@ -13,19 +15,27 @@ import torch
 
 from mpc_via_diffusion_model_tpu_torch.core import make_schedule
 from mpc_via_diffusion_model_tpu_torch.data import NormalizerStats
-from mpc_via_diffusion_model_tpu_torch.dynamics import (cartpole_virtual_cost,
+from mpc_via_diffusion_model_tpu_torch.dynamics import (cartpole_virtual_collect_cost,
+                                                        cartpole_virtual_cost,
                                                         cartpole_virtual_swingup,
                                                         theta_to_red_theta)
-from mpc_via_diffusion_model_tpu_torch.models import TemporalUnet, load_flagship
+from mpc_via_diffusion_model_tpu_torch.models import TemporalUnet, load_flagship, load_student
 from mpc_via_diffusion_model_tpu_torch.ops import unet_pack as up
+from mpc_via_diffusion_model_tpu_torch.ops.fused_denoise import (cfg_chain_max_active_clusters,
+                                                                 make_fused_cfg_chain)
 from mpc_via_diffusion_model_tpu_torch.ops.fused_episode import (cfg_episode_max_active_clusters,
                                                                  cluster_split_features,
-                                                                 make_fused_cfg_episode)
-from torch_port_util import emulate_cfg_episode_kernel
+                                                                 ddim_episode_max_active_clusters,
+                                                                 make_fused_cfg_episode,
+                                                                 make_fused_ddim_episode)
+from torch_port_util import (emulate_cfg_chain_kernel, emulate_cfg_episode_kernel,
+                             emulate_ddim_episode_kernel)
 
 torch.set_num_threads(1)
 
 FLAGSHIP = Path(__file__).resolve().parents[1] / "artifacts" / "flagship" / "ema_params.pkl"
+STUDENT = (Path(__file__).resolve().parents[1] / "artifacts" / "onpolicy_cartpole"
+           / "student_1eval.pkl")
 X0 = np.array([0.0, 0.0, 3.0, 0.0, theta_to_red_theta(3.0)], np.float32)
 W = 0.01
 
@@ -58,6 +68,27 @@ def _episode(tm, k=1, n_steps=1, t=2, n_tail=1, sel_h=None, device="cpu"):
                                   cartpole_virtual_swingup(), cartpole_virtual_cost(),
                                   n_steps=n_steps, w=W, n_diffusion_steps_without_noise=n_tail,
                                   n_candidates=k, selection_horizon=sel_h, device=device)
+
+
+def _chain(tm, b=1, t=2, n_tail=1, device="cpu"):
+    return make_fused_cfg_chain(tm, make_schedule("exponential", t), n_samples=b, w=W,
+                                n_tail=n_tail, device=device)
+
+
+def _ddim_episode(tm, times, k=1, n_steps=1, sel_h=None, device="cpu"):
+    ins, cs = _stats()
+    return make_fused_ddim_episode(tm, make_schedule("exponential", 25), times, ins, cs,
+                                   cartpole_virtual_swingup(), cartpole_virtual_collect_cost(),
+                                   n_steps=n_steps, n_candidates=k, selection_horizon=sel_h,
+                                   device=device)
+
+
+def _barriers_per_pass(dim_mults) -> int:
+    """Cluster barriers of one pass of the body: 2 per residual block, 1 per
+    down- and upsample, 1 for the final block (29 at three levels), and one
+    more when the pass ends in a buffer the next pass pushes into, which
+    happens at two levels (19 + 1)."""
+    return 29 if len(dim_mults) == 3 else 20
 
 
 @pytest.mark.parametrize("which", ["flagship", "small"])
@@ -115,7 +146,8 @@ def test_cluster_split_group_is_the_rank_slice(which):
 @pytest.mark.parametrize("case", ["width_12", "width_4", "groups_16"])
 def test_cluster_split_refuses_what_8_ranks_cannot_split(case):
     """A width that 8 does not divide, or a GroupNorm without 8 groups,
-    raises ValueError in the plan and in the episode maker: no fallback."""
+    raises ValueError in the plan and where the episode kernel would be
+    launched (its split, which the rank-major weights need): no fallback."""
     if case == "groups_16":
         tm = _seeded_unet(unet_input_dim=32, dim_mults=(1, 2))
         tm.final_conv[0].block[2].num_groups = 16
@@ -125,8 +157,9 @@ def test_cluster_split_refuses_what_8_ranks_cannot_split(case):
         match = "output channels"
     with pytest.raises(ValueError, match=match):
         up.cluster_split(up.pack_unet(tm, "cpu"))
+    ep = _episode(tm)
     with pytest.raises(ValueError, match=match):
-        _episode(tm)
+        ep.cluster.split
 
 
 @pytest.mark.parametrize("k", [1, 4])
@@ -136,7 +169,7 @@ def test_cluster_episode_shared_memory_under_limit(k):
     K = 1 or 4 it fits one block's shared memory."""
     ep = _episode(load_flagship(FLAGSHIP, device="cpu"), k=k)
     assert ep.smem_bytes == ep.packed.episode_smem_bytes(k) <= up.SMEM_LIMIT
-    assert ep.split.n_ranks == 8
+    assert ep.cluster.split.n_ranks == 8
 
 
 @pytest.mark.parametrize("dim_mults,k,sel_h", [((1, 2), 1, None), ((1, 2, 4), 3, 5)])
@@ -163,13 +196,108 @@ def test_cluster_program_is_race_free_and_matches_plain(dim_mults, k, sel_h):
     assert barriers == per_pass * n_steps * (t + n_tail) * k
 
 
+@pytest.mark.parametrize("dim_mults,b", [((1, 2), 1), ((1, 2), 3), ((1, 2, 4), 1),
+                                         ((1, 2, 4), 3)])
+def test_chain_cluster_program_is_race_free_and_matches_plain(dim_mults, b):
+    """cfg_chain.cu's program, one cluster of 8 NaN-filled images per sample
+    on the two row-sets (NB = 2): every push lands where no CTA reads or
+    writes between the same two cluster barriers, all 8 CTAs end every pass
+    with the same activations, the output equals the plain chain, and each
+    cluster passes the start barrier, the body's per pass and the one before
+    exit."""
+    chain = _chain(_seeded_unet(n_support_points=8, dim_mults=dim_mults), b=b)
+    rng = np.random.RandomState(b)
+    ctx = torch.from_numpy(rng.randn(b, 5).astype(np.float32))
+    noise = torch.from_numpy(rng.randn(chain.n_total + 1, b, 8, 1).astype(np.float32))
+    want = chain.plain(ctx, noise).numpy()
+    with torch.no_grad():
+        films = chain.films(ctx).numpy()
+    noise_tab = torch.cat([noise[1:], noise[:1]]).numpy()
+    got, barriers = emulate_cfg_chain_kernel(chain.packed, chain.cluster.weights, films, noise_tab,
+                                             chain.coefs.numpy(), W)
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+    assert barriers == [2 + _barriers_per_pass(dim_mults) * chain.n_total] * b
+
+
+@pytest.mark.parametrize("dim_mults,k,times", [((1, 2), 1, [23]), ((1, 2, 4), 1, [23, 15, 7]),
+                                               ((1, 2), 3, [23, 15, 7]), ((1, 2, 4), 3, [23])])
+def test_ddim_cluster_program_is_race_free_and_matches_plain(dim_mults, k, times):
+    """ddim_episode.cu's program, one cluster of 8 NaN-filled images through
+    the episode on one row-set (NB = 1): no push races, all 8 CTAs end every
+    pass alike, the tracks and choices equal the plain episode's, and the
+    cluster passes the start barrier, the body's per pass (the same count as
+    at NB = 2: the buffer rotation does not depend on the row-sets) and the
+    one before exit."""
+    n_steps = 2
+    ep = _ddim_episode(_seeded_unet(n_support_points=8, dim_mults=dim_mults), times, k=k,
+                       n_steps=n_steps, sel_h=5 if k > 1 else None)
+    noise = torch.from_numpy(np.random.RandomState(k).randn(*ep.noise_shape).astype(np.float32))
+    want = ep.plain(torch.from_numpy(X0), noise)
+    *got, barriers = emulate_ddim_episode_kernel(ep.packed, ep.weights, ep.t_embs.numpy(),
+                                                 noise.numpy(), ep.coefs.numpy(),
+                                                 ep.consts.numpy(), X0, k, ep.selection_horizon,
+                                                 n_steps)
+    for name, g, w_ in zip(("x_track", "u_track", "stage_costs"), got, want):
+        np.testing.assert_allclose(g, w_.numpy(), rtol=1e-4, atol=1e-4, err_msg=name)
+    np.testing.assert_array_equal(got[3], want[3].numpy())
+    assert barriers == 2 + _barriers_per_pass(dim_mults) * n_steps * len(times) * k
+
+
+@pytest.mark.parametrize("kernel,k", [("cfg_chain", 1), ("ddim_episode", 1), ("ddim_episode", 4)])
+def test_cluster_kernels_shared_memory_under_limit(kernel, k):
+    """Each CTA of the chain's and the student's episode's clusters holds the
+    whole one-block plan (and the episode's regions) at the full width: the
+    chain's at B = 1 (it does not grow with B), the episode's at K = 1 and
+    4, within one block's shared memory, on a body the cluster splits."""
+    if kernel == "cfg_chain":
+        chain = _chain(load_flagship(FLAGSHIP, device="cpu"))
+        smem, cluster = chain.packed.smem_bytes, chain.cluster
+    else:
+        ep = _ddim_episode(load_student(STUDENT, device="cpu"), [23], k=k)
+        smem, cluster = ep.smem_bytes, ep.cluster
+        assert smem == ep.packed.episode_smem_bytes(k)
+    assert smem <= up.SMEM_LIMIT
+    assert cluster.split.n_ranks == 8 and cluster.weights.shape == cluster.packed.weights.shape
+
+
+@pytest.mark.parametrize("kernel", ["cfg_chain", "ddim_episode", "cfg_episode"])
+def test_cluster_kernels_refuse_only_where_they_would_launch(kernel):
+    """A body the cluster cannot split (width 12) runs the plain chain and
+    the plain episodes on the CPU; the rank-major weights, which every
+    launch takes first, raise ValueError, and a CPU tensor never reaches
+    the kernel."""
+    tm = _seeded_unet(unet_input_dim=12, dim_mults=(1, 2), n_support_points=8)
+    if kernel == "cfg_chain":
+        wrapper = _chain(tm)
+        args = (torch.zeros((1, 5)), torch.zeros((wrapper.n_total + 1, 1, 8, 1)))
+        out = wrapper(*args)
+        assert out.shape == (1, 8, 1) and torch.isfinite(out).all()
+    else:
+        wrapper = _ddim_episode(tm, [23]) if kernel == "ddim_episode" else _episode(tm)
+        args = (torch.from_numpy(X0), torch.zeros(wrapper.noise_shape))
+        x_tr, _, _ = wrapper(*args)
+        assert x_tr.shape == (2, 5) and torch.isfinite(x_tr).all()
+    assert (wrapper.launches, wrapper.plain_calls) == (0, 1)
+    with pytest.raises(ValueError, match="output channels"):
+        wrapper.cluster.weights
+    with pytest.raises(ValueError, match="CUDA"):
+        wrapper.kernel(*args)
+    assert wrapper.cluster.slots is None  # no occupancy query without a card
+
+
 @pytest.mark.gpu
-def test_cluster_occupancy_query_on_gpu():
-    """At the flagship episode's shared memory a cluster of 8 CTAs fits."""
+@pytest.mark.parametrize("kernel", ["cfg_episode", "cfg_chain", "ddim_episode"])
+def test_cluster_occupancy_query_on_gpu(kernel):
+    """At the full width a cluster of 8 CTAs of each cluster kernel fits at
+    its shared memory: the episodes' at K = 1, the chain's plan."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the cluster occupancy query runs on the card")
-    ep = _episode(load_flagship(FLAGSHIP, device="cuda"), device="cuda")
-    assert cfg_episode_max_active_clusters(ep.smem_bytes) >= 1
+    packed = up.pack_unet(load_flagship(FLAGSHIP, device="cuda"), "cuda")
+    query = {"cfg_episode": cfg_episode_max_active_clusters,
+             "cfg_chain": cfg_chain_max_active_clusters,
+             "ddim_episode": ddim_episode_max_active_clusters}[kernel]
+    smem = packed.smem_bytes if kernel == "cfg_chain" else packed.episode_smem_bytes(1)
+    assert query(smem) >= 1
 
 
 @pytest.mark.gpu
@@ -249,3 +377,65 @@ def test_episode_profile_marks_the_committed_sources(tmp_path):
     assert kernel.count("PROF(") == 4 and "cfg_episode_profile_read" in kernel
     with pytest.raises(RuntimeError, match="expected 1"):
         episode_profile._sub("int x;", "float y;", "")
+
+
+class _StubEpisodeLib:
+    """Answers the library checks of ``_Episode._launch`` and records them."""
+
+    def __init__(self):
+        self.asked = []
+
+    def cfg_episode_plant_dims(self):
+        self.asked.append("plant_dims")
+        return 501
+
+    def cfg_episode_consts_len(self):
+        self.asked.append("consts_len")
+        return 0
+
+
+def test_episode_scripts_launch_their_copy_through_the_wrapper():
+    """episode_recut.py and episode_profile.py launch their built copies
+    through ``episode_profile.launch_copy``: its call binds to
+    ``FusedCfgEpisode._launch``'s signature with the copy as ``lib`` and the
+    kernel's scalars (w, float32(1 + w)), and the real launch path refuses
+    CPU tensors before it reads any library, the copy's too."""
+    from mpc_via_diffusion_model_tpu_torch.ops.fused_episode import FusedCfgEpisode
+    from mpc_via_diffusion_model_tpu_torch.scripts import episode_profile
+    ep = _episode(_seeded_unet(n_support_points=8, dim_mults=(1, 2)))
+    x0 = torch.from_numpy(X0)
+    noise_tab = torch.zeros(ep.noise_shape)
+    stub, seen = _StubEpisodeLib(), []
+    signature = inspect.signature(FusedCfgEpisode._launch)
+    real_launch = ep._launch
+    ep._launch = lambda *a, **kw: seen.append(signature.bind(ep, *a, **kw).arguments) or "launched"
+    assert episode_profile.launch_copy(ep, stub, x0, noise_tab) == "launched"
+    (args,) = seen
+    assert args["lib"] is stub and args["x0"] is x0 and args["noise_tab"] is noise_tab
+    assert args["scalars"] == (W, float(np.float32(1.0 + W)))
+    ep._launch = real_launch
+    with pytest.raises(ValueError, match="CUDA"):
+        episode_profile.launch_copy(ep, stub, x0, noise_tab)
+    assert stub.asked == [] and ep.launches == 0
+
+
+@pytest.mark.gpu
+def test_episode_launch_copy_matches_the_kernel_on_gpu():
+    """``launch_copy`` with the port's own built library launches the same
+    kernel as ``FusedCfgEpisode.kernel``: equal tracks, one launch each."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    from mpc_via_diffusion_model_tpu_torch.ops.fused_episode import _cfg_lib
+    from mpc_via_diffusion_model_tpu_torch.scripts import episode_profile
+    ep = _episode(load_flagship(FLAGSHIP, device="cuda"), n_steps=2, t=25, n_tail=5,
+                  device="cuda")
+    noise = torch.randn(ep.noise_shape, generator=torch.Generator(device="cuda").manual_seed(2),
+                        device="cuda")
+    x0 = torch.from_numpy(X0).cuda()
+    want = ep.kernel(x0, noise)
+    noise_tab = torch.cat([noise[:, 1:], noise[:, :1]], dim=1).contiguous()
+    got = episode_profile.launch_copy(ep, _cfg_lib(), x0, noise_tab)
+    torch.cuda.synchronize()
+    assert ep.launches == 2
+    for g, w_ in zip(got, want):
+        assert torch.equal(g, w_)

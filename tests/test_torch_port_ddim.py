@@ -185,17 +185,18 @@ def test_chain_kernel_program_emulation_matches_plain(models, which, times, b):
                                                  ("student", GRIDS[0], 2, 6)])
 def test_episode_kernel_program_emulation_matches_plain(models, which, times, k, sel_h):
     """ddim_episode.cu's program, the one FiLM group from the packed FiLM
-    weights written into the shared plan, the chains on one row-set and the
-    selection from the consts table, on a NaN-filled shared image of the
-    episode plan, equals the plain episode."""
+    weights written into the shared plan (each rank's channels), the chains
+    on one row-set of the cluster body and the selection from the consts
+    table, on the 8 NaN-filled shared-memory images of the episode plan,
+    equals the plain episode."""
     tm = models[2] if which == "small" else load_student(STUDENT, device="cpu")
     n_steps = N_STEPS if which == "small" else 1  # numpy is slow at 128 channels
     ep = _port_episode(tm, times, k, sel_h, n_steps=n_steps)
     noise = torch.from_numpy(np.random.RandomState(k).randn(*ep.noise_shape).astype(np.float32))
     want = ep.plain(torch.from_numpy(X0), noise)
-    got = emulate_ddim_episode_kernel(ep.packed, ep.t_embs.numpy(), noise.numpy(),
-                                      ep.coefs.numpy(), ep.consts.numpy(), X0, k,
-                                      ep.selection_horizon, n_steps)
+    *got, _ = emulate_ddim_episode_kernel(ep.packed, ep.weights, ep.t_embs.numpy(), noise.numpy(),
+                                          ep.coefs.numpy(), ep.consts.numpy(), X0, k,
+                                          ep.selection_horizon, n_steps)
     for name, g, w_ in zip(("x_track", "u_track", "stage_costs"), got, want):
         assert np.all(np.isfinite(g)), name
         np.testing.assert_allclose(g, w_.numpy(), rtol=TOL, atol=TOL, err_msg=name)

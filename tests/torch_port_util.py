@@ -160,39 +160,8 @@ def _emulate_unet_body(W, m, smem, nb, film_rows, x_rows):
     return view(f1, h, cf)[:, halo:halo + H].copy()
 
 
-def _emulate_chain_step(W, m, smem, film_rows, xs, coefs_si, noise_si, w):
-    """One CFG chain step of cfg_chain.cu / cfg_episode.cu on the sample xs."""
-    D = int(m[up.M_D])
-    cf = int(m[up.M_DIMS + 1])
-    y = _emulate_unet_body(W, m, smem, 2, film_rows, np.stack([xs, xs]))
-    eps = y @ W[m[up.M_F1]:m[up.M_F1] + cf * D].reshape(cf, D) + W[m[up.M_F1 + 1]:m[up.M_F1 + 1] + D]
-    sra, srm, c1, c2, sg = (np.float32(v) for v in coefs_si)
-    rc = sra * xs - srm * eps[0]
-    ru = sra * xs - srm * eps[1]
-    rec = np.clip(np.float32(1.0 + w) * rc - np.float32(w) * ru, -1.0, 1.0)
-    return (c1 * rec + c2 * xs) + sg * noise_si
-
-
 def _image(n_floats):
     return np.full(n_floats, np.nan, np.float32)
-
-
-def emulate_cfg_chain_kernel(packed, films, noise_tab, coefs, w):
-    """Runs ``csrc/cfg_chain.cu``'s program in numpy, op by op, on a shared
-    memory image filled with NaN. A read of a halo the kernel never zeroed,
-    or of a buffer it never wrote, turns the output to NaN."""
-    W = packed.weights.cpu().numpy()
-    m = packed.meta.cpu().numpy()
-    n_total, b_all = noise_tab.shape[0] - 1, noise_tab.shape[1]
-    out = np.empty((b_all,) + noise_tab.shape[2:], np.float32)
-    for sample in range(b_all):
-        smem = _image(int(m[up.M_SMEM]))
-        xs = noise_tab[n_total, sample].copy()
-        for si in range(n_total):
-            film_rows = films[si][:, [sample, b_all + sample]]  # (n_res, 2, max_c)
-            xs = _emulate_chain_step(W, m, smem, film_rows, xs, coefs[si], noise_tab[si, sample], w)
-        out[sample] = xs
-    return out
 
 
 def emulate_fused_unet_kernel(packed, films, x):
@@ -325,21 +294,21 @@ class _Cluster:
         self._clear()
 
 
-def _emulate_cluster_body(W, m, cl, nb, film_off, n_rows, x_rows, eps=1e-5):
+def _emulate_cluster_body(W, m, cl, nb, film, x_rows, eps=1e-5):
     """``cunet_body<nb>`` of ``csrc/unet_body_cluster.cuh`` in numpy on the
     images of ``cl``: every CTA holds every activation in unet_body.cuh's
     layout and buffers; rank r computes the channels [r c / n, (r + 1) c / n)
     of every conv, the GroupNorm of its group, and stores its final slices
-    into every CTA. FiLM rows are read from each CTA's own image at
-    ``film_off`` ((n_res, n_rows, max_c), row-set b at row b), where only the
-    rank's channels are written. ``W`` is the kernel's buffer, the body's
+    into every CTA. ``film(r, rr, sl)`` is what rank r reads as the FiLM
+    rows (nb, len(sl)) of block rr's channels sl: from its own image in the
+    episodes (``film_from_image``), from device memory in the chain. ``W`` is the kernel's buffer, the body's
     conv kernels rank-major (``unet_pack.cluster_weights``): a conv's
     (ks * cin, cout) kernel holds (n, ks * cin, cout / n) at its offset.
     Every read and write goes through ``cl``,
     which checks the pushes against the kernel's cluster barriers. Returns y
     (nb, H, dims[1]), which every CTA must hold alike."""
     halo, n = up.HALO, cl.n
-    H, D, nlev, buf, maxc = (int(m[k]) for k in (up.M_H, up.M_D, up.M_NLEV, up.M_BUF, up.M_MAXC))
+    H, D, nlev, buf = (int(m[k]) for k in (up.M_H, up.M_D, up.M_NLEV, up.M_BUF))
     ranks = range(n)
 
     def ix(off, h, c, t, ch):
@@ -376,8 +345,7 @@ def _emulate_cluster_body(W, m, cl, nb, film_off, n_rows, x_rows, eps=1e-5):
         var = np.maximum((v * v).mean(axis=(1, 2), keepdims=True) - mean * mean, 0.0)
         y = _mish((v - mean) / np.sqrt(var + eps) * weights(g_off, (c,))[sl] + weights(be_off, (c,))[sl])
         if film_r is not None:
-            rows = film_off + (film_r * n_rows + np.arange(nb)[:, None]) * maxc + sl[None, :]
-            y = y + cl.read(r, rows)[:, None, :]
+            y = y + film(r, film_r, sl)[:, None, :]
         if res is not None:
             y = y + cl.read(r, ix(res, h, c, np.arange(h), sl))
         for j in ranks:
@@ -476,6 +444,72 @@ def _emulate_cluster_body(W, m, cl, nb, film_off, n_rows, x_rows, eps=1e-5):
     return ys[0]
 
 
+def film_from_image(cl, m, nb, n_rows):
+    """The episodes' FiLM reader for ``_emulate_cluster_body``: rank r reads
+    block rr's channels sl of row-sets 0..nb-1 from its own image at
+    M_EP_FILM, laid out (n_res, n_rows, max_c)."""
+    off, maxc = int(m[up.M_EP_FILM]), int(m[up.M_MAXC])
+    return lambda r, rr, sl: cl.read(r, off + (rr * n_rows + np.arange(nb)[:, None]) * maxc + sl[None, :])
+
+
+def _write_films_rank(cl, m, films):
+    """``episode_films_rank``: each CTA's own channels of every block of the
+    step's FiLM (n_res, G, max_c), written into its image at M_EP_FILM."""
+    n_res, maxc, off = int(m[up.M_NRES]), int(m[up.M_MAXC]), int(m[up.M_EP_FILM])
+    for r in range(cl.n):
+        for rr in range(n_res):
+            nc = int(m[up.M_RES + rr * up.RES_STRIDE + up.R_COUT]) // cl.n
+            sl = np.arange(r * nc, (r + 1) * nc)
+            for g in range(films.shape[1]):
+                cl.smem[r][off + (rr * films.shape[1] + g) * maxc + sl] = films[rr, g, sl]
+
+
+def _final_1x1(W, m, y):
+    """The final 1x1 conv on y (nb, H, dims[1]) -> eps (nb, H, D)."""
+    D, cf = int(m[up.M_D]), int(m[up.M_DIMS + 1])
+    return y @ W[m[up.M_F1]:m[up.M_F1] + cf * D].reshape(cf, D) + W[m[up.M_F1 + 1]:m[up.M_F1 + 1] + D]
+
+
+def _cfg_update(x, eps, coefs_si, noise_si, w):
+    """The recon, CFG, clip and posterior lines of the CFG kernels."""
+    sra, srm, c1, c2, sg = (np.float32(v) for v in coefs_si)
+    rec = np.clip(np.float32(1.0 + w) * (sra * x - srm * eps[0]) - np.float32(w) * (sra * x - srm * eps[1]),
+                  -1.0, 1.0)
+    return (c1 * rec + c2 * x) + sg * noise_si
+
+
+def emulate_cfg_chain_kernel(packed, weights, films, noise_tab, coefs, w, n_ranks=up.CLUSTER):
+    """Runs ``csrc/cfg_chain.cu``'s program in numpy: per sample one cluster
+    of ``n_ranks`` CTAs (``_Cluster``, NaN-filled images of the chain's
+    plan), a cluster barrier once every CTA has started, then per step the
+    cluster body on the two row-sets (``_emulate_cluster_body``, FiLM rows
+    ``sample`` and ``B + sample`` of the step's (n_res, 2B, max_c) table in
+    device memory), the final 1x1 conv and the CFG lines, with the kernel's
+    barrier when the pass ended in a buffer the next one pushes into; a
+    cluster barrier before exit. ``weights`` is the buffer the kernel reads
+    (``FusedCfgChain.cluster.weights``). Returns the output (B, H, D) and
+    each sample's cluster-barrier count."""
+    W = packed.weights.cpu().numpy()
+    cluster_w = weights.cpu().numpy()
+    m = packed.meta.cpu().numpy()
+    n_total, b_all = noise_tab.shape[0] - 1, noise_tab.shape[1]
+    out = np.empty((b_all,) + noise_tab.shape[2:], np.float32)
+    barriers = []
+    for sample in range(b_all):
+        cl = _Cluster(packed.smem_bytes // 4, n_ranks)
+        xs = noise_tab[n_total, sample].copy()
+        cl.barrier()
+        for si in range(n_total):
+            rows = films[si][:, [sample, b_all + sample]]  # (n_res, 2, max_c)
+            y = _emulate_cluster_body(cluster_w, m, cl, 2, lambda r, rr, sl: rows[rr][:, sl],
+                                      np.stack([xs, xs]))
+            xs = _cfg_update(xs, _final_1x1(W, m, y), coefs[si], noise_tab[si, sample], w)
+        cl.barrier()
+        out[sample] = xs
+        barriers.append(cl.barriers)
+    return out, barriers
+
+
 def emulate_cfg_episode_kernel(packed, weights, t_embs, noise, coefs, consts, x0, w, n_candidates,
                                selection_horizon, n_steps, n_ranks=up.CLUSTER):
     """Runs ``csrc/cfg_episode.cu``'s program in numpy: ``_emulate_episode``
@@ -483,7 +517,7 @@ def emulate_cfg_episode_kernel(packed, weights, t_embs, noise, coefs, consts, x0
     (``_emulate_cluster_body``) on the images of one cluster of ``n_ranks``
     CTAs, which live through the whole episode, each with only its own
     channels of the step's FiLM written (``episode_films_rank``), then the
-    final 1x1 conv and the CFG lines as ``_emulate_chain_step``. ``noise`` has
+    final 1x1 conv and the CFG lines (``_cfg_update``). ``noise`` has
     the wrapper's layout (n_steps, n_total + 1, K, H, D) with row n_total =
     x_T; ``weights`` is the buffer the kernel reads (``FusedCfgEpisode.weights``).
     Returns the tracks, the choices and the number of cluster barriers."""
@@ -491,22 +525,12 @@ def emulate_cfg_episode_kernel(packed, weights, t_embs, noise, coefs, consts, x0
     m = packed.meta.cpu().numpy()
     cluster_w = weights.cpu().numpy()
     cl = _Cluster(packed.episode_smem_bytes(n_candidates) // 4, n_ranks)
-    n_res, maxc, film_off = int(m[up.M_NRES]), int(m[up.M_MAXC]), int(m[up.M_EP_FILM])
+    film = film_from_image(cl, m, 2, 2)
 
     def step(W, m, smem, films, x, si_step, si, k):
-        for r in range(n_ranks):  # episode_films_rank: the rank's channels of each block
-            for rr in range(n_res):
-                nc = int(m[up.M_RES + rr * up.RES_STRIDE + up.R_COUT]) // n_ranks
-                sl = np.arange(r * nc, (r + 1) * nc)
-                for g in range(2):
-                    cl.smem[r][film_off + (rr * 2 + g) * maxc + sl] = films[rr, g, sl]
-        D, cf = int(m[up.M_D]), int(m[up.M_DIMS + 1])
-        y = _emulate_cluster_body(cluster_w, m, cl, 2, film_off, 2, np.stack([x, x]))
-        eps = y @ W[m[up.M_F1]:m[up.M_F1] + cf * D].reshape(cf, D) + W[m[up.M_F1 + 1]:m[up.M_F1 + 1] + D]
-        sra, srm, c1, c2, sg = (np.float32(v) for v in coefs[si])
-        rec = np.clip(np.float32(1.0 + w) * (sra * x - srm * eps[0]) - np.float32(w) * (sra * x - srm * eps[1]),
-                      -1.0, 1.0)
-        return (c1 * rec + c2 * x) + sg * noise[si_step, si, k]
+        _write_films_rank(cl, m, films)
+        y = _emulate_cluster_body(cluster_w, m, cl, 2, film, np.stack([x, x]))
+        return _cfg_update(x, _final_1x1(W, m, y), coefs[si], noise[si_step, si, k], w)
 
     out = _emulate_episode(packed, t_embs, consts, x0, n_candidates, selection_horizon, n_steps,
                            2, lambda s: noise[s, n_total], step)
@@ -514,7 +538,7 @@ def emulate_cfg_episode_kernel(packed, weights, t_embs, noise, coefs, consts, x0
 
 
 def _emulate_ddim_step(W, m, smem, film_rows, xs, coefs_si):
-    """One step of ddim_chain.cu / ddim_episode.cu on the sample xs: the
+    """One step of ddim_chain.cu on the sample xs: the
     body on one row-set, the final 1x1 conv and the affine update."""
     D = int(m[up.M_D])
     cf = int(m[up.M_DIMS + 1])
@@ -541,16 +565,35 @@ def emulate_ddim_chain_kernel(packed, films, x_init, coefs):
     return out
 
 
-def emulate_ddim_episode_kernel(packed, t_embs, noise, coefs, consts, x0, n_candidates,
-                                selection_horizon, n_steps):
-    """Runs ``csrc/ddim_episode.cu``'s program in numpy (``_emulate_episode``
-    with the one FiLM group and the DDIM step on one row-set). ``noise`` is
-    (n_steps, K, H, D), each replan's initial draw."""
-    def step(W, m, smem, films, x, si_step, si, k):
-        return _emulate_ddim_step(W, m, smem, films, x, coefs[si])
+def emulate_ddim_episode_kernel(packed, weights, t_embs, noise, coefs, consts, x0, n_candidates,
+                                selection_horizon, n_steps, n_ranks=up.CLUSTER):
+    """Runs ``csrc/ddim_episode.cu``'s program in numpy: ``_emulate_episode``
+    with the one FiLM group, on one cluster of ``n_ranks`` CTAs that lives
+    through the whole episode (a cluster barrier once every CTA has started,
+    another before exit); every chain step writes each rank's own channels of
+    the FiLM (``episode_films_rank<1>``), runs the cluster body on one row-set
+    (``_emulate_cluster_body``), the final 1x1 conv and the DDIM update, with
+    the kernel's barrier when the pass ended in a buffer the next one pushes
+    into. ``noise`` is (n_steps, K, H, D), each replan's initial draw;
+    ``weights`` the buffer the kernel reads (``FusedDdimEpisode.weights``).
+    Returns the tracks, the choices and the number of cluster barriers."""
+    m = packed.meta.cpu().numpy()
+    cluster_w = weights.cpu().numpy()
+    cl = _Cluster(packed.episode_smem_bytes(n_candidates) // 4, n_ranks)
+    film = film_from_image(cl, m, 1, 1)
 
-    return _emulate_episode(packed, t_embs, consts, x0, n_candidates, selection_horizon, n_steps,
-                            1, lambda s: noise[s], step)
+    def step(W, m, smem, films, x, si_step, si, k):
+        _write_films_rank(cl, m, films)
+        y = _emulate_cluster_body(cluster_w, m, cl, 1, film, x[None])
+        sra, srm, c1, c2 = (np.float32(v) for v in coefs[si])
+        rec = np.clip(sra * x - srm * _final_1x1(W, m, y)[0], -1.0, 1.0)
+        return c1 * rec + c2 * x
+
+    cl.barrier()
+    out = _emulate_episode(packed, t_embs, consts, x0, n_candidates, selection_horizon, n_steps,
+                           1, lambda s: noise[s], step)
+    cl.barrier()
+    return out + (cl.barriers,)
 
 
 def emulate_fused_conv_kernel(x, w, b, gamma, beta, n_groups, pre_bias=None, eps=1e-5):
