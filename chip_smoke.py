@@ -12,16 +12,17 @@ each printing one line with its own seconds:
    power limit. Without a card the script exits non-zero and prints no result.
 2. build: nvcc on every ``ops/csrc/*.cu`` for sm_90a, one process per
    source, all started together, with each one's wall time and its
-   ``-Xptxas -v`` register, shared-memory and spill report; the three
+   ``-Xptxas -v`` register, shared-memory and spill report; the five
    cluster kernels' registers and spills again on one line (the CFG chain,
-   the CFG episode and the DDIM episode: clusters of 8 CTAs on
-   ``unet_body_cluster.cuh``), each with the cluster occupancy query
-   (``cudaOccupancyMaxActiveClusters``) at its shared memory at full width:
-   the chain's plan, the episodes' for K = 1 and K = 4.
+   the U-Net pass, the CFG episode, the DDIM chain and the DDIM episode:
+   clusters of 8 CTAs on ``unet_body_cluster.cuh``), each with the cluster
+   occupancy query (``cudaOccupancyMaxActiveClusters``) at its shared memory
+   at full width: the chains' and the pass's plan, the episodes' for K = 1
+   and K = 4.
 3. kernel vs plain: the CFG chain kernel (one cluster per sample) on three
-   contexts, and the U-Net
-   pass kernel on three (x, t, context, mask) draws at batch 2, each against
-   its plain PyTorch version on the flagship weights at full width.
+   contexts, and the U-Net pass kernel (one cluster per batch row) on three
+   (x, t, context, mask) draws at batch 2, each against its plain PyTorch
+   version on the flagship weights at full width.
 4. per-replan path (``BENCH_FUSED=chain``): the flagship cart-pole CFG
    closed loop, 80 replans from x0 = [0, 0, 3.0, 0, theta*(3.0)], with the
    chain kernel as the sampler; the counts are set to 0 just before and read
@@ -49,9 +50,10 @@ collection cost it is scored with. The grid [23] is one step with c1 = 1 and
 c2 = 0, so every kernel check also runs the 3-step grid [23, 15, 7] on the
 same weights, which exercises the affine update and the step loop.
 
-9. student chain vs plain: the DDIM chain kernel against its plain version
-   on three contexts at B = 1 and B = 4, on both grids; and on [23] against
-   one pass of the U-Net pass kernel followed by the recon and clip.
+9. student chain vs plain: the DDIM chain kernel (one cluster per sample)
+   against its plain version on three contexts at B = 1 and B = 4, on both
+   grids; and on [23] against one pass of the U-Net pass kernel followed by
+   the recon and clip.
 10. the student's per-replan path: ``make_closed_loop`` with the DDIM chain
     kernel as its ``sample_override``, 80 replans from x0 at K = 1; the
     counts are set to 0 just before and read just after (80 chain launches,
@@ -71,7 +73,11 @@ same weights, which exercises the affine update and the step loop.
     the expert's in ``report.json``, and their mean, which must be at most
     1.05.
 14. timing: every kernel and its plain version by CUDA events at the main
-    paths' shapes.
+    paths' shapes; the U-Net pass and the DDIM chain both by their launch
+    alone (``_launch`` on prepared tensors) and by the wrapper's whole call
+    (``FusedUnet.forward``, ``FusedDdimChain.__call__``), which splits off
+    the host's share; the DDIM chain also on [23, 15, 7] and at B = 4; the
+    per-replan loops' and the ``BENCH_FUSED=1`` loop's replans per second.
 
 The fused conv block and the port's ``bench_kernels``, the path that runs it:
 
@@ -126,13 +132,15 @@ from mpc_via_diffusion_model_tpu_torch.dynamics import (cartpole_virtual_collect
 from mpc_via_diffusion_model_tpu_torch.models import load_flagship, load_student
 from mpc_via_diffusion_model_tpu_torch.ops import _build, fused_conv1d_gn_mish
 from mpc_via_diffusion_model_tpu_torch.ops.fused_denoise import (cfg_chain_max_active_clusters,
+                                                                 ddim_chain_max_active_clusters,
                                                                  make_fused_cfg_chain,
                                                                  make_fused_ddim_chain)
 from mpc_via_diffusion_model_tpu_torch.ops.fused_episode import (cfg_episode_max_active_clusters,
                                                                  ddim_episode_max_active_clusters,
                                                                  make_fused_cfg_episode,
                                                                  make_fused_ddim_episode)
-from mpc_via_diffusion_model_tpu_torch.ops.fused_unet import make_fused_unet
+from mpc_via_diffusion_model_tpu_torch.ops.fused_unet import (fused_unet_max_active_clusters,
+                                                              make_fused_unet)
 from mpc_via_diffusion_model_tpu_torch.ops.unet_pack import CLUSTER, pack_unet
 from mpc_via_diffusion_model_tpu_torch.scripts import bench_kernels, flagship_parity
 
@@ -249,7 +257,9 @@ def main() -> None:
     ep_smem = [packed_cpu.episode_smem_bytes(k) for k in (1, K4)]
     cluster_kernels = {  # name: (occupancy query, shared memory per CTA of each launch shape)
         "cfg_chain": (cfg_chain_max_active_clusters, [packed_cpu.smem_bytes]),
+        "fused_unet": (fused_unet_max_active_clusters, [packed_cpu.smem_bytes]),
         "cfg_episode": (cfg_episode_max_active_clusters, ep_smem),
+        "ddim_chain": (ddim_chain_max_active_clusters, [packed_cpu.smem_bytes]),
         "ddim_episode": (ddim_episode_max_active_clusters, ep_smem)}
     cluster_info, lines = {}, []
     for name, (query, smems) in cluster_kernels.items():
@@ -271,7 +281,7 @@ def main() -> None:
                      f"clusters of {CLUSTER} CTAs that fit at once "
                      + ", ".join(f"{n} at {b} B per CTA" for n, b in zip(slots, smems)))
     log("build", t0, f"{len(built)} libraries; " + "; ".join(lines)
-        + f" (episodes at K = 1 and K = {K4})")
+        + f" (the chains' and the pass's plan at every batch; episodes at K = 1 and K = {K4})")
 
     # 3. kernels vs plain versions, flagship weights, full width
     t0 = time.perf_counter()
@@ -573,13 +583,29 @@ def main() -> None:
     chain_ms = cuda_ms(lambda: chain.kernel(ctx, noise), n=20, warmup=3)
     chain_plain_ms = cuda_ms(lambda: chain.plain(ctx, noise), n=5, warmup=1)
     args = unet_inputs[0]
-    unet_ms = cuda_ms(lambda: unet.kernel(*args), n=200, warmup=10)
+    # the U-Net pass: the launch alone on prepared tensors, and the wrapper's whole call
+    u_films = unet.films(unet.model.conditioning(*args[1:])).contiguous()
+    u_y = torch.empty((2, HORIZON, model.unet_input_dim), device=dev)
+    unet_ms = cuda_ms(lambda: unet._launch(unet.cluster.weights, u_films, args[0], u_y), n=200,
+                      warmup=10)
+    unet_call_ms = cuda_ms(lambda: unet(*args), n=200, warmup=10)
     unet_plain_ms = cuda_ms(lambda: unet.plain(*args), n=50, warmup=5)
     episode_ms = cuda_ms(lambda: ep1.kernel(x0, ep_noise), n=5, warmup=1)
     episode_plain_ms = cuda_ms(lambda: ep1.plain(x0, ep_noise), n=1, warmup=0)
     episode4_ms = cuda_ms(lambda: ep4.kernel(x0, noise4), n=5, warmup=1)
-    schain_ms = cuda_ms(lambda: schain.kernel(sctx, sx_init), n=200, warmup=10)
+    # the DDIM chain: the launch alone and the whole call on [23], B = 1; the launch alone on
+    # [23, 15, 7] and at B = 4 (clusters side by side)
+    def launch_alone(ch, ctx_, x_):
+        films, out = ch.films(ctx_).contiguous(), torch.empty(ch.noise_shape, device=dev)
+        return lambda: ch._launch(ch.cluster.weights, films, x_, out)
+
+    schain_ms = cuda_ms(launch_alone(schain, sctx, sx_init), n=200, warmup=10)
+    schain_call_ms = cuda_ms(lambda: schain(sctx, sx_init), n=200, warmup=10)
     schain_plain_ms = cuda_ms(lambda: schain.plain(sctx, sx_init), n=50, warmup=5)
+    schain4 = ddim(GRID, K4)
+    x4 = torch.randn(schain4.noise_shape, generator=gen, device=dev)
+    schain3_ms = cuda_ms(launch_alone(ddim(GRID3, 1), sctx, sx_init), n=100, warmup=5)
+    schain4_ms = cuda_ms(launch_alone(schain4, sctx.expand(K4, 5), x4), n=200, warmup=10)
     sep_ms = cuda_ms(lambda: sep1.kernel(x0, s_noise), n=5, warmup=1)
     sep_plain_ms = cuda_ms(lambda: sep1.plain(x0, s_noise), n=1, warmup=0)
     sep3 = sepisode(GRID3, 1, N_STEPS)
@@ -598,15 +624,24 @@ def main() -> None:
     s_loop_kernel(x0, s_noise)
     torch.cuda.synchronize()
     s_per_replan_hz = N_STEPS / (time.perf_counter() - t1)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    loop_unet(x0, ep_noise[:N_UNET_LOOP])
+    torch.cuda.synchronize()
+    unet_loop_hz = N_UNET_LOOP / (time.perf_counter() - t1)
     log("timing", t0, f"cfg_chain {chain_ms:.4f} ms (plain {chain_plain_ms:.4f}) per replan; "
-        f"fused_unet {unet_ms:.4f} ms (plain {unet_plain_ms:.4f}) per pass at batch 2; "
+        f"fused_unet {unet_ms:.4f} ms launch alone, {unet_call_ms:.4f} ms whole call (plain "
+        f"{unet_plain_ms:.4f}) per pass at batch 2; BENCH_FUSED=1 loop {unet_loop_hz:.2f} "
+        f"replans/s; "
         f"cfg_episode K=1 {episode_ms:.3f} ms per {N_STEPS}-replan episode = "
         f"{episode_ms / N_STEPS:.4f} ms per replan (plain {episode_plain_ms:.3f} ms); "
         f"K={K4} {episode4_ms:.3f} ms per {N_STEPS_K4} replans = "
         f"{episode4_ms / N_STEPS_K4:.4f} ms per replan; per-replan loop through cfg_chain "
         f"{per_replan_hz:.2f} replans/s")
-    log("timing-student", t0, f"ddim_chain {GRID} {schain_ms:.4f} ms (plain {schain_plain_ms:.4f}) "
-        f"per replan; ddim_episode {GRID} K=1 {sep_ms:.3f} ms per {N_STEPS}-replan episode = "
+    log("timing-student", t0, f"ddim_chain {GRID} {schain_ms:.4f} ms launch alone, "
+        f"{schain_call_ms:.4f} ms whole call (plain {schain_plain_ms:.4f}) per replan, {GRID3} "
+        f"{schain3_ms:.4f} ms, {GRID} B={K4} {schain4_ms:.4f} ms launch alone; ddim_episode "
+        f"{GRID} K=1 {sep_ms:.3f} ms per {N_STEPS}-replan episode = "
         f"{sep_ms / N_STEPS:.4f} ms per replan (plain {sep_plain_ms:.3f} ms); {GRID3} K=1 "
         f"{sep3_ms / N_STEPS:.4f} ms per replan; {GRID} K={K4} {sep4_ms / N_STEPS_K4:.4f} ms per "
         f"replan; per-replan loop through ddim_chain {s_per_replan_hz:.2f} replans/s")
@@ -772,7 +807,9 @@ def main() -> None:
          "replaces": "mpc_via_diffusion_model_tpu/ops/fused_unet.py:387",
          "launches": unet_launches, "max_abs_err": unet_err, "ms": unet_ms,
          "plain_ms": unet_plain_ms, **bound(unet_flops, unet_bytes), "library_ms": None,
-         "launches_per_replan": unet_launches // N_UNET_LOOP},
+         "call_ms": unet_call_ms, "launches_per_replan": unet_launches // N_UNET_LOOP,
+         "bench_fused_loop_hz": unet_loop_hz, "cluster_ctas": CLUSTER,
+         **cluster_info["fused_unet"]},
         {"name": "cfg_episode", "route": "cuda",
          "source": "mpc_via_diffusion_model_tpu_torch/ops/csrc/cfg_episode.cu",
          "replaces": "mpc_via_diffusion_model_tpu/ops/fused_episode.py:410",
@@ -786,7 +823,9 @@ def main() -> None:
          "replaces": "mpc_via_diffusion_model_tpu/ops/fused_denoise.py:164",
          "launches": s_chain_launches, "max_abs_err": schain_err, "ms": schain_ms,
          "plain_ms": schain_plain_ms, **bound(schain_flops, schain_bytes), "library_ms": None,
-         "times": GRID, "per_replan_loop_hz": s_per_replan_hz},
+         "times": GRID, "call_ms": schain_call_ms, "grid3_ms": schain3_ms,
+         "b4_ms": schain4_ms, "per_replan_loop_hz": s_per_replan_hz, "cluster_ctas": CLUSTER,
+         **cluster_info["ddim_chain"]},
         {"name": "ddim_episode", "route": "cuda",
          "source": "mpc_via_diffusion_model_tpu_torch/ops/csrc/ddim_episode.cu",
          "replaces": "mpc_via_diffusion_model_tpu/ops/fused_episode.py:142",

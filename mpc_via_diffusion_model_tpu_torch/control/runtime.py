@@ -10,8 +10,8 @@ JAX loop splits one key per replan and hands it to the sampler; here each
 replan takes its own slice of staged noise, or draws it from a
 ``torch.Generator``, in the sampler's per-replan layout: (n_total + 1, K, H,
 du), ``ddpm_cfg_sample``'s, by default; the ``noise_shape`` the caller
-names for its override, e.g. (K, H, du), the ``x_init`` of a distilled
-student's DDIM chain.
+names, or else the override's own ``noise_shape``, e.g. (K, H, du), the
+``x_init`` of a distilled student's DDIM chain.
 """
 from __future__ import annotations
 
@@ -113,6 +113,8 @@ def make_closed_loop(diffusion: GaussianDiffusion, denoise: DenoiseFn,
     replan = make_replan_fn(diffusion, denoise, inputs_stats, condition_stats, horizon,
                             plant.control_dim, w, n_diffusion_steps_without_noise, n_candidates,
                             plant, cost, state_to_condition, sample_override, selection_horizon)
+    if noise_shape is None:
+        noise_shape = getattr(sample_override, "noise_shape", None)
     if noise_shape is None:
         n_total = diffusion.schedule.n_steps + n_diffusion_steps_without_noise
         noise_shape = (n_total + 1, int(n_candidates), horizon, plant.control_dim)

@@ -174,15 +174,15 @@ def launch(lib: ctypes.CDLL, name: str, *args) -> None:
 
 
 class ClusterLaunch:
-    """What the wrappers of the three cluster kernels (``cfg_chain``,
-    ``cfg_episode``, ``ddim_episode``) share: the body's split and the
-    rank-major buffer the kernel reads, made when first asked for, so that a
-    body the cluster cannot split raises ``ValueError`` where the kernel
-    would be launched and not on the CPU path; and the kernel's occupancy
-    query (``query(smem_bytes)``, its wrapper module's
-    ``<name>_max_active_clusters``), asked once before the first launch,
-    which refuses with ``RuntimeError`` when no cluster fits on the card.
-    Nothing falls back to the plain version."""
+    """What the wrappers of the five cluster kernels (``cfg_chain``,
+    ``fused_unet``, ``cfg_episode``, ``ddim_chain``, ``ddim_episode``)
+    share: the body's split and the rank-major buffer the kernel reads,
+    made when first asked for, so that a body the cluster cannot split
+    raises ``ValueError`` where the kernel would be launched and not on the
+    CPU path; and the kernel's occupancy query (``query(smem_bytes)``, its
+    wrapper module's ``<name>_max_active_clusters``), asked once before the
+    first launch, which refuses with ``RuntimeError`` when no cluster fits
+    on the card. Nothing falls back to the plain version."""
 
     def __init__(self, packed: PackedUnet, name: str, query: Callable[[int], int]):
         self.packed, self.name, self._query = packed, name, query

@@ -16,39 +16,53 @@
 // pass over one row-set is 18.2 MFLOP of conv FMAs (ops/unet_pack.py counts them), so a
 // replan on the 1-step grid [23] is 18.2 MFLOP against 3.83 MB of fp32 weights. Over the
 // whole card that is bound by bytes (3.8 MB at 3.35 TB/s = 1.1 us against 0.3 us of
-// operations at 67 TFLOP/s). With one block per sample, one SM does the replan: 18.2 MFLOP
-// at one SM's ~0.5 TFLOP/s is ~36 us at best, the weights coming from L2 once a first
-// replan has pulled them in.
+// operations at 67 TFLOP/s). But every step of the grid needs the one before, and inside a
+// pass every layer the one before: a chain of small dependent layers, which one SM runs at
+// best at its ~0.5 TFLOP/s (~36 us per pass; the one-block kernel of the first slices took
+// 0.42 ms, bound by its shared-memory loads and per-layer latency).
 //
-// What the design does about it: the simple design first, as cfg_chain.cu. grid =
-// n_samples; block b runs unet_body<1> (unet_body.cuh, the body every kernel of the port
-// shares) on sample b's rows with FiLM row b of each step, and the step loop runs inside
-// the block. No inter-block synchronisation; every trip count is fixed by the launch's
-// arguments. Activations use the packed shared-memory plan (sized for two row-sets, of
-// which this kernel fills one). The step's coefficients and the 1x1 conv's pointers are
-// read after the body, where they are used, so that nothing extra stays live in registers
-// across the body's conv loops (kept live, they cost the CFG episode kernel 8% on the H100;
-// see cfg_episode.cu).
+// What the design does about it: ddim_episode.cu's body at one row-set, as cfg_chain.cu
+// runs it at two. Each sample is one thread-block cluster of CLUSTER = 8 CTAs on 8 SMs
+// (__cluster_dims__, grid = 8 x n_samples, sample = blockIdx.x / CLUSTER), and the U-Net
+// body is split over them by output channel, one GroupNorm group per rank
+// (unet_body_cluster.cuh, cunet_body<1>): each rank computes an eighth of every conv and
+// pushes its final slices into every CTA's shared memory. Everything outside the body runs
+// redundantly in every CTA, on the same replicated data in the same order: the pass's
+// input, the final 1x1 conv and the DDIM lines. Only rank 0 writes the output. The step
+// loop runs inside the cluster, its trip count fixed by the launch's arguments, and cluster
+// barriers are the only synchronisation between CTAs (no grid-wide sync, no cooperative
+// launch, no spin-wait). The K candidates of a replan are the chain's samples, so their
+// clusters run side by side. The FiLM table (n_total, n_res, B, max_c) comes from torch and
+// is read from device memory, row `sample`. Weights stay in device memory, served from L2,
+// with the body's conv kernels rank-major (ops/unet_pack.py::cluster_weights). Activations
+// use the one-block plan (ops/unet_pack.py, sized for two row-sets, half used) in every CTA.
+// As in the episodes, the step's coefficients and the 1x1 conv's pointers are read after
+// the body, where they are used, so that nothing extra stays live across its conv loops.
+//
+// ddim_chain_max_active_clusters answers cudaOccupancyMaxActiveClusters at the chain's
+// shared memory: the wrapper refuses to launch when it is 0.
 
-#include "unet_body.cuh"
+#include "unet_body_cluster.cuh"
 
+// W is the packed buffer with the body's conv kernels rank-major (cluster_weights).
 // films (n_total, n_res, B, max_c); x_init (B, H, D); coefs (n_total, 4) = sra, srm, c1, c2;
 // out (B, H, D).
-__global__ void __launch_bounds__(NT, 1)
+__global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(NT, 1)
 ddim_chain_kernel(const float* __restrict__ W, const int* __restrict__ meta,
                   const float* __restrict__ films, const float* __restrict__ x_init,
                   const float* __restrict__ coefs, float* __restrict__ out, int n_total) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  const int sample = blockIdx.x, n_samples = gridDim.x;
+  const int rank = (int)cg::this_cluster().block_rank();
+  const int sample = blockIdx.x / CLUSTER, n_samples = gridDim.x / CLUSTER;
   const int* m = load_meta(smem, meta, __ldg(meta + M_SMEM));
   const int H = m[M_H], D = m[M_D], n_res = m[M_NRES], maxc = m[M_MAXC], buf = m[M_BUF];
   const int hd = H * D, cf = m[M_DIMS + 1];
   float* xs = smem + m[M_XS];
   float* eps = smem + m[M_EPS];
   float* stats = smem + m[M_STATS];
-  for (int i = threadIdx.x; i < hd; i += NT) xs[i] = x_init[(size_t)sample * hd + i];
-  __syncthreads();
+  for (int i = threadIdx.x; i < hd; i += NT) xs[i] = __ldg(x_init + (size_t)sample * hd + i);
+  cg::this_cluster().sync();  // every CTA has started before any writes into its shared memory
 
   for (int si = 0; si < n_total; ++si) {
     float* in = smem;
@@ -58,9 +72,9 @@ ddim_chain_kernel(const float* __restrict__ W, const int* __restrict__ meta,
     }
     zero_halo<1>(in, H, D);
     __syncthreads();
-    const float* y = unet_body<1>(m, W, smem, in, smem + buf, smem + 2 * buf,
-                                  films + (size_t)si * n_res * n_samples * maxc, n_samples,
-                                  sample, sample, stats);
+    const float* y = cunet_body<1>(m, W, smem, in, smem + buf, smem + 2 * buf,
+                                   films + (size_t)si * n_res * n_samples * maxc, n_samples,
+                                   sample, sample, stats, rank);
     const float* w1 = W + m[M_F1];
     const float* b1 = W + m[M_F1 + 1];
     for (int i = threadIdx.x; i < hd; i += NT) {  // final 1x1 conv
@@ -70,7 +84,10 @@ ddim_chain_kernel(const float* __restrict__ W, const int* __restrict__ meta,
       for (int ci = 0; ci < cf; ++ci) acc = fmaf(yr[ci], __ldg(w1 + ci * D + d), acc);
       eps[i] = acc + __ldg(b1 + d);
     }
-    __syncthreads();
+    // The next pass pushes into the two buffers other than `in` before its first cluster
+    // barrier: when y is one of them, every CTA must have read it first.
+    if (y != in) cg::this_cluster().sync();
+    else __syncthreads();
     const float* cs = coefs + (size_t)si * 4;
     const float sra = __ldg(cs), srm = __ldg(cs + 1), c1 = __ldg(cs + 2), c2 = __ldg(cs + 3);
     for (int i = threadIdx.x; i < hd; i += NT) {
@@ -81,22 +98,41 @@ ddim_chain_kernel(const float* __restrict__ W, const int* __restrict__ meta,
     }
     __syncthreads();
   }
-  for (int i = threadIdx.x; i < hd; i += NT) out[(size_t)sample * hd + i] = xs[i];
+  if (rank == 0)
+    for (int i = threadIdx.x; i < hd; i += NT) out[(size_t)sample * hd + i] = xs[i];
+  cg::this_cluster().sync();  // no CTA leaves while another may still write into it
 }
 
 extern "C" {
 
-// Launches the chain on `stream`; returns the CUDA error code (0 = launched).
+// Launches the chain, one cluster per sample, on `stream`; returns the CUDA error code
+// (0 = launched).
 int ddim_chain_launch(const float* W, const int* meta, int smem_bytes, const float* films,
                       const float* x_init, const float* coefs, float* out, int n_total,
                       int n_samples, void* stream) {
   cudaError_t e = cudaFuncSetAttribute(ddim_chain_kernel,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (e != cudaSuccess) return (int)e;
-  ddim_chain_kernel<<<n_samples, NT, smem_bytes, (cudaStream_t)stream>>>(
+  ddim_chain_kernel<<<CLUSTER * n_samples, NT, smem_bytes, (cudaStream_t)stream>>>(
       W, meta, films, x_init, coefs, out, n_total);
   return (int)cudaGetLastError();
 }
+
+// cudaOccupancyMaxActiveClusters for one sample's cluster at smem_bytes of dynamic shared
+// memory per CTA, into *n_clusters; returns the CUDA error code (0 = answered).
+int ddim_chain_max_active_clusters(int smem_bytes, int* n_clusters) {
+  *n_clusters = 0;
+  cudaError_t e = cudaFuncSetAttribute(ddim_chain_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(CLUSTER);
+  config.blockDim = dim3(NT);
+  config.dynamicSmemBytes = smem_bytes;  // the cluster shape is the kernel's __cluster_dims__
+  return (int)cudaOccupancyMaxActiveClusters(n_clusters, (void*)ddim_chain_kernel, &config);
+}
+
+int ddim_chain_cluster_size(void) { return CLUSTER; }
 
 const char* ddim_chain_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 

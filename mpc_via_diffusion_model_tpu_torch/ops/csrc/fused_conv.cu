@@ -45,7 +45,7 @@ fused_conv_kernel(const float* __restrict__ x, const float* __restrict__ w,
   __syncthreads();
   conv<1>(in, H, cin, y, H, cout, w, bias, 5, 1, 2);
   __syncthreads();
-  gn_mish<1>(y, H, cout, groups, gamma, beta, nullptr, nullptr, stats, eps);
+  gn_mish<1>(y, H, cout, groups, gamma, beta, stats, eps);
   __syncthreads();
   for (int i = threadIdx.x; i < H * cout; i += NT) {
     const int co = i % cout, t = i / cout;

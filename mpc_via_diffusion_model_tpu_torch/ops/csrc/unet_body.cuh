@@ -1,23 +1,21 @@
-// The conv backbone of the temporal U-Net as block-wide device functions: fused_unet.cu and
-// ddim_chain.cu run the whole body in one block; fused_conv.cu runs one conv and one gn_mish.
-// The cluster body of cfg_chain.cu, cfg_episode.cu and ddim_episode.cu
-// (unet_body_cluster.cuh) keeps this file's layout, plan, meta table and helpers.
+// The temporal U-Net body's shared-memory layout, meta table and block-wide helpers: the
+// halo layout (row_off, zero_halo), the meta table's indices (load_meta), Mish, and one conv
+// (conv<1>) and one GroupNorm + Mish (gn_mish<1>) in one block, which fused_conv.cu runs. The
+// U-Net body itself is unet_body_cluster.cuh's, split over a thread-block cluster of 8 CTAs
+// in every kernel that runs it: cfg_chain.cu, cfg_episode.cu (two row-sets), fused_unet.cu,
+// ddim_chain.cu and ddim_episode.cu (one). It keeps this file's layout, plan and meta table.
 //
-// Port of the U-Net body that mpc_via_diffusion_model_tpu/ops/fused_unet.py::build_unet_ops
-// traces into every Pallas kernel of the JAX package. One block runs the body on NB row-sets
-// of one horizon each: NB = 1 in the standalone U-Net kernel (one batch element per block)
-// and in the DDIM chain kernel (a distilled student's sample is conditional only); NB = 2,
-// the conditional and the unconditional copy of one sample, which the CFG combination needs
-// together, in the cluster body of the CFG kernels.
+// Port of the pieces of the U-Net body that mpc_via_diffusion_model_tpu/ops/fused_unet.py::
+// build_unet_ops traces into every Pallas kernel of the JAX package.
 //
 // Activations live in shared memory as (NB, h + 2*HALO, c) with HALO zero rows above and
-// below each row-set, so the 'same' convs need no edge masks. Weights stay in device memory
-// and are served from L2: a thread owns one output channel and RPT output rows, so each
-// weight it loads feeds RPT FMAs, and the 32 lanes of a warp load 32 neighbouring weights
-// (C_out is the fastest axis of the flax layout (k, C_in, C_out)) while they read the same
-// activation, a shared-memory broadcast. GroupNorm per (row-set, group) takes one warp per
-// group (variance as E[y^2] - mean^2, eps 1e-5 in the body, as fused_unet.py:112-131),
-// then one elementwise pass does the normalisation, Mish and the FiLM bias.
+// below each row-set, so the 'same' convs need no edge masks. In conv<1>, weights stay in
+// device memory and are served from L2: a thread owns one output channel and RPT output
+// rows, so each weight it loads feeds RPT FMAs, and the 32 lanes of a warp load 32
+// neighbouring weights (C_out is the fastest axis of the flax layout (k, C_in, C_out)) while
+// they read the same activation, a shared-memory broadcast. gn_mish<1> takes one warp per
+// group (variance as E[y^2] - mean^2, as fused_unet.py:112-131), then one elementwise pass
+// does the normalisation and Mish.
 //
 // The meta table (ops/unet_pack.py) holds the architecture, the weight offsets and the
 // shared-memory plans; the indices below mirror that file, and every library that includes
@@ -129,52 +127,6 @@ static __device__ void conv(const float* __restrict__ in, int hin, int cin,
   }
 }
 
-// Upsample1d, the flax ConvTranspose(k4, s2, padding (2, 2)) without kernel flip:
-// out[2t] = b + w0 x[t-1] + w2 x[t],  out[2t+1] = b + w1 x[t] + w3 x[t+1].
-template <int NB>
-static __device__ void upsample(const float* __restrict__ in, int hin, int c,
-                                float* __restrict__ out,
-                                const float* __restrict__ w, const float* __restrict__ bias) {
-  const int hout = 2 * hin, rows = NB * hout;
-  const int items = ((rows + RPT - 1) / RPT) * c;
-  for (int it = threadIdx.x; it < items; it += NT) {
-    const int co = it % c;
-    const int r0 = (it / c) * RPT;
-    int src[RPT];
-    bool odd[RPT];
-    float acc[RPT];
-    const float bv = __ldg(bias + co);
-#pragma unroll
-    for (int j = 0; j < RPT; ++j) {
-      const int r = min(r0 + j, rows - 1);
-      const int b = r / hout, t = r - b * hout;
-      odd[j] = t & 1;
-      // tap pair kk = 0, 1 reads input rows (t>>1) - 1 + odd + kk
-      src[j] = row_off(b, hin, (t >> 1) - 1 + (t & 1), c);
-      acc[j] = bv;
-    }
-    for (int kk = 0; kk < 2; ++kk) {
-      const float* we = w + (size_t)(2 * kk) * c * c + co;      // tap 2kk for even rows
-      const float* wo = w + (size_t)(2 * kk + 1) * c * c + co;  // tap 2kk+1 for odd rows
-      const int ko = kk * c;
-      for (int ci = 0; ci < c; ++ci) {
-        const float ve = __ldg(we + (size_t)ci * c);
-        const float vo = __ldg(wo + (size_t)ci * c);
-#pragma unroll
-        for (int j = 0; j < RPT; ++j) acc[j] = fmaf(in[src[j] + ko + ci], odd[j] ? vo : ve, acc[j]);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < RPT; ++j) {
-      const int r = r0 + j;
-      if (r < rows) {
-        const int b = r / hout, t = r - b * hout;
-        out[row_off(b, hout, t, c) + co] = acc[j];
-      }
-    }
-  }
-}
-
 template <int NB>
 static __device__ void zero_halo(float* buf, int h, int c) {
   const int n = NB * 2 * HALO * c;
@@ -186,13 +138,12 @@ static __device__ void zero_halo(float* buf, int h, int c) {
   }
 }
 
-// GroupNorm (per row-set and group, variance eps) -> Mish -> optional FiLM bias, in
-// place. Row-set 0 takes film_c, row-set 1 film_u. stats holds 2 * NB * groups floats.
+// GroupNorm (per row-set and group, variance eps) -> Mish, in place. stats holds
+// 2 * NB * groups floats.
 template <int NB>
 static __device__ void gn_mish(float* buf, int h, int c, int groups,
                                const float* __restrict__ gamma, const float* __restrict__ beta,
-                               const float* film_c, const float* film_u, float* stats,
-                               float eps) {
+                               float* stats, float eps) {
   const int cpg = c / groups, n = h * cpg;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   for (int p = warp; p < NB * groups; p += NT / 32) {
@@ -223,123 +174,8 @@ static __device__ void gn_mish(float* buf, int h, int c, int groups,
     const int q = b * groups + ch / cpg;
     float* p = buf + row_off(b, h, t, c) + ch;
     float y = (*p - stats[2 * q]) * stats[2 * q + 1] * __ldg(gamma + ch) + __ldg(beta + ch);
-    y = mish_f(y);
-    if (film_c != nullptr) y += (b == 0 ? film_c : film_u)[ch];
-    *p = y;
+    *p = mish_f(y);
   }
-}
-
-// dst += src over the interior rows of a (NB, h, c) activation
-template <int NB>
-static __device__ void add_into(float* dst, const float* src, int h, int c) {
-  const int total = NB * h * c;
-  for (int i = threadIdx.x; i < total; i += NT) {
-    const int ch = i % c, r = i / c, b = r / h, t = r - b * h;
-    const int o = row_off(b, h, t, c) + ch;
-    dst[o] += src[o];
-  }
-}
-
-// ResidualTemporalBlock: in -> t2 (t1 is scratch). Returns t2.
-template <int NB>
-static __device__ float* res_block(const int* rm, const float* __restrict__ W, float* in,
-                                   float* t1, float* t2, int h, const float* film_c,
-                                   const float* film_u, float* stats) {
-  const int cin = rm[R_CIN], cout = rm[R_COUT], groups = rm[R_GROUPS];
-  conv<NB>(in, h, cin, t1, h, cout, W + rm[R_W1], W + rm[R_B1], 5, 1, 2);
-  zero_halo<NB>(t1, h, cout);
-  __syncthreads();
-  gn_mish<NB>(t1, h, cout, groups, W + rm[R_G1], W + rm[R_BE1], film_c, film_u, stats,
-              1e-5f);
-  __syncthreads();
-  conv<NB>(t1, h, cout, t2, h, cout, W + rm[R_W2], W + rm[R_B2], 5, 1, 2);
-  zero_halo<NB>(t2, h, cout);
-  __syncthreads();
-  gn_mish<NB>(t2, h, cout, groups, W + rm[R_G2], W + rm[R_BE2], nullptr, nullptr, stats,
-              1e-5f);
-  __syncthreads();
-  if (rm[R_WR] >= 0) {  // 1x1 residual conv when the channel count changes
-    conv<NB>(in, h, cin, t1, h, cout, W + rm[R_WR], W + rm[R_BR], 1, 1, 0);
-    __syncthreads();
-    add_into<NB>(t2, t1, h, cout);
-  } else {
-    add_into<NB>(t2, in, h, cout);
-  }
-  __syncthreads();
-  return t2;
-}
-
-// The conv backbone on the (NB, H, D) rows in *cur; returns the buffer that holds the
-// final Conv1dBlock's output (NB, H, dims[1]). films is (n_res, n_rows, max_c): row-set 0
-// takes FiLM row row0, row-set 1 row row1.
-template <int NB>
-static __device__ float* unet_body(const int* m, const float* __restrict__ W, float* smem,
-                                   float* cur, float* f1, float* f2, const float* films,
-                                   int n_rows, int row0, int row1, float* stats) {
-  const int nlev = m[M_NLEV], maxc = m[M_MAXC];
-  int h = m[M_H];
-  int r = 0;
-#define FILM(rr, row) (films + ((size_t)(rr) * n_rows + (row)) * maxc)
-#define RES_BLOCK()                                                                        \
-  {                                                                                        \
-    float* out = res_block<NB>(m + M_RES + r * RES_STRIDE, W, cur, f1, f2, h, FILM(r, row0), \
-                               FILM(r, row1), stats);                                      \
-    f2 = f1;                                                                               \
-    f1 = cur;                                                                              \
-    cur = out;                                                                             \
-    ++r;                                                                                   \
-  }
-  for (int lvl = 0; lvl < nlev; ++lvl) {
-    RES_BLOCK();
-    RES_BLOCK();
-    const int c = m[M_DIMS + lvl + 1];
-    if (lvl > 0) {  // keep the skip; level 0's is never read
-      float* skip = smem + m[M_SKIP + lvl];
-      const int n = NB * (h + 2 * HALO) * c;
-      for (int i = threadIdx.x; i < n; i += NT) skip[i] = cur[i];
-    }
-    if (lvl < nlev - 1) {  // Downsample1d: conv k3 s2 p1
-      conv<NB>(cur, h, c, f1, h / 2, c, W + m[M_DOWN + 2 * lvl], W + m[M_DOWN + 2 * lvl + 1],
-               3, 2, 1);
-      zero_halo<NB>(f1, h / 2, c);
-      h /= 2;
-      float* tmp = cur; cur = f1; f1 = tmp;
-    }
-    __syncthreads();
-  }
-  RES_BLOCK();  // mid blocks
-  RES_BLOCK();
-  for (int u = 0; u < nlev - 1; ++u) {
-    const int lvl = nlev - 1 - u;
-    const int c = m[M_DIMS + lvl + 1];  // channels of cur and of skip[lvl]
-    const float* skip = smem + m[M_SKIP + lvl];
-    const int n = NB * h * 2 * c;
-    for (int i = threadIdx.x; i < n; i += NT) {  // concat(cur, skip) along channels
-      const int ch = i % (2 * c), rr = i / (2 * c), b = rr / h, t = rr - b * h;
-      f1[row_off(b, h, t, 2 * c) + ch] =
-          ch < c ? cur[row_off(b, h, t, c) + ch] : skip[row_off(b, h, t, c) + ch - c];
-    }
-    zero_halo<NB>(f1, h, 2 * c);
-    __syncthreads();
-    { float* tmp = cur; cur = f1; f1 = tmp; }
-    RES_BLOCK();
-    RES_BLOCK();
-    const int cd = m[M_DIMS + lvl];
-    upsample<NB>(cur, h, cd, f1, W + m[M_UP + 2 * u], W + m[M_UP + 2 * u + 1]);
-    zero_halo<NB>(f1, 2 * h, cd);
-    __syncthreads();
-    h *= 2;
-    { float* tmp = cur; cur = f1; f1 = tmp; }
-  }
-#undef RES_BLOCK
-#undef FILM
-  const int cf = m[M_DIMS + 1];
-  conv<NB>(cur, h, cf, f1, h, cf, W + m[M_FIN], W + m[M_FIN + 1], 5, 1, 2);
-  __syncthreads();
-  gn_mish<NB>(f1, h, cf, m[M_FIN + 4], W + m[M_FIN + 2], W + m[M_FIN + 3], nullptr, nullptr,
-              stats, 1e-5f);
-  __syncthreads();
-  return f1;
 }
 
 // Copies the meta table into shared memory at word offset `at` and returns it.

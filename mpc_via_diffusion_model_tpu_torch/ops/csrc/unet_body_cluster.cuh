@@ -1,9 +1,12 @@
 // The conv backbone of the temporal U-Net split over a thread-block cluster of CLUSTER CTAs,
-// by output channel: the body of cfg_episode.cu and cfg_chain.cu (two row-sets, NB = 2) and
-// of ddim_episode.cu (one, NB = 1).
+// by output channel: the body of every kernel that runs the U-Net, cfg_episode.cu and
+// cfg_chain.cu (two row-sets, NB = 2), and fused_unet.cu, ddim_chain.cu and ddim_episode.cu
+// (one, NB = 1). fused_conv.cu, one conv block on no model path, is the only kernel that
+// keeps to one block (unet_body.cuh's conv<1> and gn_mish<1>).
 //
-// Port of the same U-Net body as unet_body.cuh (the one-block body of the other kernels,
-// from mpc_via_diffusion_model_tpu/ops/fused_unet.py::build_unet_ops), cut otherwise:
+// Port of the U-Net body that mpc_via_diffusion_model_tpu/ops/fused_unet.py::build_unet_ops
+// traces into every Pallas kernel of the JAX package, on unet_body.cuh's layout and meta
+// table, cut over the cluster:
 // - Every conv of the body (the two k5 convs and the 1x1 residual conv of each
 //   ResidualTemporalBlock, the k3 s2 downsample, the k4 s2 transposed upsample and the final
 //   Conv1dBlock's conv) is split by output channel: rank r computes the channels
@@ -13,17 +16,18 @@
 //   GroupNorm statistics, the Mish and the FiLM bias of its channels need nothing from
 //   another CTA. ops/unet_pack.py::cluster_split refuses a model where this does not hold.
 // - Every CTA keeps the full activations, skips and halos in its own shared memory, with
-//   unet_body.cuh's layout and plan. When a rank's slice of an activation is final (after
-//   GroupNorm, Mish and FiLM in a block's first half; after the residual add in its second;
-//   the downsample's and upsample's conv outputs), the rank stores it into the same buffer
-//   of every CTA of the cluster (distributed shared memory), and one cluster barrier makes
-//   it visible: two barriers per residual block, one per down- or upsample, one for the
-//   final block. The skip copies, the concatenation and the halo zeroing read only
-//   replicated data, so they stay local.
+//   unet_body.cuh's layout and ops/unet_pack.py's plan. When a rank's slice of an
+//   activation is final (after GroupNorm, Mish and FiLM in a block's first half; after the
+//   residual add in its second; the downsample's and upsample's conv outputs), the rank
+//   stores it into the same buffer of every CTA of the cluster (distributed shared
+//   memory), and one cluster barrier makes it visible: two barriers per residual block, one
+//   per down- or upsample, one for the final block. The skip copies, the concatenation and
+//   the halo zeroing read only replicated data, so they stay local.
 // - The rule that keeps the pushes race-free: a rank stores into a buffer of another CTA
 //   only when no CTA reads that buffer between the last cluster barrier and the next one.
-//   The buffer rotation is unet_body.cuh's, except after the up path's concatenation,
-//   which reads `cur`: the next block's scratch is then the third buffer, not `cur`.
+//   Three buffers rotate: a residual block reads `cur` and writes the other two, and the
+//   block's output becomes `cur`. After the up path's concatenation, which reads `cur`, the
+//   next block's scratch is the third buffer, not `cur`.
 //
 // Inside a CTA, a conv's share is rows x (cout / CLUSTER) outputs with a reduction over
 // ks * cin inputs: 256 outputs at every level of the flagship, for NT = 512 threads. An item
@@ -152,8 +156,9 @@ static __device__ void cconv(const float* in, int hin, int cin, float* out, int 
   }
 }
 
-// The rank's channels [c0, c0 + nc) of Upsample1d (unet_body.cuh's upsample), pushed into
-// `out` of every CTA: out[2t] = b + w0 x[t-1] + w2 x[t], out[2t+1] = b + w1 x[t] + w3 x[t+1];
+// The rank's channels [c0, c0 + nc) of Upsample1d, the flax ConvTranspose(k4, s2, padding
+// (2, 2)) without kernel flip, pushed into `out` of every CTA:
+// out[2t] = b + w0 x[t-1] + w2 x[t], out[2t+1] = b + w1 x[t] + w3 x[t+1];
 // w is the rank-major (CLUSTER, 4 c, nc) kernel.
 template <int NB>
 static __device__ void cupsample_push(const float* in, int hin, int c, float* out,

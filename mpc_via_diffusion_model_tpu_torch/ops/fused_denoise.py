@@ -10,14 +10,14 @@ CUDA device and runs its ``plain`` version when they lie on the CPU. On a
 CUDA tensor it launches the kernel or raises: it never falls back to the
 plain version there.
 
-The CFG chain kernel runs each sample on a thread-block cluster of 8 CTAs
-that splits the U-Net body by output channel, one GroupNorm group per CTA
-(``csrc/unet_body_cluster.cuh``), as the CFG episode does: it needs a card
-with clusters (sm_90) and a model whose convs and GroupNorms
+Both kernels run each sample on a thread-block cluster of 8 CTAs that
+splits the U-Net body by output channel, one GroupNorm group per CTA
+(``csrc/unet_body_cluster.cuh``), as the episodes do: the CFG chain on the
+sample's two row-sets, the DDIM chain on its one. They need a card with
+clusters (sm_90) and a model whose convs and GroupNorms
 ``unet_pack.cluster_split`` accepts. Both are checked where the kernel
-would be launched (``_build.ClusterLaunch``), so the plain version on
-the CPU takes any model. The DDIM chain runs one block per sample
-(``csrc/unet_body.cuh``).
+would be launched (``_build.ClusterLaunch``), so the plain versions on
+the CPU take any model.
 
 As in the JAX package, the FiLM biases of every (step, ResidualTemporalBlock,
 row) depend only on the timestep and the context, so they are computed in
@@ -48,7 +48,7 @@ from .unet_pack import CLUSTER, M_LEN, PackedUnet, packed_on
 
 __all__ = ["FusedCfgChain", "FusedDdimChain", "make_fused_cfg_chain", "make_fused_ddim_chain",
            "step_coefficients", "ddim_step_coefficients", "film_table",
-           "cfg_chain_max_active_clusters"]
+           "cfg_chain_max_active_clusters", "ddim_chain_max_active_clusters"]
 
 
 def step_coefficients(schedule: DiffusionSchedule, n_tail: int):
@@ -112,7 +112,15 @@ def cfg_chain_max_active_clusters(smem_bytes: int) -> int:
 def _ddim_lib() -> ctypes.CDLL:
     """The built ``csrc/ddim_chain.cu``."""
     p, i = ctypes.c_void_p, ctypes.c_int
-    return _build.bind("ddim_chain", [p, p, i, p, p, p, p, i, i, p], M_LEN)
+    return _build.bind("ddim_chain", [p, p, i, p, p, p, p, i, i, p], M_LEN, cluster=CLUSTER)
+
+
+def ddim_chain_max_active_clusters(smem_bytes: int) -> int:
+    """How many clusters of the DDIM chain kernel (one per sample) fit on
+    the current CUDA device at once with ``smem_bytes`` of dynamic shared
+    memory per CTA (``cudaOccupancyMaxActiveClusters``); raises with CUDA's
+    text when the query fails. Builds the kernel first if needed."""
+    return _build.max_active_clusters(_ddim_lib(), "ddim_chain", smem_bytes)
 
 
 class FusedCfgChain:
@@ -219,11 +227,12 @@ class FusedDdimChain:
     """``chain(context (B, C), x_init (B, H, D)) -> u_norm (B, H, D)``: a
     distilled student's deterministic DDIM chain over its times grid.
 
-    ``noise_shape`` is (B, H, D), the x_init of one replan: a caller passes
-    it as ``make_closed_loop``'s ``noise_shape`` when this chain is its
-    ``sample_override``. ``launches`` counts
-    kernel launches and ``plain_calls`` calls of the plain version; callers
-    reset them to 0 to count one run.
+    ``noise_shape`` is (B, H, D), the x_init of one replan:
+    ``make_closed_loop`` stages its noise in that layout when this chain is
+    its ``sample_override``. ``launches`` counts kernel launches and
+    ``plain_calls`` calls of the plain version; callers reset them to 0 to
+    count one run. ``cluster`` holds the rank-major weights the kernel reads
+    and its occupancy check.
     """
 
     def __init__(self, packed: PackedUnet, schedule: DiffusionSchedule, times: Sequence[int],
@@ -238,6 +247,7 @@ class FusedDdimChain:
         with torch.no_grad():
             self.t_embs = self.model.time_mlp(self.t_eval)  # (n_total, time_emb_dim)
         self._sample = make_student_ddim_sampler(schedule, self.model, times)
+        self.cluster = _build.ClusterLaunch(packed, "ddim_chain", ddim_chain_max_active_clusters)
         self.launches = 0
         self.plain_calls = 0
 
@@ -268,20 +278,29 @@ class FusedDdimChain:
 
     @torch.no_grad()
     def kernel(self, context: torch.Tensor, x_init: torch.Tensor) -> torch.Tensor:
-        """Launch ``csrc/ddim_chain.cu`` on the current stream."""
+        """Launch ``csrc/ddim_chain.cu``, one cluster of 8 CTAs per sample, on
+        the current stream; raises when the body cannot be split over the
+        cluster or no cluster fits on the card."""
         self._check(context, x_init)
         if not context.is_cuda or context.device != self.packed.weights.device:
             raise ValueError("the ddim_chain kernel takes tensors on the packed weights' CUDA device")
-        films = self.films(context).contiguous()
-        x_init = x_init.contiguous()
+        weights = self.cluster.weights
+        self.cluster.require_fit(self.packed.smem_bytes, context.device)
         out = torch.empty(self.noise_shape, dtype=torch.float32, device=context.device)
+        self._launch(weights, self.films(context).contiguous(), x_init.contiguous(), out)
+        return out
+
+    def _launch(self, weights: torch.Tensor, films: torch.Tensor, x_init: torch.Tensor,
+                out: torch.Tensor) -> None:
+        """The launch alone, on ``kernel``'s checked and prepared tensors:
+        the rank-major weights, films (n_total, n_res, B, max_c), x_init and
+        out (B, H, D)."""
         _build.launch(
             _ddim_lib(), "ddim_chain",
-            self.packed.weights.data_ptr(), self.packed.meta.data_ptr(), self.packed.smem_bytes,
+            weights.data_ptr(), self.packed.meta.data_ptr(), self.packed.smem_bytes,
             films.data_ptr(), x_init.data_ptr(), self.coefs.data_ptr(), out.data_ptr(),
-            self.n_total, self.n_samples, torch.cuda.current_stream(context.device).cuda_stream)
+            self.n_total, self.n_samples, torch.cuda.current_stream(out.device).cuda_stream)
         self.launches += 1
-        return out
 
     @torch.no_grad()
     def plain(self, context: torch.Tensor, x_init: torch.Tensor) -> torch.Tensor:

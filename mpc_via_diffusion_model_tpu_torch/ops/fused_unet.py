@@ -14,6 +14,13 @@ kernel (fused_unet.py:414-450); the kernel runs the conv backbone from the
 input rows to the final Conv1dBlock. ``bench.py``'s ``BENCH_FUSED=1`` path
 passes it as the denoiser of the plain sampler, at batch 2 (the CFG
 doubling of one sample).
+
+The kernel runs each batch row on a thread-block cluster of 8 CTAs that
+splits the U-Net body by output channel, one GroupNorm group per CTA
+(``csrc/unet_body_cluster.cuh``): it needs a card with clusters (sm_90) and
+a model whose convs and GroupNorms ``unet_pack.cluster_split`` accepts.
+Both are checked where the kernel would be launched
+(``_build.ClusterLaunch``), so the plain version on the CPU takes any model.
 """
 from __future__ import annotations
 
@@ -27,16 +34,24 @@ from torch import nn
 from ..models.layers import mish
 from ..models.temporal_unet import TemporalUnet
 from . import _build
-from .unet_pack import M_LEN, PackedUnet, packed_on
+from .unet_pack import CLUSTER, M_LEN, PackedUnet, packed_on
 
-__all__ = ["FusedUnet", "make_fused_unet"]
+__all__ = ["FusedUnet", "make_fused_unet", "fused_unet_max_active_clusters"]
 
 
 @functools.lru_cache(maxsize=None)
 def _kernel_lib() -> ctypes.CDLL:
     """The built ``csrc/fused_unet.cu``."""
     p, i = ctypes.c_void_p, ctypes.c_int
-    return _build.bind("fused_unet", [p, p, i, p, p, p, i, p], M_LEN)
+    return _build.bind("fused_unet", [p, p, i, p, p, p, i, p], M_LEN, cluster=CLUSTER)
+
+
+def fused_unet_max_active_clusters(smem_bytes: int) -> int:
+    """How many clusters of the U-Net pass kernel (one per batch row) fit
+    on the current CUDA device at once with ``smem_bytes`` of dynamic shared
+    memory per CTA (``cudaOccupancyMaxActiveClusters``); raises with CUDA's
+    text when the query fails. Builds the kernel first if needed."""
+    return _build.max_active_clusters(_kernel_lib(), "fused_unet", smem_bytes)
 
 
 class FusedUnet(nn.Module):
@@ -44,7 +59,8 @@ class FusedUnet(nn.Module):
     -> eps (B, H, D)`` for the batch size B it was built for.
 
     ``launches`` counts kernel launches and ``plain_calls`` calls of the
-    plain version; callers reset them to 0 to count one run.
+    plain version; callers reset them to 0 to count one run. ``cluster``
+    holds the rank-major weights the kernel reads and its occupancy check.
     """
 
     def __init__(self, packed: PackedUnet, batch_size: int):
@@ -52,6 +68,7 @@ class FusedUnet(nn.Module):
         self.packed = packed
         self.model = packed.model
         self.batch_size = int(batch_size)
+        self.cluster = _build.ClusterLaunch(packed, "fused_unet", fused_unet_max_active_clusters)
         self.launches = 0
         self.plain_calls = 0
 
@@ -86,21 +103,31 @@ class FusedUnet(nn.Module):
     @torch.no_grad()
     def kernel(self, x: torch.Tensor, t: torch.Tensor, context: torch.Tensor,
                context_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """The conv backbone through ``csrc/fused_unet.cu`` on the current stream."""
+        """The conv backbone through ``csrc/fused_unet.cu``, one cluster of 8
+        CTAs per batch row, on the current stream; raises when the body
+        cannot be split over the cluster or no cluster fits on the card."""
         self._check(x, context)
         if not x.is_cuda or x.device != self.packed.weights.device:
             raise ValueError("the fused_unet kernel takes tensors on the packed weights' CUDA device")
+        weights = self.cluster.weights
+        self.cluster.require_fit(self.packed.smem_bytes, x.device)
         films = self.films(self.model.conditioning(t, context, context_mask)).contiguous()
-        x = x.contiguous()
         y = torch.empty((self.batch_size, self.packed.horizon, self.model.unet_input_dim),
                         dtype=torch.float32, device=x.device)
+        self._launch(weights, films, x.contiguous(), y)
+        return self.final_1x1(y)
+
+    def _launch(self, weights: torch.Tensor, films: torch.Tensor, x: torch.Tensor,
+                y: torch.Tensor) -> None:
+        """The launch alone, on ``kernel``'s checked and prepared tensors:
+        the rank-major weights, films (n_res, B, max_c), x (B, H, D) and
+        y (B, H, unet_input_dim)."""
         _build.launch(
             _kernel_lib(), "fused_unet",
-            self.packed.weights.data_ptr(), self.packed.meta.data_ptr(), self.packed.smem_bytes,
+            weights.data_ptr(), self.packed.meta.data_ptr(), self.packed.smem_bytes,
             films.data_ptr(), x.data_ptr(), y.data_ptr(), self.batch_size,
-            torch.cuda.current_stream(x.device).cuda_stream)
+            torch.cuda.current_stream(y.device).cuda_stream)
         self.launches += 1
-        return self.final_1x1(y)
 
     @torch.no_grad()
     def plain(self, x: torch.Tensor, t: torch.Tensor, context: torch.Tensor,

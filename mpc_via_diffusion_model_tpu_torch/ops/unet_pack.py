@@ -79,7 +79,7 @@ class PackedUnet:
     weights: torch.Tensor          # (n_floats,) fp32, every conv-backbone weight
     meta: torch.Tensor             # (M_LEN,) int32
     segments: Dict[str, Tuple[int, Tuple[int, ...]]]  # name -> (offset, flax shape)
-    smem_bytes: int                # dynamic shared memory of one block
+    smem_bytes: int                # dynamic shared memory of each CTA of the chains and the pass
     films_w: torch.Tensor          # (n_res, cond_dim, max_c) FiLM Dense kernels, zero-padded
     films_b: torch.Tensor          # (n_res, max_c)
     flops_per_pass: int            # conv FLOPs of one U-Net pass over one batch element

@@ -1,5 +1,6 @@
 """The cluster kernels' split (ops/csrc/unet_body_cluster.cuh: the CFG
-episode, the CFG chain and the DDIM episode) on the CPU: the U-Net body
+episode, the CFG chain, the U-Net pass, the DDIM chain and the DDIM
+episode) on the CPU: the U-Net body
 computed as its 8 CTAs compute it, one output-channel slice and one GroupNorm
 group per rank, against the plain ``TemporalUnet`` body; the split's plan in
 ``ops/unet_pack.py``; and each kernel's program emulated in numpy over 8
@@ -22,14 +23,19 @@ from mpc_via_diffusion_model_tpu_torch.dynamics import (cartpole_virtual_collect
 from mpc_via_diffusion_model_tpu_torch.models import TemporalUnet, load_flagship, load_student
 from mpc_via_diffusion_model_tpu_torch.ops import unet_pack as up
 from mpc_via_diffusion_model_tpu_torch.ops.fused_denoise import (cfg_chain_max_active_clusters,
-                                                                 make_fused_cfg_chain)
+                                                                 ddim_chain_max_active_clusters,
+                                                                 make_fused_cfg_chain,
+                                                                 make_fused_ddim_chain)
 from mpc_via_diffusion_model_tpu_torch.ops.fused_episode import (cfg_episode_max_active_clusters,
                                                                  cluster_split_features,
                                                                  ddim_episode_max_active_clusters,
                                                                  make_fused_cfg_episode,
                                                                  make_fused_ddim_episode)
+from mpc_via_diffusion_model_tpu_torch.ops.fused_unet import (fused_unet_max_active_clusters,
+                                                              make_fused_unet)
 from torch_port_util import (emulate_cfg_chain_kernel, emulate_cfg_episode_kernel,
-                             emulate_ddim_episode_kernel)
+                             emulate_ddim_chain_kernel, emulate_ddim_episode_kernel,
+                             emulate_fused_unet_kernel)
 
 torch.set_num_threads(1)
 
@@ -83,12 +89,22 @@ def _ddim_episode(tm, times, k=1, n_steps=1, sel_h=None, device="cpu"):
                                    device=device)
 
 
+def _ddim_chain(tm, times, b=1, device="cpu"):
+    return make_fused_ddim_chain(tm, make_schedule("exponential", 25), times, n_samples=b,
+                                 device=device)
+
+
+def _body_barriers(dim_mults) -> int:
+    """Cluster barriers of the body alone: 2 per residual block, 1 per down-
+    and upsample, 1 for the final block (29 at three levels, 19 at two)."""
+    return 29 if len(dim_mults) == 3 else 19
+
+
 def _barriers_per_pass(dim_mults) -> int:
-    """Cluster barriers of one pass of the body: 2 per residual block, 1 per
-    down- and upsample, 1 for the final block (29 at three levels), and one
-    more when the pass ends in a buffer the next pass pushes into, which
+    """Cluster barriers of one pass of a chain or episode: the body's, and
+    one more when the pass ends in a buffer the next pass pushes into, which
     happens at two levels (19 + 1)."""
-    return 29 if len(dim_mults) == 3 else 20
+    return _body_barriers(dim_mults) + (len(dim_mults) == 2)
 
 
 @pytest.mark.parametrize("which", ["flagship", "small"])
@@ -243,15 +259,72 @@ def test_ddim_cluster_program_is_race_free_and_matches_plain(dim_mults, k, times
     assert barriers == 2 + _barriers_per_pass(dim_mults) * n_steps * len(times) * k
 
 
-@pytest.mark.parametrize("kernel,k", [("cfg_chain", 1), ("ddim_episode", 1), ("ddim_episode", 4)])
+@pytest.mark.parametrize("dim_mults", [(1, 2), (1, 2, 4)])
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("times", [[23], [23, 15, 7]])
+def test_ddim_chain_cluster_program_is_race_free_and_matches_plain(dim_mults, b, times):
+    """ddim_chain.cu's program, one cluster of 8 NaN-filled images per
+    sample on its one row-set (NB = 1), FiLM row ``sample`` of torch's table:
+    every push lands where no CTA reads or writes between the same two
+    cluster barriers, all 8 CTAs end every pass with the same activations,
+    the output equals the plain chain, and each cluster passes the start
+    barrier, the body's per pass (with the rotation barrier at two levels)
+    and the one before exit."""
+    chain = _ddim_chain(_seeded_unet(n_support_points=8, dim_mults=dim_mults), times, b)
+    rng = np.random.RandomState(b)
+    ctx = torch.from_numpy(rng.randn(b, 5).astype(np.float32))
+    x_init = torch.from_numpy(rng.randn(*chain.noise_shape).astype(np.float32))
+    want = chain.plain(ctx, x_init).numpy()
+    with torch.no_grad():
+        films = chain.films(ctx).numpy()
+    got, barriers = emulate_ddim_chain_kernel(chain.packed, chain.cluster.weights, films,
+                                              x_init.numpy(), chain.coefs.numpy())
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+    assert barriers == [2 + _barriers_per_pass(dim_mults) * len(times)] * b
+
+
+@pytest.mark.parametrize("dim_mults", [(1, 2), (1, 2, 4)])
+@pytest.mark.parametrize("batch", [1, 2])
+def test_unet_pass_cluster_program_is_race_free_and_matches_plain(dim_mults, batch):
+    """fused_unet.cu's program, one cluster of 8 NaN-filled images per batch
+    row (NB = 1), FiLM row b: no push races, all 8 CTAs end the pass alike,
+    the forward with the final 1x1 conv in torch equals the plain forward,
+    and each cluster passes the start barrier, the body's (no rotation
+    barrier: no pass follows) and the one before exit."""
+    tm = _seeded_unet(n_support_points=8, dim_mults=dim_mults)
+    fused = make_fused_unet(tm, batch_size=batch, device="cpu")
+    rng = np.random.RandomState(batch)
+    x = torch.from_numpy(rng.randn(batch, 8, 1).astype(np.float32))
+    t = torch.from_numpy(rng.randint(0, 25, size=batch)).long()
+    ctx = torch.from_numpy(rng.randn(batch, 5).astype(np.float32))
+    mask = torch.tensor([[0.0], [1.0]][:batch])  # the CFG doubling: kept, dropped
+    with torch.no_grad():
+        want = fused.plain(x, t, ctx, mask)
+        films = fused.films(tm.conditioning(t, ctx, mask)).numpy()
+        y, barriers = emulate_fused_unet_kernel(fused.packed, fused.cluster.weights, films,
+                                                x.numpy())
+        got = fused.final_1x1(torch.from_numpy(y))
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    assert barriers == [2 + _body_barriers(dim_mults)] * batch
+
+
+@pytest.mark.parametrize("kernel,k", [("cfg_chain", 1), ("fused_unet", 2), ("ddim_chain", 4),
+                                      ("ddim_episode", 1), ("ddim_episode", 4)])
 def test_cluster_kernels_shared_memory_under_limit(kernel, k):
-    """Each CTA of the chain's and the student's episode's clusters holds the
-    whole one-block plan (and the episode's regions) at the full width: the
-    chain's at B = 1 (it does not grow with B), the episode's at K = 1 and
-    4, within one block's shared memory, on a body the cluster splits."""
-    if kernel == "cfg_chain":
-        chain = _chain(load_flagship(FLAGSHIP, device="cpu"))
-        smem, cluster = chain.packed.smem_bytes, chain.cluster
+    """Each CTA of the chains', the U-Net pass's and the student's episode's
+    clusters holds the whole one-block plan (and the episode's regions) at
+    the full width: the chains' and the pass's plan does not grow with the
+    batch (checked at B = 1, 4 and 2), the episode's at K = 1 and 4, within
+    one block's shared memory, on a body the cluster splits."""
+    if kernel in ("cfg_chain", "fused_unet", "ddim_chain"):
+        if kernel == "cfg_chain":
+            wrapper = _chain(load_flagship(FLAGSHIP, device="cpu"))
+        elif kernel == "fused_unet":
+            wrapper = make_fused_unet(load_flagship(FLAGSHIP, device="cpu"), batch_size=k,
+                                      device="cpu")
+        else:
+            wrapper = _ddim_chain(load_student(STUDENT, device="cpu"), [23], b=k)
+        smem, cluster = wrapper.packed.smem_bytes, wrapper.cluster
     else:
         ep = _ddim_episode(load_student(STUDENT, device="cpu"), [23], k=k)
         smem, cluster = ep.smem_bytes, ep.cluster
@@ -260,18 +333,27 @@ def test_cluster_kernels_shared_memory_under_limit(kernel, k):
     assert cluster.split.n_ranks == 8 and cluster.weights.shape == cluster.packed.weights.shape
 
 
-@pytest.mark.parametrize("kernel", ["cfg_chain", "ddim_episode", "cfg_episode"])
+@pytest.mark.parametrize("kernel", ["cfg_chain", "ddim_episode", "cfg_episode", "ddim_chain",
+                                    "fused_unet"])
 def test_cluster_kernels_refuse_only_where_they_would_launch(kernel):
-    """A body the cluster cannot split (width 12) runs the plain chain and
-    the plain episodes on the CPU; the rank-major weights, which every
-    launch takes first, raise ValueError, and a CPU tensor never reaches
-    the kernel."""
+    """A body the cluster cannot split (width 12) runs the plain chains, the
+    plain U-Net pass and the plain episodes on the CPU; the rank-major
+    weights, which every launch takes first, raise ValueError, and a CPU
+    tensor never reaches the kernel."""
     tm = _seeded_unet(unet_input_dim=12, dim_mults=(1, 2), n_support_points=8)
-    if kernel == "cfg_chain":
-        wrapper = _chain(tm)
-        args = (torch.zeros((1, 5)), torch.zeros((wrapper.n_total + 1, 1, 8, 1)))
+    if kernel in ("cfg_chain", "ddim_chain", "fused_unet"):
+        if kernel == "cfg_chain":
+            wrapper = _chain(tm)
+            args = (torch.zeros((1, 5)), torch.zeros((wrapper.n_total + 1, 1, 8, 1)))
+        elif kernel == "ddim_chain":
+            wrapper = _ddim_chain(tm, [23])
+            args = (torch.zeros((1, 5)), torch.zeros(wrapper.noise_shape))
+        else:
+            wrapper = make_fused_unet(tm, batch_size=2, device="cpu")
+            args = (torch.zeros((2, 8, 1)), torch.zeros((2,), dtype=torch.long),
+                    torch.zeros((2, 5)), torch.tensor([[0.0], [1.0]]))
         out = wrapper(*args)
-        assert out.shape == (1, 8, 1) and torch.isfinite(out).all()
+        assert out.shape == (2 if kernel == "fused_unet" else 1, 8, 1) and torch.isfinite(out).all()
     else:
         wrapper = _ddim_episode(tm, [23]) if kernel == "ddim_episode" else _episode(tm)
         args = (torch.from_numpy(X0), torch.zeros(wrapper.noise_shape))
@@ -286,17 +368,21 @@ def test_cluster_kernels_refuse_only_where_they_would_launch(kernel):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("kernel", ["cfg_episode", "cfg_chain", "ddim_episode"])
+@pytest.mark.parametrize("kernel", ["cfg_episode", "cfg_chain", "ddim_episode", "ddim_chain",
+                                    "fused_unet"])
 def test_cluster_occupancy_query_on_gpu(kernel):
     """At the full width a cluster of 8 CTAs of each cluster kernel fits at
-    its shared memory: the episodes' at K = 1, the chain's plan."""
+    its shared memory: the episodes' at K = 1, the chains' and the pass's
+    plan."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the cluster occupancy query runs on the card")
     packed = up.pack_unet(load_flagship(FLAGSHIP, device="cuda"), "cuda")
     query = {"cfg_episode": cfg_episode_max_active_clusters,
              "cfg_chain": cfg_chain_max_active_clusters,
-             "ddim_episode": ddim_episode_max_active_clusters}[kernel]
-    smem = packed.smem_bytes if kernel == "cfg_chain" else packed.episode_smem_bytes(1)
+             "ddim_episode": ddim_episode_max_active_clusters,
+             "ddim_chain": ddim_chain_max_active_clusters,
+             "fused_unet": fused_unet_max_active_clusters}[kernel]
+    smem = packed.episode_smem_bytes(1) if kernel.endswith("episode") else packed.smem_bytes
     assert query(smem) >= 1
 
 

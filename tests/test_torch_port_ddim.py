@@ -3,8 +3,9 @@
 ``FusedDdimEpisode``) and the closed loop with the chain as its
 ``sample_override``, against the JAX package's ``make_fused_ddim_chain``,
 ``make_fused_ddim_episode`` (interpret mode) and ``make_closed_loop``; each
-kernel's program emulated in numpy on the packed buffer and a NaN-filled
-shared image; and the runtime's CFG noise layout, unchanged.
+kernel's program emulated in numpy on the rank-major buffer and the 8
+NaN-filled shared images of its cluster; the runtime's noise layout, taken
+from a DDIM chain override and else the CFG layout, unchanged.
 
 The U-Net is small (horizon 8, ``unet_input_dim`` 8, ``dim_mults`` (1, 2),
 numpy-seeded weights carried across by ``from_flax_params``), on the
@@ -46,6 +47,8 @@ from mpc_via_diffusion_model_tpu_torch.ops.fused_denoise import (make_fused_cfg_
                                                                  make_fused_ddim_chain)
 from mpc_via_diffusion_model_tpu_torch.ops.fused_episode import make_fused_ddim_episode
 from torch_port_util import emulate_ddim_chain_kernel, emulate_ddim_episode_kernel, randomize
+
+torch.set_num_threads(1)
 
 STUDENT = (Path(__file__).resolve().parents[1] / "artifacts" / "onpolicy_cartpole"
            / "student_1eval.pkl")
@@ -163,9 +166,11 @@ def test_plain_episode_matches_port_closed_loop(models, times, k, sel_h):
 @pytest.mark.parametrize("which,times,b", [("small", GRIDS[0], 2), ("small", GRIDS[1], 3),
                                            ("student", GRIDS[0], 1), ("student", GRIDS[1], 1)])
 def test_chain_kernel_program_emulation_matches_plain(models, which, times, b):
-    """ddim_chain.cu's program, one row-set per block with FiLM row b of
-    each step, on a NaN-filled shared image, equals the plain chain: the
-    CPU check of the kernel's offsets; at full width on the student."""
+    """ddim_chain.cu's program, one cluster of 8 CTAs per sample on its one
+    row-set with FiLM row b of each step, on 8 NaN-filled shared images per
+    sample and the rank-major buffer the kernel reads, equals the plain
+    chain: the CPU check of the kernel's offsets; at full width on the
+    student."""
     tm = models[2] if which == "small" else load_student(STUDENT, device="cpu")
     chain = make_fused_ddim_chain(tm, make_schedule("exponential", T), times, n_samples=b,
                                   device="cpu")
@@ -173,8 +178,9 @@ def test_chain_kernel_program_emulation_matches_plain(models, which, times, b):
     ctx = torch.from_numpy(rng.randn(b, 5).astype(np.float32))
     x_init = torch.from_numpy(rng.randn(*chain.noise_shape).astype(np.float32))
     want = chain.plain(ctx, x_init)
-    got = emulate_ddim_chain_kernel(chain.packed, chain.films(ctx).numpy(), x_init.numpy(),
-                                    chain.coefs.numpy())
+    got, _ = emulate_ddim_chain_kernel(chain.packed, chain.cluster.weights,
+                                       chain.films(ctx).numpy(), x_init.numpy(),
+                                       chain.coefs.numpy())
     assert np.all(np.isfinite(got))
     np.testing.assert_allclose(got, want.numpy(), rtol=TOL, atol=TOL)
 
@@ -239,6 +245,28 @@ def test_ddim_wrappers_dispatch_and_refusals(models):
         args.update(kw)
         with pytest.raises(NotImplementedError, match=match):
             make_fused_ddim_episode(tm, sched, GRIDS[0], ins, cs, device="cpu", **args)
+
+
+@pytest.mark.parametrize("times,k,sel_h", [(GRIDS[0], 1, None), (GRIDS[1], 3, 5)])
+def test_closed_loop_takes_the_ddim_chain_noise_shape(models, times, k, sel_h):
+    """A FusedDdimChain as ``sample_override`` without ``noise_shape``: the
+    runtime stages the chain's own layout (n_steps, K, H, du), and the loop
+    equals the same loop with ``noise_shape`` passed, bit for bit."""
+    tm = models[2]
+    chain = make_fused_ddim_chain(tm, make_schedule("exponential", T), times, n_samples=k,
+                                  device="cpu")
+    noise = torch.from_numpy(np.random.RandomState(5 + k).randn(N_STEPS, *chain.noise_shape)
+                             .astype(np.float32))
+    loop = _port_loop(tm, chain, k, sel_h)
+    with pytest.raises(ValueError, match=rf"\({N_STEPS}, {k}, {H}, 1\)"):
+        loop(torch.from_numpy(X0), torch.zeros((N_STEPS, T + 6, k, H, 1)))
+    got = loop(torch.from_numpy(X0), noise)
+    assert (chain.launches, chain.plain_calls) == (0, N_STEPS)
+    want = _port_loop(tm, chain, k, sel_h, noise_shape=chain.noise_shape)(torch.from_numpy(X0), noise)
+    for name in ("x_track", "u_track", "u_horizons", "stage_costs"):
+        torch.testing.assert_close(getattr(got, name), getattr(want, name), rtol=0, atol=0)
+    drawn = loop(torch.from_numpy(X0), generator=torch.Generator().manual_seed(0))
+    assert drawn.x_track.shape == (N_STEPS + 1, 5) and torch.isfinite(drawn.x_track).all()
 
 
 @pytest.mark.parametrize("override", ["ddpm", "cfg_chain"])

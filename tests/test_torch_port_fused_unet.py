@@ -1,6 +1,7 @@
 """The port's U-Net forward with the conv backbone as one kernel
 (ops/fused_unet.py) against the JAX package's ``make_fused_unet`` in
-interpret mode, and the kernel's program emulated in numpy.
+interpret mode, and the kernel's program (one cluster of 8 CTAs per batch
+row) emulated in numpy.
 
 Tolerances rtol = 5e-4, atol = 5e-5, the JAX suite's for the fused U-Net
 (tests/test_fused_unet.py:27): one fp32 forward, summed in other orders.
@@ -18,6 +19,8 @@ from mpc_via_diffusion_model_tpu.ops.fused_unet import make_fused_unet as jax_fu
 from mpc_via_diffusion_model_tpu_torch.models import TemporalUnet, from_flax_params, load_flagship
 from mpc_via_diffusion_model_tpu_torch.ops.fused_unet import make_fused_unet
 from torch_port_util import SMALL, emulate_fused_unet_kernel, randomize
+
+torch.set_num_threads(1)
 
 FLAGSHIP = Path(__file__).resolve().parents[1] / "artifacts" / "flagship" / "ema_params.pkl"
 RTOL, ATOL = 5e-4, 5e-5
@@ -76,9 +79,10 @@ def test_fused_unet_refuses_other_batch_sizes():
 
 @pytest.mark.parametrize("which", ["small", "flagship"])
 def test_fused_unet_kernel_program_emulation_matches_plain(which):
-    """``csrc/fused_unet.cu``'s program (unet_body with one row-set, FiLM
-    row b of (n_res, B, max_c)) run in numpy on the packed buffer equals the
-    plain forward."""
+    """``csrc/fused_unet.cu``'s program (one cluster of 8 CTAs per batch
+    row, the cluster body on the row with FiLM row b of (n_res, B, max_c))
+    run in numpy on the rank-major buffer the kernel reads, 8 NaN-filled
+    shared images per row, equals the plain forward."""
     tm = _models(True)[2] if which == "small" else load_flagship(FLAGSHIP, device="cpu")
     h = tm.n_support_points
     fused = make_fused_unet(tm, batch_size=2, device="cpu")
@@ -86,7 +90,7 @@ def test_fused_unet_kernel_program_emulation_matches_plain(which):
     with torch.no_grad():
         want = fused.plain(x, t.long(), ctx, mask)
         films = fused.films(fused.model.conditioning(t.long(), ctx, mask)).numpy()
-        y = emulate_fused_unet_kernel(fused.packed, films, x.numpy())
+        y, _ = emulate_fused_unet_kernel(fused.packed, fused.cluster.weights, films, x.numpy())
         got = fused.final_1x1(torch.from_numpy(y))
     assert np.all(np.isfinite(y))
     torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)

@@ -51,127 +51,8 @@ def _mish(x):
     return x * np.tanh(np.logaddexp(x, 0.0))
 
 
-def _emulate_unet_body(W, m, smem, nb, film_rows, x_rows):
-    """``unet_body<nb>`` of ``csrc/unet_body.cuh`` in numpy, op by op, on the
-    shared-memory image ``smem``: it reads the packed weights and the meta
-    table with the kernel's indices, keeps activations in the kernel's
-    (nb, h + 2*HALO, c) layout and rotates its three buffers the same way.
-    ``film_rows`` (n_res, nb, max_c) are the FiLM rows of the row-sets,
-    ``x_rows`` (nb, H, D) the input; returns y (nb, H, dims[1])."""
-    halo = up.HALO
-    H, D, nlev, buf = (int(m[k]) for k in (up.M_H, up.M_D, up.M_NLEV, up.M_BUF))
-
-    def view(off, h, c, limit=buf):
-        n = nb * (h + 2 * halo) * c
-        assert n <= limit, "activation larger than its shared-memory region"
-        return smem[off:off + n].reshape(nb, h + 2 * halo, c)
-
-    def weights(off, shape):
-        return W[off:off + int(np.prod(shape))].reshape(shape)
-
-    def conv(src, hin, cin, dst, hout, cout, w_off, b_off, ks, stride, pad):
-        x, y = view(src, hin, cin), view(dst, hout, cout)
-        wk, bias = weights(w_off, (ks, cin, cout)), weights(b_off, (cout,))
-        rows = halo + stride * np.arange(hout) - pad
-        y[:, halo:halo + hout] = bias + sum(x[:, rows + k] @ wk[k] for k in range(ks))
-
-    def zero_halo(off, h, c):
-        y = view(off, h, c)
-        y[:, :halo] = 0.0
-        y[:, halo + h:] = 0.0
-
-    def gn_mish(off, h, c, groups, g_off, be_off, film=None):
-        y = view(off, h, c)
-        v = y[:, halo:halo + h].reshape(nb, h, groups, c // groups)
-        mean = v.mean(axis=(1, 3), keepdims=True)
-        var = np.maximum((v * v).mean(axis=(1, 3), keepdims=True) - mean * mean, 0.0)
-        v = ((v - mean) / np.sqrt(var + 1e-5)).reshape(nb, h, c)
-        v = _mish(v * weights(g_off, (c,)) + weights(be_off, (c,)))
-        if film is not None:
-            v = v + film[:, None, :c]
-        y[:, halo:halo + h] = v
-
-    def res_block(r, src, t1, t2, h, film):
-        rm = m[up.M_RES + r * up.RES_STRIDE:]
-        cin, cout, groups = int(rm[up.R_CIN]), int(rm[up.R_COUT]), int(rm[up.R_GROUPS])
-        conv(src, h, cin, t1, h, cout, rm[up.R_W1], rm[up.R_B1], 5, 1, 2)
-        zero_halo(t1, h, cout)
-        gn_mish(t1, h, cout, groups, rm[up.R_G1], rm[up.R_BE1], film)
-        conv(t1, h, cout, t2, h, cout, rm[up.R_W2], rm[up.R_B2], 5, 1, 2)
-        zero_halo(t2, h, cout)
-        gn_mish(t2, h, cout, groups, rm[up.R_G2], rm[up.R_BE2])
-        if rm[up.R_WR] >= 0:
-            conv(src, h, cin, t1, h, cout, rm[up.R_WR], rm[up.R_BR], 1, 1, 0)
-            view(t2, h, cout)[:, halo:halo + h] += view(t1, h, cout)[:, halo:halo + h]
-        else:
-            view(t2, h, cout)[:, halo:halo + h] += view(src, h, cout)[:, halo:halo + h]
-
-    cur, f1, f2 = 0, buf, 2 * buf
-    x_in = view(cur, H, D)
-    x_in[:, halo:halo + H] = x_rows
-    zero_halo(cur, H, D)
-    h, r = H, 0
-    for lvl in range(nlev):
-        for _ in range(2):
-            res_block(r, cur, f1, f2, h, film_rows[r])
-            cur, f1, f2 = f2, cur, f1
-            r += 1
-        c = int(m[up.M_DIMS + lvl + 1])
-        if lvl > 0:
-            skip_off = int(m[up.M_SKIP + lvl])
-            n = nb * (h + 2 * halo) * c
-            smem[skip_off:skip_off + n] = smem[cur:cur + n]
-        if lvl < nlev - 1:
-            conv(cur, h, c, f1, h // 2, c, m[up.M_DOWN + 2 * lvl],
-                 m[up.M_DOWN + 2 * lvl + 1], 3, 2, 1)
-            zero_halo(f1, h // 2, c)
-            h //= 2
-            cur, f1 = f1, cur
-    for _ in range(2):
-        res_block(r, cur, f1, f2, h, film_rows[r])
-        cur, f1, f2 = f2, cur, f1
-        r += 1
-    for u in range(nlev - 1):
-        lvl = nlev - 1 - u
-        c = int(m[up.M_DIMS + lvl + 1])
-        skip = view(int(m[up.M_SKIP + lvl]), h, c, limit=len(smem))
-        cat = view(f1, h, 2 * c)
-        cat[:, halo:halo + h] = np.concatenate(
-            [view(cur, h, c)[:, halo:halo + h], skip[:, halo:halo + h]], axis=-1)
-        zero_halo(f1, h, 2 * c)
-        cur, f1 = f1, cur
-        for _ in range(2):
-            res_block(r, cur, f1, f2, h, film_rows[r])
-            cur, f1, f2 = f2, cur, f1
-            r += 1
-        cd = int(m[up.M_DIMS + lvl])
-        x, y = view(cur, h, cd), view(f1, 2 * h, cd)
-        wu = weights(m[up.M_UP + 2 * u], (4, cd, cd))
-        bu = weights(m[up.M_UP + 2 * u + 1], (cd,))
-        t = np.arange(h)
-        y[:, halo + 2 * t] = bu + x[:, halo + t - 1] @ wu[0] + x[:, halo + t] @ wu[2]
-        y[:, halo + 2 * t + 1] = bu + x[:, halo + t] @ wu[1] + x[:, halo + t + 1] @ wu[3]
-        zero_halo(f1, 2 * h, cd)
-        h *= 2
-        cur, f1 = f1, cur
-    cf = int(m[up.M_DIMS + 1])
-    conv(cur, h, cf, f1, h, cf, m[up.M_FIN], m[up.M_FIN + 1], 5, 1, 2)
-    gn_mish(f1, h, cf, int(m[up.M_FIN + 4]), m[up.M_FIN + 2], m[up.M_FIN + 3])
-    return view(f1, h, cf)[:, halo:halo + H].copy()
-
-
 def _image(n_floats):
     return np.full(n_floats, np.nan, np.float32)
-
-
-def emulate_fused_unet_kernel(packed, films, x):
-    """Runs ``csrc/fused_unet.cu``'s program in numpy: one block per batch
-    element, ``unet_body<1>`` with FiLM row b of films (n_res, B, max_c)."""
-    W = packed.weights.cpu().numpy()
-    m = packed.meta.cpu().numpy()
-    return np.stack([
-        _emulate_unet_body(W, m, _image(int(m[up.M_SMEM])), 1, films[:, [b]], x[b:b + 1])[0]
-        for b in range(x.shape[0])])
 
 
 def cartpole_step_f32(x, u, dt):
@@ -294,7 +175,7 @@ class _Cluster:
         self._clear()
 
 
-def _emulate_cluster_body(W, m, cl, nb, film, x_rows, eps=1e-5):
+def _emulate_cluster_body(W, m, cl, nb, film, x_rows, eps=1e-5, next_pass=True):
     """``cunet_body<nb>`` of ``csrc/unet_body_cluster.cuh`` in numpy on the
     images of ``cl``: every CTA holds every activation in unet_body.cuh's
     layout and buffers; rank r computes the channels [r c / n, (r + 1) c / n)
@@ -305,8 +186,12 @@ def _emulate_cluster_body(W, m, cl, nb, film, x_rows, eps=1e-5):
     conv kernels rank-major (``unet_pack.cluster_weights``): a conv's
     (ks * cin, cout) kernel holds (n, ks * cin, cout / n) at its offset.
     Every read and write goes through ``cl``,
-    which checks the pushes against the kernel's cluster barriers. Returns y
-    (nb, H, dims[1]), which every CTA must hold alike."""
+    which checks the pushes against the kernel's cluster barriers. With
+    ``next_pass`` (the chains and episodes) every CTA then reads y for the
+    final 1x1 conv, followed by the kernels' barrier when y lies in a buffer
+    the next pass pushes into; without (the U-Net pass) rank 0 reads it to
+    write the output. Returns y (nb, H, dims[1]), which every CTA must hold
+    alike."""
     halo, n = up.HALO, cl.n
     H, D, nlev, buf = (int(m[k]) for k in (up.M_H, up.M_D, up.M_NLEV, up.M_BUF))
     ranks = range(n)
@@ -436,12 +321,13 @@ def _emulate_cluster_body(W, m, cl, nb, film, x_rows, eps=1e-5):
     for r in ranks:
         gn_push(r, f1, h, cf, m[up.M_FIN + 2], m[up.M_FIN + 3])
     cl.barrier()
-    ys = [cl.read(r, ix(f1, H, cf, np.arange(H), np.arange(cf))) for r in ranks]  # the 1x1 conv
-    if f1 != 0:  # the kernel's barrier when y is not the next pass's input buffer
+    at = ix(f1, H, cf, np.arange(H), np.arange(cf))
+    y = [cl.read(r, at) for r in (ranks if next_pass else [0])][0]  # the 1x1 conv; the output
+    if next_pass and f1 != 0:  # the kernel's barrier when y is not the next pass's input buffer
         cl.barrier()
-    for y in ys[1:]:
-        np.testing.assert_array_equal(y, ys[0])
-    return ys[0]
+    for r in ranks:
+        np.testing.assert_array_equal(cl.smem[r][at], y)
+    return y
 
 
 def film_from_image(cl, m, nb, n_rows):
@@ -468,6 +354,65 @@ def _final_1x1(W, m, y):
     """The final 1x1 conv on y (nb, H, dims[1]) -> eps (nb, H, D)."""
     D, cf = int(m[up.M_D]), int(m[up.M_DIMS + 1])
     return y @ W[m[up.M_F1]:m[up.M_F1] + cf * D].reshape(cf, D) + W[m[up.M_F1 + 1]:m[up.M_F1 + 1] + D]
+
+
+def _ddim_update(x, eps, coefs_si):
+    """The recon, clip and affine lines of the DDIM kernels."""
+    sra, srm, c1, c2 = (np.float32(v) for v in coefs_si)
+    rec = np.clip(sra * x - srm * eps, -1.0, 1.0)
+    return c1 * rec + c2 * x
+
+
+def emulate_fused_unet_kernel(packed, weights, films, x, n_ranks=up.CLUSTER):
+    """Runs ``csrc/fused_unet.cu``'s program in numpy: per batch row one
+    cluster of ``n_ranks`` CTAs (``_Cluster``, NaN-filled images of the
+    pass's plan), a cluster barrier once every CTA has started, the cluster
+    body on the row (``_emulate_cluster_body``, one row-set, FiLM row b of
+    films (n_res, B, max_c) in device memory), rank 0 reading y out, and a
+    cluster barrier before exit. ``weights`` is the buffer the kernel reads
+    (``FusedUnet.cluster.weights``). Returns y (B, H, dims[1]) and each
+    row's cluster-barrier count."""
+    cluster_w = weights.cpu().numpy()
+    m = packed.meta.cpu().numpy()
+    ys, barriers = [], []
+    for b in range(x.shape[0]):
+        cl = _Cluster(packed.smem_bytes // 4, n_ranks)
+        cl.barrier()
+        ys.append(_emulate_cluster_body(cluster_w, m, cl, 1, lambda r, rr, sl: films[rr][[b]][:, sl],
+                                        x[b:b + 1], next_pass=False)[0])
+        cl.barrier()
+        barriers.append(cl.barriers)
+    return np.stack(ys), barriers
+
+
+def emulate_ddim_chain_kernel(packed, weights, films, x_init, coefs, n_ranks=up.CLUSTER):
+    """Runs ``csrc/ddim_chain.cu``'s program in numpy: per sample one
+    cluster of ``n_ranks`` CTAs (``_Cluster``, NaN-filled images of the
+    chain's plan), a cluster barrier once every CTA has started, then per
+    step the cluster body on the sample's one row-set
+    (``_emulate_cluster_body``, FiLM row ``sample`` of the step's (n_res, B,
+    max_c) table in device memory), the final 1x1 conv and the DDIM lines,
+    with the kernel's barrier when the pass ended in a buffer the next one
+    pushes into; a cluster barrier before exit. ``weights`` is the buffer
+    the kernel reads (``FusedDdimChain.cluster.weights``). Returns the output
+    (B, H, D) and each sample's cluster-barrier count."""
+    W = packed.weights.cpu().numpy()
+    cluster_w = weights.cpu().numpy()
+    m = packed.meta.cpu().numpy()
+    out = np.empty_like(x_init)
+    barriers = []
+    for sample in range(x_init.shape[0]):
+        cl = _Cluster(packed.smem_bytes // 4, n_ranks)
+        xs = x_init[sample].copy()
+        cl.barrier()
+        for si in range(coefs.shape[0]):
+            rows = films[si][:, [sample]]  # (n_res, 1, max_c)
+            y = _emulate_cluster_body(cluster_w, m, cl, 1, lambda r, rr, sl: rows[rr][:, sl], xs[None])
+            xs = _ddim_update(xs, _final_1x1(W, m, y)[0], coefs[si])
+        cl.barrier()
+        out[sample] = xs
+        barriers.append(cl.barriers)
+    return out, barriers
 
 
 def _cfg_update(x, eps, coefs_si, noise_si, w):
@@ -537,34 +482,6 @@ def emulate_cfg_episode_kernel(packed, weights, t_embs, noise, coefs, consts, x0
     return out + (cl.barriers,)
 
 
-def _emulate_ddim_step(W, m, smem, film_rows, xs, coefs_si):
-    """One step of ddim_chain.cu on the sample xs: the
-    body on one row-set, the final 1x1 conv and the affine update."""
-    D = int(m[up.M_D])
-    cf = int(m[up.M_DIMS + 1])
-    y = _emulate_unet_body(W, m, smem, 1, film_rows, xs[None])
-    eps = y[0] @ W[m[up.M_F1]:m[up.M_F1] + cf * D].reshape(cf, D) + W[m[up.M_F1 + 1]:m[up.M_F1 + 1] + D]
-    sra, srm, c1, c2 = (np.float32(v) for v in coefs_si)
-    rec = np.clip(sra * xs - srm * eps, -1.0, 1.0)
-    return c1 * rec + c2 * xs
-
-
-def emulate_ddim_chain_kernel(packed, films, x_init, coefs):
-    """Runs ``csrc/ddim_chain.cu``'s program in numpy on a NaN-filled
-    shared image: one block per sample, ``unet_body<1>`` with FiLM row b of
-    each step's films (n_total, n_res, B, max_c), from x_init (B, H, D)."""
-    W = packed.weights.cpu().numpy()
-    m = packed.meta.cpu().numpy()
-    out = np.empty_like(x_init)
-    for b in range(x_init.shape[0]):
-        smem = _image(int(m[up.M_SMEM]))
-        xs = x_init[b].copy()
-        for si in range(coefs.shape[0]):
-            xs = _emulate_ddim_step(W, m, smem, films[si][:, [b]], xs, coefs[si])
-        out[b] = xs
-    return out
-
-
 def emulate_ddim_episode_kernel(packed, weights, t_embs, noise, coefs, consts, x0, n_candidates,
                                 selection_horizon, n_steps, n_ranks=up.CLUSTER):
     """Runs ``csrc/ddim_episode.cu``'s program in numpy: ``_emulate_episode``
@@ -585,9 +502,7 @@ def emulate_ddim_episode_kernel(packed, weights, t_embs, noise, coefs, consts, x
     def step(W, m, smem, films, x, si_step, si, k):
         _write_films_rank(cl, m, films)
         y = _emulate_cluster_body(cluster_w, m, cl, 1, film, x[None])
-        sra, srm, c1, c2 = (np.float32(v) for v in coefs[si])
-        rec = np.clip(sra * x - srm * _final_1x1(W, m, y)[0], -1.0, 1.0)
-        return c1 * rec + c2 * x
+        return _ddim_update(x, _final_1x1(W, m, y)[0], coefs[si])
 
     cl.barrier()
     out = _emulate_episode(packed, t_embs, consts, x0, n_candidates, selection_horizon, n_steps,
