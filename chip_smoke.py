@@ -18,7 +18,9 @@ each printing one line with its own seconds:
    clusters of 8 CTAs on ``unet_body_cluster.cuh``), each with the cluster
    occupancy query (``cudaOccupancyMaxActiveClusters``) at its shared memory
    at full width: the chains' and the pass's plan, the episodes' for K = 1
-   and K = 4.
+   and K = 4; and the conv kernel's registers and spills (one CTA per
+   GroupNorm group and batch chunk on ``mma.sync`` tf32 tiles in 3xTF32,
+   one instantiation per accumulator tiles a warp holds: 1, 2, 4, 8).
 3. kernel vs plain: the CFG chain kernel (one cluster per sample) on three
    contexts, and the U-Net pass kernel (one cluster per batch row) on three
    (x, t, context, mask) draws at batch 2, each against its plain PyTorch
@@ -98,8 +100,14 @@ The fused conv block and the port's ``bench_kernels``, the path that runs it:
     beside the report's. Then the same 10 seeds through the CFG episode
     kernel (``flagship_parity.run_episode_quality``, 10 launches and nothing
     else) under the same gate.
-18. timing of the conv kernel, its plain version and the three PyTorch calls
-    that compute the same block, at the six shapes by CUDA events.
+18. timing of the conv kernel at the six shapes: the launch alone as the
+    device sees it (100 launches of ``FusedConv1dGnMish._launch`` on
+    prepared tensors captured into a CUDA graph, the graph replayed between
+    CUDA events, ``scripts/conv_timing.py``'s ``graph_ms``), the whole call
+    (``kernel``, by CUDA events), the kernel's device time per launch from
+    ``torch.profiler`` (or none where it records none), its plain version,
+    the three PyTorch calls that compute the same block (``torch_seq``) and
+    the bound, with the bound's share of the launch alone.
 
 It then prints the ``kernels`` JSON line, the nvidia-smi line and, last, the
 result line. Any failure raises, and the exit code is then not 0.
@@ -142,7 +150,8 @@ from mpc_via_diffusion_model_tpu_torch.ops.fused_episode import (cfg_episode_max
 from mpc_via_diffusion_model_tpu_torch.ops.fused_unet import (fused_unet_max_active_clusters,
                                                               make_fused_unet)
 from mpc_via_diffusion_model_tpu_torch.ops.unet_pack import CLUSTER, pack_unet
-from mpc_via_diffusion_model_tpu_torch.scripts import bench_kernels, flagship_parity
+from mpc_via_diffusion_model_tpu_torch.scripts import bench_kernels, conv_timing, flagship_parity
+from mpc_via_diffusion_model_tpu_torch.scripts.conv_timing import cuda_ms
 
 ROOT = Path(__file__).resolve().parent
 FLAGSHIP = ROOT / "artifacts" / "flagship" / "ema_params.pkl"
@@ -186,21 +195,6 @@ def nvidia_smi() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
-
-
-def cuda_ms(fn, n: int, warmup: int) -> float:
-    """Mean milliseconds per call of ``fn`` on the current stream, by CUDA
-    events around ``n`` calls after ``warmup`` calls."""
-    for _ in range(warmup):
-        fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(n):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / n
 
 
 def bound(flops: float, n_bytes: float) -> dict:
@@ -261,8 +255,9 @@ def main() -> None:
         "cfg_episode": (cfg_episode_max_active_clusters, ep_smem),
         "ddim_chain": (ddim_chain_max_active_clusters, [packed_cpu.smem_bytes]),
         "ddim_episode": (ddim_episode_max_active_clusters, ep_smem)}
-    cluster_info, lines = {}, []
-    for name, (query, smems) in cluster_kernels.items():
+    def resources(name: str):
+        """(registers, spills) of each kernel of a library, from nvcc's report or, when the
+        build was reused, cuobjdump's."""
         report = built[name].report or subprocess.run(
             [str(Path(_build._nvcc()).with_name("cuobjdump")), "--dump-resource-usage",
              str(built[name].path)], capture_output=True, text=True, timeout=60).stdout
@@ -271,6 +266,11 @@ def main() -> None:
                   re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads|LOCAL:(\d+)", report)]
         if not regs or not spills:
             raise RuntimeError(f"{name}: no register or spill report in\n{report}")
+        return regs, spills
+
+    cluster_info, lines = {}, []
+    for name, (query, smems) in cluster_kernels.items():
+        regs, spills = resources(name)
         slots = [query(b) for b in smems]
         if not all(slots):
             raise RuntimeError(f"{name}: no cluster of {CLUSTER} CTAs fits on the card: {slots} at "
@@ -280,6 +280,11 @@ def main() -> None:
         lines.append(f"{name} registers {regs}, spill stores and loads (or local bytes) {spills}, "
                      f"clusters of {CLUSTER} CTAs that fit at once "
                      + ", ".join(f"{n} at {b} B per CTA" for n, b in zip(slots, smems)))
+    # the conv kernel: one instantiation per accumulator tiles per warp (1, 2, 4, 8)
+    conv_regs, conv_spills = resources("fused_conv")
+    conv_info = {"registers": conv_regs, "spill_bytes": conv_spills}
+    lines.append(f"fused_conv registers {conv_regs}, spill stores and loads (or local bytes) "
+                 f"{conv_spills}")
     log("build", t0, f"{len(built)} libraries; " + "; ".join(lines)
         + f" (the chains' and the pass's plan at every batch; episodes at K = 1 and K = {K4})")
 
@@ -739,7 +744,9 @@ def main() -> None:
         f"over the expert's {epq['cost_over_expert']:.6f} (at most {FLAGSHIP_MEAN_MAX}); modality "
         f"{epq['modality']}")
 
-    # 18. timing of the conv kernel, its plain version and the PyTorch calls of the same block
+    # 18. timing of the conv kernel: the launch alone as the device sees it (100 launches of
+    # _launch captured into a CUDA graph, the graph replayed), the whole call, the kernel's device
+    # time from torch.profiler, its plain version and the PyTorch calls of the same block
     t0 = time.perf_counter()
     conv_times = []
     for shape in CONV_SHAPES:
@@ -751,15 +758,21 @@ def main() -> None:
         seq_err = assert_close(f"torch_seq {shape}", torch_seq().transpose(1, 2),
                                fused_conv1d_gn_mish.plain(*c_args), CONV_TOL)
         bsz, h, cin, cout = shape
-        conv_times.append({
-            "shape": list(shape), "ms": cuda_ms(lambda: fused_conv1d_gn_mish.kernel(*c_args), 200, 10),
-            "plain_ms": cuda_ms(lambda: fused_conv1d_gn_mish.plain(*c_args), 50, 5),
-            "torch_seq_ms": cuda_ms(torch_seq, 200, 10), "torch_seq_max_abs_err": seq_err,
-            **bound(2 * bsz * h * 5 * cin * cout,
-                    4 * (bsz * h * cin + 5 * cin * cout + 3 * cout + bsz * h * cout))})
+        alone = conv_timing.launch_alone(fused_conv1d_gn_mish, c_args)
+        row = {"shape": list(shape), "launch_ms": conv_timing.graph_ms(alone),
+               "ms": cuda_ms(lambda: fused_conv1d_gn_mish.kernel(*c_args), 200, 10),
+               "profiler_ms": conv_timing.profiler_ms(alone),
+               "plain_ms": cuda_ms(lambda: fused_conv1d_gn_mish.plain(*c_args), 50, 5),
+               "torch_seq_ms": cuda_ms(torch_seq, 200, 10), "torch_seq_max_abs_err": seq_err,
+               **bound(2 * bsz * h * 5 * cin * cout,
+                       4 * (bsz * h * cin + 5 * cin * cout + 3 * cout + bsz * h * cout))}
+        row["bound_share"] = row["bound_ms"] / row["launch_ms"]
+        conv_times.append(row)
     log("timing-conv", t0, "; ".join(
-        f"{c['shape']}: fused_conv {c['ms']:.4f} ms (plain {c['plain_ms']:.4f}, torch_seq "
-        f"{c['torch_seq_ms']:.4f}, bound {c['bound_ms']:.6f} by {c['bound_by']})"
+        f"{c['shape']}: fused_conv launch alone {c['launch_ms']:.5f} ms, whole call {c['ms']:.5f} "
+        f"(profiler " + ("none" if c["profiler_ms"] is None else f"{c['profiler_ms']:.5f}")
+        + f"; plain {c['plain_ms']:.4f}, torch_seq {c['torch_seq_ms']:.4f}, bound "
+        f"{c['bound_ms']:.6f} by {c['bound_by']}, {100 * c['bound_share']:.2f}% of the launch)"
         for c in conv_times))
 
     packed = chain.packed
@@ -840,9 +853,10 @@ def main() -> None:
          "source": "mpc_via_diffusion_model_tpu_torch/ops/csrc/fused_conv.cu",
          "replaces": "mpc_via_diffusion_model_tpu/ops/fused_conv.py:126",
          "launches": conv_launches, "max_abs_err": conv_err,
-         **{k: conv_times[-1][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+         **{k: conv_times[-1][k] for k in ("ms", "launch_ms", "profiler_ms", "plain_ms",
+                                           "bound_ms", "bound_by", "bound_share")},
          "library_ms": None, "torch_seq_ms": conv_times[-1]["torch_seq_ms"],
-         "shape": conv_times[-1]["shape"], "shapes": conv_times,
+         "shape": conv_times[-1]["shape"], "shapes": conv_times, **conv_info,
          "flagship_cost_over_expert": par["cost_over_expert"]},
     ]
     print(json.dumps({"kernels": rows}), flush=True)

@@ -112,6 +112,9 @@ cfg_chain_kernel(const float* __restrict__ W, const int* __restrict__ meta,
   cg::this_cluster().sync();  // no CTA leaves while another may still write into it
 }
 
+// reserve_smem's record of the shared-memory limit set for the kernel on each device
+static int smem_set[MAX_DEVICES];
+
 extern "C" {
 
 // Launches the chain, one cluster per sample, on `stream`; returns the CUDA error code
@@ -119,8 +122,7 @@ extern "C" {
 int cfg_chain_launch(const float* W, const int* meta, int smem_bytes, const float* films,
                      const float* noise, const float* coefs, float* out, int n_total,
                      int n_samples, float w, float wp1, void* stream) {
-  cudaError_t e = cudaFuncSetAttribute(cfg_chain_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  cudaError_t e = reserve_smem(cfg_chain_kernel, smem_bytes, smem_set);
   if (e != cudaSuccess) return (int)e;
   cfg_chain_kernel<<<CLUSTER * n_samples, NT, smem_bytes, (cudaStream_t)stream>>>(
       W, meta, films, noise, coefs, out, n_total, w, wp1);
@@ -131,8 +133,7 @@ int cfg_chain_launch(const float* W, const int* meta, int smem_bytes, const floa
 // memory per CTA, into *n_clusters; returns the CUDA error code (0 = answered).
 int cfg_chain_max_active_clusters(int smem_bytes, int* n_clusters) {
   *n_clusters = 0;
-  cudaError_t e = cudaFuncSetAttribute(cfg_chain_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  cudaError_t e = reserve_smem(cfg_chain_kernel, smem_bytes, smem_set);
   if (e != cudaSuccess) return (int)e;
   cudaLaunchConfig_t config = {};
   config.gridDim = dim3(CLUSTER);

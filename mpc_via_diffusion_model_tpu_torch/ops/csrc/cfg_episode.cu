@@ -152,6 +152,9 @@ cfg_episode_kernel(const float* __restrict__ W, const int* __restrict__ meta,
   cg::this_cluster().sync();  // no CTA leaves while another may still write into it
 }
 
+// reserve_smem's record of the shared-memory limit set for the kernel on each device
+static int smem_set[MAX_DEVICES];
+
 extern "C" {
 
 // Launches one episode on `stream`; returns the CUDA error code (0 = launched).
@@ -160,8 +163,7 @@ int cfg_episode_launch(const float* W, const int* meta, int smem_bytes, const fl
                        const float* x0, float* x_track, float* u_track, float* costs,
                        int* chosen, int n_steps, int n_total, int K, int sel_h, float w,
                        float wp1, void* stream) {
-  cudaError_t e = cudaFuncSetAttribute(cfg_episode_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  cudaError_t e = reserve_smem(cfg_episode_kernel, smem_bytes, smem_set);
   if (e != cudaSuccess) return (int)e;
   cfg_episode_kernel<<<CLUSTER, NT, smem_bytes, (cudaStream_t)stream>>>(
       W, meta, t_embs, noise, coefs, consts, x0, x_track, u_track, costs, chosen, n_steps,
@@ -173,8 +175,7 @@ int cfg_episode_launch(const float* W, const int* meta, int smem_bytes, const fl
 // memory per CTA, into *n_clusters; returns the CUDA error code (0 = answered).
 int cfg_episode_max_active_clusters(int smem_bytes, int* n_clusters) {
   *n_clusters = 0;
-  cudaError_t e = cudaFuncSetAttribute(cfg_episode_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  cudaError_t e = reserve_smem(cfg_episode_kernel, smem_bytes, smem_set);
   if (e != cudaSuccess) return (int)e;
   cudaLaunchConfig_t config = {};
   config.gridDim = dim3(CLUSTER);

@@ -103,6 +103,9 @@ ddim_chain_kernel(const float* __restrict__ W, const int* __restrict__ meta,
   cg::this_cluster().sync();  // no CTA leaves while another may still write into it
 }
 
+// reserve_smem's record of the shared-memory limit set for the kernel on each device
+static int smem_set[MAX_DEVICES];
+
 extern "C" {
 
 // Launches the chain, one cluster per sample, on `stream`; returns the CUDA error code
@@ -110,8 +113,7 @@ extern "C" {
 int ddim_chain_launch(const float* W, const int* meta, int smem_bytes, const float* films,
                       const float* x_init, const float* coefs, float* out, int n_total,
                       int n_samples, void* stream) {
-  cudaError_t e = cudaFuncSetAttribute(ddim_chain_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  cudaError_t e = reserve_smem(ddim_chain_kernel, smem_bytes, smem_set);
   if (e != cudaSuccess) return (int)e;
   ddim_chain_kernel<<<CLUSTER * n_samples, NT, smem_bytes, (cudaStream_t)stream>>>(
       W, meta, films, x_init, coefs, out, n_total);
@@ -122,8 +124,7 @@ int ddim_chain_launch(const float* W, const int* meta, int smem_bytes, const flo
 // memory per CTA, into *n_clusters; returns the CUDA error code (0 = answered).
 int ddim_chain_max_active_clusters(int smem_bytes, int* n_clusters) {
   *n_clusters = 0;
-  cudaError_t e = cudaFuncSetAttribute(ddim_chain_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  cudaError_t e = reserve_smem(ddim_chain_kernel, smem_bytes, smem_set);
   if (e != cudaSuccess) return (int)e;
   cudaLaunchConfig_t config = {};
   config.gridDim = dim3(CLUSTER);

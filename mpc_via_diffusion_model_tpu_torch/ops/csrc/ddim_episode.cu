@@ -138,6 +138,9 @@ ddim_episode_kernel(const float* __restrict__ W, const int* __restrict__ meta,
   cg::this_cluster().sync();  // no CTA leaves while another may still write into it
 }
 
+// reserve_smem's record of the shared-memory limit set for the kernel on each device
+static int smem_set[MAX_DEVICES];
+
 extern "C" {
 
 // Launches one episode, one cluster, on `stream`; returns the CUDA error code (0 = launched).
@@ -145,8 +148,7 @@ int ddim_episode_launch(const float* W, const int* meta, int smem_bytes, const f
                         const float* noise, const float* coefs, const float* consts,
                         const float* x0, float* x_track, float* u_track, float* costs,
                         int* chosen, int n_steps, int n_total, int K, int sel_h, void* stream) {
-  cudaError_t e = cudaFuncSetAttribute(ddim_episode_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  cudaError_t e = reserve_smem(ddim_episode_kernel, smem_bytes, smem_set);
   if (e != cudaSuccess) return (int)e;
   ddim_episode_kernel<<<CLUSTER, NT, smem_bytes, (cudaStream_t)stream>>>(
       W, meta, t_embs, noise, coefs, consts, x0, x_track, u_track, costs, chosen, n_steps,
@@ -158,8 +160,7 @@ int ddim_episode_launch(const float* W, const int* meta, int smem_bytes, const f
 // memory per CTA, into *n_clusters; returns the CUDA error code (0 = answered).
 int ddim_episode_max_active_clusters(int smem_bytes, int* n_clusters) {
   *n_clusters = 0;
-  cudaError_t e = cudaFuncSetAttribute(ddim_episode_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  cudaError_t e = reserve_smem(ddim_episode_kernel, smem_bytes, smem_set);
   if (e != cudaSuccess) return (int)e;
   cudaLaunchConfig_t config = {};
   config.gridDim = dim3(CLUSTER);

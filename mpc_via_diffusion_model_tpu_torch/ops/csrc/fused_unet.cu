@@ -68,14 +68,16 @@ fused_unet_kernel(const float* __restrict__ W, const int* __restrict__ meta,
   cg::this_cluster().sync();  // no CTA leaves while another may still write into it
 }
 
+// reserve_smem's record of the shared-memory limit set for the kernel on each device
+static int smem_set[MAX_DEVICES];
+
 extern "C" {
 
 // Launches one pass, one cluster per batch row, on `stream`; returns the CUDA error code
 // (0 = launched).
 int fused_unet_launch(const float* W, const int* meta, int smem_bytes, const float* films,
                       const float* x, float* out, int batch, void* stream) {
-  cudaError_t e = cudaFuncSetAttribute(fused_unet_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  cudaError_t e = reserve_smem(fused_unet_kernel, smem_bytes, smem_set);
   if (e != cudaSuccess) return (int)e;
   fused_unet_kernel<<<CLUSTER * batch, NT, smem_bytes, (cudaStream_t)stream>>>(W, meta, films,
                                                                               x, out);
@@ -86,8 +88,7 @@ int fused_unet_launch(const float* W, const int* meta, int smem_bytes, const flo
 // memory per CTA, into *n_clusters; returns the CUDA error code (0 = answered).
 int fused_unet_max_active_clusters(int smem_bytes, int* n_clusters) {
   *n_clusters = 0;
-  cudaError_t e = cudaFuncSetAttribute(fused_unet_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  cudaError_t e = reserve_smem(fused_unet_kernel, smem_bytes, smem_set);
   if (e != cudaSuccess) return (int)e;
   cudaLaunchConfig_t config = {};
   config.gridDim = dim3(CLUSTER);

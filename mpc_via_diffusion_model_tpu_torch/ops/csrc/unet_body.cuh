@@ -1,21 +1,16 @@
 // The temporal U-Net body's shared-memory layout, meta table and block-wide helpers: the
-// halo layout (row_off, zero_halo), the meta table's indices (load_meta), Mish, and one conv
-// (conv<1>) and one GroupNorm + Mish (gn_mish<1>) in one block, which fused_conv.cu runs. The
-// U-Net body itself is unet_body_cluster.cuh's, split over a thread-block cluster of 8 CTAs
-// in every kernel that runs it: cfg_chain.cu, cfg_episode.cu (two row-sets), fused_unet.cu,
-// ddim_chain.cu and ddim_episode.cu (one). It keeps this file's layout, plan and meta table.
+// halo layout (row_off, zero_halo), the meta table's indices (load_meta), Mish, and the
+// launchers' once-per-size shared-memory attribute (reserve_smem). The U-Net body itself is
+// unet_body_cluster.cuh's, split over a thread-block cluster of 8 CTAs in every kernel that
+// runs it: cfg_chain.cu, cfg_episode.cu (two row-sets), fused_unet.cu, ddim_chain.cu and
+// ddim_episode.cu (one). It keeps this file's layout, plan and meta table. fused_conv.cu, the
+// conv block on no model path, uses this file's HALO, M_LEN, Mish and reserve_smem only.
 //
 // Port of the pieces of the U-Net body that mpc_via_diffusion_model_tpu/ops/fused_unet.py::
 // build_unet_ops traces into every Pallas kernel of the JAX package.
 //
 // Activations live in shared memory as (NB, h + 2*HALO, c) with HALO zero rows above and
-// below each row-set, so the 'same' convs need no edge masks. In conv<1>, weights stay in
-// device memory and are served from L2: a thread owns one output channel and RPT output
-// rows, so each weight it loads feeds RPT FMAs, and the 32 lanes of a warp load 32
-// neighbouring weights (C_out is the fastest axis of the flax layout (k, C_in, C_out)) while
-// they read the same activation, a shared-memory broadcast. gn_mish<1> takes one warp per
-// group (variance as E[y^2] - mean^2, as fused_unet.py:112-131), then one elementwise pass
-// does the normalisation and Mish.
+// below each row-set, so the 'same' convs need no edge masks.
 //
 // The meta table (ops/unet_pack.py) holds the architecture, the weight offsets and the
 // shared-memory plans; the indices below mirror that file, and every library that includes
@@ -26,7 +21,6 @@
 #include <stdint.h>
 
 #define NT 512          // threads per block
-#define RPT 4           // output rows per thread in the conv loops
 #define HALO 2          // zero rows above and below each activation
 #define MAX_LEVELS 4
 #define MAX_RES (4 * MAX_LEVELS)
@@ -85,48 +79,6 @@ static __device__ __forceinline__ float mish_f(float x) {
   return x * tanhf(sp);
 }
 
-// out[b][t][co] = bias[co] + sum_k sum_ci in[b][stride*t + k - pad][ci] * w[k][ci][co]
-// for every row-set; writes the interior rows of out only.
-template <int NB>
-static __device__ void conv(const float* __restrict__ in, int hin, int cin,
-                            float* __restrict__ out, int hout, int cout,
-                            const float* __restrict__ w, const float* __restrict__ bias,
-                            int ks, int stride, int pad) {
-  const int rows = NB * hout;
-  const int items = ((rows + RPT - 1) / RPT) * cout;
-  for (int it = threadIdx.x; it < items; it += NT) {
-    const int co = it % cout;
-    const int r0 = (it / cout) * RPT;
-    int src[RPT];
-    float acc[RPT];
-    const float bv = __ldg(bias + co);
-#pragma unroll
-    for (int j = 0; j < RPT; ++j) {
-      const int r = min(r0 + j, rows - 1);  // a short last chunk repeats its last row
-      const int b = r / hout, t = r - b * hout;
-      src[j] = row_off(b, hin, stride * t - pad, cin);
-      acc[j] = bv;
-    }
-    for (int k = 0; k < ks; ++k) {
-      const float* wk = w + (size_t)k * cin * cout + co;
-      const int ko = k * cin;
-      for (int ci = 0; ci < cin; ++ci) {
-        const float wv = __ldg(wk + (size_t)ci * cout);
-#pragma unroll
-        for (int j = 0; j < RPT; ++j) acc[j] = fmaf(in[src[j] + ko + ci], wv, acc[j]);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < RPT; ++j) {
-      const int r = r0 + j;
-      if (r < rows) {
-        const int b = r / hout, t = r - b * hout;
-        out[row_off(b, hout, t, cout) + co] = acc[j];
-      }
-    }
-  }
-}
-
 template <int NB>
 static __device__ void zero_halo(float* buf, int h, int c) {
   const int n = NB * 2 * HALO * c;
@@ -138,44 +90,21 @@ static __device__ void zero_halo(float* buf, int h, int c) {
   }
 }
 
-// GroupNorm (per row-set and group, variance eps) -> Mish, in place. stats holds
-// 2 * NB * groups floats.
-template <int NB>
-static __device__ void gn_mish(float* buf, int h, int c, int groups,
-                               const float* __restrict__ gamma, const float* __restrict__ beta,
-                               float* stats, float eps) {
-  const int cpg = c / groups, n = h * cpg;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int p = warp; p < NB * groups; p += NT / 32) {
-    const int b = p / groups, g = p - b * groups;
-    float s = 0.f, sq = 0.f;
-    for (int e = lane; e < n; e += 32) {
-      const int t = e / cpg, ch = g * cpg + (e - t * cpg);
-      const float v = buf[row_off(b, h, t, c) + ch];
-      s += v;
-      sq = fmaf(v, v, sq);
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      s += __shfl_xor_sync(0xffffffffu, s, o);
-      sq += __shfl_xor_sync(0xffffffffu, sq, o);
-    }
-    if (lane == 0) {
-      const float mean = s / (float)n;
-      const float var = fmaxf(sq / (float)n - mean * mean, 0.f);
-      stats[2 * p] = mean;
-      stats[2 * p + 1] = 1.0f / sqrtf(var + eps);
-    }
-  }
-  __syncthreads();
-  const int total = NB * h * c;
-  for (int i = threadIdx.x; i < total; i += NT) {
-    const int ch = i % c, r = i / c, b = r / h, t = r - b * h;
-    const int q = b * groups + ch / cpg;
-    float* p = buf + row_off(b, h, t, c) + ch;
-    float y = (*p - stats[2 * q]) * stats[2 * q + 1] * __ldg(gamma + ch) + __ldg(beta + ch);
-    *p = mish_f(y);
-  }
+// Raises `kernel`'s dynamic shared-memory limit on the current device to smem_bytes where a
+// launch needs more than the 48 KB it may take without asking, once per kernel, device and
+// size: set[device] holds the largest limit set so far (devices past MAX_DEVICES ask every
+// time). Host code; each launcher keeps one `set` per kernel.
+#define MAX_DEVICES 64
+template <typename Kernel>
+static cudaError_t reserve_smem(Kernel kernel, int smem_bytes, int* set) {
+  if (smem_bytes <= 48 * 1024) return cudaSuccess;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < MAX_DEVICES && set[dev] >= smem_bytes) return cudaSuccess;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (e == cudaSuccess && dev < MAX_DEVICES) set[dev] = smem_bytes;
+  return e;
 }
 
 // Copies the meta table into shared memory at word offset `at` and returns it.

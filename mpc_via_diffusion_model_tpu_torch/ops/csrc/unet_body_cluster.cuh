@@ -1,8 +1,8 @@
 // The conv backbone of the temporal U-Net split over a thread-block cluster of CLUSTER CTAs,
 // by output channel: the body of every kernel that runs the U-Net, cfg_episode.cu and
 // cfg_chain.cu (two row-sets, NB = 2), and fused_unet.cu, ddim_chain.cu and ddim_episode.cu
-// (one, NB = 1). fused_conv.cu, one conv block on no model path, is the only kernel that
-// keeps to one block (unet_body.cuh's conv<1> and gn_mish<1>).
+// (one, NB = 1). fused_conv.cu, one conv block on no model path, runs its own tensor-core
+// tile, one CTA per GroupNorm group and batch chunk, and none of this file.
 //
 // Port of the U-Net body that mpc_via_diffusion_model_tpu/ops/fused_unet.py::build_unet_ops
 // traces into every Pallas kernel of the JAX package, on unet_body.cuh's layout and meta

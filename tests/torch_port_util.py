@@ -511,29 +511,219 @@ def emulate_ddim_episode_kernel(packed, weights, t_embs, noise, coefs, consts, x
     return out + (cl.barriers,)
 
 
+def tf32_rna(v):
+    """float32 -> tf32 as ``cvt.rna.tf32.f32``: 10 mantissa bits, to nearest,
+    ties away from zero (add half of the dropped 13 bits to the magnitude,
+    then clear them), kept as float32."""
+    u = np.ascontiguousarray(v, np.float32).view(np.uint32)
+    return ((u + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def split_3xtf32(v):
+    """(hi, lo): hi = tf32(v), lo = tf32(v - hi), the kernel's split."""
+    hi = tf32_rna(v)
+    return hi, tf32_rna(np.float32(v) - hi)
+
+
+def mma_3xtf32(acc3, a, b):
+    """One k8 step of the kernel's 3xTF32 product on m16n8k8 tiles: the tf32
+    products a_lo b_hi, a_hi b_lo and a_hi b_hi, each summed in float32 into
+    its own accumulator of ``acc3`` (three independent chains). Works on
+    stacks of tiles (..., 16, 8) @ (..., 8, 8); ``sum_3xtf32`` adds the
+    three at the end."""
+    (a_hi, a_lo), (b_hi, b_lo) = split_3xtf32(a), split_3xtf32(b)
+    return tuple(c + np.matmul(x, y) for c, (x, y) in
+                 zip(acc3, ((a_lo, b_hi), (a_hi, b_lo), (a_hi, b_hi))))
+
+
+def sum_3xtf32(acc3):
+    """The product from the three accumulators: the two small ones first."""
+    lh, hl, hh = acc3
+    return (lh + hl) + hh
+
+
+# mma.sync.m16n8k8 tf32 fragments, by lane: g = lane >> 2, t = lane & 3
+_LANE = np.arange(32)
+_G, _T = _LANE >> 2, _LANE & 3
+A_FRAG = [(_G, _T), (_G + 8, _T), (_G, _T + 4), (_G + 8, _T + 4)]   # (row, k) of a0..a3
+B_FRAG = [(_T, _G), (_T + 4, _G)]                                   # (k, col) of b0, b1
+C_FRAG = [(_G, 2 * _T), (_G, 2 * _T + 1), (_G + 8, 2 * _T), (_G + 8, 2 * _T + 1)]  # c0..c3
+
+
+def _from_fragments(regs, frag, shape):
+    """Places each lane's registers (n, 32, len(frag)) at their (row, col) of
+    an (n, *shape) tile, checking that the lanes cover every element once."""
+    tile = np.full((regs.shape[0],) + shape, np.nan, np.float32)
+    seen = np.zeros(shape, np.int64)
+    for i, (r, c) in enumerate(frag):
+        tile[:, r, c] = regs[:, :, i]
+        np.add.at(seen, (r, c), 1)
+    assert np.all(seen == 1), "the fragment layout does not cover the tile once"
+    return tile
+
+
 def emulate_fused_conv_kernel(x, w, b, gamma, beta, n_groups, pre_bias=None, eps=1e-5):
-    """Runs ``csrc/fused_conv.cu``'s program in float32 numpy: per batch
-    element, x plus the pre-bias in the interior rows of a shared image in
-    the halo layout (the HALO rows above and below zeroed, the rest NaN),
-    ``conv<1>`` (k5, pad 2) into the output region, ``gn_mish<1>`` with the
-    variance as E[y^2] - mean^2 clamped at 0 and ``eps``, then the interior
-    rows out. A read of a row the kernel never wrote turns the output to NaN."""
+    """Runs ``csrc/fused_conv.cu``'s program in float32 numpy, every CTA of
+    ``conv_plan``'s grid at once, each on its own NaN-filled shared image of
+    the plan's size, with the kernel's index arithmetic:
+
+    - the copies: the group's weight slice into rows of w_stride floats
+      (its padding columns are never written: they feed only discarded
+      output columns), its bias, gamma and beta, the chunk's x rows into the
+      interior rows (x_stride floats each) of the halo layout; then the
+      zero fill (the weight slice's K-padding rows, the valid elements'
+      halo rows), the K columns' offset table (k * x_stride + ci, or -1 in
+      the K padding) and the pre-bias on the interior rows;
+    - the product: every active warp (tile group r, split s) builds its
+      m16n8k8 A and B fragments lane by lane from the image (A row m at
+      element m / H, row m % H, its column kk at the table's offset, 0
+      where the table says -1; rows past the chunk's valid ones read row
+      0), splits them into tf32 hi and lo (``cvt.rna``) and sums the three
+      products into three accumulators over its k-steps, then adds them;
+    - the split-K reduction: splits 1.. store their C fragments over the
+      operands (float4 per lane and tile), split 0 adds them in order;
+    - the epilogue from split 0's registers: bias, each element's mean by
+      lane sums, an xor-shuffle tree, one sum per warp in shared memory and
+      every thread adding the warps' sums in order, then the sum of
+      (y - mean)^2 the same way into a second array, 1/sqrt(var + eps),
+      gamma, beta, Mish, and the valid elements stored (each output element
+      once).
+
+    A read of an element the kernel never wrote turns the output to NaN."""
+    from mpc_via_diffusion_model_tpu_torch.ops.fused_conv import WARPS, conv_plan
     halo = up.HALO
     bsz, h, cin = x.shape
     cout = w.shape[-1]
-    out = np.empty((bsz, h, cout), np.float32)
-    for bi in range(bsz):
-        smem = _image((h + 2 * halo) * (cin + cout) + 2 * n_groups)
-        inp = smem[:(h + 2 * halo) * cin].reshape(h + 2 * halo, cin)
-        y = smem[(h + 2 * halo) * cin:(h + 2 * halo) * (cin + cout)].reshape(h + 2 * halo, cout)
-        inp[halo:halo + h] = x[bi] + (0.0 if pre_bias is None else pre_bias[bi])
-        inp[:halo] = 0.0
-        inp[halo + h:] = 0.0
-        y[halo:halo + h] = b + sum(inp[k:k + h] @ w[k] for k in range(5))
-        v = y[halo:halo + h].reshape(h, n_groups, cout // n_groups)
-        mean = v.mean(axis=(0, 2), keepdims=True)
-        var = np.maximum((v * v).mean(axis=(0, 2), keepdims=True) - mean * mean, 0.0)
-        inv_std = np.float32(1.0) / np.sqrt(var + np.float32(eps))
-        y[halo:halo + h] = _mish(((v - mean) * inv_std).reshape(h, cout) * gamma + beta)
-        out[bi] = y[halo:halo + h]
+    pl_ = conv_plan(bsz, h, cin, cout, n_groups)
+    cpg, cpg_pad, k_pad, chunk = pl_.cpg, pl_.cpg_pad, pl_.k_pad, pl_.chunk
+    ws, xst = pl_.w_stride, pl_.x_stride
+    n_grp, n_chunks = pl_.grid
+    n_cta = n_grp * n_chunks
+    grp = np.repeat(np.arange(n_grp), n_chunks)           # blockIdx.x
+    b0 = np.tile(np.arange(n_chunks), n_grp) * chunk       # blockIdx.y * chunk
+    n_valid = np.minimum(chunk, bsz - b0)
+    img = np.full((n_cta, pl_.smem_bytes // 4), np.nan, np.float32)
+    xs_off, img_len = k_pad * ws, (h + 2 * halo) * xst
+    col_off = xs_off + chunk * img_len
+    par_off = max(pl_.operand_floats, pl_.partial_floats)      # bias, gamma, beta
+    red_off = (par_off + 3 * cpg, par_off + 3 * cpg + WARPS * chunk)  # the two passes' sums
+    w2 = w.reshape(5 * cin, cout)
+    pb = np.zeros((bsz, cin), np.float32) if pre_bias is None else pre_bias
+    kk = np.arange(k_pad)
+    for q in range(n_cta):
+        sm = img[q]
+        wsm = sm[:xs_off].reshape(k_pad, ws)
+        wsm[:5 * cin, :cpg] = w2[:, grp[q] * cpg:(grp[q] + 1) * cpg]          # cp.async group 0
+        xsm = sm[xs_off:col_off].reshape(chunk, h + 2 * halo, xst)
+        for i, v in enumerate((b, gamma, beta)):
+            sm[par_off + i * cpg:par_off + (i + 1) * cpg] = v[grp[q] * cpg:(grp[q] + 1) * cpg]
+        xsm[:n_valid[q], halo:halo + h, :cin] = x[b0[q]:b0[q] + n_valid[q]]  # cp.async group 1
+        wsm[5 * cin:, :cpg_pad] = 0.0
+        xsm[:n_valid[q], :halo, :cin] = 0.0
+        xsm[:n_valid[q], halo + h:, :cin] = 0.0
+        sm[col_off:col_off + k_pad] = np.where(kk < 5 * cin, (kk // cin) * xst + kk % cin, -1)
+        xsm[:n_valid[q], halo:halo + h, :cin] += pb[b0[q]:b0[q] + n_valid[q], None]  # pre-bias
+    # the product, C fragments by (warp, own tile): (n_cta, 32, 4)
+    n_rows = n_valid * h                                                        # (n_cta,)
+    cta = np.arange(n_cta)[:, None]
+
+    def row_base(m):  # (n_cta, 32) image offsets of A rows m (32,)
+        m = np.broadcast_to(m, (n_cta, 32))
+        return np.where(m < n_rows[:, None], xs_off + (m // h) * img_len + (m % h) * xst, xs_off)
+
+    def a_value(base, col):  # A[m][col] through the offset table; 0 where it says -1
+        o = img[cta, col_off + col].astype(np.int64)
+        return np.where(o >= 0, img[cta, np.where(o >= 0, base + o, 0)], np.float32(0.0))
+
+    acc = {}
+    for warp in range(WARPS):
+        r, s = warp % pl_.tile_groups, warp // pl_.tile_groups
+        if s >= pl_.k_splits:
+            continue  # idle warp
+        for j, tile in enumerate(range(r, pl_.tiles, pl_.tile_groups)):
+            mt, nt = divmod(tile, pl_.n_tiles)
+            c3 = (np.zeros((n_cta, 16, 8), np.float32),) * 3
+            bases = [row_base(mt * 16 + rr) for rr, _ in A_FRAG]
+            for ks in range(s, pl_.k_steps, pl_.k_splits):
+                k0 = ks * 8
+                a = np.stack([a_value(bases[i], k0 + kc) for i, (_, kc) in enumerate(A_FRAG)], -1)
+                bf = np.stack([img[cta, (k0 + kr) * ws + nt * 8 + nn] for kr, nn in B_FRAG], -1)
+                c3 = mma_3xtf32(c3, _from_fragments(a, A_FRAG, (16, 8)),
+                                _from_fragments(bf, B_FRAG, (8, 8)))
+            c = sum_3xtf32(c3)
+            acc[warp, j] = np.stack([c[:, rr, cc] for rr, cc in C_FRAG], -1)
+    # the split-K reduction through shared memory, over the operands
+    for (warp, j), c in acc.items():
+        r, s = warp % pl_.tile_groups, warp // pl_.tile_groups
+        if s:
+            tile = r + j * pl_.tile_groups
+            off = ((s - 1) * pl_.tiles + tile) * 128 + 4 * _LANE[:, None] + np.arange(4)
+            img[cta[:, :, None], off[None]] = c
+    final = {}
+    for (warp, j), c in acc.items():
+        r, s = warp % pl_.tile_groups, warp // pl_.tile_groups
+        if s == 0:
+            tile = r + j * pl_.tile_groups
+            for s2 in range(1, pl_.k_splits):
+                off = ((s2 - 1) * pl_.tiles + tile) * 128 + 4 * _LANE[:, None] + np.arange(4)
+                c = c + img[cta[:, :, None], off[None]]
+            final[r, tile] = c
+    # the epilogue: rows, columns and validity of every register
+    out = np.full((bsz, h, cout), np.nan, np.float32)
+    written = np.zeros((bsz, h, cout), np.int64)
+
+    def par(i, col):  # bias (0), gamma (1) or beta (2) of columns col: (n_cta, *col.shape)
+        idx = par_off + i * cpg + np.minimum(col, cpg - 1)
+        return img[np.arange(n_cta).reshape((-1,) + (1,) * col.ndim), idx[None]]
+
+    regs = {}
+    for (r, tile), c in final.items():
+        mt, nt = divmod(tile, pl_.n_tiles)
+        rows = np.stack([np.broadcast_to(mt * 16 + rr, 32) for rr, _ in C_FRAG], -1)  # (32, 4)
+        cols = np.stack([nt * 8 + cc for _, cc in C_FRAG], -1)
+        valid = (rows[None] < n_rows[:, None, None]) & (cols[None] < cpg)            # (n_cta,32,4)
+        regs[r, tile] = (c + np.where(valid, par(0, cols), np.float32(0.0)), rows, cols, valid)
+    e_valid = np.arange(chunk)[None] < n_valid[:, None]                        # (n_cta, chunk)
+
+    def group_sums(pass_, value):
+        """Per warp of split 0 and valid element: its lanes' sums of
+        value(y, rows) over their valid registers, an xor-shuffle tree, lane
+        0's sum into the pass's array; returns the per-register reader of
+        the warps' sums added in order."""
+        for r in range(pl_.tile_groups):
+            for e in range(chunk):
+                part = np.zeros((n_cta, 32), np.float32)
+                for tile in range(r, pl_.tiles, pl_.tile_groups):
+                    y, rows, _, valid = regs[r, tile]
+                    for i in range(4):
+                        mine = valid[:, :, i] & (rows[None, :, i] // h == e)
+                        part = part + np.where(mine, value(y[:, :, i], rows[:, i]), np.float32(0.0))
+                for o in (16, 8, 4, 2, 1):
+                    part = part + part[:, _LANE ^ o]
+                img[e_valid[:, e], red_off[pass_] + r * chunk + e] = part[e_valid[:, e], 0]
+
+        def total(rows):  # (n_cta, 32): the sum of the element of each lane's row
+            e = np.minimum(rows // h, chunk - 1)
+            t = img[cta, red_off[pass_] + e]
+            for r in range(1, pl_.tile_groups):
+                t = t + img[cta, red_off[pass_] + r * chunk + e]
+            return t
+        return total
+
+    n = np.float32(h * cpg)
+    sum0 = group_sums(0, lambda y, rows: y)
+    mean = lambda rows: sum0(rows) / n
+    sum1 = group_sums(1, lambda y, rows: (y - mean(rows)) ** 2)
+    for (r, tile), (y, rows, cols, valid) in regs.items():
+        for i in range(4):
+            with np.errstate(invalid="ignore"):  # rows past the chunk's valid ones
+                inv_std = np.float32(1.0) / np.sqrt(sum1(rows[:, i]) / n + np.float32(eps))
+                yn = (y[:, :, i] - mean(rows[:, i])) * inv_std * par(1, cols[:, i]) + par(2, cols[:, i])
+            for q in range(n_cta):
+                ok = valid[q, :, i]
+                bi, ti = b0[q] + rows[ok, i] // h, rows[ok, i] % h
+                ch = grp[q] * cpg + cols[ok, i]
+                out[bi, ti, ch] = _mish(yn[q, ok])
+                np.add.at(written, (bi, ti, ch), 1)
+    assert np.all(written == 1), "the kernel's stores do not cover the output once"
     return out
