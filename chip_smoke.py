@@ -18,7 +18,10 @@ each printing one line with its own seconds:
    clusters of 8 CTAs on ``unet_body_cluster.cuh``), each with the cluster
    occupancy query (``cudaOccupancyMaxActiveClusters``) at its shared memory
    at full width: the chains' and the pass's plan, the episodes' for K = 1
-   and K = 4; and the conv kernel's registers and spills (one CTA per
+   and K = 4; the same for the bf16 entries of the CFG chain and the CFG
+   episode (``cfg_chain_bf16``, ``cfg_episode_bf16``: the __nv_bfloat16
+   instantiations of ``cfg_chain.cu`` and ``cfg_episode.cu``); and the conv
+   kernel's registers and spills (one CTA per
    GroupNorm group and batch chunk on ``mma.sync`` tf32 tiles in 3xTF32,
    one instantiation per accumulator tiles a warp holds: 1, 2, 4, 8).
 3. kernel vs plain: the CFG chain kernel (one cluster per sample) on three
@@ -109,8 +112,34 @@ The fused conv block and the port's ``bench_kernels``, the path that runs it:
     the three PyTorch calls that compute the same block (``torch_seq``) and
     the bound, with the bound's share of the launch alone.
 
-It then prints the ``kernels`` JSON line, the nvidia-smi line and, last, the
-result line. Any failure raises, and the exit code is then not 0.
+bf16 weights (``weights_dtype=torch.bfloat16``, ``bench.py``'s ``BENCH_BF16=1``)
+and the port's bench:
+
+19. bf16: the bf16 entries against their plain bf16 versions
+    (``models/bf16.py``). A kernel and its plain version sum in other
+    orders, so now and then an activation rounds to the other bf16
+    neighbour in one of them; over 30 steps such flips cascade until two
+    correct bf16 versions part by about as much as bf16 parts from fp32. So
+    the gate is at one U-Net pass (T = 1, no tail): the chain over 64
+    samples in one launch, the episode over 64 replans at K = 1 and 8 at
+    K = 4 (choices equal), the per-sample max |kernel - plain| at most 5e-6
+    at the median and 1e-3 at the worst (``ONE_PASS_*``). At full depth the
+    chain on phase 3's three contexts and the episode on phase 4's noise
+    over 80 replans are held to JAX's own bound of bf16 against fp32, 8e-2,
+    and their differences printed; K = 4 over 8 replans prints both
+    versions' choices.
+20. the flagship's quality through the bf16 episode, phase 17's protocol:
+    recorded, not gated (no bf16 report exists).
+21. the port's bench: ``python3 -m mpc_via_diffusion_model_tpu_torch.bench``
+    in a process of its own with ``bench.py``'s counts (the default mode,
+    61 episode launches), its last line parsed and its keys checked; then
+    ``bench.run`` in this process for the episode in bf16 (one repetition
+    per measure) and for ``chain``, ``chain`` in bf16 and ``1`` (two
+    episodes each), each launch count exact. Then the bf16 entries' times.
+
+It then prints the ``kernels`` JSON line (rows 1 and 3 carry their bf16
+entries under ``bf16``), the nvidia-smi line and, last, the result line. Any
+failure raises, and the exit code is then not 0.
 
 Phases 3-8 and ``bench_kernels``' episode row run the flagship with the
 synthetic limits of ``bench.py`` (controls +-30, conditions +-10); phase 17
@@ -120,14 +149,18 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import re
+import statistics
 import subprocess
+import sys
 import time
 from pathlib import Path
 
 import torch
 import torch.nn.functional as F
 
+from mpc_via_diffusion_model_tpu_torch import bench as port_bench
 from mpc_via_diffusion_model_tpu_torch.control import make_closed_loop
 from mpc_via_diffusion_model_tpu_torch.core import make_schedule
 from mpc_via_diffusion_model_tpu_torch.data import NormalizerStats, normalize
@@ -139,14 +172,12 @@ from mpc_via_diffusion_model_tpu_torch.dynamics import (cartpole_virtual_collect
                                                         theta_to_red_theta)
 from mpc_via_diffusion_model_tpu_torch.models import load_flagship, load_student
 from mpc_via_diffusion_model_tpu_torch.ops import _build, fused_conv1d_gn_mish
-from mpc_via_diffusion_model_tpu_torch.ops.fused_denoise import (cfg_chain_max_active_clusters,
-                                                                 ddim_chain_max_active_clusters,
-                                                                 make_fused_cfg_chain,
-                                                                 make_fused_ddim_chain)
-from mpc_via_diffusion_model_tpu_torch.ops.fused_episode import (cfg_episode_max_active_clusters,
-                                                                 ddim_episode_max_active_clusters,
-                                                                 make_fused_cfg_episode,
-                                                                 make_fused_ddim_episode)
+from mpc_via_diffusion_model_tpu_torch.ops.fused_denoise import (
+    cfg_chain_bf16_max_active_clusters, cfg_chain_max_active_clusters,
+    ddim_chain_max_active_clusters, make_fused_cfg_chain, make_fused_ddim_chain)
+from mpc_via_diffusion_model_tpu_torch.ops.fused_episode import (
+    cfg_episode_bf16_max_active_clusters, cfg_episode_max_active_clusters,
+    ddim_episode_max_active_clusters, make_fused_cfg_episode, make_fused_ddim_episode)
 from mpc_via_diffusion_model_tpu_torch.ops.fused_unet import (fused_unet_max_active_clusters,
                                                               make_fused_unet)
 from mpc_via_diffusion_model_tpu_torch.ops.unet_pack import CLUSTER, pack_unet
@@ -182,6 +213,22 @@ TRACK_TOL = 1e-3
 # (data/teacher_stats.py), so the same ~1e-6 in u_norm is ~1e-2 in u: its
 # controls compare in the sampler's normalized units, u over the half-range,
 # at CHAIN_TOL; its states and costs at TRACK_TOL (student_close).
+# bf16 weights (phase 19). A kernel and its plain version sum in other orders, so an
+# activation within that difference of a midpoint between two bf16 numbers rounds one way in
+# one and the other way in the other. One such flip moves a pass by up to ~1e-4 in u_norm; over
+# 30 steps the flips cascade, and two correct bf16 versions then part by as much as bf16 parts
+# from fp32 (on the CPU the plain bf16 chain in fp32 against float64 at T = 25 + 5, 64 samples:
+# 1.1e-3 median, 3.1e-3 max; bf16 against fp32 itself 0.8e-3 median). So the bf16 kernels are
+# gated at one U-Net pass (T = 1, no tail), over N_ONE_PASS samples or replans: a correct
+# kernel agrees to fp32 rounding wherever no flip happened, which on the CPU was most of them
+# (median 1.9e-7, 23% of samples flipped, max 8e-5), while one rounding point left out (the
+# final 1x1 conv's input) moved every sample (median 2.5e-5). Full depth is gated at JAX's own
+# bound of bf16 against fp32 (tests/test_fused_denoise.py:59-77) and otherwise recorded.
+N_ONE_PASS = 64
+ONE_PASS_MEDIAN_MAX, ONE_PASS_MAX = 5e-6, 1e-3
+BF16_VS_FP32 = 8e-2
+U_HALF_RANGE = 30.0        # bench.py's control limits +-30: u_norm = u / 30
+BENCH_EPISODE_KEYS = ["metric", "value", "unit", "vs_baseline", "pipelined_hz", "protocol"]
 # H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, HBM3
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
@@ -221,6 +268,28 @@ def student_close(name: str, got: torch.Tensor, want: torch.Tensor, u_unit: torc
     return assert_close(name, got, want, TRACK_TOL)
 
 
+def one_pass_gate(name: str, got: torch.Tensor, want: torch.Tensor) -> dict:
+    """The bf16 kernels' gate at one U-Net pass: per sample (the first axis) the max |got -
+    want|, whose median must be at most ONE_PASS_MEDIAN_MAX and whose max at most ONE_PASS_MAX;
+    returns the median, the max and the share of samples past 1e-5 (flipped roundings)."""
+    if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
+        raise RuntimeError(f"{name}: non-finite values")
+    per = (got.double() - want.double()).abs().flatten(1).max(dim=1).values.tolist()
+    out = {"median": statistics.median(per), "max": max(per),
+           "flipped_share": sum(v > 1e-5 for v in per) / len(per), "n": len(per)}
+    if not (out["median"] <= ONE_PASS_MEDIAN_MAX and out["max"] <= ONE_PASS_MAX):
+        raise RuntimeError(f"{name}: per-sample max |kernel - plain| median {out['median']:.3e} "
+                           f"(at most {ONE_PASS_MEDIAN_MAX:.0e}), max {out['max']:.3e} (at most "
+                           f"{ONE_PASS_MAX:.0e})")
+    return out
+
+
+def fmt_gate(g: dict) -> str:
+    return (f"median {g['median']:.3e}, max {g['max']:.3e}, {100 * g['flipped_share']:.1f}% of "
+            f"{g['n']} past 1e-5 (gate: median <= {ONE_PASS_MEDIAN_MAX:.0e}, max <= "
+            f"{ONE_PASS_MAX:.0e})")
+
+
 def counts(*wrappers) -> list:
     return [(w.launches, w.plain_calls) for w in wrappers]
 
@@ -249,23 +318,34 @@ def main() -> None:
     # and how many of their clusters fit at once at full width
     packed_cpu = pack_unet(load_flagship(FLAGSHIP, device="cpu"), "cpu")
     ep_smem = [packed_cpu.episode_smem_bytes(k) for k in (1, K4)]
-    cluster_kernels = {  # name: (occupancy query, shared memory per CTA of each launch shape)
+    cluster_kernels = {  # entry: (occupancy query, shared memory per CTA of each launch shape)
         "cfg_chain": (cfg_chain_max_active_clusters, [packed_cpu.smem_bytes]),
+        "cfg_chain_bf16": (cfg_chain_bf16_max_active_clusters, [packed_cpu.smem_bytes]),
         "fused_unet": (fused_unet_max_active_clusters, [packed_cpu.smem_bytes]),
         "cfg_episode": (cfg_episode_max_active_clusters, ep_smem),
+        "cfg_episode_bf16": (cfg_episode_bf16_max_active_clusters, ep_smem),
         "ddim_chain": (ddim_chain_max_active_clusters, [packed_cpu.smem_bytes]),
         "ddim_episode": (ddim_episode_max_active_clusters, ep_smem)}
-    def resources(name: str):
-        """(registers, spills) of each kernel of a library, from nvcc's report or, when the
-        build was reused, cuobjdump's."""
+    def resources(entry: str):
+        """(registers, spills) of each kernel of an entry, from nvcc's report or, when the
+        build was reused, cuobjdump's: the bf16 entries (``<source>_bf16``) are their
+        library's __nv_bfloat16 instantiation, every other entry its library's other
+        kernels."""
+        name, bf16 = entry.removesuffix("_bf16"), entry.endswith("_bf16")
         report = built[name].report or subprocess.run(
             [str(Path(_build._nvcc()).with_name("cuobjdump")), "--dump-resource-usage",
              str(built[name].path)], capture_output=True, text=True, timeout=60).stdout
-        regs = [int(a or b) for a, b in re.findall(r"Used (\d+) registers|REG:(\d+)", report)]
-        spills = [[int(v) for v in t if v] for t in
-                  re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads|LOCAL:(\d+)", report)]
+        marks = list(re.finditer(r"Compiling entry function '(\w+)'|Function (\w+):", report))
+        regs, spills = [], []
+        for mark, nxt in zip(marks, marks[1:] + [None]):
+            if ("I13__nv_bfloat16E" in (mark.group(1) or mark.group(2))) != bf16:
+                continue
+            part = report[mark.end():nxt.start() if nxt else len(report)]
+            regs += [int(a or b) for a, b in re.findall(r"Used (\d+) registers|REG:(\d+)", part)]
+            spills += [[int(v) for v in t if v] for t in re.findall(
+                r"(\d+) bytes spill stores, (\d+) bytes spill loads|LOCAL:(\d+)", part)]
         if not regs or not spills:
-            raise RuntimeError(f"{name}: no register or spill report in\n{report}")
+            raise RuntimeError(f"{entry}: no register or spill report in\n{report}")
         return regs, spills
 
     cluster_info, lines = {}, []
@@ -286,7 +366,8 @@ def main() -> None:
     lines.append(f"fused_conv registers {conv_regs}, spill stores and loads (or local bytes) "
                  f"{conv_spills}")
     log("build", t0, f"{len(built)} libraries; " + "; ".join(lines)
-        + f" (the chains' and the pass's plan at every batch; episodes at K = 1 and K = {K4})")
+        + f" (the chains' and the pass's plan at every batch; episodes at K = 1 and K = {K4}; "
+        "the _bf16 entries are the bf16 instantiations of cfg_chain.cu and cfg_episode.cu)")
 
     # 3. kernels vs plain versions, flagship weights, full width
     t0 = time.perf_counter()
@@ -775,6 +856,139 @@ def main() -> None:
         f"{c['bound_ms']:.6f} by {c['bound_by']}, {100 * c['bound_share']:.2f}% of the launch)"
         for c in conv_times))
 
+    # 19. bf16 weights: the bf16 entries of the CFG chain and CFG episode against their plain
+    # bf16 versions, first at one U-Net pass (where a correct kernel agrees but for an occasional
+    # flipped rounding), then at full depth (where flips cascade and are only recorded)
+    t0 = time.perf_counter()
+    bf16 = torch.bfloat16
+    chain_bf = make_fused_cfg_chain(chain.packed, schedule, n_samples=1, w=W, n_tail=N_TAIL,
+                                    weights_dtype=bf16, device=dev)
+    sched1 = make_schedule("exponential", 1)  # one step: u_norm = clip(x - 0.01 eps_cfg)
+    one = make_fused_cfg_chain(chain.packed, sched1, n_samples=N_ONE_PASS, w=W, n_tail=0,
+                               weights_dtype=bf16, device=dev)
+    ctx_one = torch.randn((N_ONE_PASS, 5), generator=gen, device=dev)
+    noise_one = torch.randn((2, N_ONE_PASS, HORIZON, 1), generator=gen, device=dev)
+    got = one.kernel(ctx_one, noise_one)
+    torch.cuda.synchronize()
+    one_chain = one_pass_gate("cfg_chain_bf16 one pass", got, one.plain(ctx_one, noise_one))
+    ep_one = lambda k, n_steps, sel_h=None: make_fused_cfg_episode(
+        chain.packed, sched1, inputs_stats, cond_stats, plant, cost, n_steps=n_steps, w=W,
+        n_diffusion_steps_without_noise=0, n_candidates=k, selection_horizon=sel_h,
+        weights_dtype=bf16, device=dev)
+    one_ep, one_chosen = {}, []
+    for k, n_steps, sel_h in ((1, N_ONE_PASS, None), (K4, N_STEPS_K4, SEL_H)):
+        ep = ep_one(k, n_steps, sel_h)
+        nz = torch.randn(ep.noise_shape, generator=gen, device=dev)
+        got, want = ep.kernel(x0, nz), ep.plain(x0, nz)
+        torch.cuda.synchronize()
+        one_ep[k] = one_pass_gate(f"cfg_episode_bf16 K={k} one pass per replan",
+                                  got[1][:, :, None] / U_HALF_RANGE, want[1][:, :, None] / U_HALF_RANGE)
+        if not torch.equal(got[3], want[3]):
+            raise RuntimeError(f"cfg_episode_bf16 K={k} one pass per replan: chosen "
+                               f"{got[3].tolist()} vs plain {want[3].tolist()}")
+        if k > 1:
+            one_chosen = got[3].tolist()
+    # full depth: phase 3's contexts, phase 4's noise through 80 replans, K = 4 over 8
+    chain_bf_err = 0.0
+    for ctx in contexts:
+        got = chain_bf.kernel(ctx, noise)
+        torch.cuda.synchronize()
+        chain_bf_err = max(chain_bf_err, assert_close("cfg_chain_bf16", got,
+                                                      chain_bf.plain(ctx, noise), BF16_VS_FP32))
+    ep_bf = make_fused_cfg_episode(chain.packed, schedule, inputs_stats, cond_stats, plant, cost,
+                                   n_steps=N_STEPS, w=W, n_diffusion_steps_without_noise=N_TAIL,
+                                   weights_dtype=bf16, device=dev)
+    got_bf = ep_bf.kernel(x0, ep_noise)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    want_bf = ep_bf.plain(x0, ep_noise)
+    torch.cuda.synchronize()
+    plain_bf_episode_s = time.perf_counter() - t1
+    du_bf = assert_close("cfg_episode_bf16 80 replans u_norm", got_bf[1] / U_HALF_RANGE,
+                         want_bf[1] / U_HALF_RANGE, BF16_VS_FP32)
+    dx_bf = (got_bf[0].double() - want_bf[0].double()).abs().max().item()
+    du_vs_fp32 = ((got_bf[1] - res.u_track).abs().max() / U_HALF_RANGE).item()
+    ep4_bf = make_fused_cfg_episode(chain.packed, schedule, inputs_stats, cond_stats, plant, cost,
+                                    n_steps=N_STEPS_K4, w=W, n_diffusion_steps_without_noise=N_TAIL,
+                                    n_candidates=K4, selection_horizon=SEL_H, weights_dtype=bf16,
+                                    device=dev)
+    got4_bf, want4_bf = ep4_bf.kernel(x0, noise4), ep4_bf.plain(x0, noise4)
+    torch.cuda.synchronize()
+    if not all(torch.isfinite(t).all() for t in (*got_bf[:3], *got4_bf[:3])):
+        raise RuntimeError("bf16 episodes: non-finite tracks")
+    same4 = int((got4_bf[3] == want4_bf[3]).sum())
+    log("bf16", t0, f"one pass (T = 1): cfg_chain_bf16 over {N_ONE_PASS} samples "
+        f"{fmt_gate(one_chain)}; cfg_episode_bf16 K=1 over {N_ONE_PASS} replans "
+        f"{fmt_gate(one_ep[1])}; K={K4} over {N_STEPS_K4} replans {fmt_gate(one_ep[K4])}, chosen "
+        f"{one_chosen} in both. Full depth (T = {T} + {N_TAIL}): cfg_chain_bf16 max |kernel - "
+        f"plain| {chain_bf_err:.3e} over {len(contexts)} contexts; cfg_episode_bf16 {N_STEPS} "
+        f"replans on phase 4's noise: max |du_norm| {du_bf:.3e}, max |dx| {dx_bf:.3e}, total "
+        f"cost kernel {got_bf[2].sum().item():.6f} plain {want_bf[2].sum().item():.6f} (fp32 "
+        f"per-replan loop {res.stage_costs.sum().item():.6f}), max "
+        f"|du_norm| against the fp32 per-replan loop {du_vs_fp32:.3e}; K={K4} over "
+        f"{N_STEPS_K4} replans chosen {got4_bf[3].tolist()} vs plain {want4_bf[3].tolist()} "
+        f"({same4} of {N_STEPS_K4} equal); full depth gated at {BF16_VS_FP32:.0e} only (two "
+        f"correct bf16 versions part by a flipped rounding that cascades); plain episode "
+        f"{plain_bf_episode_s:.3f}s by the host clock")
+
+    # 20. the flagship's quality through the bf16 episode (recorded, not gated: no bf16 report)
+    t0 = time.perf_counter()
+    reset(*wrappers)
+    epq_bf = flagship_parity.run_episode_quality(dev, n_seeds=N_QUALITY, n_steps=N_STEPS,
+                                                 weights_dtype=bf16)
+    if counts(*wrappers) != [(0, 0)] * len(wrappers) or epq_bf["episode_launches"] != N_QUALITY:
+        raise RuntimeError(f"bf16 quality: {epq_bf['episode_launches']} episode launches, counts "
+                           f"{counts(*wrappers)}; expected {N_QUALITY} launches of its own "
+                           f"episode and nothing else")
+    if not all(math.isfinite(c) for c in epq_bf["closed_loop_costs"]):
+        raise RuntimeError(f"bf16 quality: non-finite costs {epq_bf['closed_loop_costs']}")
+    log("bf16-quality", t0, f"{N_QUALITY} seeds through cfg_episode_bf16 "
+        f"({epq_bf['episode_launches']} launches), the flagship's statistics: closed-loop costs "
+        f"{[round(c, 3) for c in epq_bf['closed_loop_costs']]}; mean "
+        f"{epq_bf['closed_loop_cost_mean']:.3f}, over the expert's "
+        f"{epq_bf['cost_over_expert']:.6f} (fp32 {epq['cost_over_expert']:.6f}); modality "
+        f"{epq_bf['modality']}")
+
+    # 21. the port's bench: the default mode by its own entry point, in a process of its own,
+    # with bench.py's counts; then the other four combinations in this process, cut
+    t0 = time.perf_counter()
+    env = {k: v for k, v in os.environ.items() if k not in ("BENCH_FUSED", "BENCH_BF16")}
+    proc = subprocess.run([sys.executable, "-m", "mpc_via_diffusion_model_tpu_torch.bench"],
+                          cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise RuntimeError(f"bench exited {proc.returncode}:\n{proc.stdout}\n{proc.stderr}")
+    bench_lines = proc.stdout.strip().splitlines()
+    bench_line = json.loads(bench_lines[-1])
+    if list(bench_line) != BENCH_EPISODE_KEYS or not bench_line["value"] > 0:
+        raise RuntimeError(f"bench: last line {bench_lines[-1]}; expected bench.py's keys "
+                           f"{BENCH_EPISODE_KEYS}")
+    print(bench_lines[-2], flush=True)
+    print(bench_lines[-1], flush=True)
+    bench_runs = {}
+    for mode, use_bf16, cut in (("episode", True, dict(n_rep=1, n_chain=1, n_best=1)),
+                                ("chain", False, dict(n_rep=2)), ("chain", True, dict(n_rep=2)),
+                                ("1", False, dict(n_rep=2))):
+        r = port_bench.run(mode, use_bf16, dev, **cut)
+        if r.launches != port_bench.expected_calls(mode, **cut) or r.plain_calls:
+            raise RuntimeError(f"bench {mode} bf16={use_bf16}: {r.launches} launches, "
+                               f"{r.plain_calls} plain calls")
+        bench_runs[mode, use_bf16] = r
+        print(f"bench BENCH_FUSED={mode} BENCH_BF16={int(use_bf16)} {cut}: {r.launches} "
+              f"{r.wrapper} launches; " + json.dumps(r.line), flush=True)
+    log("bench", t0, f"python3 -m mpc_via_diffusion_model_tpu_torch.bench: {bench_lines[-1]}; "
+        f"in process, cut: " + "; ".join(
+            f"{m}{' bf16' if b else ''} {r.line['value']} Hz ({r.launches} launches)"
+            for (m, b), r in bench_runs.items()))
+
+    # bf16 timing at the main paths' shapes
+    chain_bf_ms = cuda_ms(lambda: chain_bf.kernel(contexts[0], noise), n=20, warmup=3)
+    chain_bf_plain_ms = cuda_ms(lambda: chain_bf.plain(contexts[0], noise), n=5, warmup=1)
+    ep_bf_ms = cuda_ms(lambda: ep_bf.kernel(x0, ep_noise), n=5, warmup=1)
+    log("timing-bf16", t0, f"cfg_chain_bf16 {chain_bf_ms:.4f} ms (fp32 {chain_ms:.4f}; plain "
+        f"{chain_bf_plain_ms:.4f}) per replan; cfg_episode_bf16 K=1 {ep_bf_ms:.3f} ms per "
+        f"{N_STEPS}-replan episode (fp32 {episode_ms:.3f}; plain {1e3 * plain_bf_episode_s:.1f} "
+        f"by the host clock)")
+
     packed = chain.packed
     seg = lambda *prefixes: sum(math.prod(shape) for name, (_, shape) in packed.segments.items()
                                 if name.split(".")[0] in prefixes)
@@ -808,6 +1022,18 @@ def main() -> None:
     sep_flops = N_STEPS * sep1.n_total * (spacked.flops_per_pass + film_flops / 2)
     sep_bytes = 4 * (weights + meta_n + sep1.t_embs.numel() + s_noise.numel() + sep1.coefs.numel()
                      + sep1.consts.numel() + 5 + (N_STEPS + 1) * 5 + N_STEPS * 3)
+    # the bf16 entries read every conv kernel (the body's and the final 1x1) as 2 bytes, the rest
+    # as 4: the same operations, fewer bytes
+    conv_w = sum(math.prod(packed.segments[name][1])
+                 for name in [*chain_bf.cluster.split.convs, "final1x1.w"])
+    bf16_row = lambda name, source_row, launches, err, ms, plain_ms, flops, n_bytes, **extra: {
+        "name": name, "route": "cuda", "source": source_row["source"],
+        "replaces": source_row["replaces"], "launches": launches, "max_abs_err": err, "ms": ms,
+        "plain_ms": plain_ms, **bound(flops, n_bytes - 2 * conv_w), "library_ms": None,
+        "weights_dtype": "bfloat16", "bf16_weight_bytes_saved": 2 * conv_w,
+        "registers": cluster_info[name]["registers"],
+        "spill_bytes": cluster_info[name]["spill_bytes"],
+        "clusters_fit": cluster_info[name]["clusters_fit"], **extra}
     rows = [
         {"name": "cfg_chain", "route": "cuda",
          "source": "mpc_via_diffusion_model_tpu_torch/ops/csrc/cfg_chain.cu",
@@ -859,6 +1085,19 @@ def main() -> None:
          "shape": conv_times[-1]["shape"], "shapes": conv_times, **conv_info,
          "flagship_cost_over_expert": par["cost_over_expert"]},
     ]
+    rows[0]["bf16"] = bf16_row(
+        "cfg_chain_bf16", rows[0], bench_runs["chain", True].launches, one_chain["max"],
+        chain_bf_ms, chain_bf_plain_ms, chain_flops, chain_bytes, one_pass=one_chain,
+        full_depth_max_abs_err=chain_bf_err, bench_chain_hz=bench_runs["chain", True].line["value"])
+    rows[2]["bf16"] = bf16_row(
+        "cfg_episode_bf16", rows[2], bench_runs["episode", True].launches, one_ep[1]["max"],
+        ep_bf_ms, 1e3 * plain_bf_episode_s, ep_flops, ep_bytes, one_pass=one_ep[1],
+        one_pass_k4=one_ep[K4], full_depth_max_abs_err_u_norm=du_bf,
+        full_depth_max_abs_err_x=dx_bf, k4_full_depth_chosen_equal=same4,
+        bench_episode_hz=bench_runs["episode", True].line["value"],
+        flagship_cost_over_expert=epq_bf["cost_over_expert"], flagship_modality=epq_bf["modality"])
+    rows[2]["bench_closed_loop_control_hz"] = bench_line["value"]
+    rows[2]["bench_pipelined_hz"] = bench_line["pipelined_hz"]
     print(json.dumps({"kernels": rows}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}),

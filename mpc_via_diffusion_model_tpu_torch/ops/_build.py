@@ -123,18 +123,23 @@ def load(name: str) -> ctypes.CDLL:
     return ctypes.CDLL(str(build(name).path))
 
 
-def bind(name: str, launch_argtypes, meta_len: int, queries=(), cluster: int = 0) -> ctypes.CDLL:
-    """The built library of ``csrc/<name>.cu`` with its C interface
-    declared: ``<name>_launch(*launch_argtypes)`` returns a CUDA error code,
+def bind(name: str, launch_argtypes, meta_len: int, queries=(), cluster: int = 0,
+         source: Optional[str] = None) -> ctypes.CDLL:
+    """The built library of ``csrc/<source>.cu`` (``source`` defaults to
+    ``name``) with the C interface of its entry ``name`` declared:
+    ``<name>_launch(*launch_argtypes)`` returns a CUDA error code,
     ``<name>_error_string(code)`` its text, and ``<name>_meta_len()`` and
     each ``<name>_<query>()`` of ``queries`` an int. Raises unless the
     library's meta length is ``meta_len``, the packer's. A kernel launched
     as thread-block clusters of ``cluster`` CTAs (when not 0) also declares
     ``<name>_max_active_clusters(smem_bytes, int*)`` and
-    ``<name>_cluster_size()``, which must answer ``cluster``."""
+    ``<name>_cluster_size()``, which must answer ``cluster``. A library
+    with two instantiations of its kernel (``cfg_chain.cu``'s and
+    ``cfg_episode.cu``'s float and bf16 weights) exports each as an entry
+    of its own, ``<source>`` and ``<source>_bf16``."""
     if cluster:
         queries = (*queries, "cluster_size")
-    lib = load(name)
+    lib = load(source or name)
     fn = getattr(lib, f"{name}_launch")
     fn.argtypes, fn.restype = list(launch_argtypes), ctypes.c_int
     fn = getattr(lib, f"{name}_error_string")
@@ -176,18 +181,21 @@ def launch(lib: ctypes.CDLL, name: str, *args) -> None:
 class ClusterLaunch:
     """What the wrappers of the five cluster kernels (``cfg_chain``,
     ``fused_unet``, ``cfg_episode``, ``ddim_chain``, ``ddim_episode``)
-    share: the body's split and the rank-major buffer the kernel reads,
-    made when first asked for, so that a body the cluster cannot split
-    raises ``ValueError`` where the kernel would be launched and not on the
-    CPU path; and the kernel's occupancy query (``query(smem_bytes)``, its
-    wrapper module's ``<name>_max_active_clusters``), asked once before the
-    first launch, which refuses with ``RuntimeError`` when no cluster fits
-    on the card. Nothing falls back to the plain version."""
+    share: the body's split and the rank-major buffer the kernel reads
+    (and its bf16 copy, which the bf16 entries ``cfg_chain_bf16`` and
+    ``cfg_episode_bf16`` read beside it), made when first asked for, so
+    that a body the cluster cannot split raises ``ValueError`` where the
+    kernel would be launched and not on the CPU path; and the kernel's
+    occupancy query (``query(smem_bytes)``, its wrapper module's
+    ``<name>_max_active_clusters``), asked once before the first launch,
+    which refuses with ``RuntimeError`` when no cluster fits on the card.
+    Nothing falls back to the plain version or to another entry."""
 
     def __init__(self, packed: PackedUnet, name: str, query: Callable[[int], int]):
         self.packed, self.name, self._query = packed, name, query
         self._split: Optional[ClusterSplit] = None
         self._weights: Optional[torch.Tensor] = None
+        self._weights_bf16: Optional[torch.Tensor] = None
         self.slots: Optional[int] = None  # clusters that fit at once, asked before the first launch
 
     @property
@@ -202,6 +210,15 @@ class ClusterLaunch:
         if self._weights is None:
             self._weights = cluster_weights(self.packed, self.split)
         return self._weights
+
+    @property
+    def weights_bf16(self) -> torch.Tensor:
+        """``weights`` rounded to bf16 (to nearest even) at the same element
+        offsets: the bf16 entries read their conv kernels from it and every
+        other segment from ``weights``."""
+        if self._weights_bf16 is None:
+            self._weights_bf16 = self.weights.to(torch.bfloat16)
+        return self._weights_bf16
 
     def require_fit(self, smem_bytes: int, device) -> None:
         """Raises unless a cluster of CLUSTER CTAs with ``smem_bytes`` of

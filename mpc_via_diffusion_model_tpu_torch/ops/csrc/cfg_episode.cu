@@ -52,16 +52,27 @@
 //
 // The in-kernel FiLM and the end of each replan (unnormalize, best-of-K, stage cost, plant
 // step) are in episode.cuh, shared with ddim_episode.cu.
+//
+// bf16 weights (the JAX builder's weights_dtype=jnp.bfloat16, bench.py's BENCH_BF16=1): the
+// kernel is a template on the conv kernels' element type WT. cfg_episode_launch runs the float
+// instantiation, cfg_episode_bf16_launch the __nv_bfloat16 one, which reads the conv kernels
+// and the final 1x1 kernel from the bf16 copy Wh of the buffer and rounds each product's
+// activation operand to bf16 (unet_body_cluster.cuh), as fused_episode.py:587 rounds y before
+// the final 1x1 conv; the FiLM Dense weights stay fp32, as append_film_weights keeps them.
+// Each entry has its own occupancy query; neither falls back to the other.
 
 #include "episode.cuh"
 #include "unet_body_cluster.cuh"
 
-// W is the packed buffer with the body's conv kernels rank-major (cluster_weights).
-// t_embs (n_total, temb); noise (n_steps, n_total + 1, K, H, D) with row n_total = x_T;
-// coefs (n_total, 5) = sra, srm, c1, c2, sigma * gate; consts (C_LEN); x0 (DX).
+// W is the packed buffer with the body's conv kernels rank-major (cluster_weights), Wh its
+// bf16 copy (read in the bf16 instantiation only; last, so that the float instantiation's
+// other parameters keep their offsets). t_embs (n_total, temb); noise (n_steps, n_total + 1,
+// K, H, D) with row n_total = x_T; coefs (n_total, 5) = sra, srm, c1, c2, sigma * gate;
+// consts (C_LEN); x0 (DX).
 // Outputs: x_track (n_steps + 1, DX), u_track (n_steps, DU), costs (n_steps),
 // chosen (n_steps) = index of the applied candidate, K when none was chosen. Rank 0 writes
 // the outputs.
+template <typename WT>
 __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(NT, 1)
 cfg_episode_kernel(const float* __restrict__ W, const int* __restrict__ meta,
                    const float* __restrict__ t_embs, const float* __restrict__ noise,
@@ -69,7 +80,7 @@ cfg_episode_kernel(const float* __restrict__ W, const int* __restrict__ meta,
                    const float* __restrict__ x0, float* __restrict__ x_track,
                    float* __restrict__ u_track, float* __restrict__ costs,
                    int* __restrict__ chosen, int n_steps, int n_total, int K, int sel_h,
-                   float w, float wp1) {
+                   float w, float wp1, const __nv_bfloat16* __restrict__ Wh) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int rank = (int)cg::this_cluster().block_rank();
@@ -114,15 +125,16 @@ cfg_episode_kernel(const float* __restrict__ W, const int* __restrict__ meta,
         }
         zero_halo<2>(in, H, D);
         __syncthreads();
-        const float* y = cunet_body<2>(m, W, smem, in, smem + buf, smem + 2 * buf, films, 2, 0, 1,
-                                       stats, rank);
-        const float* w1 = W + m[M_F1];
+        const float* y = cunet_body<2, WT>(m, W, Wh, smem, in, smem + buf, smem + 2 * buf, films,
+                                           2, 0, 1, stats, rank);
+        const WT* w1 = conv_weights<WT>(W, Wh) + m[M_F1];
         const float* b1 = W + m[M_F1 + 1];
         for (int i = threadIdx.x; i < 2 * hd; i += NT) {  // final 1x1 conv
           const int d = i % D, rr = i / D, b = rr / H, t = rr - b * H;
           const float* yr = y + row_off(b, H, t, cf);
           float acc = 0.f;
-          for (int ci = 0; ci < cf; ++ci) acc = fmaf(yr[ci], __ldg(w1 + ci * D + d), acc);
+          for (int ci = 0; ci < cf; ++ci)
+            acc = fmaf(round_operand<WT>(yr[ci]), wload(w1 + ci * D + d), acc);
           eps[i] = acc + __ldg(b1 + d);
         }
         // The next pass pushes into the two buffers other than `in` before its first cluster
@@ -152,8 +164,40 @@ cfg_episode_kernel(const float* __restrict__ W, const int* __restrict__ meta,
   cg::this_cluster().sync();  // no CTA leaves while another may still write into it
 }
 
-// reserve_smem's record of the shared-memory limit set for the kernel on each device
-static int smem_set[MAX_DEVICES];
+// reserve_smem's record of the shared-memory limit set for each instantiation on each device
+template <typename WT>
+struct SmemSet {
+  static int set[MAX_DEVICES];
+};
+template <typename WT>
+int SmemSet<WT>::set[MAX_DEVICES];
+
+template <typename WT>
+static int launch(const float* W, const __nv_bfloat16* Wh, const int* meta, int smem_bytes,
+                  const float* t_embs, const float* noise, const float* coefs,
+                  const float* consts, const float* x0, float* x_track, float* u_track,
+                  float* costs, int* chosen, int n_steps, int n_total, int K, int sel_h, float w,
+                  float wp1, void* stream) {
+  cudaError_t e = reserve_smem(cfg_episode_kernel<WT>, smem_bytes, SmemSet<WT>::set);
+  if (e != cudaSuccess) return (int)e;
+  cfg_episode_kernel<WT><<<CLUSTER, NT, smem_bytes, (cudaStream_t)stream>>>(
+      W, meta, t_embs, noise, coefs, consts, x0, x_track, u_track, costs, chosen, n_steps,
+      n_total, K, sel_h, w, wp1, Wh);
+  return (int)cudaGetLastError();
+}
+
+template <typename WT>
+static int max_active_clusters(int smem_bytes, int* n_clusters) {
+  *n_clusters = 0;
+  cudaError_t e = reserve_smem(cfg_episode_kernel<WT>, smem_bytes, SmemSet<WT>::set);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(CLUSTER);
+  config.blockDim = dim3(NT);
+  config.dynamicSmemBytes = smem_bytes;  // the cluster shape is the kernel's __cluster_dims__
+  return (int)cudaOccupancyMaxActiveClusters(n_clusters, (void*)cfg_episode_kernel<WT>,
+                                             &config);
+}
 
 extern "C" {
 
@@ -163,35 +207,50 @@ int cfg_episode_launch(const float* W, const int* meta, int smem_bytes, const fl
                        const float* x0, float* x_track, float* u_track, float* costs,
                        int* chosen, int n_steps, int n_total, int K, int sel_h, float w,
                        float wp1, void* stream) {
-  cudaError_t e = reserve_smem(cfg_episode_kernel, smem_bytes, smem_set);
-  if (e != cudaSuccess) return (int)e;
-  cfg_episode_kernel<<<CLUSTER, NT, smem_bytes, (cudaStream_t)stream>>>(
-      W, meta, t_embs, noise, coefs, consts, x0, x_track, u_track, costs, chosen, n_steps,
-      n_total, K, sel_h, w, wp1);
-  return (int)cudaGetLastError();
+  return launch<float>(W, nullptr, meta, smem_bytes, t_embs, noise, coefs, consts, x0, x_track,
+                       u_track, costs, chosen, n_steps, n_total, K, sel_h, w, wp1, stream);
+}
+
+// The same with bf16 conv kernels: Wh is the bf16 copy of W (same element offsets).
+int cfg_episode_bf16_launch(const float* W, const __nv_bfloat16* Wh, const int* meta,
+                            int smem_bytes, const float* t_embs, const float* noise,
+                            const float* coefs, const float* consts, const float* x0,
+                            float* x_track, float* u_track, float* costs, int* chosen,
+                            int n_steps, int n_total, int K, int sel_h, float w, float wp1,
+                            void* stream) {
+  return launch<__nv_bfloat16>(W, Wh, meta, smem_bytes, t_embs, noise, coefs, consts, x0,
+                               x_track, u_track, costs, chosen, n_steps, n_total, K, sel_h, w,
+                               wp1, stream);
 }
 
 // cudaOccupancyMaxActiveClusters for one episode's cluster at smem_bytes of dynamic shared
 // memory per CTA, into *n_clusters; returns the CUDA error code (0 = answered).
 int cfg_episode_max_active_clusters(int smem_bytes, int* n_clusters) {
-  *n_clusters = 0;
-  cudaError_t e = reserve_smem(cfg_episode_kernel, smem_bytes, smem_set);
-  if (e != cudaSuccess) return (int)e;
-  cudaLaunchConfig_t config = {};
-  config.gridDim = dim3(CLUSTER);
-  config.blockDim = dim3(NT);
-  config.dynamicSmemBytes = smem_bytes;  // the cluster shape is the kernel's __cluster_dims__
-  return (int)cudaOccupancyMaxActiveClusters(n_clusters, (void*)cfg_episode_kernel, &config);
+  return max_active_clusters<float>(smem_bytes, n_clusters);
+}
+
+int cfg_episode_bf16_max_active_clusters(int smem_bytes, int* n_clusters) {
+  return max_active_clusters<__nv_bfloat16>(smem_bytes, n_clusters);
 }
 
 int cfg_episode_cluster_size(void) { return CLUSTER; }
 
+int cfg_episode_bf16_cluster_size(void) { return CLUSTER; }
+
 const char* cfg_episode_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
+
+const char* cfg_episode_bf16_error_string(int code) { return cfg_episode_error_string(code); }
 
 int cfg_episode_meta_len(void) { return M_LEN; }
 
+int cfg_episode_bf16_meta_len(void) { return M_LEN; }
+
 int cfg_episode_consts_len(void) { return C_LEN; }
 
+int cfg_episode_bf16_consts_len(void) { return C_LEN; }
+
 int cfg_episode_plant_dims(void) { return DX * 100 + DU; }
+
+int cfg_episode_bf16_plant_dims(void) { return DX * 100 + DU; }
 
 }  // extern "C"

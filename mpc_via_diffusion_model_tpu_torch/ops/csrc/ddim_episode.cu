@@ -105,8 +105,8 @@ ddim_episode_kernel(const float* __restrict__ W, const int* __restrict__ meta,
         }
         zero_halo<1>(in, H, D);
         __syncthreads();
-        const float* y = cunet_body<1>(m, W, smem, in, smem + buf, smem + 2 * buf, films, 1, 0, 0,
-                                       stats, rank);
+        const float* y = cunet_body<1, float>(m, W, nullptr, smem, in, smem + buf,
+                                              smem + 2 * buf, films, 1, 0, 0, stats, rank);
         const float* w1 = W + m[M_F1];
         const float* b1 = W + m[M_F1 + 1];
         for (int i = threadIdx.x; i < hd; i += NT) {  // final 1x1 conv

@@ -58,8 +58,8 @@ fused_unet_kernel(const float* __restrict__ W, const int* __restrict__ meta,
   }
   zero_halo<1>(in, H, D);
   __syncthreads();
-  const float* y = cunet_body<1>(m, W, smem, in, smem + buf, smem + 2 * buf, films, batch, b, b,
-                                 smem + m[M_STATS], rank);
+  const float* y = cunet_body<1, float>(m, W, nullptr, smem, in, smem + buf, smem + 2 * buf,
+                                        films, batch, b, b, smem + m[M_STATS], rank);
   if (rank == 0)
     for (int i = threadIdx.x; i < H * cf; i += NT) {
       const int ch = i % cf, t = i / cf;

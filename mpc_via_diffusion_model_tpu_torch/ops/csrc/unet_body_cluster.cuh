@@ -48,9 +48,23 @@
 // warp's loads fall on one to four 128-byte lines. In the flax layout a rank's 4-16 channels
 // of a row are a 16-64 byte piece of a line and a warp's load touches 8 to 16 lines; at 8
 // rows per item that layout was slower on the H100.
+//
+// bf16 weights (the JAX builders' weights_dtype=jnp.bfloat16, ops/fused_unet.py:221-226):
+// the conv functions below take their kernel's element type WT, float or __nv_bfloat16. In
+// bf16 every conv kernel of the body (and the final 1x1 conv of the CFG kernels) is read as 2
+// bytes from a bf16 copy of the packed buffer at the same element offsets, and every product's
+// activation operand is rounded to bf16, to nearest even, before its fp32 FMA, as
+// `xs.astype(w.dtype)` does in the JAX body (fused_unet.py:108, :279, :313). The product of two
+// bf16 numbers is exact in fp32, so this is JAX's bf16 x bf16 -> fp32 product up to the order
+// of the fp32 sums. Biases, GroupNorm's scale and bias, FiLM and everything else stay fp32 and
+// are read from the fp32 buffer W. In the float instantiation the code is what it was:
+// conv_weights<float> is W itself, Wh is never read, and round_operand<float> is the identity.
 #pragma once
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
+
+#include <type_traits>
 
 #include "unet_body.cuh"
 
@@ -59,6 +73,28 @@ namespace cg = cooperative_groups;
 #define CLUSTER 8  // CTAs per cluster, ranks of the split (a portable cluster size)
 #define CL_RPT 8  // rows per work item of a conv (a power of two)
 #define CL_SPLIT 32  // most lanes one item's reduction is split over (a power of two <= 32)
+
+// The conv kernels a kernel of element type WT reads: W itself in float, the bf16 copy Wh
+// (same element offsets) in bf16.
+template <typename WT>
+static __device__ __forceinline__ const WT* conv_weights(const float* W,
+                                                         const __nv_bfloat16* Wh) {
+  if constexpr (std::is_same<WT, float>::value) return W;
+  else return Wh;
+}
+
+static __device__ __forceinline__ float wload(const float* p) { return __ldg(p); }
+static __device__ __forceinline__ float wload(const __nv_bfloat16* p) {
+  return __bfloat162float(__ldg(p));  // exact
+}
+
+// A product's activation operand as a kernel of weight type WT takes it: itself in float,
+// rounded to bf16 (to nearest even) in bf16.
+template <typename WT>
+static __device__ __forceinline__ float round_operand(float x) {
+  if constexpr (std::is_same<WT, float>::value) return x;
+  else return __bfloat162float(__float2bfloat16_rn(x));
+}
 
 // lanes per item: the largest power of two <= CL_SPLIT with items * S <= NT (at least 1)
 static __device__ __forceinline__ int split_lanes(int items) {
@@ -117,17 +153,17 @@ static __device__ __forceinline__ void reduce_store(float (&acc)[CL_RPT], int S,
 
 // The rank's channels [c0, c0 + nc) of a conv over NB row-sets:
 // out[b][t][co] = bias[co] + sum_k sum_ci in[b][stride*t + k - pad][ci] * w[k][ci][co],
-// interior rows only, with w the rank-major (CLUSTER, ks * cin, nc) kernel. PUSH: into `out`
-// of every CTA of the cluster, else of this CTA only.
-template <int NB, bool PUSH>
+// interior rows only, with w the rank-major (CLUSTER, ks * cin, nc) kernel of element type WT.
+// PUSH: into `out` of every CTA of the cluster, else of this CTA only.
+template <int NB, bool PUSH, typename WT>
 static __device__ void cconv(const float* in, int hin, int cin, float* out, int hout, int cout,
-                             const float* __restrict__ w, const float* __restrict__ bias, int ks,
+                             const WT* __restrict__ w, const float* __restrict__ bias, int ks,
                              int stride, int pad, int c0, int nc) {
   const int rows = NB * hout;
   const int items = ((rows + CL_RPT - 1) / CL_RPT) * nc;
   const int S = split_lanes(items), log2s = __ffs(S) - 1;
   const int K = ks * cin;  // the k taps of a row are contiguous in the halo layout
-  const float* wr = w + (size_t)c0 * K;  // the rank's (K, nc) block of the rank-major kernel
+  const WT* wr = w + (size_t)c0 * K;  // the rank's (K, nc) block of the rank-major kernel
   for (int base = 0; base < items * S; base += NT) {  // uniform trip count: whole warps shuffle
     const int idx = base + threadIdx.x;
     const bool active = idx < items * S;
@@ -143,12 +179,13 @@ static __device__ void cconv(const float* in, int hin, int cin, float* out, int 
       acc[i] = 0.f;
     }
     if (active) {
-      const float* wc = wr + j;
+      const WT* wc = wr + j;
 #pragma unroll 4
       for (int q = s; q < K; q += S) {
-        const float wv = __ldg(wc + (size_t)q * nc);
+        const float wv = wload(wc + (size_t)q * nc);
 #pragma unroll
-        for (int i = 0; i < CL_RPT; ++i) acc[i] = fmaf(in[src[i] + q], wv, acc[i]);
+        for (int i = 0; i < CL_RPT; ++i)
+          acc[i] = fmaf(round_operand<WT>(in[src[i] + q]), wv, acc[i]);
       }
     }
     reduce_store<PUSH>(acc, S, s, active, r0, rows, hout, cout, c0 + j,
@@ -159,15 +196,15 @@ static __device__ void cconv(const float* in, int hin, int cin, float* out, int 
 // The rank's channels [c0, c0 + nc) of Upsample1d, the flax ConvTranspose(k4, s2, padding
 // (2, 2)) without kernel flip, pushed into `out` of every CTA:
 // out[2t] = b + w0 x[t-1] + w2 x[t], out[2t+1] = b + w1 x[t] + w3 x[t+1];
-// w is the rank-major (CLUSTER, 4 c, nc) kernel.
-template <int NB>
+// w is the rank-major (CLUSTER, 4 c, nc) kernel of element type WT.
+template <int NB, typename WT>
 static __device__ void cupsample_push(const float* in, int hin, int c, float* out,
-                                      const float* __restrict__ w,
+                                      const WT* __restrict__ w,
                                       const float* __restrict__ bias, int c0, int nc) {
   const int hout = 2 * hin, rows = NB * hout;
   const int items = ((rows + CL_RPT - 1) / CL_RPT) * nc;
   const int S = split_lanes(items), log2s = __ffs(S) - 1;
-  const float* wr = w + (size_t)c0 * 4 * c;
+  const WT* wr = w + (size_t)c0 * 4 * c;
   for (int base = 0; base < items * S; base += NT) {
     const int idx = base + threadIdx.x;
     const bool active = idx < items * S;
@@ -189,10 +226,11 @@ static __device__ void cupsample_push(const float* in, int hin, int c, float* ou
 #pragma unroll 4
       for (int q = s; q < 2 * c; q += S) {
         const int wq = q < c ? q : q + c;  // tap 2kk (even rows) at row wq, 2kk+1 at wq + c
-        const float ve = __ldg(wr + (size_t)wq * nc + j);
-        const float vo = __ldg(wr + (size_t)(wq + c) * nc + j);
+        const float ve = wload(wr + (size_t)wq * nc + j);
+        const float vo = wload(wr + (size_t)(wq + c) * nc + j);
 #pragma unroll
-        for (int i = 0; i < CL_RPT; ++i) acc[i] = fmaf(in[src[i] + q], odd[i] ? vo : ve, acc[i]);
+        for (int i = 0; i < CL_RPT; ++i)
+          acc[i] = fmaf(round_operand<WT>(in[src[i] + q]), odd[i] ? vo : ve, acc[i]);
       }
     }
     reduce_store<true>(acc, S, s, active, r0, rows, hout, c, c0 + j,
@@ -251,14 +289,17 @@ static __device__ void cgn_mish_push(float* buf, int h, int c, int c0, int nc,
   }
 }
 
-// ResidualTemporalBlock on the cluster: in -> t2 (t1 is scratch). Returns t2.
-template <int NB>
-static __device__ float* cres_block(const int* rm, const float* __restrict__ W, const float* in,
+// ResidualTemporalBlock on the cluster: in -> t2 (t1 is scratch). Returns t2. The conv kernels
+// come from conv_weights<WT>(W, Wh), everything else from W.
+template <int NB, typename WT>
+static __device__ float* cres_block(const int* rm, const float* __restrict__ W,
+                                    const __nv_bfloat16* __restrict__ Wh, const float* in,
                                     float* t1, float* t2, int h, const float* film_c,
                                     const float* film_u, float* stats, int rank) {
   const int cin = rm[R_CIN], cout = rm[R_COUT];
   const int nc = cout / CLUSTER, c0 = rank * nc;
-  cconv<NB, false>(in, h, cin, t1, h, cout, W + rm[R_W1], W + rm[R_B1], 5, 1, 2, c0, nc);
+  const WT* Wc = conv_weights<WT>(W, Wh);
+  cconv<NB, false>(in, h, cin, t1, h, cout, Wc + rm[R_W1], W + rm[R_B1], 5, 1, 2, c0, nc);
   zero_halo<NB>(t1, h, cout);
   __syncthreads();
   cgroup_stats<NB>(t1, h, cout, c0, nc, stats, 1e-5f);
@@ -266,13 +307,13 @@ static __device__ float* cres_block(const int* rm, const float* __restrict__ W, 
   cgn_mish_push<NB>(t1, h, cout, c0, nc, W + rm[R_G1], W + rm[R_BE1], film_c, film_u, nullptr,
                     stats, rank);
   cg::this_cluster().sync();
-  cconv<NB, false>(t1, h, cout, t2, h, cout, W + rm[R_W2], W + rm[R_B2], 5, 1, 2, c0, nc);
+  cconv<NB, false>(t1, h, cout, t2, h, cout, Wc + rm[R_W2], W + rm[R_B2], 5, 1, 2, c0, nc);
   zero_halo<NB>(t2, h, cout);
   __syncthreads();
   cgroup_stats<NB>(t2, h, cout, c0, nc, stats, 1e-5f);
   const float* res = in;
   if (rm[R_WR] >= 0) {  // 1x1 residual conv into the rank's channels of t1, read by no one else
-    cconv<NB, false>(in, h, cin, t1, h, cout, W + rm[R_WR], W + rm[R_BR], 1, 1, 0, c0, nc);
+    cconv<NB, false>(in, h, cin, t1, h, cout, Wc + rm[R_WR], W + rm[R_BR], 1, 1, 0, c0, nc);
     res = t1;
   }
   __syncthreads();
@@ -285,19 +326,22 @@ static __device__ float* cres_block(const int* rm, const float* __restrict__ W, 
 // The conv backbone on the (NB, H, D) rows in *cur, which every CTA holds; returns the
 // buffer that holds the final Conv1dBlock's output (NB, H, dims[1]) in every CTA. films is
 // (n_res, n_rows, max_c) with at least the rank's channels of each block written: row-set 0
-// takes FiLM row row0, row-set 1 row row1. Ends at a cluster barrier.
-template <int NB>
-static __device__ float* cunet_body(const int* m, const float* __restrict__ W, float* smem,
+// takes FiLM row row0, row-set 1 row row1. Ends at a cluster barrier. The conv kernels come
+// from conv_weights<WT>(W, Wh), everything else from W.
+template <int NB, typename WT>
+static __device__ float* cunet_body(const int* m, const float* __restrict__ W,
+                                    const __nv_bfloat16* __restrict__ Wh, float* smem,
                                     float* cur, float* f1, float* f2, const float* films,
                                     int n_rows, int row0, int row1, float* stats, int rank) {
   const int nlev = m[M_NLEV], maxc = m[M_MAXC];
+  const WT* Wc = conv_weights<WT>(W, Wh);
   int h = m[M_H];
   int r = 0;
 #define FILM(rr, row) (films + ((size_t)(rr) * n_rows + (row)) * maxc)
 #define RES_BLOCK()                                                                          \
   {                                                                                          \
-    float* out = cres_block<NB>(m + M_RES + r * RES_STRIDE, W, cur, f1, f2, h, FILM(r, row0), \
-                                FILM(r, row1), stats, rank);                                 \
+    float* out = cres_block<NB, WT>(m + M_RES + r * RES_STRIDE, W, Wh, cur, f1, f2, h,        \
+                                FILM(r, row0), FILM(r, row1), stats, rank);                  \
     f2 = f1;                                                                                 \
     f1 = cur;                                                                                \
     cur = out;                                                                               \
@@ -314,7 +358,7 @@ static __device__ float* cunet_body(const int* m, const float* __restrict__ W, f
     }
     if (lvl < nlev - 1) {  // Downsample1d: conv k3 s2 p1, pushed
       const int nc = c / CLUSTER;
-      cconv<NB, true>(cur, h, c, f1, h / 2, c, W + m[M_DOWN + 2 * lvl],
+      cconv<NB, true>(cur, h, c, f1, h / 2, c, Wc + m[M_DOWN + 2 * lvl],
                       W + m[M_DOWN + 2 * lvl + 1], 3, 2, 1, rank * nc, nc);
       zero_halo<NB>(f1, h / 2, c);
       h /= 2;
@@ -344,7 +388,7 @@ static __device__ float* cunet_body(const int* m, const float* __restrict__ W, f
     RES_BLOCK();
     RES_BLOCK();
     const int cd = m[M_DIMS + lvl], nc = cd / CLUSTER;
-    cupsample_push<NB>(cur, h, cd, f1, W + m[M_UP + 2 * u], W + m[M_UP + 2 * u + 1], rank * nc,
+    cupsample_push<NB>(cur, h, cd, f1, Wc + m[M_UP + 2 * u], W + m[M_UP + 2 * u + 1], rank * nc,
                        nc);
     zero_halo<NB>(f1, 2 * h, cd);
     h *= 2;
@@ -354,7 +398,7 @@ static __device__ float* cunet_body(const int* m, const float* __restrict__ W, f
 #undef RES_BLOCK
 #undef FILM
   const int cf = m[M_DIMS + 1], nc = cf / CLUSTER, c0 = rank * nc;
-  cconv<NB, false>(cur, h, cf, f1, h, cf, W + m[M_FIN], W + m[M_FIN + 1], 5, 1, 2, c0, nc);
+  cconv<NB, false>(cur, h, cf, f1, h, cf, Wc + m[M_FIN], W + m[M_FIN + 1], 5, 1, 2, c0, nc);
   __syncthreads();
   cgroup_stats<NB>(f1, h, cf, c0, nc, stats, 1e-5f);
   __syncthreads();

@@ -29,6 +29,12 @@ The CFG chain's ``noise`` has ``ddpm_cfg_sample``'s layout (n_total + 1, B,
 H, D): ``[0]`` is x_T and ``[1 + s]`` is injected at step s. The kernel gets
 it reordered so that its row ``n_total`` is x_T. The DDIM chain is
 deterministic: its only noise is its initial draw ``x_init`` (B, H, D).
+
+The CFG chain takes the JAX builder's ``weights_dtype``: float32, or
+bfloat16, which launches the kernel's bf16 entry (``cfg_chain_bf16``: conv
+kernels read as bf16, every product's activation operand rounded to bf16)
+and gives ``plain`` the U-Net of ``models/bf16.py``. The DDIM chain takes
+float32 only.
 """
 from __future__ import annotations
 
@@ -41,14 +47,25 @@ import torch
 
 from ..core.schedules import DiffusionSchedule
 from ..diffusion.distillation import ddim_affine_coefs, make_student_ddim_sampler
+from ..models.bf16 import bf16_conv_copy
 from ..models.layers import mish
 from ..models.temporal_unet import TemporalUnet
 from . import _build
 from .unet_pack import CLUSTER, M_LEN, PackedUnet, packed_on
 
 __all__ = ["FusedCfgChain", "FusedDdimChain", "make_fused_cfg_chain", "make_fused_ddim_chain",
-           "step_coefficients", "ddim_step_coefficients", "film_table",
-           "cfg_chain_max_active_clusters", "ddim_chain_max_active_clusters"]
+           "step_coefficients", "ddim_step_coefficients", "film_table", "is_bf16",
+           "cfg_chain_max_active_clusters", "cfg_chain_bf16_max_active_clusters",
+           "ddim_chain_max_active_clusters"]
+
+
+def is_bf16(weights_dtype) -> bool:
+    """Whether the CFG kernels' ``weights_dtype`` is bfloat16; raises
+    ``NotImplementedError`` for a type other than float32 and bfloat16."""
+    if weights_dtype not in (torch.float32, torch.bfloat16):
+        raise NotImplementedError(f"the CFG kernels take float32 or bfloat16 weights, not "
+                                  f"{weights_dtype}")
+    return weights_dtype == torch.bfloat16
 
 
 def step_coefficients(schedule: DiffusionSchedule, n_tail: int):
@@ -109,6 +126,19 @@ def cfg_chain_max_active_clusters(smem_bytes: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
+def _cfg_bf16_lib() -> ctypes.CDLL:
+    """The built ``csrc/cfg_chain.cu``, its bf16 entry declared."""
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    return _build.bind("cfg_chain_bf16", [p, p, p, i, p, p, p, p, i, i, f, f, p], M_LEN,
+                       cluster=CLUSTER, source="cfg_chain")
+
+
+def cfg_chain_bf16_max_active_clusters(smem_bytes: int) -> int:
+    """The same query for the chain kernel's bf16 instantiation."""
+    return _build.max_active_clusters(_cfg_bf16_lib(), "cfg_chain_bf16", smem_bytes)
+
+
+@functools.lru_cache(maxsize=None)
 def _ddim_lib() -> ctypes.CDLL:
     """The built ``csrc/ddim_chain.cu``."""
     p, i = ctypes.c_void_p, ctypes.c_int
@@ -129,11 +159,16 @@ class FusedCfgChain:
     ``launches`` counts kernel launches and ``plain_calls`` calls of the
     plain version; callers reset them to 0 to count one run. ``cluster``
     holds the rank-major weights the kernel reads and its occupancy check.
+    With ``weights_dtype`` bfloat16 it launches the bf16 entry
+    (``entry``), and ``plain`` runs ``plain_model``, the U-Net with bf16
+    convs (``models/bf16.py``).
     """
 
     def __init__(self, packed: PackedUnet, schedule: DiffusionSchedule, n_samples: int,
-                 w: float, n_tail: int):
+                 w: float, n_tail: int, weights_dtype=torch.float32):
         self.packed, self.model = packed, packed.model
+        self.bf16 = is_bf16(weights_dtype)
+        self.plain_model = bf16_conv_copy(self.model) if self.bf16 else self.model
         self.n_samples, self.w = n_samples, float(w)
         device = packed.weights.device
         self.n_total = schedule.n_steps + n_tail
@@ -142,7 +177,10 @@ class FusedCfgChain:
         self.t_eff = torch.as_tensor(t_eff, device=device)
         with torch.no_grad():
             self.t_embs = self.model.time_mlp(self.t_eff)  # (n_total, time_emb_dim)
-        self.cluster = _build.ClusterLaunch(packed, "cfg_chain", cfg_chain_max_active_clusters)
+        self.entry = "cfg_chain_bf16" if self.bf16 else "cfg_chain"
+        self.cluster = _build.ClusterLaunch(
+            packed, self.entry,
+            cfg_chain_bf16_max_active_clusters if self.bf16 else cfg_chain_max_active_clusters)
         self.launches = 0
         self.plain_calls = 0
 
@@ -172,23 +210,25 @@ class FusedCfgChain:
 
     @torch.no_grad()
     def kernel(self, context: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
-        """Launch ``csrc/cfg_chain.cu``, one cluster of 8 CTAs per sample, on
-        the current stream; raises when the body cannot be split over the
-        cluster or no cluster fits on the card."""
+        """Launch ``csrc/cfg_chain.cu`` (its bf16 entry for bf16 weights),
+        one cluster of 8 CTAs per sample, on the current stream; raises when
+        the body cannot be split over the cluster or no cluster fits on the
+        card."""
         self._check(context, noise)
         if not context.is_cuda or context.device != self.packed.weights.device:
-            raise ValueError("the cfg_chain kernel takes tensors on the packed weights' CUDA device")
-        weights = self.cluster.weights
+            raise ValueError(f"the {self.entry} kernel takes tensors on the packed weights' CUDA "
+                             "device")
+        weights = [self.cluster.weights] + ([self.cluster.weights_bf16] if self.bf16 else [])
         self.cluster.require_fit(self.packed.smem_bytes, context.device)
         films = self.films(context).contiguous()
         noise_tab = torch.cat([noise[1:], noise[:1]], dim=0).contiguous()
         out = torch.empty((self.n_samples, self.packed.horizon, self.packed.state_dim),
                           dtype=torch.float32, device=context.device)
         _build.launch(
-            _cfg_lib(), "cfg_chain",
-            weights.data_ptr(), self.packed.meta.data_ptr(), self.packed.smem_bytes,
-            films.data_ptr(), noise_tab.data_ptr(), self.coefs.data_ptr(), out.data_ptr(),
-            self.n_total, self.n_samples, self.w, float(np.float32(1.0 + self.w)),
+            _cfg_bf16_lib() if self.bf16 else _cfg_lib(), self.entry,
+            *(wt.data_ptr() for wt in weights), self.packed.meta.data_ptr(),
+            self.packed.smem_bytes, films.data_ptr(), noise_tab.data_ptr(), self.coefs.data_ptr(),
+            out.data_ptr(), self.n_total, self.n_samples, self.w, float(np.float32(1.0 + self.w)),
             torch.cuda.current_stream(context.device).cuda_stream)
         self.launches += 1
         return out
@@ -196,8 +236,9 @@ class FusedCfgChain:
     @torch.no_grad()
     def plain(self, context: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
         """The same chain in plain PyTorch: ``TemporalUnet.forward`` on the
-        doubled batch at every step, then the kernel's per-step arithmetic
-        in the same order (mpc_via_diffusion_model_tpu/ops/fused_denoise.py:114-120)."""
+        doubled batch at every step (``plain_model``'s), then the kernel's
+        per-step arithmetic in the same order
+        (mpc_via_diffusion_model_tpu/ops/fused_denoise.py:114-120)."""
         self._check(context, noise)
         self.plain_calls += 1
         b = self.n_samples
@@ -208,7 +249,7 @@ class FusedCfgChain:
         for si in range(self.n_total):
             sra, srm, c1, c2, sg = self.coefs[si]
             x2 = torch.cat([x, x], dim=0)
-            eps2 = self.model(x2, self.t_eff[si].expand(2 * b), ctx2, mask2)
+            eps2 = self.plain_model(x2, self.t_eff[si].expand(2 * b), ctx2, mask2)
             recon2 = sra * x2 - srm * eps2
             recon = torch.clamp((1.0 + self.w) * recon2[:b] - self.w * recon2[b:], -1.0, 1.0)
             x = c1 * recon + c2 * x + sg * noise[si + 1]
@@ -217,10 +258,15 @@ class FusedCfgChain:
 
 def make_fused_cfg_chain(model_or_packed: Union[TemporalUnet, PackedUnet],
                          schedule: DiffusionSchedule, n_samples: int = 1, w: float = 0.01,
-                         n_tail: int = 5, device=None) -> FusedCfgChain:
+                         n_tail: int = 5, weights_dtype=torch.float32,
+                         device=None) -> FusedCfgChain:
     """Build the CFG chain of one replan on ``device`` (``cuda`` unless
-    given). A ``TemporalUnet`` is moved to the device and packed."""
-    return FusedCfgChain(packed_on(model_or_packed, device), schedule, n_samples, w, n_tail)
+    given), with float32 or bfloat16 conv weights (``weights_dtype``; any
+    other type raises ``NotImplementedError``). A ``TemporalUnet`` is moved
+    to the device and packed."""
+    is_bf16(weights_dtype)
+    return FusedCfgChain(packed_on(model_or_packed, device), schedule, n_samples, w, n_tail,
+                         weights_dtype)
 
 
 class FusedDdimChain:

@@ -35,9 +35,12 @@ with the candidate axis kept.
 What the kernels run, and what raises ``NotImplementedError`` because they
 do not: the cart-pole swing-up plant only (``csrc/plants.cuh``), a
 ``QuadraticCost`` for the stage cost and for the selection, the identity
-``state_to_condition``, and staged noise (no ``inkernel_noise``); the DDIM
-episode also float32 weights and ``clip_denoised=True`` only. Nothing falls
-back to another path.
+``state_to_condition``, and staged noise (no ``inkernel_noise``); the CFG
+episode float32 or bfloat16 weights (``weights_dtype``, ``bench.py``'s
+``BENCH_BF16``: bfloat16 launches the kernel's bf16 entry,
+``cfg_episode_bf16``, and gives ``plain`` the U-Net of ``models/bf16.py``),
+the DDIM episode float32 weights and ``clip_denoised=True`` only. Nothing
+falls back to another path.
 
 Best-of-K follows the JAX episode kernels, not the JAX runtime: the first
 candidate whose score equals the minimum wins, and when a score is NaN the
@@ -60,16 +63,18 @@ from ..core.schedules import DiffusionSchedule
 from ..data.normalization import NormalizerStats
 from ..diffusion.distillation import make_student_ddim_sampler
 from ..dynamics.base import Plant, QuadraticCost
+from ..models.bf16 import bf16_conv_copy
 from ..models.layers import mish
 from ..models.temporal_unet import TemporalUnet
 from . import _build
-from .fused_denoise import ddim_step_coefficients, refuse_unported_ddim_options, step_coefficients
+from .fused_denoise import (ddim_step_coefficients, is_bf16, refuse_unported_ddim_options,
+                            step_coefficients)
 from .unet_pack import CLUSTER, M_LEN, SMEM_LIMIT, PackedUnet, packed_on
 
 __all__ = ["FusedCfgEpisode", "FusedDdimEpisode", "make_fused_cfg_episode",
            "make_fused_ddim_episode", "affine_consts", "episode_choice",
-           "cfg_episode_max_active_clusters", "ddim_episode_max_active_clusters",
-           "cluster_split_features"]
+           "cfg_episode_max_active_clusters", "cfg_episode_bf16_max_active_clusters",
+           "ddim_episode_max_active_clusters", "cluster_split_features"]
 
 KERNEL_PLANTS = ("cartpole_virtual_swingup",)  # plants written in csrc/plants.cuh
 _QUERIES = ("consts_len", "plant_dims")
@@ -89,6 +94,20 @@ def cfg_episode_max_active_clusters(smem_bytes: int) -> int:
     (``cudaOccupancyMaxActiveClusters``); raises with CUDA's text when the
     query fails. Builds the kernel first if needed."""
     return _build.max_active_clusters(_cfg_lib(), "cfg_episode", smem_bytes)
+
+
+@functools.lru_cache(maxsize=None)
+def _cfg_bf16_lib() -> ctypes.CDLL:
+    """The built ``csrc/cfg_episode.cu``, its bf16 entry declared."""
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    return _build.bind("cfg_episode_bf16",
+                       [p, p, p, i, p, p, p, p, p, p, p, p, p, i, i, i, i, f, f, p],
+                       M_LEN, _QUERIES, cluster=CLUSTER, source="cfg_episode")
+
+
+def cfg_episode_bf16_max_active_clusters(smem_bytes: int) -> int:
+    """The same query for the episode kernel's bf16 instantiation."""
+    return _build.max_active_clusters(_cfg_bf16_lib(), "cfg_episode_bf16", smem_bytes)
 
 
 @functools.lru_cache(maxsize=None)
@@ -141,9 +160,10 @@ class _Episode:
     checks, the dispatch between kernel and plain version and, in the plain
     version, the end of each replan."""
 
-    name = ""  # csrc/<name>.cu
-    lib: Callable[[], ctypes.CDLL]  # its built library
+    name = ""  # the kernel's entry: csrc/<name>.cu, or its bf16 entry <source>_bf16
+    lib: Callable[[], ctypes.CDLL]  # its built library, the entry declared
     query: Callable[[int], int]  # its <name>_max_active_clusters
+    bf16 = False  # bf16 conv weights: the bf16 entry, which also reads cluster.weights_bf16
 
     def __init__(self, packed: PackedUnet, inputs_stats: NormalizerStats,
                  condition_stats: NormalizerStats, plant: Plant, cost: QuadraticCost,
@@ -208,7 +228,7 @@ class _Episode:
         chosen)."""
         if not x0.is_cuda or x0.device != self.packed.weights.device:
             raise ValueError(f"the {self.name} kernel takes tensors on the packed weights' CUDA device")
-        weights = self.weights
+        weights = [self.weights] + ([self.cluster.weights_bf16] if self.bf16 else [])
         lib = self.lib() if lib is None else lib
         dev, dx, du = x0.device, self.plant.state_dim, self.plant.control_dim
         if getattr(lib, f"{self.name}_plant_dims")() != 100 * dx + du:
@@ -223,7 +243,7 @@ class _Episode:
         x0 = x0.contiguous()
         _build.launch(
             lib, self.name,
-            weights.data_ptr(), self.packed.meta.data_ptr(), self.smem_bytes,
+            *(wt.data_ptr() for wt in weights), self.packed.meta.data_ptr(), self.smem_bytes,
             self.t_embs.data_ptr(), noise_tab.data_ptr(), self.coefs.data_ptr(),
             self.consts.data_ptr(), x0.data_ptr(), x_track.data_ptr(), u_track.data_ptr(),
             costs.data_ptr(), chosen.data_ptr(), self.n_steps, self.n_total, self.n_candidates,
@@ -286,7 +306,9 @@ class FusedCfgEpisode(_Episode):
     ``kernel`` and ``plain`` also return the index of the applied candidate
     at every replan (K where none was chosen). ``launches`` counts kernel
     launches and ``plain_calls`` calls of the plain version; callers reset
-    them to 0 to count one run.
+    them to 0 to count one run. With ``weights_dtype`` bfloat16 it launches
+    the bf16 entry (``name`` ``cfg_episode_bf16``), and ``plain`` runs
+    ``plain_model``, the U-Net with bf16 convs (``models/bf16.py``).
     """
 
     name = "cfg_episode"
@@ -296,10 +318,15 @@ class FusedCfgEpisode(_Episode):
     def __init__(self, packed: PackedUnet, schedule: DiffusionSchedule,
                  inputs_stats: NormalizerStats, condition_stats: NormalizerStats, plant: Plant,
                  cost: QuadraticCost, n_steps: int, w: float, n_tail: int, n_candidates: int,
-                 selection_cost: QuadraticCost, selection_horizon: int):
+                 selection_cost: QuadraticCost, selection_horizon: int,
+                 weights_dtype=torch.float32):
+        if is_bf16(weights_dtype):
+            self.name, self.bf16 = "cfg_episode_bf16", True
+            self.lib, self.query = _cfg_bf16_lib, cfg_episode_bf16_max_active_clusters
         super().__init__(packed, inputs_stats, condition_stats, plant, cost, n_steps,
                          n_candidates, selection_cost, selection_horizon,
                          *step_coefficients(schedule, n_tail))
+        self.plain_model = bf16_conv_copy(self.model) if self.bf16 else self.model
         self.w = float(w)
 
     @property
@@ -309,9 +336,9 @@ class FusedCfgEpisode(_Episode):
 
     @torch.no_grad()
     def kernel(self, x0: torch.Tensor, noise: torch.Tensor):
-        """Launch ``csrc/cfg_episode.cu``, one cluster of 8 CTAs, on the
-        current stream; raises when the body cannot be split over the
-        cluster or no cluster fits on the card."""
+        """Launch ``csrc/cfg_episode.cu`` (its bf16 entry for bf16 weights),
+        one cluster of 8 CTAs, on the current stream; raises when the body
+        cannot be split over the cluster or no cluster fits on the card."""
         self._check(x0, noise)
         noise_tab = torch.cat([noise[:, 1:], noise[:, :1]], dim=1).contiguous()
         return self._launch(x0, noise_tab, self.w, float(np.float32(1.0 + self.w)))
@@ -319,7 +346,7 @@ class FusedCfgEpisode(_Episode):
     @torch.no_grad()
     def plain(self, x0: torch.Tensor, noise: torch.Tensor):
         """The same episode in plain PyTorch, replaying the kernel's
-        arithmetic; the chain runs ``TemporalUnet`` on the doubled batch of
+        arithmetic; the chain runs ``plain_model`` on the doubled batch of
         the K candidates (FiLM from mish([t_emb, ctx, bit]) inside its
         ResidualTemporalBlocks)."""
         k = self.n_candidates
@@ -332,7 +359,7 @@ class FusedCfgEpisode(_Episode):
             for si in range(self.n_total):
                 sra, srm, c1, c2, sg = self.coefs[si]
                 x2 = torch.cat([u, u], dim=0)
-                eps2 = self.model(x2, self.t_eval[si].expand(2 * k), ctx2, mask2)
+                eps2 = self.plain_model(x2, self.t_eval[si].expand(2 * k), ctx2, mask2)
                 recon2 = sra * x2 - srm * eps2
                 recon = torch.clamp((1.0 + self.w) * recon2[:k] - self.w * recon2[k:], -1.0, 1.0)
                 u = c1 * recon + c2 * u + sg * nz[si + 1]
@@ -479,17 +506,21 @@ def make_fused_cfg_episode(model_or_packed: Union[TemporalUnet, PackedUnet],
                            n_steps: int = 80, w: float = 0.01,
                            n_diffusion_steps_without_noise: int = 5, n_candidates: int = 1,
                            selection_cost=None, selection_horizon: Optional[int] = None,
+                           weights_dtype=torch.float32,
                            state_to_condition: Optional[Callable] = None,
                            inkernel_noise: bool = False, device=None) -> FusedCfgEpisode:
     """Build the whole CFG closed loop of one episode on ``device`` (``cuda``
     unless given). Defaults are ``bench.py``'s: 80 replans, T + 5 tail
-    steps, w = 0.01, K = 1. A ``TemporalUnet`` is moved to the device and
+    steps, w = 0.01, K = 1, float32 weights (``weights_dtype`` bfloat16 is
+    ``BENCH_BF16=1``'s). A ``TemporalUnet`` is moved to the device and
     packed. Raises ``NotImplementedError`` for what the kernel cannot run."""
+    is_bf16(weights_dtype)
     packed, k, sel_h = _episode_packed(model_or_packed, plant, cost, selection_cost,
                                        selection_horizon, n_candidates, state_to_condition,
                                        inkernel_noise, device)
     return FusedCfgEpisode(packed, schedule, inputs_stats, condition_stats, plant, cost, n_steps,
-                           w, n_diffusion_steps_without_noise, k, selection_cost or cost, sel_h)
+                           w, n_diffusion_steps_without_noise, k, selection_cost or cost, sel_h,
+                           weights_dtype)
 
 
 def make_fused_ddim_episode(model_or_packed: Union[TemporalUnet, PackedUnet],

@@ -83,20 +83,21 @@ def run_parity(device=None, n_seeds: int = 10, n_steps: int = 80) -> dict:
     }
 
 
-def run_episode_quality(device=None, n_seeds: int = 10, n_steps: int = 80) -> dict:
+def run_episode_quality(device=None, n_seeds: int = 10, n_steps: int = 80,
+                        weights_dtype=torch.float32) -> dict:
     """The protocol's K = 1 loops through the CFG episode kernel on
     ``device`` (``cuda`` unless given; its plain version on the CPU), each
     seed's staged noise one draw of a ``torch.Generator`` seeded with its
     index: the closed-loop costs, their mean over the expert's and the
     modality, beside the report's. ``episode_launches`` counts the kernel's
-    launches."""
+    launches; ``weights_dtype`` is the episode's (bfloat16: its bf16 entry)."""
     dev = resolve_device(device)
     model = load_flagship(ARTIFACTS / "ema_params.pkl", device=dev)
     inputs_stats, condition_stats = flagship_stats()
     ep = make_fused_cfg_episode(model, make_schedule("exponential", T), inputs_stats,
                                 condition_stats, cartpole_virtual_swingup(), cartpole_virtual_cost(),
                                 n_steps=n_steps, w=W, n_diffusion_steps_without_noise=N_TAIL,
-                                device=dev)
+                                weights_dtype=weights_dtype, device=dev)
     x0 = torch.tensor([0.0, 0.0, 3.0, 0.0, theta_to_red_theta(3.0)], device=dev)
     runs = [ep(x0, torch.randn(ep.noise_shape, generator=torch.Generator(device=dev).manual_seed(seed),
                                device=dev)) for seed in range(n_seeds)]

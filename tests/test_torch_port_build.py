@@ -33,3 +33,25 @@ def test_library_name_follows_sources_headers_and_flags(tmp_path, monkeypatch, e
     changed = {name for name in _build.KERNELS if after[name] != before[name]}
     # a header may be included by any source: every library is rebuilt
     assert changed == ({edit[:-len(".cu")]} if edit.endswith(".cu") else set(_build.KERNELS))
+
+
+def test_sass_diff_parses_and_pairs_kernels_by_base_name():
+    """``scripts/sass_diff.py`` (run on the card) reads ``cuobjdump -sass``
+    output kernel by kernel and pairs each instantiation of a template with
+    the other checkout's kernel of the same base name."""
+    from mpc_via_diffusion_model_tpu_torch.scripts import sass_diff
+
+    dump = lambda name, ops: "\n".join(
+        [f"\t\tFunction : {name}", "\t.headerflags @\"EF_CUDA_SM90\""]
+        + [f"        /*{16 * i:04x}*/                   {op} ;   /* 0x000fe2000 */"
+           for i, op in enumerate(ops)]) + "\n"
+    ours = sass_diff.parse_sass(
+        dump("_Z16cfg_chain_kernelIfEvPKf", ["MOV R1, c[0x0][0x28]", "EXIT"])
+        + dump("_Z16cfg_chain_kernelI13__nv_bfloat16EvPKf", ["MOV R1, c[0x0][0x28]", "NOP", "EXIT"]))
+    theirs = sass_diff.parse_sass(dump("_Z16cfg_chain_kernelPKfPKi", ["MOV R1, c[0x0][0x28]", "EXIT"]))
+    assert ours["_Z16cfg_chain_kernelIfEvPKf"] == ["MOV R1, c[0x0][0x28]", "EXIT"]
+    assert sass_diff.base_name("_Z16cfg_chain_kernelI13__nv_bfloat16EvPKf") == "cfg_chain_kernel"
+    rows = {r["kernel"]: r for r in sass_diff.compare(ours, theirs)}
+    assert rows["_Z16cfg_chain_kernelIfEvPKf"]["identical"] is True
+    bf16 = rows["_Z16cfg_chain_kernelI13__nv_bfloat16EvPKf"]
+    assert (bf16["identical"], bf16["differ_in_place"], bf16["other_instructions"]) == (False, 1, 2)

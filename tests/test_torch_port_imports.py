@@ -20,7 +20,7 @@ for name in ('ops.fused_unet', 'ops.fused_episode', 'ops.fused_denoise', 'ops._b
              'dynamics.base', 'control.runtime', 'diffusion.distillation', 'data.teacher_stats',
              'ops.fused_conv', 'eval.timing', 'control.metrics', 'data.flagship_stats',
              'scripts.bench_kernels', 'scripts.flagship_parity', 'scripts.episode_recut',
-             'scripts.episode_profile'):
+             'scripts.episode_profile', 'bench', 'models.bf16'):
     assert pkg.__name__ + '.' + name in names, name
 import chip_smoke  # as a module: main() does not run
 loaded = [k for k, v in sys.modules.items() if v is not None
@@ -34,7 +34,7 @@ def test_port_and_chip_smoke_import_without_jax():
     proc = subprocess.run([sys.executable, "-c", _GUARDED], cwd=ROOT, capture_output=True,
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip().splitlines()[-1]) >= 33  # every module of the port
+    assert int(proc.stdout.strip().splitlines()[-1]) >= 35  # every module of the port
 
 
 def test_port_sources_name_no_jax_import():
@@ -43,6 +43,7 @@ def test_port_sources_name_no_jax_import():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert {"fused_unet.py", "fused_episode.py", "distillation.py", "teacher_stats.py",
             "fused_conv.py", "timing.py", "metrics.py", "flagship_stats.py", "bench_kernels.py",
-            "flagship_parity.py", "episode_recut.py", "episode_profile.py"} <= {f.name for f in files}
+            "flagship_parity.py", "episode_recut.py", "episode_profile.py", "bench.py",
+            "bf16.py"} <= {f.name for f in files}
     offenders = [str(f.relative_to(ROOT)) for f in files if pattern.search(f.read_text())]
     assert not offenders

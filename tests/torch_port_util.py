@@ -51,8 +51,24 @@ def _mish(x):
     return x * np.tanh(np.logaddexp(x, 0.0))
 
 
-def _image(n_floats):
-    return np.full(n_floats, np.nan, np.float32)
+def _image(n_floats, dtype=np.float32):
+    return np.full(n_floats, np.nan, dtype)
+
+
+def bf16_rne(v):
+    """float32 -> bf16 -> float32, to nearest even, as an integer add and
+    mask on the bits (finite values; overflow goes to inf): add 0x7FFF plus
+    the lowest kept bit, then clear the 16 dropped bits."""
+    u = np.ascontiguousarray(v, np.float32).view(np.uint32)
+    return ((u + np.uint32(0x7FFF) + ((u >> np.uint32(16)) & np.uint32(1)))
+            & np.uint32(0xFFFF0000)).view(np.float32)
+
+
+def _operand(bf16):
+    """What the kernels do to a product's activation operand: round it to
+    bf16 in the bf16 instantiation (kept in its own type), nothing in the
+    float one."""
+    return (lambda v: bf16_rne(v).astype(np.asarray(v).dtype)) if bf16 else (lambda v: v)
 
 
 def cartpole_step_f32(x, u, dt):
@@ -145,9 +161,9 @@ class _Cluster:
     ``write`` record the flat indices an operation touches; ``barrier``
     checks and starts the next interval."""
 
-    def __init__(self, n_floats: int, n_ranks: int):
+    def __init__(self, n_floats: int, n_ranks: int, dtype=np.float32):
         self.n = n_ranks
-        self.smem = [_image(n_floats) for _ in range(n_ranks)]
+        self.smem = [_image(n_floats, dtype) for _ in range(n_ranks)]
         self.barriers = 0
         self._clear()
 
@@ -175,7 +191,7 @@ class _Cluster:
         self._clear()
 
 
-def _emulate_cluster_body(W, m, cl, nb, film, x_rows, eps=1e-5, next_pass=True):
+def _emulate_cluster_body(W, m, cl, nb, film, x_rows, eps=1e-5, next_pass=True, Wc=None):
     """``cunet_body<nb>`` of ``csrc/unet_body_cluster.cuh`` in numpy on the
     images of ``cl``: every CTA holds every activation in unet_body.cuh's
     layout and buffers; rank r computes the channels [r c / n, (r + 1) c / n)
@@ -191,8 +207,13 @@ def _emulate_cluster_body(W, m, cl, nb, film, x_rows, eps=1e-5, next_pass=True):
     final 1x1 conv, followed by the kernels' barrier when y lies in a buffer
     the next pass pushes into; without (the U-Net pass) rank 0 reads it to
     write the output. Returns y (nb, H, dims[1]), which every CTA must hold
-    alike."""
+    alike. ``Wc`` is the bf16 instantiation's buffer of conv kernels (the
+    kernel's bf16 copy of ``W``, as float32): when given, every conv kernel
+    is read from it and every product's activation operand is rounded to
+    bf16 (``bf16_rne``); biases and GroupNorm stay ``W``'s."""
     halo, n = up.HALO, cl.n
+    rnd = _operand(Wc is not None)
+    Wc = W if Wc is None else Wc
     H, D, nlev, buf = (int(m[k]) for k in (up.M_H, up.M_D, up.M_NLEV, up.M_BUF))
     ranks = range(n)
 
@@ -205,15 +226,15 @@ def _emulate_cluster_body(W, m, cl, nb, film, x_rows, eps=1e-5, next_pass=True):
         nc = c // n
         return np.arange(r * nc, (r + 1) * nc)
 
-    def weights(off, shape):
-        return W[off:off + int(np.prod(shape))].reshape(shape)
+    def weights(off, shape, buf=W):
+        return buf[off:off + int(np.prod(shape))].reshape(shape)
 
     def whole(off, h, c, r):
         return cl.read(r, ix(off, h, c, np.arange(-halo, h + halo), np.arange(c)))
 
     def conv(r, src, hin, cin, dst, hout, cout, w_off, b_off, ks, stride, pad, push):
-        x, sl = whole(src, hin, cin, r), own(cout, r)
-        wk = weights(w_off + sl[0] * ks * cin, (ks, cin, len(sl)))  # the rank's block, rank-major
+        x, sl = rnd(whole(src, hin, cin, r)), own(cout, r)
+        wk = weights(w_off + sl[0] * ks * cin, (ks, cin, len(sl)), Wc)  # the rank's block, rank-major
         bias = weights(b_off, (cout,))[sl]
         rows = halo + stride * np.arange(hout) - pad
         y = bias + sum(x[:, rows + k] @ wk[k] for k in range(ks))
@@ -303,8 +324,8 @@ def _emulate_cluster_body(W, m, cl, nb, film, x_rows, eps=1e-5, next_pass=True):
         bu = weights(m[up.M_UP + 2 * u + 1], (cd,))
         t = np.arange(h)
         for r in ranks:
-            x, sl = whole(cur, h, cd, r), own(cd, r)
-            wu = weights(m[up.M_UP + 2 * u] + sl[0] * 4 * cd, (4, cd, len(sl)))
+            x, sl = rnd(whole(cur, h, cd, r)), own(cd, r)
+            wu = weights(m[up.M_UP + 2 * u] + sl[0] * 4 * cd, (4, cd, len(sl)), Wc)
             y = np.empty((nb, 2 * h, len(sl)), np.float32)
             y[:, 0::2] = bu[sl] + x[:, halo + t - 1] @ wu[0] + x[:, halo + t] @ wu[2]
             y[:, 1::2] = bu[sl] + x[:, halo + t] @ wu[1] + x[:, halo + t + 1] @ wu[3]
@@ -350,10 +371,13 @@ def _write_films_rank(cl, m, films):
                 cl.smem[r][off + (rr * films.shape[1] + g) * maxc + sl] = films[rr, g, sl]
 
 
-def _final_1x1(W, m, y):
-    """The final 1x1 conv on y (nb, H, dims[1]) -> eps (nb, H, D)."""
+def _final_1x1(W, m, y, Wc=None):
+    """The final 1x1 conv on y (nb, H, dims[1]) -> eps (nb, H, D); with the
+    bf16 buffer ``Wc`` its kernel from there and y rounded to bf16."""
     D, cf = int(m[up.M_D]), int(m[up.M_DIMS + 1])
-    return y @ W[m[up.M_F1]:m[up.M_F1] + cf * D].reshape(cf, D) + W[m[up.M_F1 + 1]:m[up.M_F1 + 1] + D]
+    rnd, Wc = _operand(Wc is not None), W if Wc is None else Wc
+    return (rnd(y) @ Wc[m[up.M_F1]:m[up.M_F1] + cf * D].reshape(cf, D)
+            + W[m[up.M_F1 + 1]:m[up.M_F1 + 1] + D])
 
 
 def _ddim_update(x, eps, coefs_si):
@@ -423,7 +447,8 @@ def _cfg_update(x, eps, coefs_si, noise_si, w):
     return (c1 * rec + c2 * x) + sg * noise_si
 
 
-def emulate_cfg_chain_kernel(packed, weights, films, noise_tab, coefs, w, n_ranks=up.CLUSTER):
+def emulate_cfg_chain_kernel(packed, weights, films, noise_tab, coefs, w, n_ranks=up.CLUSTER,
+                             weights_bf16=None, dtype=np.float32):
     """Runs ``csrc/cfg_chain.cu``'s program in numpy: per sample one cluster
     of ``n_ranks`` CTAs (``_Cluster``, NaN-filled images of the chain's
     plan), a cluster barrier once every CTA has started, then per step the
@@ -432,23 +457,28 @@ def emulate_cfg_chain_kernel(packed, weights, films, noise_tab, coefs, w, n_rank
     device memory), the final 1x1 conv and the CFG lines, with the kernel's
     barrier when the pass ended in a buffer the next one pushes into; a
     cluster barrier before exit. ``weights`` is the buffer the kernel reads
-    (``FusedCfgChain.cluster.weights``). Returns the output (B, H, D) and
-    each sample's cluster-barrier count."""
+    (``FusedCfgChain.cluster.weights``), ``weights_bf16`` its bf16 copy,
+    which the bf16 instantiation reads beside it (``cluster.weights_bf16``).
+    ``dtype`` is the images' and the arithmetic's type: float64 runs the
+    program with fp32 sums taken exactly enough that no bf16 rounding of an
+    operand depends on their order. Returns the output (B, H, D) and each
+    sample's cluster-barrier count."""
     W = packed.weights.cpu().numpy()
     cluster_w = weights.cpu().numpy()
+    wc = None if weights_bf16 is None else weights_bf16.float().cpu().numpy()
     m = packed.meta.cpu().numpy()
     n_total, b_all = noise_tab.shape[0] - 1, noise_tab.shape[1]
-    out = np.empty((b_all,) + noise_tab.shape[2:], np.float32)
+    out = np.empty((b_all,) + noise_tab.shape[2:], dtype)
     barriers = []
     for sample in range(b_all):
-        cl = _Cluster(packed.smem_bytes // 4, n_ranks)
-        xs = noise_tab[n_total, sample].copy()
+        cl = _Cluster(packed.smem_bytes // 4, n_ranks, dtype)
+        xs = noise_tab[n_total, sample].astype(dtype)
         cl.barrier()
         for si in range(n_total):
             rows = films[si][:, [sample, b_all + sample]]  # (n_res, 2, max_c)
             y = _emulate_cluster_body(cluster_w, m, cl, 2, lambda r, rr, sl: rows[rr][:, sl],
-                                      np.stack([xs, xs]))
-            xs = _cfg_update(xs, _final_1x1(W, m, y), coefs[si], noise_tab[si, sample], w)
+                                      np.stack([xs, xs]), Wc=wc)
+            xs = _cfg_update(xs, _final_1x1(W, m, y, wc), coefs[si], noise_tab[si, sample], w)
         cl.barrier()
         out[sample] = xs
         barriers.append(cl.barriers)
@@ -456,7 +486,7 @@ def emulate_cfg_chain_kernel(packed, weights, films, noise_tab, coefs, w, n_rank
 
 
 def emulate_cfg_episode_kernel(packed, weights, t_embs, noise, coefs, consts, x0, w, n_candidates,
-                               selection_horizon, n_steps, n_ranks=up.CLUSTER):
+                               selection_horizon, n_steps, n_ranks=up.CLUSTER, weights_bf16=None):
     """Runs ``csrc/cfg_episode.cu``'s program in numpy: ``_emulate_episode``
     with the two FiLM groups, and for every chain step the cluster body
     (``_emulate_cluster_body``) on the images of one cluster of ``n_ranks``
@@ -464,18 +494,21 @@ def emulate_cfg_episode_kernel(packed, weights, t_embs, noise, coefs, consts, x0
     channels of the step's FiLM written (``episode_films_rank``), then the
     final 1x1 conv and the CFG lines (``_cfg_update``). ``noise`` has
     the wrapper's layout (n_steps, n_total + 1, K, H, D) with row n_total =
-    x_T; ``weights`` is the buffer the kernel reads (``FusedCfgEpisode.weights``).
-    Returns the tracks, the choices and the number of cluster barriers."""
+    x_T; ``weights`` is the buffer the kernel reads (``FusedCfgEpisode.weights``),
+    ``weights_bf16`` its bf16 copy, which the bf16 instantiation reads beside
+    it (``cluster.weights_bf16``). Returns the tracks, the choices and the
+    number of cluster barriers."""
     n_total = noise.shape[1] - 1
     m = packed.meta.cpu().numpy()
     cluster_w = weights.cpu().numpy()
+    wc = None if weights_bf16 is None else weights_bf16.float().cpu().numpy()
     cl = _Cluster(packed.episode_smem_bytes(n_candidates) // 4, n_ranks)
     film = film_from_image(cl, m, 2, 2)
 
     def step(W, m, smem, films, x, si_step, si, k):
         _write_films_rank(cl, m, films)
-        y = _emulate_cluster_body(cluster_w, m, cl, 2, film, np.stack([x, x]))
-        return _cfg_update(x, _final_1x1(W, m, y), coefs[si], noise[si_step, si, k], w)
+        y = _emulate_cluster_body(cluster_w, m, cl, 2, film, np.stack([x, x]), Wc=wc)
+        return _cfg_update(x, _final_1x1(W, m, y, wc), coefs[si], noise[si_step, si, k], w)
 
     out = _emulate_episode(packed, t_embs, consts, x0, n_candidates, selection_horizon, n_steps,
                            2, lambda s: noise[s, n_total], step)
