@@ -3,9 +3,11 @@
 
 Run from the repository root: ``python3 chip_smoke.py``. It needs one card,
 nvcc (``/usr/local/cuda``), the flagship weights in
-``artifacts/flagship/ema_params.pkl`` and the distilled student's in
-``artifacts/onpolicy_cartpole/`` (``student_1eval.pkl``, ``report.json``), and
-writes nothing but the kernel builds under ``build/torch_kernels/``. Phases,
+``artifacts/flagship/ema_params.pkl``, the distilled student's in
+``artifacts/onpolicy_cartpole/`` (``student_1eval.pkl``, ``report.json``) and
+the LMPC parity workload's in ``artifacts/flagship_lmpc/`` (``ema_params.pkl``,
+``report.json``), and writes nothing but the kernel builds under
+``build/torch_kernels/``. Phases,
 each printing one line with its own seconds:
 
 1. device: the card's name, the device count, and nvidia-smi's name and
@@ -20,7 +22,9 @@ each printing one line with its own seconds:
    at full width: the chains' and the pass's plan, the episodes' for K = 1
    and K = 4; the same for the bf16 entries of the CFG chain and the CFG
    episode (``cfg_chain_bf16``, ``cfg_episode_bf16``: the __nv_bfloat16
-   instantiations of ``cfg_chain.cu`` and ``cfg_episode.cu``); and the conv
+   instantiations of ``cfg_chain.cu`` and ``cfg_episode.cu``) and for the
+   CFG episode's linear cart-pole entry (``cfg_episode_lmpc``) at K = 1 and
+   K = 8 on the LMPC model; and the conv
    kernel's registers and spills (one CTA per
    GroupNorm group and batch chunk on ``mma.sync`` tf32 tiles in 3xTF32,
    one instantiation per accumulator tiles a warp holds: 1, 2, 4, 8).
@@ -137,9 +141,34 @@ and the port's bench:
     per measure) and for ``chain``, ``chain`` in bf16 and ``1`` (two
     episodes each), each launch count exact. Then the bf16 entries' times.
 
+The LMPC parity workload (``scripts/lmpc_parity.py``: the linear cart-pole
+at horizon 8, context 4, against its LQR expert; the committed weights and
+``data/lmpc_stats.py``):
+
+22. LMPC kernels against plain: the CFG chain kernel at H = 8 on three
+    contexts at B = 1 and one at B = 8 (1e-4), and the episode's
+    ``cfg_episode_lmpc`` entry from the sweep's first state, 10 replans at
+    K = 1 and 4 at K = 8 (tracks 1e-3; choices equal wherever the plain
+    version's best two candidate scores are more than 1e-5 apart, each
+    near-tie printed with both scores and both choices); one launch each.
+23. LMPC parity: ``lmpc_parity``'s episode route over the 16 sweep states,
+    50 replans each. n = 1 (16 launches and nothing else): every track
+    finite, each state's u_l1 within 1e-3 + 1% of the JAX package's loop on
+    the CPU (``LMPC_U_L1``) and the mean within 1% of its mean, printed
+    beside it and ``report.json``'s. K = 8 (one launch per state; reported,
+    not gated; over the first 8 states, to keep phases 22-23 within 45 s):
+    the same numbers beside the report's (over 16 states), the choices
+    other than candidate 0, and the spread of the 8 candidates' first
+    controls (the chain kernel at B = 8 on the first 2 states' replans). The chain
+    route over the first 2 states (100 chain launches) gives the episode's
+    tracks within 1e-3. Then the times of the episode entry at K = 1 and 8
+    and of the chain at H = 8.
+
 It then prints the ``kernels`` JSON line (rows 1 and 3 carry their bf16
-entries under ``bf16``), the nvidia-smi line and, last, the result line. Any
-failure raises, and the exit code is then not 0.
+entries under ``bf16``, row 1 its H = 8 times under ``h8``, and
+``cfg_episode_lmpc`` has a row of its own as a further entry of kernel 3),
+the nvidia-smi line and, last, the result line. Any failure raises, and the
+exit code is then not 0.
 
 Phases 3-8 and ``bench_kernels``' episode row run the flagship with the
 synthetic limits of ``bench.py`` (controls +-30, conditions +-10); phase 17
@@ -163,31 +192,37 @@ import torch.nn.functional as F
 from mpc_via_diffusion_model_tpu_torch import bench as port_bench
 from mpc_via_diffusion_model_tpu_torch.control import make_closed_loop
 from mpc_via_diffusion_model_tpu_torch.core import make_schedule
-from mpc_via_diffusion_model_tpu_torch.data import NormalizerStats, normalize
+from mpc_via_diffusion_model_tpu_torch.data import (NormalizerStats, lmpc_stats, normalize,
+                                                    unnormalize)
+from mpc_via_diffusion_model_tpu_torch.data.lmpc_stats import LMPC_U_L1, LMPC_U_L1_SUMMARY
 from mpc_via_diffusion_model_tpu_torch.data.teacher_stats import teacher_stats
 from mpc_via_diffusion_model_tpu_torch.diffusion import GaussianDiffusion
-from mpc_via_diffusion_model_tpu_torch.dynamics import (cartpole_virtual_collect_cost,
+from mpc_via_diffusion_model_tpu_torch.dynamics import (cartpole_lmpc, cartpole_lmpc_cost,
+                                                        cartpole_virtual_collect_cost,
                                                         cartpole_virtual_cost,
                                                         cartpole_virtual_swingup,
                                                         theta_to_red_theta)
-from mpc_via_diffusion_model_tpu_torch.models import load_flagship, load_student
+from mpc_via_diffusion_model_tpu_torch.models import load_flagship, load_lmpc, load_student
 from mpc_via_diffusion_model_tpu_torch.ops import _build, fused_conv1d_gn_mish
 from mpc_via_diffusion_model_tpu_torch.ops.fused_denoise import (
     cfg_chain_bf16_max_active_clusters, cfg_chain_max_active_clusters,
     ddim_chain_max_active_clusters, make_fused_cfg_chain, make_fused_ddim_chain)
 from mpc_via_diffusion_model_tpu_torch.ops.fused_episode import (
-    cfg_episode_bf16_max_active_clusters, cfg_episode_max_active_clusters,
-    ddim_episode_max_active_clusters, make_fused_cfg_episode, make_fused_ddim_episode)
+    cfg_episode_bf16_max_active_clusters, cfg_episode_lmpc_max_active_clusters,
+    cfg_episode_max_active_clusters, ddim_episode_max_active_clusters, make_fused_cfg_episode,
+    make_fused_ddim_episode)
 from mpc_via_diffusion_model_tpu_torch.ops.fused_unet import (fused_unet_max_active_clusters,
                                                               make_fused_unet)
 from mpc_via_diffusion_model_tpu_torch.ops.unet_pack import CLUSTER, pack_unet
-from mpc_via_diffusion_model_tpu_torch.scripts import bench_kernels, conv_timing, flagship_parity
+from mpc_via_diffusion_model_tpu_torch.scripts import (bench_kernels, conv_timing, flagship_parity,
+                                                       lmpc_parity)
 from mpc_via_diffusion_model_tpu_torch.scripts.conv_timing import cuda_ms
 
 ROOT = Path(__file__).resolve().parent
 FLAGSHIP = ROOT / "artifacts" / "flagship" / "ema_params.pkl"
 STUDENT = ROOT / "artifacts" / "onpolicy_cartpole" / "student_1eval.pkl"
 STUDENT_REPORT = ROOT / "artifacts" / "onpolicy_cartpole" / "report.json"
+LMPC = ROOT / "artifacts" / "flagship_lmpc" / "ema_params.pkl"
 GRID, GRID3 = [23], [23, 15, 7]   # the 1-eval student's times grid; the 3-eval grid
 N_QUALITY = 10             # seeds of the student's quality check
 QUALITY_MEAN_MAX = 1.05    # mean cost over the expert's (report: 1.0064 over 10 seeds)
@@ -232,6 +267,18 @@ BENCH_EPISODE_KEYS = ["metric", "value", "unit", "vs_baseline", "pipelined_hz", 
 # H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, HBM3
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
+# The LMPC parity workload (phases 22-23): horizon 8, context 4, the linear cart-pole
+LMPC_H, K8 = 8, 8
+N_LMPC_EP, N_LMPC_EP8 = 10, 4   # replans of phase 22's episode checks at K = 1 and K = 8
+# sweep states of phase 23's K = 8 run (reported, not gated): over all 16 the K = 8 run alone
+# took 32.5 s and phases 22-23 44.4 s on the H100, at the 45 s they may take
+N_LMPC_STATES_K8 = 8
+N_LMPC_CHAIN_STATES = 2         # sweep states run through the chain route too
+# Per state, u_l1 (a sum of 50 |du|) within 1e-3 + 1% of the JAX package's on the CPU; the mean
+# within 1% of the JAX mean. Choices at K = 8 are compared where the plain version's best two
+# scores are more than 1e-5 apart (relative): the candidates hardly differ, and nearer scores
+# than that can swap under the fp32 difference between kernel and plain.
+LMPC_ABS, LMPC_REL, NEAR_TIE = 1e-3, 0.01, 1e-5
 
 
 def log(phase: str, t0: float, msg: str) -> None:
@@ -290,6 +337,12 @@ def fmt_gate(g: dict) -> str:
             f"{ONE_PASS_MAX:.0e})")
 
 
+def near_tie(scores: torch.Tensor) -> bool:
+    """Whether the best two candidate scores differ by at most NEAR_TIE, relative."""
+    best2 = torch.sort(scores.double()).values[:2]
+    return bool(best2[1] - best2[0] <= NEAR_TIE * best2[0].abs())
+
+
 def counts(*wrappers) -> list:
     return [(w.launches, w.plain_calls) for w in wrappers]
 
@@ -318,6 +371,8 @@ def main() -> None:
     # and how many of their clusters fit at once at full width
     packed_cpu = pack_unet(load_flagship(FLAGSHIP, device="cpu"), "cpu")
     ep_smem = [packed_cpu.episode_smem_bytes(k) for k in (1, K4)]
+    lmpc_smem = [pack_unet(load_lmpc(LMPC, device="cpu"), "cpu").episode_smem_bytes(k)
+                 for k in (1, K8)]
     cluster_kernels = {  # entry: (occupancy query, shared memory per CTA of each launch shape)
         "cfg_chain": (cfg_chain_max_active_clusters, [packed_cpu.smem_bytes]),
         "cfg_chain_bf16": (cfg_chain_bf16_max_active_clusters, [packed_cpu.smem_bytes]),
@@ -325,7 +380,8 @@ def main() -> None:
         "cfg_episode": (cfg_episode_max_active_clusters, ep_smem),
         "cfg_episode_bf16": (cfg_episode_bf16_max_active_clusters, ep_smem),
         "ddim_chain": (ddim_chain_max_active_clusters, [packed_cpu.smem_bytes]),
-        "ddim_episode": (ddim_episode_max_active_clusters, ep_smem)}
+        "ddim_episode": (ddim_episode_max_active_clusters, ep_smem),
+        "cfg_episode_lmpc": (cfg_episode_lmpc_max_active_clusters, lmpc_smem)}
     def resources(entry: str):
         """(registers, spills) of each kernel of an entry, from nvcc's report or, when the
         build was reused, cuobjdump's: the bf16 entries (``<source>_bf16``) are their
@@ -366,8 +422,10 @@ def main() -> None:
     lines.append(f"fused_conv registers {conv_regs}, spill stores and loads (or local bytes) "
                  f"{conv_spills}")
     log("build", t0, f"{len(built)} libraries; " + "; ".join(lines)
-        + f" (the chains' and the pass's plan at every batch; episodes at K = 1 and K = {K4}; "
-        "the _bf16 entries are the bf16 instantiations of cfg_chain.cu and cfg_episode.cu)")
+        + f" (the chains' and the pass's plan at every batch; episodes at K = 1 and K = {K4}, "
+        f"cfg_episode_lmpc at K = 1 and K = {K8} on the LMPC model; the _bf16 entries are the "
+        "bf16 instantiations of cfg_chain.cu and cfg_episode.cu, cfg_episode_lmpc is "
+        "cfg_episode.cu compiled for the linear cart-pole)")
 
     # 3. kernels vs plain versions, flagship weights, full width
     t0 = time.perf_counter()
@@ -989,6 +1047,156 @@ def main() -> None:
         f"{N_STEPS}-replan episode (fp32 {episode_ms:.3f}; plain {1e3 * plain_bf_episode_s:.1f} "
         f"by the host clock)")
 
+    # 22. the LMPC workload's kernels against their plain versions on its committed weights at
+    # full width: the CFG chain at horizon 8 and context 4, and the CFG episode's linear cart-pole
+    # entry (cfg_episode_lmpc)
+    t0 = time.perf_counter()
+    lmodel = load_lmpc(LMPC, device=dev)
+    l_ins, l_cond = lmpc_stats()
+    lx0 = lmpc_parity.sweep_states(1)[0].to(dev)
+    lchain = make_fused_cfg_chain(lmodel, schedule, n_samples=1, w=W, n_tail=N_TAIL, device=dev)
+    lchain8 = make_fused_cfg_chain(lchain.packed, schedule, n_samples=K8, w=W, n_tail=N_TAIL,
+                                   device=dev)
+    l_noise = torch.randn((n_total + 1, 1, LMPC_H, 1), generator=gen, device=dev)
+    l_contexts = [normalize(l_cond.to(dev), lx0)[None]] + [
+        torch.randn((1, 4), generator=gen, device=dev) for _ in range(2)]
+    l_ctx8 = torch.randn((K8, 4), generator=gen, device=dev)
+    l_noise8 = torch.randn((n_total + 1, K8, LMPC_H, 1), generator=gen, device=dev)
+    lchain_err = 0.0
+    for ch, c_, nz in [(lchain, c_, l_noise) for c_ in l_contexts] + [(lchain8, l_ctx8, l_noise8)]:
+        got = ch.kernel(c_, nz)
+        torch.cuda.synchronize()
+        lchain_err = max(lchain_err, assert_close(f"cfg_chain H={LMPC_H} B={ch.n_samples}", got,
+                                                  ch.plain(c_, nz), CHAIN_TOL))
+    lep = lambda k, n_steps: make_fused_cfg_episode(
+        lchain.packed, schedule, l_ins, l_cond, cartpole_lmpc(), cartpole_lmpc_cost(),
+        n_steps=n_steps, w=W, n_diffusion_steps_without_noise=N_TAIL, n_candidates=k, device=dev)
+    lep1, lep8 = lep(1, N_LMPC_EP), lep(K8, N_LMPC_EP8)
+    l_ep_noise = torch.randn(lep1.noise_shape, generator=gen, device=dev)
+    l_ep_noise8 = torch.randn(lep8.noise_shape, generator=gen, device=dev)
+    lep_err, l_chosen, l_ties = 0.0, {}, []
+    for ep, nz in ((lep1, l_ep_noise), (lep8, l_ep_noise8)):
+        got = ep.kernel(lx0, nz)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        want = ep.plain(lx0, nz)
+        torch.cuda.synchronize()
+        if ep is lep1:
+            lep_plain_s = time.perf_counter() - t1
+        k = ep.n_candidates
+        for name, g, w_ in zip(("x_track", "u_track", "stage_costs"), got, want):
+            lep_err = max(lep_err, assert_close(f"cfg_episode_lmpc K={k} {name}", g, w_, TRACK_TOL))
+        for i in range(ep.n_steps):
+            if k > 1 and near_tie(ep.plain_scores[i]):
+                best2 = torch.sort(ep.plain_scores[i].double()).values[:2].tolist()
+                l_ties.append(f"replan {i}: best two plain scores {best2[0]:.9g}, {best2[1]:.9g}; "
+                              f"kernel chose {int(got[3][i])}, plain {int(want[3][i])}")
+            elif got[3][i] != want[3][i]:
+                raise RuntimeError(f"cfg_episode_lmpc K={k}: replan {i} chosen {got[3].tolist()} "
+                                   f"vs plain {want[3].tolist()}, scores "
+                                   f"{ep.plain_scores[i].tolist()}")
+        l_chosen[k] = (got[3].tolist(), want[3].tolist())
+    if counts(lchain, lchain8, lep1, lep8) != [(3, 3), (1, 1), (1, 1), (1, 1)]:
+        raise RuntimeError(f"LMPC kernels vs plain: counts {counts(lchain, lchain8, lep1, lep8)}")
+    log("lmpc-kernel-vs-plain", t0, f"cfg_chain at H={LMPC_H}, context 4: max |kernel - plain| "
+        f"{lchain_err:.3e} over {len(l_contexts)} contexts at B=1 and one at B={K8} (tol "
+        f"{CHAIN_TOL:.0e}); cfg_episode_lmpc from the sweep's first state, K=1 {N_LMPC_EP} "
+        f"replans and K={K8} {N_LMPC_EP8}: max |kernel - plain| {lep_err:.3e} (tol "
+        f"{TRACK_TOL:.0e}); chosen (kernel, plain) {l_chosen}; near-ties (best two plain scores "
+        f"within {NEAR_TIE:.0e}, not gated): {len(l_ties)}: " + " | ".join(l_ties))
+
+    # 23. the LMPC parity workload: scripts/lmpc_parity.py's episode route over the 16 sweep
+    # states, 50 replans each, n = 1 gated against the JAX package's loop on the CPU, K = 8
+    # reported; the chain route on the first states' noise; the kernels' times
+    t0 = time.perf_counter()
+    lwrappers = [lchain, lchain8, lep1, lep8]
+    reset(*wrappers, *lwrappers)
+    lpar = lmpc_parity.run(dev, "episode", candidates=(1,))
+    n_states = lpar["n_states"]
+    if counts(*wrappers, *lwrappers) != [(0, 0)] * (len(wrappers) + 4) or \
+            lpar["launches"][1] != n_states:
+        raise RuntimeError(f"LMPC parity: {lpar['launches']} episode launches, counts "
+                           f"{counts(*wrappers, *lwrappers)}; expected {n_states} launches of its "
+                           f"own episode and nothing else")
+    for x_tr, u_tr, _ in lpar["tracks"][1]:
+        if not (torch.isfinite(x_tr).all() and torch.isfinite(u_tr).all()):
+            raise RuntimeError("LMPC parity: non-finite tracks")
+    u_l1 = lpar["per_state_u_l1"][1]
+    off = [(i, got, want) for i, (got, want) in enumerate(zip(u_l1, LMPC_U_L1))
+           if not abs(got - want) <= LMPC_ABS + LMPC_REL * want]
+    jax_mean = LMPC_U_L1_SUMMARY[0]
+    if off or not abs(lpar["u_l1_mean"] - jax_mean) <= LMPC_REL * jax_mean:
+        raise RuntimeError(f"LMPC parity: states off the JAX package's u_l1 (state, port, JAX): "
+                           f"{off}; mean {lpar['u_l1_mean']:.6f} against {jax_mean:.6f}")
+    k1_s = time.perf_counter() - t0
+    reset(*wrappers, *lwrappers)
+    t1 = time.perf_counter()
+    lpar8 = lmpc_parity.run(dev, "episode", n_states=N_LMPC_STATES_K8, candidates=(K8,))
+    k8_s = time.perf_counter() - t1
+    if counts(*wrappers, *lwrappers) != [(0, 0)] * (len(wrappers) + 4) or \
+            lpar8["launches"][K8] != N_LMPC_STATES_K8:
+        raise RuntimeError(f"LMPC parity K={K8}: {lpar8['launches']} episode launches, counts "
+                           f"{counts(*wrappers, *lwrappers)}")
+    k8_tracks = lpar8["tracks"][K8]
+    if not all(torch.isfinite(x_tr).all() for x_tr, _, _ in k8_tracks):
+        raise RuntimeError(f"LMPC parity K={K8}: non-finite tracks")
+    not_first = sum(int((chosen != 0).sum()) for _, _, chosen in k8_tracks)
+    # the spread of the 8 candidates' first controls, through the chain kernel at B = 8 on the
+    # K = 8 run's states and noise of the first states (launches outside the counted runs)
+    spread = 0.0
+    for i in range(N_LMPC_CHAIN_STATES):
+        nz_all = lmpc_parity.state_noise(i, (lmpc_parity.N_STEPS, *lep8.noise_shape[1:]), dev)
+        x_tr = k8_tracks[i][0]
+        for step in range(lmpc_parity.N_STEPS):
+            l_ctx = normalize(l_cond.to(dev), x_tr[step]).expand(K8, 4).contiguous()
+            u0 = unnormalize(l_ins.to(dev), lchain8.kernel(l_ctx, nz_all[step]))[:, 0, 0]
+            spread = max(spread, (u0.max() - u0.min()).item())
+    reset(*wrappers, *lwrappers)
+    lpar_chain = lmpc_parity.run(dev, "chain", n_states=N_LMPC_CHAIN_STATES, candidates=(1,))
+    n_chain_launches = lpar_chain["launches"][1]
+    if n_chain_launches != N_LMPC_CHAIN_STATES * lmpc_parity.N_STEPS or \
+            counts(*wrappers, *lwrappers) != [(0, 0)] * (len(wrappers) + 4):
+        raise RuntimeError(f"LMPC parity, chain route: {n_chain_launches} chain launches, counts "
+                           f"{counts(*wrappers, *lwrappers)}")
+    route_err = 0.0
+    for i, ((xc, uc, _), (xe, ue, _)) in enumerate(zip(lpar_chain["tracks"][1], lpar["tracks"][1])):
+        route_err = max(route_err, assert_close(f"LMPC state {i} chain route x_track", xc, xe,
+                                                TRACK_TOL),
+                        assert_close(f"LMPC state {i} chain route u_track", uc, ue, TRACK_TOL))
+    fmt4 = lambda d: " / ".join(f"{d[k]:.4f}" for k in lmpc_parity.KEYS[:4])
+    report = lpar["report"]
+    lmpc_line = {
+        "n1": {k: lpar[k] for k in lmpc_parity.KEYS}, "n1_per_state_u_l1": u_l1,
+        "k8": lpar8[f"candidates{K8}"], "k8_states": N_LMPC_STATES_K8,
+        "k8_per_state_u_l1": lpar8["per_state_u_l1"][K8], "k8_choices_not_0": not_first,
+        "k8_choices": N_LMPC_STATES_K8 * lmpc_parity.N_STEPS, "k8_first_control_spread": spread,
+        "jax_cpu": lpar["jax_cpu"], "report": report, "chain_route_max_abs_err": route_err}
+    print(json.dumps({"lmpc_parity": lmpc_line}), flush=True)
+    log("lmpc-parity", t0, f"episode route, {n_states} states x {lmpc_parity.N_STEPS} replans, "
+        f"n=1 ({lpar['launches'][1]} launches, {k1_s:.3f}s): u_l1 mean/median/best/worst "
+        f"{fmt4(lpar)} (JAX on the CPU {fmt4(lpar['jax_cpu'])}; report.json {fmt4(report)}), "
+        f"u_step_max_mean {lpar['u_step_max_mean']:.5f}; every state within {LMPC_ABS:.0e} + "
+        f"{LMPC_REL:.0%} of the JAX package's, the mean within {LMPC_REL:.0%}. K={K8} over "
+        f"{N_LMPC_STATES_K8} states ({lpar8['launches'][K8]} launches, {k8_s:.3f}s, not gated): "
+        f"{fmt4(lpar8[f'candidates{K8}'])} (report.json {fmt4(report['candidates8'])}); "
+        f"{not_first} of {N_LMPC_STATES_K8 * lmpc_parity.N_STEPS} choices not candidate 0; the "
+        f"8 candidates' first controls spread at most {spread:.3e} over the first "
+        f"{N_LMPC_CHAIN_STATES} states' replans. Chain route over the first "
+        f"{N_LMPC_CHAIN_STATES} states ({n_chain_launches} cfg_chain launches): tracks within "
+        f"{route_err:.3e} of the episode's (tol {TRACK_TOL:.0e})")
+
+    # the LMPC kernels' times at the workload's shapes
+    lep1_ms = cuda_ms(lambda: lep1.kernel(lx0, l_ep_noise), n=5, warmup=1)
+    lep8_ms = cuda_ms(lambda: lep8.kernel(lx0, l_ep_noise8), n=3, warmup=1)
+    lchain_ms = cuda_ms(lambda: lchain.kernel(l_contexts[0], l_noise), n=20, warmup=3)
+    lchain8_ms = cuda_ms(lambda: lchain8.kernel(l_ctx8, l_noise8), n=20, warmup=3)
+    lchain_plain_ms = cuda_ms(lambda: lchain.plain(l_contexts[0], l_noise), n=3, warmup=1)
+    log("timing-lmpc", t0, f"cfg_episode_lmpc K=1 {lep1_ms:.3f} ms per {N_LMPC_EP}-replan "
+        f"episode = {lep1_ms / N_LMPC_EP:.4f} ms per replan (plain {1e3 * lep_plain_s:.1f} ms by "
+        f"the host clock); K={K8} {lep8_ms / N_LMPC_EP8:.4f} ms per replan; cfg_chain at "
+        f"H={LMPC_H} {lchain_ms:.4f} ms per replan at B=1, {lchain8_ms:.4f} at B={K8} (plain "
+        f"{lchain_plain_ms:.4f})")
+
     packed = chain.packed
     seg = lambda *prefixes: sum(math.prod(shape) for name, (_, shape) in packed.segments.items()
                                 if name.split(".")[0] in prefixes)
@@ -1096,6 +1304,38 @@ def main() -> None:
         full_depth_max_abs_err_x=dx_bf, k4_full_depth_chosen_equal=same4,
         bench_episode_hz=bench_runs["episode", True].line["value"],
         flagship_cost_over_expert=epq_bf["cost_over_expert"], flagship_modality=epq_bf["modality"])
+    # the LMPC workload: cfg_episode_lmpc, a further entry of kernel 3, at phase 22's 10-replan
+    # K = 1 episode; the CFG chain at horizon 8 (under row 1's "h8"), one replan at B = 1
+    lpacked = lchain.packed
+    l_weights, l_meta = lpacked.weights.numel(), lpacked.meta.numel()
+    l_film_w = sum(math.prod(shape) for name, (_, shape) in lpacked.segments.items()
+                   if name.split(".")[0] == "films")
+    l_film_flops = 2 * 2 * int(lpacked.films_w.shape[1]) * sum(
+        rb.cond_mlp[1].out_features for rb in lmodel.res_blocks())
+    l_chain_flops = lpacked.flops_per_pass * 2 * n_total
+    l_chain_bytes = 4 * (l_weights - l_film_w + l_meta + lchain.films(l_contexts[0]).numel()
+                         + l_noise.numel() + lchain.coefs.numel() + LMPC_H)
+    l_ep_flops = N_LMPC_EP * n_total * (l_chain_flops / n_total + l_film_flops)
+    l_ep_bytes = 4 * (l_weights + l_meta + lep1.t_embs.numel() + l_ep_noise.numel()
+                      + lep1.coefs.numel() + lep1.consts.numel() + 4 + (N_LMPC_EP + 1) * 4
+                      + N_LMPC_EP * 3)
+    rows[0]["h8"] = {
+        "name": "cfg_chain", "route": "cuda", "source": rows[0]["source"],
+        "replaces": rows[0]["replaces"], "launches": n_chain_launches,
+        "max_abs_err": lchain_err, "ms": lchain_ms, "plain_ms": lchain_plain_ms,
+        **bound(l_chain_flops, l_chain_bytes), "library_ms": None, "model": "flagship_lmpc",
+        "horizon": LMPC_H, "context_dim": 4, "b8_ms": lchain8_ms}
+    rows.append({
+        "name": "cfg_episode_lmpc", "route": "cuda",
+        "source": "mpc_via_diffusion_model_tpu_torch/ops/csrc/cfg_episode_lmpc.cu",
+        "replaces": "mpc_via_diffusion_model_tpu/ops/fused_episode.py:410",
+        "entry_of": "cfg_episode", "plant": "cartpole_lmpc",
+        "launches": lpar["launches"][1] + lpar8["launches"][K8], "max_abs_err": lep_err,
+        "ms": lep1_ms, "plain_ms": 1e3 * lep_plain_s, **bound(l_ep_flops, l_ep_bytes),
+        "library_ms": None, "replans": N_LMPC_EP, "ms_per_replan": lep1_ms / N_LMPC_EP,
+        "k8_ms_per_replan": lep8_ms / N_LMPC_EP8, "u_l1_mean": lpar["u_l1_mean"],
+        "u_l1_mean_jax_cpu": jax_mean, "cluster_ctas": CLUSTER,
+        **cluster_info["cfg_episode_lmpc"]})
     rows[2]["bench_closed_loop_control_hz"] = bench_line["value"]
     rows[2]["bench_pipelined_hz"] = bench_line["pipelined_hz"]
     print(json.dumps({"kernels": rows}), flush=True)

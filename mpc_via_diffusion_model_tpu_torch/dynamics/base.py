@@ -17,13 +17,17 @@ __all__ = ["Plant", "QuadraticCost", "rollout", "rollout_with_cost", "reference_
 @dataclasses.dataclass(frozen=True)
 class Plant:
     """A discrete-time plant ``x_{k+1} = step(x_k, u_k)``; ``x`` is
-    (..., state_dim), ``u`` is (..., control_dim)."""
+    (..., state_dim), ``u`` is (..., control_dim). ``device_consts`` are the
+    float32 numbers the episode kernel's device function of this plant
+    reads after dt (``ops/csrc/plants.cuh``), e.g. a linear plant's
+    matrices; empty for a plant whose step holds only literals."""
 
     name: str
     state_dim: int
     control_dim: int
     dt: float
     step: Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
+    device_consts: Tuple[float, ...] = ()
 
 
 @dataclasses.dataclass(frozen=True)

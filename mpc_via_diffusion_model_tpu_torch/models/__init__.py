@@ -1,4 +1,6 @@
 from .temporal_unet import TemporalUnet
-from .weights import FLAGSHIP_CONFIG, from_flax_params, load_flagship, load_student
+from .weights import (FLAGSHIP_CONFIG, LMPC_CONFIG, from_flax_params, load_flagship, load_lmpc,
+                      load_student)
 
-__all__ = ["TemporalUnet", "FLAGSHIP_CONFIG", "from_flax_params", "load_flagship", "load_student"]
+__all__ = ["TemporalUnet", "FLAGSHIP_CONFIG", "LMPC_CONFIG", "from_flax_params", "load_flagship",
+           "load_lmpc", "load_student"]

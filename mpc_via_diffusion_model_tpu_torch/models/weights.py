@@ -16,11 +16,14 @@ blocks first (two per level), then the two mid blocks, then two per up
 level (``TemporalUnet.res_blocks`` lists them in that order).
 
 ``load_flagship`` reads ``artifacts/flagship/ema_params.pkl`` (the layout
-``{'ema_params', 'step', 'cfg_indicator'}``) and ``load_student`` a distilled
+``{'ema_params', 'step', 'cfg_indicator'}``), ``load_student`` a distilled
 student such as ``artifacts/onpolicy_cartpole/student_1eval.pkl`` (the
 layout ``{'params'}``, built with ``cfg_indicator=True`` as the students are
-trained). Both are plain dicts of float32 numpy arrays that need neither jax
-nor flax to unpickle, for the flagship architecture.
+trained), both of the flagship architecture (``FLAGSHIP_CONFIG``), and
+``load_lmpc`` the LMPC parity workload's denoiser,
+``artifacts/flagship_lmpc/ema_params.pkl`` (``LMPC_CONFIG``, the flagship's
+layout). All are plain dicts of float32 numpy arrays that need neither jax
+nor flax to unpickle.
 """
 from __future__ import annotations
 
@@ -33,11 +36,15 @@ import torch
 from ..utils.device import resolve_device
 from .temporal_unet import TemporalUnet
 
-__all__ = ["FLAGSHIP_CONFIG", "from_flax_params", "load_flagship", "load_student"]
+__all__ = ["FLAGSHIP_CONFIG", "LMPC_CONFIG", "from_flax_params", "load_flagship", "load_lmpc",
+           "load_student"]
 
 # artifacts/flagship/args.yaml: horizon 32, unet_input_dim 32, dim_mults (1,2,4), context 5
 FLAGSHIP_CONFIG = dict(state_dim=1, n_support_points=32, unet_input_dim=32,
                        dim_mults=(1, 2, 4), time_emb_dim=32, context_dim=5)
+# scripts/flagship_lmpc.py: horizon 8, unet_input_dim 32, dim_mults (1,2,4), context 4
+LMPC_CONFIG = dict(state_dim=1, n_support_points=8, unet_input_dim=32, dim_mults=(1, 2, 4),
+                   time_emb_dim=32, context_dim=4)
 
 
 def from_flax_params(params: Mapping) -> Dict[str, torch.Tensor]:
@@ -95,16 +102,16 @@ def from_flax_params(params: Mapping) -> Dict[str, torch.Tensor]:
     return sd
 
 
-def _load_unet(path, params_key: str, cfg_indicator, device) -> TemporalUnet:
-    """A flagship-architecture ``TemporalUnet`` from the pickle at ``path``,
-    its flax params under ``params_key``, in eval mode on ``device``
-    (``cuda`` unless given). ``cfg_indicator`` is a bool, or the key that
-    holds it."""
+def _load_unet(path, params_key: str, cfg_indicator, device,
+               config: Mapping = FLAGSHIP_CONFIG) -> TemporalUnet:
+    """A ``TemporalUnet`` of ``config`` from the pickle at ``path``, its flax
+    params under ``params_key``, in eval mode on ``device`` (``cuda`` unless
+    given). ``cfg_indicator`` is a bool, or the key that holds it."""
     dev = resolve_device(device)
     with open(path, "rb") as f:
         ckpt = pickle.load(f)
     bit = ckpt[cfg_indicator] if isinstance(cfg_indicator, str) else cfg_indicator
-    model = TemporalUnet(**FLAGSHIP_CONFIG, cfg_indicator=bool(bit))
+    model = TemporalUnet(**config, cfg_indicator=bool(bit))
     model.load_state_dict(from_flax_params(ckpt[params_key]))
     return model.to(dev).eval()
 
@@ -118,3 +125,9 @@ def load_student(path, device=None) -> TemporalUnet:
     """A distilled student of the flagship (1,001,825 params) from its
     ``{'params'}`` pickle; students are trained with the context-present bit."""
     return _load_unet(path, "params", True, device)
+
+
+def load_lmpc(path, device=None) -> TemporalUnet:
+    """The LMPC parity workload's denoiser (1,000,929 params, horizon 8,
+    context 4) from its EMA pickle."""
+    return _load_unet(path, "ema_params", "cfg_indicator", device, LMPC_CONFIG)

@@ -6,8 +6,8 @@ a source with a plain C interface builds in seconds, one that includes
 PyTorch's headers in minutes. A library is built at first use into
 ``build/torch_kernels/`` at the repository root (listed in ``.gitignore``),
 under a name that carries a hash of its source, of every header in
-``csrc/`` and of the flags, so an edited source or header is rebuilt and an
-unchanged one is reused. ``build_all`` builds every library at once, one nvcc
+``csrc/``, of the sources it includes and of the flags, so an edited source
+or header is rebuilt and an unchanged one is reused. ``build_all`` builds every library at once, one nvcc
 process per source, all started together. ``ClusterLaunch`` is what the
 wrappers of the kernels launched as thread-block clusters share.
 """
@@ -18,6 +18,7 @@ import dataclasses
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -37,7 +38,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC"]
 NVCC_TIMEOUT_S = 600
 KERNELS = ("cfg_chain", "fused_unet", "cfg_episode", "ddim_chain", "ddim_episode",
-           "fused_conv")  # csrc/<name>.cu
+           "fused_conv", "cfg_episode_lmpc")  # csrc/<name>.cu
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,10 +57,13 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     """Where ``csrc/<name>.cu`` builds to: the name carries a hash of the
-    source, of every ``csrc/*.cuh`` (a source may include any of them) and
-    of the flags."""
-    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
-    for header in sorted(CSRC.glob("*.cuh")):
+    source, of every ``csrc/*.cuh`` (a source may include any of them), of
+    every other source it includes (``cfg_episode_lmpc.cu`` includes
+    ``cfg_episode.cu``) and of the flags."""
+    source = (CSRC / f"{name}.cu").read_bytes()
+    h = hashlib.sha256(source)
+    included = re.findall(rb'^#include "(\w+\.cu)"', source, flags=re.M)
+    for header in sorted(CSRC.glob("*.cuh")) + [CSRC / f.decode() for f in included]:
         h.update(header.name.encode() + header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"

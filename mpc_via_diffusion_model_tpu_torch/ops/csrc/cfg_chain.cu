@@ -123,13 +123,18 @@ cfg_chain_kernel(const float* __restrict__ W, const int* __restrict__ meta,
   cg::this_cluster().sync();  // no CTA leaves while another may still write into it
 }
 
-// reserve_smem's record of the shared-memory limit set for each instantiation on each device
+// reserve_smem's record of the shared-memory limit set for each instantiation on each device,
+// in an anonymous namespace: a template's static member of external linkage is one object in
+// the whole process (the loader unifies it across libraries), and cfg_chain.cu, cfg_episode.cu
+// and cfg_episode_lmpc.cu each need their own record of their own kernel.
+namespace {
 template <typename WT>
 struct SmemSet {
   static int set[MAX_DEVICES];
 };
 template <typename WT>
 int SmemSet<WT>::set[MAX_DEVICES];
+}  // namespace
 
 template <typename WT>
 static int launch(const float* W, const __nv_bfloat16* Wh, const int* meta, int smem_bytes,

@@ -51,7 +51,9 @@
 // not enough shared memory for 8 CTAs at once).
 //
 // The in-kernel FiLM and the end of each replan (unnormalize, best-of-K, stage cost, plant
-// step) are in episode.cuh, shared with ddim_episode.cu.
+// step) are in episode.cuh, shared with ddim_episode.cu. The plant is episode.cuh's Plant: the
+// swing-up cart-pole here, the linear cart-pole in cfg_episode_lmpc.cu, which includes this
+// file with another EPISODE_PLANT and declares its own entries.
 //
 // bf16 weights (the JAX builder's weights_dtype=jnp.bfloat16, bench.py's BENCH_BF16=1): the
 // kernel is a template on the conv kernels' element type WT. cfg_episode_launch runs the float
@@ -164,13 +166,18 @@ cfg_episode_kernel(const float* __restrict__ W, const int* __restrict__ meta,
   cg::this_cluster().sync();  // no CTA leaves while another may still write into it
 }
 
-// reserve_smem's record of the shared-memory limit set for each instantiation on each device
+// reserve_smem's record of the shared-memory limit set for each instantiation on each device,
+// in an anonymous namespace: a template's static member of external linkage is one object in
+// the whole process (the loader unifies it across libraries), and cfg_chain.cu, cfg_episode.cu
+// and cfg_episode_lmpc.cu each need their own record of their own kernel.
+namespace {
 template <typename WT>
 struct SmemSet {
   static int set[MAX_DEVICES];
 };
 template <typename WT>
 int SmemSet<WT>::set[MAX_DEVICES];
+}  // namespace
 
 template <typename WT>
 static int launch(const float* W, const __nv_bfloat16* Wh, const int* meta, int smem_bytes,
@@ -199,6 +206,8 @@ static int max_active_clusters(int smem_bytes, int* n_clusters) {
                                              &config);
 }
 
+// cfg_episode_lmpc.cu includes this file for another plant and declares its own entries.
+#ifndef EPISODE_PLANT_ENTRIES
 extern "C" {
 
 // Launches one episode on `stream`; returns the CUDA error code (0 = launched).
@@ -254,3 +263,4 @@ int cfg_episode_plant_dims(void) { return DX * 100 + DU; }
 int cfg_episode_bf16_plant_dims(void) { return DX * 100 + DU; }
 
 }  // extern "C"
+#endif  // EPISODE_PLANT_ENTRIES

@@ -11,11 +11,17 @@
 #include "plants.cuh"
 #include "unet_body.cuh"
 
-typedef CartpoleSwingup Plant;
+// The plant of the episode: the swing-up cart-pole unless the source that includes this file
+// names another of plants.cuh first (cfg_episode_lmpc.cu).
+#ifndef EPISODE_PLANT
+#define EPISODE_PLANT CartpoleSwingup
+#endif
+typedef EPISODE_PLANT Plant;
 #define DX Plant::DX
 #define DU Plant::DU
 
-// consts layout (ops/fused_episode.py): normalizer affines, reported and selection costs, dt
+// consts layout (ops/fused_episode.py): normalizer affines, reported and selection costs, dt,
+// and the plant's own constants (Plant::N_CONSTS)
 #define C_CN_SHIFT 0
 #define C_CN_SCALE (C_CN_SHIFT + DX)
 #define C_UN_SHIFT (C_CN_SCALE + DX)
@@ -26,7 +32,7 @@ typedef CartpoleSwingup Plant;
 #define C_SR (C_SQ + DX)
 #define C_SP (C_SR + DU)
 #define C_DT (C_SP + DX)
-#define C_LEN (C_DT + 1)
+#define C_LEN (C_DT + 1 + Plant::N_CONSTS)
 
 // misc region of shared memory (M_EP_MISC)
 #define X_STATE 0
@@ -85,8 +91,9 @@ static __device__ void episode_films_rank(const int* m, const float* __restrict_
 //         selection cost (terminal cost only when the whole plan is scored); first-min
 //         argmin as a one-hot: a NaN score leaves it all zeros, so u0 = sum_k 0 * u_k[0]
 //   stage = sum_i (q_i x_i) x_i + (r u0) u0;  x <- plant.step(x, u0)
-// and, when `writer`, writes the step's row of the tracks. The CTAs of a cluster all hold the
-// same plans and state and all run it, each updating its own state; one of them writes.
+// (the plant reads dt and its constants from consts + C_DT) and, when `writer`, writes the
+// step's row of the tracks. The CTAs of a cluster all hold the same plans and state and all
+// run it, each updating its own state; one of them writes.
 static __device__ void episode_finish_replan(
     const float* __restrict__ consts, float* cand, float* score, float* misc, int K, int sel_h,
     int H, int D, int step, float* __restrict__ x_track, float* __restrict__ u_track,
@@ -110,7 +117,7 @@ static __device__ void episode_finish_replan(
       for (int t = 0; t < sel_h; ++t) {
         const float* u = cand + (size_t)k * hd + t * D;
         acc = __fadd_rn(acc, quad_stage<DX, DU>(consts + C_SQ, consts + C_SR, xc, u));
-        Plant::step(xc, u, __ldg(consts + C_DT), xn);
+        Plant::step(xc, u, consts + C_DT, xn);
         for (int i = 0; i < DX; ++i) xc[i] = xn[i];
       }
       if (sel_h == H) acc = __fadd_rn(acc, quad_terminal<DX>(consts + C_SP, xc));
@@ -143,7 +150,7 @@ static __device__ void episode_finish_replan(
     *reinterpret_cast<int*>(misc + X_BEST) = best;
     float xn[DX];
     const float stage = stage_cost_unrolled<DX, DU>(consts + C_Q, consts + C_R, xst, u0);
-    Plant::step(xst, u0, __ldg(consts + C_DT), xn);
+    Plant::step(xst, u0, consts + C_DT, xn);
     for (int i = 0; i < DX; ++i) {
       xst[i] = xn[i];
       if (writer) x_track[(size_t)(step + 1) * DX + i] = xn[i];

@@ -5,6 +5,11 @@
 // kernel runs is written out here, operation by operation in the order of the port's torch
 // version, with round-to-nearest intrinsics so that nvcc contracts nothing into an FMA.
 // sinf and cosf are the accurate library functions (no --use_fast_math).
+//
+// A plant is a struct with its dimensions DX and DU, N_CONSTS, the number of fp32 constants it
+// reads from the episode's consts table after dt (the Plant's device_consts on the host, as
+// _kernel_safe_fn hoists a plant's captured arrays into kernel inputs), and
+// step(x, u, pc, xn), where pc points at the table's dt, followed by those constants.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -14,8 +19,11 @@
 struct CartpoleSwingup {
   static constexpr int DX = 5;
   static constexpr int DU = 1;
+  static constexpr int N_CONSTS = 0;
 
-  static __device__ void step(const float* x, const float* u, float dt, float* xn) {
+  static __device__ void step(const float* x, const float* u, const float* __restrict__ pc,
+                              float* xn) {
+    const float dt = __ldg(pc);
     const float M_CART = 2.0f, M_POLE = 1.0f;
     const float M_TOTAL = 3.0f;            // M_CART + M_POLE
     const float MPLP = 1.0f;               // M_POLE * L_POLE
@@ -45,6 +53,31 @@ struct CartpoleSwingup {
     xn[2] = __fadd_rn(x[2], __fmul_rn(x[3], dt));
     xn[3] = __fadd_rn(x[3], __fmul_rn(xd3, dt));
     xn[4] = __fadd_rn(x[4], __fmul_rn(xd4, dt));
+  }
+};
+
+// The 4-state linear cart-pole of the LMPC workload (dynamics/cartpole.py, cartpole_lmpc):
+// x' = A_d x + B_d u, the zero-order hold at dt computed on the host. pc[1 .. 16] hold A_d
+// row-major and pc[17 .. 20] B_d, in fp32. Each row in the torch step's order:
+// ((a_i0 x0 + a_i1 x1) + a_i2 x2) + a_i3 x3, then + b_i u.
+struct CartpoleLmpc {
+  static constexpr int DX = 4;
+  static constexpr int DU = 1;
+  static constexpr int N_CONSTS = DX * DX + DX * DU;
+
+  static __device__ void step(const float* x, const float* u, const float* __restrict__ pc,
+                              float* xn) {
+    const float* a = pc + 1;
+    const float* b = a + DX * DX;
+#pragma unroll
+    for (int i = 0; i < DX; ++i) {
+      float acc = __fmul_rn(__ldg(a + i * DX), x[0]);
+#pragma unroll
+      for (int j = 1; j < DX; ++j) acc = __fadd_rn(acc, __fmul_rn(__ldg(a + i * DX + j), x[j]));
+#pragma unroll
+      for (int j = 0; j < DU; ++j) acc = __fadd_rn(acc, __fmul_rn(__ldg(b + i * DU + j), u[j]));
+      xn[i] = acc;
+    }
   }
 };
 

@@ -33,14 +33,18 @@ replan's initial draw: JAX's (n_steps, K * H, du) of fused_episode.py:384-387
 with the candidate axis kept.
 
 What the kernels run, and what raises ``NotImplementedError`` because they
-do not: the cart-pole swing-up plant only (``csrc/plants.cuh``), a
+do not: the plants written as device functions in ``csrc/plants.cuh``, a
 ``QuadraticCost`` for the stage cost and for the selection, the identity
-``state_to_condition``, and staged noise (no ``inkernel_noise``); the CFG
-episode float32 or bfloat16 weights (``weights_dtype``, ``bench.py``'s
-``BENCH_BF16``: bfloat16 launches the kernel's bf16 entry,
-``cfg_episode_bf16``, and gives ``plain`` the U-Net of ``models/bf16.py``),
-the DDIM episode float32 weights and ``clip_denoised=True`` only. Nothing
-falls back to another path.
+``state_to_condition``, and staged noise (no ``inkernel_noise``). Each
+(plant, weights) pair the CFG episode runs is an entry of its own
+(``CFG_ENTRIES``): the cart-pole swing-up with float32 weights
+(``cfg_episode``) or bfloat16 ones (``bench.py``'s ``BENCH_BF16``: the
+kernel's bf16 entry, ``cfg_episode_bf16``, with ``plain`` running the U-Net
+of ``models/bf16.py``), and the linear cart-pole of the LMPC workload with
+float32 weights (``cfg_episode_lmpc``: ``cfg_episode.cu`` compiled for that
+plant, ``csrc/cfg_episode_lmpc.cu``, whose A_d and B_d follow dt in the
+consts table). The DDIM episode runs the swing-up with float32 weights and
+``clip_denoised=True`` only. Nothing falls back to another path.
 
 Best-of-K follows the JAX episode kernels, not the JAX runtime: the first
 candidate whose score equals the minimum wins, and when a score is NaN the
@@ -72,11 +76,17 @@ from .fused_denoise import (ddim_step_coefficients, is_bf16, refuse_unported_ddi
 from .unet_pack import CLUSTER, M_LEN, SMEM_LIMIT, PackedUnet, packed_on
 
 __all__ = ["FusedCfgEpisode", "FusedDdimEpisode", "make_fused_cfg_episode",
-           "make_fused_ddim_episode", "affine_consts", "episode_choice",
-           "cfg_episode_max_active_clusters", "cfg_episode_bf16_max_active_clusters",
+           "make_fused_ddim_episode", "affine_consts", "episode_choice", "CFG_ENTRIES",
+           "DDIM_ENTRIES", "cfg_episode_max_active_clusters",
+           "cfg_episode_bf16_max_active_clusters", "cfg_episode_lmpc_max_active_clusters",
            "ddim_episode_max_active_clusters", "cluster_split_features"]
 
-KERNEL_PLANTS = ("cartpole_virtual_swingup",)  # plants written in csrc/plants.cuh
+# the entry of each episode kernel for (plant name, bf16 weights): plants written in
+# csrc/plants.cuh, each entry with its own library symbols and occupancy query
+CFG_ENTRIES = {("cartpole_virtual_swingup", False): "cfg_episode",
+               ("cartpole_virtual_swingup", True): "cfg_episode_bf16",
+               ("cartpole_lmpc", False): "cfg_episode_lmpc"}
+DDIM_ENTRIES = {("cartpole_virtual_swingup", False): "ddim_episode"}
 _QUERIES = ("consts_len", "plant_dims")
 
 
@@ -108,6 +118,25 @@ def _cfg_bf16_lib() -> ctypes.CDLL:
 def cfg_episode_bf16_max_active_clusters(smem_bytes: int) -> int:
     """The same query for the episode kernel's bf16 instantiation."""
     return _build.max_active_clusters(_cfg_bf16_lib(), "cfg_episode_bf16", smem_bytes)
+
+
+@functools.lru_cache(maxsize=None)
+def _cfg_lmpc_lib() -> ctypes.CDLL:
+    """The built ``csrc/cfg_episode_lmpc.cu``: the CFG episode for the linear cart-pole."""
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    return _build.bind("cfg_episode_lmpc", [p, p, i, p, p, p, p, p, p, p, p, p, i, i, i, i, f, f, p],
+                       M_LEN, _QUERIES, cluster=CLUSTER)
+
+
+def cfg_episode_lmpc_max_active_clusters(smem_bytes: int) -> int:
+    """The same query for the linear cart-pole's CFG episode entry."""
+    return _build.max_active_clusters(_cfg_lmpc_lib(), "cfg_episode_lmpc", smem_bytes)
+
+
+# each CFG entry's library and occupancy query
+_CFG_LIBS = {"cfg_episode": (_cfg_lib, cfg_episode_max_active_clusters),
+             "cfg_episode_bf16": (_cfg_bf16_lib, cfg_episode_bf16_max_active_clusters),
+             "cfg_episode_lmpc": (_cfg_lmpc_lib, cfg_episode_lmpc_max_active_clusters)}
 
 
 @functools.lru_cache(maxsize=None)
@@ -160,7 +189,7 @@ class _Episode:
     checks, the dispatch between kernel and plain version and, in the plain
     version, the end of each replan."""
 
-    name = ""  # the kernel's entry: csrc/<name>.cu, or its bf16 entry <source>_bf16
+    name = ""  # the kernel's entry (CFG_ENTRIES, DDIM_ENTRIES)
     lib: Callable[[], ctypes.CDLL]  # its built library, the entry declared
     query: Callable[[int], int]  # its <name>_max_active_clusters
     bf16 = False  # bf16 conv weights: the bf16 entry, which also reads cluster.weights_bf16
@@ -187,7 +216,7 @@ class _Episode:
             cn_shift, cn_scale, un_shift, un_scale,
             vec(cost.q_diag, dx), vec(cost.r, du),
             vec(selection_cost.q_diag, dx), vec(selection_cost.r, du), vec(selection_cost.p_diag, dx),
-            np.float32([plant.dt])]).astype(np.float32)).to(device)
+            np.float32([plant.dt]), np.float32(plant.device_consts)]).astype(np.float32)).to(device)
         self.cost, self.selection_cost = cost.to(device), selection_cost.to(device)
         self.smem_bytes = packed.episode_smem_bytes(self.n_candidates)
         if self.smem_bytes > SMEM_LIMIT:
@@ -195,6 +224,8 @@ class _Episode:
                              f"K = {self.n_candidates}, over {SMEM_LIMIT}")
         self.launches = 0
         self.plain_calls = 0
+        self.plain_scores: Optional[torch.Tensor] = None
+        self.last_chosen: Optional[torch.Tensor] = None
 
     @property
     def weights(self) -> torch.Tensor:
@@ -214,6 +245,7 @@ class _Episode:
 
     def episode(self, x0: torch.Tensor, noise: torch.Tensor):
         out = self.plain(x0, noise) if x0.device.type == "cpu" else self.kernel(x0, noise)
+        self.last_chosen = out[3]  # the applied candidate of every replan
         return out[:3]
 
     __call__ = episode
@@ -256,7 +288,9 @@ class _Episode:
         u_norm (K, H, du)``, the chain of one replan in the kernel's
         arithmetic: the affine normalize, the chain, the clip and
         unnormalize, the candidate rollouts and the first-min choice, the
-        unrolled stage cost and the plant step."""
+        unrolled stage cost and the plant step. At K > 1 it keeps every
+        replan's candidate scores in ``plain_scores`` (n_steps, K), which
+        tell a near-tie from a real choice."""
         self._check(x0, noise)
         self.plain_calls += 1
         c = self.consts
@@ -267,7 +301,7 @@ class _Episode:
         q = [float(v) for v in self.cost.q_diag.reshape(-1)]
         r = [float(v) for v in self.cost.r.reshape(-1).expand(du)]
         x = x0
-        xs, us, stages, chosen = [x0], [], [], []
+        xs, us, stages, chosen, scores = [x0], [], [], [], []
         for step in range(self.n_steps):
             u = sample((x - cn_shift) * cn_scale, noise[step])
             u_seq = torch.clamp(u, -1.0, 1.0) * un_scale + un_shift  # (K, H, du)
@@ -282,6 +316,7 @@ class _Episode:
                 if self.selection_horizon == horizon:
                     acc = acc + self.selection_cost.terminal(xc)
                 best = episode_choice(acc)
+                scores.append(acc)
                 onehot = (torch.arange(k, device=dev) == best).to(torch.float32)
                 u0 = onehot @ u_seq[:, 0]
             stage = q[0] * x[0] * x[0]
@@ -295,6 +330,7 @@ class _Episode:
             xs.append(x)
             us.append(u0)
             chosen.append(best)
+        self.plain_scores = torch.stack(scores) if scores else None
         return (torch.stack(xs), torch.stack(us), torch.stack(stages),
                 torch.tensor(chosen, dtype=torch.int32, device=dev))
 
@@ -306,23 +342,21 @@ class FusedCfgEpisode(_Episode):
     ``kernel`` and ``plain`` also return the index of the applied candidate
     at every replan (K where none was chosen). ``launches`` counts kernel
     launches and ``plain_calls`` calls of the plain version; callers reset
-    them to 0 to count one run. With ``weights_dtype`` bfloat16 it launches
-    the bf16 entry (``name`` ``cfg_episode_bf16``), and ``plain`` runs
-    ``plain_model``, the U-Net with bf16 convs (``models/bf16.py``).
+    them to 0 to count one run. ``name`` is the entry the plant and the
+    weights pick (``CFG_ENTRIES``): with ``weights_dtype`` bfloat16 the bf16
+    entry ``cfg_episode_bf16``, whose ``plain`` runs ``plain_model``, the
+    U-Net with bf16 convs (``models/bf16.py``); with the linear cart-pole
+    ``cfg_episode_lmpc``.
     """
-
-    name = "cfg_episode"
-    lib = staticmethod(_cfg_lib)
-    query = staticmethod(cfg_episode_max_active_clusters)
 
     def __init__(self, packed: PackedUnet, schedule: DiffusionSchedule,
                  inputs_stats: NormalizerStats, condition_stats: NormalizerStats, plant: Plant,
                  cost: QuadraticCost, n_steps: int, w: float, n_tail: int, n_candidates: int,
                  selection_cost: QuadraticCost, selection_horizon: int,
                  weights_dtype=torch.float32):
-        if is_bf16(weights_dtype):
-            self.name, self.bf16 = "cfg_episode_bf16", True
-            self.lib, self.query = _cfg_bf16_lib, cfg_episode_bf16_max_active_clusters
+        self.bf16 = is_bf16(weights_dtype)
+        self.name = CFG_ENTRIES[plant.name, self.bf16]
+        self.lib, self.query = _CFG_LIBS[self.name]
         super().__init__(packed, inputs_stats, condition_stats, plant, cost, n_steps,
                          n_candidates, selection_cost, selection_horizon,
                          *step_coefficients(schedule, n_tail))
@@ -469,13 +503,20 @@ class FusedDdimEpisode(_Episode):
 def _episode_packed(model_or_packed: Union[TemporalUnet, PackedUnet], plant: Plant,
                     cost: QuadraticCost, selection_cost, selection_horizon: Optional[int],
                     n_candidates: int, state_to_condition: Optional[Callable],
-                    inkernel_noise: bool, device) -> Tuple[PackedUnet, int, int]:
+                    inkernel_noise: bool, device, entries: dict,
+                    bf16: bool) -> Tuple[PackedUnet, int, int]:
     """The checks both episode makers make, and the packed U-Net with K and
-    the selection horizon. Raises ``NotImplementedError`` for what the
-    kernels cannot run."""
-    if plant.name not in KERNEL_PLANTS:
-        raise NotImplementedError(f"the episode kernel runs {list(KERNEL_PLANTS)}, not the plant "
-                                  f"'{plant.name}': its step is not written as a device function")
+    the selection horizon. ``entries`` are the kernel's (``CFG_ENTRIES``,
+    ``DDIM_ENTRIES``). Raises ``NotImplementedError`` for what the kernels
+    cannot run."""
+    if (plant.name, bf16) not in entries:
+        plants = sorted({name for name, _ in entries})
+        if plant.name not in plants:
+            raise NotImplementedError(f"the episode kernel runs {plants}, not the plant "
+                                      f"'{plant.name}': its step is not written as a device "
+                                      "function")
+        raise NotImplementedError(f"the episode kernel has no {'bf16' if bf16 else 'float32'} "
+                                  f"entry for the plant '{plant.name}'")
     if not isinstance(cost, QuadraticCost):
         raise NotImplementedError("the episode kernel's stage cost is a QuadraticCost")
     if selection_cost is not None and not isinstance(selection_cost, QuadraticCost):
@@ -514,10 +555,9 @@ def make_fused_cfg_episode(model_or_packed: Union[TemporalUnet, PackedUnet],
     steps, w = 0.01, K = 1, float32 weights (``weights_dtype`` bfloat16 is
     ``BENCH_BF16=1``'s). A ``TemporalUnet`` is moved to the device and
     packed. Raises ``NotImplementedError`` for what the kernel cannot run."""
-    is_bf16(weights_dtype)
     packed, k, sel_h = _episode_packed(model_or_packed, plant, cost, selection_cost,
                                        selection_horizon, n_candidates, state_to_condition,
-                                       inkernel_noise, device)
+                                       inkernel_noise, device, CFG_ENTRIES, is_bf16(weights_dtype))
     return FusedCfgEpisode(packed, schedule, inputs_stats, condition_stats, plant, cost, n_steps,
                            w, n_diffusion_steps_without_noise, k, selection_cost or cost, sel_h,
                            weights_dtype)
@@ -540,6 +580,6 @@ def make_fused_ddim_episode(model_or_packed: Union[TemporalUnet, PackedUnet],
     refuse_unported_ddim_options(weights_dtype, clip_denoised)
     packed, k, sel_h = _episode_packed(model_or_packed, plant, cost, selection_cost,
                                        selection_horizon, n_candidates, state_to_condition,
-                                       inkernel_noise, device)
+                                       inkernel_noise, device, DDIM_ENTRIES, False)
     return FusedDdimEpisode(packed, schedule, times, inputs_stats, condition_stats, plant, cost,
                             n_steps, k, selection_cost or cost, sel_h)

@@ -10,9 +10,10 @@ five cluster kernels by default) in this checkout and in the one at
 with its own ``ops/_build.py`` in a process of its own, both at once; dumps
 each library with ``cuobjdump -sass``; and prints one JSON line per kernel
 of this checkout: its instruction count, the other checkout's kernel of the
-same base name (``cfg_chain_kernel`` for every instantiation of the
-template), its count, whether the two are identical (addresses stripped)
-and how many instructions differ position by position. It shows whether a
+same mangled name or, where it has none, of the same base name
+(``cfg_chain_kernel`` for every instantiation of the template), its count,
+whether the two are identical (addresses stripped) and how many
+instructions differ position by position. It shows whether a
 change to a shared source left a kernel's compiled code as it was.
 """
 from __future__ import annotations
@@ -66,11 +67,13 @@ def base_name(mangled: str) -> str:
 
 
 def compare(ours: Dict[str, List[str]], theirs: Dict[str, List[str]]) -> List[dict]:
-    """One row per kernel of ``ours`` against ``theirs``' kernel of the same base name."""
+    """One row per kernel of ``ours`` against ``theirs``' kernel of the same
+    mangled name (each instantiation of a template against its own), else
+    of the same base name."""
     by_base = {base_name(k): v for k, v in theirs.items()}
     rows = []
     for name, code in ours.items():
-        other = by_base.get(base_name(name))
+        other = theirs.get(name, by_base.get(base_name(name)))
         row = {"kernel": name, "instructions": len(code)}
         if other is not None:
             row.update(other_instructions=len(other), identical=code == other,

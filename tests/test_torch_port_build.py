@@ -55,3 +55,29 @@ def test_sass_diff_parses_and_pairs_kernels_by_base_name():
     assert rows["_Z16cfg_chain_kernelIfEvPKf"]["identical"] is True
     bf16 = rows["_Z16cfg_chain_kernelI13__nv_bfloat16EvPKf"]
     assert (bf16["identical"], bf16["differ_in_place"], bf16["other_instructions"]) == (False, 1, 2)
+    # an instantiation the other checkout has too is paired with its own
+    theirs_t = sass_diff.parse_sass(
+        dump("_Z16cfg_chain_kernelIfEvPKf", ["MOV R1, c[0x0][0x28]", "NOP", "NOP", "EXIT"])
+        + dump("_Z16cfg_chain_kernelI13__nv_bfloat16EvPKf", ["MOV R1, c[0x0][0x28]", "NOP", "EXIT"]))
+    rows = {r["kernel"]: r for r in sass_diff.compare(ours, theirs_t)}
+    assert rows["_Z16cfg_chain_kernelI13__nv_bfloat16EvPKf"]["identical"] is True
+    assert rows["_Z16cfg_chain_kernelIfEvPKf"]["other_instructions"] == 4
+
+
+def test_shared_memory_records_are_private_to_each_library():
+    """Each launcher's record of the shared-memory attribute it set
+    (``reserve_smem``'s ``set``) has internal linkage: a template's static
+    member of external linkage is unified across every library the process
+    loads, so one library's record would stop another from raising its own
+    kernel's limit (the CFG chain, the CFG episode and its linear cart-pole
+    entry all instantiate ``SmemSet<float>``)."""
+    import re
+
+    for src in sorted(_build.CSRC.glob("*.cu")):
+        text = src.read_text()
+        for record in re.finditer(r"^(static int smem_set|struct SmemSet|  static int smem_set)",
+                                  text, flags=re.M):
+            before = text[:record.start()]
+            private = (record.group(1).lstrip().startswith("static int")
+                       or before.rfind("namespace {") > before.rfind("}  // namespace"))
+            assert private, f"{src.name}: {record.group(1)} has external linkage"

@@ -20,7 +20,8 @@ for name in ('ops.fused_unet', 'ops.fused_episode', 'ops.fused_denoise', 'ops._b
              'dynamics.base', 'control.runtime', 'diffusion.distillation', 'data.teacher_stats',
              'ops.fused_conv', 'eval.timing', 'control.metrics', 'data.flagship_stats',
              'scripts.bench_kernels', 'scripts.flagship_parity', 'scripts.episode_recut',
-             'scripts.episode_profile', 'bench', 'models.bf16'):
+             'scripts.episode_profile', 'bench', 'models.bf16', 'solvers.lqr',
+             'data.generation', 'data.lmpc_stats', 'scripts.lmpc_parity'):
     assert pkg.__name__ + '.' + name in names, name
 import chip_smoke  # as a module: main() does not run
 loaded = [k for k, v in sys.modules.items() if v is not None
@@ -44,6 +45,7 @@ def test_port_sources_name_no_jax_import():
     assert {"fused_unet.py", "fused_episode.py", "distillation.py", "teacher_stats.py",
             "fused_conv.py", "timing.py", "metrics.py", "flagship_stats.py", "bench_kernels.py",
             "flagship_parity.py", "episode_recut.py", "episode_profile.py", "bench.py",
-            "bf16.py"} <= {f.name for f in files}
+            "bf16.py", "lqr.py", "generation.py", "lmpc_stats.py",
+            "lmpc_parity.py"} <= {f.name for f in files}
     offenders = [str(f.relative_to(ROOT)) for f in files if pattern.search(f.read_text())]
     assert not offenders

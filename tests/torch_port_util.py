@@ -86,8 +86,27 @@ def cartpole_step_f32(x, u, dt):
     return (x + xdot * f(dt)).astype(np.float32)
 
 
+def cartpole_lmpc_step_f32(x, u, pc):
+    """``csrc/plants.cuh``'s CartpoleLmpc::step in float32 numpy, in its
+    order of operations: ``pc`` is the consts table from dt on, A_d
+    row-major at pc[1:17] and B_d at pc[17:21]."""
+    f = np.float32
+    a, b = np.asarray(pc[1:17], f).reshape(4, 4), np.asarray(pc[17:21], f)
+    xn = np.empty(4, f)
+    for i in range(4):
+        acc = f(a[i, 0] * x[0])
+        for j in range(1, 4):
+            acc = f(acc + f(a[i, j] * x[j]))
+        xn[i] = f(acc + f(b[i] * u[0]))
+    return xn
+
+
+def _swingup_step(x, u, pc):
+    return cartpole_step_f32(x, u, pc[0])
+
+
 def _emulate_episode(packed, t_embs, consts, x0, n_candidates, selection_horizon, n_steps,
-                     n_groups, first_plans, chain_step):
+                     n_groups, first_plans, chain_step, plant_step=_swingup_step):
     """The program both episode kernels share (``csrc/episode.cuh`` and the
     kernels' replan loops), in numpy: the affine normalize, the per-step
     FiLM of ``n_groups`` groups from the FiLM weights the meta table points
@@ -96,17 +115,20 @@ def _emulate_episode(packed, t_embs, consts, x0, n_candidates, selection_horizon
     (``chain_step(W, m, smem, films, x, step, si, k)``, from
     ``first_plans(step)``), the unnormalize, the candidate rollouts scored
     from ``consts`` and the one-hot choice, the stage cost and the plant
-    step. The shared image is sized by the episode plan and filled with NaN,
-    so a region that overlaps another or is read before it is written shows."""
+    step, ``plant_step(x, u, consts from dt on)`` (the swing-up's by default;
+    the state width is x0's). The shared image is sized by the episode plan
+    and filled with NaN, so a region that overlaps another or is read before
+    it is written shows."""
     W = packed.weights.cpu().numpy()
     m = packed.meta.cpu().numpy()
     K, sel_h = n_candidates, selection_horizon
     H, D, n_res, maxc = (int(m[k]) for k in (up.M_H, up.M_D, up.M_NRES, up.M_MAXC))
     cond, temb, dctx = (int(m[k]) for k in (up.M_COND, up.M_TEMB, up.M_CTX))
     n_total = t_embs.shape[0]
-    c = consts
-    cn_shift, cn_scale, un_shift, un_scale = c[0:5], c[5:10], c[10:11], c[11:12]
-    q, r, sq, sr, sp, dt = c[12:17], c[17:18], c[18:23], c[23:24], c[24:29], c[29]
+    dx, du = x0.shape[0], D
+    parts = np.split(np.asarray(consts, np.float32),
+                     np.cumsum([dx, dx, du, du, dx, du, dx, du, dx]))
+    cn_shift, cn_scale, un_shift, un_scale, q, r, sq, sr, sp, pc = parts
     Fw = W[m[up.M_FW]:m[up.M_FW] + n_res * cond * maxc].reshape(n_res, cond, maxc)
     Fb = W[m[up.M_FB]:m[up.M_FB] + n_res * maxc].reshape(n_res, maxc)
     smem = _image(packed.episode_smem_bytes(K) // 4)
@@ -138,7 +160,7 @@ def _emulate_episode(packed, t_embs, consts, x0, n_candidates, selection_horizon
                 xc = x.copy()
                 for t in range(sel_h):
                     score[k] += np.sum(sq * xc * xc) + np.sum(sr * plans[k, t] * plans[k, t])
-                    xc = cartpole_step_f32(xc, plans[k, t], dt)
+                    xc = plant_step(xc, plans[k, t], pc)
                 if sel_h == H:
                     score[k] += np.sum(sp * xc * xc)
             mn = np.min(score)
@@ -146,7 +168,7 @@ def _emulate_episode(packed, t_embs, consts, x0, n_candidates, selection_horizon
             best = int(hits[0]) if hits.size else K
             u0 = (np.arange(K) == best).astype(np.float32) @ plans[:, 0]
         stages.append(np.sum(q * x * x) + np.sum(r * u0 * u0))
-        x = cartpole_step_f32(x, u0, dt)
+        x = plant_step(x, u0, pc)
         xs.append(x)
         us.append(u0)
         chosen.append(best)
@@ -486,7 +508,8 @@ def emulate_cfg_chain_kernel(packed, weights, films, noise_tab, coefs, w, n_rank
 
 
 def emulate_cfg_episode_kernel(packed, weights, t_embs, noise, coefs, consts, x0, w, n_candidates,
-                               selection_horizon, n_steps, n_ranks=up.CLUSTER, weights_bf16=None):
+                               selection_horizon, n_steps, n_ranks=up.CLUSTER, weights_bf16=None,
+                               plant_step=_swingup_step):
     """Runs ``csrc/cfg_episode.cu``'s program in numpy: ``_emulate_episode``
     with the two FiLM groups, and for every chain step the cluster body
     (``_emulate_cluster_body``) on the images of one cluster of ``n_ranks``
@@ -496,8 +519,9 @@ def emulate_cfg_episode_kernel(packed, weights, t_embs, noise, coefs, consts, x0
     the wrapper's layout (n_steps, n_total + 1, K, H, D) with row n_total =
     x_T; ``weights`` is the buffer the kernel reads (``FusedCfgEpisode.weights``),
     ``weights_bf16`` its bf16 copy, which the bf16 instantiation reads beside
-    it (``cluster.weights_bf16``). Returns the tracks, the choices and the
-    number of cluster barriers."""
+    it (``cluster.weights_bf16``); ``plant_step`` the plant's device function
+    (``_emulate_episode``). Returns the tracks, the choices and the number of
+    cluster barriers."""
     n_total = noise.shape[1] - 1
     m = packed.meta.cpu().numpy()
     cluster_w = weights.cpu().numpy()
@@ -511,7 +535,7 @@ def emulate_cfg_episode_kernel(packed, weights, t_embs, noise, coefs, consts, x0
         return _cfg_update(x, _final_1x1(W, m, y, wc), coefs[si], noise[si_step, si, k], w)
 
     out = _emulate_episode(packed, t_embs, consts, x0, n_candidates, selection_horizon, n_steps,
-                           2, lambda s: noise[s, n_total], step)
+                           2, lambda s: noise[s, n_total], step, plant_step)
     return out + (cl.barriers,)
 
 
