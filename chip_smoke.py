@@ -7,7 +7,8 @@ nvcc (``/usr/local/cuda``), the flagship weights in
 ``artifacts/onpolicy_cartpole/`` (``student_1eval.pkl``, ``report.json``) and
 the LMPC parity workload's in ``artifacts/flagship_lmpc/`` (``ema_params.pkl``,
 ``report.json``), and writes nothing but the kernel builds under
-``build/torch_kernels/``. Phases,
+``build/torch_kernels/`` and, for a moment, phase 26's checkpoint under
+``build/chip_smoke_train/``. Phases,
 each printing one line with its own seconds:
 
 1. device: the card's name, the device count, and nvidia-smi's name and
@@ -82,7 +83,8 @@ same weights, which exercises the affine update and the step loop.
     the expert's in ``report.json``, and their mean, which must be at most
     1.05.
 14. timing: every kernel and its plain version by CUDA events at the main
-    paths' shapes; the U-Net pass and the DDIM chain both by their launch
+    paths' shapes (the plain CFG episode, 80 replans at ~11 s, by phase 5's
+    call on the host clock); the U-Net pass and the DDIM chain both by their launch
     alone (``_launch`` on prepared tensors) and by the wrapper's whole call
     (``FusedUnet.forward``, ``FusedDdimChain.__call__``), which splits off
     the host's share; the DDIM chain also on [23, 15, 7] and at B = 4; the
@@ -164,7 +166,33 @@ at horizon 8, context 4, against its LQR expert; the committed weights and
     tracks within 1e-3. Then the times of the episode entry at K = 1 and 8
     and of the chain at H = 8.
 
-It then prints the ``kernels`` JSON line (rows 1 and 3 carry their bf16
+Training on the card (``train/trainer.py``; the yardstick
+``data/lmpc_train_yardstick.py``, the JAX package's 200 steps on the CPU):
+
+24. training against the JAX package: step 1 of ``scripts/flagship_lmpc.py``
+    (the recipe's dataset, 146,250 LQR solves) on the card, its limits
+    within 1e-5 of the yardstick's; the initial weights (``init_like_flax``
+    from ``RandomState(1)``) with the yardstick's checksum; step 1's loss
+    and gradient against the same step in float64 on the CPU (1e-5
+    relative), with the signs that differ and the near-zero gradients
+    counted; the 200 yardstick steps as one ``make_scanned_train_steps``
+    chunk on the staged draws, gated as ``YS_*`` states, the kernel
+    entries that read only zero padding exactly at their init, and the EMA
+    a hard copy of the parameters.
+25. the trained model through the kernels: the EMA weights carried through
+    ``to_flax_params`` and ``from_flax_params`` into a fresh module, with
+    step 1's statistics: the CFG chain at H = 8 on three contexts (1e-4)
+    and ``cfg_episode_lmpc`` from the sweep's first state, 10 replans at K
+    = 1 (tracks 1e-3), each against its plain version; 3 and 1 launches.
+26. the training rate: ``Trainer.fit`` chunked (250), batch 512, 1,000
+    steps under ``cudnn.deterministic``, steps per second by the host clock
+    and ms per step by CUDA events, beside step 1's collection time; a
+    checkpoint and the generator's state taken after step 750, and a fresh
+    ``Trainer`` resumed from it runs the last 250 steps again on the same
+    draws: the mean loss, params, EMA and Adam's moments equal the
+    uninterrupted run's.
+
+It then prints the ``training`` JSON line, the ``kernels`` JSON line (rows 1 and 3 carry their bf16
 entries under ``bf16``, row 1 its H = 8 times under ``h8``, and
 ``cfg_episode_lmpc`` has a row of its own as a further entry of kernel 3),
 the nvidia-smi line and, last, the result line. Any failure raises, and the
@@ -180,6 +208,7 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -194,6 +223,7 @@ from mpc_via_diffusion_model_tpu_torch.control import make_closed_loop
 from mpc_via_diffusion_model_tpu_torch.core import make_schedule
 from mpc_via_diffusion_model_tpu_torch.data import (NormalizerStats, lmpc_stats, normalize,
                                                     unnormalize)
+from mpc_via_diffusion_model_tpu_torch.data import lmpc_train_yardstick as ys
 from mpc_via_diffusion_model_tpu_torch.data.lmpc_stats import LMPC_U_L1, LMPC_U_L1_SUMMARY
 from mpc_via_diffusion_model_tpu_torch.data.teacher_stats import teacher_stats
 from mpc_via_diffusion_model_tpu_torch.diffusion import GaussianDiffusion
@@ -202,7 +232,9 @@ from mpc_via_diffusion_model_tpu_torch.dynamics import (cartpole_lmpc, cartpole_
                                                         cartpole_virtual_cost,
                                                         cartpole_virtual_swingup,
                                                         theta_to_red_theta)
-from mpc_via_diffusion_model_tpu_torch.models import load_flagship, load_lmpc, load_student
+from mpc_via_diffusion_model_tpu_torch.models import (LMPC_CONFIG, TemporalUnet, from_flax_params,
+                                                      load_flagship, load_lmpc, load_student,
+                                                      to_flax_params)
 from mpc_via_diffusion_model_tpu_torch.ops import _build, fused_conv1d_gn_mish
 from mpc_via_diffusion_model_tpu_torch.ops.fused_denoise import (
     cfg_chain_bf16_max_active_clusters, cfg_chain_max_active_clusters,
@@ -214,9 +246,12 @@ from mpc_via_diffusion_model_tpu_torch.ops.fused_episode import (
 from mpc_via_diffusion_model_tpu_torch.ops.fused_unet import (fused_unet_max_active_clusters,
                                                               make_fused_unet)
 from mpc_via_diffusion_model_tpu_torch.ops.unet_pack import CLUSTER, pack_unet
-from mpc_via_diffusion_model_tpu_torch.scripts import (bench_kernels, conv_timing, flagship_parity,
-                                                       lmpc_parity)
+from mpc_via_diffusion_model_tpu_torch.scripts import (bench_kernels, conv_timing, flagship_lmpc,
+                                                       flagship_parity, lmpc_parity)
 from mpc_via_diffusion_model_tpu_torch.scripts.conv_timing import cuda_ms
+from mpc_via_diffusion_model_tpu_torch.train import (Trainer, diffusion_loss, load_checkpoint,
+                                                     make_scanned_train_steps, save_checkpoint,
+                                                     value_and_grad)
 
 ROOT = Path(__file__).resolve().parent
 FLAGSHIP = ROOT / "artifacts" / "flagship" / "ema_params.pkl"
@@ -279,6 +314,21 @@ N_LMPC_CHAIN_STATES = 2         # sweep states run through the chain route too
 # scores are more than 1e-5 apart (relative): the candidates hardly differ, and nearer scores
 # than that can swap under the fp32 difference between kernel and plain.
 LMPC_ABS, LMPC_REL, NEAR_TIE = 1e-3, 0.01, 1e-5
+# Training against the JAX package (phases 24-26; data/lmpc_train_yardstick.py). Step 1's limits and
+# gradient: fp32 sums in other orders. The loss gates follow scripts/train_divergence.py on the
+# CPU, the port against the same JAX run, 14 runs (the port as it is and with a random 10% of its
+# initial weights moved by one ulp, 6 seeds, at 4 and 8 threads): steps 1-10 within 5.3e-7 of the
+# yardstick, 11-50 within 3.1e-6, 51-100 within 1.2e-3, and then apart as chaotically as any two
+# fp32 runs: every step within 0.30-0.67, the mean of the last 20 within 1.4-8.1% (the perturbed
+# runs from the unperturbed one: 0.15-0.58 and 0.5-12.5%). The card starts from a larger rounding
+# difference than the CPU, so the early gates leave room for it; the late ones are about twice
+# the largest CPU value.
+YS_LIMITS_RTOL = GRAD_REL_TOL = 1e-5
+YS_HEAD, YS_HEAD_RTOL = 10, 1e-4     # steps 1-10
+YS_EARLY, YS_EARLY_RTOL = 50, 1e-2   # steps 1-50
+YS_STEP_RTOL = 1.5                   # every step
+YS_TAIL, YS_TAIL_RTOL = 20, 0.16     # the mean of the last 20
+N_FIT, N_RESUME = 1000, 250   # phase 26: Trainer.fit's steps, of which the last are resumed
 
 
 def log(phase: str, t0: float, msg: str) -> None:
@@ -350,6 +400,206 @@ def counts(*wrappers) -> list:
 def reset(*wrappers) -> None:
     for w in wrappers:
         w.launches = w.plain_calls = 0
+
+
+def train_phases(dev, schedule) -> dict:
+    """Phases 24-26 on ``dev``: training against the JAX package, the trained model through the
+    LMPC kernels, the training rate and checkpoint resume. Returns the ``training`` line."""
+    # 24. training against the JAX package (data/lmpc_train_yardstick.py): the recipe's step 1 on
+    # the card, the yardstick's initial weights, step 1's gradient against float64 on the CPU, and
+    # the 200 yardstick steps through make_scanned_train_steps
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    tds = flagship_lmpc.collect_recipe_dataset(dev)
+    torch.cuda.synchronize()
+    collect_s = time.perf_counter() - t1
+    lim_err = max(
+        ((getattr(tds.normalizer.stats[f], k).double() - torch.tensor(want, dtype=torch.float64))
+         .abs() / torch.tensor(want, dtype=torch.float64).abs()).max().item()
+        for f, k, want in (("inputs", "mins", ys.INPUTS_MINS), ("inputs", "maxs", ys.INPUTS_MAXS),
+                           ("condition", "mins", ys.CONDITION_MINS),
+                           ("condition", "maxs", ys.CONDITION_MAXS)))
+    if tds.n_init != ys.N_SAMPLES or not lim_err <= YS_LIMITS_RTOL:
+        raise RuntimeError(f"training: step 1 collected {tds.n_init} samples (want "
+                           f"{ys.N_SAMPLES}); limits off the yardstick's by {lim_err:.3e} (rtol "
+                           f"{YS_LIMITS_RTOL:.0e})")
+    tmodel = flagship_lmpc.lmpc_model(dev)
+    init_sum = ys.checksum(list(tmodel.parameters()))
+    if init_sum != ys.INIT_CHECKSUM:
+        raise RuntimeError(f"training: initial weights' checksum {init_sum}, yardstick's "
+                           f"{ys.INIT_CHECKSUM}")
+    tdiff = GaussianDiffusion(schedule)
+    trainer = Trainer(tdiff, tmodel, lr=flagship_lmpc.LR, device=dev)
+    layout, init = trainer.state.layout, trainer.state.params.clone()
+    ys_draws = {k: torch.from_numpy(v).to(dev) for k, v in ys.staged_draws(tds.n_init).items()}
+    # step 1 on the card and in float64 on the CPU, on the same batch and draws
+    idx0 = ys_draws["idx"][0]
+    x1, c1 = tds.inputs_normalized[idx0], tds.condition_normalized[idx0]
+    d1 = {k: ys_draws[k][0] for k in ("t", "noise", "mask")}
+    loss_gpu, g_gpu = value_and_grad(diffusion_loss(trainer.diffusion, tmodel), layout, init, x1,
+                                     c1, d1)
+    cpu_model = flagship_lmpc.lmpc_model("cpu").double()
+    t1 = time.perf_counter()
+    loss_64, g_64 = value_and_grad(
+        diffusion_loss(GaussianDiffusion(schedule), cpu_model), layout,
+        layout.flatten(dict(cpu_model.named_parameters())), x1.cpu().double(), c1.cpu().double(),
+        {k: v.cpu().double() if v.is_floating_point() else v.cpu() for k, v in d1.items()})
+    cpu64_s = time.perf_counter() - t1
+    g_gpu = g_gpu.cpu().double()
+    grad_err = ((g_gpu - g_64).norm() / g_64.norm()).item()
+    loss1_err = abs(loss_gpu.item() / loss_64.item() - 1)
+    taps = tmodel.padding_taps()  # kernel entries that read only zero padding: gradient exactly 0
+    pad = layout.flatten({n: taps[n].cpu() if n in taps else torch.zeros(s, dtype=torch.bool)
+                          for n, s in zip(layout.names, layout.shapes)})
+    near_zero = (g_64.abs() < 1e-5) & (g_64 != 0)
+    sign_flips = int(((torch.sign(g_gpu) != torch.sign(g_64)) & (g_64 != 0)).sum())
+    if not (grad_err <= GRAD_REL_TOL and loss1_err <= GRAD_REL_TOL and (g_gpu[pad] == 0).all()
+            and (g_64[pad] == 0).all()):
+        raise RuntimeError(f"training: step 1 on the card against float64 on the CPU: gradient "
+                           f"{grad_err:.3e}, loss {loss1_err:.3e} (tol {GRAD_REL_TOL:.0e}); "
+                           f"padding taps exactly 0: {bool((g_gpu[pad] == 0).all())}")
+    # the 200 yardstick steps, one chunk, no host sync inside
+    chunk200 = make_scanned_train_steps(trainer.train_step, ys.N_STEPS)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    tstate, ys_losses = chunk200(trainer.state, tds.inputs_normalized, tds.condition_normalized,
+                                 ys.BATCH, ys_draws, per_step=True)
+    torch.cuda.synchronize()
+    ys_s = time.perf_counter() - t1
+    ys_losses = ys_losses.cpu().double()
+    ys_want = torch.tensor(ys.LOSSES, dtype=torch.float64)
+    ys_rel = (ys_losses / ys_want - 1).abs()
+    ys_mean_rel = abs(ys_losses[-YS_TAIL:].mean().item() / ys_want[-YS_TAIL:].mean().item() - 1)
+    pad_dev = pad.to(dev)
+    pad_kept = bool(torch.equal(tstate.params[pad_dev], init[pad_dev]))
+    ema_copy = bool(torch.equal(tstate.ema_params, tstate.params))  # a hard copy before step 1,000
+    ys_gates = (f"steps 1-{YS_HEAD} max rel {ys_rel[:YS_HEAD].max():.3e} (tol {YS_HEAD_RTOL:.0e}), "
+                f"1-{YS_EARLY} {ys_rel[:YS_EARLY].max():.3e} (tol {YS_EARLY_RTOL:.0e}), every step "
+                f"{ys_rel.max():.3e} (tol {YS_STEP_RTOL}), mean of the last {YS_TAIL} "
+                f"{ys_mean_rel:.3e} (tol {YS_TAIL_RTOL})")
+    if not (torch.isfinite(ys_losses).all() and ys_rel[:YS_HEAD].max() <= YS_HEAD_RTOL
+            and ys_rel[:YS_EARLY].max() <= YS_EARLY_RTOL and ys_rel.max() <= YS_STEP_RTOL
+            and ys_mean_rel <= YS_TAIL_RTOL and pad_kept and ema_copy
+            and int(tstate.step) == ys.N_STEPS):
+        raise RuntimeError(f"training against the yardstick: {ys_gates}; padding taps kept "
+                           f"{pad_kept}; EMA a copy {ema_copy}; losses {ys_losses.tolist()}")
+    log("train-vs-jax", t0, f"step 1's collection {collect_s:.3f}s, {tds.n_init} samples, limits "
+        f"within {lim_err:.3e} of the yardstick's (rtol {YS_LIMITS_RTOL:.0e}); initial weights' "
+        f"checksum equal; step 1 against float64 on the CPU ({cpu64_s:.3f}s): loss "
+        f"{loss1_err:.3e}, gradient {grad_err:.3e} (tol {GRAD_REL_TOL:.0e}), {sign_flips} signs "
+        f"differ, {int(near_zero.sum())} elements below 1e-5 but not 0, {int(pad.sum())} padding "
+        f"taps exactly 0; {ys.N_STEPS} steps in one chunk {ys_s:.3f}s: {ys_gates}; padding taps "
+        f"at their init")
+
+    # 25. the trained model through the kernels: the EMA weights (a hard copy before step 1,000)
+    # carried through the flax layout into a fresh module, with step 1's statistics
+    t0 = time.perf_counter()
+    fresh = TemporalUnet(**LMPC_CONFIG, cfg_indicator=True)
+    fresh.load_state_dict(from_flax_params(to_flax_params(layout.views(tstate.ema_params))))
+    fresh = fresh.to(dev).eval()
+    t_ins, t_cond = tds.normalizer.stats["inputs"], tds.normalizer.stats["condition"]
+    tchain = make_fused_cfg_chain(fresh, schedule, n_samples=1, w=W, n_tail=N_TAIL, device=dev)
+    tep = make_fused_cfg_episode(tchain.packed, schedule, t_ins, t_cond, cartpole_lmpc(),
+                                 cartpole_lmpc_cost(), n_steps=N_LMPC_EP, w=W,
+                                 n_diffusion_steps_without_noise=N_TAIL, n_candidates=1, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(25)
+    lx0 = lmpc_parity.sweep_states(1)[0].to(dev)
+    l_noise = torch.randn((T + N_TAIL + 1, 1, LMPC_H, 1), generator=gen, device=dev)
+    l_ep_noise = torch.randn(tep.noise_shape, generator=gen, device=dev)
+    t_contexts = [normalize(t_cond.to(dev), lx0)[None]] + [
+        torch.randn((1, 4), generator=gen, device=dev) for _ in range(2)]
+    reset(tchain, tep)
+    tchain_err = max(assert_close(f"trained cfg_chain H={LMPC_H}", tchain.kernel(c_, l_noise),
+                                  tchain.plain(c_, l_noise), CHAIN_TOL) for c_ in t_contexts)
+    got, want = tep.kernel(lx0, l_ep_noise), tep.plain(lx0, l_ep_noise)
+    tep_err = max(assert_close(f"trained cfg_episode_lmpc {name}", g, w_, TRACK_TOL)
+                  for name, g, w_ in zip(("x_track", "u_track", "stage_costs"), got, want))
+    if counts(tchain, tep) != [(len(t_contexts), len(t_contexts)), (1, 1)]:
+        raise RuntimeError(f"trained model through the kernels: counts {counts(tchain, tep)}")
+    log("trained-kernels", t0, f"the trained EMA weights (to_flax_params -> from_flax_params): "
+        f"cfg_chain at H={LMPC_H} on {len(t_contexts)} contexts max |kernel - plain| "
+        f"{tchain_err:.3e} (tol {CHAIN_TOL:.0e}); cfg_episode_lmpc K=1 {N_LMPC_EP} replans from "
+        f"the sweep's first state {tep_err:.3e} (tol {TRACK_TOL:.0e}); launches "
+        f"{counts(tchain, tep)}")
+
+    # 26. the training rate and checkpoint resume: Trainer.fit chunked at batch 512 for 1,000
+    # steps under cuDNN's deterministic algorithms, with a checkpoint and the generator's state
+    # taken after step 750; its last 250 steps are the uninterrupted run, and a fresh Trainer
+    # resumed from the checkpoint, the generator set back, runs them again
+    t0 = time.perf_counter()
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    fit_gen = torch.Generator(device=dev).manual_seed(flagship_lmpc.DRAW_SEED)
+    fit_logs = []
+
+    def timed_fit(trainer, n_steps):
+        """(host seconds, device ms by CUDA events) of ``trainer.fit`` up to step n_steps."""
+        ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        ev0.record()
+        trainer.fit(tds, n_steps, ys.BATCH, fit_gen, chunk_size=flagship_lmpc.CHUNK,
+                    steps_til_summary=flagship_lmpc.CHUNK, log_fn=fit_logs.append)
+        ev1.record()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t1, ev0.elapsed_time(ev1)
+
+    fit_trainer = Trainer(tdiff, flagship_lmpc.lmpc_model(dev), lr=flagship_lmpc.LR, device=dev)
+    ck_path = ROOT / "build" / "chip_smoke_train" / "resume.ckpt"
+    s1, d1 = timed_fit(fit_trainer, N_FIT - N_RESUME)
+    save_checkpoint(str(ck_path), fit_trainer.state)
+    gen_state = fit_gen.get_state()
+    s2, d2 = timed_fit(fit_trainer, N_FIT)
+    fit_s, fit_ms = s1 + s2, (d1 + d2) / N_FIT
+    fit_losses = [v for _, v in fit_trainer.train_losses]
+    if int(fit_trainer.state.step) != N_FIT or not all(math.isfinite(v) for v in fit_losses):
+        raise RuntimeError(f"Trainer.fit: step {int(fit_trainer.state.step)}, losses {fit_losses}")
+    resumed = Trainer(tdiff, flagship_lmpc.lmpc_model(dev), lr=flagship_lmpc.LR, device=dev)
+    resumed.resume(str(ck_path))
+    shutil.rmtree(ck_path.parent)
+    fit_gen.set_state(gen_state)
+    resumed.fit(tds, N_FIT, ys.BATCH, fit_gen, chunk_size=flagship_lmpc.CHUNK,
+                steps_til_summary=flagship_lmpc.CHUNK, log_fn=fit_logs.append)
+    torch.backends.cudnn.deterministic = deterministic
+    a, b = fit_trainer.state, resumed.state
+    resume_dparam = (a.params - b.params).abs().max().item()
+    resume_equal = (resumed.train_losses == fit_trainer.train_losses[-1:] and resume_dparam == 0
+                    and all(torch.equal(x, y) for x, y in ((a.ema_params, b.ema_params),
+                                                           (a.opt_state.mu, b.opt_state.mu),
+                                                           (a.opt_state.nu, b.opt_state.nu))))
+    if not resume_equal:
+        raise RuntimeError(f"resume: the last {N_RESUME} steps' mean loss {resumed.train_losses} "
+                           f"against {fit_trainer.train_losses[-1:]}; params {resume_dparam:.3e}")
+    log("train-rate", t0, f"Trainer.fit {N_FIT} steps at batch {ys.BATCH} in chunks of "
+        f"{flagship_lmpc.CHUNK} (cudnn.deterministic): {fit_s:.3f}s, {N_FIT / fit_s:.2f} steps/s "
+        f"by the host clock, {fit_ms:.4f} ms per step by CUDA events (phase 24's chunk of "
+        f"{ys.N_STEPS}: {ys.N_STEPS / ys_s:.2f} steps/s); chunk means {fit_losses}; step 1's "
+        f"collection {collect_s:.3f}s; resumed from step {N_FIT - N_RESUME}'s checkpoint, the last "
+        f"{N_RESUME} steps equal the uninterrupted run's (mean loss, params, EMA, mu, nu)")
+    training_line = {
+        "model": "flagship_lmpc", "params": layout.numel, "batch": ys.BATCH,
+        "collect_s": collect_s, "n_samples": tds.n_init, "limits_max_rel_err": lim_err,
+        "step1": {"loss_rel_err": loss1_err, "grad_rel_err": grad_err, "sign_flips": sign_flips,
+                  "near_zero_1e-5": int(near_zero.sum()), "padding_taps": int(pad.sum()),
+                  "cpu64_s": cpu64_s},
+        "yardstick": {"steps": ys.N_STEPS, "s": ys_s, "head_max_rel": ys_rel[:YS_HEAD].max().item(),
+                      "step_max_rel": ys_rel.max().item(), "tail_mean_rel": ys_mean_rel,
+                      "early_max_rel": ys_rel[:YS_EARLY].max().item(),
+                      "gates": {"head": [YS_HEAD, YS_HEAD_RTOL], "early": [YS_EARLY, YS_EARLY_RTOL],
+                                "step": YS_STEP_RTOL, "tail": [YS_TAIL, YS_TAIL_RTOL]},
+                      "losses": ys_losses.tolist(), "padding_taps_kept": pad_kept},
+        "trained_kernels": {"cfg_chain_h8_max_abs_err": tchain_err,
+                            "cfg_episode_lmpc_max_abs_err": tep_err,
+                            "launches": counts(tchain, tep)},
+        "fit": {"steps": N_FIT, "s": fit_s, "steps_per_s": N_FIT / fit_s, "ms_per_step": fit_ms,
+                "chunk_mean_losses": fit_losses, "cudnn_deterministic": True,
+                "yardstick_chunk_steps_per_s": ys.N_STEPS / ys_s},
+        "resume": {"steps": N_RESUME, "losses_equal": resume_equal,
+                   "params_max_abs_diff": resume_dparam},
+        "nvidia_smi": nvidia_smi()}
+
+    return training_line
 
 
 def main() -> None:
@@ -735,7 +985,7 @@ def main() -> None:
     unet_call_ms = cuda_ms(lambda: unet(*args), n=200, warmup=10)
     unet_plain_ms = cuda_ms(lambda: unet.plain(*args), n=50, warmup=5)
     episode_ms = cuda_ms(lambda: ep1.kernel(x0, ep_noise), n=5, warmup=1)
-    episode_plain_ms = cuda_ms(lambda: ep1.plain(x0, ep_noise), n=1, warmup=0)
+    episode_plain_ms = 1e3 * plain_episode_s  # phase 5's plain episode by the host clock (~11 s)
     episode4_ms = cuda_ms(lambda: ep4.kernel(x0, noise4), n=5, warmup=1)
     # the DDIM chain: the launch alone and the whole call on [23], B = 1; the launch alone on
     # [23, 15, 7] and at B = 4 (clusters side by side)
@@ -1197,6 +1447,8 @@ def main() -> None:
         f"H={LMPC_H} {lchain_ms:.4f} ms per replan at B=1, {lchain8_ms:.4f} at B={K8} (plain "
         f"{lchain_plain_ms:.4f})")
 
+    training_line = train_phases(dev, schedule)
+
     packed = chain.packed
     seg = lambda *prefixes: sum(math.prod(shape) for name, (_, shape) in packed.segments.items()
                                 if name.split(".")[0] in prefixes)
@@ -1338,6 +1590,7 @@ def main() -> None:
         **cluster_info["cfg_episode_lmpc"]})
     rows[2]["bench_closed_loop_control_hz"] = bench_line["value"]
     rows[2]["bench_pipelined_hz"] = bench_line["pipelined_hz"]
+    print(json.dumps({"training": training_line}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}),

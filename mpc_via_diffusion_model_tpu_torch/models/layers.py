@@ -75,7 +75,13 @@ class TimeEncoder(nn.Module):
             SinusoidalPosEmb(dim), nn.Linear(dim, dim * 4), Mish(), nn.Linear(dim * 4, dim_out))
 
     def forward(self, t: torch.Tensor) -> torch.Tensor:
-        return self.encoder(t)
+        """The embedding is float32, as in the JAX package, and the MLP runs
+        in its weights' dtype (float64 for a reference run)."""
+        emb, *mlp = self.encoder
+        h = emb(t).to(mlp[0].weight.dtype)
+        for layer in mlp:
+            h = layer(h)
+        return h
 
 
 class Conv1dBlock(nn.Module):

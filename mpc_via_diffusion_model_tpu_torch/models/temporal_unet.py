@@ -7,7 +7,7 @@ the conditioning vector also carries the context-present bit.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Dict, Optional, Sequence
 
 import torch
 from torch import nn
@@ -105,6 +105,35 @@ class TemporalUnet(nn.Module):
             h = torch.cat([h, skips.pop()], dim=1)
             h = up(rb2(rb1(h, c), c))
         return self.final_conv[0](h).transpose(1, 2)
+
+    def padding_taps(self) -> Dict[str, torch.Tensor]:
+        """Per conv weight name, a bool mask of the kernel entries that read
+        only the conv's zero padding at ``n_support_points`` (taps 0 and 4
+        of a k = 5 conv on 2 rows): their gradient is exactly 0, so
+        training must leave them at their initial values."""
+        lengths, hooks = {}, []
+        for name, mod in self.named_modules():
+            if isinstance(mod, nn.Conv1d):
+                hooks.append(mod.register_forward_hook(
+                    lambda m, args, out, name=name: lengths.__setitem__(name, args[0].shape[-1])))
+        p = next(self.parameters())
+        with torch.no_grad():
+            self(torch.zeros((1, self.n_support_points, self.state_dim), dtype=p.dtype,
+                             device=p.device), torch.zeros(1, dtype=torch.long, device=p.device),
+                 torch.zeros((1, self.context_dim), dtype=p.dtype, device=p.device))
+        for h in hooks:
+            h.remove()
+        out = {}
+        for name, length in lengths.items():
+            conv = self.get_submodule(name)
+            (k,), (pad,), (stride,) = conv.kernel_size, conv.padding, conv.stride
+            taps = torch.arange(k)
+            # tap j reads rows j - pad, j - pad + stride, ..., all outside [0, length)
+            last = taps - pad + stride * ((length + 2 * pad - k) // stride)
+            dead = (taps - pad >= length) | (last < 0)
+            if dead.any():
+                out[name + ".weight"] = dead.expand_as(conv.weight).to(conv.weight.device)
+        return out
 
     def res_blocks(self):
         """The ResidualTemporalBlocks in call order: the flax package numbers

@@ -15,6 +15,10 @@ flax numbers the ResidualTemporalBlocks in call order: the down levels'
 blocks first (two per level), then the two mid blocks, then two per up
 level (``TemporalUnet.res_blocks`` lists them in that order).
 
+``to_flax_params`` is its exact inverse, flip included, so weights that the
+port trains pickle in the JAX package's layout; ``init_like_flax`` draws
+the initial weights that flax's default initializers draw.
+
 ``load_flagship`` reads ``artifacts/flagship/ema_params.pkl`` (the layout
 ``{'ema_params', 'step', 'cfg_indicator'}``), ``load_student`` a distilled
 student such as ``artifacts/onpolicy_cartpole/student_1eval.pkl`` (the
@@ -28,7 +32,7 @@ nor flax to unpickle.
 from __future__ import annotations
 
 import pickle
-from typing import Dict, Mapping
+from typing import Dict, List, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -36,8 +40,8 @@ import torch
 from ..utils.device import resolve_device
 from .temporal_unet import TemporalUnet
 
-__all__ = ["FLAGSHIP_CONFIG", "LMPC_CONFIG", "from_flax_params", "load_flagship", "load_lmpc",
-           "load_student"]
+__all__ = ["FLAGSHIP_CONFIG", "LMPC_CONFIG", "from_flax_params", "init_like_flax", "load_flagship",
+           "load_lmpc", "load_student", "to_flax_params"]
 
 # artifacts/flagship/args.yaml: horizon 32, unet_input_dim 32, dim_mults (1,2,4), context 5
 FLAGSHIP_CONFIG = dict(state_dim=1, n_support_points=32, unet_input_dim=32,
@@ -47,59 +51,162 @@ LMPC_CONFIG = dict(state_dim=1, n_support_points=8, unet_input_dim=32, dim_mults
                    time_emb_dim=32, context_dim=4)
 
 
-def from_flax_params(params: Mapping) -> Dict[str, torch.Tensor]:
-    """Flax ``TemporalUnet`` params (``{'params': ...}`` or the inner dict,
-    numpy or array leaves) -> a state dict for this package's ``TemporalUnet``."""
-    p = params["params"] if "params" in params else params
-    sd: Dict[str, torch.Tensor] = {}
-    arr = lambda a: np.ascontiguousarray(np.asarray(a, np.float32))
-
-    def put(key, a):
-        sd[key] = torch.from_numpy(arr(a))
-
-    def dense(key, d):
-        put(key + ".weight", np.asarray(d["kernel"]).T)
-        put(key + ".bias", d["bias"])
-
-    def conv(key, d):
-        put(key + ".weight", np.asarray(d["kernel"]).transpose(2, 1, 0))
-        put(key + ".bias", d["bias"])
-
-    def conv_transpose(key, d):
-        put(key + ".weight", np.asarray(d["kernel"])[::-1].transpose(1, 2, 0))
-        put(key + ".bias", d["bias"])
-
-    def group_norm(key, d):
-        put(key + ".weight", d["scale"])
-        put(key + ".bias", d["bias"])
-
-    def res_block(prefix, d):
-        for i in (0, 1):
-            conv(f"{prefix}.blocks.{i}.block.0", d[f"Conv1dBlock_{i}"]["Conv_0"])
-            group_norm(f"{prefix}.blocks.{i}.block.2", d[f"Conv1dBlock_{i}"]["GroupNorm_0"])
-        dense(f"{prefix}.cond_mlp.1", d["Dense_0"])
-        if "Conv_0" in d:
-            conv(f"{prefix}.residual_conv", d["Conv_0"])
-
-    dense("time_mlp.encoder.1", p["TimeEncoder_0"]["Dense_0"])
-    dense("time_mlp.encoder.3", p["TimeEncoder_0"]["Dense_1"])
-    n_levels = 1 + sum(k.startswith("Downsample1d_") for k in p)
+def _unet_layers(n_levels: int) -> List[Tuple[str, Tuple[str, ...], str]]:
+    """(torch module path, flax module path, kind) of every layer of a
+    ``TemporalUnet`` with ``n_levels`` levels that holds parameters, in
+    flax's order; kind ``conv?`` is a residual 1x1 conv that exists only
+    where a block changes its channel count."""
+    out = [("time_mlp.encoder.1", ("TimeEncoder_0", "Dense_0"), "dense"),
+           ("time_mlp.encoder.3", ("TimeEncoder_0", "Dense_1"), "dense")]
     rtb = iter(range(4 * n_levels))
+
+    def res_block(prefix):
+        name = f"ResidualTemporalBlock_{next(rtb)}"
+        for i in (0, 1):
+            out.append((f"{prefix}.blocks.{i}.block.0", (name, f"Conv1dBlock_{i}", "Conv_0"),
+                        "conv"))
+            out.append((f"{prefix}.blocks.{i}.block.2", (name, f"Conv1dBlock_{i}", "GroupNorm_0"),
+                        "group_norm"))
+        out.append((f"{prefix}.cond_mlp.1", (name, "Dense_0"), "dense"))
+        out.append((f"{prefix}.residual_conv", (name, "Conv_0"), "conv?"))
+
     for lvl in range(n_levels):
-        for i in (0, 1):
-            res_block(f"downs.{lvl}.{i}", p[f"ResidualTemporalBlock_{next(rtb)}"])
+        res_block(f"downs.{lvl}.0")
+        res_block(f"downs.{lvl}.1")
         if lvl < n_levels - 1:
-            conv(f"downs.{lvl}.4.conv", p[f"Downsample1d_{lvl}"]["Conv_0"])
-    res_block("mid_block1", p[f"ResidualTemporalBlock_{next(rtb)}"])
-    res_block("mid_block2", p[f"ResidualTemporalBlock_{next(rtb)}"])
+            out.append((f"downs.{lvl}.4.conv", (f"Downsample1d_{lvl}", "Conv_0"), "conv"))
+    res_block("mid_block1")
+    res_block("mid_block2")
     for j in range(n_levels - 1):
-        for i in (0, 1):
-            res_block(f"ups.{j}.{i}", p[f"ResidualTemporalBlock_{next(rtb)}"])
-        conv_transpose(f"ups.{j}.4.conv", p[f"Upsample1d_{j}"]["ConvTranspose_0"])
-    conv("final_conv.0.block.0", p["Conv1dBlock_0"]["Conv_0"])
-    group_norm("final_conv.0.block.2", p["Conv1dBlock_0"]["GroupNorm_0"])
-    conv("final_conv.1", p["Conv_0"])
+        res_block(f"ups.{j}.0")
+        res_block(f"ups.{j}.1")
+        out.append((f"ups.{j}.4.conv", (f"Upsample1d_{j}", "ConvTranspose_0"), "conv_transpose"))
+    out.append(("final_conv.0.block.0", ("Conv1dBlock_0", "Conv_0"), "conv"))
+    out.append(("final_conv.0.block.2", ("Conv1dBlock_0", "GroupNorm_0"), "group_norm"))
+    out.append(("final_conv.1", ("Conv_0",), "conv"))
+    return out
+
+
+# flax kernel (k, in, out) or (in, out) -> torch weight, and back; the
+# transposed conv's kernel is flipped along k (see layers.Upsample1d)
+_TO_TORCH = {"dense": lambda k: k.T, "conv": lambda k: k.transpose(2, 1, 0),
+             "conv_transpose": lambda k: k[::-1].transpose(1, 2, 0)}
+_TO_FLAX = {"dense": lambda w: w.T, "conv": lambda w: w.transpose(2, 1, 0),
+            "conv_transpose": lambda w: w.transpose(2, 0, 1)[::-1]}
+_LEAVES = {"group_norm": ("scale", "bias")}  # every other kind: ("kernel", "bias")
+
+
+def _subtree(tree: Mapping, path: Tuple[str, ...]):
+    for name in path:
+        if name not in tree:
+            return None
+        tree = tree[name]
+    return tree
+
+
+def from_flax_params(params: Mapping, dtype=np.float32) -> Dict[str, torch.Tensor]:
+    """Flax ``TemporalUnet`` params (``{'params': ...}`` or the inner dict,
+    numpy or array leaves) -> a state dict for this package's ``TemporalUnet``,
+    in ``dtype``."""
+    p = params["params"] if "params" in params else params
+    n_levels = 1 + sum(k.startswith("Downsample1d_") for k in p)
+    sd: Dict[str, torch.Tensor] = {}
+    arr = lambda a: torch.from_numpy(np.ascontiguousarray(np.asarray(a, dtype)))
+    for key, path, kind in _unet_layers(n_levels):
+        d = _subtree(p, path)
+        if d is None and kind == "conv?":
+            continue
+        kind = kind.rstrip("?")
+        first, bias = _LEAVES.get(kind, ("kernel", "bias"))
+        w = np.asarray(d[first])
+        sd[key + ".weight"] = arr(w if kind == "group_norm" else _TO_TORCH[kind](w))
+        sd[key + ".bias"] = arr(d[bias])
     return sd
+
+
+def _state_dict(model_or_sd) -> Mapping[str, torch.Tensor]:
+    if isinstance(model_or_sd, torch.nn.Module):
+        return dict(model_or_sd.named_parameters())
+    return model_or_sd
+
+
+def to_flax_params(model_or_sd) -> Dict[str, Dict]:
+    """The exact inverse of ``from_flax_params``: a ``TemporalUnet`` (or its
+    state dict, or any dict of tensors under its parameter names, such as
+    Adam's moments) -> ``{'params': ...}`` in the flax layout, numpy leaves
+    of the tensors' dtype, as the JAX package's ``model.init`` returns them."""
+    sd = _state_dict(model_or_sd)
+    n_levels = 1 + sum(k.startswith("downs.") and k.endswith(".4.conv.weight") for k in sd)
+    p: Dict[str, Dict] = {}
+    for key, path, kind in _unet_layers(n_levels):
+        if key + ".weight" not in sd and kind == "conv?":
+            continue
+        kind = kind.rstrip("?")
+        first, bias = _LEAVES.get(kind, ("kernel", "bias"))
+        w = sd[key + ".weight"].detach().cpu().numpy()
+        d = p
+        for name in path:
+            d = d.setdefault(name, {})
+        d[first] = np.array(w if kind == "group_norm" else _TO_FLAX[kind](w), order="C")
+        d[bias] = sd[key + ".bias"].detach().cpu().numpy().copy()
+    return {"params": p}
+
+
+# flax's lecun_normal: a normal truncated at +-2 standard units, scaled by
+# sqrt(1 / fan_in) / TRUNC_STD so that the truncated draw has std sqrt(1 / fan_in)
+TRUNC_STD = 0.87962566103423978
+
+
+def _truncated_normal(generator, shape: Tuple[int, ...]) -> np.ndarray:
+    """Standard normal draws truncated to [-2, 2] by redrawing each one
+    outside, in float64 numpy; from a numpy ``RandomState`` or a
+    ``torch.Generator`` (drawn on its device)."""
+    n = int(np.prod(shape))
+    if isinstance(generator, np.random.RandomState):
+        x = generator.standard_normal(n)
+        while (bad := np.abs(x) > 2.0).any():
+            x[bad] = generator.standard_normal(int(bad.sum()))
+        return x.reshape(shape)
+    dev = generator.device
+    x = torch.randn(n, generator=generator, dtype=torch.float64, device=dev)
+    while (bad := x.abs() > 2.0).any():
+        x[bad] = torch.randn(int(bad.sum()), generator=generator, dtype=torch.float64, device=dev)
+    return x.cpu().numpy().reshape(shape)
+
+
+@torch.no_grad()
+def init_like_flax(model: TemporalUnet, generator) -> TemporalUnet:
+    """Sets ``model``'s parameters in place, on its device, to what flax's
+    default initializers draw for the JAX ``TemporalUnet``: every Dense,
+    Conv and ConvTranspose kernel lecun_normal (fan_in the kernel's input
+    count times its width, in flax's kernel layout), every bias 0, every
+    GroupNorm scale 1 and bias 0. ``generator`` is a numpy ``RandomState``
+    or a ``torch.Generator``; the kernels are drawn in flax's layer order,
+    each in flax's kernel layout. Returns the model."""
+    sd = dict(model.named_parameters())
+    flax: Dict[str, Dict] = {}
+    for key, path, kind in _unet_layers(len(model.downs)):
+        if key + ".weight" not in sd:
+            continue
+        kind = kind.rstrip("?")
+        d = flax
+        for name in path:
+            d = d.setdefault(name, {})
+        n_out = sd[key + ".bias"].numel()
+        if kind == "group_norm":
+            d["scale"], d["bias"] = np.ones(n_out, np.float32), np.zeros(n_out, np.float32)
+            continue
+        shape = tuple(_TO_FLAX[kind](sd[key + ".weight"].detach().cpu().numpy()).shape)
+        fan_in = int(np.prod(shape[:-1]))
+        std = np.sqrt(1.0 / fan_in) / TRUNC_STD
+        d["kernel"] = (_truncated_normal(generator, shape) * std).astype(np.float32)
+        d["bias"] = np.zeros(n_out, np.float32)
+    new = from_flax_params(flax)
+    if set(new) != set(sd):
+        raise ValueError(f"init_like_flax: layers not covered {sorted(set(sd) ^ set(new))}")
+    for key, value in new.items():
+        sd[key].copy_(value)
+    return model
 
 
 def _load_unet(path, params_key: str, cfg_indicator, device,

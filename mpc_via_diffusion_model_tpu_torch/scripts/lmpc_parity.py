@@ -32,7 +32,7 @@ from __future__ import annotations
 import argparse
 import json
 from pathlib import Path
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -40,6 +40,7 @@ import torch
 from ..control import ClosedLoopResult, make_closed_loop, track_parity
 from ..core import make_schedule
 from ..data.lmpc_stats import LMPC_U_L1, LMPC_U_L1_SUMMARY, lmpc_stats
+from ..data.normalization import NormalizerStats
 from ..diffusion import GaussianDiffusion
 from ..dynamics import Plant, cartpole_lmpc, cartpole_lmpc_cost
 from ..models import load_lmpc
@@ -111,8 +112,9 @@ class Controller:
     and ``wrapper``, the kernel wrapper whose ``launches`` count the route's
     launches."""
 
-    def __init__(self, model, route: str, n_candidates: int, n_steps: int, device):
-        ins, cond = lmpc_stats()
+    def __init__(self, model, route: str, n_candidates: int, n_steps: int, device,
+                 stats: Optional[Tuple[NormalizerStats, NormalizerStats]] = None):
+        ins, cond = stats or lmpc_stats()
         plant, cost, schedule = cartpole_lmpc(), cartpole_lmpc_cost(), make_schedule("exponential", T)
         self.route = route
         if route == "episode":
@@ -146,13 +148,16 @@ def summarize(u_l1: Sequence[float], u_max: Sequence[float]) -> dict:
 
 
 def run(device=None, route: str = "episode", n_states: int = N_STATES, n_steps: int = N_STEPS,
-        candidates: Sequence[int] = (1, 8)) -> dict:
+        candidates: Sequence[int] = (1, 8), model=None,
+        stats: Optional[Tuple[NormalizerStats, NormalizerStats]] = None) -> dict:
     """The parity numbers on ``device`` (``cuda`` unless given) for each K of
     ``candidates`` over the first ``n_states`` sweep states, beside the JAX
-    package's and the report's. ``launches`` counts each K's kernel launches;
-    ``tracks`` holds each K's (x_track, u_track, chosen) per state."""
+    package's and the report's, of ``model`` (the committed weights unless
+    given) with the normalizer statistics ``stats`` (inputs, condition;
+    ``lmpc_stats()`` unless given). ``launches`` counts each K's kernel
+    launches; ``tracks`` holds each K's (x_track, u_track, chosen) per state."""
     dev = resolve_device(device)
-    model = load_lmpc(ARTIFACTS / "ema_params.pkl", device=dev)
+    model = model if model is not None else load_lmpc(ARTIFACTS / "ema_params.pkl", device=dev)
     x0s = sweep_states(n_states).to(dev)
     expert = expert_loop(cartpole_lmpc(), cartpole_lmpc_cost(), x0s, n_steps)
     report = json.loads((ARTIFACTS / "report.json").read_text())
@@ -160,7 +165,7 @@ def run(device=None, route: str = "episode", n_states: int = N_STATES, n_steps: 
            "route": route, "n_states": n_states, "n_steps": n_steps,
            "x0s": x0s.tolist(), "launches": {}, "per_state_u_l1": {}, "tracks": {}}
     for k in candidates:
-        ctl = Controller(model, route, k, n_steps, dev)
+        ctl = Controller(model, route, k, n_steps, dev, stats)
         u_l1, u_max, tracks = [], [], []
         for i in range(n_states):
             x_track, u_track, chosen = ctl.run(x0s[i], state_noise(i, ctl.noise_shape, dev))

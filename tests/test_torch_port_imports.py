@@ -1,5 +1,5 @@
-"""The PyTorch port and chip_smoke.py import neither jax, flax nor the JAX
-package, so they run on a machine that has none of them."""
+"""The PyTorch port and chip_smoke.py import neither jax, flax, optax, yaml
+nor the JAX package, so they run on a machine that has none of them."""
 import re
 import subprocess
 import sys
@@ -11,7 +11,8 @@ PORT = ROOT / "mpc_via_diffusion_model_tpu_torch"
 _GUARDED = """
 import importlib, pkgutil, sys
 # an entry of None makes any import of that name raise ImportError
-sys.modules['jax'] = sys.modules['flax'] = sys.modules['mpc_via_diffusion_model_tpu'] = None
+for name in ('jax', 'flax', 'optax', 'yaml', 'mpc_via_diffusion_model_tpu'):
+    sys.modules[name] = None
 import mpc_via_diffusion_model_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]
 for name in names:
@@ -21,11 +22,14 @@ for name in ('ops.fused_unet', 'ops.fused_episode', 'ops.fused_denoise', 'ops._b
              'ops.fused_conv', 'eval.timing', 'control.metrics', 'data.flagship_stats',
              'scripts.bench_kernels', 'scripts.flagship_parity', 'scripts.episode_recut',
              'scripts.episode_profile', 'bench', 'models.bf16', 'solvers.lqr',
-             'data.generation', 'data.lmpc_stats', 'scripts.lmpc_parity'):
+             'data.generation', 'data.lmpc_stats', 'scripts.lmpc_parity', 'core.losses',
+             'data.datasets', 'data.lmpc_train_yardstick', 'train.trainer', 'utils.misc',
+             'scripts.flagship_lmpc', 'scripts.train_divergence', 'scripts.train_profile'):
     assert pkg.__name__ + '.' + name in names, name
 import chip_smoke  # as a module: main() does not run
 loaded = [k for k, v in sys.modules.items() if v is not None
-          and (k.split('.')[0] in ('jax', 'jaxlib', 'flax', 'mpc_via_diffusion_model_tpu'))]
+          and (k.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'yaml',
+                                   'mpc_via_diffusion_model_tpu'))]
 assert not loaded, loaded
 print(len(names))
 """
@@ -39,13 +43,15 @@ def test_port_and_chip_smoke_import_without_jax():
 
 
 def test_port_sources_name_no_jax_import():
-    pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|mpc_via_diffusion_model_tpu)\b(?!_torch)",
-                         re.M)
+    pattern = re.compile(
+        r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|yaml|mpc_via_diffusion_model_tpu)\b(?!_torch)",
+        re.M)
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert {"fused_unet.py", "fused_episode.py", "distillation.py", "teacher_stats.py",
             "fused_conv.py", "timing.py", "metrics.py", "flagship_stats.py", "bench_kernels.py",
             "flagship_parity.py", "episode_recut.py", "episode_profile.py", "bench.py",
             "bf16.py", "lqr.py", "generation.py", "lmpc_stats.py",
-            "lmpc_parity.py"} <= {f.name for f in files}
+            "lmpc_parity.py", "losses.py", "datasets.py", "lmpc_train_yardstick.py",
+            "trainer.py", "misc.py", "flagship_lmpc.py"} <= {f.name for f in files}
     offenders = [str(f.relative_to(ROOT)) for f in files if pattern.search(f.read_text())]
     assert not offenders
