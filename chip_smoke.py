@@ -103,10 +103,12 @@ The fused conv block and the port's ``bench_kernels``, the path that runs it:
 17. flagship quality: ``scripts/flagship_parity``'s protocol on the card, 10
     torch-seeded K = 1 loops of 80 replans through the CFG chain kernel with
     the flagship dataset's statistics (``data/flagship_stats.py``): the mean
-    closed-loop cost over the expert's in ``artifacts/flagship/report.json``
-    at most 1.01 and all 10 runs swinging left, the report's modality; the
-    horizon cost and the parity against the stored expert tracks printed
-    beside the report's. Then the same 10 seeds through the CFG episode
+    closed-loop cost over the JAX package's iLQR expert on the CPU
+    (``data/flagship_expert_yardstick.py``, 784,750.03; the report's TPU
+    expert, 784,750.6, printed beside it) at most 1.01 and all 10 runs
+    swinging left, the report's modality; the horizon cost printed beside
+    the report's and the parity against that expert's tracks beside the
+    report's parity. Then the same 10 seeds through the CFG episode
     kernel (``flagship_parity.run_episode_quality``, 10 launches and nothing
     else) under the same gate.
 18. timing of the conv kernel at the six shapes: the launch alone as the
@@ -192,7 +194,26 @@ Training on the card (``train/trainer.py``; the yardstick
     draws: the mean loss, params, EMA and Adam's moments equal the
     uninterrupted run's.
 
-It then prints the ``training`` JSON line, the ``kernels`` JSON line (rows 1 and 3 carry their bf16
+The flagship's iLQR expert (``solvers/ilqr.py``, ``make_nmpc_closed_loop``; no
+kernel of the port: eager PyTorch on the card), against the JAX package's on
+the CPU (``data/flagship_expert_yardstick.py``):
+
+27. iLQR batch: one ``ilqr_solve`` (H = 32, 25 iterations) over the flagship
+    collection's first control step: its 400 nominal solves (grid 10 x 20
+    times kicks +-5) and 10 replicas of each from a seeded
+    ``torch.Generator`` (4,400 solves); the nominal costs and first controls
+    within ``FIRST_STEP_BOUNDS`` of the JAX package's and every
+    ``backward_ok`` as its; one iteration first under
+    ``torch.cuda.set_sync_debug_mode("error")`` and ``torch.profiler``, with
+    no synchronizing CUDA runtime call inside an ATen op; the seconds
+    and ms per iteration, by the host clock and CUDA events, the converged
+    fraction.
+28. NMPC prefix: ``make_nmpc_closed_loop`` from the flagship's x0 for its
+    first 5 steps, within ``EXPERT_BOUNDS[5]`` of the JAX package's expert
+    (cost, controls, states); ms per control step, and per iteration of
+    its solves at batch 1.
+
+It then prints the ``training`` JSON line, the ``ilqr`` JSON line, the ``kernels`` JSON line (rows 1 and 3 carry their bf16
 entries under ``bf16``, row 1 its H = 8 times under ``h8``, and
 ``cfg_episode_lmpc`` has a row of its own as a further entry of kernel 3),
 the nvidia-smi line and, last, the result line. Any failure raises, and the
@@ -217,12 +238,14 @@ from pathlib import Path
 
 import torch
 import torch.nn.functional as F
+from torch.profiler import ProfilerActivity, profile
 
 from mpc_via_diffusion_model_tpu_torch import bench as port_bench
-from mpc_via_diffusion_model_tpu_torch.control import make_closed_loop
+from mpc_via_diffusion_model_tpu_torch.control import make_closed_loop, make_nmpc_closed_loop
 from mpc_via_diffusion_model_tpu_torch.core import make_schedule
 from mpc_via_diffusion_model_tpu_torch.data import (NormalizerStats, lmpc_stats, normalize,
                                                     unnormalize)
+from mpc_via_diffusion_model_tpu_torch.data import flagship_expert_yardstick as xys
 from mpc_via_diffusion_model_tpu_torch.data import lmpc_train_yardstick as ys
 from mpc_via_diffusion_model_tpu_torch.data.lmpc_stats import LMPC_U_L1, LMPC_U_L1_SUMMARY
 from mpc_via_diffusion_model_tpu_torch.data.teacher_stats import teacher_stats
@@ -249,9 +272,11 @@ from mpc_via_diffusion_model_tpu_torch.ops.unet_pack import CLUSTER, pack_unet
 from mpc_via_diffusion_model_tpu_torch.scripts import (bench_kernels, conv_timing, flagship_lmpc,
                                                        flagship_parity, lmpc_parity)
 from mpc_via_diffusion_model_tpu_torch.scripts.conv_timing import cuda_ms
+from mpc_via_diffusion_model_tpu_torch.solvers import ILQRConfig, ilqr, ilqr_solve
 from mpc_via_diffusion_model_tpu_torch.train import (Trainer, diffusion_loss, load_checkpoint,
                                                      make_scanned_train_steps, save_checkpoint,
                                                      value_and_grad)
+from mpc_via_diffusion_model_tpu_torch.utils.device import resolve_device
 
 ROOT = Path(__file__).resolve().parent
 FLAGSHIP = ROOT / "artifacts" / "flagship" / "ema_params.pkl"
@@ -261,7 +286,8 @@ LMPC = ROOT / "artifacts" / "flagship_lmpc" / "ema_params.pkl"
 GRID, GRID3 = [23], [23, 15, 7]   # the 1-eval student's times grid; the 3-eval grid
 N_QUALITY = 10             # seeds of the student's quality check
 QUALITY_MEAN_MAX = 1.05    # mean cost over the expert's (report: 1.0064 over 10 seeds)
-# The flagship's mean cost over its expert's (report: 784,747.4 / 784,750.6 over 10 JAX seeds)
+# The flagship's mean cost over its expert's: the JAX package's expert on the CPU, 784,750.03
+# (data/flagship_expert_yardstick.py; report.json: 784,747.4 over 784,750.6 on the TPU)
 FLAGSHIP_MEAN_MAX, FLAGSHIP_MODALITY = 1.01, {"left": 10, "right": 0}
 N_STEPS, HORIZON, T, N_TAIL, W = 80, 32, 25, 5, 0.01
 N_PLAIN_LOOP = 20          # replans of the plain per-replan loop (phase 4)
@@ -329,6 +355,13 @@ YS_EARLY, YS_EARLY_RTOL = 50, 1e-2   # steps 1-50
 YS_STEP_RTOL = 1.5                   # every step
 YS_TAIL, YS_TAIL_RTOL = 20, 0.16     # the mean of the last 20
 N_FIT, N_RESUME = 1000, 250   # phase 26: Trainer.fit's steps, of which the last are resumed
+# The flagship's iLQR expert (phases 27-28; data/flagship_expert_yardstick.py, the JAX package on
+# the CPU): the first step's 400 nominal solves beside N_NOISY replicas of each, and the first
+# N_NMPC_PREFIX steps of the NMPC expert, within the yardstick's bounds (EXPERT_BOUNDS,
+# FIRST_STEP_BOUNDS: twice the gaps scripts/ilqr_divergence.py saw on the CPU). A step of the
+# expert took 1.2-2.1 s on the H100 (launch-bound eager iLQR, the host's speed varying between
+# calls), and 10 steps pushed phases 27-28 to 25.6 s on a slow host, past their 25 s: 5 steps
+N_NOISY, N_NMPC_PREFIX = 10, 5
 
 
 def log(phase: str, t0: float, msg: str) -> None:
@@ -600,6 +633,115 @@ def train_phases(dev, schedule) -> dict:
         "nvidia_smi": nvidia_smi()}
 
     return training_line
+
+
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize")
+
+
+def aten_parent(event):
+    """The nearest ATen op around a traced event, or None."""
+    p = event.cpu_parent
+    while p is not None and not p.name.startswith("aten::"):
+        p = p.cpu_parent
+    return None if p is None else p.name
+
+
+def ilqr_phases(dev) -> dict:
+    """Phases 27-28 on ``dev``: the flagship collection's first step as one batched iLQR solve,
+    and the NMPC expert's first steps, each against the JAX package's on the CPU. Returns the
+    ``ilqr`` line."""
+    dev = resolve_device(dev)  # TF32 off for the matmuls
+    plant, cost = cartpole_virtual_swingup(), cartpole_virtual_cost().to(dev)
+    cfg = ILQRConfig(xys.HORIZON, xys.ITERATIONS)
+    # 27. one ilqr_solve over the 400 nominal first-step solves and N_NOISY replicas of each
+    # (x + 0.15 N(0, 1) from a seeded generator, from the same kick), the nominal ones gated
+    t0 = time.perf_counter()
+    x_nom, u_nom = (v.to(dev) for v in xys.first_step_batch())
+    n_nom = len(x_nom)
+    gen = torch.Generator(device=dev).manual_seed(27)
+    x_noisy = x_nom[:, None] + 0.15 * torch.randn((n_nom, N_NOISY, 5), generator=gen, device=dev)
+    x_all = torch.cat([x_nom, x_noisy.reshape(-1, 5)])
+    u_all = torch.cat([u_nom, u_nom.repeat_interleave(N_NOISY, dim=0)])
+    # one iteration with any host sync an error (set_sync_debug_mode), traced: the prototype
+    # debug mode misses syncs made inside a library (torch.cholesky_solve's batched path syncs
+    # the stream in every call), so the trace must hold no synchronizing runtime call in an op
+    j, xs = ilqr._total_cost(plant, cost, x_all, u_all)
+    alphas = torch.tensor(cfg.line_search_alphas, device=dev)[:, None]
+    reg = torch.full(j.shape, cfg.reg_init, device=dev)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            ilqr._iteration(plant, cost, x_all, alphas, cfg, u_all, xs, j, reg)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t1  # the first iteration: the solver libraries load
+    op_syncs = [f"{e.name} in {op}" for e, op in ((e, aten_parent(e)) for e in prof.events())
+                if e.name in SYNC_CALLS and op is not None]
+    if op_syncs:
+        raise RuntimeError(f"ilqr: one iteration waits on the host: {op_syncs}")
+    ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    ev0.record()
+    sol = ilqr_solve(plant, cost, x_all, u_all, cfg)
+    ev1.record()
+    torch.cuda.synchronize()
+    batch_s, batch_dev_ms = time.perf_counter() - t1, ev0.elapsed_time(ev1)
+    nominal = type(sol)(*(v[:n_nom] for v in (sol.us, sol.xs, sol.cost, sol.improved_last_iter,
+                                                sol.backward_ok)))
+    gaps = xys.first_step_gaps(nominal)
+    converged = sol.backward_ok.float().mean().item()
+    if not (torch.isfinite(sol.us).all() and torch.isfinite(sol.cost).all()
+            and xys.within(gaps, xys.FIRST_STEP_BOUNDS, ("cost_rel", "u0_max"))
+            and gaps["backward_ok_differ"] == 0):
+        raise RuntimeError(f"ilqr batch: the nominal first-step solves against the JAX package's "
+                           f"{gaps} (bounds cost_rel, u0_max {xys.FIRST_STEP_BOUNDS}); finite "
+                           f"{bool(torch.isfinite(sol.us).all())}")
+    log("ilqr-batch", t0, f"one ilqr_solve (H={cfg.horizon}, {cfg.n_iterations} iterations) over "
+        f"{len(x_all)} solves ({n_nom} nominal first-step solves of the flagship collection and "
+        f"{N_NOISY} noisy replicas of each): {batch_s:.3f}s by the host clock, "
+        f"{1e3 * batch_s / cfg.n_iterations:.3f} ms per iteration ({batch_dev_ms:.3f} ms by CUDA "
+        f"events), {len(x_all) / batch_s:.1f} solves/s; the first iteration {first_s:.3f}s, under "
+        f"set_sync_debug_mode('error') and traced: no synchronizing runtime call in an op; "
+        f"converged fraction {converged:.4f}; "
+        f"the nominal solves against the JAX package's: cost rel {gaps['cost_rel']:.3e}, first "
+        f"control {gaps['u0_max']:.3e} (bounds {xys.FIRST_STEP_BOUNDS}), backward_ok differ "
+        f"{gaps['backward_ok_differ']}")
+
+    # 28. the NMPC expert's first N_NMPC_PREFIX steps from the flagship's x0
+    t0 = time.perf_counter()
+    loop = make_nmpc_closed_loop(plant, cost, cfg, n_steps=N_NMPC_PREFIX,
+                                 u_init_scale=xys.KICKS[0], device=dev)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    run = loop(torch.tensor(xys.EXPERT_X0, device=dev))
+    torch.cuda.synchronize()
+    nmpc_s = time.perf_counter() - t1
+    egaps = xys.expert_gaps(run, N_NMPC_PREFIX)
+    if not xys.within(egaps, xys.EXPERT_BOUNDS[N_NMPC_PREFIX], ("cost_rel", "u_max", "x_max")):
+        raise RuntimeError(f"nmpc prefix: the first {N_NMPC_PREFIX} steps against the JAX "
+                           f"package's expert {egaps} (bounds {xys.EXPERT_BOUNDS[N_NMPC_PREFIX]})")
+    log("nmpc-prefix", t0, f"make_nmpc_closed_loop from x0 = {list(xys.EXPERT_X0)}, "
+        f"{N_NMPC_PREFIX} steps: {nmpc_s:.3f}s, {1e3 * nmpc_s / N_NMPC_PREFIX:.1f} ms per control "
+        f"step (one solve at batch 1: {1e3 * nmpc_s / N_NMPC_PREFIX / cfg.n_iterations:.3f} ms per "
+        f"iteration); against the JAX package's expert: cost rel {egaps['cost_rel']:.3e}, u "
+        f"{egaps['u_max']:.3e}, x {egaps['x_max']:.3e} (bounds "
+        f"{xys.EXPERT_BOUNDS[N_NMPC_PREFIX]}); u_track {[round(v, 5) for v in run.u_track[:, 0].tolist()]}")
+    return {"first_step": {"solves": len(x_all), "nominal": n_nom, "iterations": cfg.n_iterations,
+                           "horizon": cfg.horizon, "s": batch_s, "device_ms": batch_dev_ms,
+                           "ms_per_iteration": 1e3 * batch_s / cfg.n_iterations,
+                           "solves_per_s": len(x_all) / batch_s, "converged_fraction": converged,
+                           "first_iteration_s": first_s, "nominal_vs_jax": gaps,
+                           "bounds": xys.FIRST_STEP_BOUNDS},
+            "nmpc_prefix": {"steps": N_NMPC_PREFIX, "s": nmpc_s,
+                            "ms_per_step": 1e3 * nmpc_s / N_NMPC_PREFIX,
+                            "ms_per_iteration": 1e3 * nmpc_s / N_NMPC_PREFIX / cfg.n_iterations,
+                            "vs_jax": egaps,
+                            "bounds": xys.EXPERT_BOUNDS[N_NMPC_PREFIX]},
+            "nvidia_smi": nvidia_smi()}
 
 
 def main() -> None:
@@ -1122,11 +1264,12 @@ def main() -> None:
     log("flagship-quality", t0, f"{N_QUALITY} seeds, K=1, {N_STEPS} replans through cfg_chain "
         f"({par['chain_launches']} launches), the flagship's statistics: closed-loop costs "
         f"{[round(c, 3) for c in par['closed_loop_costs']]}; mean {par['closed_loop_cost_mean']:.3f} "
-        f"(report {par['closed_loop_cost_report']}, expert {par['closed_loop_cost_nmpc']}), over "
-        f"the expert's {par['cost_over_expert']:.6f} (at most {FLAGSHIP_MEAN_MAX}); modality "
+        f"(report {par['closed_loop_cost_report']}, its TPU expert {par['closed_loop_cost_nmpc']}), "
+        f"over the JAX package's expert on the CPU ({par['expert_cost']:.3f}) "
+        f"{par['cost_over_expert']:.6f} (at most {FLAGSHIP_MEAN_MAX}); modality "
         f"{par['modality']} (report {par['modality_report']}); horizon cost mean "
         f"{par['horizon_cost_mean']:.1f} (report {par['horizon_cost_report']}, expert "
-        f"{par['horizon_cost_nmpc']}); seed 0's parity with the expert's tracks "
+        f"{par['horizon_cost_nmpc']}); seed 0's parity with the JAX expert's tracks "
         f"{ {k: round(v, 5) for k, v in par['parity'].items()} } (report {par['parity_report']}); "
         f"through cfg_episode ({epq['episode_launches']} launches): closed-loop costs "
         f"{[round(c, 3) for c in epq['closed_loop_costs']]}; mean {epq['closed_loop_cost_mean']:.3f}, "
@@ -1448,6 +1591,7 @@ def main() -> None:
         f"{lchain_plain_ms:.4f})")
 
     training_line = train_phases(dev, schedule)
+    ilqr_line = ilqr_phases(dev)
 
     packed = chain.packed
     seg = lambda *prefixes: sum(math.prod(shape) for name, (_, shape) in packed.segments.items()
@@ -1591,6 +1735,7 @@ def main() -> None:
     rows[2]["bench_closed_loop_control_hz"] = bench_line["value"]
     rows[2]["bench_pipelined_hz"] = bench_line["pipelined_hz"]
     print(json.dumps({"training": training_line}), flush=True)
+    print(json.dumps({"ilqr": ilqr_line}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}),

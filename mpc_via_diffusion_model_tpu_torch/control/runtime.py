@@ -1,6 +1,7 @@
-"""Receding-horizon diffusion-MPC loop: port of ``make_replan_fn`` and
-``make_closed_loop`` of ``mpc_via_diffusion_model_tpu/control/runtime.py``
-with the ``ddpm`` sampler, best-of-K candidates and ``selection_horizon``.
+"""Receding-horizon loops: port of ``make_replan_fn``, ``make_closed_loop``
+(the ``ddpm`` sampler, best-of-K candidates and ``selection_horizon``) and
+``make_nmpc_closed_loop`` (the iLQR expert) of
+``mpc_via_diffusion_model_tpu/control/runtime.py``.
 
 Each replan maps the plant state to the condition (``state_to_condition``,
 identity by default), normalizes it, samples K control horizons with the
@@ -23,9 +24,10 @@ import torch
 from ..data.normalization import NormalizerStats, normalize, unnormalize
 from ..diffusion.gaussian_diffusion import DenoiseFn, GaussianDiffusion
 from ..dynamics.base import Plant, QuadraticCost
+from ..solvers.ilqr import ILQRConfig, ilqr_solve
 from ..utils.device import resolve_device
 
-__all__ = ["ClosedLoopResult", "make_replan_fn", "make_closed_loop"]
+__all__ = ["ClosedLoopResult", "make_replan_fn", "make_closed_loop", "make_nmpc_closed_loop"]
 
 SampleFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 
@@ -140,5 +142,41 @@ def make_closed_loop(diffusion: GaussianDiffusion, denoise: DenoiseFn,
             u_hors.append(u_hor)
         return ClosedLoopResult(x_track=torch.stack(xs), u_track=torch.stack(us),
                                 u_horizons=torch.stack(u_hors), stage_costs=torch.stack(stages))
+
+    return closed_loop
+
+
+def make_nmpc_closed_loop(plant: Plant, cost: QuadraticCost, solver_config: ILQRConfig,
+                          n_steps: int = 80, u_init_scale: float = 0.0, warm_start: bool = True,
+                          device=None):
+    """``closed_loop(x0) -> ClosedLoopResult``: the iLQR expert's receding
+    horizon on ``device`` (``cuda`` unless given), one ``ilqr_solve`` per
+    step, the first control applied. The first solve starts from the
+    constant ``u_init_scale`` (the swing basin's sign); each later one from
+    the previous solution shifted by a step (its last control repeated), or
+    from the constant again without ``warm_start``. ``x0`` (..., n) may
+    carry batch axes: the tracks are then (..., n_steps + 1, n) and so on."""
+    dev = resolve_device(device)
+    cost = cost.to(dev)
+
+    @torch.no_grad()
+    def closed_loop(x0: torch.Tensor) -> ClosedLoopResult:
+        x = x0.to(device=dev, dtype=torch.float32)
+        u_init = torch.full((*x.shape[:-1], solver_config.horizon, plant.control_dim),
+                            float(u_init_scale), dtype=torch.float32, device=dev)
+        u_ws, xs, us, u_hors, stages = u_init, [x], [], [], []
+        for _ in range(n_steps):
+            sol = ilqr_solve(plant, cost, x, u_ws, solver_config)
+            u0 = sol.us[..., 0, :]
+            stages.append(cost.stage(x, u0))
+            x = plant.step(x, u0)
+            u_ws = torch.cat([sol.us[..., 1:, :], sol.us[..., -1:, :]], dim=-2) if warm_start \
+                else u_init
+            xs.append(x)
+            us.append(u0)
+            u_hors.append(sol.us)
+        return ClosedLoopResult(x_track=torch.stack(xs, dim=-2), u_track=torch.stack(us, dim=-2),
+                                u_horizons=torch.stack(u_hors, dim=-3),
+                                stage_costs=torch.stack(stages, dim=-1))
 
     return closed_loop

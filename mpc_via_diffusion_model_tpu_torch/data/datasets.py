@@ -37,6 +37,9 @@ class ControlSequenceDataset:
     inputs_normalized: torch.Tensor
     condition_normalized: torch.Tensor
     normalizer: DatasetNormalizer
+    # the share of expert solves whose last iLQR backward pass was PD (set by
+    # ``collect_closed_loop_dataset``; None for datasets made otherwise)
+    solver_converged_fraction: Optional[float] = None
 
     @classmethod
     def from_arrays(cls, inputs, condition, normalizer: str = "LimitsNormalizer",

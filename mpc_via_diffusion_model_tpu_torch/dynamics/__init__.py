@@ -22,7 +22,7 @@ def get_plant(name: str, **kwargs):
     that is not ported yet raises ``NotImplementedError``; an unknown name
     ``ValueError``."""
     if name in _NOT_PORTED:
-        raise NotImplementedError(f"the plant '{name}' is not ported yet (ROADMAP.md A4); the "
+        raise NotImplementedError(f"the plant '{name}' is not ported yet (ROADMAP.md A5); the "
                                   f"port has {sorted(PLANTS)}")
     if name not in PLANTS:
         raise ValueError(f"unknown plant '{name}'; have {sorted(PLANTS)}")

@@ -13,10 +13,13 @@ the CPU), which also gives the applied horizons that ``per_step_mpc_costs``
 scores. Prints one JSON object beside ``artifacts/flagship/report.json``'s
 numbers: the mean closed-loop cost against the diffusion controller's and the
 expert's, their ratio to the expert's, the mean horizon cost, the modality,
-and ``track_parity`` of seed 0 against the stored expert tracks
-(``x_mpc.npy``, ``u_mpc.npy``). The draws are torch's, not JAX's, so the
-comparison is distributional. ``run_episode_quality`` runs the same ten
-loops through the CFG episode kernel (one launch of 80 replans per seed) for
+and ``track_parity`` of seed 0 against the expert's tracks. The expert is
+the JAX package's iLQR expert on the CPU (``data/flagship_expert_yardstick.py``,
+(a): cost 784,750.03), which the port's own expert is held to; the report's
+expert figures (its TPU run: 784,750.6) stay beside it under
+their keys. The draws are torch's, not JAX's, so the comparison is
+distributional. ``run_episode_quality`` runs the same ten loops through the
+CFG episode kernel (one launch of 80 replans per seed) for
 ``chip_smoke.py``, with the closed-loop costs and the modality.
 """
 from __future__ import annotations
@@ -32,6 +35,7 @@ import torch
 
 from ..control import count_swing_modes, make_closed_loop, per_step_mpc_costs, track_parity
 from ..core import make_schedule
+from ..data import flagship_expert_yardstick as ys
 from ..data.flagship_stats import flagship_stats
 from ..diffusion import GaussianDiffusion
 from ..dynamics import cartpole_virtual_cost, cartpole_virtual_swingup, theta_to_red_theta
@@ -63,8 +67,8 @@ def run_parity(device=None, n_seeds: int = 10, n_steps: int = 80) -> dict:
     cost = cost.to(dev)
     closed_loop = [r.stage_costs.double().sum().item() for r in runs]
     horizon = [per_step_mpc_costs(plant, cost, r).double().sum().item() for r in runs]
-    expert = types.SimpleNamespace(x_track=np.load(ARTIFACTS / "x_mpc.npy"),
-                                   u_track=np.load(ARTIFACTS / "u_mpc.npy"))
+    u_mpc, x_mpc, _ = ys.expert_tracks()
+    expert = types.SimpleNamespace(x_track=x_mpc, u_track=u_mpc)
     report = json.loads((ARTIFACTS / "report.json").read_text())
     mean = float(np.mean(closed_loop))
     return {
@@ -72,8 +76,8 @@ def run_parity(device=None, n_seeds: int = 10, n_steps: int = 80) -> dict:
         "seeds": n_seeds, "n_steps": n_steps, "chain_launches": chain.launches,
         "closed_loop_costs": closed_loop, "closed_loop_cost_mean": mean,
         "closed_loop_cost_report": report["closed_loop_cost_diffusion_mean10"],
-        "closed_loop_cost_nmpc": report["closed_loop_cost_nmpc"],
-        "cost_over_expert": mean / report["closed_loop_cost_nmpc"],
+        "closed_loop_cost_nmpc": report["closed_loop_cost_nmpc"], "expert_cost": ys.EXPERT_COST,
+        "cost_over_expert": mean / ys.EXPERT_COST,
         "horizon_cost_mean": float(np.mean(horizon)),
         "horizon_cost_report": report["horizon_cost_diffusion_mean10"],
         "horizon_cost_nmpc": report["horizon_cost_nmpc"],
@@ -108,8 +112,8 @@ def run_episode_quality(device=None, n_seeds: int = 10, n_steps: int = 80,
         "device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
         "seeds": n_seeds, "n_steps": n_steps, "episode_launches": ep.launches,
         "closed_loop_costs": closed_loop, "closed_loop_cost_mean": mean,
-        "closed_loop_cost_nmpc": report["closed_loop_cost_nmpc"],
-        "cost_over_expert": mean / report["closed_loop_cost_nmpc"],
+        "closed_loop_cost_nmpc": report["closed_loop_cost_nmpc"], "expert_cost": ys.EXPERT_COST,
+        "cost_over_expert": mean / ys.EXPERT_COST,
         "modality": count_swing_modes(torch.stack([x for x, _, _ in runs])),
         "modality_report": report["modality"],
     }

@@ -158,3 +158,6 @@ def test_flagship_parity_script_runs_at_a_cut_size_on_cpu():
     assert np.isfinite(out["horizon_cost_mean"]) and sum(out["modality"].values()) == 2
     assert set(out["parity"]) == set(out["parity_report"])
     assert out["closed_loop_cost_nmpc"] == 784750.6
+    # the expert the cost is divided by: the JAX package's on the CPU (the yardstick's (a))
+    assert out["expert_cost"] == 784750.029296875
+    assert out["cost_over_expert"] == out["closed_loop_cost_mean"] / 784750.029296875

@@ -24,7 +24,9 @@ for name in ('ops.fused_unet', 'ops.fused_episode', 'ops.fused_denoise', 'ops._b
              'scripts.episode_profile', 'bench', 'models.bf16', 'solvers.lqr',
              'data.generation', 'data.lmpc_stats', 'scripts.lmpc_parity', 'core.losses',
              'data.datasets', 'data.lmpc_train_yardstick', 'train.trainer', 'utils.misc',
-             'scripts.flagship_lmpc', 'scripts.train_divergence', 'scripts.train_profile'):
+             'scripts.flagship_lmpc', 'scripts.train_divergence', 'scripts.train_profile',
+             'solvers.ilqr', 'data.flagship_expert_yardstick', 'scripts.flagship_run',
+             'scripts.ilqr_divergence', 'scripts.ilqr_profile'):
     assert pkg.__name__ + '.' + name in names, name
 import chip_smoke  # as a module: main() does not run
 loaded = [k for k, v in sys.modules.items() if v is not None
@@ -52,6 +54,7 @@ def test_port_sources_name_no_jax_import():
             "flagship_parity.py", "episode_recut.py", "episode_profile.py", "bench.py",
             "bf16.py", "lqr.py", "generation.py", "lmpc_stats.py",
             "lmpc_parity.py", "losses.py", "datasets.py", "lmpc_train_yardstick.py",
-            "trainer.py", "misc.py", "flagship_lmpc.py"} <= {f.name for f in files}
+            "trainer.py", "misc.py", "flagship_lmpc.py", "ilqr.py", "flagship_expert_yardstick.py",
+            "flagship_run.py", "ilqr_divergence.py", "ilqr_profile.py"} <= {f.name for f in files}
     offenders = [str(f.relative_to(ROOT)) for f in files if pattern.search(f.read_text())]
     assert not offenders

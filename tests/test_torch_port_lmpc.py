@@ -18,14 +18,15 @@ import numpy as np
 import pytest
 import torch
 
-from mpc_via_diffusion_model_tpu.data.datasets import ControlSequenceDataset
+from mpc_via_diffusion_model_tpu.data.datasets import ControlSequenceDataset as JaxDataset
 from mpc_via_diffusion_model_tpu.data.generation import collect_lmpc_dataset as jax_collect
 from mpc_via_diffusion_model_tpu.dynamics import cartpole as jax_cp
 from mpc_via_diffusion_model_tpu.dynamics import PLANTS as JAX_PLANTS
 from mpc_via_diffusion_model_tpu.dynamics import get_plant as jax_get_plant
 from mpc_via_diffusion_model_tpu.models import TemporalUnet as JaxUnet
 from mpc_via_diffusion_model_tpu.solvers import lqr as jax_lqr
-from mpc_via_diffusion_model_tpu_torch.data import collect_lmpc_dataset, fit_normalizer, lmpc_stats
+from mpc_via_diffusion_model_tpu_torch.data import (ControlSequenceDataset, collect_lmpc_dataset,
+                                                    fit_normalizer, lmpc_stats)
 from mpc_via_diffusion_model_tpu_torch.dynamics import PLANTS, cartpole, get_plant
 from mpc_via_diffusion_model_tpu_torch.models import LMPC_CONFIG, load_lmpc
 from mpc_via_diffusion_model_tpu_torch.scripts.lmpc_parity import linear_matrices
@@ -105,7 +106,7 @@ def test_get_plant(name, error):
         assert plant.name == name and cost.q_diag.shape == (plant.state_dim,)
         assert get_plant(name, dt=0.02)[0].dt == 0.02
         return
-    with pytest.raises(error, match="ROADMAP.md A4" if error is NotImplementedError else "unknown"):
+    with pytest.raises(error, match="ROADMAP.md A5" if error is NotImplementedError else "unknown"):
         get_plant(name)
 
 
@@ -144,8 +145,9 @@ def test_collect_lmpc_dataset_matches_jax():
     np.testing.assert_allclose(got.inputs.numpy(), np.asarray(want.inputs), rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(got.condition.numpy(), np.asarray(want.condition), rtol=1e-5,
                                atol=1e-5)
-    for field, stats in (("inputs", got.inputs_stats), ("condition", got.condition_stats)):
-        jstats = want.normalizer.stats[field]
+    assert isinstance(got, ControlSequenceDataset)  # the JAX function's type
+    for field in ("inputs", "condition"):
+        stats, jstats = got.normalizer.stats[field], want.normalizer.stats[field]
         np.testing.assert_allclose(stats.mins.numpy(), np.asarray(jstats.mins), rtol=1e-5)
         np.testing.assert_allclose(stats.maxs.numpy(), np.asarray(jstats.maxs), rtol=1e-5)
     plain = collect_lmpc_dataset(a, b, q, r, p, GRID[:4], H)  # no replicas
@@ -200,7 +202,7 @@ def test_lmpc_stats_regenerate_from_the_artifact_recipe():
     u_all, x_all = _artifact_recipe_arrays(jax_grid, jax_tracks,
                                            lambda x: np.asarray(solve(jnp.asarray(x))))
     assert u_all.shape == (146250, H, 1)
-    ds = ControlSequenceDataset.from_arrays(u_all, x_all)
+    ds = JaxDataset.from_arrays(u_all, x_all)
     ins, cond = lmpc_stats()
     for field, want in (("inputs", ins), ("condition", cond)):
         got = ds.normalizer.stats[field]
