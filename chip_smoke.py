@@ -6,7 +6,8 @@ nvcc (``/usr/local/cuda``), the flagship weights in
 ``artifacts/flagship/ema_params.pkl``, the distilled student's in
 ``artifacts/onpolicy_cartpole/`` (``student_1eval.pkl``, ``report.json``) and
 the LMPC parity workload's in ``artifacts/flagship_lmpc/`` (``ema_params.pkl``,
-``report.json``), and writes nothing but the kernel builds under
+``report.json``), the distillation's teacher in
+``artifacts/flagship_modality/ema_params.pkl``, and writes nothing but the kernel builds under
 ``build/torch_kernels/`` and, for a moment, phase 26's checkpoint under
 ``build/chip_smoke_train/``. Phases,
 each printing one line with its own seconds:
@@ -142,8 +143,9 @@ and the port's bench:
     in a process of its own with ``bench.py``'s counts (the default mode,
     61 episode launches), its last line parsed and its keys checked; then
     ``bench.run`` in this process for the episode in bf16 (one repetition
-    per measure) and for ``chain``, ``chain`` in bf16 and ``1`` (two
-    episodes each), each launch count exact. Then the bf16 entries' times.
+    per measure), for ``chain`` and ``chain`` in bf16 (two episodes each)
+    and for ``1`` (one episode of 40 replans), each launch count exact.
+    Then the bf16 entries' times.
 
 The LMPC parity workload (``scripts/lmpc_parity.py``: the linear cart-pole
 at horizon 8, context 4, against its LQR expert; the committed weights and
@@ -160,7 +162,7 @@ at horizon 8, context 4, against its LQR expert; the committed weights and
     finite, each state's u_l1 within 1e-3 + 1% of the JAX package's loop on
     the CPU (``LMPC_U_L1``) and the mean within 1% of its mean, printed
     beside it and ``report.json``'s. K = 8 (one launch per state; reported,
-    not gated; over the first 8 states, to keep phases 22-23 within 45 s):
+    not gated; over the first 4 states, to keep the script within its time):
     the same numbers beside the report's (over 16 states), the choices
     other than candidate 0, and the spread of the 8 candidates' first
     controls (the chain kernel at B = 8 on the first 2 states' replans). The chain
@@ -186,10 +188,10 @@ Training on the card (``train/trainer.py``; the yardstick
     step 1's statistics: the CFG chain at H = 8 on three contexts (1e-4)
     and ``cfg_episode_lmpc`` from the sweep's first state, 10 replans at K
     = 1 (tracks 1e-3), each against its plain version; 3 and 1 launches.
-26. the training rate: ``Trainer.fit`` chunked (250), batch 512, 1,000
+26. the training rate: ``Trainer.fit`` chunked (250), batch 512, 500
     steps under ``cudnn.deterministic``, steps per second by the host clock
     and ms per step by CUDA events, beside step 1's collection time; a
-    checkpoint and the generator's state taken after step 750, and a fresh
+    checkpoint and the generator's state taken after step 250, and a fresh
     ``Trainer`` resumed from it runs the last 250 steps again on the same
     draws: the mean loss, params, EMA and Adam's moments equal the
     uninterrupted run's.
@@ -213,8 +215,36 @@ the CPU (``data/flagship_expert_yardstick.py``):
     (cost, controls, states); ms per control step, and per iteration of
     its solves at batch 1.
 
-It then prints the ``training`` JSON line, the ``ilqr`` JSON line, the ``kernels`` JSON line (rows 1 and 3 carry their bf16
-entries under ``bf16``, row 1 its H = 8 times under ``h8``, and
+Progressive distillation and the AMPC baseline (``diffusion/distillation.py``,
+``models/ampc.py``, ``make_ampc_closed_loop``), against the JAX package on the
+CPU (``data/distill_yardstick.py``), and the first launches at horizon 64:
+
+29. distill steps: step 1 of round 0 (the teacher
+    ``artifacts/flagship_modality``, H = 64, batch 512, CFG teacher at w =
+    0.01) against the same step in float64 on the card, loss and gradient
+    within the yardstick's (d) (``GRAD_BOUND``, ``LOSS1_BOUND``); then the
+    yardstick's 60 staged steps (50 of round 0, 10 of round 1 on round 0's
+    EMA) through ``make_scanned_train_steps``: every loss within (d)'s
+    ``LOSS_BOUNDS`` tiers of the JAX package's (steps 1-10, 1-50, every
+    step), the checksums of the params and the EMA at steps 1, 10, 50 and 60
+    within ``CHECKSUM_BOUND``, no update skipped; ms per step by the host
+    clock and by CUDA events.
+30. the first launches at H = 64: round 0's EMA student (12 evals) through
+    the DDIM chain kernel at B = 1 and 3 on two contexts each against its
+    plain sampler (1e-4), and through the DDIM episode kernel (K = 1, 20
+    replans, the teacher's statistics and the collection cost) against the
+    plain loop (``make_closed_loop`` with the plain sampler; controls 1e-4 in
+    normalized units, the rest 1e-3); the teacher through the CFG episode
+    kernel (K = 1, 5 replans) against the plain episode; counts exact; the
+    kernels' and plain versions' times.
+31. AMPC loop: ``make_ampc_closed_loop`` on ``AMPCNet(horizon=64)`` with the
+    yardstick's weights, 80 steps from x0, the summed cost and the controls
+    within ``AMPC_BOUNDS`` of the JAX package's.
+
+It then prints the ``training`` JSON line, the ``ilqr`` JSON line, the
+``distill`` JSON line, the ``kernels`` JSON line (rows 1 and 3 carry their bf16
+entries under ``bf16``, row 1 its H = 8 times under ``h8``, rows 3, 4 and 5 their
+H = 64 times under ``h64`` (phase 30), and
 ``cfg_episode_lmpc`` has a row of its own as a further entry of kernel 3),
 the nvidia-smi line and, last, the result line. Any failure raises, and the
 exit code is then not 0.
@@ -236,28 +266,33 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.profiler import ProfilerActivity, profile
 
 from mpc_via_diffusion_model_tpu_torch import bench as port_bench
-from mpc_via_diffusion_model_tpu_torch.control import make_closed_loop, make_nmpc_closed_loop
+from mpc_via_diffusion_model_tpu_torch.control import (make_ampc_closed_loop, make_closed_loop,
+                                                       make_nmpc_closed_loop)
 from mpc_via_diffusion_model_tpu_torch.core import make_schedule
 from mpc_via_diffusion_model_tpu_torch.data import (NormalizerStats, lmpc_stats, normalize,
                                                     unnormalize)
+from mpc_via_diffusion_model_tpu_torch.data import distill_yardstick as dys
 from mpc_via_diffusion_model_tpu_torch.data import flagship_expert_yardstick as xys
 from mpc_via_diffusion_model_tpu_torch.data import lmpc_train_yardstick as ys
 from mpc_via_diffusion_model_tpu_torch.data.lmpc_stats import LMPC_U_L1, LMPC_U_L1_SUMMARY
 from mpc_via_diffusion_model_tpu_torch.data.teacher_stats import teacher_stats
-from mpc_via_diffusion_model_tpu_torch.diffusion import GaussianDiffusion
+from mpc_via_diffusion_model_tpu_torch.diffusion import (GaussianDiffusion, ddim_time_grid,
+                                                         distill_loss, halve_times)
 from mpc_via_diffusion_model_tpu_torch.dynamics import (cartpole_lmpc, cartpole_lmpc_cost,
                                                         cartpole_virtual_collect_cost,
                                                         cartpole_virtual_cost,
                                                         cartpole_virtual_swingup,
                                                         theta_to_red_theta)
-from mpc_via_diffusion_model_tpu_torch.models import (LMPC_CONFIG, TemporalUnet, from_flax_params,
+from mpc_via_diffusion_model_tpu_torch.models import (LMPC_CONFIG, TEACHER_CONFIG, AMPCNet,
+                                                      TemporalUnet, from_flax_params,
                                                       load_flagship, load_lmpc, load_student,
-                                                      to_flax_params)
+                                                      mlp_from_flax_params, to_flax_params)
 from mpc_via_diffusion_model_tpu_torch.ops import _build, fused_conv1d_gn_mish
 from mpc_via_diffusion_model_tpu_torch.ops.fused_denoise import (
     cfg_chain_bf16_max_active_clusters, cfg_chain_max_active_clusters,
@@ -269,11 +304,12 @@ from mpc_via_diffusion_model_tpu_torch.ops.fused_episode import (
 from mpc_via_diffusion_model_tpu_torch.ops.fused_unet import (fused_unet_max_active_clusters,
                                                               make_fused_unet)
 from mpc_via_diffusion_model_tpu_torch.ops.unet_pack import CLUSTER, pack_unet
-from mpc_via_diffusion_model_tpu_torch.scripts import (bench_kernels, conv_timing, flagship_lmpc,
+from mpc_via_diffusion_model_tpu_torch.scripts import (bench_kernels, conv_timing,
+                                                       distill_divergence, flagship_lmpc,
                                                        flagship_parity, lmpc_parity)
 from mpc_via_diffusion_model_tpu_torch.scripts.conv_timing import cuda_ms
 from mpc_via_diffusion_model_tpu_torch.solvers import ILQRConfig, ilqr, ilqr_solve
-from mpc_via_diffusion_model_tpu_torch.train import (Trainer, diffusion_loss, load_checkpoint,
+from mpc_via_diffusion_model_tpu_torch.train import (ParamLayout, Trainer, diffusion_loss,
                                                      make_scanned_train_steps, save_checkpoint,
                                                      value_and_grad)
 from mpc_via_diffusion_model_tpu_torch.utils.device import resolve_device
@@ -332,8 +368,9 @@ PEAK_BYTES_PER_S = 3.35e12
 LMPC_H, K8 = 8, 8
 N_LMPC_EP, N_LMPC_EP8 = 10, 4   # replans of phase 22's episode checks at K = 1 and K = 8
 # sweep states of phase 23's K = 8 run (reported, not gated): over all 16 the K = 8 run alone
-# took 32.5 s and phases 22-23 44.4 s on the H100, at the 45 s they may take
-N_LMPC_STATES_K8 = 8
+# took 32.5 s and phases 22-23 44.4 s on the H100, at the 45 s they may take; over 8 it took
+# 16.4 s on a slow host, where the whole script took 392 s with phases 29-31: 4
+N_LMPC_STATES_K8 = 4
 N_LMPC_CHAIN_STATES = 2         # sweep states run through the chain route too
 # Per state, u_l1 (a sum of 50 |du|) within 1e-3 + 1% of the JAX package's on the CPU; the mean
 # within 1% of the JAX mean. Choices at K = 8 are compared where the plain version's best two
@@ -354,7 +391,9 @@ YS_HEAD, YS_HEAD_RTOL = 10, 1e-4     # steps 1-10
 YS_EARLY, YS_EARLY_RTOL = 50, 1e-2   # steps 1-50
 YS_STEP_RTOL = 1.5                   # every step
 YS_TAIL, YS_TAIL_RTOL = 20, 0.16     # the mean of the last 20
-N_FIT, N_RESUME = 1000, 250   # phase 26: Trainer.fit's steps, of which the last are resumed
+# phase 26: Trainer.fit's steps, of which the last are resumed; 500 since phases 29-31 were added
+# (1,000 before: 30-49 s of the 335 s the script may take)
+N_FIT, N_RESUME = 500, 250
 # The flagship's iLQR expert (phases 27-28; data/flagship_expert_yardstick.py, the JAX package on
 # the CPU): the first step's 400 nominal solves beside N_NOISY replicas of each, and the first
 # N_NMPC_PREFIX steps of the NMPC expert, within the yardstick's bounds (EXPERT_BOUNDS,
@@ -362,6 +401,12 @@ N_FIT, N_RESUME = 1000, 250   # phase 26: Trainer.fit's steps, of which the last
 # expert took 1.2-2.1 s on the H100 (launch-bound eager iLQR, the host's speed varying between
 # calls), and 10 steps pushed phases 27-28 to 25.6 s on a slow host, past their 25 s: 5 steps
 N_NOISY, N_NMPC_PREFIX = 10, 5
+# Distillation and the AMPC baseline (phases 29-31; data/distill_yardstick.py, the JAX package on
+# the CPU): the 60 yardstick steps within its bounds (d), then the first launches at horizon 64:
+# round 0's 12-eval student through the DDIM chain at B = 1 and B_DISTILL_CHAIN and through the
+# DDIM episode over N_DISTILL_EP replans, and the teacher through the CFG episode over
+# N_TEACHER_EP replans, each against its plain version
+B_DISTILL_CHAIN, N_DISTILL_EP, N_TEACHER_EP = 3, 20, 5
 
 
 def log(phase: str, t0: float, msg: str) -> None:
@@ -556,9 +601,9 @@ def train_phases(dev, schedule) -> dict:
         f"the sweep's first state {tep_err:.3e} (tol {TRACK_TOL:.0e}); launches "
         f"{counts(tchain, tep)}")
 
-    # 26. the training rate and checkpoint resume: Trainer.fit chunked at batch 512 for 1,000
+    # 26. the training rate and checkpoint resume: Trainer.fit chunked at batch 512 for N_FIT
     # steps under cuDNN's deterministic algorithms, with a checkpoint and the generator's state
-    # taken after step 750; its last 250 steps are the uninterrupted run, and a fresh Trainer
+    # taken after step N_FIT - N_RESUME; its last steps are the uninterrupted run, and a fresh Trainer
     # resumed from the checkpoint, the generator set back, runs them again
     t0 = time.perf_counter()
     deterministic = torch.backends.cudnn.deterministic
@@ -633,6 +678,207 @@ def train_phases(dev, schedule) -> dict:
         "nvidia_smi": nvidia_smi()}
 
     return training_line
+
+
+def distill_phases(dev) -> dict:
+    """Phases 29-31 on ``dev``: distillation against the JAX package, its students and teacher
+    through the kernels at horizon 64, and the AMPC loop. Returns the ``distill`` line, whose
+    ``h64`` entries hold each kernel's row at horizon 64."""
+    dev = resolve_device(dev)  # TF32 off
+    schedule = make_schedule("exponential", dys.T)
+    ins, cond = (st.to(dev) for st in teacher_stats())
+    plant, cost = cartpole_virtual_swingup(), cartpole_virtual_collect_cost()
+    x0 = torch.tensor(dys.X0, device=dev)
+    # 29. distill steps against the JAX package (data/distill_yardstick.py (a)): step 1's loss
+    # and gradient against float64 on the card, then the 60 staged steps of rounds 0 and 1
+    t0 = time.perf_counter()
+    model = distill_divergence.teacher_model(dev)
+    layout = ParamLayout.of(model)
+    grid = ddim_time_grid(dys.T, t_start=dys.T_START)
+    x_all, c_all = (torch.from_numpy(a).to(dev) for a in dys.synthetic_data())
+    d0 = {k: torch.from_numpy(v[0]).to(dev) for k, v in dys.staged_draws().items()}
+    step1 = {}
+    for dt in (torch.float32, torch.float64):
+        m = model if dt == torch.float32 else distill_divergence.teacher_model(dev).double()
+        teacher = {n: p.detach() for n, p in m.named_parameters()}
+        loss_fn = distill_loss(schedule, m, teacher, grid, w=dys.W, teacher_cfg=True)
+        step1[dt] = value_and_grad(loss_fn, layout, layout.flatten(teacher),
+                                   x_all[d0["idx"]].to(dt), c_all[d0["idx"]].to(dt),
+                                   {"j": d0["j"], "noise": d0["noise"].to(dt)})
+    (l32, g32), (l64, g64) = step1[torch.float32], step1[torch.float64]
+    grad_err = ((g32.double() - g64).norm() / g64.norm()).item()
+    loss1_err = abs(l32.item() / l64.item() - 1)
+    if not (grad_err <= dys.GRAD_BOUND and loss1_err <= dys.LOSS1_BOUND):
+        raise RuntimeError(f"distill step 1 against float64 on the card: gradient {grad_err:.3e} "
+                           f"(bound {dys.GRAD_BOUND:.1e}), loss {loss1_err:.3e} (bound "
+                           f"{dys.LOSS1_BOUND:.1e})")
+    n_steps = dys.ROUND0_STEPS + dys.ROUND1_STEPS
+    ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    ev0.record()
+    run = distill_divergence.distill_steps(model, dev)
+    ev1.record()
+    torch.cuda.synchronize()
+    steps_s, steps_dev_ms = time.perf_counter() - t1, ev0.elapsed_time(ev1)
+    rel = np.abs(run["losses"] / np.asarray(dys.LOSSES) - 1)
+    sum_gaps = distill_divergence.checksum_gaps(run["sums"], dys.CHECKSUMS)
+    (n_head, b_head), (n_early, b_early) = dys.LOSS_BOUNDS["head"], dys.LOSS_BOUNDS["early"]
+    gates = (f"steps 1-{n_head} max rel {rel[:n_head].max():.3e} (bound {b_head:.1e}), "
+             f"1-{n_early} {rel[:n_early].max():.3e} (bound {b_early:.1e}), every step "
+             f"{rel.max():.3e} (bound {dys.LOSS_BOUNDS['step']:.1e}); checksums "
+             f"{max(sum_gaps.values()):.3e} (bound {dys.CHECKSUM_BOUND:.1e})")
+    if not (np.isfinite(run["losses"]).all() and rel[:n_head].max() <= b_head
+            and rel[:n_early].max() <= b_early and rel.max() <= dys.LOSS_BOUNDS["step"]
+            and max(sum_gaps.values()) <= dys.CHECKSUM_BOUND and not run["skipped"].any()
+            and len(run["losses"]) == n_steps):
+        raise RuntimeError(f"distill steps against the yardstick: {gates}; update skipped "
+                           f"{run['skipped'].tolist()}; losses {run['losses'].tolist()}")
+    log("distill-steps", t0, f"step 1 against float64 on the card: loss {loss1_err:.3e}, "
+        f"gradient {grad_err:.3e} (bounds {dys.LOSS1_BOUND:.1e}, {dys.GRAD_BOUND:.1e}); "
+        f"{dys.ROUND0_STEPS} steps of round 0 (CFG teacher, 12 pairs) and {dys.ROUND1_STEPS} of "
+        f"round 1 at batch {dys.BATCH}, H={dys.HORIZON}: {steps_s:.3f}s, "
+        f"{1e3 * steps_s / n_steps:.2f} ms per step by the host clock, "
+        f"{steps_dev_ms / n_steps:.2f} by CUDA events; against the yardstick {gates}; no update "
+        f"skipped")
+
+    # 30. the first launches at horizon 64: round 0's EMA student (12 evals) through the DDIM
+    # chain and episode kernels, and the teacher through the CFG episode kernel
+    t0 = time.perf_counter()
+    student = TemporalUnet(**TEACHER_CONFIG, cfg_indicator=True)
+    student.load_state_dict(layout.views(run["emas"][0]))
+    student = student.to(dev).eval()
+    grid12 = halve_times(grid)
+    u_unit = 0.5 * (ins.maxs - ins.mins)
+    gen = torch.Generator(device=dev).manual_seed(30)
+    ctx0 = normalize(cond, x0)[None]
+    chains = {b: make_fused_ddim_chain(student, schedule, grid12, n_samples=b, device=dev)
+              for b in (1, B_DISTILL_CHAIN)}
+    spacked = chains[1].packed
+    sep = make_fused_ddim_episode(spacked, schedule, grid12, ins, cond, plant, cost,
+                                  n_steps=N_DISTILL_EP, device=dev)
+    tep = make_fused_cfg_episode(distill_divergence.teacher_model(dev).eval(), schedule, ins, cond,
+                                 plant, cost, n_steps=N_TEACHER_EP, w=dys.W,
+                                 n_diffusion_steps_without_noise=N_TAIL, device=dev)
+    wrappers = [*chains.values(), sep, tep]
+    reset(*wrappers)
+    chain_err, chain_inputs = 0.0, {}
+    for b, ch in chains.items():
+        ctxs = [ctx0.expand(b, 5).contiguous(), torch.rand((b, 5), generator=gen, device=dev) * 2 - 1]
+        for ctx in ctxs:
+            x_init = torch.randn(ch.noise_shape, generator=gen, device=dev)
+            got, want = ch.kernel(ctx, x_init), ch.plain(ctx, x_init)
+            torch.cuda.synchronize()
+            chain_err = max(chain_err, assert_close(f"ddim_chain H={dys.HORIZON} {len(grid12)} "
+                                                    f"evals B={b}", got, want, CHAIN_TOL))
+        chain_inputs[b] = (ctxs[0], x_init)
+    s_noise = torch.randn(sep.noise_shape, generator=gen, device=dev)
+    got = sep.kernel(x0, s_noise)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    loop = make_closed_loop(GaussianDiffusion(schedule), student, ins, cond, plant, cost,
+                            horizon=dys.HORIZON, n_steps=N_DISTILL_EP,
+                            sample_override=chains[1].plain, noise_shape=chains[1].noise_shape,
+                            device=dev)(x0, s_noise)
+    torch.cuda.synchronize()
+    sep_plain_ms = 1e3 * (time.perf_counter() - t1)  # the plain loop: the episode's plain work
+    sep_err = max(student_close(f"ddim_episode H={dys.HORIZON} vs the plain loop {name}", g,
+                                getattr(loop, name), u_unit)
+                  for name, g in zip(("x_track", "u_track", "stage_costs"), got))
+    t_noise = torch.randn(tep.noise_shape, generator=gen, device=dev)
+    got_t = tep.kernel(x0, t_noise)
+    t1 = time.perf_counter()
+    want_t = tep.plain(x0, t_noise)
+    torch.cuda.synchronize()
+    tep_plain_s = time.perf_counter() - t1
+    tep_err = max(student_close(f"cfg_episode H={dys.HORIZON} teacher {name}", g, w_, u_unit)
+                  for name, g, w_ in zip(("x_track", "u_track", "stage_costs"), got_t, want_t))
+    launches = counts(*wrappers)
+    # the B = 1 chain's plain version is also the plain loop's sampler
+    want_counts = [(2, 2 + N_DISTILL_EP), (2, 2), (1, 0), (1, 1)]
+    if launches != want_counts:
+        raise RuntimeError(f"horizon-64 kernels: counts {launches}, expected {want_counts}")
+    ch1_ms = cuda_ms(lambda: chains[1].kernel(*chain_inputs[1]), n=20, warmup=3)
+    ch3_ms = cuda_ms(lambda: chains[B_DISTILL_CHAIN].kernel(*chain_inputs[B_DISTILL_CHAIN]), n=20,
+                     warmup=3)
+    ch1_plain_ms = cuda_ms(lambda: chains[1].plain(*chain_inputs[1]), n=5, warmup=1)
+    sep_ms = cuda_ms(lambda: sep.kernel(x0, s_noise), n=5, warmup=1)
+    tep_ms = cuda_ms(lambda: tep.kernel(x0, t_noise), n=3, warmup=1)
+    log("distill-student-kernels", t0, f"H={dys.HORIZON}, round 0's EMA student on its "
+        f"{len(grid12)}-eval grid: ddim_chain at B=1 and {B_DISTILL_CHAIN} max |kernel - plain| "
+        f"{chain_err:.3e} (tol {CHAIN_TOL:.0e}), {ch1_ms:.4f} ms per replan at B=1, {ch3_ms:.4f} "
+        f"at B={B_DISTILL_CHAIN} (plain {ch1_plain_ms:.3f}); ddim_episode K=1 over "
+        f"{N_DISTILL_EP} replans against the plain loop {sep_err:.3e} (controls "
+        f"{CHAIN_TOL:.0e} in normalized units, the rest {TRACK_TOL:.0e}), "
+        f"{sep_ms / N_DISTILL_EP:.4f} ms per replan (the plain loop {sep_plain_ms / N_DISTILL_EP:.3f} "
+        f"by the host clock); "
+        f"the teacher through cfg_episode K=1 over {N_TEACHER_EP} replans {tep_err:.3e}, "
+        f"{tep_ms / N_TEACHER_EP:.4f} ms per replan (plain {1e3 * tep_plain_s / N_TEACHER_EP:.2f} "
+        f"by the host clock); launches {launches}")
+
+    # 31. the AMPC loop against the JAX package (data/distill_yardstick.py (c))
+    t0 = time.perf_counter()
+    ampc = AMPCNet(dys.HORIZON)
+    ampc.load_state_dict(mlp_from_flax_params(dys.ampc_params(), ampc))
+    ampc_run = make_ampc_closed_loop(ampc.to(dev).eval(), ins, cond, plant, cost,
+                                     n_steps=dys.N_EXPERT_STEPS, device=dev)(x0)
+    torch.cuda.synchronize()
+    ampc_u = ampc_run.u_track[:, 0].double().cpu()
+    ampc_gaps = {"cost_rel": abs(math.fsum(ampc_run.stage_costs.double().tolist()) / dys.AMPC_COST
+                                 - 1),
+                 "u_max": (ampc_u - torch.tensor(dys.AMPC_U_TRACK, dtype=torch.float64)).abs().max().item()}
+    if not all(ampc_gaps[k] <= b for k, b in dys.AMPC_BOUNDS.items()):
+        raise RuntimeError(f"AMPC loop against the JAX package's: {ampc_gaps} (bounds "
+                           f"{dys.AMPC_BOUNDS})")
+    log("ampc-loop", t0, f"make_ampc_closed_loop, AMPCNet(horizon={dys.HORIZON}) on the "
+        f"yardstick's weights, {dys.N_EXPERT_STEPS} steps from x0: against the JAX package's "
+        f"cost rel {ampc_gaps['cost_rel']:.3e}, u {ampc_gaps['u_max']:.3e} (bounds "
+        f"{dys.AMPC_BOUNDS})")
+
+    # each kernel's row at horizon 64, the keys of the kernels line
+    weights, meta_n = spacked.weights.numel(), spacked.meta.numel()
+    film_w = sum(math.prod(shape) for name, (_, shape) in spacked.segments.items()
+                 if name.split(".")[0] == "films")
+    film_flops = 2 * 2 * int(spacked.films_w.shape[1]) * sum(
+        rb.cond_mlp[1].out_features for rb in student.res_blocks())
+    ch = chains[1]
+    ch_flops = spacked.flops_per_pass * ch.n_total
+    ch_bytes = 4 * (weights - film_w + meta_n + ch.films(chain_inputs[1][0]).numel()
+                    + chain_inputs[1][1].numel() + ch.coefs.numel() + dys.HORIZON)
+    tail = 5 + (N_DISTILL_EP + 1) * 5 + N_DISTILL_EP * 3
+    sep_flops = N_DISTILL_EP * sep.n_total * (spacked.flops_per_pass + film_flops / 2)
+    sep_bytes = 4 * (weights + meta_n + sep.t_embs.numel() + s_noise.numel() + sep.coefs.numel()
+                     + sep.consts.numel() + tail)
+    tpacked = tep.packed
+    tep_flops = N_TEACHER_EP * tep.n_total * (2 * tpacked.flops_per_pass + film_flops)
+    tep_bytes = 4 * (tpacked.weights.numel() + tpacked.meta.numel() + tep.t_embs.numel()
+                     + t_noise.numel() + tep.coefs.numel() + tep.consts.numel() + 5
+                     + (N_TEACHER_EP + 1) * 5 + N_TEACHER_EP * 3)
+    h64 = {
+        "ddim_chain": {"launches": launches[0][0] + launches[1][0], "max_abs_err": chain_err,
+                       "ms": ch1_ms, "plain_ms": ch1_plain_ms, **bound(ch_flops, ch_bytes),
+                       "library_ms": None, "times": grid12, f"b{B_DISTILL_CHAIN}_ms": ch3_ms},
+        "ddim_episode": {"launches": launches[2][0], "max_abs_err": sep_err, "ms": sep_ms,
+                         "plain_ms": sep_plain_ms, **bound(sep_flops, sep_bytes),
+                         "library_ms": None, "times": grid12, "replans": N_DISTILL_EP,
+                         "ms_per_replan": sep_ms / N_DISTILL_EP},
+        "cfg_episode": {"launches": launches[3][0], "max_abs_err": tep_err, "ms": tep_ms,
+                        "plain_ms": 1e3 * tep_plain_s, **bound(tep_flops, tep_bytes),
+                        "library_ms": None, "replans": N_TEACHER_EP,
+                        "ms_per_replan": tep_ms / N_TEACHER_EP}}
+    for row in h64.values():
+        row.update(model="flagship_modality", horizon=dys.HORIZON)
+    return {"steps": {"n": n_steps, "s": steps_s, "ms_per_step": 1e3 * steps_s / n_steps,
+                      "device_ms_per_step": steps_dev_ms / n_steps, "batch": dys.BATCH,
+                      "loss_max_rel": {"head": float(rel[:n_head].max()),
+                                       "early": float(rel[:n_early].max()),
+                                       "step": float(rel.max())},
+                      "checksum_max_rel": max(sum_gaps.values()), "bounds": dys.LOSS_BOUNDS,
+                      "checksum_bound": dys.CHECKSUM_BOUND, "losses": run["losses"].tolist()},
+            "step1": {"grad_rel_err": grad_err, "loss_rel_err": loss1_err,
+                      "bounds": [dys.GRAD_BOUND, dys.LOSS1_BOUND]},
+            "ampc": {**ampc_gaps, "bounds": dys.AMPC_BOUNDS},
+            "h64": h64, "nvidia_smi": nvidia_smi()}
 
 
 SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize")
@@ -1418,7 +1664,7 @@ def main() -> None:
     bench_runs = {}
     for mode, use_bf16, cut in (("episode", True, dict(n_rep=1, n_chain=1, n_best=1)),
                                 ("chain", False, dict(n_rep=2)), ("chain", True, dict(n_rep=2)),
-                                ("1", False, dict(n_rep=2))):
+                                ("1", False, dict(n_rep=1, n_steps=40))):
         r = port_bench.run(mode, use_bf16, dev, **cut)
         if r.launches != port_bench.expected_calls(mode, **cut) or r.plain_calls:
             raise RuntimeError(f"bench {mode} bf16={use_bf16}: {r.launches} launches, "
@@ -1592,6 +1838,7 @@ def main() -> None:
 
     training_line = train_phases(dev, schedule)
     ilqr_line = ilqr_phases(dev)
+    distill_line = distill_phases(dev)
 
     packed = chain.packed
     seg = lambda *prefixes: sum(math.prod(shape) for name, (_, shape) in packed.segments.items()
@@ -1732,10 +1979,16 @@ def main() -> None:
         "k8_ms_per_replan": lep8_ms / N_LMPC_EP8, "u_l1_mean": lpar["u_l1_mean"],
         "u_l1_mean_jax_cpu": jax_mean, "cluster_ctas": CLUSTER,
         **cluster_info["cfg_episode_lmpc"]})
+    # the first launches at horizon 64 (phase 30), each under its kernel's row
+    for i, name in ((2, "cfg_episode"), (3, "ddim_chain"), (4, "ddim_episode")):
+        rows[i]["h64"] = {"name": name, "route": "cuda", "source": rows[i]["source"],
+                          "replaces": rows[i]["replaces"], **distill_line["h64"][name]}
     rows[2]["bench_closed_loop_control_hz"] = bench_line["value"]
     rows[2]["bench_pipelined_hz"] = bench_line["pipelined_hz"]
     print(json.dumps({"training": training_line}), flush=True)
     print(json.dumps({"ilqr": ilqr_line}), flush=True)
+    print(json.dumps({"distill": {k: v for k, v in distill_line.items() if k != "h64"}}),
+          flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}),

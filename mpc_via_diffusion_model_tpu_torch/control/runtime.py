@@ -1,7 +1,7 @@
 """Receding-horizon loops: port of ``make_replan_fn``, ``make_closed_loop``
 (the ``ddpm`` sampler, best-of-K candidates and ``selection_horizon``) and
-``make_nmpc_closed_loop`` (the iLQR expert) of
-``mpc_via_diffusion_model_tpu/control/runtime.py``.
+``make_nmpc_closed_loop`` (the iLQR expert) and ``make_ampc_closed_loop``
+(the AMPC MLP baseline) of ``mpc_via_diffusion_model_tpu/control/runtime.py``.
 
 Each replan maps the plant state to the condition (``state_to_condition``,
 identity by default), normalizes it, samples K control horizons with the
@@ -27,7 +27,8 @@ from ..dynamics.base import Plant, QuadraticCost
 from ..solvers.ilqr import ILQRConfig, ilqr_solve
 from ..utils.device import resolve_device
 
-__all__ = ["ClosedLoopResult", "make_replan_fn", "make_closed_loop", "make_nmpc_closed_loop"]
+__all__ = ["ClosedLoopResult", "make_replan_fn", "make_closed_loop", "make_nmpc_closed_loop",
+           "make_ampc_closed_loop"]
 
 SampleFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 
@@ -178,5 +179,39 @@ def make_nmpc_closed_loop(plant: Plant, cost: QuadraticCost, solver_config: ILQR
         return ClosedLoopResult(x_track=torch.stack(xs, dim=-2), u_track=torch.stack(us, dim=-2),
                                 u_horizons=torch.stack(u_hors, dim=-3),
                                 stage_costs=torch.stack(stages, dim=-1))
+
+    return closed_loop
+
+
+def make_ampc_closed_loop(ampc: Callable[[torch.Tensor], torch.Tensor],
+                          inputs_stats: NormalizerStats, condition_stats: NormalizerStats,
+                          plant: Plant, cost: QuadraticCost, n_steps: int = 80,
+                          state_to_condition: Optional[Callable] = None, device=None):
+    """``closed_loop(x0) -> ClosedLoopResult``: the AMPC MLP baseline's loop
+    on ``device`` (``cuda`` unless given). Each step ``ampc`` (an
+    ``AMPCNet``, or any ``(1, C) normalized condition -> (1, H, du)``
+    callable) regresses the whole normalized control horizon from the
+    normalized state; the horizon is unnormalized and its first control
+    applied. Deterministic: no sampling."""
+    dev = resolve_device(device)
+    inputs_stats, condition_stats = inputs_stats.to(dev), condition_stats.to(dev)
+    cost = cost.to(dev)
+    to_cond = state_to_condition or (lambda x: x)
+
+    @torch.no_grad()
+    def closed_loop(x0: torch.Tensor) -> ClosedLoopResult:
+        x = x0.to(device=dev, dtype=torch.float32)
+        xs, us, u_hors, stages = [x], [], [], []
+        for _ in range(n_steps):
+            cond = normalize(condition_stats, to_cond(x))[None, :]
+            u_hor = unnormalize(inputs_stats, ampc(cond))[0]
+            u0 = u_hor[0]
+            stages.append(cost.stage(x, u0))
+            x = plant.step(x, u0)
+            xs.append(x)
+            us.append(u0)
+            u_hors.append(u_hor)
+        return ClosedLoopResult(x_track=torch.stack(xs), u_track=torch.stack(us),
+                                u_horizons=torch.stack(u_hors), stage_costs=torch.stack(stages))
 
     return closed_loop

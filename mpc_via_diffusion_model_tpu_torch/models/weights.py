@@ -24,10 +24,19 @@ the initial weights that flax's default initializers draw.
 student such as ``artifacts/onpolicy_cartpole/student_1eval.pkl`` (the
 layout ``{'params'}``, built with ``cfg_indicator=True`` as the students are
 trained), both of the flagship architecture (``FLAGSHIP_CONFIG``), and
+``load_teacher`` the students' horizon-64 teacher
+(``artifacts/flagship_modality/ema_params.pkl``, ``TEACHER_CONFIG``), and
 ``load_lmpc`` the LMPC parity workload's denoiser,
 ``artifacts/flagship_lmpc/ema_params.pkl`` (``LMPC_CONFIG``, the flagship's
 layout). All are plain dicts of float32 numpy arrays that need neither jax
 nor flax to unpickle.
+
+The MLPs (``AMPCNet``, any module of ``nn.Linear`` layers): flax numbers
+its Dense layers ``Dense_0, Dense_1, ...`` in call order, which is the
+order of the module's ``nn.Linear`` layers; ``mlp_from_flax_params`` and
+``mlp_to_flax_params`` carry them both ways (kernel (in, out) = weight.T),
+``init_mlp_like_flax`` draws flax's Dense init, and ``load_ampc`` reads the
+``ampc.ckpt`` that ``scripts/train_ampc.py`` writes.
 """
 from __future__ import annotations
 
@@ -38,14 +47,20 @@ import numpy as np
 import torch
 
 from ..utils.device import resolve_device
+from .ampc import AMPCNet
 from .temporal_unet import TemporalUnet
 
-__all__ = ["FLAGSHIP_CONFIG", "LMPC_CONFIG", "from_flax_params", "init_like_flax", "load_flagship",
-           "load_lmpc", "load_student", "to_flax_params"]
+__all__ = ["FLAGSHIP_CONFIG", "LMPC_CONFIG", "TEACHER_CONFIG", "from_flax_params",
+           "init_like_flax", "init_mlp_like_flax", "load_ampc", "load_flagship", "load_lmpc",
+           "load_student", "load_teacher", "mlp_from_flax_params", "mlp_to_flax_params",
+           "to_flax_params"]
 
 # artifacts/flagship/args.yaml: horizon 32, unet_input_dim 32, dim_mults (1,2,4), context 5
 FLAGSHIP_CONFIG = dict(state_dim=1, n_support_points=32, unet_input_dim=32,
                        dim_mults=(1, 2, 4), time_emb_dim=32, context_dim=5)
+# artifacts/flagship_modality/args.yaml: the flagship's architecture at horizon 64, the
+# distilled students' teacher
+TEACHER_CONFIG = dict(FLAGSHIP_CONFIG, n_support_points=64)
 # scripts/flagship_lmpc.py: horizon 8, unet_input_dim 32, dim_mults (1,2,4), context 4
 LMPC_CONFIG = dict(state_dim=1, n_support_points=8, unet_input_dim=32, dim_mults=(1, 2, 4),
                    time_emb_dim=32, context_dim=4)
@@ -234,7 +249,78 @@ def load_student(path, device=None) -> TemporalUnet:
     return _load_unet(path, "params", True, device)
 
 
+def load_teacher(path, device=None) -> TemporalUnet:
+    """The distilled students' teacher, ``artifacts/flagship_modality/ema_params.pkl``
+    (1,001,825 params, horizon 64, the context-present bit), from its ``{'params'}`` pickle."""
+    return _load_unet(path, "params", True, device, TEACHER_CONFIG)
+
+
 def load_lmpc(path, device=None) -> TemporalUnet:
     """The LMPC parity workload's denoiser (1,000,929 params, horizon 8,
     context 4) from its EMA pickle."""
     return _load_unet(path, "ema_params", "cfg_indicator", device, LMPC_CONFIG)
+
+
+def _dense_names(model: torch.nn.Module) -> List[Tuple[str, str]]:
+    """(torch module path, flax ``Dense_i``) of every ``nn.Linear``, in order."""
+    linears = [n for n, m in model.named_modules() if isinstance(m, torch.nn.Linear)]
+    return [(n, f"Dense_{i}") for i, n in enumerate(linears)]
+
+
+def mlp_from_flax_params(params: Mapping, model: torch.nn.Module,
+                         dtype=np.float32) -> Dict[str, torch.Tensor]:
+    """Flax Dense params (``{'params': ...}`` or the inner dict) -> a state
+    dict for ``model``, whose ``nn.Linear`` layers are ``Dense_0, 1, ...``."""
+    p = params["params"] if "params" in params else params
+    names = _dense_names(model)
+    if set(p) != {d for _, d in names}:
+        raise ValueError(f"flax layers {sorted(p)} do not match the module's {names}")
+    arr = lambda a: torch.from_numpy(np.array(a, dtype))
+    sd: Dict[str, torch.Tensor] = {}
+    for key, dense in names:
+        sd[key + ".weight"] = arr(np.asarray(p[dense]["kernel"]).T)
+        sd[key + ".bias"] = arr(p[dense]["bias"])
+    return sd
+
+
+def mlp_to_flax_params(model: torch.nn.Module, state_dict: Mapping[str, torch.Tensor] = None) -> Dict:
+    """The inverse of ``mlp_from_flax_params``: ``model``'s Linear layers (or
+    ``state_dict``, tensors under its parameter names) -> ``{'params':
+    {'Dense_i': {'kernel', 'bias'}}}`` of numpy arrays."""
+    sd = dict(model.named_parameters()) if state_dict is None else state_dict
+    return {"params": {dense: {"kernel": np.array(sd[key + ".weight"].detach().cpu().numpy().T,
+                                                  order="C"),
+                               "bias": sd[key + ".bias"].detach().cpu().numpy().copy()}
+                       for key, dense in _dense_names(model)}}
+
+
+@torch.no_grad()
+def init_mlp_like_flax(model: torch.nn.Module, generator) -> torch.nn.Module:
+    """Sets every ``nn.Linear`` of ``model`` in place, in flax's layer order,
+    to flax's Dense init: the kernel (in, out) lecun_normal, the bias 0.
+    ``generator`` is a numpy ``RandomState`` or a ``torch.Generator``."""
+    for key, _ in _dense_names(model):
+        layer = model.get_submodule(key)
+        fan_in = layer.in_features
+        k = _truncated_normal(generator, (fan_in, layer.out_features)) * (np.sqrt(1.0 / fan_in)
+                                                                           / TRUNC_STD)
+        layer.weight.copy_(torch.from_numpy(k.astype(np.float32).T.copy()))
+        layer.bias.zero_()
+    return model
+
+
+def load_ampc(path, device=None, params_key: str = "ema_params") -> AMPCNet:
+    """An ``AMPCNet`` from the ``ampc.ckpt`` pickle (``{'params',
+    'ema_params', 'horizon', 'control_dim'}``) that the JAX package's and the
+    port's ``train_ampc`` write, its widths read off the kernels, in eval
+    mode on ``device`` (``cuda`` unless given)."""
+    dev = resolve_device(device)
+    with open(path, "rb") as f:
+        ckpt = pickle.load(f)
+    p = ckpt[params_key]
+    p = p["params"] if "params" in p else p
+    kernels = [np.asarray(p[f"Dense_{i}"]["kernel"]) for i in range(len(p))]
+    model = AMPCNet(int(ckpt["horizon"]), int(ckpt["control_dim"]),
+                    hidden=[k.shape[1] for k in kernels[:-1]], state_dim=kernels[0].shape[0])
+    model.load_state_dict(mlp_from_flax_params(p, model))
+    return model.to(dev).eval()

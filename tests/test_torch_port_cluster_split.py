@@ -20,7 +20,8 @@ from mpc_via_diffusion_model_tpu_torch.dynamics import (cartpole_virtual_collect
                                                         cartpole_virtual_cost,
                                                         cartpole_virtual_swingup,
                                                         theta_to_red_theta)
-from mpc_via_diffusion_model_tpu_torch.models import TemporalUnet, load_flagship, load_student
+from mpc_via_diffusion_model_tpu_torch.models import (TemporalUnet, load_flagship, load_student,
+                                                      load_teacher)
 from mpc_via_diffusion_model_tpu_torch.ops import unet_pack as up
 from mpc_via_diffusion_model_tpu_torch.ops.fused_denoise import (cfg_chain_max_active_clusters,
                                                                  ddim_chain_max_active_clusters,
@@ -42,6 +43,9 @@ torch.set_num_threads(1)
 FLAGSHIP = Path(__file__).resolve().parents[1] / "artifacts" / "flagship" / "ema_params.pkl"
 STUDENT = (Path(__file__).resolve().parents[1] / "artifacts" / "onpolicy_cartpole"
            / "student_1eval.pkl")
+TEACHER = (Path(__file__).resolve().parents[1] / "artifacts" / "flagship_modality"
+           / "ema_params.pkl")
+GRID12 = list(range(23, 0, -2))   # the 12-eval student's grid
 X0 = np.array([0.0, 0.0, 3.0, 0.0, theta_to_red_theta(3.0)], np.float32)
 W = 0.01
 
@@ -281,6 +285,47 @@ def test_ddim_chain_cluster_program_is_race_free_and_matches_plain(dim_mults, b,
                                               x_init.numpy(), chain.coefs.numpy())
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
     assert barriers == [2 + _barriers_per_pass(dim_mults) * len(times)] * b
+
+
+@pytest.mark.parametrize("kind,times,b", [("chain", GRID12, 1), ("chain", [23, 15, 7], 3),
+                                          ("episode", GRID12, 1), ("episode", [23], 4)],
+                         ids=["chain_12eval_b1", "chain_3eval_b3", "episode_12eval_k1",
+                              "episode_1eval_k4"])
+def test_ddim_programs_at_the_teachers_horizon_64(kind, times, b):
+    """The DDIM chain's and episode's programs at the full width of the
+    distillation's teacher (horizon 64, 163,724 B of shared memory per CTA
+    for the chain, 176,720 and 177,488 for the episode at K = 1 and 4), on
+    its own weights: the race check on 8 NaN-filled images, the output
+    against the plain version (1e-4), and the barrier counts of
+    three levels."""
+    tm = load_teacher(TEACHER, device="cpu")
+    rng = np.random.RandomState(len(times) + b)
+    if kind == "chain":
+        chain = _ddim_chain(tm, times, b)
+        ctx = torch.from_numpy(rng.uniform(-1, 1, (b, 5)).astype(np.float32))
+        x_init = torch.from_numpy(rng.randn(*chain.noise_shape).astype(np.float32))
+        want = chain.plain(ctx, x_init).numpy()
+        with torch.no_grad():
+            films = chain.films(ctx).numpy()
+        got, barriers = emulate_ddim_chain_kernel(chain.packed, chain.cluster.weights, films,
+                                                  x_init.numpy(), chain.coefs.numpy())
+        assert chain.packed.smem_bytes == 163_724
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+        assert barriers == [2 + _barriers_per_pass((1, 2, 4)) * len(times)] * b
+        return
+    n_steps = 2 if b > 1 else 1
+    ep = _ddim_episode(tm, times, k=b, n_steps=n_steps)
+    noise = torch.from_numpy(rng.randn(*ep.noise_shape).astype(np.float32))
+    want = ep.plain(torch.from_numpy(X0), noise)
+    *got, barriers = emulate_ddim_episode_kernel(ep.packed, ep.weights, ep.t_embs.numpy(),
+                                                 noise.numpy(), ep.coefs.numpy(),
+                                                 ep.consts.numpy(), X0, b, ep.selection_horizon,
+                                                 n_steps)
+    assert ep.packed.episode_smem_bytes(b) == {1: 176_720, 4: 177_488}[b]
+    for name, g, w_ in zip(("x_track", "u_track", "stage_costs"), got, want):
+        np.testing.assert_allclose(g, w_.numpy(), rtol=1e-4, atol=1e-4, err_msg=name)
+    np.testing.assert_array_equal(got[3], want[3].numpy())
+    assert barriers == 2 + _barriers_per_pass((1, 2, 4)) * n_steps * len(times) * b
 
 
 @pytest.mark.parametrize("dim_mults", [(1, 2), (1, 2, 4)])
