@@ -7,7 +7,8 @@ nvcc (``/usr/local/cuda``), the flagship weights in
 ``artifacts/onpolicy_cartpole/`` (``student_1eval.pkl``, ``report.json``) and
 the LMPC parity workload's in ``artifacts/flagship_lmpc/`` (``ema_params.pkl``,
 ``report.json``), the distillation's teacher in
-``artifacts/flagship_modality/ema_params.pkl``, and writes nothing but the kernel builds under
+``artifacts/flagship_modality/ema_params.pkl``, the quadrotor student in
+``artifacts/onpolicy_quadrotor/student_1eval.pkl``, and writes nothing but the kernel builds under
 ``build/torch_kernels/`` and, for a moment, phase 26's checkpoint under
 ``build/chip_smoke_train/``. Phases,
 each printing one line with its own seconds:
@@ -41,8 +42,10 @@ each printing one line with its own seconds:
    noise must give the same tracks.
 5. episode, K = 1: the whole 80-replan loop as one launch of the episode
    kernel (one cluster of 8 CTAs that splits the U-Net body by GroupNorm
-   group), on phase 4's noise, against the plain episode and against
-   phase 4's tracks; exactly one launch.
+   group), on phase 4's noise, against phase 4's tracks, exactly one
+   launch; and a 20-replan episode against the plain episode on the same
+   noise (row 3's plain time is bench_kernels' 80-replan plain episode,
+   phase 16).
 6. episode, K = 4, selection_horizon 8: 8 replans against the plain
    episode, the chosen candidate of every replan included; one launch.
 7. bench.py's default path, the protocol ``sustained_800step_dependent_chain``:
@@ -84,8 +87,8 @@ same weights, which exercises the affine update and the step loop.
     the expert's in ``report.json``, and their mean, which must be at most
     1.05.
 14. timing: every kernel and its plain version by CUDA events at the main
-    paths' shapes (the plain CFG episode, 80 replans at ~11 s, by phase 5's
-    call on the host clock); the U-Net pass and the DDIM chain both by their launch
+    paths' shapes (the plain CFG episode, 80 replans at ~11 s, by
+    bench_kernels' call on the host clock in phase 16); the U-Net pass and the DDIM chain both by their launch
     alone (``_launch`` on prepared tensors) and by the wrapper's whole call
     (``FusedUnet.forward``, ``FusedDdimChain.__call__``), which splits off
     the host's share; the DDIM chain also on [23, 15, 7] and at B = 4; the
@@ -134,7 +137,7 @@ and the port's bench:
     K = 4 (choices equal), the per-sample max |kernel - plain| at most 5e-6
     at the median and 1e-3 at the worst (``ONE_PASS_*``). At full depth the
     chain on phase 3's three contexts and the episode on phase 4's noise
-    over 80 replans are held to JAX's own bound of bf16 against fp32, 8e-2,
+    over 20 replans are held to JAX's own bound of bf16 against fp32, 8e-2,
     and their differences printed; K = 4 over 8 replans prints both
     versions' choices.
 20. the flagship's quality through the bf16 episode, phase 17's protocol:
@@ -162,7 +165,7 @@ at horizon 8, context 4, against its LQR expert; the committed weights and
     finite, each state's u_l1 within 1e-3 + 1% of the JAX package's loop on
     the CPU (``LMPC_U_L1``) and the mean within 1% of its mean, printed
     beside it and ``report.json``'s. K = 8 (one launch per state; reported,
-    not gated; over the first 4 states, to keep the script within its time):
+    not gated; over the first 2 states, to keep the script within its time):
     the same numbers beside the report's (over 16 states), the choices
     other than candidate 0, and the spread of the 8 candidates' first
     controls (the chain kernel at B = 8 on the first 2 states' replans). The chain
@@ -241,13 +244,45 @@ CPU (``data/distill_yardstick.py``), and the first launches at horizon 64:
     yardstick's weights, 80 steps from x0, the summed cost and the controls
     within ``AMPC_BOUNDS`` of the JAX package's.
 
+The quadrotor student's serving path (the JAX package's
+``scripts/bench_quadrotor_student.py``): the 1-eval student
+``artifacts/onpolicy_quadrotor/student_1eval.pkl`` at horizon 48 with a
+12-dim context, the quadrotor plant (``dynamics/quadrotor.py``), the
+safety-first selection cost (``scripts/quadrotor_task.py``) and
+``data/quadrotor_stats.py``; every kernel check on [23] and [23, 15, 7]:
+
+32. quadrotor kernels: the DDIM chain at H = 48 against plain at B = 1 and 4
+    on two contexts each (1e-4); the main path, its counts set to 0 just
+    before and read just after: the per-replan loop through the chain (20
+    launches), the quadrotor episode entry ``ddim_episode_quadrotor`` at K =
+    1 over 20 replans and at K = 4 with the safety-first scorer over 10 (one
+    launch each), each against its plain version (controls in normalized
+    units at 1e-4, the rest at 1e-3; the choices equal wherever the plain
+    version's best two scores are more than 1e-5 apart, each near-tie
+    printed; the reported costs the task quadratic on the tracks), K = 1
+    also against the loop; the same on [23, 15, 7].
+33. in-kernel noise: the draw's test entries give Random123's three
+    known answers of Philox4x32-10; 2^20 in-kernel normals against the
+    twin's table (1e-5) and within tests/test_fused_episode.py:341-362's
+    moment and quantile tolerances of N(0, 1); the episode's draw entry at
+    K = 1 (20 replans) and K = 8 (10) against the plain episode on the
+    twin's table, gated as phase 32; one seed twice gives the same bits, two
+    seeds different tracks.
+34. quadrotor quality: 16 of the 64 eval starts x 60 replans at K = 1
+    (staged) and K = 8 (in-kernel draw), ``track_metrics`` printed (no
+    track may diverge), ms per replan, and the sustained rate of one
+    600-replan episode per launch at K = 1 (staged and drawn) and K = 8.
+    The full 64-start protocol is ``scripts/bench_quadrotor_student.py``'s.
+
 It then prints the ``training`` JSON line, the ``ilqr`` JSON line, the
 ``distill`` JSON line, the ``kernels`` JSON line (rows 1 and 3 carry their bf16
 entries under ``bf16``, row 1 its H = 8 times under ``h8``, rows 3, 4 and 5 their
-H = 64 times under ``h64`` (phase 30), and
-``cfg_episode_lmpc`` has a row of its own as a further entry of kernel 3),
-the nvidia-smi line and, last, the result line. Any failure raises, and the
-exit code is then not 0.
+H = 64 times under ``h64`` (phase 30), rows 4 and 5 their H = 48 times under
+``h48`` (phase 32), ``cfg_episode_lmpc`` has a row of its own as a further
+entry of kernel 3, and ``ddim_episode_quadrotor`` one as a further entry of
+kernel 5, with its in-kernel draw under ``inkernel_noise``), the
+``phase_seconds`` line (each phase's seconds), the nvidia-smi line and,
+last, the result line. Any failure raises, and the exit code is then not 0.
 
 Phases 3-8 and ``bench_kernels``' episode row run the flagship with the
 synthetic limits of ``bench.py`` (controls +-30, conditions +-10); phase 17
@@ -281,32 +316,38 @@ from mpc_via_diffusion_model_tpu_torch.data import distill_yardstick as dys
 from mpc_via_diffusion_model_tpu_torch.data import flagship_expert_yardstick as xys
 from mpc_via_diffusion_model_tpu_torch.data import lmpc_train_yardstick as ys
 from mpc_via_diffusion_model_tpu_torch.data.lmpc_stats import LMPC_U_L1, LMPC_U_L1_SUMMARY
+from mpc_via_diffusion_model_tpu_torch.data.quadrotor_stats import quadrotor_stats
 from mpc_via_diffusion_model_tpu_torch.data.teacher_stats import teacher_stats
 from mpc_via_diffusion_model_tpu_torch.diffusion import (GaussianDiffusion, ddim_time_grid,
                                                          distill_loss, halve_times)
 from mpc_via_diffusion_model_tpu_torch.dynamics import (cartpole_lmpc, cartpole_lmpc_cost,
                                                         cartpole_virtual_collect_cost,
                                                         cartpole_virtual_cost,
-                                                        cartpole_virtual_swingup,
-                                                        theta_to_red_theta)
+                                                        cartpole_virtual_swingup, quadrotor,
+                                                        quadrotor_cost, theta_to_red_theta)
 from mpc_via_diffusion_model_tpu_torch.models import (LMPC_CONFIG, TEACHER_CONFIG, AMPCNet,
                                                       TemporalUnet, from_flax_params,
-                                                      load_flagship, load_lmpc, load_student,
+                                                      load_flagship, load_lmpc,
+                                                      load_quadrotor_student, load_student,
                                                       mlp_from_flax_params, to_flax_params)
-from mpc_via_diffusion_model_tpu_torch.ops import _build, fused_conv1d_gn_mish
+from mpc_via_diffusion_model_tpu_torch.ops import _build, fused_conv1d_gn_mish, philox
 from mpc_via_diffusion_model_tpu_torch.ops.fused_denoise import (
     cfg_chain_bf16_max_active_clusters, cfg_chain_max_active_clusters,
     ddim_chain_max_active_clusters, make_fused_cfg_chain, make_fused_ddim_chain)
 from mpc_via_diffusion_model_tpu_torch.ops.fused_episode import (
     cfg_episode_bf16_max_active_clusters, cfg_episode_lmpc_max_active_clusters,
-    cfg_episode_max_active_clusters, ddim_episode_max_active_clusters, make_fused_cfg_episode,
-    make_fused_ddim_episode)
+    cfg_episode_max_active_clusters, ddim_episode_max_active_clusters,
+    ddim_episode_quadrotor_draw_max_active_clusters, ddim_episode_quadrotor_max_active_clusters,
+    make_fused_cfg_episode, make_fused_ddim_episode)
 from mpc_via_diffusion_model_tpu_torch.ops.fused_unet import (fused_unet_max_active_clusters,
                                                               make_fused_unet)
 from mpc_via_diffusion_model_tpu_torch.ops.unet_pack import CLUSTER, pack_unet
 from mpc_via_diffusion_model_tpu_torch.scripts import (bench_kernels, conv_timing,
                                                        distill_divergence, flagship_lmpc,
-                                                       flagship_parity, lmpc_parity)
+                                                       flagship_parity, lmpc_parity,
+                                                       quadrotor_task)
+from mpc_via_diffusion_model_tpu_torch.scripts.quadrotor_task import (eval_start_states,
+                                                                      make_select_cost)
 from mpc_via_diffusion_model_tpu_torch.scripts.conv_timing import cuda_ms
 from mpc_via_diffusion_model_tpu_torch.solvers import ILQRConfig, ilqr, ilqr_solve
 from mpc_via_diffusion_model_tpu_torch.train import (ParamLayout, Trainer, diffusion_loss,
@@ -326,7 +367,11 @@ QUALITY_MEAN_MAX = 1.05    # mean cost over the expert's (report: 1.0064 over 10
 # (data/flagship_expert_yardstick.py; report.json: 784,747.4 over 784,750.6 on the TPU)
 FLAGSHIP_MEAN_MAX, FLAGSHIP_MODALITY = 1.01, {"left": 10, "right": 0}
 N_STEPS, HORIZON, T, N_TAIL, W = 80, 32, 25, 5, 0.01
-N_PLAIN_LOOP = 20          # replans of the plain per-replan loop (phase 4)
+N_PLAIN_LOOP = 20          # replans of the plain per-replan loop (phase 4) and of the plain
+                           # episode phase 5 holds the kernel to (80 took 11 s; row 3's plain
+                           # time is bench_kernels' 80-replan plain episode, phase 16)
+N_BF16_EP = 20             # replans of phase 19's full-depth bf16 episode (at 80 its plain
+                           # version took 20 s)
 K4, SEL_H, N_STEPS_K4 = 4, 8, 8
 N_CHAIN = 10               # dependent episodes of the sustained protocol
 N_UNET_LOOP = 10           # replans of the BENCH_FUSED=1 loop
@@ -369,8 +414,9 @@ LMPC_H, K8 = 8, 8
 N_LMPC_EP, N_LMPC_EP8 = 10, 4   # replans of phase 22's episode checks at K = 1 and K = 8
 # sweep states of phase 23's K = 8 run (reported, not gated): over all 16 the K = 8 run alone
 # took 32.5 s and phases 22-23 44.4 s on the H100, at the 45 s they may take; over 8 it took
-# 16.4 s on a slow host, where the whole script took 392 s with phases 29-31: 4
-N_LMPC_STATES_K8 = 4
+# 16.4 s on a slow host, where the whole script took 392 s with phases 29-31; 2 since phases
+# 32-34 were added
+N_LMPC_STATES_K8 = 2
 N_LMPC_CHAIN_STATES = 2         # sweep states run through the chain route too
 # Per state, u_l1 (a sum of 50 |du|) within 1e-3 + 1% of the JAX package's on the CPU; the mean
 # within 1% of the JAX mean. Choices at K = 8 are compared where the plain version's best two
@@ -407,10 +453,31 @@ N_NOISY, N_NMPC_PREFIX = 10, 5
 # DDIM episode over N_DISTILL_EP replans, and the teacher through the CFG episode over
 # N_TEACHER_EP replans, each against its plain version
 B_DISTILL_CHAIN, N_DISTILL_EP, N_TEACHER_EP = 3, 20, 5
+# The quadrotor student's serving path (phases 32-34; the JAX package's
+# scripts/bench_quadrotor_student.py): the 1-eval student at horizon 48, context 12, the
+# quadrotor plant and its safety-first selection cost (scripts/quadrotor_task.py), the
+# statistics of data/quadrotor_stats.py. Phase 32 checks K = 1 over N_Q_EP replans and K = K4
+# with the safety-first scorer over N_Q_EP4, and the chain loop over N_Q_EP; phase 33 the
+# in-kernel draw at K = 1 and K8; phase 34 runs N_Q_STARTS of the 64 eval starts over
+# N_Q_STEPS replans and a N_Q_RATE-replan episode in one launch at K = 1 and K8.
+QUADROTOR_STUDENT = ROOT / "artifacts" / "onpolicy_quadrotor" / "student_1eval.pkl"
+N_Q_EP, N_Q_EP4, N_Q_STARTS, N_Q_STEPS, N_Q_RATE = 20, 10, 16, 60, 600
+# the in-kernel normals (2^20 of them) against N(0, 1): tests/test_fused_episode.py:341-362's
+# tolerances on the mean, the standard deviation, the 95% and 99% quantiles, the third and the
+# fourth moment
+NORMAL_TOLS = {"mean": 5e-3, "std": 5e-3, "q95": 2e-3, "q99": 1e-3, "m3": 2e-2, "m4": 5e-2}
+# fp32 operations of one candidate's scoring step besides the six sin and cos: the quadrotor's
+# step (69, plants.cuh) and the safety-first stage cost (107)
+Q_STEP_FLOPS = 176
+
+
+PHASE_SECONDS = {}  # each phase's seconds by its log line, printed on one line before the last
 
 
 def log(phase: str, t0: float, msg: str) -> None:
-    print(f"[{phase}] {time.perf_counter() - t0:.3f}s {msg}", flush=True)
+    seconds = time.perf_counter() - t0
+    PHASE_SECONDS[phase] = round(seconds, 3)
+    print(f"[{phase}] {seconds:.3f}s {msg}", flush=True)
 
 
 def nvidia_smi() -> str:
@@ -881,6 +948,272 @@ def distill_phases(dev) -> dict:
             "h64": h64, "nvidia_smi": nvidia_smi()}
 
 
+def episode_gate(name: str, ep, got, want, u_unit: torch.Tensor, ties: list) -> float:
+    """A DDIM episode kernel's run against its plain version's: the tracks
+    (``student_close``), the reported costs equal to the task quadratic on
+    the tracks, and the chosen candidates equal wherever the plain version's
+    best two scores are more than NEAR_TIE apart (each near-tie appended to
+    ``ties``). Returns the max |kernel - plain|."""
+    err = max(student_close(f"{name} {n}", g, w_, u_unit)
+              for n, g, w_ in zip(("x_track", "u_track", "stage_costs"), got, want))
+    cost = ep.cost.stage(got[0][:-1], got[1])
+    err = max(err, assert_close(f"{name} stage costs vs the task quadratic", got[2], cost,
+                                TRACK_TOL))
+    for i in range(ep.n_steps):
+        if ep.n_candidates > 1 and near_tie(ep.plain_scores[i]):
+            best2 = torch.sort(ep.plain_scores[i].double()).values[:2].tolist()
+            ties.append(f"{name} replan {i}: best two plain scores {best2[0]:.9g}, "
+                        f"{best2[1]:.9g}; kernel chose {int(got[3][i])}, plain {int(want[3][i])}")
+        elif got[3][i] != want[3][i]:
+            raise RuntimeError(f"{name}: replan {i} chosen {got[3].tolist()} vs plain "
+                               f"{want[3].tolist()}")
+    return err
+
+
+def normal_moments(z: torch.Tensor) -> dict:
+    """The gaps of a sample's moments and quantiles from N(0, 1)'s, under NORMAL_TOLS' keys."""
+    z = z.double().flatten()
+    a = z.abs()
+    return {"mean": abs(z.mean().item()), "std": abs(z.std().item() - 1.0),
+            "q95": abs((a < 1.96).double().mean().item() - 0.95),
+            "q99": abs((a < 2.58).double().mean().item() - 0.99),
+            "m3": abs((z ** 3).mean().item()), "m4": abs((z ** 4).mean().item() - 3.0)}
+
+
+def quadrotor_phases(dev) -> dict:
+    """Phases 32-34 on ``dev``: the quadrotor student's serving path (the DDIM chain at H = 48,
+    the quadrotor episode entry with staged noise and with the in-kernel draw, best-of-K by the
+    safety-first scorer) against the plain versions, the draw's known answers and moments, and
+    the task metrics over 16 starts. Returns each kernel's row of the kernels line: ``h48``
+    under the DDIM chain and episode, ``ddim_episode_quadrotor`` and its ``inkernel_noise``."""
+    dev = resolve_device(dev)
+    schedule = make_schedule("exponential", T)
+    plant, qcost = quadrotor(), quadrotor_cost()
+    sel = make_select_cost(qcost)
+    ins, cond = (st.to(dev) for st in quadrotor_stats())
+    u_unit = 0.5 * (ins.maxs - ins.mins)
+    starts = torch.from_numpy(eval_start_states(64)).to(dev)
+    x0 = starts[0]
+    gen = torch.Generator(device=dev).manual_seed(32)
+    # 32. the DDIM chain at H = 48 and the quadrotor episode entry against their plain versions,
+    # and the main path: the per-replan loop through the chain, the episode at K = 1 and at
+    # K = 4 with the safety-first scorer
+    t0 = time.perf_counter()
+    student = load_quadrotor_student(QUADROTOR_STUDENT, device=dev)
+    chain = make_fused_ddim_chain(student, schedule, GRID, n_samples=1, device=dev)
+    qpacked = chain.packed
+    chains = {(tuple(times), b): chain if (times, b) == (GRID, 1) else
+              make_fused_ddim_chain(qpacked, schedule, times, n_samples=b, device=dev)
+              for times in (GRID, GRID3) for b in (1, K4)}
+    ctx0 = normalize(cond, x0)[None]
+    chain_err, chain_inputs = 0.0, {}
+    for (times, b), ch in chains.items():
+        for ctx in (ctx0.expand(b, 12).contiguous(),
+                    torch.rand((b, 12), generator=gen, device=dev) * 2 - 1):
+            x_init = torch.randn(ch.noise_shape, generator=gen, device=dev)
+            got, want = ch.kernel(ctx, x_init), ch.plain(ctx, x_init)
+            torch.cuda.synchronize()
+            chain_err = max(chain_err, assert_close(f"ddim_chain H=48 {list(times)} B={b}", got,
+                                                    want, CHAIN_TOL))
+            chain_inputs[times, b] = (ctx, x_init)
+    qep = lambda times, k, n_steps, **kw: make_fused_ddim_episode(
+        qpacked, schedule, times, ins, cond, plant, qcost, n_steps=n_steps, n_candidates=k,
+        selection_cost=sel if k > 1 else None, device=dev, **kw)
+    ep1, ep4 = qep(GRID, 1, N_Q_EP), qep(GRID, K4, N_Q_EP4)
+    loop = lambda sampler: make_closed_loop(
+        GaussianDiffusion(schedule), student, ins, cond, plant, qcost, horizon=48,
+        n_steps=N_Q_EP, sample_override=sampler, noise_shape=chain.noise_shape, device=dev)
+    nz1 = torch.randn(ep1.noise_shape, generator=gen, device=dev)
+    nz4 = torch.randn(ep4.noise_shape, generator=gen, device=dev)
+    wrappers = [*chains.values(), ep1, ep4]
+    reset(*wrappers)
+    res = loop(chain)(x0, nz1)
+    got1, got4 = ep1.kernel(x0, nz1), ep4.kernel(x0, nz4)
+    torch.cuda.synchronize()
+    launches = counts(*wrappers)
+    want_counts = [(N_Q_EP, 0)] + [(0, 0)] * 3 + [(1, 0), (1, 0)]
+    if launches != want_counts:
+        raise RuntimeError(f"quadrotor serving path: counts {launches}, expected {want_counts}")
+    ref = loop(chain.plain)(x0, nz1)
+    for name in ("x_track", "u_track", "u_horizons", "stage_costs"):
+        student_close(f"quadrotor chain loop {name}", getattr(res, name), getattr(ref, name), u_unit)
+    ties = []
+    t1 = time.perf_counter()
+    want1 = ep1.plain(x0, nz1)
+    torch.cuda.synchronize()
+    ep1_plain_ms = 1e3 * (time.perf_counter() - t1)
+    ep_err = episode_gate("ddim_episode_quadrotor K=1", ep1, got1, want1, u_unit, ties)
+    vs_loop = max(student_close(f"quadrotor episode vs the chain loop {name}", g,
+                                getattr(res, name), u_unit)
+                  for name, g in zip(("x_track", "u_track", "stage_costs"), got1))
+    ep_err = max(ep_err, episode_gate(f"ddim_episode_quadrotor K={K4}", ep4, got4,
+                                      ep4.plain(x0, nz4), u_unit, ties))
+    chosen4 = got4[3].tolist()
+    for k, n_steps in ((1, N_Q_EP4), (K4, N_Q_EP4 // 2)):  # the 3-step grid
+        ep = qep(GRID3, k, n_steps)
+        nz = torch.randn(ep.noise_shape, generator=gen, device=dev)
+        ep_err = max(ep_err, episode_gate(f"ddim_episode_quadrotor {GRID3} K={k}", ep,
+                                          ep.kernel(x0, nz), ep.plain(x0, nz), u_unit, ties))
+    ch_ms = cuda_ms(lambda: chain.kernel(*chain_inputs[tuple(GRID), 1]), n=20, warmup=3)
+    ch4_ms = cuda_ms(lambda: chains[tuple(GRID), K4].kernel(*chain_inputs[tuple(GRID), K4]), n=20,
+                     warmup=3)
+    ch3_ms = cuda_ms(lambda: chains[tuple(GRID3), 1].kernel(*chain_inputs[tuple(GRID3), 1]), n=20,
+                     warmup=3)
+    ch_plain_ms = cuda_ms(lambda: chain.plain(*chain_inputs[tuple(GRID), 1]), n=5, warmup=1)
+    ep1_ms = cuda_ms(lambda: ep1.kernel(x0, nz1), n=5, warmup=1)
+    ep4_ms = cuda_ms(lambda: ep4.kernel(x0, nz4), n=5, warmup=1)
+    log("quadrotor-kernels", t0, f"H=48, context 12: ddim_chain max |kernel - plain| "
+        f"{chain_err:.3e} over 2 contexts x B in (1, {K4}) x grids {GRID} and {GRID3} (tol "
+        f"{CHAIN_TOL:.0e}), {ch_ms:.4f} ms per replan at B=1, {ch4_ms:.4f} at B={K4}, "
+        f"{ch3_ms:.4f} on {GRID3} (plain {ch_plain_ms:.3f}); the per-replan loop through it "
+        f"{N_Q_EP} replans; ddim_episode_quadrotor K=1 {N_Q_EP} replans and K={K4} (safety-first "
+        f"scorer) {N_Q_EP4}, and on {GRID3}: max |kernel - plain| {ep_err:.3e}, K=1 against the "
+        f"chain loop {vs_loop:.3e} (controls {CHAIN_TOL:.0e} in normalized units, the rest "
+        f"{TRACK_TOL:.0e}); stage costs the task quadratic on the tracks; K={K4} chosen "
+        f"{chosen4}; {ep1_ms / N_Q_EP:.4f} ms per replan at K=1, {ep4_ms / N_Q_EP4:.4f} at "
+        f"K={K4} (plain {ep1_plain_ms / N_Q_EP:.3f} by the host clock); launches {launches}; "
+        f"near-ties (not gated): {len(ties)}: " + " | ".join(ties))
+
+    # 33. the in-kernel draw: Philox's known answers, 2^20 normals against N(0, 1) and against
+    # the twin's table, the episode with the draw against the plain episode on that table
+    t0 = time.perf_counter()
+    kat_c = torch.tensor([[0, 0, 0, 0], [0xFFFFFFFF] * 4,
+                          [0x243F6A88, 0x85A308D3, 0x13198A2E, 0x03707344]], device=dev)
+    kat_k = torch.tensor([[0, 0], [0xFFFFFFFF] * 2, [0xA4093822, 0x299F31D0]], device=dev)
+    kat = [[0x6627E8D5, 0xE169C58D, 0xBC57AC4C, 0x9B00DBD8],
+           [0x408F276D, 0x41C83B0E, 0xA20BC7C6, 0x6D5451FD],
+           [0xD16CFE09, 0x94FDCCEB, 0x5001E420, 0x24126EA1]]
+    if philox.words(kat_c, kat_k).tolist() != kat:
+        raise RuntimeError(f"Philox4x32-10 known answers: {philox.words(kat_c, kat_k).tolist()}")
+    seed = philox.seed_from_generator(torch.Generator().manual_seed(33)).to(dev)
+    shape = (1024, 16, 16, 4)  # 2^20 normals
+    z = philox.table(seed, shape)
+    z_twin = philox.normal_table(seed, shape)
+    torch.cuda.synchronize()
+    z_err = assert_close("in-kernel normals vs the twin", z, z_twin, 1e-5)
+    gaps = normal_moments(z)
+    if not all(gaps[k] < tol for k, tol in NORMAL_TOLS.items()):
+        raise RuntimeError(f"in-kernel normals: gaps {gaps} (tolerances {NORMAL_TOLS})")
+    dep = {k: qep(GRID, k, n, inkernel_noise=True) for k, n in ((1, N_Q_EP), (K8, N_Q_EP4))}
+    reset(*dep.values())
+    seeds = [philox.seed_from_generator(torch.Generator().manual_seed(330 + i)).to(dev)
+             for i in range(2)]
+    got_d = {k: ep.kernel(x0, seeds[0]) for k, ep in dep.items()}
+    again = dep[1].kernel(x0, seeds[0])
+    other = dep[1].kernel(x0, seeds[1])
+    torch.cuda.synchronize()
+    d_launches = counts(*dep.values())
+    if d_launches != [(3, 0), (1, 0)]:
+        raise RuntimeError(f"in-kernel draw: counts {d_launches}, expected [(3, 0), (1, 0)]")
+    if not all(torch.equal(a, b) for a, b in zip(again, got_d[1])):
+        raise RuntimeError("in-kernel draw: one seed twice gave different tracks")
+    if torch.equal(other[0], got_d[1][0]):
+        raise RuntimeError("in-kernel draw: two seeds gave the same track")
+    d_err, d_ties = 0.0, []
+    for k, ep in dep.items():
+        t1 = time.perf_counter()
+        want = ep.plain(x0, seeds[0])
+        torch.cuda.synchronize()
+        if k == 1:
+            d1_plain_ms = 1e3 * (time.perf_counter() - t1)
+        d_err = max(d_err, episode_gate(f"ddim_episode_quadrotor_draw K={k}", ep, got_d[k],
+                                        want, u_unit, d_ties))
+    d1_ms = cuda_ms(lambda: dep[1].kernel(x0, seeds[0]), n=5, warmup=1)
+    d8_ms = cuda_ms(lambda: dep[K8].kernel(x0, seeds[0]), n=5, warmup=1)
+    log("inkernel-noise", t0, f"Philox4x32-10's three known answers; 2^20 in-kernel normals "
+        f"against the twin's table {z_err:.3e} (tol 1e-5), against N(0, 1) {gaps} (tolerances "
+        f"{NORMAL_TOLS}); ddim_episode_quadrotor_draw K=1 {N_Q_EP} replans and K={K8} "
+        f"{N_Q_EP4} against the plain episode on the twin's table: max |kernel - plain| "
+        f"{d_err:.3e}; one seed twice equal, two seeds apart; {d1_ms / N_Q_EP:.4f} ms per replan "
+        f"at K=1, {d8_ms / N_Q_EP4:.4f} at K={K8}; near-ties (not gated): {len(d_ties)}: "
+        + " | ".join(d_ties))
+
+    # 34. quality on 16 of the 64 eval starts, 60 replans, K = 1 staged and K = 8 with the draw;
+    # the sustained rate of one 600-replan episode per launch at K = 1 and K = 8
+    t0 = time.perf_counter()
+    q1 = qep(GRID, 1, N_Q_STEPS)
+    q8 = qep(GRID, K8, N_Q_STEPS, inkernel_noise=True)
+    tracks = {1: [], K8: []}
+    for i in range(N_Q_STARTS):
+        g = torch.Generator(device=dev).manual_seed(340 + i)
+        tracks[1].append(q1(starts[i], torch.randn(q1.noise_shape, generator=g, device=dev))[0])
+        tracks[K8].append(q8(starts[i], philox.seed_from_generator(
+            torch.Generator().manual_seed(340 + i)).to(dev))[0])
+    metrics = {k: quadrotor_task.track_metrics(torch.stack(v).cpu().numpy())
+               for k, v in tracks.items()}
+    if any("diverged_fraction" in m for m in metrics.values()):
+        raise RuntimeError(f"quadrotor quality: diverged tracks {metrics}")
+    rates = {}
+    for k, draw in ((1, False), (1, True), (K8, True)):
+        ep = qep(GRID, k, N_Q_RATE, inkernel_noise=draw)
+        arg = seeds[0] if draw else torch.randn(ep.noise_shape, generator=gen, device=dev)
+        ep(x0, arg)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        x_tr = ep(x0, arg)[0]
+        torch.cuda.synchronize()
+        rates[f"k{k}_{'inkernel' if draw else 'staged'}_hz"] = N_Q_RATE / (time.perf_counter() - t1)
+        if not torch.isfinite(x_tr).all():
+            raise RuntimeError(f"quadrotor {N_Q_RATE}-replan episode K={k}: non-finite track")
+    q1_ms = cuda_ms(lambda: q1.kernel(starts[0], torch.randn(q1.noise_shape, device=dev)), n=3,
+                    warmup=1)
+    log("quadrotor-quality", t0, f"{N_Q_STARTS} eval starts x {N_Q_STEPS} replans: K=1 staged "
+        f"{metrics[1]}; K={K8} in-kernel draw, safety-first scorer {metrics[K8]}; "
+        f"{q1_ms / N_Q_STEPS:.4f} ms per replan at K=1; one {N_Q_RATE}-replan episode per launch: "
+        f"{ {k: round(v, 1) for k, v in rates.items()} } replans/s")
+
+    # each row of the kernels line; bytes and operations of this run's inputs
+    weights, meta_n = qpacked.weights.numel(), qpacked.meta.numel()
+    film_w = sum(math.prod(shape_) for name, (_, shape_) in qpacked.segments.items()
+                 if name.split(".")[0] == "films")
+    film_flops = 2 * 2 * int(qpacked.films_w.shape[1]) * sum(
+        rb.cond_mlp[1].out_features for rb in student.res_blocks())
+    ch_flops = qpacked.flops_per_pass * chain.n_total
+    ch_bytes = 4 * (weights - film_w + meta_n + chain.films(ctx0).numel()
+                    + chain_inputs[tuple(GRID), 1][1].numel() + chain.coefs.numel() + 48 * 4)
+
+    def row_ep(ep, launches_, ms, plain_ms, err, n_noise, **extra):
+        """An episode's row: the main path's launches, its times, and its bound at K = 1 (the
+        scorer runs only at K > 1)."""
+        flops = ep.n_steps * ep.n_total * (qpacked.flops_per_pass + film_flops / 2)
+        n_bytes = 4 * (weights + meta_n + ep.t_embs.numel() + n_noise + ep.coefs.numel()
+                       + ep.consts.numel() + 12 + (ep.n_steps + 1) * 12 + ep.n_steps * 6)
+        return {"launches": launches_, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                **bound(flops, n_bytes), "library_ms": None, "times": GRID,
+                "replans": ep.n_steps, "ms_per_replan": ms / ep.n_steps, **extra}
+
+    # at K > 1 candidates run in turn and each scoring step adds Q_STEP_FLOPS per candidate
+    k_bound = lambda ep: bound(
+        ep.n_steps * ep.n_candidates * (ep.n_total * (qpacked.flops_per_pass + film_flops / 2)
+                                        + 48 * Q_STEP_FLOPS),
+        4 * (weights + meta_n + ep.n_steps * ep.n_candidates * 48 * 4))["bound_ms"]
+    h48 = {"ddim_chain": {"launches": launches[0][0], "max_abs_err": chain_err, "ms": ch_ms,
+                          "plain_ms": ch_plain_ms, **bound(ch_flops, ch_bytes),
+                          "library_ms": None, "times": GRID, "b4_ms": ch4_ms,
+                          "grid3_ms": ch3_ms},
+           "ddim_episode": {"entry": "ddim_episode_quadrotor",
+                            **row_ep(ep1, launches[4][0], ep1_ms, ep1_plain_ms, ep_err,
+                                     nz1.numel())}}
+    quad_row = {
+        "name": "ddim_episode_quadrotor", "route": "cuda",
+        "source": "mpc_via_diffusion_model_tpu_torch/ops/csrc/ddim_episode_quadrotor.cu",
+        "replaces": "mpc_via_diffusion_model_tpu/ops/fused_episode.py:142",
+        "entry_of": "ddim_episode", "plant": "quadrotor", "scorer": "safety_first",
+        **row_ep(ep1, launches[4][0] + launches[5][0], ep1_ms, ep1_plain_ms, ep_err,
+                 nz1.numel(), k4_ms_per_replan=ep4_ms / N_Q_EP4, k4_bound_ms=k_bound(ep4),
+                 rates=rates, metrics16=metrics),
+        "inkernel_noise": {
+            "name": "ddim_episode_quadrotor_draw", "route": "cuda",
+            "source": "mpc_via_diffusion_model_tpu_torch/ops/csrc/philox.cuh",
+            "replaces": "mpc_via_diffusion_model_tpu/ops/fused_episode.py:82",
+            **row_ep(dep[1], d_launches[0][0] + d_launches[1][0], d1_ms, d1_plain_ms, d_err, 2,
+                     k8_ms_per_replan=d8_ms / N_Q_EP4, k8_bound_ms=k_bound(dep[K8]),
+                     normals_vs_twin=z_err, normal_gaps=gaps)}}
+    for row in (*h48.values(), quad_row):
+        row.update(model="onpolicy_quadrotor", horizon=48)
+    return {"h48": h48, "row": quad_row}
+
+
 SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize")
 
 
@@ -1011,6 +1344,8 @@ def main() -> None:
     ep_smem = [packed_cpu.episode_smem_bytes(k) for k in (1, K4)]
     lmpc_smem = [pack_unet(load_lmpc(LMPC, device="cpu"), "cpu").episode_smem_bytes(k)
                  for k in (1, K8)]
+    quad_smem = [pack_unet(load_quadrotor_student(QUADROTOR_STUDENT, device="cpu"),
+                           "cpu").episode_smem_bytes(k) for k in (1, 16)]
     cluster_kernels = {  # entry: (occupancy query, shared memory per CTA of each launch shape)
         "cfg_chain": (cfg_chain_max_active_clusters, [packed_cpu.smem_bytes]),
         "cfg_chain_bf16": (cfg_chain_bf16_max_active_clusters, [packed_cpu.smem_bytes]),
@@ -1019,7 +1354,8 @@ def main() -> None:
         "cfg_episode_bf16": (cfg_episode_bf16_max_active_clusters, ep_smem),
         "ddim_chain": (ddim_chain_max_active_clusters, [packed_cpu.smem_bytes]),
         "ddim_episode": (ddim_episode_max_active_clusters, ep_smem),
-        "cfg_episode_lmpc": (cfg_episode_lmpc_max_active_clusters, lmpc_smem)}
+        "cfg_episode_lmpc": (cfg_episode_lmpc_max_active_clusters, lmpc_smem),
+        "ddim_episode_quadrotor": (ddim_episode_quadrotor_max_active_clusters, quad_smem)}
     def resources(entry: str):
         """(registers, spills) of each kernel of an entry, from nvcc's report or, when the
         build was reused, cuobjdump's: the bf16 entries (``<source>_bf16``) are their
@@ -1054,6 +1390,12 @@ def main() -> None:
         lines.append(f"{name} registers {regs}, spill stores and loads (or local bytes) {spills}, "
                      f"clusters of {CLUSTER} CTAs that fit at once "
                      + ", ".join(f"{n} at {b} B per CTA" for n, b in zip(slots, smems)))
+    # the quadrotor entry's in-kernel draw: the same library's other instantiation
+    draw_slots = [ddim_episode_quadrotor_draw_max_active_clusters(b) for b in quad_smem]
+    if not all(draw_slots):
+        raise RuntimeError(f"ddim_episode_quadrotor_draw: no cluster fits: {draw_slots}")
+    cluster_info["ddim_episode_quadrotor"]["draw_clusters_fit"] = draw_slots
+    lines.append(f"ddim_episode_quadrotor_draw clusters that fit at once {draw_slots}")
     # the conv kernel: one instantiation per accumulator tiles per warp (1, 2, 4, 8)
     conv_regs, conv_spills = resources("fused_conv")
     conv_info = {"registers": conv_regs, "spill_bytes": conv_spills}
@@ -1061,9 +1403,12 @@ def main() -> None:
                  f"{conv_spills}")
     log("build", t0, f"{len(built)} libraries; " + "; ".join(lines)
         + f" (the chains' and the pass's plan at every batch; episodes at K = 1 and K = {K4}, "
-        f"cfg_episode_lmpc at K = 1 and K = {K8} on the LMPC model; the _bf16 entries are the "
-        "bf16 instantiations of cfg_chain.cu and cfg_episode.cu, cfg_episode_lmpc is "
-        "cfg_episode.cu compiled for the linear cart-pole)")
+        f"cfg_episode_lmpc at K = 1 and K = {K8} on the LMPC model, ddim_episode_quadrotor at "
+        "K = 1 and 16 on the quadrotor student; the _bf16 entries are the bf16 instantiations of "
+        "cfg_chain.cu and cfg_episode.cu, cfg_episode_lmpc is cfg_episode.cu compiled for the "
+        "linear cart-pole, ddim_episode_quadrotor ddim_episode.cuh for the quadrotor, its "
+        "registers those of its staged and drawing instantiations and of the draw's two test "
+        "kernels)")
 
     # 3. kernels vs plain versions, flagship weights, full width
     t0 = time.perf_counter()
@@ -1138,20 +1483,25 @@ def main() -> None:
     torch.cuda.synchronize()
     if ep1.launches != 1:
         raise RuntimeError(f"episode K=1: {ep1.launches} launches for one episode")
+    vs_loop = max(assert_close(f"episode vs per-replan loop {name}", g, getattr(res, name), TRACK_TOL)
+                  for name, g in zip(("x_track", "u_track", "stage_costs"), got))
+    # the kernel against the plain episode over the first N_PLAIN_LOOP replans of the same noise
+    ep_p = episode(1, N_PLAIN_LOOP)
+    got_p = ep_p.kernel(x0, ep_noise[:N_PLAIN_LOOP])
+    torch.cuda.synchronize()
     t1 = time.perf_counter()
-    want = ep1.plain(x0, ep_noise)
+    want = ep_p.plain(x0, ep_noise[:N_PLAIN_LOOP])
     torch.cuda.synchronize()
     plain_episode_s = time.perf_counter() - t1
     ep_err = 0.0
-    for name, g, w_ in zip(("x_track", "u_track", "stage_costs"), got, want):
+    for name, g, w_ in zip(("x_track", "u_track", "stage_costs"), got_p, want):
         ep_err = max(ep_err, assert_close(f"episode K=1 {name}", g, w_, TRACK_TOL))
-    if not torch.equal(got[3], want[3]):
+    if not torch.equal(got_p[3], want[3]):
         raise RuntimeError("episode K=1: chosen candidates differ")
-    vs_loop = max(assert_close(f"episode vs per-replan loop {name}", g, getattr(res, name), TRACK_TOL)
-                  for name, g in zip(("x_track", "u_track", "stage_costs"), got))
-    log("episode-k1", t0, f"{N_STEPS} replans in one launch: max |kernel - plain|={ep_err:.3e}, "
-        f"max |episode - per-replan loop|={vs_loop:.3e}, atol = rtol = {TRACK_TOL:.0e}; total cost "
-        f"kernel={got[2].sum().item():.6f} plain={want[2].sum().item():.6f}; plain episode "
+    log("episode-k1", t0, f"{N_STEPS} replans in one launch: max |episode - per-replan loop|="
+        f"{vs_loop:.3e}; over the first {N_PLAIN_LOOP} replans max |kernel - plain|={ep_err:.3e}, "
+        f"atol = rtol = {TRACK_TOL:.0e}; total cost kernel={got[2].sum().item():.6f} per-replan "
+        f"loop={res.stage_costs.sum().item():.6f}; plain {N_PLAIN_LOOP}-replan episode "
         f"{plain_episode_s:.3f}s by the host clock")
 
     # 6. the episode kernel at K = 4 with a truncated selection horizon
@@ -1373,7 +1723,7 @@ def main() -> None:
     unet_call_ms = cuda_ms(lambda: unet(*args), n=200, warmup=10)
     unet_plain_ms = cuda_ms(lambda: unet.plain(*args), n=50, warmup=5)
     episode_ms = cuda_ms(lambda: ep1.kernel(x0, ep_noise), n=5, warmup=1)
-    episode_plain_ms = 1e3 * plain_episode_s  # phase 5's plain episode by the host clock (~11 s)
+    ep_p_plain_ms = 1e3 * plain_episode_s / N_PLAIN_LOOP  # phase 5's plain episode, per replan
     episode4_ms = cuda_ms(lambda: ep4.kernel(x0, noise4), n=5, warmup=1)
     # the DDIM chain: the launch alone and the whole call on [23], B = 1; the launch alone on
     # [23, 15, 7] and at B = 4 (clusters side by side)
@@ -1416,7 +1766,8 @@ def main() -> None:
         f"{unet_plain_ms:.4f}) per pass at batch 2; BENCH_FUSED=1 loop {unet_loop_hz:.2f} "
         f"replans/s; "
         f"cfg_episode K=1 {episode_ms:.3f} ms per {N_STEPS}-replan episode = "
-        f"{episode_ms / N_STEPS:.4f} ms per replan (plain {episode_plain_ms:.3f} ms); "
+        f"{episode_ms / N_STEPS:.4f} ms per replan (plain {ep_p_plain_ms:.3f} ms per replan over "
+        f"{N_PLAIN_LOOP}); "
         f"K={K4} {episode4_ms:.3f} ms per {N_STEPS_K4} replans = "
         f"{episode4_ms / N_STEPS_K4:.4f} ms per replan; per-replan loop through cfg_chain "
         f"{per_replan_hz:.2f} replans/s")
@@ -1474,6 +1825,9 @@ def main() -> None:
     for r in bench_rows:
         if r["kernel_us"] is None or r["max_abs_err"] is None or not r["max_abs_err"] <= r["tol"]:
             raise RuntimeError(f"bench_kernels: row {r}")
+    # row 3's plain time: bench_kernels' plain 80-replan episode at phase 5's shapes, host clock
+    episode_plain_ms = 1e-3 * next(r["plain_us"] for r in bench_rows
+                                   if r["kernel"] == "cfg_episode_80step")
     log("bench-kernels", t0, f"{len(bench_rows)} rows, every kernel within its tolerance of its "
         f"plain twin: " + "; ".join(
             f"{r['kernel']}{r.get('shape', '')}{' +pre_bias' if r.get('pre_bias') else ''} "
@@ -1593,18 +1947,19 @@ def main() -> None:
         chain_bf_err = max(chain_bf_err, assert_close("cfg_chain_bf16", got,
                                                       chain_bf.plain(ctx, noise), BF16_VS_FP32))
     ep_bf = make_fused_cfg_episode(chain.packed, schedule, inputs_stats, cond_stats, plant, cost,
-                                   n_steps=N_STEPS, w=W, n_diffusion_steps_without_noise=N_TAIL,
+                                   n_steps=N_BF16_EP, w=W, n_diffusion_steps_without_noise=N_TAIL,
                                    weights_dtype=bf16, device=dev)
-    got_bf = ep_bf.kernel(x0, ep_noise)
+    bf_noise = ep_noise[:N_BF16_EP]
+    got_bf = ep_bf.kernel(x0, bf_noise)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    want_bf = ep_bf.plain(x0, ep_noise)
+    want_bf = ep_bf.plain(x0, bf_noise)
     torch.cuda.synchronize()
     plain_bf_episode_s = time.perf_counter() - t1
-    du_bf = assert_close("cfg_episode_bf16 80 replans u_norm", got_bf[1] / U_HALF_RANGE,
+    du_bf = assert_close(f"cfg_episode_bf16 {N_BF16_EP} replans u_norm", got_bf[1] / U_HALF_RANGE,
                          want_bf[1] / U_HALF_RANGE, BF16_VS_FP32)
     dx_bf = (got_bf[0].double() - want_bf[0].double()).abs().max().item()
-    du_vs_fp32 = ((got_bf[1] - res.u_track).abs().max() / U_HALF_RANGE).item()
+    du_vs_fp32 = ((got_bf[1] - res.u_track[:N_BF16_EP]).abs().max() / U_HALF_RANGE).item()
     ep4_bf = make_fused_cfg_episode(chain.packed, schedule, inputs_stats, cond_stats, plant, cost,
                                     n_steps=N_STEPS_K4, w=W, n_diffusion_steps_without_noise=N_TAIL,
                                     n_candidates=K4, selection_horizon=SEL_H, weights_dtype=bf16,
@@ -1618,10 +1973,10 @@ def main() -> None:
         f"{fmt_gate(one_chain)}; cfg_episode_bf16 K=1 over {N_ONE_PASS} replans "
         f"{fmt_gate(one_ep[1])}; K={K4} over {N_STEPS_K4} replans {fmt_gate(one_ep[K4])}, chosen "
         f"{one_chosen} in both. Full depth (T = {T} + {N_TAIL}): cfg_chain_bf16 max |kernel - "
-        f"plain| {chain_bf_err:.3e} over {len(contexts)} contexts; cfg_episode_bf16 {N_STEPS} "
+        f"plain| {chain_bf_err:.3e} over {len(contexts)} contexts; cfg_episode_bf16 {N_BF16_EP} "
         f"replans on phase 4's noise: max |du_norm| {du_bf:.3e}, max |dx| {dx_bf:.3e}, total "
         f"cost kernel {got_bf[2].sum().item():.6f} plain {want_bf[2].sum().item():.6f} (fp32 "
-        f"per-replan loop {res.stage_costs.sum().item():.6f}), max "
+        f"per-replan loop {res.stage_costs[:N_BF16_EP].sum().item():.6f}), max "
         f"|du_norm| against the fp32 per-replan loop {du_vs_fp32:.3e}; K={K4} over "
         f"{N_STEPS_K4} replans chosen {got4_bf[3].tolist()} vs plain {want4_bf[3].tolist()} "
         f"({same4} of {N_STEPS_K4} equal); full depth gated at {BF16_VS_FP32:.0e} only (two "
@@ -1680,11 +2035,12 @@ def main() -> None:
     # bf16 timing at the main paths' shapes
     chain_bf_ms = cuda_ms(lambda: chain_bf.kernel(contexts[0], noise), n=20, warmup=3)
     chain_bf_plain_ms = cuda_ms(lambda: chain_bf.plain(contexts[0], noise), n=5, warmup=1)
-    ep_bf_ms = cuda_ms(lambda: ep_bf.kernel(x0, ep_noise), n=5, warmup=1)
+    ep_bf_ms = cuda_ms(lambda: ep_bf.kernel(x0, bf_noise), n=5, warmup=1)
     log("timing-bf16", t0, f"cfg_chain_bf16 {chain_bf_ms:.4f} ms (fp32 {chain_ms:.4f}; plain "
         f"{chain_bf_plain_ms:.4f}) per replan; cfg_episode_bf16 K=1 {ep_bf_ms:.3f} ms per "
-        f"{N_STEPS}-replan episode (fp32 {episode_ms:.3f}; plain {1e3 * plain_bf_episode_s:.1f} "
-        f"by the host clock)")
+        f"{N_BF16_EP}-replan episode, {ep_bf_ms / N_BF16_EP:.4f} per replan (fp32 "
+        f"{episode_ms / N_STEPS:.4f}; plain {1e3 * plain_bf_episode_s:.1f} per episode by the host "
+        "clock)")
 
     # 22. the LMPC workload's kernels against their plain versions on its committed weights at
     # full width: the CFG chain at horizon 8 and context 4, and the CFG episode's linear cart-pole
@@ -1839,6 +2195,7 @@ def main() -> None:
     training_line = train_phases(dev, schedule)
     ilqr_line = ilqr_phases(dev)
     distill_line = distill_phases(dev)
+    quad_line = quadrotor_phases(dev)
 
     packed = chain.packed
     seg = lambda *prefixes: sum(math.prod(shape) for name, (_, shape) in packed.segments.items()
@@ -1860,6 +2217,10 @@ def main() -> None:
     film_flops = 2 * 2 * int(packed.films_w.shape[1]) * sum(
         rb.cond_mlp[1].out_features for rb in model.res_blocks())
     ep_flops = N_STEPS * n_total * (chain_flops / n_total + film_flops)
+    # the bf16 episode of phase 19: N_BF16_EP replans
+    bf_ep_flops = N_BF16_EP * n_total * (chain_flops / n_total + film_flops)
+    bf_ep_bytes = 4 * (weights + meta_n + ep1.t_embs.numel() + bf_noise.numel() + ep1.coefs.numel()
+                       + ep1.consts.numel() + 5 + (N_BF16_EP + 1) * 5 + N_BF16_EP * 3)
     ep_bytes = 4 * (weights + meta_n + ep1.t_embs.numel() + ep_noise.numel() + ep1.coefs.numel()
                     + ep1.consts.numel() + 5 + (N_STEPS + 1) * 5 + N_STEPS * 3)
     # ddim_chain: one replan on the student's grid, B = 1 (one row-set per step); the student
@@ -1942,7 +2303,8 @@ def main() -> None:
         full_depth_max_abs_err=chain_bf_err, bench_chain_hz=bench_runs["chain", True].line["value"])
     rows[2]["bf16"] = bf16_row(
         "cfg_episode_bf16", rows[2], bench_runs["episode", True].launches, one_ep[1]["max"],
-        ep_bf_ms, 1e3 * plain_bf_episode_s, ep_flops, ep_bytes, one_pass=one_ep[1],
+        ep_bf_ms, 1e3 * plain_bf_episode_s, bf_ep_flops, bf_ep_bytes, replans=N_BF16_EP,
+        one_pass=one_ep[1],
         one_pass_k4=one_ep[K4], full_depth_max_abs_err_u_norm=du_bf,
         full_depth_max_abs_err_x=dx_bf, k4_full_depth_chosen_equal=same4,
         bench_episode_hz=bench_runs["episode", True].line["value"],
@@ -1983,6 +2345,13 @@ def main() -> None:
     for i, name in ((2, "cfg_episode"), (3, "ddim_chain"), (4, "ddim_episode")):
         rows[i]["h64"] = {"name": name, "route": "cuda", "source": rows[i]["source"],
                           "replaces": rows[i]["replaces"], **distill_line["h64"][name]}
+    # the quadrotor student at horizon 48 (phases 32-34): the DDIM chain and episode under
+    # their rows' "h48", the quadrotor's episode entry a row of its own with its in-kernel draw
+    for i, name in ((3, "ddim_chain"), (4, "ddim_episode")):
+        rows[i]["h48"] = {"name": name, "route": "cuda", "source": rows[i]["source"],
+                          "replaces": rows[i]["replaces"], **quad_line["h48"][name]}
+    rows.append({**quad_line["row"], "cluster_ctas": CLUSTER,
+                 **cluster_info["ddim_episode_quadrotor"]})
     rows[2]["bench_closed_loop_control_hz"] = bench_line["value"]
     rows[2]["bench_pipelined_hz"] = bench_line["pipelined_hz"]
     print(json.dumps({"training": training_line}), flush=True)
@@ -1990,6 +2359,7 @@ def main() -> None:
     print(json.dumps({"distill": {k: v for k, v in distill_line.items() if k != "h64"}}),
           flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
+    print(json.dumps({"phase_seconds": PHASE_SECONDS}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}),
           flush=True)

@@ -2,19 +2,23 @@ from .base import Plant, QuadraticCost, reference_mpc_cost, rollout, rollout_wit
 from .cartpole import (cartpole_lmpc, cartpole_lmpc_cost, cartpole_virtual_collect_cost,
                        cartpole_virtual_cost, cartpole_virtual_stabilized,
                        cartpole_virtual_swingup, theta_to_red_theta)
+from .quadrotor import (SafetyFirstCost, obstacle_cost, obstacle_cost_single, quadrotor,
+                        quadrotor_cost)
 
-__all__ = ["PLANTS", "Plant", "QuadraticCost", "cartpole_lmpc", "cartpole_lmpc_cost",
-           "cartpole_virtual_collect_cost", "cartpole_virtual_cost", "cartpole_virtual_stabilized",
-           "cartpole_virtual_swingup", "get_plant", "reference_mpc_cost", "rollout",
-           "rollout_with_cost", "theta_to_red_theta"]
+__all__ = ["PLANTS", "Plant", "QuadraticCost", "SafetyFirstCost", "cartpole_lmpc",
+           "cartpole_lmpc_cost", "cartpole_virtual_collect_cost", "cartpole_virtual_cost",
+           "cartpole_virtual_stabilized", "cartpole_virtual_swingup", "get_plant",
+           "obstacle_cost", "obstacle_cost_single", "quadrotor", "quadrotor_cost",
+           "reference_mpc_cost", "rollout", "rollout_with_cost", "theta_to_red_theta"]
 
 # the JAX package's registry (mpc_via_diffusion_model_tpu/dynamics/__init__.py), as far as ported
 PLANTS = {
     "cartpole_lmpc": (cartpole_lmpc, cartpole_lmpc_cost),
     "cartpole_virtual_swingup": (cartpole_virtual_swingup, cartpole_virtual_cost),
     "cartpole_virtual_stabilized": (cartpole_virtual_stabilized, cartpole_virtual_cost),
+    "quadrotor": (quadrotor, quadrotor_cost),
 }
-_NOT_PORTED = ("pendulum", "double_integrator", "acrobot", "quadrotor", "panda_surrogate", "panda")
+_NOT_PORTED = ("pendulum", "double_integrator", "acrobot", "panda_surrogate", "panda")
 
 
 def get_plant(name: str, **kwargs):

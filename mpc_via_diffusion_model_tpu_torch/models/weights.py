@@ -28,7 +28,8 @@ trained), both of the flagship architecture (``FLAGSHIP_CONFIG``), and
 (``artifacts/flagship_modality/ema_params.pkl``, ``TEACHER_CONFIG``), and
 ``load_lmpc`` the LMPC parity workload's denoiser,
 ``artifacts/flagship_lmpc/ema_params.pkl`` (``LMPC_CONFIG``, the flagship's
-layout). All are plain dicts of float32 numpy arrays that need neither jax
+layout), and ``load_quadrotor_student`` the quadrotor's 1-eval student
+(``QUADROTOR_STUDENT_CONFIG``, the students' layout). All are plain dicts of float32 numpy arrays that need neither jax
 nor flax to unpickle.
 
 The MLPs (``AMPCNet``, any module of ``nn.Linear`` layers): flax numbers
@@ -50,9 +51,9 @@ from ..utils.device import resolve_device
 from .ampc import AMPCNet
 from .temporal_unet import TemporalUnet
 
-__all__ = ["FLAGSHIP_CONFIG", "LMPC_CONFIG", "TEACHER_CONFIG", "from_flax_params",
-           "init_like_flax", "init_mlp_like_flax", "load_ampc", "load_flagship", "load_lmpc",
-           "load_student", "load_teacher", "mlp_from_flax_params", "mlp_to_flax_params",
+__all__ = ["FLAGSHIP_CONFIG", "LMPC_CONFIG", "QUADROTOR_STUDENT_CONFIG", "TEACHER_CONFIG",
+           "from_flax_params", "init_like_flax", "init_mlp_like_flax", "load_ampc",
+           "load_flagship", "load_lmpc", "load_quadrotor_student", "load_student", "load_teacher", "mlp_from_flax_params", "mlp_to_flax_params",
            "to_flax_params"]
 
 # artifacts/flagship/args.yaml: horizon 32, unet_input_dim 32, dim_mults (1,2,4), context 5
@@ -64,6 +65,10 @@ TEACHER_CONFIG = dict(FLAGSHIP_CONFIG, n_support_points=64)
 # scripts/flagship_lmpc.py: horizon 8, unet_input_dim 32, dim_mults (1,2,4), context 4
 LMPC_CONFIG = dict(state_dim=1, n_support_points=8, unet_input_dim=32, dim_mults=(1, 2, 4),
                    time_emb_dim=32, context_dim=4)
+# scripts/bench_quadrotor_student.py: 4 controls, horizon 48, unet_input_dim 32, dim_mults
+# (1,2,4), the 12-dim quadrotor state as context
+QUADROTOR_STUDENT_CONFIG = dict(state_dim=4, n_support_points=48, unet_input_dim=32,
+                                dim_mults=(1, 2, 4), time_emb_dim=32, context_dim=12)
 
 
 def _unet_layers(n_levels: int) -> List[Tuple[str, Tuple[str, ...], str]]:
@@ -253,6 +258,13 @@ def load_teacher(path, device=None) -> TemporalUnet:
     """The distilled students' teacher, ``artifacts/flagship_modality/ema_params.pkl``
     (1,001,825 params, horizon 64, the context-present bit), from its ``{'params'}`` pickle."""
     return _load_unet(path, "params", True, device, TEACHER_CONFIG)
+
+
+def load_quadrotor_student(path, device=None) -> TemporalUnet:
+    """The quadrotor's self-distilled student,
+    ``artifacts/onpolicy_quadrotor/student_1eval.pkl`` (``QUADROTOR_STUDENT_CONFIG``,
+    the context-present bit), from its ``{'params'}`` pickle."""
+    return _load_unet(path, "params", True, device, QUADROTOR_STUDENT_CONFIG)
 
 
 def load_lmpc(path, device=None) -> TemporalUnet:

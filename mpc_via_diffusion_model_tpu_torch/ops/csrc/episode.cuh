@@ -12,7 +12,7 @@
 #include "unet_body.cuh"
 
 // The plant of the episode: the swing-up cart-pole unless the source that includes this file
-// names another of plants.cuh first (cfg_episode_lmpc.cu).
+// names another of plants.cuh first (cfg_episode_lmpc.cu, ddim_episode_quadrotor.cu).
 #ifndef EPISODE_PLANT
 #define EPISODE_PLANT CartpoleSwingup
 #endif
@@ -20,8 +20,15 @@ typedef EPISODE_PLANT Plant;
 #define DX Plant::DX
 #define DU Plant::DU
 
+// The candidate scorer of best-of-K (plants.cuh): the selection QuadraticCost unless the
+// source names another first (ddim_episode_quadrotor.cu: the quadrotor's safety-first cost).
+#ifndef EPISODE_SCORER
+#define EPISODE_SCORER QuadScorer<DX, DU>
+#endif
+typedef EPISODE_SCORER Scorer;
+
 // consts layout (ops/fused_episode.py): normalizer affines, reported and selection costs, dt,
-// and the plant's own constants (Plant::N_CONSTS)
+// the plant's own constants (Plant::N_CONSTS), then the scorer's (Scorer::N_CONSTS)
 #define C_CN_SHIFT 0
 #define C_CN_SCALE (C_CN_SHIFT + DX)
 #define C_UN_SHIFT (C_CN_SCALE + DX)
@@ -32,14 +39,18 @@ typedef EPISODE_PLANT Plant;
 #define C_SR (C_SQ + DX)
 #define C_SP (C_SR + DU)
 #define C_DT (C_SP + DX)
-#define C_LEN (C_DT + 1 + Plant::N_CONSTS)
+#define C_SC (C_DT + 1 + Plant::N_CONSTS)
+#define C_LEN (C_SC + Scorer::N_CONSTS)
 
-// misc region of shared memory (M_EP_MISC)
+// misc region of shared memory (M_EP_MISC, ops/unet_pack.py::ep_misc_len): the state and the
+// context in slots of DX rounded up to 8 (the context is the state), the first control and
+// the choice (DU <= 8)
 #define X_STATE 0
-#define X_CTX 8
-#define X_U0 16
-#define X_BEST 24
-#define MISC_LEN 32
+#define X_CTX (8 * ((DX + 7) / 8))
+#define X_U0 (2 * X_CTX)
+#define X_BEST (X_U0 + 8)
+#define MISC_LEN (X_BEST + 8)
+static_assert(DU <= 8, "the misc region holds at most 8 controls");
 
 // mish(c_emb) of G groups into mc (G, cond_dim): group 0 is [t_emb, ctx, 1], group 1 (the
 // CFG episode's unconditional rows) [t_emb, 0, 0]; the trailing bit exists for
@@ -88,7 +99,7 @@ static __device__ void episode_films_rank(const int* m, const float* __restrict_
 // episodes' order:
 //   u_k   = clip(x_k, -1, 1) * u_scale + u_shift            unnormalize every plan
 //   K > 1: each candidate rolls out sel_h plant steps from the state, scored by the
-//         selection cost (terminal cost only when the whole plan is scored); first-min
+//         selection cost (Scorer; terminal cost only when the whole plan is scored); first-min
 //         argmin as a one-hot: a NaN score leaves it all zeros, so u0 = sum_k 0 * u_k[0]
 //   stage = sum_i (q_i x_i) x_i + (r u0) u0;  x <- plant.step(x, u0)
 // (the plant reads dt and its constants from consts + C_DT) and, when `writer`, writes the
@@ -116,11 +127,11 @@ static __device__ void episode_finish_replan(
       float acc = 0.f;
       for (int t = 0; t < sel_h; ++t) {
         const float* u = cand + (size_t)k * hd + t * D;
-        acc = __fadd_rn(acc, quad_stage<DX, DU>(consts + C_SQ, consts + C_SR, xc, u));
+        acc = __fadd_rn(acc, Scorer::stage(consts + C_SQ, consts + C_SR, consts + C_SC, xc, u));
         Plant::step(xc, u, consts + C_DT, xn);
         for (int i = 0; i < DX; ++i) xc[i] = xn[i];
       }
-      if (sel_h == H) acc = __fadd_rn(acc, quad_terminal<DX>(consts + C_SP, xc));
+      if (sel_h == H) acc = __fadd_rn(acc, Scorer::terminal(consts + C_SP, consts + C_SC, xc));
       score[k] = acc;
     }
     __syncthreads();

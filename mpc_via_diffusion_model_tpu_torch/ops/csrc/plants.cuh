@@ -81,6 +81,50 @@ struct CartpoleLmpc {
   }
 };
 
+// The 12-state quadrotor (mpc_via_diffusion_model_tpu_torch/dynamics/quadrotor.py), Euler
+// forward at dt: state (p, v, rpy, omega), controls (thrust, torques). pc[1] holds the mass m,
+// pc[2 .. 4] the inertia (ixx, iyy, izz), in fp32. In the torch step's order: the ZYX body-z,
+// acc = z_body * (thrust / m) - (0, 0, g), tth = sth / max(cth, 1e-3), the Euler-angle rates,
+// the explicit cross product omega x (I omega), omega_dot = (tau - gyro) / I, x + xdot * dt.
+// max(c, 1e-3) keeps a NaN as jnp.maximum does.
+struct Quadrotor {
+  static constexpr int DX = 12;
+  static constexpr int DU = 4;
+  static constexpr int N_CONSTS = 4;
+
+  static __device__ void step(const float* x, const float* u, const float* __restrict__ pc,
+                              float* xn) {
+    const float dt = __ldg(pc), m = __ldg(pc + 1);
+    const float in0 = __ldg(pc + 2), in1 = __ldg(pc + 3), in2 = __ldg(pc + 4);
+    const float G = 9.81f;
+    const float cphi = cosf(x[6]), sphi = sinf(x[6]);
+    const float cth = cosf(x[7]), sth = sinf(x[7]);
+    const float cpsi = cosf(x[8]), spsi = sinf(x[8]);
+    const float tm = __fdiv_rn(u[0], m);
+    const float z0 = __fadd_rn(__fmul_rn(__fmul_rn(cpsi, sth), cphi), __fmul_rn(spsi, sphi));
+    const float z1 = __fsub_rn(__fmul_rn(__fmul_rn(spsi, sth), cphi), __fmul_rn(cpsi, sphi));
+    const float z2 = __fmul_rn(cth, cphi);
+    const float a0 = __fmul_rn(z0, tm), a1 = __fmul_rn(z1, tm);  // - 0.0: exact
+    const float a2 = __fsub_rn(__fmul_rn(z2, tm), G);
+    const float cs = cth < 1e-3f ? 1e-3f : cth;  // NaN stays NaN
+    const float tth = __fdiv_rn(sth, cs);
+    const float w0 = x[9], w1 = x[10], w2 = x[11];
+    const float r0 = __fadd_rn(__fadd_rn(w0, __fmul_rn(__fmul_rn(sphi, tth), w1)),
+                               __fmul_rn(__fmul_rn(cphi, tth), w2));
+    const float r1 = __fsub_rn(__fmul_rn(cphi, w1), __fmul_rn(sphi, w2));
+    const float r2 = __fdiv_rn(__fadd_rn(__fmul_rn(sphi, w1), __fmul_rn(cphi, w2)), cs);
+    const float iw0 = __fmul_rn(in0, w0), iw1 = __fmul_rn(in1, w1), iw2 = __fmul_rn(in2, w2);
+    const float g0 = __fsub_rn(__fmul_rn(w1, iw2), __fmul_rn(w2, iw1));
+    const float g1 = __fsub_rn(__fmul_rn(w2, iw0), __fmul_rn(w0, iw2));
+    const float g2 = __fsub_rn(__fmul_rn(w0, iw1), __fmul_rn(w1, iw0));
+    const float xd[12] = {x[3], x[4], x[5], a0, a1, a2, r0, r1, r2,
+                          __fdiv_rn(__fsub_rn(u[1], g0), in0), __fdiv_rn(__fsub_rn(u[2], g1), in1),
+                          __fdiv_rn(__fsub_rn(u[3], g2), in2)};
+#pragma unroll
+    for (int i = 0; i < 12; ++i) xn[i] = __fadd_rn(x[i], __fmul_rn(xd[i], dt));
+  }
+};
+
 // The episode's reported stage cost, unrolled as the JAX kernel writes it
 // (fused_episode.py:617-618): sum_i (q_i * x_i) * x_i, then + sum_j (r_j * u_j) * u_j.
 template <int DX, int DU>
@@ -110,3 +154,74 @@ static __device__ float quad_terminal(const float* p, const float* x) {
   for (int i = 0; i < DX; ++i) s = __fadd_rn(s, __fmul_rn(p[i], __fmul_rn(x[i], x[i])));
   return s;
 }
+
+// The episode kernels' candidate scorers (episode.cuh, EPISODE_SCORER). Each reads the
+// selection cost's diagonals q, r, p from the consts table (C_SQ, C_SR, C_SP) and its own
+// N_CONSTS constants from sc, which follow the plant's in that table.
+
+// QuadraticCost.stage and .terminal.
+template <int DX, int DU>
+struct QuadScorer {
+  static constexpr int N_CONSTS = 0;
+
+  static __device__ __forceinline__ float stage(const float* q, const float* r, const float* sc,
+                                                const float* x, const float* u) {
+    return quad_stage<DX, DU>(q, r, x, u);
+  }
+
+  static __device__ __forceinline__ float terminal(const float* p, const float* sc,
+                                                   const float* x) {
+    return quad_terminal<DX>(p, x);
+  }
+};
+
+// The quadrotor task's safety-first selection cost (dynamics/quadrotor.py, SafetyFirstCost;
+// the JAX package's scripts/quadrotor_task.py::make_select_cost), term by term in its order:
+//   stage    = (quad_stage(x, 0 du) + factor * sum_j du_j^2) + hinge(x),  du = u - u_hover
+//   terminal = quad_terminal(x) + hinge(x)
+//   hinge(x) = sum_j (weight * pen_j) * pen_j,  pen_j = max(r_j - |p - c_j|, 0)
+// with |p - c_j| = sqrt(((p0 - c0)^2 + (p1 - c1)^2) + (p2 - c2)^2) and r_j the radii already
+// inflated by the margin. sc: u_hover (DU), factor, weight, the centers (N_OBS, 3) row-major,
+// the radii (N_OBS).
+template <int DX, int DU, int N_OBS>
+struct SafetyFirstScorer {
+  static constexpr int N_CONSTS = DU + 2 + 4 * N_OBS;
+
+  static __device__ float hinge(const float* __restrict__ sc, const float* x) {
+    const float w = __ldg(sc + DU + 1);
+    const float* c = sc + DU + 2;
+    const float* rad = c + 3 * N_OBS;
+    float acc = 0.f;
+#pragma unroll
+    for (int j = 0; j < N_OBS; ++j) {
+      const float d0 = __fsub_rn(x[0], __ldg(c + 3 * j));
+      const float d1 = __fsub_rn(x[1], __ldg(c + 3 * j + 1));
+      const float d2 = __fsub_rn(x[2], __ldg(c + 3 * j + 2));
+      const float d = __fsqrt_rn(__fadd_rn(__fadd_rn(__fmul_rn(d0, d0), __fmul_rn(d1, d1)),
+                                           __fmul_rn(d2, d2)));
+      const float v = __fsub_rn(__ldg(rad + j), d);
+      const float pen = v < 0.f ? 0.f : v;  // NaN stays NaN, as torch.clamp_min keeps it
+      acc = __fadd_rn(acc, __fmul_rn(__fmul_rn(w, pen), pen));
+    }
+    return acc;
+  }
+
+  static __device__ float stage(const float* q, const float* r, const float* __restrict__ sc,
+                                const float* x, const float* u) {
+    float du[DU], z[DU];
+    float s = 0.f;
+#pragma unroll
+    for (int j = 0; j < DU; ++j) {
+      du[j] = __fsub_rn(u[j], __ldg(sc + j));
+      z[j] = __fmul_rn(du[j], 0.f);
+      s = __fadd_rn(s, __fmul_rn(du[j], du[j]));
+    }
+    const float a = quad_stage<DX, DU>(q, r, x, z);
+    return __fadd_rn(__fadd_rn(a, __fmul_rn(__ldg(sc + DU), s)), hinge(sc, x));
+  }
+
+  static __device__ float terminal(const float* p, const float* __restrict__ sc,
+                                   const float* x) {
+    return __fadd_rn(quad_terminal<DX>(p, x), hinge(sc, x));
+  }
+};

@@ -34,17 +34,30 @@ with the candidate axis kept.
 
 What the kernels run, and what raises ``NotImplementedError`` because they
 do not: the plants written as device functions in ``csrc/plants.cuh``, a
-``QuadraticCost`` for the stage cost and for the selection, the identity
-``state_to_condition``, and staged noise (no ``inkernel_noise``). Each
-(plant, weights) pair the CFG episode runs is an entry of its own
-(``CFG_ENTRIES``): the cart-pole swing-up with float32 weights
-(``cfg_episode``) or bfloat16 ones (``bench.py``'s ``BENCH_BF16``: the
-kernel's bf16 entry, ``cfg_episode_bf16``, with ``plain`` running the U-Net
-of ``models/bf16.py``), and the linear cart-pole of the LMPC workload with
+``QuadraticCost`` for the stage cost, the candidate scorers written there
+(a ``QuadraticCost``, or the quadrotor task's ``SafetyFirstCost``, as each
+entry's ``Scorer``), the identity ``state_to_condition``, and staged noise
+but for the quadrotor's DDIM episode. Each (plant, weights) pair the CFG
+episode runs is an entry of its own (``CFG_ENTRIES``): the cart-pole
+swing-up with float32 weights (``cfg_episode``) or bfloat16 ones
+(``bench.py``'s ``BENCH_BF16``: the kernel's bf16 entry,
+``cfg_episode_bf16``, with ``plain`` running the U-Net of
+``models/bf16.py``), and the linear cart-pole of the LMPC workload with
 float32 weights (``cfg_episode_lmpc``: ``cfg_episode.cu`` compiled for that
 plant, ``csrc/cfg_episode_lmpc.cu``, whose A_d and B_d follow dt in the
-consts table). The DDIM episode runs the swing-up with float32 weights and
-``clip_denoised=True`` only. Nothing falls back to another path.
+consts table); all score with a ``QuadraticCost``. The DDIM episode runs
+float32 weights and ``clip_denoised=True`` only, one entry per plant
+(``DDIM_ENTRIES``): the swing-up (``ddim_episode``, a ``QuadraticCost``
+scorer) and the quadrotor (``ddim_episode_quadrotor``, ``csrc/
+ddim_episode_quadrotor.cu``: its m and inertia follow dt in the consts
+table, then the safety-first scorer's constants). The quadrotor's entry also
+draws its noise in the kernel (``inkernel_noise``, the ``_draw`` entry of
+its library): ``episode(x0, seed)`` takes a (2,) int32 seed, as the JAX
+package's ``_key_to_seeds`` gives, and every CTA computes each replan's
+draw by Philox4x32-10 counted by (replan, candidate, row, channel)
+(``csrc/philox.cuh``); its ``plain`` runs the plain episode on the table
+that draw produces (``ops/philox.py::normal_table``). At K = 1 the scorer
+never runs and its constants are zeros. Nothing falls back to another path.
 
 Best-of-K follows the JAX episode kernels, not the JAX runtime: the first
 candidate whose score equals the minimum wins, and when a score is NaN the
@@ -67,27 +80,50 @@ from ..core.schedules import DiffusionSchedule
 from ..data.normalization import NormalizerStats
 from ..diffusion.distillation import make_student_ddim_sampler
 from ..dynamics.base import Plant, QuadraticCost
+from ..dynamics.quadrotor import SafetyFirstCost
 from ..models.bf16 import bf16_conv_copy
 from ..models.layers import mish
 from ..models.temporal_unet import TemporalUnet
-from . import _build
+from . import _build, philox
 from .fused_denoise import (ddim_step_coefficients, is_bf16, refuse_unported_ddim_options,
                             step_coefficients)
 from .unet_pack import CLUSTER, M_LEN, SMEM_LIMIT, PackedUnet, packed_on
 
 __all__ = ["FusedCfgEpisode", "FusedDdimEpisode", "make_fused_cfg_episode",
            "make_fused_ddim_episode", "affine_consts", "episode_choice", "CFG_ENTRIES",
-           "DDIM_ENTRIES", "cfg_episode_max_active_clusters",
-           "cfg_episode_bf16_max_active_clusters", "cfg_episode_lmpc_max_active_clusters",
-           "ddim_episode_max_active_clusters", "cluster_split_features"]
+           "DDIM_ENTRIES", "DDIM_DRAW_ENTRIES", "SCORER_CONSTS",
+           "cfg_episode_max_active_clusters", "cfg_episode_bf16_max_active_clusters",
+           "cfg_episode_lmpc_max_active_clusters", "ddim_episode_max_active_clusters",
+           "ddim_episode_quadrotor_max_active_clusters",
+           "ddim_episode_quadrotor_draw_max_active_clusters", "cluster_split_features",
+           "scorer_kind"]
 
 # the entry of each episode kernel for (plant name, bf16 weights): plants written in
-# csrc/plants.cuh, each entry with its own library symbols and occupancy query
+# csrc/plants.cuh, each entry with its own library symbols and occupancy query; every CFG entry
+# scores candidates with a QuadraticCost
 CFG_ENTRIES = {("cartpole_virtual_swingup", False): "cfg_episode",
                ("cartpole_virtual_swingup", True): "cfg_episode_bf16",
                ("cartpole_lmpc", False): "cfg_episode_lmpc"}
-DDIM_ENTRIES = {("cartpole_virtual_swingup", False): "ddim_episode"}
+# the DDIM episode's entry for each plant (float32 weights), with the kind of selection cost
+# its scorer computes (csrc/plants.cuh: QuadScorer, SafetyFirstScorer), and the entry that
+# draws the noise in the kernel, where one exists
+DDIM_ENTRIES = {"cartpole_virtual_swingup": ("ddim_episode", "quadratic"),
+                "quadrotor": ("ddim_episode_quadrotor", "safety_first")}
+DDIM_DRAW_ENTRIES = {"ddim_episode_quadrotor": "ddim_episode_quadrotor_draw"}
+# the constants each scorer reads after the plant's (its N_CONSTS): the safety-first scorer's
+# u_hover (4), factor, weight, the 3 spheres' centers and radii
+SCORER_CONSTS = {"quadratic": 0, "safety_first": 4 + 2 + 4 * 3}
 _QUERIES = ("consts_len", "plant_dims")
+
+
+def scorer_kind(cost) -> Optional[str]:
+    """The kind of device scorer that computes ``cost`` (a key of
+    ``SCORER_CONSTS``), or None where no scorer does."""
+    if isinstance(cost, QuadraticCost):
+        return "quadratic"
+    if isinstance(cost, SafetyFirstCost):
+        return cost.scorer
+    return None
 
 
 @functools.lru_cache(maxsize=None)
@@ -152,6 +188,42 @@ def ddim_episode_max_active_clusters(smem_bytes: int) -> int:
     return _build.max_active_clusters(_ddim_lib(), "ddim_episode", smem_bytes)
 
 
+@functools.lru_cache(maxsize=None)
+def _ddim_quadrotor_lib() -> ctypes.CDLL:
+    """The built ``csrc/ddim_episode_quadrotor.cu``: the DDIM episode for the quadrotor."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    return _build.bind("ddim_episode_quadrotor", [p, p, i, p, p, p, p, p, p, p, p, p, i, i, i, i, p],
+                       M_LEN, _QUERIES, cluster=CLUSTER)
+
+
+def ddim_episode_quadrotor_max_active_clusters(smem_bytes: int) -> int:
+    """The same query for the quadrotor's DDIM episode entry."""
+    return _build.max_active_clusters(_ddim_quadrotor_lib(), "ddim_episode_quadrotor", smem_bytes)
+
+
+@functools.lru_cache(maxsize=None)
+def _ddim_quadrotor_draw_lib() -> ctypes.CDLL:
+    """The built ``csrc/ddim_episode_quadrotor.cu``, its in-kernel draw's entry declared."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    return _build.bind("ddim_episode_quadrotor_draw",
+                       [p, p, i, p, p, p, p, p, p, p, p, p, i, i, i, i, p], M_LEN, _QUERIES,
+                       cluster=CLUSTER, source="ddim_episode_quadrotor")
+
+
+def ddim_episode_quadrotor_draw_max_active_clusters(smem_bytes: int) -> int:
+    """The same query for the quadrotor's DDIM episode with the in-kernel draw."""
+    return _build.max_active_clusters(_ddim_quadrotor_draw_lib(), "ddim_episode_quadrotor_draw",
+                                      smem_bytes)
+
+
+# each DDIM entry's library and occupancy query
+_DDIM_LIBS = {"ddim_episode": (_ddim_lib, ddim_episode_max_active_clusters),
+              "ddim_episode_quadrotor": (_ddim_quadrotor_lib,
+                                         ddim_episode_quadrotor_max_active_clusters),
+              "ddim_episode_quadrotor_draw": (_ddim_quadrotor_draw_lib,
+                                              ddim_episode_quadrotor_draw_max_active_clusters)}
+
+
 def affine_consts(stats: NormalizerStats, dim: int):
     """(n_shift, n_scale, u_shift, u_scale) in float32 numpy, so that
     normalize(x) = (x - n_shift) * n_scale and unnormalize(u) =
@@ -194,10 +266,12 @@ class _Episode:
     query: Callable[[int], int]  # its <name>_max_active_clusters
     bf16 = False  # bf16 conv weights: the bf16 entry, which also reads cluster.weights_bf16
 
+    scorer = "quadratic"  # the kind of selection cost the entry's scorer computes
+
     def __init__(self, packed: PackedUnet, inputs_stats: NormalizerStats,
                  condition_stats: NormalizerStats, plant: Plant, cost: QuadraticCost,
-                 n_steps: int, n_candidates: int, selection_cost: QuadraticCost,
-                 selection_horizon: int, coefs: np.ndarray, t_eval: np.ndarray):
+                 n_steps: int, n_candidates: int, selection_cost, selection_horizon: int,
+                 coefs: np.ndarray, t_eval: np.ndarray):
         self.packed, self.model = packed, packed.model
         self.cluster = _build.ClusterLaunch(packed, self.name, self.query)
         self.plant, self.n_steps = plant, int(n_steps)
@@ -212,11 +286,18 @@ class _Episode:
         cn_shift, cn_scale, _, _ = affine_consts(condition_stats, dx)
         _, _, un_shift, un_scale = affine_consts(inputs_stats, du)
         vec = lambda t, n: np.broadcast_to(np.asarray(t.cpu(), np.float32).reshape(-1), (n,))
+        # the scorer's own constants; zeros at K = 1, where it never runs
+        scored = self.n_candidates > 1 or scorer_kind(selection_cost) == self.scorer
+        sc = (np.float32(getattr(selection_cost, "device_consts", ())) if scored
+              else np.zeros(SCORER_CONSTS[self.scorer], np.float32))
+        if sc.size != SCORER_CONSTS[self.scorer]:
+            raise ValueError(f"the {self.scorer} scorer reads {SCORER_CONSTS[self.scorer]} "
+                             f"constants, the selection cost lays out {sc.size}")
         self.consts = torch.from_numpy(np.concatenate([
             cn_shift, cn_scale, un_shift, un_scale,
             vec(cost.q_diag, dx), vec(cost.r, du),
             vec(selection_cost.q_diag, dx), vec(selection_cost.r, du), vec(selection_cost.p_diag, dx),
-            np.float32([plant.dt]), np.float32(plant.device_consts)]).astype(np.float32)).to(device)
+            np.float32([plant.dt]), np.float32(plant.device_consts), sc]).astype(np.float32)).to(device)
         self.cost, self.selection_cost = cost.to(device), selection_cost.to(device)
         self.smem_bytes = packed.episode_smem_bytes(self.n_candidates)
         if self.smem_bytes > SMEM_LIMIT:
@@ -290,8 +371,8 @@ class _Episode:
         unnormalize, the candidate rollouts and the first-min choice, the
         unrolled stage cost and the plant step. At K > 1 it keeps every
         replan's candidate scores in ``plain_scores`` (n_steps, K), which
-        tell a near-tie from a real choice."""
-        self._check(x0, noise)
+        tell a near-tie from a real choice. The caller has checked the
+        arguments."""
         self.plain_calls += 1
         c = self.consts
         dx, du = self.plant.state_dim, self.plant.control_dim
@@ -383,6 +464,7 @@ class FusedCfgEpisode(_Episode):
         arithmetic; the chain runs ``plain_model`` on the doubled batch of
         the K candidates (FiLM from mish([t_emb, ctx, bit]) inside its
         ResidualTemporalBlocks)."""
+        self._check(x0, noise)
         k = self.n_candidates
         dev = x0.device
         mask2 = torch.cat([torch.zeros((k, 1), device=dev), torch.ones((k, 1), device=dev)])
@@ -456,34 +538,59 @@ class FusedDdimEpisode(_Episode):
     """``episode(x0 (dx,), noise (n_steps, K, H, du)) -> (x_track
     (n_steps+1, dx), u_track (n_steps, du), stage_costs (n_steps,))``: a
     distilled student's closed loop, each replan a DDIM chain over ``times``
-    from that replan's initial draw.
+    from that replan's initial draw. With ``inkernel_noise`` the second
+    argument is a (2,) int32 seed and the kernel draws each replan's noise
+    itself (``ops/philox.py``); ``noise_table(seed)`` is that draw staged.
 
     ``kernel`` and ``plain`` also return the index of the applied candidate
     at every replan (K where none was chosen). ``launches`` counts kernel
     launches and ``plain_calls`` calls of the plain version; callers reset
-    them to 0 to count one run.
+    them to 0 to count one run. ``name`` is the entry the plant and the draw
+    pick (``DDIM_ENTRIES``, ``DDIM_DRAW_ENTRIES``).
     """
-
-    name = "ddim_episode"
-    lib = staticmethod(_ddim_lib)
-    query = staticmethod(ddim_episode_max_active_clusters)
 
     def __init__(self, packed: PackedUnet, schedule: DiffusionSchedule, times: Sequence[int],
                  inputs_stats: NormalizerStats, condition_stats: NormalizerStats, plant: Plant,
-                 cost: QuadraticCost, n_steps: int, n_candidates: int,
-                 selection_cost: QuadraticCost, selection_horizon: int):
+                 cost: QuadraticCost, n_steps: int, n_candidates: int, selection_cost,
+                 selection_horizon: int, inkernel_noise: bool = False):
+        entry, self.scorer = DDIM_ENTRIES[plant.name]
+        self.inkernel_noise = bool(inkernel_noise)
+        self.name = DDIM_DRAW_ENTRIES[entry] if self.inkernel_noise else entry
+        self.lib, self.query = _DDIM_LIBS[self.name]
         super().__init__(packed, inputs_stats, condition_stats, plant, cost, n_steps,
                          n_candidates, selection_cost, selection_horizon,
                          *ddim_step_coefficients(schedule, times))
         self._sample = make_student_ddim_sampler(schedule, self.model, times)
 
     @property
-    def noise_shape(self) -> Tuple[int, ...]:
+    def table_shape(self) -> Tuple[int, ...]:
+        """The staged noise of one episode: (n_steps, K, H, du)."""
         return (self.n_steps, self.n_candidates, self.packed.horizon, self.packed.state_dim)
+
+    @property
+    def noise_shape(self) -> Tuple[int, ...]:
+        return (2,) if self.inkernel_noise else self.table_shape
+
+    def noise_table(self, seed: torch.Tensor) -> torch.Tensor:
+        """The in-kernel draw of an episode seeded ``seed``, staged (n_steps,
+        K, H, du), on the seed's device (``ops/philox.py``)."""
+        return philox.normal_table(seed, self.table_shape)
+
+    def _check(self, x0: torch.Tensor, noise: torch.Tensor) -> None:
+        if not self.inkernel_noise:
+            return super()._check(x0, noise)
+        if tuple(x0.shape) != (self.plant.state_dim,) or x0.dtype != torch.float32:
+            raise ValueError(f"x0 must be ({self.plant.state_dim},) float32, got "
+                             f"{tuple(x0.shape)} {x0.dtype}")
+        if tuple(noise.shape) != (2,) or noise.dtype != torch.int32:
+            raise ValueError(f"the seed must be (2,) int32, got {tuple(noise.shape)} {noise.dtype}")
+        if x0.device != noise.device:
+            raise ValueError("x0 and the seed must lie on one device")
 
     @torch.no_grad()
     def kernel(self, x0: torch.Tensor, noise: torch.Tensor):
-        """Launch ``csrc/ddim_episode.cu``, one cluster of 8 CTAs, on the
+        """Launch the entry's kernel (``csrc/ddim_episode.cu`` or
+        ``csrc/ddim_episode_quadrotor.cu``), one cluster of 8 CTAs, on the
         current stream; raises when the body cannot be split over the
         cluster or no cluster fits on the card."""
         self._check(x0, noise)
@@ -494,39 +601,50 @@ class FusedDdimEpisode(_Episode):
         """The same episode in plain PyTorch; each replan's chain is
         ``make_student_ddim_sampler`` over the K candidates, ``TemporalUnet``
         with the context-present bit 1 (FiLM from mish([t_emb, ctx, 1])
-        inside its ResidualTemporalBlocks)."""
+        inside its ResidualTemporalBlocks). With ``inkernel_noise`` on
+        ``noise_table(seed)``."""
+        self._check(x0, noise)
         k = self.n_candidates
         sample = lambda ctx, u: self._sample(ctx[None].expand(k, ctx.shape[-1]), u)
-        return self._plain_loop(x0, noise, sample)
+        return self._plain_loop(x0, self.noise_table(noise) if self.inkernel_noise else noise,
+                                sample)
 
 
 def _episode_packed(model_or_packed: Union[TemporalUnet, PackedUnet], plant: Plant,
                     cost: QuadraticCost, selection_cost, selection_horizon: Optional[int],
                     n_candidates: int, state_to_condition: Optional[Callable],
-                    inkernel_noise: bool, device, entries: dict,
-                    bf16: bool) -> Tuple[PackedUnet, int, int]:
+                    inkernel_noise: bool, device, plants: Sequence[str], entry: Optional[str],
+                    scorer: str, can_draw: bool,
+                    weights: str = "float32") -> Tuple[PackedUnet, int, int]:
     """The checks both episode makers make, and the packed U-Net with K and
-    the selection horizon. ``entries`` are the kernel's (``CFG_ENTRIES``,
-    ``DDIM_ENTRIES``). Raises ``NotImplementedError`` for what the kernels
-    cannot run."""
-    if (plant.name, bf16) not in entries:
-        plants = sorted({name for name, _ in entries})
+    the selection horizon. ``plants`` are those the kernel has entries for,
+    ``entry`` the one for ``plant`` (None when there is none for its
+    weights), ``scorer`` the kind of selection cost that entry scores with,
+    ``can_draw`` whether it has an in-kernel draw, ``weights`` the weights'
+    type asked for. Raises
+    ``NotImplementedError`` for what the kernels cannot run."""
+    if entry is None:
         if plant.name not in plants:
-            raise NotImplementedError(f"the episode kernel runs {plants}, not the plant "
+            raise NotImplementedError(f"the episode kernel runs {sorted(plants)}, not the plant "
                                       f"'{plant.name}': its step is not written as a device "
                                       "function")
-        raise NotImplementedError(f"the episode kernel has no {'bf16' if bf16 else 'float32'} "
-                                  f"entry for the plant '{plant.name}'")
+        raise NotImplementedError(f"the episode kernel has no {weights} entry for the plant "
+                                  f"'{plant.name}'")
     if not isinstance(cost, QuadraticCost):
         raise NotImplementedError("the episode kernel's stage cost is a QuadraticCost")
-    if selection_cost is not None and not isinstance(selection_cost, QuadraticCost):
-        raise NotImplementedError("the episode kernel scores candidates with a QuadraticCost only, "
-                                  f"not {type(selection_cost).__name__}")
+    kind = scorer_kind(selection_cost if selection_cost is not None else cost)
+    if kind is None:
+        raise NotImplementedError("the episode kernel scores candidates with a QuadraticCost or "
+                                  "the quadrotor task's SafetyFirstCost only, not "
+                                  f"{type(selection_cost).__name__}")
+    if kind != scorer and int(n_candidates) > 1:
+        raise NotImplementedError(f"the episode kernel's entry for the plant '{plant.name}' "
+                                  f"scores candidates with a {scorer} cost, not a {kind} one")
     if state_to_condition is not None:
         raise NotImplementedError("state_to_condition inside the episode kernel is not ported")
-    if inkernel_noise:
-        raise NotImplementedError("inkernel_noise (the in-kernel Philox draw) is not ported; "
-                                  "stage the noise")
+    if inkernel_noise and not can_draw:
+        raise NotImplementedError(f"inkernel_noise (the in-kernel Philox draw) is not ported for "
+                                  f"the {entry} entry; stage the noise")
     packed = packed_on(model_or_packed, device)
     if packed.state_dim != plant.control_dim:
         raise ValueError("the episode denoises control sequences: state_dim must be control_dim")
@@ -557,7 +675,10 @@ def make_fused_cfg_episode(model_or_packed: Union[TemporalUnet, PackedUnet],
     packed. Raises ``NotImplementedError`` for what the kernel cannot run."""
     packed, k, sel_h = _episode_packed(model_or_packed, plant, cost, selection_cost,
                                        selection_horizon, n_candidates, state_to_condition,
-                                       inkernel_noise, device, CFG_ENTRIES, is_bf16(weights_dtype))
+                                       inkernel_noise, device, {p for p, _ in CFG_ENTRIES},
+                                       CFG_ENTRIES.get((plant.name, is_bf16(weights_dtype))),
+                                       "quadratic", False,
+                                       "bf16" if is_bf16(weights_dtype) else "float32")
     return FusedCfgEpisode(packed, schedule, inputs_stats, condition_stats, plant, cost, n_steps,
                            w, n_diffusion_steps_without_noise, k, selection_cost or cost, sel_h,
                            weights_dtype)
@@ -575,11 +696,15 @@ def make_fused_ddim_episode(model_or_packed: Union[TemporalUnet, PackedUnet],
     """Build a distilled student's whole closed loop of one episode over the
     times grid ``times`` on ``device`` (``cuda`` unless given): 80 replans
     and K = 1 by default, as ``scripts/bench_deep_students.py`` runs it. A
-    ``TemporalUnet`` is moved to the device and packed. Raises
-    ``NotImplementedError`` for what the kernel cannot run."""
+    ``TemporalUnet`` is moved to the device and packed. ``inkernel_noise``
+    (the quadrotor's entry only) makes the episode take a (2,) int32 seed
+    (``ops/philox.py::seed_from_generator``) in place of staged noise.
+    Raises ``NotImplementedError`` for what the kernel cannot run."""
     refuse_unported_ddim_options(weights_dtype, clip_denoised)
+    entry, scorer = DDIM_ENTRIES.get(plant.name, (None, None))
     packed, k, sel_h = _episode_packed(model_or_packed, plant, cost, selection_cost,
                                        selection_horizon, n_candidates, state_to_condition,
-                                       inkernel_noise, device, DDIM_ENTRIES, False)
+                                       inkernel_noise, device, DDIM_ENTRIES, entry, scorer,
+                                       entry in DDIM_DRAW_ENTRIES)
     return FusedDdimEpisode(packed, schedule, times, inputs_stats, condition_stats, plant, cost,
-                            n_steps, k, selection_cost or cost, sel_h)
+                            n_steps, k, selection_cost or cost, sel_h, inkernel_noise)

@@ -65,7 +65,14 @@ RES_STRIDE = 13
 M_COND = M_RES + MAX_RES * RES_STRIDE
 (M_TEMB, M_CTX, M_FW, M_FB, M_EP_FILM, M_EP_MC, M_EP_MISC, M_EP_SMEM) = range(M_COND + 1, M_COND + 9)
 M_LEN = M_COND + 9
-EP_MISC_LEN = 32  # state, context, first control, choice (cfg_episode.cu's X_* offsets)
+
+
+def ep_misc_len(context_dim: int) -> int:
+    """Floats of the episode kernels' misc region (``csrc/episode.cuh``'s
+    X_* offsets): the state and the context, each in a slot of the context
+    width rounded up to 8, then the first control and the choice, 8 each
+    (32 for the cart-poles, 48 for the 12-state quadrotor)."""
+    return 2 * (8 * ((context_dim + 7) // 8)) + 16
 
 
 def align4(n: int) -> int:
@@ -228,7 +235,7 @@ def pack_unet(model: TemporalUnet, device) -> PackedUnet:
     meta[M_EP_MC] = off
     off += align4(2 * cond_dim)
     meta[M_EP_MISC] = off
-    off += EP_MISC_LEN
+    off += ep_misc_len(model.context_dim)
     meta[M_EP_SMEM] = off
     meta[[M_H, M_D, M_NLEV, M_NRES, M_MAXC, M_BUF]] = [
         horizon, d, n_levels, len(res), max(dims[1:]), buf]

@@ -1,0 +1,110 @@
+"""The quadrotor flagship task, as far as its student's serving path needs
+it: a copy of the JAX package's top-level ``scripts/quadrotor_task.py`` (the
+obstacle scene, the hover thrust, the task and selection costs in torch, the
+held-out eval starts and the metrics in numpy), which the port does not
+import.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..dynamics.base import QuadraticCost
+from ..dynamics.quadrotor import SafetyFirstCost, obstacle_cost
+
+__all__ = ["OBS_CENTERS", "OBS_RADII", "HOVER_THRUST", "make_task_cost", "make_select_cost",
+           "eval_start_states", "min_clearance", "track_metrics"]
+
+OBS_CENTERS = np.array([[1.5, 0.0, 1.0], [0.9, 0.9, 1.2], [0.9, -0.9, 0.8]], np.float32)
+OBS_RADII = np.array([0.45, 0.40, 0.40], np.float32)
+
+HOVER_THRUST = 9.81  # thrust for m=1 hover
+
+
+def _u_hover() -> torch.Tensor:
+    return torch.tensor([HOVER_THRUST, 0.0, 0.0, 0.0], dtype=torch.float32)
+
+
+def make_task_cost(quad_cost: QuadraticCost):
+    """Hover-at-origin quadratic + soft obstacle penalty: ``stage(x, u)``
+    and ``terminal(x)`` on leading batch axes."""
+    centers, radii = torch.from_numpy(OBS_CENTERS), torch.from_numpy(OBS_RADII)
+    u_hover = _u_hover()
+
+    class TaskCost:
+        @staticmethod
+        def stage(x, u):
+            du = u - u_hover.to(u.device)
+            # obstacle_cost sums over (H, n_obs); x[..., None, :] is H = 1
+            return (quad_cost.stage(x, du * 0.0) + 0.05 * torch.sum(torch.square(du), dim=-1)
+                    + obstacle_cost(x[..., None, :], centers.to(x.device), radii.to(x.device)))
+
+        @staticmethod
+        def terminal(x):
+            return quad_cost.terminal(x) + obstacle_cost(x[..., None, :], centers.to(x.device),
+                                                         radii.to(x.device))
+
+    return TaskCost()
+
+
+def make_select_cost(quad_cost: QuadraticCost, margin: float = 0.15, weight: float = 2e5,
+                     centers=None, radii=None) -> SafetyFirstCost:
+    """The candidate-selection cost for best-of-K replanning: the obstacle
+    hinge against radii inflated by ``margin`` at a heavy ``weight``
+    (near-lexicographic safety first), plus the hover quadratic. Returns a
+    ``SafetyFirstCost``, whose ``stage`` and ``terminal`` score candidates in
+    the per-replan loop and which the episode kernel lays out as its
+    scorer's constants."""
+    c = torch.as_tensor(OBS_CENTERS if centers is None else centers, dtype=torch.float32)
+    r = torch.as_tensor(OBS_RADII if radii is None else radii, dtype=torch.float32) + margin
+    return SafetyFirstCost(quad=quad_cost, u_hover=_u_hover(), centers=c, radii=r,
+                           weight=float(weight))
+
+
+def eval_start_states(n: int, seed: int = 7) -> np.ndarray:
+    """The held-out eval-start distribution (x in [2.2, 3], y in [-1.2, 1.2],
+    z in [0.6, 1.4], rest zero), (n, 12) float32."""
+    rng = np.random.RandomState(seed)
+    ev = np.zeros((n, 12), np.float32)
+    ev[:, 0] = rng.uniform(2.2, 3.0, n)
+    ev[:, 1] = rng.uniform(-1.2, 1.2, n)
+    ev[:, 2] = rng.uniform(0.6, 1.4, n)
+    return ev
+
+
+def min_clearance(xt, centers=None, radii=None) -> np.ndarray:
+    """Min obstacle clearance per track: ``(..., T, 12) -> (...,)``
+    (negative = collision). Canonical scene unless centers/radii given."""
+    xt = np.asarray(xt)
+    c = OBS_CENTERS if centers is None else np.asarray(centers)
+    r = OBS_RADII if radii is None else np.asarray(radii)
+    d = np.linalg.norm(xt[..., :, None, 0:3] - c, axis=-1)
+    return (d - r).min(axis=(-1, -2))
+
+
+def track_metrics(xt, stage_costs=None, centers=None, radii=None) -> dict:
+    """The flagship eval metrics for a batch of closed-loop tracks
+    ``(N, T, 12)``: collision-free / goal-reach / safe-reach fractions, mean
+    min-clearance and goal distance (+ cost when stage_costs given); a
+    diverged track counts against the fractions and stays out of the means."""
+    xt = np.asarray(xt)
+    if centers is not None and np.asarray(centers).ndim == 3:
+        clearance = np.stack([min_clearance(xt[i], centers[i], radii[i])
+                              for i in range(xt.shape[0])])
+    else:
+        clearance = min_clearance(xt, centers, radii)
+    goal_dist = np.linalg.norm(xt[:, -1, 0:3], axis=-1)
+    fin = np.isfinite(clearance) & np.isfinite(goal_dist)
+    cf, rf = clearance > 0, goal_dist < 0.5
+    out = {
+        "collision_free_fraction": float(cf.mean()),
+        "min_clearance_mean": float(clearance[fin].mean()) if fin.any() else None,
+        "goal_dist_mean": float(goal_dist[fin].mean()) if fin.any() else None,
+        "goal_reach_fraction_0.5": float(rf.mean()),
+        "safe_reach_fraction": float((cf & rf).mean()),
+    }
+    if (~fin).any():
+        out["diverged_fraction"] = float((~fin).mean())
+    if stage_costs is not None:
+        out["cost_mean"] = float(np.asarray(stage_costs).sum(axis=1).mean())
+    return out

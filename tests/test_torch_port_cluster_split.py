@@ -34,9 +34,15 @@ from mpc_via_diffusion_model_tpu_torch.ops.fused_episode import (cfg_episode_max
                                                                  make_fused_ddim_episode)
 from mpc_via_diffusion_model_tpu_torch.ops.fused_unet import (fused_unet_max_active_clusters,
                                                               make_fused_unet)
+from mpc_via_diffusion_model_tpu_torch.ops import philox
+from mpc_via_diffusion_model_tpu_torch.data.quadrotor_stats import quadrotor_stats
+from mpc_via_diffusion_model_tpu_torch.dynamics import quadrotor, quadrotor_cost
+from mpc_via_diffusion_model_tpu_torch.models import load_quadrotor_student
+from mpc_via_diffusion_model_tpu_torch.scripts.quadrotor_task import (eval_start_states,
+                                                                      make_select_cost)
 from torch_port_util import (emulate_cfg_chain_kernel, emulate_cfg_episode_kernel,
                              emulate_ddim_chain_kernel, emulate_ddim_episode_kernel,
-                             emulate_fused_unet_kernel)
+                             emulate_fused_unet_kernel, quadrotor_select, quadrotor_step_f32)
 
 torch.set_num_threads(1)
 
@@ -45,6 +51,8 @@ STUDENT = (Path(__file__).resolve().parents[1] / "artifacts" / "onpolicy_cartpol
            / "student_1eval.pkl")
 TEACHER = (Path(__file__).resolve().parents[1] / "artifacts" / "flagship_modality"
            / "ema_params.pkl")
+QUADROTOR = (Path(__file__).resolve().parents[1] / "artifacts" / "onpolicy_quadrotor"
+             / "student_1eval.pkl")
 GRID12 = list(range(23, 0, -2))   # the 12-eval student's grid
 X0 = np.array([0.0, 0.0, 3.0, 0.0, theta_to_red_theta(3.0)], np.float32)
 W = 0.01
@@ -450,6 +458,132 @@ def test_cluster_episode_kernel_matches_plain_on_gpu(k):
     for g, w_ in zip(got[:3], want[:3]):
         torch.testing.assert_close(g, w_, atol=1e-3, rtol=1e-3)
     assert torch.equal(got[3], want[3])
+
+
+def _quadrotor_episode(tm, times, k=1, n_steps=1, draw=False, device="cpu"):
+    plant, cost = quadrotor(), quadrotor_cost()
+    return make_fused_ddim_episode(tm, make_schedule("exponential", 25), times,
+                                   *quadrotor_stats(), plant, cost, n_steps=n_steps,
+                                   n_candidates=k, selection_cost=make_select_cost(cost) if k > 1
+                                   else None, inkernel_noise=draw, device=device)
+
+
+@pytest.mark.parametrize("times,b", [([23], 2), ([23, 15, 7], 1)])
+def test_ddim_chain_program_at_the_quadrotors_horizon_48(times, b):
+    """The DDIM chain's program on the quadrotor student at full width
+    (horizon 48: levels of 48, 24 and 12 rows, the 12-row level's last conv
+    item half full; 4 channels, context 12): the race check on 8 NaN-filled
+    images, the output against the plain chain (1e-4), three levels'
+    barriers."""
+    chain = _ddim_chain(load_quadrotor_student(QUADROTOR, device="cpu"), times, b)
+    assert chain.packed.horizon == 48 and chain.packed.state_dim == 4
+    rng = np.random.RandomState(48 + b)
+    ctx = torch.from_numpy(rng.uniform(-1, 1, (b, 12)).astype(np.float32))
+    x_init = torch.from_numpy(rng.randn(*chain.noise_shape).astype(np.float32))
+    want = chain.plain(ctx, x_init).numpy()
+    with torch.no_grad():
+        films = chain.films(ctx).numpy()
+    got, barriers = emulate_ddim_chain_kernel(chain.packed, chain.cluster.weights, films,
+                                              x_init.numpy(), chain.coefs.numpy())
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+    assert barriers == [2 + _barriers_per_pass((1, 2, 4)) * len(times)] * b
+
+
+@pytest.mark.parametrize("k,draw", [(1, False), (4, False), (1, True), (4, True)],
+                         ids=["staged_k1", "staged_k4", "draw_k1", "draw_k4"])
+def test_quadrotor_episode_program_is_race_free_and_matches_plain(k, draw):
+    """ddim_episode_quadrotor.cu's program at the student's full width: the
+    quadrotor's step and, at K = 4, the safety-first scorer
+    (``quadrotor_step_f32``, ``quadrotor_select``), the episode's misc region
+    sized for the 12-state, staged noise or the in-kernel draw, where every
+    rank draws each replan's noise itself and all 8 ranks' draws are equal;
+    the tracks and choices against the plain episode (on the draw's table),
+    race-checked on 8 NaN-filled images, the barrier counts."""
+    n_steps = 2 if k > 1 else 1
+    ep = _quadrotor_episode(load_quadrotor_student(QUADROTOR, device="cpu"), [23], k, n_steps, draw)
+    x0 = eval_start_states(4)[2]
+    if draw:
+        arg = philox.seed_from_generator(torch.Generator().manual_seed(k))
+        noise = ep.noise_table(arg).numpy()
+        draw_fn = lambda rank, s: philox.normal_table(arg, ep.table_shape)[s].numpy()
+    else:
+        arg = torch.from_numpy(np.random.RandomState(k).randn(*ep.noise_shape).astype(np.float32))
+        noise, draw_fn = arg.numpy(), None
+    want = ep.plain(torch.from_numpy(x0), arg)
+    *got, barriers = emulate_ddim_episode_kernel(
+        ep.packed, ep.weights, ep.t_embs.numpy(), noise, ep.coefs.numpy(), ep.consts.numpy(), x0,
+        k, ep.selection_horizon, n_steps, plant_step=quadrotor_step_f32, select=quadrotor_select(),
+        draw=draw_fn)
+    for name, g, w_ in zip(("x_track", "u_track", "stage_costs"), got, want):
+        np.testing.assert_allclose(g, w_.numpy(), rtol=1e-4, atol=1e-4, err_msg=name)
+    np.testing.assert_array_equal(got[3], want[3].numpy())
+    assert barriers == 2 + _barriers_per_pass((1, 2, 4)) * n_steps * k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("times", [[23], [23, 15, 7]])
+def test_quadrotor_kernels_match_plain_on_gpu(times):
+    """chip_smoke.py's phase 32 in short: the DDIM chain at H = 48 (B = 1
+    and 4, 1e-4) and the quadrotor episode entry at K = 1 (4 replans) and
+    K = 4 with the safety-first scorer (3 replans) against their plain
+    versions, controls in normalized units at 1e-4, the rest at 1e-3, the
+    choices equal, one launch each."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    tm = load_quadrotor_student(QUADROTOR, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(32)
+    for b in (1, 4):
+        chain = _ddim_chain(tm, times, b, device="cuda")
+        ctx = torch.rand((b, 12), generator=gen, device="cuda") * 2 - 1
+        x_init = torch.randn(chain.noise_shape, generator=gen, device="cuda")
+        torch.testing.assert_close(chain.kernel(ctx, x_init), chain.plain(ctx, x_init),
+                                   atol=1e-4, rtol=1e-4)
+    ins = quadrotor_stats()[0]
+    u_unit = (0.5 * (ins.maxs - ins.mins)).cuda()
+    x0 = torch.from_numpy(eval_start_states(1)[0]).cuda()
+    for k, n_steps in ((1, 4), (4, 3)):
+        ep = _quadrotor_episode(tm, times, k, n_steps, device="cuda")
+        noise = torch.randn(ep.noise_shape, generator=gen, device="cuda")
+        got = ep.kernel(x0, noise)
+        torch.cuda.synchronize()
+        want = ep.plain(x0, noise)
+        assert ep.launches == 1
+        torch.testing.assert_close(got[1] / u_unit, want[1] / u_unit, atol=1e-4, rtol=1e-4)
+        for i in (0, 2):
+            torch.testing.assert_close(got[i], want[i], atol=1e-3, rtol=1e-3)
+        assert torch.equal(got[3], want[3])
+
+
+@pytest.mark.gpu
+def test_inkernel_noise_on_gpu():
+    """chip_smoke.py's phase 33 in short: the draw's test entries give
+    Philox's known answers and the twin's table, and the episode with the
+    in-kernel draw at K = 1 and K = 8 equals the plain episode on that
+    table; one seed twice gives the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    counters = torch.tensor([[0, 0, 0, 0], [0xFFFFFFFF] * 4], device="cuda")
+    keys = torch.tensor([[0, 0], [0xFFFFFFFF] * 2], device="cuda")
+    assert philox.words(counters, keys).tolist() == [
+        [0x6627E8D5, 0xE169C58D, 0xBC57AC4C, 0x9B00DBD8],
+        [0x408F276D, 0x41C83B0E, 0xA20BC7C6, 0x6D5451FD]]
+    seed = philox.seed_from_generator(torch.Generator().manual_seed(33)).cuda()
+    torch.testing.assert_close(philox.table(seed, (4, 8, 48, 4)),
+                               philox.normal_table(seed, (4, 8, 48, 4)), atol=1e-5, rtol=1e-5)
+    tm = load_quadrotor_student(QUADROTOR, device="cuda")
+    x0 = torch.from_numpy(eval_start_states(1)[0]).cuda()
+    ins = quadrotor_stats()[0]
+    u_unit = (0.5 * (ins.maxs - ins.mins)).cuda()
+    for k in (1, 8):
+        ep = _quadrotor_episode(tm, [23], k, 3, draw=True, device="cuda")
+        got = ep.kernel(x0, seed)
+        again = ep.kernel(x0, seed)
+        torch.cuda.synchronize()
+        want = ep.plain(x0, seed)
+        assert ep.launches == 2 and all(torch.equal(a, b) for a, b in zip(got, again))
+        torch.testing.assert_close(got[1] / u_unit, want[1] / u_unit, atol=1e-4, rtol=1e-4)
+        torch.testing.assert_close(got[0], want[0], atol=1e-3, rtol=1e-3)
+        assert torch.equal(got[3], want[3])
 
 
 def test_flagship_episode_quality_runs_at_a_cut_size_on_cpu():

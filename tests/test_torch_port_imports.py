@@ -28,7 +28,9 @@ for name in ('ops.fused_unet', 'ops.fused_episode', 'ops.fused_denoise', 'ops._b
              'solvers.ilqr', 'data.flagship_expert_yardstick', 'scripts.flagship_run',
              'scripts.ilqr_divergence', 'scripts.ilqr_profile', 'models.ampc',
              'train.regression', 'data.distill_yardstick', 'scripts.distill_flagship',
-             'scripts.distill_divergence', 'scripts.train_ampc'):
+             'scripts.distill_divergence', 'scripts.train_ampc', 'dynamics.quadrotor',
+             'scripts.quadrotor_task', 'data.quadrotor_stats', 'data.quadrotor_yardstick',
+             'ops.philox', 'scripts.quadrotor_divergence', 'scripts.bench_quadrotor_student'):
     assert pkg.__name__ + '.' + name in names, name
 import chip_smoke  # as a module: main() does not run
 loaded = [k for k, v in sys.modules.items() if v is not None
@@ -43,7 +45,7 @@ def test_port_and_chip_smoke_import_without_jax():
     proc = subprocess.run([sys.executable, "-c", _GUARDED], cwd=ROOT, capture_output=True,
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip().splitlines()[-1]) >= 41  # every module of the port
+    assert int(proc.stdout.strip().splitlines()[-1]) >= 48  # every module of the port
 
 
 def test_port_sources_name_no_jax_import():
@@ -59,6 +61,8 @@ def test_port_sources_name_no_jax_import():
             "trainer.py", "misc.py", "flagship_lmpc.py", "ilqr.py", "flagship_expert_yardstick.py",
             "flagship_run.py", "ilqr_divergence.py", "ilqr_profile.py", "ampc.py", "regression.py",
             "distill_yardstick.py", "distill_flagship.py", "distill_divergence.py",
-            "train_ampc.py"} <= {f.name for f in files}
+            "train_ampc.py", "quadrotor.py", "quadrotor_task.py", "quadrotor_stats.py",
+            "quadrotor_yardstick.py", "philox.py", "quadrotor_divergence.py",
+            "bench_quadrotor_student.py"} <= {f.name for f in files}
     offenders = [str(f.relative_to(ROOT)) for f in files if pattern.search(f.read_text())]
     assert not offenders

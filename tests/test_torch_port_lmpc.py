@@ -95,7 +95,7 @@ def test_lmpc_matrices_are_the_zoh_in_float32():
     ("cartpole_lmpc", None), ("cartpole_virtual_swingup", None),
     ("cartpole_virtual_stabilized", None), ("pendulum", NotImplementedError),
     ("double_integrator", NotImplementedError), ("acrobot", NotImplementedError),
-    ("quadrotor", NotImplementedError), ("panda_surrogate", NotImplementedError),
+    ("quadrotor", None), ("panda_surrogate", NotImplementedError),
     ("panda", NotImplementedError), ("no_such_plant", ValueError)])
 def test_get_plant(name, error):
     """Every ported plant by its name, each other plant of the JAX

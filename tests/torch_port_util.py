@@ -101,12 +101,95 @@ def cartpole_lmpc_step_f32(x, u, pc):
     return xn
 
 
+def quadrotor_step_f32(x, u, pc, sin=np.sin, cos=np.cos):
+    """``csrc/plants.cuh``'s Quadrotor::step in float32 numpy, in its order
+    of operations: ``pc`` is the consts table from dt on, dt, m, ixx, iyy,
+    izz. ``sin`` and ``cos`` are numpy's unless given: libraries round them
+    differently in the last bit (numpy and torch on the CPU in about one
+    value of six), and given torch's the result is the torch step's bit for
+    bit."""
+    f = np.float32
+    dt, m, inr = f(pc[0]), f(pc[1]), np.asarray(pc[2:5], f)
+    cphi, sphi = f(cos(x[6])), f(sin(x[6]))
+    cth, sth = f(cos(x[7])), f(sin(x[7]))
+    cpsi, spsi = f(cos(x[8])), f(sin(x[8]))
+    tm = u[0] / m
+    z = np.array([cpsi * sth * cphi + spsi * sphi, spsi * sth * cphi - cpsi * sphi, cth * cphi], f)
+    acc = z * tm - np.array([0.0, 0.0, 9.81], f)
+    cs = np.maximum(cth, f(1e-3))
+    tth = sth / cs
+    w = x[9:12]
+    rpy = np.array([w[0] + sphi * tth * w[1] + cphi * tth * w[2], cphi * w[1] - sphi * w[2],
+                    (sphi * w[1] + cphi * w[2]) / cs], f)
+    iw = inr * w
+    gyro = np.array([w[1] * iw[2] - w[2] * iw[1], w[2] * iw[0] - w[0] * iw[2],
+                     w[0] * iw[1] - w[1] * iw[0]], f)
+    xdot = np.concatenate([x[3:6], acc, rpy, (u[1:4] - gyro) / inr]).astype(f)
+    return (x + xdot * dt).astype(f)
+
+
+def _seq(terms):
+    acc = terms[0]
+    for t in terms[1:]:
+        acc = np.float32(acc + t)
+    return acc
+
+
+def _quad_stage_f32(q, r, x, u):
+    """plants.cuh's quad_stage: sum_i q_i (x_i x_i), then sum_j r_j (u_j u_j), left to right."""
+    return np.float32(_seq([q[i] * (x[i] * x[i]) for i in range(len(x))])
+                      + _seq([r[j] * (u[j] * u[j]) for j in range(len(u))]))
+
+
+def _safety_hinge_f32(sc, x, du=4, n_obs=3):
+    w, c, rad = sc[du + 1], np.asarray(sc[du + 2:du + 2 + 3 * n_obs]).reshape(n_obs, 3), \
+        sc[du + 2 + 3 * n_obs:du + 2 + 4 * n_obs]
+    acc = np.float32(0.0)
+    for j in range(n_obs):
+        d0, d1, d2 = (np.float32(x[i] - c[j, i]) for i in range(3))
+        d = np.sqrt(np.float32(np.float32(d0 * d0 + d1 * d1) + d2 * d2))
+        pen = np.maximum(np.float32(rad[j] - d), np.float32(0.0))
+        acc = np.float32(acc + np.float32(w * pen) * pen)
+    return acc
+
+
+def safety_first_stage_f32(q, r, sc, x, u):
+    """``csrc/plants.cuh``'s SafetyFirstScorer::stage in float32 numpy:
+    ``sc`` holds u_hover, factor, weight, the centers and the radii."""
+    du = (u - np.asarray(sc[:4], np.float32)).astype(np.float32)
+    s = _seq([du[j] * du[j] for j in range(4)])
+    a = _quad_stage_f32(q, r, x, (du * np.float32(0.0)).astype(np.float32))
+    return np.float32(np.float32(a + np.float32(sc[4]) * s) + _safety_hinge_f32(sc, x))
+
+
+def safety_first_terminal_f32(p, sc, x):
+    """``SafetyFirstScorer::terminal`` in float32 numpy."""
+    return np.float32(_seq([p[i] * (x[i] * x[i]) for i in range(len(x))])
+                      + _safety_hinge_f32(sc, x))
+
+
 def _swingup_step(x, u, pc):
     return cartpole_step_f32(x, u, pc[0])
 
 
+def _quadratic_select(x, u, sq, sr, pc):
+    return np.sum(sq * x * x) + np.sum(sr * u * u)
+
+
+def _quadratic_terminal(x, sp, pc):
+    return np.sum(sp * x * x)
+
+
+def quadrotor_select(n_plant_consts=4):
+    """(stage, terminal) of the quadrotor's safety-first scorer for
+    ``_emulate_episode``: its constants follow the plant's in ``pc``."""
+    return (lambda x, u, sq, sr, pc: safety_first_stage_f32(sq, sr, pc[1 + n_plant_consts:], x, u),
+            lambda x, sp, pc: safety_first_terminal_f32(sp, pc[1 + n_plant_consts:], x))
+
+
 def _emulate_episode(packed, t_embs, consts, x0, n_candidates, selection_horizon, n_steps,
-                     n_groups, first_plans, chain_step, plant_step=_swingup_step):
+                     n_groups, first_plans, chain_step, plant_step=_swingup_step,
+                     select=(_quadratic_select, _quadratic_terminal)):
     """The program both episode kernels share (``csrc/episode.cuh`` and the
     kernels' replan loops), in numpy: the affine normalize, the per-step
     FiLM of ``n_groups`` groups from the FiLM weights the meta table points
@@ -116,7 +199,8 @@ def _emulate_episode(packed, t_embs, consts, x0, n_candidates, selection_horizon
     ``first_plans(step)``), the unnormalize, the candidate rollouts scored
     from ``consts`` and the one-hot choice, the stage cost and the plant
     step, ``plant_step(x, u, consts from dt on)`` (the swing-up's by default;
-    the state width is x0's). The shared image is sized by the episode plan
+    the state width is x0's), and the scorer ``select`` = (stage(x, u, sq,
+    sr, pc), terminal(x, sp, pc)), the selection QuadraticCost by default. The shared image is sized by the episode plan
     and filled with NaN, so a region that overlaps another or is read before
     it is written shows."""
     W = packed.weights.cpu().numpy()
@@ -159,10 +243,10 @@ def _emulate_episode(packed, t_embs, consts, x0, n_candidates, selection_horizon
             for k in range(K):
                 xc = x.copy()
                 for t in range(sel_h):
-                    score[k] += np.sum(sq * xc * xc) + np.sum(sr * plans[k, t] * plans[k, t])
+                    score[k] += select[0](xc, plans[k, t], sq, sr, pc)
                     xc = plant_step(xc, plans[k, t], pc)
                 if sel_h == H:
-                    score[k] += np.sum(sp * xc * xc)
+                    score[k] += select[1](xc, sp, pc)
             mn = np.min(score)
             hits = np.nonzero(score == mn)[0]
             best = int(hits[0]) if hits.size else K
@@ -540,7 +624,10 @@ def emulate_cfg_episode_kernel(packed, weights, t_embs, noise, coefs, consts, x0
 
 
 def emulate_ddim_episode_kernel(packed, weights, t_embs, noise, coefs, consts, x0, n_candidates,
-                                selection_horizon, n_steps, n_ranks=up.CLUSTER):
+                                selection_horizon, n_steps, n_ranks=up.CLUSTER,
+                                plant_step=_swingup_step, select=(_quadratic_select,
+                                                                  _quadratic_terminal),
+                                draw=None):
     """Runs ``csrc/ddim_episode.cu``'s program in numpy: ``_emulate_episode``
     with the one FiLM group, on one cluster of ``n_ranks`` CTAs that lives
     through the whole episode (a cluster barrier once every CTA has started,
@@ -549,7 +636,11 @@ def emulate_ddim_episode_kernel(packed, weights, t_embs, noise, coefs, consts, x
     (``_emulate_cluster_body``), the final 1x1 conv and the DDIM update, with
     the kernel's barrier when the pass ended in a buffer the next one pushes
     into. ``noise`` is (n_steps, K, H, D), each replan's initial draw;
-    ``weights`` the buffer the kernel reads (``FusedDdimEpisode.weights``).
+    ``weights`` the buffer the kernel reads (``FusedDdimEpisode.weights``);
+    ``plant_step`` and ``select`` the plant's device function and the
+    scorer (``_emulate_episode``). With ``draw(rank, step)`` -> (K, H, D) in
+    place of ``noise`` (None), every rank draws each replan's noise itself,
+    as the in-kernel draw does, and the draws of the ranks must be equal.
     Returns the tracks, the choices and the number of cluster barriers."""
     m = packed.meta.cpu().numpy()
     cluster_w = weights.cpu().numpy()
@@ -561,9 +652,17 @@ def emulate_ddim_episode_kernel(packed, weights, t_embs, noise, coefs, consts, x
         y = _emulate_cluster_body(cluster_w, m, cl, 1, film, x[None])
         return _ddim_update(x, _final_1x1(W, m, y)[0], coefs[si])
 
+    def first_plans(s):
+        if draw is None:
+            return noise[s]
+        plans = [draw(rank, s) for rank in range(n_ranks)]
+        for other in plans[1:]:
+            np.testing.assert_array_equal(other, plans[0])
+        return plans[0]
+
     cl.barrier()
     out = _emulate_episode(packed, t_embs, consts, x0, n_candidates, selection_horizon, n_steps,
-                           1, lambda s: noise[s], step)
+                           1, first_plans, step, plant_step, select)
     cl.barrier()
     return out + (cl.barriers,)
 
