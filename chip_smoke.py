@@ -8,7 +8,8 @@ nvcc (``/usr/local/cuda``), the flagship weights in
 the LMPC parity workload's in ``artifacts/flagship_lmpc/`` (``ema_params.pkl``,
 ``report.json``), the distillation's teacher in
 ``artifacts/flagship_modality/ema_params.pkl``, the quadrotor student in
-``artifacts/onpolicy_quadrotor/student_1eval.pkl``, and writes nothing but the kernel builds under
+``artifacts/onpolicy_quadrotor/student_1eval.pkl``, the scene-conditioned student in
+``artifacts/scene_conditioned/scene_student_ema.pkl``, and writes nothing but the kernel builds under
 ``build/torch_kernels/`` and, for a moment, phase 26's checkpoint under
 ``build/chip_smoke_train/``. Phases,
 each printing one line with its own seconds:
@@ -27,7 +28,9 @@ each printing one line with its own seconds:
    episode (``cfg_chain_bf16``, ``cfg_episode_bf16``: the __nv_bfloat16
    instantiations of ``cfg_chain.cu`` and ``cfg_episode.cu``) and for the
    CFG episode's linear cart-pole entry (``cfg_episode_lmpc``) at K = 1 and
-   K = 8 on the LMPC model; and the conv
+   K = 8 on the LMPC model, its quadrotor entry (``cfg_episode_quadrotor``)
+   at K = 1 and 16 on the scene student, and the DDIM episode's quadrotor
+   entry at K = 1 and 16; and the conv
    kernel's registers and spills (one CTA per
    GroupNorm group and batch chunk on ``mma.sync`` tf32 tiles in 3xTF32,
    one instantiation per accumulator tiles a warp holds: 1, 2, 4, 8).
@@ -38,12 +41,12 @@ each printing one line with its own seconds:
 4. per-replan path (``BENCH_FUSED=chain``): the flagship cart-pole CFG
    closed loop, 80 replans from x0 = [0, 0, 3.0, 0, theta*(3.0)], with the
    chain kernel as the sampler; the counts are set to 0 just before and read
-   just after. The first 20 replans through the plain chain on the same
+   just after. The first 10 replans through the plain chain on the same
    noise must give the same tracks.
 5. episode, K = 1: the whole 80-replan loop as one launch of the episode
    kernel (one cluster of 8 CTAs that splits the U-Net body by GroupNorm
    group), on phase 4's noise, against phase 4's tracks, exactly one
-   launch; and a 20-replan episode against the plain episode on the same
+   launch; and a 10-replan episode against the plain episode on the same
    noise (row 3's plain time is bench_kernels' 80-replan plain episode,
    phase 16).
 6. episode, K = 4, selection_horizon 8: 8 replans against the plain
@@ -120,7 +123,8 @@ The fused conv block and the port's ``bench_kernels``, the path that runs it:
     prepared tensors captured into a CUDA graph, the graph replayed between
     CUDA events, ``scripts/conv_timing.py``'s ``graph_ms``), the whole call
     (``kernel``, by CUDA events), the kernel's device time per launch from
-    ``torch.profiler`` (or none where it records none), its plain version,
+    ``torch.profiler`` at the last shape (or none where it records none), its
+    plain version,
     the three PyTorch calls that compute the same block (``torch_seq``) and
     the bound, with the bound's share of the launch alone.
 
@@ -137,17 +141,17 @@ and the port's bench:
     K = 4 (choices equal), the per-sample max |kernel - plain| at most 5e-6
     at the median and 1e-3 at the worst (``ONE_PASS_*``). At full depth the
     chain on phase 3's three contexts and the episode on phase 4's noise
-    over 20 replans are held to JAX's own bound of bf16 against fp32, 8e-2,
+    over 10 replans are held to JAX's own bound of bf16 against fp32, 8e-2,
     and their differences printed; K = 4 over 8 replans prints both
     versions' choices.
-20. the flagship's quality through the bf16 episode, phase 17's protocol:
-    recorded, not gated (no bf16 report exists).
+20. the flagship's quality through the bf16 episode, phase 17's protocol
+    over 5 seeds: recorded, not gated (no bf16 report exists).
 21. the port's bench: ``python3 -m mpc_via_diffusion_model_tpu_torch.bench``
     in a process of its own with ``bench.py``'s counts (the default mode,
     61 episode launches), its last line parsed and its keys checked; then
     ``bench.run`` in this process for the episode in bf16 (one repetition
-    per measure), for ``chain`` and ``chain`` in bf16 (two episodes each)
-    and for ``1`` (one episode of 40 replans), each launch count exact.
+    per measure), for ``chain`` and ``chain`` in bf16 (one episode each)
+    and for ``1`` (one episode of 10 replans), each launch count exact.
     Then the bf16 entries' times.
 
 The LMPC parity workload (``scripts/lmpc_parity.py``: the linear cart-pole
@@ -191,11 +195,11 @@ Training on the card (``train/trainer.py``; the yardstick
     step 1's statistics: the CFG chain at H = 8 on three contexts (1e-4)
     and ``cfg_episode_lmpc`` from the sweep's first state, 10 replans at K
     = 1 (tracks 1e-3), each against its plain version; 3 and 1 launches.
-26. the training rate: ``Trainer.fit`` chunked (250), batch 512, 500
+26. the training rate: ``Trainer.fit`` chunked (125), batch 512, 250
     steps under ``cudnn.deterministic``, steps per second by the host clock
     and ms per step by CUDA events, beside step 1's collection time; a
-    checkpoint and the generator's state taken after step 250, and a fresh
-    ``Trainer`` resumed from it runs the last 250 steps again on the same
+    checkpoint and the generator's state taken after step 125, and a fresh
+    ``Trainer`` resumed from it runs the last 125 steps again on the same
     draws: the mean loss, params, EMA and Adam's moments equal the
     uninterrupted run's.
 
@@ -274,13 +278,41 @@ safety-first selection cost (``scripts/quadrotor_task.py``) and
     600-replan episode per launch at K = 1 (staged and drawn) and K = 8.
     The full 64-start protocol is ``scripts/bench_quadrotor_student.py``'s.
 
+The scene-conditioned student's serving path (the JAX package's
+``scripts/bench_scene_student.py``): one student for any obstacle layout,
+``artifacts/scene_conditioned/scene_student_ema.pkl`` at horizon 48 with a
+24-dim context (the 12-state followed by the scene's 12 features,
+``control/conditions.py::ConcatFeatures``), ``data/scene_stats.py``, held-out
+scene 0 of ``sample_scenes(1, seed=99)``, T = 25 + 5, w = 0.01:
+
+35. scene episode: ``cfg_episode_quadrotor`` (the CFG episode with the
+    quadrotor, the context map and the scene's safety-first scorer in the
+    kernel) at K = 1 over 20 replans and at K = 16 over 3, one launch each,
+    against its plain version (controls in normalized units at 1e-4, the
+    rest at 1e-3; the choices equal wherever the plain version's best two
+    scores are more than 1e-5 apart, each near-tie printed); scene 1
+    through the same library, its table differing only in the features and
+    the spheres, its track another.
+36. scene chain: the CFG chain at H = 48 and context 24 at B = 1 and 16
+    against its plain version (1e-4); the main path of the per-replan loop
+    (``make_closed_loop`` with the scene's ``state_to_condition``) through
+    it over the first 10 replans of phase 35's K = 1 noise (10 launches)
+    against the loop through the plain chain and against that episode.
+37. scene bench: ``scripts/bench_scene_student.py``'s K = 1 row, its 16
+    starts x 60 replans through the episode (16 launches), its metrics
+    within ``data/scene_yardstick.py``'s bounds; its pipelined (3 episodes)
+    and sustained (3 chained episodes) rates. The K = 16 rows are the
+    bench's.
+
 It then prints the ``training`` JSON line, the ``ilqr`` JSON line, the
 ``distill`` JSON line, the ``kernels`` JSON line (rows 1 and 3 carry their bf16
 entries under ``bf16``, row 1 its H = 8 times under ``h8``, rows 3, 4 and 5 their
 H = 64 times under ``h64`` (phase 30), rows 4 and 5 their H = 48 times under
 ``h48`` (phase 32), ``cfg_episode_lmpc`` has a row of its own as a further
 entry of kernel 3, and ``ddim_episode_quadrotor`` one as a further entry of
-kernel 5, with its in-kernel draw under ``inkernel_noise``), the
+kernel 5, with its in-kernel draw under ``inkernel_noise``; row 1 its H = 48,
+context 24 times under ``h48`` (phase 36) and ``cfg_episode_quadrotor`` a row
+of its own as a further entry of kernel 3), the
 ``phase_seconds`` line (each phase's seconds), the nvidia-smi line and,
 last, the result line. Any failure raises, and the exit code is then not 0.
 
@@ -316,7 +348,9 @@ from mpc_via_diffusion_model_tpu_torch.data import distill_yardstick as dys
 from mpc_via_diffusion_model_tpu_torch.data import flagship_expert_yardstick as xys
 from mpc_via_diffusion_model_tpu_torch.data import lmpc_train_yardstick as ys
 from mpc_via_diffusion_model_tpu_torch.data.lmpc_stats import LMPC_U_L1, LMPC_U_L1_SUMMARY
+from mpc_via_diffusion_model_tpu_torch.data import scene_yardstick as sys_
 from mpc_via_diffusion_model_tpu_torch.data.quadrotor_stats import quadrotor_stats
+from mpc_via_diffusion_model_tpu_torch.data.scene_stats import scene_stats
 from mpc_via_diffusion_model_tpu_torch.data.teacher_stats import teacher_stats
 from mpc_via_diffusion_model_tpu_torch.diffusion import (GaussianDiffusion, ddim_time_grid,
                                                          distill_loss, halve_times)
@@ -325,10 +359,12 @@ from mpc_via_diffusion_model_tpu_torch.dynamics import (cartpole_lmpc, cartpole_
                                                         cartpole_virtual_cost,
                                                         cartpole_virtual_swingup, quadrotor,
                                                         quadrotor_cost, theta_to_red_theta)
+from mpc_via_diffusion_model_tpu_torch.eval.timing import pipelined_time_fn
 from mpc_via_diffusion_model_tpu_torch.models import (LMPC_CONFIG, TEACHER_CONFIG, AMPCNet,
                                                       TemporalUnet, from_flax_params,
                                                       load_flagship, load_lmpc,
-                                                      load_quadrotor_student, load_student,
+                                                      load_quadrotor_student, load_scene_student,
+                                                      load_student,
                                                       mlp_from_flax_params, to_flax_params)
 from mpc_via_diffusion_model_tpu_torch.ops import _build, fused_conv1d_gn_mish, philox
 from mpc_via_diffusion_model_tpu_torch.ops.fused_denoise import (
@@ -336,15 +372,16 @@ from mpc_via_diffusion_model_tpu_torch.ops.fused_denoise import (
     ddim_chain_max_active_clusters, make_fused_cfg_chain, make_fused_ddim_chain)
 from mpc_via_diffusion_model_tpu_torch.ops.fused_episode import (
     cfg_episode_bf16_max_active_clusters, cfg_episode_lmpc_max_active_clusters,
-    cfg_episode_max_active_clusters, ddim_episode_max_active_clusters,
+    cfg_episode_max_active_clusters, cfg_episode_quadrotor_max_active_clusters,
+    ddim_episode_max_active_clusters,
     ddim_episode_quadrotor_draw_max_active_clusters, ddim_episode_quadrotor_max_active_clusters,
     make_fused_cfg_episode, make_fused_ddim_episode)
 from mpc_via_diffusion_model_tpu_torch.ops.fused_unet import (fused_unet_max_active_clusters,
                                                               make_fused_unet)
 from mpc_via_diffusion_model_tpu_torch.ops.unet_pack import CLUSTER, pack_unet
-from mpc_via_diffusion_model_tpu_torch.scripts import (bench_kernels, conv_timing,
-                                                       distill_divergence, flagship_lmpc,
-                                                       flagship_parity, lmpc_parity,
+from mpc_via_diffusion_model_tpu_torch.scripts import (bench_kernels, bench_scene_student,
+                                                       conv_timing, distill_divergence,
+                                                       flagship_lmpc, flagship_parity, lmpc_parity,
                                                        quadrotor_task)
 from mpc_via_diffusion_model_tpu_torch.scripts.quadrotor_task import (eval_start_states,
                                                                       make_select_cost)
@@ -362,16 +399,18 @@ STUDENT_REPORT = ROOT / "artifacts" / "onpolicy_cartpole" / "report.json"
 LMPC = ROOT / "artifacts" / "flagship_lmpc" / "ema_params.pkl"
 GRID, GRID3 = [23], [23, 15, 7]   # the 1-eval student's times grid; the 3-eval grid
 N_QUALITY = 10             # seeds of the student's quality check
+N_BF16_QUALITY = 5         # seeds of phase 20's bf16 quality record (10 until phases 35-37)
 QUALITY_MEAN_MAX = 1.05    # mean cost over the expert's (report: 1.0064 over 10 seeds)
 # The flagship's mean cost over its expert's: the JAX package's expert on the CPU, 784,750.03
 # (data/flagship_expert_yardstick.py; report.json: 784,747.4 over 784,750.6 on the TPU)
 FLAGSHIP_MEAN_MAX, FLAGSHIP_MODALITY = 1.01, {"left": 10, "right": 0}
 N_STEPS, HORIZON, T, N_TAIL, W = 80, 32, 25, 5, 0.01
-N_PLAIN_LOOP = 20          # replans of the plain per-replan loop (phase 4) and of the plain
-                           # episode phase 5 holds the kernel to (80 took 11 s; row 3's plain
-                           # time is bench_kernels' 80-replan plain episode, phase 16)
-N_BF16_EP = 20             # replans of phase 19's full-depth bf16 episode (at 80 its plain
-                           # version took 20 s)
+N_PLAIN_LOOP = 10          # replans of the plain per-replan loop (phase 4) and of the plain
+                           # episode phase 5 holds the kernel to (80 took 11 s; 20 until phases
+                           # 35-37 were added; row 3's plain time is bench_kernels' 80-replan
+                           # plain episode, phase 16)
+N_BF16_EP = 10             # replans of phase 19's full-depth bf16 episode (at 80 its plain
+                           # version took 20 s; 20 until phases 35-37 were added)
 K4, SEL_H, N_STEPS_K4 = 4, 8, 8
 N_CHAIN = 10               # dependent episodes of the sustained protocol
 N_UNET_LOOP = 10           # replans of the BENCH_FUSED=1 loop
@@ -437,9 +476,10 @@ YS_HEAD, YS_HEAD_RTOL = 10, 1e-4     # steps 1-10
 YS_EARLY, YS_EARLY_RTOL = 50, 1e-2   # steps 1-50
 YS_STEP_RTOL = 1.5                   # every step
 YS_TAIL, YS_TAIL_RTOL = 20, 0.16     # the mean of the last 20
-# phase 26: Trainer.fit's steps, of which the last are resumed; 500 since phases 29-31 were added
-# (1,000 before: 30-49 s of the 335 s the script may take)
-N_FIT, N_RESUME = 500, 250
+# phase 26: Trainer.fit's steps in chunks of FIT_CHUNK, of which the last are resumed; 250 in
+# chunks of 125 since phases 35-37 were added (500 in the recipe's chunks of 250 since phases
+# 29-31, 1,000 before: 30-49 s of the 335 s the script may take)
+N_FIT, N_RESUME, FIT_CHUNK = 250, 125, 125
 # The flagship's iLQR expert (phases 27-28; data/flagship_expert_yardstick.py, the JAX package on
 # the CPU): the first step's 400 nominal solves beside N_NOISY replicas of each, and the first
 # N_NMPC_PREFIX steps of the NMPC expert, within the yardstick's bounds (EXPERT_BOUNDS,
@@ -469,6 +509,18 @@ NORMAL_TOLS = {"mean": 5e-3, "std": 5e-3, "q95": 2e-3, "q99": 1e-3, "m3": 2e-2, 
 # fp32 operations of one candidate's scoring step besides the six sin and cos: the quadrotor's
 # step (69, plants.cuh) and the safety-first stage cost (107)
 Q_STEP_FLOPS = 176
+# The scene-conditioned quadrotor student's serving path (phases 35-37; the JAX package's
+# scripts/bench_scene_student.py): the student at horizon 48 with a 24-dim context (the 12-state
+# followed by the scene's 12 features, data/scene_stats.py), held-out scene 0 of the seed-99
+# draw, T = 25 + 5, w = 0.01. Phase 35 holds cfg_episode_quadrotor to its plain version at K = 1
+# over N_S_EP replans and at K = 16 (the scene's safety-first scorer) over N_S_EP16, and scene 1
+# through the same build; phase 36 the CFG chain at H = 48, context 24, B = 1 and 16, and the
+# per-replan loop over the first N_S_LOOP replans of the episode's noise; phase 37 the bench's
+# K = 1 row (its 16 starts x 60 replans) within data/scene_yardstick.py's bounds, and its rates
+# over N_S_CHUNKS chained episodes and N_S_PIPE pipelined ones. The first run took 30.8 s for
+# the three phases, with N_S_LOOP 20 (the loop through the plain chain 211 ms per replan) and
+# N_S_CHUNKS, N_S_PIPE 5, 4; the second 30.9 s on a host ~1.3x slower with 10, 3, 3.
+N_S_EP, N_S_EP16, N_S_LOOP, N_S_CHUNKS, N_S_PIPE = 20, 3, 10, 2, 2
 
 
 PHASE_SECONDS = {}  # each phase's seconds by its log line, printed on one line before the last
@@ -684,8 +736,8 @@ def train_phases(dev, schedule) -> dict:
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         ev0.record()
-        trainer.fit(tds, n_steps, ys.BATCH, fit_gen, chunk_size=flagship_lmpc.CHUNK,
-                    steps_til_summary=flagship_lmpc.CHUNK, log_fn=fit_logs.append)
+        trainer.fit(tds, n_steps, ys.BATCH, fit_gen, chunk_size=FIT_CHUNK,
+                    steps_til_summary=FIT_CHUNK, log_fn=fit_logs.append)
         ev1.record()
         torch.cuda.synchronize()
         return time.perf_counter() - t1, ev0.elapsed_time(ev1)
@@ -704,8 +756,8 @@ def train_phases(dev, schedule) -> dict:
     resumed.resume(str(ck_path))
     shutil.rmtree(ck_path.parent)
     fit_gen.set_state(gen_state)
-    resumed.fit(tds, N_FIT, ys.BATCH, fit_gen, chunk_size=flagship_lmpc.CHUNK,
-                steps_til_summary=flagship_lmpc.CHUNK, log_fn=fit_logs.append)
+    resumed.fit(tds, N_FIT, ys.BATCH, fit_gen, chunk_size=FIT_CHUNK,
+                steps_til_summary=FIT_CHUNK, log_fn=fit_logs.append)
     torch.backends.cudnn.deterministic = deterministic
     a, b = fit_trainer.state, resumed.state
     resume_dparam = (a.params - b.params).abs().max().item()
@@ -717,7 +769,7 @@ def train_phases(dev, schedule) -> dict:
         raise RuntimeError(f"resume: the last {N_RESUME} steps' mean loss {resumed.train_losses} "
                            f"against {fit_trainer.train_losses[-1:]}; params {resume_dparam:.3e}")
     log("train-rate", t0, f"Trainer.fit {N_FIT} steps at batch {ys.BATCH} in chunks of "
-        f"{flagship_lmpc.CHUNK} (cudnn.deterministic): {fit_s:.3f}s, {N_FIT / fit_s:.2f} steps/s "
+        f"{FIT_CHUNK} (cudnn.deterministic): {fit_s:.3f}s, {N_FIT / fit_s:.2f} steps/s "
         f"by the host clock, {fit_ms:.4f} ms per step by CUDA events (phase 24's chunk of "
         f"{ys.N_STEPS}: {ys.N_STEPS / ys_s:.2f} steps/s); chunk means {fit_losses}; step 1's "
         f"collection {collect_s:.3f}s; resumed from step {N_FIT - N_RESUME}'s checkpoint, the last "
@@ -1214,6 +1266,199 @@ def quadrotor_phases(dev) -> dict:
     return {"h48": h48, "row": quad_row}
 
 
+def scene_phases(dev) -> dict:
+    """Phases 35-37 on ``dev``: the scene-conditioned quadrotor student's serving path (the CFG
+    episode's quadrotor entry with the context map and the scene's safety-first scorer, the CFG
+    chain at H = 48 and context 24, the per-replan loop) against the plain versions, two scenes
+    through one build, and the bench's K = 1 row within the yardstick's bounds. Returns the
+    kernels line's ``cfg_episode_quadrotor`` row and the CFG chain's ``h48`` entry."""
+    dev = resolve_device(dev)
+    bss = bench_scene_student
+    schedule = make_schedule("exponential", T)
+    ins, _ = scene_stats()
+    u_unit = (0.5 * (ins.maxs - ins.mins)).to(dev)
+    starts = torch.from_numpy(sys_.eval_starts()).to(dev)
+    x0 = starts[0]
+    gen = torch.Generator(device=dev).manual_seed(35)
+    # 35. cfg_episode_quadrotor against its plain version, K = 1 and K = 16, and a second scene
+    # through the same build
+    t0 = time.perf_counter()
+    model = load_scene_student(sys_.STUDENT, device=dev)
+    spacked = pack_unet(model, dev)
+    sc0, sc1 = bss.scene(0, dev), bss.scene(1, dev)
+    ep1 = bss.episode(spacked, sc0, 1, N_S_EP, dev)
+    ep16 = bss.episode(spacked, sc0, 16, N_S_EP16, dev)
+    ep16b = bss.episode(spacked, sc1, 16, N_S_EP16, dev)
+    nz1 = torch.randn(ep1.noise_shape, generator=gen, device=dev)
+    nz16 = torch.randn(ep16.noise_shape, generator=gen, device=dev)
+    reset(ep1, ep16, ep16b)
+    got1, got16, got16b = ep1.kernel(x0, nz1), ep16.kernel(x0, nz16), ep16b.kernel(x0, nz16)
+    torch.cuda.synchronize()
+    e_launches = counts(ep1, ep16, ep16b)
+    if e_launches != [(1, 0)] * 3:
+        raise RuntimeError(f"cfg_episode_quadrotor: counts {e_launches}, expected [(1, 0)] * 3")
+    ties = []
+    t1 = time.perf_counter()
+    want1 = ep1.plain(x0, nz1)
+    torch.cuda.synchronize()
+    ep1_plain_ms = 1e3 * (time.perf_counter() - t1)
+    ep_err = episode_gate("cfg_episode_quadrotor K=1", ep1, got1, want1, u_unit, ties)
+    t1 = time.perf_counter()
+    want16 = ep16.plain(x0, nz16)
+    torch.cuda.synchronize()
+    ep16_plain_ms = 1e3 * (time.perf_counter() - t1)
+    ep_err = max(ep_err, episode_gate("cfg_episode_quadrotor K=16 scene 0", ep16, got16, want16,
+                                      u_unit, ties))
+    ep_err = max(ep_err, episode_gate("cfg_episode_quadrotor K=16 scene 1", ep16b, got16b,
+                                      ep16b.plain(x0, nz16), u_unit, ties))
+    # the scene is data: one library, tables that differ only in the features and the spheres
+    if ep16b.lib() is not ep16.lib():
+        raise RuntimeError("cfg_episode_quadrotor: the second scene loaded another library")
+    c_len = ep16.consts.numel()
+    # episode.cuh's C_CD, the 12 features, then the scorer's 18 constants, whose last 12 are the
+    # spheres' centers and radii (after u_hover, factor, weight)
+    feat_at, sphere_at = c_len - 18 - 12, c_len - 12
+    moved = set(torch.nonzero(ep16.consts != ep16b.consts).flatten().tolist())
+    if not moved or not moved <= set(range(feat_at, feat_at + 12)) | set(range(sphere_at,
+                                                                               sphere_at + 12)):
+        raise RuntimeError(f"cfg_episode_quadrotor: the scenes' tables differ at {sorted(moved)}")
+    if torch.equal(got16[0], got16b[0]):
+        raise RuntimeError("cfg_episode_quadrotor: two scenes gave the same track")
+    ep1_ms = cuda_ms(lambda: ep1.kernel(x0, nz1), n=2, warmup=0)
+    ep16_ms = cuda_ms(lambda: ep16.kernel(x0, nz16), n=2, warmup=0)
+    log("scene-episode", t0, f"H=48, context 24 (the state and scene 0's 12 features): "
+        f"cfg_episode_quadrotor K=1 {N_S_EP} replans, K=16 (scene 0's safety-first scorer) "
+        f"{N_S_EP16}, and scene 1 through the same build at K=16: max |kernel - plain| "
+        f"{ep_err:.3e} (controls {CHAIN_TOL:.0e} in normalized units, the rest {TRACK_TOL:.0e}); "
+        f"stage costs the task quadratic on the tracks; K=16 chosen {got16[3].tolist()} (scene 0), "
+        f"{got16b[3].tolist()} (scene 1); the tables differ at {len(moved)} entries, all in the "
+        f"features and the spheres; {ep1_ms / N_S_EP:.4f} ms per replan at K=1, "
+        f"{ep16_ms / N_S_EP16:.4f} at K=16 (plain {ep1_plain_ms / N_S_EP:.3f} and "
+        f"{ep16_plain_ms / N_S_EP16:.3f} by the host clock); launches {e_launches}; near-ties "
+        f"(not gated): {len(ties)}: " + " | ".join(ties))
+
+    # 36. the CFG chain at H = 48, context 24, B = 1 and 16, against its plain version; then the
+    # main path of the per-replan loop through it from the first start on the first N_S_LOOP
+    # replans of the episode's noise
+    t0 = time.perf_counter()
+    chains = {b: make_fused_cfg_chain(spacked, schedule, n_samples=b, w=W, n_tail=N_TAIL,
+                                      device=dev)
+              for b in (1, 16)}
+    ch_err, ch_inputs = 0.0, {}
+    for b, ch in chains.items():
+        ctx = torch.rand((b, 24), generator=gen, device=dev) * 2 - 1
+        nz = torch.randn((ch.n_total + 1, b, 48, 4), generator=gen, device=dev)
+        got, want = ch.kernel(ctx, nz), ch.plain(ctx, nz)
+        torch.cuda.synchronize()
+        ch_err = max(ch_err, assert_close(f"cfg_chain H=48 context 24 B={b}", got, want,
+                                          CHAIN_TOL))
+        ch_inputs[b] = (ctx, nz)
+    loop, _ = bss.chain_loop(spacked, sc0, 1, N_S_LOOP, dev, chain=chains[1])
+    nz_loop = nz1[:N_S_LOOP]
+    reset(*chains.values())
+    t1 = time.perf_counter()
+    res = loop(x0, nz_loop)
+    torch.cuda.synchronize()
+    loop_hz = N_S_LOOP / (time.perf_counter() - t1)
+    c_launches = counts(*chains.values())
+    if c_launches != [(N_S_LOOP, 0), (0, 0)]:
+        raise RuntimeError(f"scene per-replan loop: counts {c_launches}, expected "
+                           f"[({N_S_LOOP}, 0), (0, 0)]")
+    ref, _ = bss.chain_loop(spacked, sc0, 1, N_S_LOOP, dev, chain=chains[1].plain)
+    ref = ref(x0, nz_loop)
+    for name in ("x_track", "u_track", "u_horizons", "stage_costs"):
+        student_close(f"scene chain loop {name}", getattr(res, name), getattr(ref, name), u_unit)
+    ends = {"x_track": N_S_LOOP + 1, "u_track": N_S_LOOP, "stage_costs": N_S_LOOP}
+    vs_loop = max(student_close(f"scene episode vs the chain loop {name}", g[:ends[name]],
+                                getattr(res, name), u_unit)
+                  for name, g in zip(("x_track", "u_track", "stage_costs"), got1))
+    ch1_ms = cuda_ms(lambda: chains[1].kernel(*ch_inputs[1]), n=10, warmup=2)
+    ch16_ms = cuda_ms(lambda: chains[16].kernel(*ch_inputs[16]), n=5, warmup=1)
+    ch_plain_ms = cuda_ms(lambda: chains[1].plain(*ch_inputs[1]), n=1, warmup=0)
+    log("scene-chain", t0, f"cfg_chain H=48, context 24: max |kernel - plain| {ch_err:.3e} at "
+        f"B=1 and 16 (tol {CHAIN_TOL:.0e}), {ch1_ms:.4f} ms per replan at B=1, {ch16_ms:.4f} at "
+        f"B=16 (plain {ch_plain_ms:.3f}); the per-replan loop through it {N_S_LOOP} replans "
+        f"({loop_hz:.1f} replans/s by the host clock), against the loop through the plain chain "
+        f"and against the K=1 episode on the same noise ({vs_loop:.3e}); launches {c_launches}")
+
+    # 37. the bench's K = 1 row: its 16 starts x 60 replans through the episode within the
+    # yardstick's bounds, its pipelined and sustained rates (cut)
+    t0 = time.perf_counter()
+    n = sys_.N_STARTS
+    noise = bss.start_noise(n, sys_.N_STEPS, 1, dev)
+    q1 = bss.episode(spacked, sc0, 1, sys_.N_STEPS, dev)
+    reset(q1)
+    tracks = torch.stack([q1(starts[i], noise[i])[0] for i in range(n)])
+    torch.cuda.synchronize()
+    q_launches = counts(q1)
+    if q_launches != [(n, 0)]:
+        raise RuntimeError(f"scene bench row: counts {q_launches}, expected [({n}, 0)]")
+    metrics = quadrotor_task.track_metrics(tracks.cpu().numpy(), centers=sc0.centers.cpu(),
+                                           radii=sc0.radii.cpu())
+    if not sys_.within(metrics, 1):
+        raise RuntimeError(f"scene bench K=1: {metrics} outside data/scene_yardstick.py's bounds "
+                           f"(gaps {sys_.gaps(metrics, 1)}, bounds {sys_.BOUNDS[1]})")
+    pipe_args = [(starts[i], torch.randn(q1.noise_shape, generator=gen, device=dev))
+                 for i in range(N_S_PIPE)]
+    pipelined_hz = sys_.N_STEPS / pipelined_time_fn(lambda x, z: q1(x, z)[0], pipe_args,
+                                                    n_batches=1)
+    x = x0
+    t1 = time.perf_counter()
+    for i in range(N_S_CHUNKS):
+        x = q1(x, pipe_args[i % N_S_PIPE][1])[0][-1]
+    torch.cuda.synchronize()
+    sustained_hz = N_S_CHUNKS * sys_.N_STEPS / (time.perf_counter() - t1)
+    if not torch.isfinite(x).all():
+        raise RuntimeError("scene bench: the sustained chain diverged")
+    q1_ms = cuda_ms(lambda: q1.kernel(x0, noise[0]), n=1, warmup=0)
+    log("scene-bench", t0, f"scene 0, {n} starts x {sys_.N_STEPS} replans at K=1 through "
+        f"cfg_episode_quadrotor: {metrics}, within data/scene_yardstick.py's bounds (gaps "
+        f"{ {k: round(v, 6) for k, v in sys_.gaps(metrics, 1).items()} }); "
+        f"{q1_ms / sys_.N_STEPS:.4f} ms per replan; k1_hz_pipelined {pipelined_hz:.1f} "
+        f"({N_S_PIPE} episodes, one batch), k1_hz_sustained {sustained_hz:.1f} ({N_S_CHUNKS} "
+        f"chained episodes); launches {q_launches}")
+
+    # each row of the kernels line; bytes and operations of this run's inputs
+    weights, meta_n = spacked.weights.numel(), spacked.meta.numel()
+    film_w = sum(math.prod(shape_) for name, (_, shape_) in spacked.segments.items()
+                 if name.split(".")[0] == "films")
+    film_flops = 2 * 2 * int(spacked.films_w.shape[1]) * sum(
+        rb.cond_mlp[1].out_features for rb in model.res_blocks())
+    n_total = chains[1].n_total
+    ch_flops = spacked.flops_per_pass * 2 * n_total
+    ch_bytes = 4 * (weights - film_w + meta_n + chains[1].films(ch_inputs[1][0]).numel()
+                    + ch_inputs[1][1].numel() + chains[1].coefs.numel() + 48 * 4)
+
+    def ep_bound(ep, n_noise):
+        """The bound of an episode: both row-sets of every candidate's passes, the in-kernel
+        FiLM of the two groups, and at K > 1 each candidate's 48 scoring steps."""
+        flops = ep.n_steps * (ep.n_candidates * ep.n_total * 2 * spacked.flops_per_pass
+                              + ep.n_total * film_flops
+                              + (ep.n_candidates > 1) * ep.n_candidates * 48 * Q_STEP_FLOPS)
+        n_bytes = 4 * (weights + meta_n + ep.t_embs.numel() + n_noise + ep.coefs.numel()
+                       + ep.consts.numel() + 12 + (ep.n_steps + 1) * 12 + ep.n_steps * 6)
+        return bound(flops, n_bytes)
+
+    h48 = {"launches": c_launches[0][0], "max_abs_err": ch_err, "ms": ch1_ms,
+           "plain_ms": ch_plain_ms, **bound(ch_flops, ch_bytes), "library_ms": None,
+           "b16_ms": ch16_ms, "per_replan_loop_hz": loop_hz, "model": "scene_conditioned",
+           "horizon": 48, "context_dim": 24}
+    row = {"name": "cfg_episode_quadrotor", "route": "cuda",
+           "source": "mpc_via_diffusion_model_tpu_torch/ops/csrc/cfg_episode_quadrotor.cu",
+           "replaces": "mpc_via_diffusion_model_tpu/ops/fused_episode.py:410",
+           "entry_of": "cfg_episode", "plant": "quadrotor", "scorer": "safety_first",
+           "condition": "concat_features", "launches": q_launches[0][0], "max_abs_err": ep_err,
+           "ms": ep1_ms, "plain_ms": ep1_plain_ms, **ep_bound(ep1, nz1.numel()),
+           "library_ms": None, "replans": N_S_EP, "ms_per_replan": ep1_ms / N_S_EP,
+           "k16_ms_per_replan": ep16_ms / N_S_EP16,
+           "k16_bound_ms": ep_bound(ep16, nz16.numel())["bound_ms"], "k16_replans": N_S_EP16,
+           "k16_plain_ms": ep16_plain_ms, "k1_hz_pipelined": pipelined_hz,
+           "k1_hz_sustained": sustained_hz, "metrics16": metrics,
+           "yardstick_gaps": sys_.gaps(metrics, 1), "model": "scene_conditioned",
+           "horizon": 48, "context_dim": 24, "scenes": [0, 1]}
+    return {"h48": h48, "row": row}
+
+
 SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize")
 
 
@@ -1346,6 +1591,8 @@ def main() -> None:
                  for k in (1, K8)]
     quad_smem = [pack_unet(load_quadrotor_student(QUADROTOR_STUDENT, device="cpu"),
                            "cpu").episode_smem_bytes(k) for k in (1, 16)]
+    scene_smem = [pack_unet(load_scene_student(sys_.STUDENT, device="cpu"),
+                            "cpu").episode_smem_bytes(k) for k in (1, 16)]
     cluster_kernels = {  # entry: (occupancy query, shared memory per CTA of each launch shape)
         "cfg_chain": (cfg_chain_max_active_clusters, [packed_cpu.smem_bytes]),
         "cfg_chain_bf16": (cfg_chain_bf16_max_active_clusters, [packed_cpu.smem_bytes]),
@@ -1355,7 +1602,8 @@ def main() -> None:
         "ddim_chain": (ddim_chain_max_active_clusters, [packed_cpu.smem_bytes]),
         "ddim_episode": (ddim_episode_max_active_clusters, ep_smem),
         "cfg_episode_lmpc": (cfg_episode_lmpc_max_active_clusters, lmpc_smem),
-        "ddim_episode_quadrotor": (ddim_episode_quadrotor_max_active_clusters, quad_smem)}
+        "ddim_episode_quadrotor": (ddim_episode_quadrotor_max_active_clusters, quad_smem),
+        "cfg_episode_quadrotor": (cfg_episode_quadrotor_max_active_clusters, scene_smem)}
     def resources(entry: str):
         """(registers, spills) of each kernel of an entry, from nvcc's report or, when the
         build was reused, cuobjdump's: the bf16 entries (``<source>_bf16``) are their
@@ -1404,9 +1652,12 @@ def main() -> None:
     log("build", t0, f"{len(built)} libraries; " + "; ".join(lines)
         + f" (the chains' and the pass's plan at every batch; episodes at K = 1 and K = {K4}, "
         f"cfg_episode_lmpc at K = 1 and K = {K8} on the LMPC model, ddim_episode_quadrotor at "
-        "K = 1 and 16 on the quadrotor student; the _bf16 entries are the bf16 instantiations of "
+        "K = 1 and 16 on the quadrotor student, cfg_episode_quadrotor at K = 1 and 16 on the "
+        "scene student; the _bf16 entries are the bf16 instantiations of "
         "cfg_chain.cu and cfg_episode.cu, cfg_episode_lmpc is cfg_episode.cu compiled for the "
-        "linear cart-pole, ddim_episode_quadrotor ddim_episode.cuh for the quadrotor, its "
+        "linear cart-pole, cfg_episode_quadrotor cfg_episode.cu for the quadrotor with the "
+        "context map and the safety-first scorer, ddim_episode_quadrotor ddim_episode.cuh for the "
+        "quadrotor, its "
         "registers those of its staged and drawing instantiations and of the draw's two test "
         "kernels)")
 
@@ -1713,7 +1964,7 @@ def main() -> None:
     t0 = time.perf_counter()
     ctx = contexts[0]
     chain_ms = cuda_ms(lambda: chain.kernel(ctx, noise), n=20, warmup=3)
-    chain_plain_ms = cuda_ms(lambda: chain.plain(ctx, noise), n=5, warmup=1)
+    chain_plain_ms = cuda_ms(lambda: chain.plain(ctx, noise), n=2, warmup=0)
     args = unet_inputs[0]
     # the U-Net pass: the launch alone on prepared tensors, and the wrapper's whole call
     u_films = unet.films(unet.model.conditioning(*args[1:])).contiguous()
@@ -1722,9 +1973,9 @@ def main() -> None:
                       warmup=10)
     unet_call_ms = cuda_ms(lambda: unet(*args), n=200, warmup=10)
     unet_plain_ms = cuda_ms(lambda: unet.plain(*args), n=50, warmup=5)
-    episode_ms = cuda_ms(lambda: ep1.kernel(x0, ep_noise), n=5, warmup=1)
+    episode_ms = cuda_ms(lambda: ep1.kernel(x0, ep_noise), n=2, warmup=0)
     ep_p_plain_ms = 1e3 * plain_episode_s / N_PLAIN_LOOP  # phase 5's plain episode, per replan
-    episode4_ms = cuda_ms(lambda: ep4.kernel(x0, noise4), n=5, warmup=1)
+    episode4_ms = cuda_ms(lambda: ep4.kernel(x0, noise4), n=2, warmup=0)
     # the DDIM chain: the launch alone and the whole call on [23], B = 1; the launch alone on
     # [23, 15, 7] and at B = 4 (clusters side by side)
     def launch_alone(ch, ctx_, x_):
@@ -1878,7 +2129,8 @@ def main() -> None:
 
     # 18. timing of the conv kernel: the launch alone as the device sees it (100 launches of
     # _launch captured into a CUDA graph, the graph replayed), the whole call, the kernel's device
-    # time from torch.profiler, its plain version and the PyTorch calls of the same block
+    # time from torch.profiler (at the last shape, the kernels line's: a profiler session per
+    # shape took ~1.5 s each), its plain version and the PyTorch calls of the same block
     t0 = time.perf_counter()
     conv_times = []
     for shape in CONV_SHAPES:
@@ -1893,7 +2145,8 @@ def main() -> None:
         alone = conv_timing.launch_alone(fused_conv1d_gn_mish, c_args)
         row = {"shape": list(shape), "launch_ms": conv_timing.graph_ms(alone),
                "ms": cuda_ms(lambda: fused_conv1d_gn_mish.kernel(*c_args), 200, 10),
-               "profiler_ms": conv_timing.profiler_ms(alone),
+               "profiler_ms": (conv_timing.profiler_ms(alone) if shape == CONV_SHAPES[-1]
+                               else None),
                "plain_ms": cuda_ms(lambda: fused_conv1d_gn_mish.plain(*c_args), 50, 5),
                "torch_seq_ms": cuda_ms(torch_seq, 200, 10), "torch_seq_max_abs_err": seq_err,
                **bound(2 * bsz * h * 5 * cin * cout,
@@ -1986,15 +2239,16 @@ def main() -> None:
     # 20. the flagship's quality through the bf16 episode (recorded, not gated: no bf16 report)
     t0 = time.perf_counter()
     reset(*wrappers)
-    epq_bf = flagship_parity.run_episode_quality(dev, n_seeds=N_QUALITY, n_steps=N_STEPS,
+    epq_bf = flagship_parity.run_episode_quality(dev, n_seeds=N_BF16_QUALITY, n_steps=N_STEPS,
                                                  weights_dtype=bf16)
-    if counts(*wrappers) != [(0, 0)] * len(wrappers) or epq_bf["episode_launches"] != N_QUALITY:
+    if (counts(*wrappers) != [(0, 0)] * len(wrappers)
+            or epq_bf["episode_launches"] != N_BF16_QUALITY):
         raise RuntimeError(f"bf16 quality: {epq_bf['episode_launches']} episode launches, counts "
-                           f"{counts(*wrappers)}; expected {N_QUALITY} launches of its own "
+                           f"{counts(*wrappers)}; expected {N_BF16_QUALITY} launches of its own "
                            f"episode and nothing else")
     if not all(math.isfinite(c) for c in epq_bf["closed_loop_costs"]):
         raise RuntimeError(f"bf16 quality: non-finite costs {epq_bf['closed_loop_costs']}")
-    log("bf16-quality", t0, f"{N_QUALITY} seeds through cfg_episode_bf16 "
+    log("bf16-quality", t0, f"{N_BF16_QUALITY} seeds through cfg_episode_bf16 "
         f"({epq_bf['episode_launches']} launches), the flagship's statistics: closed-loop costs "
         f"{[round(c, 3) for c in epq_bf['closed_loop_costs']]}; mean "
         f"{epq_bf['closed_loop_cost_mean']:.3f}, over the expert's "
@@ -2018,8 +2272,8 @@ def main() -> None:
     print(bench_lines[-1], flush=True)
     bench_runs = {}
     for mode, use_bf16, cut in (("episode", True, dict(n_rep=1, n_chain=1, n_best=1)),
-                                ("chain", False, dict(n_rep=2)), ("chain", True, dict(n_rep=2)),
-                                ("1", False, dict(n_rep=1, n_steps=40))):
+                                ("chain", False, dict(n_rep=1)), ("chain", True, dict(n_rep=1)),
+                                ("1", False, dict(n_rep=1, n_steps=10))):
         r = port_bench.run(mode, use_bf16, dev, **cut)
         if r.launches != port_bench.expected_calls(mode, **cut) or r.plain_calls:
             raise RuntimeError(f"bench {mode} bf16={use_bf16}: {r.launches} launches, "
@@ -2034,7 +2288,7 @@ def main() -> None:
 
     # bf16 timing at the main paths' shapes
     chain_bf_ms = cuda_ms(lambda: chain_bf.kernel(contexts[0], noise), n=20, warmup=3)
-    chain_bf_plain_ms = cuda_ms(lambda: chain_bf.plain(contexts[0], noise), n=5, warmup=1)
+    chain_bf_plain_ms = cuda_ms(lambda: chain_bf.plain(contexts[0], noise), n=2, warmup=0)
     ep_bf_ms = cuda_ms(lambda: ep_bf.kernel(x0, bf_noise), n=5, warmup=1)
     log("timing-bf16", t0, f"cfg_chain_bf16 {chain_bf_ms:.4f} ms (fp32 {chain_ms:.4f}; plain "
         f"{chain_bf_plain_ms:.4f}) per replan; cfg_episode_bf16 K=1 {ep_bf_ms:.3f} ms per "
@@ -2196,6 +2450,7 @@ def main() -> None:
     ilqr_line = ilqr_phases(dev)
     distill_line = distill_phases(dev)
     quad_line = quadrotor_phases(dev)
+    scene_line = scene_phases(dev)
 
     packed = chain.packed
     seg = lambda *prefixes: sum(math.prod(shape) for name, (_, shape) in packed.segments.items()
@@ -2352,6 +2607,12 @@ def main() -> None:
                           "replaces": rows[i]["replaces"], **quad_line["h48"][name]}
     rows.append({**quad_line["row"], "cluster_ctas": CLUSTER,
                  **cluster_info["ddim_episode_quadrotor"]})
+    # the scene-conditioned student (phases 35-37): the CFG chain at H = 48 and context 24 under
+    # row 1's "h48", the quadrotor's CFG episode entry a row of its own
+    rows[0]["h48"] = {"name": "cfg_chain", "route": "cuda", "source": rows[0]["source"],
+                      "replaces": rows[0]["replaces"], **scene_line["h48"]}
+    rows.append({**scene_line["row"], "cluster_ctas": CLUSTER,
+                 **cluster_info["cfg_episode_quadrotor"]})
     rows[2]["bench_closed_loop_control_hz"] = bench_line["value"]
     rows[2]["bench_pipelined_hz"] = bench_line["pipelined_hz"]
     print(json.dumps({"training": training_line}), flush=True)

@@ -51,9 +51,11 @@ from ..utils.device import resolve_device
 from .ampc import AMPCNet
 from .temporal_unet import TemporalUnet
 
-__all__ = ["FLAGSHIP_CONFIG", "LMPC_CONFIG", "QUADROTOR_STUDENT_CONFIG", "TEACHER_CONFIG",
+__all__ = ["FLAGSHIP_CONFIG", "LMPC_CONFIG", "QUADROTOR_STUDENT_CONFIG", "SCENE_STUDENT_CONFIG",
+           "TEACHER_CONFIG",
            "from_flax_params", "init_like_flax", "init_mlp_like_flax", "load_ampc",
-           "load_flagship", "load_lmpc", "load_quadrotor_student", "load_student", "load_teacher", "mlp_from_flax_params", "mlp_to_flax_params",
+           "load_flagship", "load_lmpc", "load_quadrotor_student", "load_scene_student",
+           "load_student", "load_teacher", "mlp_from_flax_params", "mlp_to_flax_params",
            "to_flax_params"]
 
 # artifacts/flagship/args.yaml: horizon 32, unet_input_dim 32, dim_mults (1,2,4), context 5
@@ -69,6 +71,9 @@ LMPC_CONFIG = dict(state_dim=1, n_support_points=8, unet_input_dim=32, dim_mults
 # (1,2,4), the 12-dim quadrotor state as context
 QUADROTOR_STUDENT_CONFIG = dict(state_dim=4, n_support_points=48, unet_input_dim=32,
                                 dim_mults=(1, 2, 4), time_emb_dim=32, context_dim=12)
+# artifacts/scene_conditioned/scene_student_ema.pkl: the quadrotor's widths, context 12 + 12
+# scene features
+SCENE_STUDENT_CONFIG = dict(QUADROTOR_STUDENT_CONFIG, context_dim=24)
 
 
 def _unet_layers(n_levels: int) -> List[Tuple[str, Tuple[str, ...], str]]:
@@ -265,6 +270,14 @@ def load_quadrotor_student(path, device=None) -> TemporalUnet:
     ``artifacts/onpolicy_quadrotor/student_1eval.pkl`` (``QUADROTOR_STUDENT_CONFIG``,
     the context-present bit), from its ``{'params'}`` pickle."""
     return _load_unet(path, "params", True, device, QUADROTOR_STUDENT_CONFIG)
+
+
+def load_scene_student(path, device=None) -> TemporalUnet:
+    """The scene-conditioned quadrotor student,
+    ``artifacts/scene_conditioned/scene_student_ema.pkl`` (1,019,524 params,
+    ``SCENE_STUDENT_CONFIG``: context 24, the 12-state then 12 scene
+    features, the context-present bit), from its ``{'params'}`` pickle."""
+    return _load_unet(path, "params", True, device, SCENE_STUDENT_CONFIG)
 
 
 def load_lmpc(path, device=None) -> TemporalUnet:

@@ -5,7 +5,9 @@
 // Replaces the TPU kernel mpc_via_diffusion_model_tpu/ops/fused_episode.py::
 // make_fused_cfg_episode (pallas_call at fused_episode.py:653), bench.py's default path.
 // Per replan, in the JAX kernel's order (fused_episode.py:562-623):
-//   ctx   = (x - cn_shift) * cn_scale                      affine normalize of the state
+//   ctx   = (map(x) - cn_shift) * cn_scale                 the state-to-condition map (the
+//         identity, or the state and the scene's features in cfg_episode_quadrotor.cu), then
+//         the affine normalize
 //   per step si: films_g = mish([t_emb[si], ctx_g, bit_g]) @ Wf_r + bf_r for the two groups
 //         g = cond (ctx, bit 1) and uncond (zeros, bit 0); then for every candidate k the
 //         chain step of cfg_chain.cu on its conditional and unconditional rows
@@ -52,8 +54,9 @@
 //
 // The in-kernel FiLM and the end of each replan (unnormalize, best-of-K, stage cost, plant
 // step) are in episode.cuh, shared with ddim_episode.cu. The plant is episode.cuh's Plant: the
-// swing-up cart-pole here, the linear cart-pole in cfg_episode_lmpc.cu, which includes this
-// file with another EPISODE_PLANT and declares its own entries.
+// swing-up cart-pole here, the linear cart-pole in cfg_episode_lmpc.cu and the quadrotor in
+// cfg_episode_quadrotor.cu (with its safety-first Scorer and its Condition map), which include
+// this file with another EPISODE_PLANT and declare their own entries.
 //
 // bf16 weights (the JAX builder's weights_dtype=jnp.bfloat16, bench.py's BENCH_BF16=1): the
 // kernel is a template on the conv kernels' element type WT. cfg_episode_launch runs the float
@@ -109,9 +112,7 @@ cfg_episode_kernel(const float* __restrict__ W, const int* __restrict__ meta,
 
   for (int step = 0; step < n_steps; ++step) {
     const float* nz_step = noise + (size_t)step * (n_total + 1) * khd;
-    if (threadIdx.x < dctx)
-      ctx[threadIdx.x] = __fmul_rn(__fsub_rn(xst[threadIdx.x], __ldg(consts + C_CN_SHIFT + threadIdx.x)),
-                                   __ldg(consts + C_CN_SCALE + threadIdx.x));
+    episode_context(consts, xst, ctx, dctx);
     for (int i = threadIdx.x; i < khd; i += NT) cand[i] = __ldg(nz_step + (size_t)n_total * khd + i);
     __syncthreads();
 
@@ -168,8 +169,9 @@ cfg_episode_kernel(const float* __restrict__ W, const int* __restrict__ meta,
 
 // reserve_smem's record of the shared-memory limit set for each instantiation on each device,
 // in an anonymous namespace: a template's static member of external linkage is one object in
-// the whole process (the loader unifies it across libraries), and cfg_chain.cu, cfg_episode.cu
-// and cfg_episode_lmpc.cu each need their own record of their own kernel.
+// the whole process (the loader unifies it across libraries), and cfg_chain.cu,
+// cfg_episode.cu, cfg_episode_lmpc.cu and cfg_episode_quadrotor.cu each need their own record
+// of their own kernel.
 namespace {
 template <typename WT>
 struct SmemSet {
@@ -206,7 +208,8 @@ static int max_active_clusters(int smem_bytes, int* n_clusters) {
                                              &config);
 }
 
-// cfg_episode_lmpc.cu includes this file for another plant and declares its own entries.
+// cfg_episode_lmpc.cu and cfg_episode_quadrotor.cu include this file for another plant and
+// declare their own entries.
 #ifndef EPISODE_PLANT_ENTRIES
 extern "C" {
 

@@ -8,7 +8,8 @@
 // make_fused_ddim_episode (pallas_call at fused_episode.py:392), the fast path of
 // scripts/bench_deep_students.py and scripts/bench_quadrotor_student.py. Per replan, in the JAX kernel's order
 // (fused_episode.py:318-374):
-//   ctx   = (x - cn_shift) * cn_scale                      affine normalize of the state
+//   ctx   = (map(x) - cn_shift) * cn_scale                 affine normalize of the state (the
+//         Condition map is the identity in both entries)
 //   per step si of the times grid: film = mish([t_emb[si], ctx, 1]) @ Wf_r + bf_r, one
 //         vector, since all K candidates share the context and the student runs the
 //         conditional pass only; then for every candidate k the step of ddim_chain.cu:
@@ -99,9 +100,7 @@ ddim_episode_kernel(const float* __restrict__ W, const int* __restrict__ meta,
   cg::this_cluster().sync();  // every CTA has started before any writes into its shared memory
 
   for (int step = 0; step < n_steps; ++step) {
-    if (threadIdx.x < dctx)
-      ctx[threadIdx.x] = __fmul_rn(__fsub_rn(xst[threadIdx.x], __ldg(consts + C_CN_SHIFT + threadIdx.x)),
-                                   __ldg(consts + C_CN_SCALE + threadIdx.x));
+    episode_context(consts, xst, ctx, dctx);
     if constexpr (DRAW) {  // every CTA draws the same values (philox.cuh)
       const uint32_t k0 = (uint32_t)__ldg(noise), k1 = (uint32_t)__ldg(noise + 1);
       for (int i = threadIdx.x; i < khd; i += NT) {

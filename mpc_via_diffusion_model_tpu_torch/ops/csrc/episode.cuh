@@ -1,7 +1,7 @@
 // What the two episode kernels, cfg_episode.cu and ddim_episode.cu, share: the plant, the
-// consts and shared-memory layouts, the in-kernel FiLM of one denoising step (each rank's
-// channels of the cluster body) and the end of a replan (unnormalize, best-of-K, stage
-// cost, plant step).
+// consts and shared-memory layouts, the context of a replan (the state-to-condition map and
+// the affine normalize), the in-kernel FiLM of one denoising step (each rank's channels of the
+// cluster body) and the end of a replan (unnormalize, best-of-K, stage cost, plant step).
 //
 // Port of the parts of mpc_via_diffusion_model_tpu/ops/fused_episode.py that
 // make_fused_cfg_episode and make_fused_ddim_episode have in common (their replan bodies,
@@ -27,11 +27,22 @@ typedef EPISODE_PLANT Plant;
 #endif
 typedef EPISODE_SCORER Scorer;
 
-// consts layout (ops/fused_episode.py): normalizer affines, reported and selection costs, dt,
-// the plant's own constants (Plant::N_CONSTS), then the scorer's (Scorer::N_CONSTS)
+// The state-to-condition map (plants.cuh): the identity unless the source names another first
+// (cfg_episode_quadrotor.cu: the state followed by the scene's features). DC is the width of
+// the context, the model's context_dim.
+#ifndef EPISODE_CONDITION
+#define EPISODE_CONDITION IdentityCondition<DX>
+#endif
+typedef EPISODE_CONDITION Condition;
+#define DC Condition::DC
+static_assert(DC >= DX, "the context holds at least the state");
+
+// consts layout (ops/fused_episode.py): normalizer affines (the condition's over DC), reported
+// and selection costs, dt, the plant's own constants (Plant::N_CONSTS), the condition map's
+// (Condition::N_CONSTS), then the scorer's (Scorer::N_CONSTS)
 #define C_CN_SHIFT 0
-#define C_CN_SCALE (C_CN_SHIFT + DX)
-#define C_UN_SHIFT (C_CN_SCALE + DX)
+#define C_CN_SCALE (C_CN_SHIFT + DC)
+#define C_UN_SHIFT (C_CN_SCALE + DC)
 #define C_UN_SCALE (C_UN_SHIFT + DU)
 #define C_Q (C_UN_SCALE + DU)
 #define C_R (C_Q + DX)
@@ -39,18 +50,32 @@ typedef EPISODE_SCORER Scorer;
 #define C_SR (C_SQ + DX)
 #define C_SP (C_SR + DU)
 #define C_DT (C_SP + DX)
-#define C_SC (C_DT + 1 + Plant::N_CONSTS)
+#define C_CD (C_DT + 1 + Plant::N_CONSTS)
+#define C_SC (C_CD + Condition::N_CONSTS)
 #define C_LEN (C_SC + Scorer::N_CONSTS)
 
-// misc region of shared memory (M_EP_MISC, ops/unet_pack.py::ep_misc_len): the state and the
-// context in slots of DX rounded up to 8 (the context is the state), the first control and
-// the choice (DU <= 8)
+// misc region of shared memory (M_EP_MISC, ops/unet_pack.py::ep_misc_len(context_dim)): the
+// state and the context, each in a slot of DC rounded up to 8, the first control and the
+// choice (DU <= 8)
 #define X_STATE 0
-#define X_CTX (8 * ((DX + 7) / 8))
+#define X_CTX (8 * ((DC + 7) / 8))
 #define X_U0 (2 * X_CTX)
 #define X_BEST (X_U0 + 8)
 #define MISC_LEN (X_BEST + 8)
 static_assert(DU <= 8, "the misc region holds at most 8 controls");
+
+// The normalized context of the state xst into ctx, one thread per entry i < dctx (the
+// model's context_dim, DC), in the JAX kernel's order (fused_episode.py:563-564):
+//   ctx_i = (Condition::map(x)_i - cn_shift_i) * cn_scale_i
+// The caller synchronises before ctx is read.
+static __device__ __forceinline__ void episode_context(const float* __restrict__ consts,
+                                                       const float* xst, float* ctx, int dctx) {
+  if (threadIdx.x < dctx)
+    ctx[threadIdx.x] =
+        __fmul_rn(__fsub_rn(Condition::map(xst, consts + C_CD, threadIdx.x),
+                            __ldg(consts + C_CN_SHIFT + threadIdx.x)),
+                  __ldg(consts + C_CN_SCALE + threadIdx.x));
+}
 
 // mish(c_emb) of G groups into mc (G, cond_dim): group 0 is [t_emb, ctx, 1], group 1 (the
 // CFG episode's unconditional rows) [t_emb, 0, 0]; the trailing bit exists for

@@ -225,3 +225,38 @@ struct SafetyFirstScorer {
     return __fadd_rn(quad_terminal<DX>(p, x), hinge(sc, x));
   }
 };
+
+// The episode kernels' state-to-condition maps (episode.cuh, EPISODE_CONDITION), the
+// counterparts of the JAX kernel's traced state_to_condition. A map is a struct with DC, the
+// width of the raw context it makes of the DX-state, N_CONSTS, the number of fp32 constants it
+// reads from the episode's consts table after the plant's (its device_consts on the host:
+// control/conditions.py), and map(x, pc, i), entry i < DC of the raw context of the state x,
+// with pc pointing at those constants. Each thread of the kernel computes one entry, then
+// normalizes it.
+
+// The identity (the JAX episodes' default): the context is the state.
+template <int DX>
+struct IdentityCondition {
+  static constexpr int DC = DX;
+  static constexpr int N_CONSTS = 0;
+
+  static __device__ __forceinline__ float map(const float* x, const float* __restrict__ pc,
+                                              int i) {
+    return x[i];
+  }
+};
+
+// The state followed by NF constant features (control/conditions.py, ConcatFeatures):
+// ctx_raw = [x, features], the features read from pc. The scene-conditioned quadrotor
+// student's 12 scene features ride here, so that another scene is another table, not another
+// build.
+template <int DX, int NF>
+struct ConcatFeatures {
+  static constexpr int DC = DX + NF;
+  static constexpr int N_CONSTS = NF;
+
+  static __device__ __forceinline__ float map(const float* x, const float* __restrict__ pc,
+                                              int i) {
+    return i < DX ? x[i] : __ldg(pc + (i - DX));
+  }
+};

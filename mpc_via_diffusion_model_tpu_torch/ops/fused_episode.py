@@ -36,16 +36,23 @@ What the kernels run, and what raises ``NotImplementedError`` because they
 do not: the plants written as device functions in ``csrc/plants.cuh``, a
 ``QuadraticCost`` for the stage cost, the candidate scorers written there
 (a ``QuadraticCost``, or the quadrotor task's ``SafetyFirstCost``, as each
-entry's ``Scorer``), the identity ``state_to_condition``, and staged noise
-but for the quadrotor's DDIM episode. Each (plant, weights) pair the CFG
-episode runs is an entry of its own (``CFG_ENTRIES``): the cart-pole
-swing-up with float32 weights (``cfg_episode``) or bfloat16 ones
-(``bench.py``'s ``BENCH_BF16``: the kernel's bf16 entry,
-``cfg_episode_bf16``, with ``plain`` running the U-Net of
-``models/bf16.py``), and the linear cart-pole of the LMPC workload with
+entry's ``Scorer``), the state-to-condition maps written there (the identity,
+or ``control/conditions.py::ConcatFeatures``, as each entry's
+``Condition``), and staged noise but for the quadrotor's DDIM episode. Each
+(plant, weights) pair the CFG episode runs is an entry of its own
+(``CFG_ENTRIES``): the cart-pole swing-up with float32 weights
+(``cfg_episode``) or bfloat16 ones (``bench.py``'s ``BENCH_BF16``: the
+kernel's bf16 entry, ``cfg_episode_bf16``, with ``plain`` running the U-Net
+of ``models/bf16.py``), the linear cart-pole of the LMPC workload with
 float32 weights (``cfg_episode_lmpc``: ``cfg_episode.cu`` compiled for that
 plant, ``csrc/cfg_episode_lmpc.cu``, whose A_d and B_d follow dt in the
-consts table); all score with a ``QuadraticCost``. The DDIM episode runs
+consts table), all three scoring with a ``QuadraticCost`` and conditioning
+on the state; and the scene-conditioned quadrotor student with float32
+weights (``cfg_episode_quadrotor``, ``csrc/cfg_episode_quadrotor.cu``: the
+quadrotor, its context the state followed by a ``ConcatFeatures``' 12 scene
+features, scored by the scene's ``SafetyFirstCost``; the features and the
+spheres lie in the consts table, so that one build serves every scene). The
+DDIM episode runs
 float32 weights and ``clip_denoised=True`` only, one entry per plant
 (``DDIM_ENTRIES``): the swing-up (``ddim_episode``, a ``QuadraticCost``
 scorer) and the quadrotor (``ddim_episode_quadrotor``, ``csrc/
@@ -57,7 +64,9 @@ package's ``_key_to_seeds`` gives, and every CTA computes each replan's
 draw by Philox4x32-10 counted by (replan, candidate, row, channel)
 (``csrc/philox.cuh``); its ``plain`` runs the plain episode on the table
 that draw produces (``ops/philox.py::normal_table``). At K = 1 the scorer
-never runs and its constants are zeros. Nothing falls back to another path.
+never runs and its constants are zeros. Any other ``state_to_condition``
+runs in ``control/runtime.py::make_closed_loop``; the episode makers refuse
+it. Nothing falls back to another path.
 
 Best-of-K follows the JAX episode kernels, not the JAX runtime: the first
 candidate whose score equals the minimum wins, and when a score is NaN the
@@ -76,6 +85,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..control.conditions import ConcatFeatures
 from ..core.schedules import DiffusionSchedule
 from ..data.normalization import NormalizerStats
 from ..diffusion.distillation import make_student_ddim_sampler
@@ -95,15 +105,20 @@ __all__ = ["FusedCfgEpisode", "FusedDdimEpisode", "make_fused_cfg_episode",
            "cfg_episode_max_active_clusters", "cfg_episode_bf16_max_active_clusters",
            "cfg_episode_lmpc_max_active_clusters", "ddim_episode_max_active_clusters",
            "ddim_episode_quadrotor_max_active_clusters",
-           "ddim_episode_quadrotor_draw_max_active_clusters", "cluster_split_features",
-           "scorer_kind"]
+           "ddim_episode_quadrotor_draw_max_active_clusters",
+           "cfg_episode_quadrotor_max_active_clusters", "cluster_split_features", "scorer_kind",
+           "condition_kind", "CFG_KINDS", "CONDITION_CONSTS"]
 
 # the entry of each episode kernel for (plant name, bf16 weights): plants written in
-# csrc/plants.cuh, each entry with its own library symbols and occupancy query; every CFG entry
-# scores candidates with a QuadraticCost
+# csrc/plants.cuh, each entry with its own library symbols and occupancy query
 CFG_ENTRIES = {("cartpole_virtual_swingup", False): "cfg_episode",
                ("cartpole_virtual_swingup", True): "cfg_episode_bf16",
-               ("cartpole_lmpc", False): "cfg_episode_lmpc"}
+               ("cartpole_lmpc", False): "cfg_episode_lmpc",
+               ("quadrotor", False): "cfg_episode_quadrotor"}
+# the kinds of selection cost and of state-to-condition map each CFG entry's Scorer and
+# Condition compute (csrc/plants.cuh); an entry not named here scores with a QuadraticCost and
+# conditions on the state
+CFG_KINDS = {"cfg_episode_quadrotor": ("safety_first", "concat_features")}
 # the DDIM episode's entry for each plant (float32 weights), with the kind of selection cost
 # its scorer computes (csrc/plants.cuh: QuadScorer, SafetyFirstScorer), and the entry that
 # draws the noise in the kernel, where one exists
@@ -113,6 +128,9 @@ DDIM_DRAW_ENTRIES = {"ddim_episode_quadrotor": "ddim_episode_quadrotor_draw"}
 # the constants each scorer reads after the plant's (its N_CONSTS): the safety-first scorer's
 # u_hover (4), factor, weight, the 3 spheres' centers and radii
 SCORER_CONSTS = {"quadratic": 0, "safety_first": 4 + 2 + 4 * 3}
+# the constants each condition map reads after the plant's (its N_CONSTS): the 12 scene
+# features of ConcatFeatures<12, 12>
+CONDITION_CONSTS = {"identity": 0, "concat_features": 12}
 _QUERIES = ("consts_len", "plant_dims")
 
 
@@ -123,6 +141,17 @@ def scorer_kind(cost) -> Optional[str]:
         return "quadratic"
     if isinstance(cost, SafetyFirstCost):
         return cost.scorer
+    return None
+
+
+def condition_kind(state_to_condition) -> Optional[str]:
+    """The kind of device map that computes ``state_to_condition`` (a key of
+    ``CONDITION_CONSTS``): ``identity`` for None, the map's ``kind`` for a
+    ``ConcatFeatures``; None where no device map does."""
+    if state_to_condition is None:
+        return "identity"
+    if isinstance(state_to_condition, ConcatFeatures):
+        return state_to_condition.kind
     return None
 
 
@@ -169,10 +198,28 @@ def cfg_episode_lmpc_max_active_clusters(smem_bytes: int) -> int:
     return _build.max_active_clusters(_cfg_lmpc_lib(), "cfg_episode_lmpc", smem_bytes)
 
 
+@functools.lru_cache(maxsize=None)
+def _cfg_quadrotor_lib() -> ctypes.CDLL:
+    """The built ``csrc/cfg_episode_quadrotor.cu``: the CFG episode of the
+    scene-conditioned quadrotor student, which also answers the width of
+    its condition map's context (``condition_dims``)."""
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    return _build.bind("cfg_episode_quadrotor",
+                       [p, p, i, p, p, p, p, p, p, p, p, p, i, i, i, i, f, f, p], M_LEN,
+                       (*_QUERIES, "condition_dims"), cluster=CLUSTER)
+
+
+def cfg_episode_quadrotor_max_active_clusters(smem_bytes: int) -> int:
+    """The same query for the scene-conditioned quadrotor's CFG episode entry."""
+    return _build.max_active_clusters(_cfg_quadrotor_lib(), "cfg_episode_quadrotor", smem_bytes)
+
+
 # each CFG entry's library and occupancy query
 _CFG_LIBS = {"cfg_episode": (_cfg_lib, cfg_episode_max_active_clusters),
              "cfg_episode_bf16": (_cfg_bf16_lib, cfg_episode_bf16_max_active_clusters),
-             "cfg_episode_lmpc": (_cfg_lmpc_lib, cfg_episode_lmpc_max_active_clusters)}
+             "cfg_episode_lmpc": (_cfg_lmpc_lib, cfg_episode_lmpc_max_active_clusters),
+             "cfg_episode_quadrotor": (_cfg_quadrotor_lib,
+                                       cfg_episode_quadrotor_max_active_clusters)}
 
 
 @functools.lru_cache(maxsize=None)
@@ -271,7 +318,7 @@ class _Episode:
     def __init__(self, packed: PackedUnet, inputs_stats: NormalizerStats,
                  condition_stats: NormalizerStats, plant: Plant, cost: QuadraticCost,
                  n_steps: int, n_candidates: int, selection_cost, selection_horizon: int,
-                 coefs: np.ndarray, t_eval: np.ndarray):
+                 coefs: np.ndarray, t_eval: np.ndarray, state_to_condition=None):
         self.packed, self.model = packed, packed.model
         self.cluster = _build.ClusterLaunch(packed, self.name, self.query)
         self.plant, self.n_steps = plant, int(n_steps)
@@ -283,7 +330,12 @@ class _Episode:
         with torch.no_grad():
             self.t_embs = self.model.time_mlp(self.t_eval).contiguous()  # (n_total, time_emb_dim)
         dx, du = plant.state_dim, plant.control_dim
-        cn_shift, cn_scale, _, _ = affine_consts(condition_stats, dx)
+        # the condition map (the identity unless given) and the context's width
+        self.state_to_condition = (state_to_condition.to(device) if state_to_condition is not None
+                                   else None)
+        self.context_dim = dc = packed.model.context_dim
+        cond_consts = np.float32(getattr(state_to_condition, "device_consts", ()))
+        cn_shift, cn_scale, _, _ = affine_consts(condition_stats, dc)
         _, _, un_shift, un_scale = affine_consts(inputs_stats, du)
         vec = lambda t, n: np.broadcast_to(np.asarray(t.cpu(), np.float32).reshape(-1), (n,))
         # the scorer's own constants; zeros at K = 1, where it never runs
@@ -297,7 +349,8 @@ class _Episode:
             cn_shift, cn_scale, un_shift, un_scale,
             vec(cost.q_diag, dx), vec(cost.r, du),
             vec(selection_cost.q_diag, dx), vec(selection_cost.r, du), vec(selection_cost.p_diag, dx),
-            np.float32([plant.dt]), np.float32(plant.device_consts), sc]).astype(np.float32)).to(device)
+            np.float32([plant.dt]), np.float32(plant.device_consts), cond_consts,
+            sc]).astype(np.float32)).to(device)
         self.cost, self.selection_cost = cost.to(device), selection_cost.to(device)
         self.smem_bytes = packed.episode_smem_bytes(self.n_candidates)
         if self.smem_bytes > SMEM_LIMIT:
@@ -348,6 +401,10 @@ class _Episode:
             raise RuntimeError(f"{self.name}.cu was built for another plant")
         if getattr(lib, f"{self.name}_consts_len")() != self.consts.numel():
             raise RuntimeError(f"{self.name}.cu and fused_episode.py disagree on the consts layout")
+        if (hasattr(lib, f"{self.name}_condition_dims")
+                and getattr(lib, f"{self.name}_condition_dims")() != self.context_dim):
+            raise RuntimeError(f"{self.name}.cu maps the state to another context width than "
+                               f"{self.context_dim}")
         self.cluster.require_fit(self.smem_bytes, x0.device)
         x_track = torch.empty((self.n_steps + 1, dx), dtype=torch.float32, device=dev)
         u_track = torch.empty((self.n_steps, du), dtype=torch.float32, device=dev)
@@ -365,9 +422,9 @@ class _Episode:
         return x_track, u_track, costs, chosen
 
     def _plain_loop(self, x0: torch.Tensor, noise: torch.Tensor, sample: Callable):
-        """The plain episode around ``sample(ctx (dx,), noise_of_replan) ->
+        """The plain episode around ``sample(ctx (dc,), noise_of_replan) ->
         u_norm (K, H, du)``, the chain of one replan in the kernel's
-        arithmetic: the affine normalize, the chain, the clip and
+        arithmetic: the condition map, the affine normalize, the chain, the clip and
         unnormalize, the candidate rollouts and the first-min choice, the
         unrolled stage cost and the plant step. At K > 1 it keeps every
         replan's candidate scores in ``plain_scores`` (n_steps, K), which
@@ -375,16 +432,17 @@ class _Episode:
         arguments."""
         self.plain_calls += 1
         c = self.consts
-        dx, du = self.plant.state_dim, self.plant.control_dim
-        cn_shift, cn_scale = c[:dx], c[dx:2 * dx]
-        un_shift, un_scale = c[2 * dx:2 * dx + du], c[2 * dx + du:2 * dx + 2 * du]
+        dx, du, dc = self.plant.state_dim, self.plant.control_dim, self.context_dim
+        cn_shift, cn_scale = c[:dc], c[dc:2 * dc]
+        un_shift, un_scale = c[2 * dc:2 * dc + du], c[2 * dc + du:2 * dc + 2 * du]
+        to_cond = self.state_to_condition or (lambda v: v)
         k, horizon, dev = self.n_candidates, self.packed.horizon, x0.device
         q = [float(v) for v in self.cost.q_diag.reshape(-1)]
         r = [float(v) for v in self.cost.r.reshape(-1).expand(du)]
         x = x0
         xs, us, stages, chosen, scores = [x0], [], [], [], []
         for step in range(self.n_steps):
-            u = sample((x - cn_shift) * cn_scale, noise[step])
+            u = sample((to_cond(x) - cn_shift) * cn_scale, noise[step])
             u_seq = torch.clamp(u, -1.0, 1.0) * un_scale + un_shift  # (K, H, du)
             if k == 1:
                 best, u0 = 0, u_seq[0, 0]
@@ -427,20 +485,22 @@ class FusedCfgEpisode(_Episode):
     weights pick (``CFG_ENTRIES``): with ``weights_dtype`` bfloat16 the bf16
     entry ``cfg_episode_bf16``, whose ``plain`` runs ``plain_model``, the
     U-Net with bf16 convs (``models/bf16.py``); with the linear cart-pole
-    ``cfg_episode_lmpc``.
+    ``cfg_episode_lmpc``; with the quadrotor ``cfg_episode_quadrotor``,
+    whose context is ``state_to_condition(x)``, a ``ConcatFeatures``.
     """
 
     def __init__(self, packed: PackedUnet, schedule: DiffusionSchedule,
                  inputs_stats: NormalizerStats, condition_stats: NormalizerStats, plant: Plant,
                  cost: QuadraticCost, n_steps: int, w: float, n_tail: int, n_candidates: int,
                  selection_cost: QuadraticCost, selection_horizon: int,
-                 weights_dtype=torch.float32):
+                 weights_dtype=torch.float32, state_to_condition=None):
         self.bf16 = is_bf16(weights_dtype)
         self.name = CFG_ENTRIES[plant.name, self.bf16]
         self.lib, self.query = _CFG_LIBS[self.name]
+        self.scorer = CFG_KINDS.get(self.name, ("quadratic",))[0]
         super().__init__(packed, inputs_stats, condition_stats, plant, cost, n_steps,
                          n_candidates, selection_cost, selection_horizon,
-                         *step_coefficients(schedule, n_tail))
+                         *step_coefficients(schedule, n_tail), state_to_condition)
         self.plain_model = bf16_conv_copy(self.model) if self.bf16 else self.model
         self.w = float(w)
 
@@ -451,8 +511,10 @@ class FusedCfgEpisode(_Episode):
 
     @torch.no_grad()
     def kernel(self, x0: torch.Tensor, noise: torch.Tensor):
-        """Launch ``csrc/cfg_episode.cu`` (its bf16 entry for bf16 weights),
-        one cluster of 8 CTAs, on the current stream; raises when the body
+        """Launch the entry's kernel (``csrc/cfg_episode.cu``, its bf16 entry
+        for bf16 weights, ``csrc/cfg_episode_lmpc.cu`` or
+        ``csrc/cfg_episode_quadrotor.cu``), one cluster of 8 CTAs, on the
+        current stream; raises when the body
         cannot be split over the cluster or no cluster fits on the card."""
         self._check(x0, noise)
         noise_tab = torch.cat([noise[:, 1:], noise[:, :1]], dim=1).contiguous()
@@ -614,15 +676,16 @@ def _episode_packed(model_or_packed: Union[TemporalUnet, PackedUnet], plant: Pla
                     cost: QuadraticCost, selection_cost, selection_horizon: Optional[int],
                     n_candidates: int, state_to_condition: Optional[Callable],
                     inkernel_noise: bool, device, plants: Sequence[str], entry: Optional[str],
-                    scorer: str, can_draw: bool,
-                    weights: str = "float32") -> Tuple[PackedUnet, int, int]:
+                    scorer: str, can_draw: bool, weights: str = "float32",
+                    condition: str = "identity") -> Tuple[PackedUnet, int, int]:
     """The checks both episode makers make, and the packed U-Net with K and
     the selection horizon. ``plants`` are those the kernel has entries for,
     ``entry`` the one for ``plant`` (None when there is none for its
     weights), ``scorer`` the kind of selection cost that entry scores with,
     ``can_draw`` whether it has an in-kernel draw, ``weights`` the weights'
-    type asked for. Raises
-    ``NotImplementedError`` for what the kernels cannot run."""
+    type asked for, ``condition`` the kind of state-to-condition map the
+    entry runs. Raises ``NotImplementedError`` for what the kernels cannot
+    run, and ``ValueError`` where the model's widths do not fit the entry."""
     if entry is None:
         if plant.name not in plants:
             raise NotImplementedError(f"the episode kernel runs {sorted(plants)}, not the plant "
@@ -640,16 +703,28 @@ def _episode_packed(model_or_packed: Union[TemporalUnet, PackedUnet], plant: Pla
     if kind != scorer and int(n_candidates) > 1:
         raise NotImplementedError(f"the episode kernel's entry for the plant '{plant.name}' "
                                   f"scores candidates with a {scorer} cost, not a {kind} one")
-    if state_to_condition is not None:
-        raise NotImplementedError("state_to_condition inside the episode kernel is not ported")
+    cond = condition_kind(state_to_condition)
+    if cond is None:
+        raise NotImplementedError("the episode kernel runs the identity state_to_condition or a "
+                                  "ConcatFeatures (control/conditions.py) only, not "
+                                  f"{type(state_to_condition).__name__}")
+    if cond != condition:
+        raise NotImplementedError(f"the episode kernel's entry for the plant '{plant.name}' maps "
+                                  f"the state to its condition by {condition}, not {cond}")
+    n_cond = len(getattr(state_to_condition, "device_consts", ()))
+    if n_cond != CONDITION_CONSTS[condition]:
+        raise ValueError(f"the {condition} map of the entry for the plant '{plant.name}' reads "
+                         f"{CONDITION_CONSTS[condition]} constants, the map lays out {n_cond}")
     if inkernel_noise and not can_draw:
         raise NotImplementedError(f"inkernel_noise (the in-kernel Philox draw) is not ported for "
                                   f"the {entry} entry; stage the noise")
     packed = packed_on(model_or_packed, device)
     if packed.state_dim != plant.control_dim:
         raise ValueError("the episode denoises control sequences: state_dim must be control_dim")
-    if packed.model.context_dim != plant.state_dim:
-        raise ValueError("the episode conditions on the plant state: context_dim must be state_dim")
+    dc = plant.state_dim + n_cond  # the context width of the entry's Condition (DC)
+    if packed.model.context_dim != dc:
+        raise ValueError(f"the episode conditions on the {condition} map of the plant state: "
+                         f"context_dim must be {dc}, got {packed.model.context_dim}")
     k = int(n_candidates)
     if k < 1:
         raise ValueError(f"n_candidates must be >= 1, got {n_candidates}")
@@ -672,16 +747,20 @@ def make_fused_cfg_episode(model_or_packed: Union[TemporalUnet, PackedUnet],
     unless given). Defaults are ``bench.py``'s: 80 replans, T + 5 tail
     steps, w = 0.01, K = 1, float32 weights (``weights_dtype`` bfloat16 is
     ``BENCH_BF16=1``'s). A ``TemporalUnet`` is moved to the device and
-    packed. Raises ``NotImplementedError`` for what the kernel cannot run."""
+    packed. The quadrotor's entry takes its ``state_to_condition`` as a
+    ``ConcatFeatures`` and its ``selection_cost`` as a ``SafetyFirstCost``;
+    a scene is their constants. Raises ``NotImplementedError`` for what the
+    kernel cannot run."""
+    entry = CFG_ENTRIES.get((plant.name, is_bf16(weights_dtype)))
+    scorer, condition = CFG_KINDS.get(entry, ("quadratic", "identity"))
     packed, k, sel_h = _episode_packed(model_or_packed, plant, cost, selection_cost,
                                        selection_horizon, n_candidates, state_to_condition,
                                        inkernel_noise, device, {p for p, _ in CFG_ENTRIES},
-                                       CFG_ENTRIES.get((plant.name, is_bf16(weights_dtype))),
-                                       "quadratic", False,
-                                       "bf16" if is_bf16(weights_dtype) else "float32")
+                                       entry, scorer, False,
+                                       "bf16" if is_bf16(weights_dtype) else "float32", condition)
     return FusedCfgEpisode(packed, schedule, inputs_stats, condition_stats, plant, cost, n_steps,
                            w, n_diffusion_steps_without_noise, k, selection_cost or cost, sel_h,
-                           weights_dtype)
+                           weights_dtype, state_to_condition)
 
 
 def make_fused_ddim_episode(model_or_packed: Union[TemporalUnet, PackedUnet],

@@ -1,8 +1,9 @@
 """The quadrotor flagship task, as far as its student's serving path needs
 it: a copy of the JAX package's top-level ``scripts/quadrotor_task.py`` (the
 obstacle scene, the hover thrust, the task and selection costs in torch, the
-held-out eval starts and the metrics in numpy), which the port does not
-import.
+held-out eval starts, the random scenes of the scene-conditioned study and
+the metrics in numpy, the scene's condition features in torch), which the
+port does not import.
 """
 from __future__ import annotations
 
@@ -13,7 +14,8 @@ from ..dynamics.base import QuadraticCost
 from ..dynamics.quadrotor import SafetyFirstCost, obstacle_cost
 
 __all__ = ["OBS_CENTERS", "OBS_RADII", "HOVER_THRUST", "make_task_cost", "make_select_cost",
-           "eval_start_states", "min_clearance", "track_metrics"]
+           "sample_scenes", "scene_features", "eval_start_states", "min_clearance",
+           "track_metrics"]
 
 OBS_CENTERS = np.array([[1.5, 0.0, 1.0], [0.9, 0.9, 1.2], [0.9, -0.9, 0.8]], np.float32)
 OBS_RADII = np.array([0.45, 0.40, 0.40], np.float32)
@@ -59,6 +61,38 @@ def make_select_cost(quad_cost: QuadraticCost, margin: float = 0.15, weight: flo
     r = torch.as_tensor(OBS_RADII if radii is None else radii, dtype=torch.float32) + margin
     return SafetyFirstCost(quad=quad_cost, u_hover=_u_hover(), centers=c, radii=r,
                            weight=float(weight))
+
+
+def sample_scenes(n: int, seed: int = 0):
+    """Random 3-sphere scenes of the scene-conditioned study: perturbations
+    of the canonical layout with the start box (x >= 2.2) and the goal (the
+    origin) kept clear. Returns ``(centers (n, 3, 3), radii (n, 3))``,
+    float32, the draws of the JAX task's ``RandomState(seed)`` in its order.
+    The canonical scene is in-support (zero perturbation)."""
+    rng = np.random.RandomState(seed)
+    centers = (OBS_CENTERS[None] + np.stack([
+        rng.uniform(-0.3, 0.3, (n, 3)),
+        rng.uniform(-0.3, 0.3, (n, 3)),
+        rng.uniform(-0.2, 0.2, (n, 3)),
+    ], axis=-1)).astype(np.float32)
+    radii = (OBS_RADII[None] * rng.uniform(0.8, 1.15, (n, 3))).astype(np.float32)
+    # keep the start box clear: sphere extent along +x stays below 2.1
+    centers[..., 0] = np.minimum(centers[..., 0], 2.1 - radii)
+    # keep the goal (origin) clear: push centers out to norm >= radius + 0.3
+    norms = np.linalg.norm(centers, axis=-1, keepdims=True)
+    min_norm = (radii + 0.3)[..., None]
+    scale = np.maximum(min_norm / np.maximum(norms, 1e-6), 1.0)
+    centers *= scale
+    return centers, radii
+
+
+def scene_features(centers, radii) -> torch.Tensor:
+    """A scene (or a batch of scenes) flattened to the 12-dim block of
+    condition features: ``[centers.ravel() (9), radii (3)]``, float32."""
+    c = torch.as_tensor(centers, dtype=torch.float32)
+    r = torch.as_tensor(radii, dtype=torch.float32)
+    lead = c.shape[:-2]
+    return torch.cat([c.reshape(*lead, 9), r.reshape(*lead, 3)], dim=-1)
 
 
 def eval_start_states(n: int, seed: int = 7) -> np.ndarray:

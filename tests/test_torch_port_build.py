@@ -14,13 +14,14 @@ def test_every_kernel_source_is_built():
     assert {"unet_body.cuh", "plants.cuh", "episode.cuh", "unet_body_cluster.cuh", "philox.cuh",
             "ddim_episode.cuh"} <= {p.name for p in _build.CSRC.glob("*.cuh")}
     assert {"ddim_chain", "ddim_episode", "fused_conv",
-            "ddim_episode_quadrotor"} <= set(_build.KERNELS)
+            "ddim_episode_quadrotor", "cfg_episode_quadrotor"} <= set(_build.KERNELS)
 
 
 @pytest.mark.parametrize("edit", ["unet_body.cuh", "plants.cuh", "episode.cuh",
                                   "unet_body_cluster.cuh", "cfg_chain.cu",
                                   "ddim_chain.cu", "ddim_episode.cu", "fused_conv.cu", "flags",
-                                  "philox.cuh", "ddim_episode.cuh", "ddim_episode_quadrotor.cu"])
+                                  "philox.cuh", "ddim_episode.cuh", "ddim_episode_quadrotor.cu",
+                                  "cfg_episode_quadrotor.cu"])
 def test_library_name_follows_sources_headers_and_flags(tmp_path, monkeypatch, edit):
     csrc = tmp_path / "csrc"
     shutil.copytree(_build.CSRC, csrc)

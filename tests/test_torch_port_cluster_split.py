@@ -706,3 +706,30 @@ def test_episode_launch_copy_matches_the_kernel_on_gpu():
     assert ep.launches == 2
     for g, w_ in zip(got, want):
         assert torch.equal(g, w_)
+
+
+@pytest.mark.gpu
+def test_scene_episode_kernel_matches_plain_on_gpu():
+    """chip_smoke.py's phase 35 in short: cfg_episode_quadrotor (the scene
+    student's CFG episode: the quadrotor, the context map ConcatFeatures and
+    the scene's safety-first scorer in the kernel) against its plain version
+    on the card at K = 1 (3 replans) and K = 4 (2 replans), tracks within
+    1e-3, controls within 1e-4 normalized, the choices equal, one launch
+    each."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    from mpc_via_diffusion_model_tpu_torch.scripts import bench_scene_student as bss
+    from mpc_via_diffusion_model_tpu_torch.data import scene_yardstick as sys_
+    from mpc_via_diffusion_model_tpu_torch.models import load_scene_student
+    packed = up.pack_unet(load_scene_student(sys_.STUDENT, device="cuda"), "cuda")
+    sc = bss.scene(0, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(35)
+    x0 = torch.from_numpy(sys_.eval_starts()[0]).cuda()
+    for k, n_steps in ((1, 3), (4, 2)):
+        ep = bss.episode(packed, sc, k, n_steps, "cuda")
+        noise = torch.randn(ep.noise_shape, generator=gen, device="cuda")
+        got, want = ep.kernel(x0, noise), ep.plain(x0, noise)
+        torch.testing.assert_close(got[0], want[0], rtol=1e-3, atol=1e-3)
+        scale = ep.consts[2 * 24 + 4:2 * 24 + 8]
+        torch.testing.assert_close(got[1] / scale, want[1] / scale, rtol=1e-4, atol=1e-4)
+        assert torch.equal(got[3], want[3]) and ep.launches == 1

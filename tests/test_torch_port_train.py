@@ -154,19 +154,18 @@ def _port_grads(tm, x, c, draws, dtype):
 
 
 def test_gradients_match_jax_leaf_by_leaf():
-    """Autograd's gradient of the loss against jax.grad on JAX's draws: in
+    """Autograd's gradient of the loss against JAX's on JAX's draws: in
     float64 leaf by leaf (1e-10 of the largest element); in float32 the
     loss within 1e-5 of JAX's and the gradient within 1e-5 (global,
     relative) of the port's float64 gradient on the same draws; the
-    padding-only taps exactly 0 in every one."""
-    jd = JaxDiffusion(jax_schedule("exponential", T))
+    padding-only taps exactly 0 in every one. JAX's loss and gradient are
+    those of the JAX package's first train step (``_jax_first_step``), so
+    the file compiles no JAX function of its own for them."""
     key = jax.random.PRNGKey(4)
-    jax_grad = lambda jm, params, x, c: jax.jit(jax.value_and_grad(
-        lambda p: jd.loss(lambda *a: jm.apply(p, *a), jnp.asarray(x), jnp.asarray(c), key)))(params)
     with _x64():
-        tm, jm, params = _models(dtype=torch.float64)
+        tm, _, _ = _models(dtype=torch.float64)
         x, c = _batch(dtype=np.float64)
-        jloss, jgrad = jax_grad(jm, params, x, c)
+        jloss, jgrad = _jax_first_step(True, x, c, key)
         loss, g = _port_grads(tm, x, c, _jax_draws(key, jnp.asarray(x)), torch.float64)
     layout = pt.ParamLayout.of(tm)
     pad = _padding_mask(tm, layout)
@@ -180,9 +179,9 @@ def test_gradients_match_jax_leaf_by_leaf():
     assert int(pad.sum()) > 0 and (layout.flatten(jg)[pad] == 0).all()
     assert (layout.flatten(g)[pad] == 0).all()
 
-    tm, jm, params = _models()
+    tm, _, _ = _models()
     x, c = _batch()
-    jloss, _ = jax_grad(jm, params, x, c)
+    jloss, _ = _jax_first_step(False, x, c, key)
     draws = _jax_draws(key, jnp.asarray(x))
     loss, g32 = _port_grads(tm, x, c, draws, torch.float32)
     np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-5)
@@ -195,26 +194,54 @@ START_EMA, EVERY_EMA = 3, 2   # the EMA schedule of every JAX step below
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_step(x64: bool, clip: float = 1.0):
+def _jax_step(x64: bool):
     """The JAX package's jitted train step of the small model, one per
-    precision and clip: each compiles once (~25 s on the CPU) for the file."""
+    precision, with the clip's threshold its first argument: the optimizer
+    and the step are built inside the traced function (optax's
+    ``clip_by_global_norm`` takes a traced threshold), so that one compile
+    (~25-50 s on the CPU) serves every clip in the file. ``x64`` only keys
+    the cache: the caller's precision decides what is traced."""
     jm = JaxUnet(**SMALL, conditioning_type="default", cfg_indicator=True)
-    opt = jt.make_optimizer(LR, clip)
-    return opt, jax.jit(jt.make_train_step(JaxDiffusion(jax_schedule("exponential", T)), jm.apply,
-                                           opt, step_start_ema=START_EMA,
-                                           update_ema_every=EVERY_EMA))
+    diffusion = JaxDiffusion(jax_schedule("exponential", T))
+
+    def step(clip, state, x, c, key):
+        opt = jt.make_optimizer(LR, clip)
+        return jt.make_train_step(diffusion, jm.apply, opt, step_start_ema=START_EMA,
+                                  update_ema_every=EVERY_EMA)(state, x, c, key)
+
+    return jax.jit(step)
+
+
+def _jax_state(params):
+    """The JAX TrainState at the start: optax's state does not depend on the clip."""
+    opt = jt.make_optimizer(LR)
+    return jt.TrainState(params, jax.tree_util.tree_map(jnp.copy, params), opt.init(params),
+                         jnp.int32(0))
+
+
+def _jax_first_step(x64: bool, x, c, key):
+    """The loss and the gradient (a flax tree) of the JAX package's first
+    train step from ``_models()``' weights on ``(x, c)`` and ``key``, through
+    the file's shared jitted step (``_jax_step``): in float64 with the clip
+    at 1e6, which never engages, so that Adam's first moment over 1 - b1 is
+    the gradient to the last bit or so (mu = (1 - b1) g from 0); in float32
+    clipped at 1, of which only the loss is used."""
+    _, _, params = _models(dtype=torch.float64 if x64 else torch.float32)
+    state, met = _jax_step(x64)(1e6 if x64 else 1.0, _jax_state(params), jnp.asarray(x),
+                                jnp.asarray(c), key)
+    b1 = 0.9  # optax.adam's default, which jt.make_optimizer keeps
+    grad = jax.tree_util.tree_map(lambda m: m / (1 - b1), _adam(state.opt_state).mu)
+    return met["loss"], grad
 
 
 def _start(x64: bool, clip: float = 1.0):
-    """(port trainer, JAX step, JAX state) from the same initial weights."""
+    """(port trainer, JAX step at ``clip``, JAX state) from the same initial weights."""
     tm, _, params = _models(dtype=torch.float64 if x64 else torch.float32)
-    opt, step = _jax_step(x64, clip)
-    jstate = jt.TrainState(params, jax.tree_util.tree_map(jnp.copy, params), opt.init(params),
-                           jnp.int32(0))
+    step = functools.partial(_jax_step(x64), clip)
     trainer = pt.Trainer(GaussianDiffusion(make_schedule("exponential", T)), tm, lr=LR,
                          clip_grad_max_norm=clip, step_start_ema=START_EMA,
                          update_ema_every=EVERY_EMA, device="cpu")
-    return trainer, step, jstate
+    return trainer, step, _jax_state(params)
 
 
 def _state_errors(state, jstate, layout):
@@ -479,7 +506,10 @@ def test_init_like_flax_matches_flax_init_statistics():
     jm = JaxUnet(**SMALL, conditioning_type="default", cfg_indicator=True)
     init = jax.jit(jax.vmap(lambda k: jm.init(k, jnp.zeros((2, H, 1)), jnp.zeros((2,), jnp.int32),
                                               jnp.zeros((2, 4)), jnp.zeros((2, 1)))))
-    flax_draws = jax.tree_util.tree_map(np.asarray, init(jax.random.split(jax.random.PRNGKey(0), n_draws)))
+    # flax's initializers on keys of XLA's RngBitGenerator: the same distributions as on
+    # threefry keys, and the vmapped init compiles in a third of the time
+    keys = jax.random.split(jax.random.key(0, impl="rbg"), n_draws)
+    flax_draws = jax.tree_util.tree_map(np.asarray, init(keys))
     rs, gen = np.random.RandomState(5), torch.Generator().manual_seed(5)
     model = TemporalUnet(**SMALL, cfg_indicator=True)
     ports = [to_flax_params(init_like_flax(model, rs if i % 2 else gen)) for i in range(n_draws)]

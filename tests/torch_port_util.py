@@ -180,16 +180,25 @@ def _quadratic_terminal(x, sp, pc):
     return np.sum(sp * x * x)
 
 
-def quadrotor_select(n_plant_consts=4):
+def quadrotor_select(n_plant_consts=4, n_condition_consts=0):
     """(stage, terminal) of the quadrotor's safety-first scorer for
-    ``_emulate_episode``: its constants follow the plant's in ``pc``."""
-    return (lambda x, u, sq, sr, pc: safety_first_stage_f32(sq, sr, pc[1 + n_plant_consts:], x, u),
-            lambda x, sp, pc: safety_first_terminal_f32(sp, pc[1 + n_plant_consts:], x))
+    ``_emulate_episode``: its constants follow the plant's and the condition
+    map's in ``pc``."""
+    o = 1 + n_plant_consts + n_condition_consts
+    return (lambda x, u, sq, sr, pc: safety_first_stage_f32(sq, sr, pc[o:], x, u),
+            lambda x, sp, pc: safety_first_terminal_f32(sp, pc[o:], x))
+
+
+def concat_features_condition(n_features, n_plant_consts=4):
+    """``plants.cuh``'s ConcatFeatures map for ``_emulate_episode``: the
+    state followed by the ``n_features`` constants after the plant's."""
+    o = 1 + n_plant_consts
+    return lambda x, pc: np.concatenate([x, np.asarray(pc[o:o + n_features], np.float32)])
 
 
 def _emulate_episode(packed, t_embs, consts, x0, n_candidates, selection_horizon, n_steps,
                      n_groups, first_plans, chain_step, plant_step=_swingup_step,
-                     select=(_quadratic_select, _quadratic_terminal)):
+                     select=(_quadratic_select, _quadratic_terminal), condition=None):
     """The program both episode kernels share (``csrc/episode.cuh`` and the
     kernels' replan loops), in numpy: the affine normalize, the per-step
     FiLM of ``n_groups`` groups from the FiLM weights the meta table points
@@ -200,7 +209,9 @@ def _emulate_episode(packed, t_embs, consts, x0, n_candidates, selection_horizon
     from ``consts`` and the one-hot choice, the stage cost and the plant
     step, ``plant_step(x, u, consts from dt on)`` (the swing-up's by default;
     the state width is x0's), and the scorer ``select`` = (stage(x, u, sq,
-    sr, pc), terminal(x, sp, pc)), the selection QuadraticCost by default. The shared image is sized by the episode plan
+    sr, pc), terminal(x, sp, pc)), the selection QuadraticCost by default,
+    and the state-to-condition map ``condition(x, pc)`` (the identity by
+    default), whose context is the model's context_dim wide. The shared image is sized by the episode plan
     and filled with NaN, so a region that overlaps another or is read before
     it is written shows."""
     W = packed.weights.cpu().numpy()
@@ -209,9 +220,9 @@ def _emulate_episode(packed, t_embs, consts, x0, n_candidates, selection_horizon
     H, D, n_res, maxc = (int(m[k]) for k in (up.M_H, up.M_D, up.M_NRES, up.M_MAXC))
     cond, temb, dctx = (int(m[k]) for k in (up.M_COND, up.M_TEMB, up.M_CTX))
     n_total = t_embs.shape[0]
-    dx, du = x0.shape[0], D
+    dx, du, dc = x0.shape[0], D, dctx
     parts = np.split(np.asarray(consts, np.float32),
-                     np.cumsum([dx, dx, du, du, dx, du, dx, du, dx]))
+                     np.cumsum([dc, dc, du, du, dx, du, dx, du, dx]))
     cn_shift, cn_scale, un_shift, un_scale, q, r, sq, sr, sp, pc = parts
     Fw = W[m[up.M_FW]:m[up.M_FW] + n_res * cond * maxc].reshape(n_res, cond, maxc)
     Fb = W[m[up.M_FB]:m[up.M_FB] + n_res * maxc].reshape(n_res, maxc)
@@ -223,7 +234,7 @@ def _emulate_episode(packed, t_embs, consts, x0, n_candidates, selection_horizon
     x = x0.astype(np.float32)
     xs, us, stages, chosen = [x], [], [], []
     for step in range(n_steps):
-        ctx = (x - cn_shift) * cn_scale
+        ctx = ((x if condition is None else condition(x, pc)) - cn_shift) * cn_scale
         cand[:] = first_plans(step)
         for si in range(n_total):
             for g in range(n_groups):
@@ -593,7 +604,8 @@ def emulate_cfg_chain_kernel(packed, weights, films, noise_tab, coefs, w, n_rank
 
 def emulate_cfg_episode_kernel(packed, weights, t_embs, noise, coefs, consts, x0, w, n_candidates,
                                selection_horizon, n_steps, n_ranks=up.CLUSTER, weights_bf16=None,
-                               plant_step=_swingup_step):
+                               plant_step=_swingup_step,
+                               select=(_quadratic_select, _quadratic_terminal), condition=None):
     """Runs ``csrc/cfg_episode.cu``'s program in numpy: ``_emulate_episode``
     with the two FiLM groups, and for every chain step the cluster body
     (``_emulate_cluster_body``) on the images of one cluster of ``n_ranks``
@@ -603,9 +615,10 @@ def emulate_cfg_episode_kernel(packed, weights, t_embs, noise, coefs, consts, x0
     the wrapper's layout (n_steps, n_total + 1, K, H, D) with row n_total =
     x_T; ``weights`` is the buffer the kernel reads (``FusedCfgEpisode.weights``),
     ``weights_bf16`` its bf16 copy, which the bf16 instantiation reads beside
-    it (``cluster.weights_bf16``); ``plant_step`` the plant's device function
-    (``_emulate_episode``). Returns the tracks, the choices and the number of
-    cluster barriers."""
+    it (``cluster.weights_bf16``); ``plant_step``, ``select`` and
+    ``condition`` the plant's device function, the scorer and the
+    state-to-condition map (``_emulate_episode``). Returns the tracks, the
+    choices and the number of cluster barriers."""
     n_total = noise.shape[1] - 1
     m = packed.meta.cpu().numpy()
     cluster_w = weights.cpu().numpy()
@@ -619,7 +632,7 @@ def emulate_cfg_episode_kernel(packed, weights, t_embs, noise, coefs, consts, x0
         return _cfg_update(x, _final_1x1(W, m, y, wc), coefs[si], noise[si_step, si, k], w)
 
     out = _emulate_episode(packed, t_embs, consts, x0, n_candidates, selection_horizon, n_steps,
-                           2, lambda s: noise[s, n_total], step, plant_step)
+                           2, lambda s: noise[s, n_total], step, plant_step, select, condition)
     return out + (cl.barriers,)
 
 
