@@ -9,7 +9,8 @@ the LMPC parity workload's in ``artifacts/flagship_lmpc/`` (``ema_params.pkl``,
 ``report.json``), the distillation's teacher in
 ``artifacts/flagship_modality/ema_params.pkl``, the quadrotor student in
 ``artifacts/onpolicy_quadrotor/student_1eval.pkl``, the scene-conditioned student in
-``artifacts/scene_conditioned/scene_student_ema.pkl``, and writes nothing but the kernel builds under
+``artifacts/scene_conditioned/scene_student_ema.pkl``, the quadrotor flagship's teacher in
+``artifacts/flagship_quadrotor/ema_params.pkl``, and writes nothing but the kernel builds under
 ``build/torch_kernels/`` and, for a moment, phase 26's checkpoint under
 ``build/chip_smoke_train/``. Phases,
 each printing one line with its own seconds:
@@ -303,6 +304,26 @@ scene 0 of ``sample_scenes(1, seed=99)``, T = 25 + 5, w = 0.01:
     within ``data/scene_yardstick.py``'s bounds; its pipelined (3 episodes)
     and sustained (3 chained episodes) rates. The K = 16 rows are the
     bench's.
+38. guided parts: on the quadrotor flagship's teacher (H = 48, context 12),
+    the U-Net pass kernel at B = 2, 32 and 256 against ``TemporalUnet``
+    (1e-4; whole call timed beside it), the CFG chain at B = 1 and 16
+    against its plain version (1e-4); ``make_penalty_grad`` on the card
+    against the CPU's on a batch with two overflowing plans (their raw
+    gradient not finite, their step 0); one guided CFG step through the
+    kernel against the plain denoiser (1e-4 in normalized units).
+39. guided loop: the flagship's guided loop from ``bench_highdim.py``'s
+    start over 2 replans through the U-Net pass kernel (60 launches) and
+    its unguided loop through the chain (2 launches), each against its
+    plain route (controls 1e-4 in normalized units, the rest 1e-3); one
+    guide call timed.
+40. guided study: the scene study's per-scene guided oracle over scene 0's
+    16 starts as one batched loop through the kernel at B = 32 (60
+    launches) and the scene-blind teacher through the chain at B = 16 (2
+    launches), 2 replans each; ms per replan; one batched guide call timed
+    and traced (the host's share of it, and the guide calls' share of the
+    replan). The 60-replan protocols and their yardstick are the
+    scripts' (``scripts/flagship_quadrotor.py``,
+    ``scripts/scene_conditioned_quadrotor.py``).
 
 It then prints the ``training`` JSON line, the ``ilqr`` JSON line, the
 ``distill`` JSON line, the ``kernels`` JSON line (rows 1 and 3 carry their bf16
@@ -312,7 +333,9 @@ H = 64 times under ``h64`` (phase 30), rows 4 and 5 their H = 48 times under
 entry of kernel 3, and ``ddim_episode_quadrotor`` one as a further entry of
 kernel 5, with its in-kernel draw under ``inkernel_noise``; row 1 its H = 48,
 context 24 times under ``h48`` (phase 36) and ``cfg_episode_quadrotor`` a row
-of its own as a further entry of kernel 3), the
+of its own as a further entry of kernel 3, rows 1 and 2 their times on the
+quadrotor teacher, H = 48 and context 12, under ``h48_ctx12``, phases 38-40),
+the ``guided`` JSON line (phases 38-40), the
 ``phase_seconds`` line (each phase's seconds), the nvidia-smi line and,
 last, the result line. Any failure raises, and the exit code is then not 0.
 
@@ -348,6 +371,7 @@ from mpc_via_diffusion_model_tpu_torch.data import distill_yardstick as dys
 from mpc_via_diffusion_model_tpu_torch.data import flagship_expert_yardstick as xys
 from mpc_via_diffusion_model_tpu_torch.data import lmpc_train_yardstick as ys
 from mpc_via_diffusion_model_tpu_torch.data.lmpc_stats import LMPC_U_L1, LMPC_U_L1_SUMMARY
+from mpc_via_diffusion_model_tpu_torch.data import guided_yardstick as gys
 from mpc_via_diffusion_model_tpu_torch.data import scene_yardstick as sys_
 from mpc_via_diffusion_model_tpu_torch.data.quadrotor_stats import quadrotor_stats
 from mpc_via_diffusion_model_tpu_torch.data.scene_stats import scene_stats
@@ -359,6 +383,8 @@ from mpc_via_diffusion_model_tpu_torch.dynamics import (cartpole_lmpc, cartpole_
                                                         cartpole_virtual_cost,
                                                         cartpole_virtual_swingup, quadrotor,
                                                         quadrotor_cost, theta_to_red_theta)
+from mpc_via_diffusion_model_tpu_torch.dynamics.base import rollout
+from mpc_via_diffusion_model_tpu_torch.dynamics.quadrotor import obstacle_cost
 from mpc_via_diffusion_model_tpu_torch.eval.timing import pipelined_time_fn
 from mpc_via_diffusion_model_tpu_torch.models import (LMPC_CONFIG, TEACHER_CONFIG, AMPCNet,
                                                       TemporalUnet, from_flax_params,
@@ -381,8 +407,10 @@ from mpc_via_diffusion_model_tpu_torch.ops.fused_unet import (fused_unet_max_act
 from mpc_via_diffusion_model_tpu_torch.ops.unet_pack import CLUSTER, pack_unet
 from mpc_via_diffusion_model_tpu_torch.scripts import (bench_kernels, bench_scene_student,
                                                        conv_timing, distill_divergence,
-                                                       flagship_lmpc, flagship_parity, lmpc_parity,
-                                                       quadrotor_task)
+                                                       flagship_lmpc, flagship_parity,
+                                                       flagship_quadrotor, guided_divergence,
+                                                       lmpc_parity, quadrotor_task,
+                                                       scene_conditioned_quadrotor)
 from mpc_via_diffusion_model_tpu_torch.scripts.quadrotor_task import (eval_start_states,
                                                                       make_select_cost)
 from mpc_via_diffusion_model_tpu_torch.scripts.conv_timing import cuda_ms
@@ -521,6 +549,20 @@ Q_STEP_FLOPS = 176
 # the three phases, with N_S_LOOP 20 (the loop through the plain chain 211 ms per replan) and
 # N_S_CHUNKS, N_S_PIPE 5, 4; the second 30.9 s on a host ~1.3x slower with 10, 3, 3.
 N_S_EP, N_S_EP16, N_S_LOOP, N_S_CHUNKS, N_S_PIPE = 20, 3, 10, 2, 2
+# Cost-gradient guidance on the quadrotor flagship's teacher (phases 38-40; the port's
+# scripts/flagship_quadrotor.py and scripts/scene_conditioned_quadrotor.py): horizon 48, context
+# 12, T = 25 + 5, w = 0.01, the obstacle guide at scale 0.1. Phase 38 holds the U-Net pass kernel
+# at G_UNET_BATCHES (2: one start's doubled batch; 32: the flagship's 16 starts; 256: the scene
+# study's 128 pairs) and the CFG chain at G_CHAIN_BATCHES to TemporalUnet and the plain chain,
+# make_penalty_grad on the card to the CPU's, and one guided step; phase 39 flies the flagship's
+# guided and unguided loops from bench_highdim.py's start over N_G_LOOP replans through kernels 2
+# and 1 against their plain routes; phase 40 the scene study's oracle and scene-blind rows over
+# scene 0's 16 starts, N_G_LOOP replans, and one batched guide call traced for the device's busy
+# share. A guided replan took 1.8-2.6 s on the card (the guide's eager autograd, ~9,400 kernels
+# per call), and torch.profiler took ~80 s to trace one whole guided replan, so N_G_LOOP is 2 and
+# only a guide call is traced (scripts/guided_profile.py traces whole replans).
+N_G_LOOP = 2
+G_UNET_BATCHES, G_CHAIN_BATCHES = (2, 32, 256), (1, 16)
 
 
 PHASE_SECONDS = {}  # each phase's seconds by its log line, printed on one line before the last
@@ -1457,6 +1499,240 @@ def scene_phases(dev) -> dict:
            "yardstick_gaps": sys_.gaps(metrics, 1), "model": "scene_conditioned",
            "horizon": 48, "context_dim": 24, "scenes": [0, 1]}
     return {"h48": h48, "row": row}
+
+
+def busy_ms(fn) -> dict:
+    """One traced call of ``fn``: its CUDA kernels and the device's busy milliseconds (their
+    summed durations, torch.profiler)."""
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return {"kernels": len(kernels), "busy_ms": sum(e.device_time for e in kernels) / 1e3}
+
+
+def guided_phases(dev) -> dict:
+    """Phases 38-40 on ``dev``: cost-gradient guidance on the quadrotor flagship's teacher. The
+    U-Net pass kernel and the CFG chain at H = 48, context 12 against their plain versions, the
+    obstacle guide on the card against the CPU's, one guided step, the flagship's guided and
+    unguided loops through the kernels against their plain routes with exact launch counts, and
+    the scene study's batched oracle and scene-blind rows over scene 0's starts, traced. Returns
+    the kernels line's ``h48_ctx12`` entries of rows 1 and 2 and the ``guided`` line."""
+    dev = resolve_device(dev)
+    fq = flagship_quadrotor
+    schedule = make_schedule("exponential", T)
+    ins, cond = quadrotor_stats()
+    ins_d = ins.to(dev)
+    u_unit = (0.5 * (ins.maxs - ins.mins)).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(38)
+    plant = quadrotor()
+    # 38. the U-Net pass kernel at B = 2, 32, 256 against TemporalUnet, timed beside it; the CFG
+    # chain at B = 1 and 16 against its plain version; the guide on the card against the CPU's on
+    # a batch with an overflowing plan; one guided CFG step through the kernel against the plain
+    # denoiser on staged noise
+    t0 = time.perf_counter()
+    tpacked = fq.teacher(dev)
+    model = tpacked.model
+    unets = {b: make_fused_unet(tpacked, b, device=dev) for b in G_UNET_BATCHES}
+    u_inputs, u_err = {}, 0.0
+    for b, fu in unets.items():
+        u_inputs[b] = (torch.randn((b, 48, 4), generator=gen, device=dev),
+                       torch.randint(0, T, (b,), generator=gen, device=dev),
+                       torch.rand((b, 12), generator=gen, device=dev) * 2 - 1,
+                       (torch.arange(b, device=dev) >= b // 2).float()[:, None])
+        got = fu.kernel(*u_inputs[b])
+        torch.cuda.synchronize()
+        u_err = max(u_err, assert_close(f"fused_unet H=48 context 12 B={b}", got,
+                                        model(*u_inputs[b]), UNET_TOL))
+    unet_ms = {b: cuda_ms(lambda b=b: unets[b].kernel(*u_inputs[b]), n=20, warmup=3)
+               for b in G_UNET_BATCHES}
+    tunet_ms = {b: cuda_ms(lambda b=b: model(*u_inputs[b]), n=10, warmup=2)
+                for b in G_UNET_BATCHES}
+    chains = {b: make_fused_cfg_chain(tpacked, schedule, n_samples=b, w=W, n_tail=N_TAIL,
+                                      device=dev) for b in G_CHAIN_BATCHES}
+    c_inputs, c_err = {}, 0.0
+    for b, ch in chains.items():
+        c_inputs[b] = (torch.rand((b, 12), generator=gen, device=dev) * 2 - 1,
+                       torch.randn((ch.n_total + 1, b, 48, 4), generator=gen, device=dev))
+        got = ch.kernel(*c_inputs[b])
+        torch.cuda.synchronize()
+        c_err = max(c_err, assert_close(f"cfg_chain H=48 context 12 B={b}", got,
+                                        ch.plain(*c_inputs[b]), CHAIN_TOL))
+    chain_ms = {b: cuda_ms(lambda b=b: chains[b].kernel(*c_inputs[b]), n=5, warmup=1)
+                for b in G_CHAIN_BATCHES}
+    chain_plain_ms = cuda_ms(lambda: chains[1].plain(*c_inputs[1]), n=1, warmup=0)
+    # the guide: hover-like plans from three states, two plans each, the third spinning at
+    # thousands of rad/s so that its rollout overflows (its gradient is not finite: the mask acts)
+    hover = normalize(ins, torch.tensor([quadrotor_task.HOVER_THRUST, 0.0, 0.0, 0.0]))
+    u_g = hover + 0.05 * torch.randn((6, 48, 4), generator=torch.Generator().manual_seed(3))
+    states = torch.zeros((3, 12))
+    states[:, :3] = torch.tensor([[0.9, 0.5, 1.2], [1.5, 0.4, 1.1], [2.0, 0.0, 1.0]])
+    states[2, 9:12] = torch.tensor([3e3, -2e3, 1e3])
+    g_rows = states.repeat_interleave(2, dim=0)
+    g_c, g_r = (torch.from_numpy(a) for a in quadrotor_task.sample_scenes(6, seed=3))
+    per = quadrotor_task.make_penalty_grad(plant, ins, 0.1, scene_args=True)
+    g_cpu = per(u_g, g_rows, g_c, g_r)
+    g_dev = per(*(v.to(dev) for v in (u_g, g_rows, g_c, g_r)))
+    with torch.enable_grad():
+        un = u_g[4:].to(dev).requires_grad_(True)
+        pen = obstacle_cost(rollout(plant, g_rows[4:].to(dev), unnormalize(ins_d, un)),
+                            g_c[4:].to(dev), g_r[4:].to(dev)).sum()
+        raw_finite = bool(torch.isfinite(torch.autograd.grad(pen, un)[0]).all())
+    if raw_finite or g_dev[4:].any() or not g_dev[:4].any():
+        raise RuntimeError(f"make_penalty_grad on the card: the overflowing plans' raw gradient "
+                           f"finite {raw_finite}, their step {g_dev[4:].abs().max().item()}, the "
+                           f"others' {g_dev[:4].abs().max().item()}")
+    g_err = assert_close("make_penalty_grad card vs CPU", g_dev.cpu(), g_cpu, CHAIN_TOL)
+    x0_q = torch.tensor(fq.X0_Q, device=dev)
+    guide = quadrotor_task.make_loop_guide_builder(plant, ins, 0.1)(x0_q)
+    # the step from a state inside the first sphere, on a hover-like plan, so that the guide acts
+    x0_in = states[1].to(dev)
+    guide_in = quadrotor_task.make_loop_guide_builder(plant, ins, 0.1)(x0_in)
+    diffusion = GaussianDiffusion(schedule).to(dev)
+    x_s = (hover + 0.05 * torch.randn((1, 48, 4), generator=torch.Generator().manual_seed(4))
+           ).to(dev)
+    nz_s = torch.randn((1, 48, 4), generator=gen, device=dev)
+    ctx_s = normalize(cond.to(dev), x0_in)[None]
+    step = lambda den: diffusion.ddpm_cfg_step(den, x_s, 10, nz_s, ctx_s, W, guide=guide_in,
+                                               t_start_guide=T / 2)
+    with torch.no_grad():
+        unets[2].launches = 0
+        got_s = step(unets[2])
+        torch.cuda.synchronize()
+        step_err = assert_close("one guided CFG step, kernel vs plain denoiser", got_s,
+                                step(model), CHAIN_TOL)
+        moved = (got_s - diffusion.ddpm_cfg_step(unets[2], x_s, 10, nz_s, ctx_s, W)).abs().max()
+    if unets[2].launches != 2 or moved.item() == 0.0:
+        raise RuntimeError(f"guided step: launches {unets[2].launches}, guide moved {moved}")
+    log("guided-parts", t0, f"H=48, context 12 (the quadrotor teacher): fused_unet max |kernel - "
+        f"TemporalUnet| {u_err:.3e} at B={list(G_UNET_BATCHES)} (tol {UNET_TOL:.0e}), whole call "
+        f"{ {b: round(v, 4) for b, v in unet_ms.items()} } ms per pass against TemporalUnet's "
+        f"{ {b: round(v, 4) for b, v in tunet_ms.items()} }; cfg_chain max |kernel - plain| "
+        f"{c_err:.3e} at B={list(G_CHAIN_BATCHES)}, {chain_ms[1]:.4f} ms per replan at B=1, "
+        f"{chain_ms[16]:.4f} at B=16 (plain {chain_plain_ms:.3f}); make_penalty_grad card vs CPU "
+        f"{g_err:.3e} on 6 plans, the 2 overflowing ones' raw gradient not finite and their step "
+        f"0; one guided CFG step (i=10) through the kernel vs the plain denoiser {step_err:.3e}, "
+        f"the guide moved it by {moved.item():.3e}")
+
+    # 39. the flagship's loops from bench_highdim.py's start: guided through kernel 2 (30 launches
+    # per replan), unguided through kernel 1 (one per replan), each against its plain route
+    t0 = time.perf_counter()
+    noise = torch.randn((N_G_LOOP, T + N_TAIL + 1, 1, 48, 4), generator=gen, device=dev)
+    gloop, groute = fq.flagship_loop(tpacked, True, 1, N_G_LOOP, dev, route=unets[2])
+    uloop, uroute = fq.flagship_loop(tpacked, False, 1, N_G_LOOP, dev, route=chains[1])
+    reset(groute, uroute)
+    t1 = time.perf_counter()
+    gres = gloop(x0_q, noise)
+    torch.cuda.synchronize()
+    g_ms = 1e3 * (time.perf_counter() - t1) / N_G_LOOP
+    t1 = time.perf_counter()
+    ures = uloop(x0_q, noise)
+    torch.cuda.synchronize()
+    u_ms = 1e3 * (time.perf_counter() - t1) / N_G_LOOP
+    l_counts = counts(groute, uroute)
+    want_counts = [((T + N_TAIL) * N_G_LOOP, 0), (N_G_LOOP, 0)]
+    if l_counts != want_counts:
+        raise RuntimeError(f"flagship loops: counts {l_counts}, expected {want_counts}")
+    gref, _ = fq.flagship_loop(tpacked, True, 1, N_G_LOOP, dev, route=model)
+    uref, _ = fq.flagship_loop(tpacked, False, 1, N_G_LOOP, dev, route=chains[1].plain)
+    t1 = time.perf_counter()
+    gref = gref(x0_q, noise)
+    torch.cuda.synchronize()
+    g_plain_ms = 1e3 * (time.perf_counter() - t1) / N_G_LOOP
+    uref = uref(x0_q, noise)
+    loop_err = 0.0
+    for tag, res, ref in (("guided", gres, gref), ("unguided", ures, uref)):
+        for name in ("x_track", "u_track", "u_horizons", "stage_costs"):
+            loop_err = max(loop_err, student_close(f"flagship {tag} loop {name}",
+                                                   getattr(res, name), getattr(ref, name),
+                                                   u_unit))
+    guided_moved = (gres.u_horizons - ures.u_horizons).abs().max().item()
+    u_zero = torch.zeros((1, 48, 4), device=dev)
+    guide_ms = cuda_ms(lambda: guide(u_zero), n=2, warmup=1)
+    log("guided-loop", t0, f"x0 {list(fq.X0_Q)}, {N_G_LOOP} replans: the guided loop through "
+        f"fused_unet (B=2) and the unguided one through cfg_chain (B=1) against their plain routes "
+        f"(TemporalUnet, the plain chain): max {loop_err:.3e} (controls {CHAIN_TOL:.0e} in "
+        f"normalized units, the rest {TRACK_TOL:.0e}); the guide moved the plans by "
+        f"{guided_moved:.3e}; launches {l_counts}; guided {g_ms:.1f} ms per replan (plain route "
+        f"{g_plain_ms:.1f}), unguided {u_ms:.2f}; one guide call {guide_ms:.1f} ms (18 per "
+        f"replan)")
+
+    # 40. the scene study's oracle and scene-blind rows over scene 0's 16 starts (of the 8-scene
+    # draw), one batched loop each, N_G_LOOP replans, the oracle traced
+    t0 = time.perf_counter()
+    sc_c, sc_r = guided_divergence.scene0()
+    n = len(guided_divergence.starts("oracle"))
+    x0s = torch.from_numpy(guided_divergence.starts("oracle")).to(dev)
+    cen = torch.from_numpy(np.repeat(sc_c[None], n, axis=0)).to(dev)
+    rad = torch.from_numpy(np.repeat(sc_r[None], n, axis=0)).to(dev)
+    s_noise = bench_scene_student.start_noise(n, N_G_LOOP, 1, dev, seed=40)
+    oloop, oroute = scene_conditioned_quadrotor.teacher_loop(tpacked, cen, rad, N_G_LOOP, dev,
+                                                             True, route=unets[32])
+    bloop, broute = scene_conditioned_quadrotor.teacher_loop(tpacked, cen, rad, N_G_LOOP, dev,
+                                                             False, route=chains[16])
+    reset(oroute, broute)
+    t1 = time.perf_counter()
+    ores = oloop(x0s, s_noise)
+    torch.cuda.synchronize()
+    o_ms = 1e3 * (time.perf_counter() - t1) / N_G_LOOP
+    t1 = time.perf_counter()
+    bres = bloop(x0s, s_noise)
+    torch.cuda.synchronize()
+    b_ms = 1e3 * (time.perf_counter() - t1) / N_G_LOOP
+    s_counts = counts(oroute, broute)
+    want_counts = [((T + N_TAIL) * N_G_LOOP, 0), (N_G_LOOP, 0)]
+    if s_counts != want_counts:
+        raise RuntimeError(f"scene rows: counts {s_counts}, expected {want_counts}")
+    if not (torch.isfinite(ores.x_track).all() and torch.isfinite(bres.x_track).all()):
+        raise RuntimeError("scene rows: non-finite tracks")
+    # one batched guide call of the oracle (12 per replan), timed and traced
+    oguide = scene_conditioned_quadrotor.scene_guide_builder(plant, ins, 0.1, cen, rad)(x0s)
+    u_o = torch.zeros((n, 48, 4), device=dev)
+    oguide_ms = cuda_ms(lambda: oguide(u_o), n=2, warmup=1)
+    o1 = busy_ms(lambda: oguide(u_o))
+    n_guided = sum(1 for i in range(T - 1, -N_TAIL - 1, -1) if i < gys.T_START_SCENE)
+    clear = quadrotor_task.min_clearance_torch(ores.x_track, cen, rad)
+    log("guided-study", t0, f"scene 0 of the 8-scene draw, {n} starts x {N_G_LOOP} replans as one "
+        f"batched loop each: the per-scene guided oracle through fused_unet (B={2 * n}) "
+        f"{o_ms:.1f} ms per replan, the scene-blind teacher through cfg_chain (B={n}) "
+        f"{b_ms:.2f}; launches {s_counts}; one batched guide call {oguide_ms:.1f} ms, traced: "
+        f"{o1['kernels']} kernels, {o1['busy_ms']:.2f} ms of device time, the host's share "
+        f"{1 - o1['busy_ms'] / oguide_ms:.4f}; the {n_guided} guide calls "
+        f"{n_guided * oguide_ms / o_ms:.3f} of the replan; min clearance after {N_G_LOOP} "
+        f"replans {clear.min().item():.4f}")
+
+    # the kernels line's entries at H = 48, context 12: the chain at B = 1 (one replan), the pass
+    # at B = 2 (backbone only, one pass), this run's inputs
+    weights, meta_n = tpacked.weights.numel(), tpacked.meta.numel()
+    seg = lambda *prefixes: sum(math.prod(shape_) for name, (_, shape_) in tpacked.segments.items()
+                                if name.split(".")[0] in prefixes)
+    ch = chains[1]
+    ch_flops = tpacked.flops_per_pass * 2 * ch.n_total
+    ch_bytes = 4 * (weights - seg("films") + meta_n + ch.films(c_inputs[1][0]).numel()
+                    + c_inputs[1][1].numel() + ch.coefs.numel() + 48 * 4)
+    x_u = u_inputs[2][0]
+    un_flops = 2 * (tpacked.flops_per_pass - tpacked.flops_final_1x1)
+    un_bytes = 4 * (weights - seg("films", "final1x1") + meta_n
+                    + unets[2].films(model.conditioning(*u_inputs[2][1:])).numel()
+                    + x_u.numel() + 2 * 48 * model.unet_input_dim)
+    common = {"library_ms": None, "model": "flagship_quadrotor", "horizon": 48, "context_dim": 12}
+    return {
+        "cfg_chain": {"launches": l_counts[1][0] + s_counts[1][0], "max_abs_err": c_err,
+                      "ms": chain_ms[1], "plain_ms": chain_plain_ms, **bound(ch_flops, ch_bytes),
+                      "b16_ms": chain_ms[16], **common},
+        "fused_unet": {"launches": l_counts[0][0] + s_counts[0][0], "max_abs_err": u_err,
+                       "ms": unet_ms[2], "plain_ms": tunet_ms[2], **bound(un_flops, un_bytes),
+                       "whole_call": True, "ms_by_batch": unet_ms, "temporal_unet_ms_by_batch":
+                       tunet_ms, **common},
+        "guided": {"loop_max_err": loop_err, "penalty_grad_card_vs_cpu": g_err,
+                   "guided_step_err": step_err, "guided_ms_per_replan": g_ms,
+                   "guided_plain_ms_per_replan": g_plain_ms, "unguided_ms_per_replan": u_ms,
+                   "guide_call_ms": guide_ms, "oracle_ms_per_replan": o_ms,
+                   "blind_ms_per_replan": b_ms, "oracle_guide_call_ms": oguide_ms,
+                   "oracle_guide_trace": o1,
+                   "oracle_guide_host_share": 1 - o1["busy_ms"] / oguide_ms,
+                   "oracle_guide_share_of_replan": n_guided * oguide_ms / o_ms,
+                   "replans": N_G_LOOP, "nvidia_smi": nvidia_smi()}}
 
 
 SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize")
@@ -2451,6 +2727,7 @@ def main() -> None:
     distill_line = distill_phases(dev)
     quad_line = quadrotor_phases(dev)
     scene_line = scene_phases(dev)
+    guided_line = guided_phases(dev)
 
     packed = chain.packed
     seg = lambda *prefixes: sum(math.prod(shape) for name, (_, shape) in packed.segments.items()
@@ -2613,6 +2890,11 @@ def main() -> None:
                       "replaces": rows[0]["replaces"], **scene_line["h48"]}
     rows.append({**scene_line["row"], "cluster_ctas": CLUSTER,
                  **cluster_info["cfg_episode_quadrotor"]})
+    # the quadrotor flagship's teacher (phases 38-40): the CFG chain and the U-Net pass at H = 48,
+    # context 12 under rows 1's and 2's "h48_ctx12"
+    for i, name in ((0, "cfg_chain"), (1, "fused_unet")):
+        rows[i]["h48_ctx12"] = {"name": name, "route": "cuda", "source": rows[i]["source"],
+                                "replaces": rows[i]["replaces"], **guided_line[name]}
     rows[2]["bench_closed_loop_control_hz"] = bench_line["value"]
     rows[2]["bench_pipelined_hz"] = bench_line["pipelined_hz"]
     print(json.dumps({"training": training_line}), flush=True)
@@ -2620,6 +2902,7 @@ def main() -> None:
     print(json.dumps({"distill": {k: v for k, v in distill_line.items() if k != "h64"}}),
           flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
+    print(json.dumps({"guided": guided_line["guided"]}), flush=True)
     print(json.dumps({"phase_seconds": PHASE_SECONDS}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}),

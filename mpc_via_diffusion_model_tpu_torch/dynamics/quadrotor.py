@@ -88,12 +88,14 @@ def quadrotor_cost() -> QuadraticCost:
 def obstacle_cost(states: torch.Tensor, centers: torch.Tensor, radii: torch.Tensor,
                   weight: float = 100.0) -> torch.Tensor:
     """Soft sphere-obstacle penalty over a position trajectory: states (...,
-    H, d) with positions in dims 0:3, centers (n_obs, 3), radii (n_obs,) ->
-    (...), the hinge on each (state, obstacle) penetration depth squared,
-    summed over H and the obstacles, times ``weight``."""
+    H, d) with positions in dims 0:3, centers (n_obs, 3) and radii (n_obs,)
+    shared by every trajectory, or one scene per trajectory, centers (...,
+    n_obs, 3) and radii (..., n_obs) -> (...), the hinge on each (state,
+    obstacle) penetration depth squared, summed over H and the obstacles,
+    times ``weight``."""
     pos = states[..., 0:3][..., None, :]  # (..., H, 1, 3)
-    d = torch.sqrt(torch.sum(torch.square(pos - centers), dim=-1))  # (..., H, n_obs)
-    penetration = torch.clamp_min(radii - d, 0.0)
+    d = torch.sqrt(torch.sum(torch.square(pos - centers[..., None, :, :]), dim=-1))  # (..., H, n_obs)
+    penetration = torch.clamp_min(radii[..., None, :] - d, 0.0)
     return weight * torch.sum(torch.square(penetration), dim=(-1, -2))
 
 

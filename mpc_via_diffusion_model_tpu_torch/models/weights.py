@@ -29,7 +29,10 @@ trained), both of the flagship architecture (``FLAGSHIP_CONFIG``), and
 ``load_lmpc`` the LMPC parity workload's denoiser,
 ``artifacts/flagship_lmpc/ema_params.pkl`` (``LMPC_CONFIG``, the flagship's
 layout), and ``load_quadrotor_student`` the quadrotor's 1-eval student
-(``QUADROTOR_STUDENT_CONFIG``, the students' layout). All are plain dicts of float32 numpy arrays that need neither jax
+(``QUADROTOR_STUDENT_CONFIG``, the students' layout), and
+``load_quadrotor_teacher`` the quadrotor flagship's guided teacher
+(``artifacts/flagship_quadrotor/ema_params.pkl``,
+``QUADROTOR_TEACHER_CONFIG``, the ``{'params'}`` layout). All are plain dicts of float32 numpy arrays that need neither jax
 nor flax to unpickle.
 
 The MLPs (``AMPCNet``, any module of ``nn.Linear`` layers): flax numbers
@@ -51,10 +54,11 @@ from ..utils.device import resolve_device
 from .ampc import AMPCNet
 from .temporal_unet import TemporalUnet
 
-__all__ = ["FLAGSHIP_CONFIG", "LMPC_CONFIG", "QUADROTOR_STUDENT_CONFIG", "SCENE_STUDENT_CONFIG",
-           "TEACHER_CONFIG",
+__all__ = ["FLAGSHIP_CONFIG", "LMPC_CONFIG", "QUADROTOR_STUDENT_CONFIG",
+           "QUADROTOR_TEACHER_CONFIG", "SCENE_STUDENT_CONFIG", "TEACHER_CONFIG",
            "from_flax_params", "init_like_flax", "init_mlp_like_flax", "load_ampc",
-           "load_flagship", "load_lmpc", "load_quadrotor_student", "load_scene_student",
+           "load_flagship", "load_lmpc", "load_quadrotor_student", "load_quadrotor_teacher",
+           "load_scene_student",
            "load_student", "load_teacher", "mlp_from_flax_params", "mlp_to_flax_params",
            "to_flax_params"]
 
@@ -71,6 +75,9 @@ LMPC_CONFIG = dict(state_dim=1, n_support_points=8, unet_input_dim=32, dim_mults
 # (1,2,4), the 12-dim quadrotor state as context
 QUADROTOR_STUDENT_CONFIG = dict(state_dim=4, n_support_points=48, unet_input_dim=32,
                                 dim_mults=(1, 2, 4), time_emb_dim=32, context_dim=12)
+# scripts/flagship_quadrotor.py: the teacher the quadrotor students were distilled from, at
+# the students' widths
+QUADROTOR_TEACHER_CONFIG = dict(QUADROTOR_STUDENT_CONFIG)
 # artifacts/scene_conditioned/scene_student_ema.pkl: the quadrotor's widths, context 12 + 12
 # scene features
 SCENE_STUDENT_CONFIG = dict(QUADROTOR_STUDENT_CONFIG, context_dim=24)
@@ -270,6 +277,13 @@ def load_quadrotor_student(path, device=None) -> TemporalUnet:
     ``artifacts/onpolicy_quadrotor/student_1eval.pkl`` (``QUADROTOR_STUDENT_CONFIG``,
     the context-present bit), from its ``{'params'}`` pickle."""
     return _load_unet(path, "params", True, device, QUADROTOR_STUDENT_CONFIG)
+
+
+def load_quadrotor_teacher(path, device=None) -> TemporalUnet:
+    """The quadrotor flagship's teacher, ``artifacts/flagship_quadrotor/ema_params.pkl``
+    (``QUADROTOR_TEACHER_CONFIG``: horizon 48, 4 channels, context 12, the
+    context-present bit), from its ``{'params'}`` pickle."""
+    return _load_unet(path, "params", True, device, QUADROTOR_TEACHER_CONFIG)
 
 
 def load_scene_student(path, device=None) -> TemporalUnet:

@@ -1,21 +1,26 @@
-"""The quadrotor flagship task, as far as its student's serving path needs
-it: a copy of the JAX package's top-level ``scripts/quadrotor_task.py`` (the
-obstacle scene, the hover thrust, the task and selection costs in torch, the
-held-out eval starts, the random scenes of the scene-conditioned study and
-the metrics in numpy, the scene's condition features in torch), which the
-port does not import.
+"""The quadrotor flagship task: a copy of the JAX package's top-level
+``scripts/quadrotor_task.py`` (the obstacle scene, the hover thrust, the task
+and selection costs in torch, the obstacle-clearance guide and its loop
+builder through torch autograd, the held-out eval starts, the random scenes
+of the scene-conditioned study and the metrics in numpy, the scene's
+condition features and the clearance in torch), which the port does not
+import.
 """
 from __future__ import annotations
+
+from typing import Callable
 
 import numpy as np
 import torch
 
-from ..dynamics.base import QuadraticCost
+from ..data.normalization import NormalizerStats, unnormalize
+from ..dynamics.base import Plant, QuadraticCost, rollout
 from ..dynamics.quadrotor import SafetyFirstCost, obstacle_cost
 
 __all__ = ["OBS_CENTERS", "OBS_RADII", "HOVER_THRUST", "make_task_cost", "make_select_cost",
-           "sample_scenes", "scene_features", "eval_start_states", "min_clearance",
-           "track_metrics"]
+           "make_penalty_grad", "rows_of", "make_loop_guide_builder", "sample_scenes",
+           "scene_features",
+           "eval_start_states", "min_clearance", "min_clearance_torch", "track_metrics"]
 
 OBS_CENTERS = np.array([[1.5, 0.0, 1.0], [0.9, 0.9, 1.2], [0.9, -0.9, 0.8]], np.float32)
 OBS_RADII = np.array([0.45, 0.40, 0.40], np.float32)
@@ -46,6 +51,12 @@ def make_task_cost(quad_cost: QuadraticCost):
             return quad_cost.terminal(x) + obstacle_cost(x[..., None, :], centers.to(x.device),
                                                          radii.to(x.device))
 
+        @staticmethod
+        def to(device):
+            """The same cost with the quadratic on ``device`` (the obstacle
+            terms move their constants to the state's device)."""
+            return make_task_cost(quad_cost.to(device))
+
     return TaskCost()
 
 
@@ -61,6 +72,68 @@ def make_select_cost(quad_cost: QuadraticCost, margin: float = 0.15, weight: flo
     r = torch.as_tensor(OBS_RADII if radii is None else radii, dtype=torch.float32) + margin
     return SafetyFirstCost(quad=quad_cost, u_hover=_u_hover(), centers=c, radii=r,
                            weight=float(weight))
+
+
+def make_penalty_grad(plant: Plant, in_stats: NormalizerStats, guide_scale: float,
+                      scene_args: bool = False) -> Callable:
+    """The guided-descent step ``per(u_norm (B, H, 4), x0) -> (B, H, 4)``:
+    each normalized plan is unnormalized and rolled out from its state (x0
+    (12,) shared, or (B, 12) one per plan; the states include x0), its
+    obstacle penalty (``obstacle_cost``) is differentiated with respect to
+    u_norm, non-finite entries of the gradient are set to 0 (a partly
+    denoised plan can blow the rollout up, and clamp(NaN) is NaN), and the
+    step is ``-guide_scale * clamp(g, -1, 1)``.
+
+    The plans are independent, so one ``torch.autograd.grad`` of the
+    batch's summed penalty is the JAX package's per-plan ``jax.grad`` under
+    ``vmap``. Autograd runs on a detached leaf copy of u_norm under
+    ``torch.enable_grad()`` (the loops run under ``no_grad``), and the step
+    comes back detached. With ``scene_args`` the step takes the scene too,
+    ``per(u_norm, x0, centers (B, 3, 3), radii (B, 3))``, one per plan;
+    else the canonical scene."""
+    consts = {}
+
+    def on(device):
+        """The statistics and the canonical scene on ``device``, copied there once."""
+        key = str(device)
+        if key not in consts:
+            consts[key] = (in_stats.to(device), torch.from_numpy(OBS_CENTERS).to(device),
+                           torch.from_numpy(OBS_RADII).to(device))
+        return consts[key]
+
+    def per_scene(u_norm, x0, centers, radii):
+        with torch.enable_grad():
+            un = u_norm.detach().clone().requires_grad_(True)
+            states = rollout(plant, x0.expand(un.shape[0], x0.shape[-1]),
+                             unnormalize(on(un.device)[0], un))
+            (g,) = torch.autograd.grad(obstacle_cost(states, centers, radii).sum(), un)
+        g = torch.where(torch.isfinite(g), g, torch.zeros_like(g))
+        return -guide_scale * torch.clamp(g, -1.0, 1.0)
+
+    if scene_args:
+        return per_scene
+    return lambda u_norm, x0: per_scene(u_norm, x0, *on(u_norm.device)[1:])
+
+
+def rows_of(x0: torch.Tensor, n_rows: int) -> torch.Tensor:
+    """Each of ``n_rows`` sampler rows' own x0: a single state (n,) as it
+    is, or a batch (N, ...) (states, or per-row scenes) with each entry
+    repeated for its n_rows / N candidates (row j belongs to entry j // K,
+    as the batched loop lays them out)."""
+    return x0 if x0.dim() == 1 else x0.repeat_interleave(n_rows // x0.shape[0], dim=0)
+
+
+def make_loop_guide_builder(plant: Plant, in_stats: NormalizerStats,
+                            guide_scale: float) -> Callable:
+    """``guide_builder(x0)`` for ``control.make_closed_loop``: each replan's
+    guide on the canonical scene, every candidate row from its own state
+    (the loop's state, or its batch of states)."""
+    per = make_penalty_grad(plant, in_stats, guide_scale)
+
+    def guide_builder(x0):
+        return lambda u_norm: per(u_norm, rows_of(x0, u_norm.shape[0]))
+
+    return guide_builder
 
 
 def sample_scenes(n: int, seed: int = 0):
@@ -114,6 +187,19 @@ def min_clearance(xt, centers=None, radii=None) -> np.ndarray:
     r = OBS_RADII if radii is None else np.asarray(radii)
     d = np.linalg.norm(xt[..., :, None, 0:3] - c, axis=-1)
     return (d - r).min(axis=(-1, -2))
+
+
+def min_clearance_torch(states: torch.Tensor, centers=None, radii=None) -> torch.Tensor:
+    """The torch twin of :func:`min_clearance` (the JAX task's
+    ``min_clearance_jax``): ``states (..., T, >=3) -> (...)``, the canonical
+    scene unless centers (n_obs, 3) and radii (n_obs,) are given, or one
+    scene per track, (..., n_obs, 3) and (..., n_obs)."""
+    c = torch.as_tensor(OBS_CENTERS if centers is None else centers, dtype=torch.float32,
+                        device=states.device)
+    r = torch.as_tensor(OBS_RADII if radii is None else radii, dtype=torch.float32,
+                        device=states.device)
+    d = torch.linalg.norm(states[..., :, None, 0:3] - c[..., None, :, :], dim=-1)
+    return (d - r[..., None, :]).amin(dim=(-1, -2))
 
 
 def track_metrics(xt, stage_costs=None, centers=None, radii=None) -> dict:

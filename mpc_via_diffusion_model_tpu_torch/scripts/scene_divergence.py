@@ -10,8 +10,8 @@ from torch, not from the JAX keys. So for each K (1 with the task quadratic,
 16 with the scene's safety-first selection cost) and each of ``--seeds``
 torch seeds, the port flies the yardstick's 16 starts through scene 0 with
 the plain CFG DDPM sampler batched over the starts (``batched_closed_loop``:
-``control/runtime.py``'s per-replan loop over a batch of starts, the context
-the state followed by the scene's features), once as they are and, unless
+``control/runtime.py``'s loop over a batch of starts, the context the state
+followed by the scene's features), once as they are and, unless
 ``--no-ulp``, twice with their positions moved by one ulp (up and down). It
 prints, per run, the ``track_metrics`` and their gaps from the yardstick's,
 then ``bounds``: twice the largest gap of each metric over all runs, the
@@ -28,9 +28,9 @@ import numpy as np
 import torch
 
 from ..control.conditions import ConcatFeatures
+from ..control.runtime import make_closed_loop
 from ..core.schedules import make_schedule
 from ..data import scene_yardstick as sys_
-from ..data.normalization import normalize, unnormalize
 from ..data.scene_stats import scene_stats
 from ..diffusion.gaussian_diffusion import GaussianDiffusion
 from ..dynamics.quadrotor import quadrotor, quadrotor_cost
@@ -50,43 +50,24 @@ def scene(index: int = sys_.SCENE_INDEX, seed: int = sys_.SCENE_SEED):
     return c[index], r[index]
 
 
-@torch.no_grad()
 def batched_closed_loop(model, starts: torch.Tensor, noise: torch.Tensor, n_candidates: int,
                         centers, radii) -> torch.Tensor:
-    """The scene student's closed loop from every start at once: ``noise``
-    (B, n_steps, n_total + 1, K, 48, 4) is each replan's CFG DDPM draw
-    (``ddpm_cfg_sample``'s layout per replan); the context is the state
-    followed by the scene's features; at K > 1 candidates are scored by the
-    scene's safety-first selection cost over their whole rollout (terminal
-    cost included) and the first minimum wins. Returns the tracks (B,
-    n_steps + 1, 12)."""
-    ins, cond = scene_stats()
-    plant, qcost = quadrotor(), quadrotor_cost()
-    sel = make_select_cost(qcost, centers=centers, radii=radii)
-    to_cond = ConcatFeatures(scene_features(centers, radii))
-    diffusion = GaussianDiffusion(make_schedule("exponential", sys_.T))
-    b, n_steps, n1, k, horizon, du = noise.shape
-    x, xs = starts, [starts]
-    for i in range(n_steps):
-        ctx = normalize(cond, to_cond(x))[:, None].expand(b, k, cond.mins.numel())
-        nz = noise[:, i].transpose(0, 1).reshape(n1, b * k, horizon, du)
-        u = diffusion.ddpm_cfg_sample(model, (b * k, horizon, du), ctx.reshape(b * k, -1),
-                                      w=sys_.W, n_diffusion_steps_without_noise=sys_.N_TAIL,
-                                      noise=nz)
-        u = unnormalize(ins, u).reshape(b, k, horizon, du)
-        if k == 1:
-            u0 = u[:, 0, 0]
-        else:
-            xc = x[:, None].expand(b, k, x.shape[-1])
-            acc = torch.zeros((b, k))
-            for t in range(horizon):
-                acc = acc + sel.stage(xc, u[:, :, t])
-                xc = plant.step(xc, u[:, :, t])
-            acc = acc + sel.terminal(xc)
-            u0 = u[torch.arange(b), torch.argmin(acc, dim=1), 0]
-        x = plant.step(x, u0)
-        xs.append(x)
-    return torch.stack(xs, dim=1)
+    """The scene student's closed loop from every start at once, the batched
+    ``make_closed_loop`` on the CPU: ``noise`` (B, n_steps, n_total + 1, K,
+    48, 4) is each replan's CFG DDPM draw; the context is the state followed
+    by the scene's features; at K > 1 candidates are scored by the scene's
+    safety-first selection cost over their whole rollout (terminal cost
+    included) and the first minimum wins. Returns the tracks (B, n_steps +
+    1, 12)."""
+    loop = make_closed_loop(GaussianDiffusion(make_schedule("exponential", sys_.T)), model,
+                            *scene_stats(), quadrotor(),
+                            make_select_cost(quadrotor_cost(), centers=centers, radii=radii),
+                            horizon=48, n_steps=noise.shape[1], w=sys_.W,
+                            n_diffusion_steps_without_noise=sys_.N_TAIL,
+                            n_candidates=n_candidates,
+                            state_to_condition=ConcatFeatures(scene_features(centers, radii)),
+                            device="cpu")
+    return loop(starts, noise).x_track
 
 
 def _ulp(starts: np.ndarray, direction: float) -> np.ndarray:

@@ -32,7 +32,9 @@ for name in ('ops.fused_unet', 'ops.fused_episode', 'ops.fused_denoise', 'ops._b
              'scripts.quadrotor_task', 'data.quadrotor_stats', 'data.quadrotor_yardstick',
              'ops.philox', 'scripts.quadrotor_divergence', 'scripts.bench_quadrotor_student',
              'control.conditions', 'data.scene_stats', 'data.scene_yardstick',
-             'scripts.scene_divergence', 'scripts.bench_scene_student'):
+             'scripts.scene_divergence', 'scripts.bench_scene_student', 'data.guided_yardstick',
+             'scripts.flagship_quadrotor', 'scripts.scene_conditioned_quadrotor',
+             'scripts.guided_divergence', 'scripts.guided_profile'):
     assert pkg.__name__ + '.' + name in names, name
 import chip_smoke  # as a module: main() does not run
 loaded = [k for k, v in sys.modules.items() if v is not None
@@ -47,7 +49,7 @@ def test_port_and_chip_smoke_import_without_jax():
     proc = subprocess.run([sys.executable, "-c", _GUARDED], cwd=ROOT, capture_output=True,
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip().splitlines()[-1]) >= 53  # every module of the port
+    assert int(proc.stdout.strip().splitlines()[-1]) >= 57  # every module of the port
 
 
 def test_port_sources_name_no_jax_import():
@@ -66,7 +68,9 @@ def test_port_sources_name_no_jax_import():
             "train_ampc.py", "quadrotor.py", "quadrotor_task.py", "quadrotor_stats.py",
             "quadrotor_yardstick.py", "philox.py", "quadrotor_divergence.py",
             "bench_quadrotor_student.py", "conditions.py", "scene_stats.py",
-            "scene_yardstick.py", "scene_divergence.py", "bench_scene_student.py"} <= {
+            "scene_yardstick.py", "scene_divergence.py", "bench_scene_student.py",
+            "guided_yardstick.py", "flagship_quadrotor.py", "scene_conditioned_quadrotor.py",
+            "guided_divergence.py", "guided_profile.py"} <= {
                 f.name for f in files}
     offenders = [str(f.relative_to(ROOT)) for f in files if pattern.search(f.read_text())]
     assert not offenders
