@@ -10,9 +10,10 @@ the LMPC parity workload's in ``artifacts/flagship_lmpc/`` (``ema_params.pkl``,
 ``artifacts/flagship_modality/ema_params.pkl``, the quadrotor student in
 ``artifacts/onpolicy_quadrotor/student_1eval.pkl``, the scene-conditioned student in
 ``artifacts/scene_conditioned/scene_student_ema.pkl``, the quadrotor flagship's teacher in
-``artifacts/flagship_quadrotor/ema_params.pkl``, and writes nothing but the kernel builds under
-``build/torch_kernels/`` and, for a moment, phase 26's checkpoint under
-``build/chip_smoke_train/``. Phases,
+``artifacts/flagship_quadrotor/`` (``ema_params.pkl``, ``dataset.npz``), and writes nothing but
+the kernel builds under ``build/torch_kernels/`` and, for a moment, phase 26's checkpoint under
+``build/chip_smoke_train/`` and phases 41-42's student and data under
+``build/chip_smoke_making/``. Phases,
 each printing one line with its own seconds:
 
 1. device: the card's name, the device count, and nvidia-smi's name and
@@ -312,18 +313,46 @@ scene 0 of ``sample_scenes(1, seed=99)``, T = 25 + 5, w = 0.01:
     gradient not finite, their step 0); one guided CFG step through the
     kernel against the plain denoiser (1e-4 in normalized units).
 39. guided loop: the flagship's guided loop from ``bench_highdim.py``'s
-    start over 2 replans through the U-Net pass kernel (60 launches) and
-    its unguided loop through the chain (2 launches), each against its
+    start over 1 replan through the U-Net pass kernel (30 launches) and
+    its unguided loop through the chain (1 launch), each against its
     plain route (controls 1e-4 in normalized units, the rest 1e-3); one
     guide call timed.
-40. guided study: the scene study's per-scene guided oracle over scene 0's
-    16 starts as one batched loop through the kernel at B = 32 (60
-    launches) and the scene-blind teacher through the chain at B = 16 (2
-    launches), 2 replans each; ms per replan; one batched guide call timed
-    and traced (the host's share of it, and the guide calls' share of the
-    replan). The 60-replan protocols and their yardstick are the
-    scripts' (``scripts/flagship_quadrotor.py``,
+40. guided study: the scene study's per-scene guided oracle over the
+    held-out protocol's 128 (scene, start) pairs as one batched loop
+    through the kernel at B = 256 (30 launches) and the scene-blind
+    teacher through the chain at B = 128 (1 launch), 1 replan each on the
+    same noise; ms per replan; then the paired gate of
+    ``data/guided_yardstick.py`` on their first plans, each rolled
+    open-loop against its own scene: the guide's per-pair gain in min
+    clearance (mean, and pairs raised) within the JAX package's bounds,
+    and the same oracle with a guide that returns zeros outside them; one
+    batched guide call timed and traced (the host's share of it, and the
+    guide calls' share of the replan). The 60-replan protocols, their
+    yardstick and their paired gates are the scripts'
+    (``scripts/flagship_quadrotor.py``,
     ``scripts/scene_conditioned_quadrotor.py``).
+
+The scene study's making half (``scripts/scene_conditioned_quadrotor.py
+--make``, ``scripts/onpolicy_scene.py``):
+
+41. scene making: one chunk of the guided data with per-row scenes (the
+    teacher's dataset's states, the training scenes, the chunk's staged
+    noise) at B = 256 through the U-Net pass kernel at 512 rows against the
+    plain denoiser: the plans within 1e-4, the same keep mask but where a
+    row lies within 1e-4 of a threshold, 30 launches; one chunk at the
+    script's B = 2,048 (4,096 rows) timed, and one pass at 4,096 rows
+    against ``TemporalUnet`` (1e-4); then the script's ``--make --quick``
+    (its teacher rows left out) within ``data/scene_making_yardstick.py``'s
+    bounds, its student and dataset written under
+    ``build/chip_smoke_making/`` and removed at the end.
+42. onpolicy scene: one labeler batch, 256 rows x K = 16 of the scene
+    student plus the LQR hover plan, through the CFG chain kernel at 4,096
+    samples against its plain version (the candidates within 1e-4 but the
+    chaotic samples, found as in phase 41, at most 15%; the same picks on
+    the rows of calm samples but near-ties; one launch); then
+    ``onpolicy_scene`` at the
+    yardstick's toy size on phase 41's output within
+    ``data/onpolicy_scene_yardstick.py``'s bounds.
 
 It then prints the ``training`` JSON line, the ``ilqr`` JSON line, the
 ``distill`` JSON line, the ``kernels`` JSON line (rows 1 and 3 carry their bf16
@@ -334,8 +363,10 @@ entry of kernel 3, and ``ddim_episode_quadrotor`` one as a further entry of
 kernel 5, with its in-kernel draw under ``inkernel_noise``; row 1 its H = 48,
 context 24 times under ``h48`` (phase 36) and ``cfg_episode_quadrotor`` a row
 of its own as a further entry of kernel 3, rows 1 and 2 their times on the
-quadrotor teacher, H = 48 and context 12, under ``h48_ctx12``, phases 38-40),
-the ``guided`` JSON line (phases 38-40), the
+quadrotor teacher, H = 48 and context 12, under ``h48_ctx12``, phases 38-40, and
+the U-Net pass at 4,096 rows and the CFG chain at 4,096 samples under ``b4096``,
+phases 41-42), the ``guided`` JSON line (phases 38-40), the ``making`` JSON line
+(phases 41-42), the
 ``phase_seconds`` line (each phase's seconds), the nvidia-smi line and,
 last, the result line. Any failure raises, and the exit code is then not 0.
 
@@ -372,6 +403,8 @@ from mpc_via_diffusion_model_tpu_torch.data import flagship_expert_yardstick as 
 from mpc_via_diffusion_model_tpu_torch.data import lmpc_train_yardstick as ys
 from mpc_via_diffusion_model_tpu_torch.data.lmpc_stats import LMPC_U_L1, LMPC_U_L1_SUMMARY
 from mpc_via_diffusion_model_tpu_torch.data import guided_yardstick as gys
+from mpc_via_diffusion_model_tpu_torch.data import onpolicy_scene_yardstick as oys
+from mpc_via_diffusion_model_tpu_torch.data import scene_making_yardstick as mys
 from mpc_via_diffusion_model_tpu_torch.data import scene_yardstick as sys_
 from mpc_via_diffusion_model_tpu_torch.data.quadrotor_stats import quadrotor_stats
 from mpc_via_diffusion_model_tpu_torch.data.scene_stats import scene_stats
@@ -409,7 +442,8 @@ from mpc_via_diffusion_model_tpu_torch.scripts import (bench_kernels, bench_scen
                                                        conv_timing, distill_divergence,
                                                        flagship_lmpc, flagship_parity,
                                                        flagship_quadrotor, guided_divergence,
-                                                       lmpc_parity, quadrotor_task,
+                                                       lmpc_parity, onpolicy_scene,
+                                                       quadrotor_task,
                                                        scene_conditioned_quadrotor)
 from mpc_via_diffusion_model_tpu_torch.scripts.quadrotor_task import (eval_start_states,
                                                                       make_select_cost)
@@ -442,6 +476,8 @@ N_BF16_EP = 10             # replans of phase 19's full-depth bf16 episode (at 8
 K4, SEL_H, N_STEPS_K4 = 4, 8, 8
 N_CHAIN = 10               # dependent episodes of the sustained protocol
 N_UNET_LOOP = 10           # replans of the BENCH_FUSED=1 loop
+N_BENCH_BEST = 1           # phase 21's bench process: chains of the sustained protocol, the best
+                           # taken (bench.py's 3 until phases 41-42: 61 episode launches, now 21)
 # Kernel vs plain version, u_norm after one chain: fp32 sums in other orders
 # (FMA loops vs cuDNN), ~1e-6 expected; 1e-4 is the JAX suite's chain
 # tolerance. The first step's 1e6 coefficients are clipped right after and
@@ -504,10 +540,11 @@ YS_HEAD, YS_HEAD_RTOL = 10, 1e-4     # steps 1-10
 YS_EARLY, YS_EARLY_RTOL = 50, 1e-2   # steps 1-50
 YS_STEP_RTOL = 1.5                   # every step
 YS_TAIL, YS_TAIL_RTOL = 20, 0.16     # the mean of the last 20
-# phase 26: Trainer.fit's steps in chunks of FIT_CHUNK, of which the last are resumed; 250 in
-# chunks of 125 since phases 35-37 were added (500 in the recipe's chunks of 250 since phases
-# 29-31, 1,000 before: 30-49 s of the 335 s the script may take)
-N_FIT, N_RESUME, FIT_CHUNK = 250, 125, 125
+# phase 26: Trainer.fit's steps in chunks of FIT_CHUNK, of which the last are resumed; 126 in
+# chunks of 63 since phases 41-42 were added (250 in chunks of 125 since phases 35-37, 500 in the
+# recipe's chunks of 250 since phases 29-31, 1,000 before: 30-49 s of the 335 s the script may
+# take)
+N_FIT, N_RESUME, FIT_CHUNK = 126, 63, 63
 # The flagship's iLQR expert (phases 27-28; data/flagship_expert_yardstick.py, the JAX package on
 # the CPU): the first step's 400 nominal solves beside N_NOISY replicas of each, and the first
 # N_NMPC_PREFIX steps of the NMPC expert, within the yardstick's bounds (EXPERT_BOUNDS,
@@ -547,8 +584,9 @@ Q_STEP_FLOPS = 176
 # K = 1 row (its 16 starts x 60 replans) within data/scene_yardstick.py's bounds, and its rates
 # over N_S_CHUNKS chained episodes and N_S_PIPE pipelined ones. The first run took 30.8 s for
 # the three phases, with N_S_LOOP 20 (the loop through the plain chain 211 ms per replan) and
-# N_S_CHUNKS, N_S_PIPE 5, 4; the second 30.9 s on a host ~1.3x slower with 10, 3, 3.
-N_S_EP, N_S_EP16, N_S_LOOP, N_S_CHUNKS, N_S_PIPE = 20, 3, 10, 2, 2
+# N_S_CHUNKS, N_S_PIPE 5, 4; the second 30.9 s on a host ~1.3x slower with 10, 3, 3; since
+# phases 41-42 N_S_EP 10 (20 before), N_S_CHUNKS and N_S_PIPE 1 (2 before).
+N_S_EP, N_S_EP16, N_S_LOOP, N_S_CHUNKS, N_S_PIPE = 10, 3, 10, 1, 1
 # Cost-gradient guidance on the quadrotor flagship's teacher (phases 38-40; the port's
 # scripts/flagship_quadrotor.py and scripts/scene_conditioned_quadrotor.py): horizon 48, context
 # 12, T = 25 + 5, w = 0.01, the obstacle guide at scale 0.1. Phase 38 holds the U-Net pass kernel
@@ -557,12 +595,27 @@ N_S_EP, N_S_EP16, N_S_LOOP, N_S_CHUNKS, N_S_PIPE = 20, 3, 10, 2, 2
 # make_penalty_grad on the card to the CPU's, and one guided step; phase 39 flies the flagship's
 # guided and unguided loops from bench_highdim.py's start over N_G_LOOP replans through kernels 2
 # and 1 against their plain routes; phase 40 the scene study's oracle and scene-blind rows over
-# scene 0's 16 starts, N_G_LOOP replans, and one batched guide call traced for the device's busy
-# share. A guided replan took 1.8-2.6 s on the card (the guide's eager autograd, ~9,400 kernels
-# per call), and torch.profiler took ~80 s to trace one whole guided replan, so N_G_LOOP is 2 and
-# only a guide call is traced (scripts/guided_profile.py traces whole replans).
-N_G_LOOP = 2
+# the held-out protocol's 128 pairs (scene 0's 16 starts until phases 41-42), N_G_LOOP replans,
+# their paired gate, and one batched guide call traced for the device's busy share. A guided
+# replan took 1.8-3.7 s on the card (the guide's eager autograd, ~9,400 kernels per call), and
+# torch.profiler took ~80 s to trace one whole guided replan, so N_G_LOOP is 1 (2 until phases
+# 41-42; the guide's effect on the plans shows in phase 40's paired gate) and only a guide call
+# is traced (scripts/guided_profile.py traces whole replans).
+N_G_LOOP = 1
 G_UNET_BATCHES, G_CHAIN_BATCHES = (2, 32, 256), (1, 16)
+
+# The scene study's making half (phases 41-42; the port's scripts/scene_conditioned_quadrotor.py
+# --make and scripts/onpolicy_scene.py): the teacher's guided sampling with per-row scenes through
+# the U-Net pass kernel at 2 B rows, checked against the plain denoiser on one chunk of MK_CHECK_B
+# rows and timed on one chunk of the script's MK_FULL_B; its --quick making half within
+# data/scene_making_yardstick.py's bounds; onpolicy_scene's labeler through the CFG chain kernel at
+# LABEL_ROWS x LABEL_K samples against its plain version, and its toy run within
+# data/onpolicy_scene_yardstick.py's bounds. A sampling chunk's keep mask may differ only where a
+# row lies within KEEP_NEAR of one of the curation's thresholds. The plain route with its eps
+# moved by a relative 1e-6 moved 9 of 256 rows by more than 1e-5 on the CPU (2 past 1e-4, 1.4e-3
+# at most) and 17 on the card: such chaotic rows are left out of the gates, and may be up to
+# MK_CHAOTIC_SHARE of the chunk (the card's first count was 6.6%; 0.05 failed there).
+MK_CHECK_B, MK_FULL_B, LABEL_K, KEEP_NEAR, MK_CHAOTIC_SHARE = 256, 2048, 16, 1e-4, 0.15
 
 
 PHASE_SECONDS = {}  # each phase's seconds by its log line, printed on one line before the last
@@ -1657,26 +1710,27 @@ def guided_phases(dev) -> dict:
         f"{g_plain_ms:.1f}), unguided {u_ms:.2f}; one guide call {guide_ms:.1f} ms (18 per "
         f"replan)")
 
-    # 40. the scene study's oracle and scene-blind rows over scene 0's 16 starts (of the 8-scene
-    # draw), one batched loop each, N_G_LOOP replans, the oracle traced
+    # 40. the scene study's oracle and scene-blind rows over the held-out protocol's 128 (scene,
+    # start) pairs, one batched loop each, N_G_LOOP replans on the same noise, the oracle's guide
+    # traced; the paired gate of data/guided_yardstick.py on their first plans (each rolled
+    # open-loop against its own scene), which the same oracle with a guide that returns zeros
+    # must fail
     t0 = time.perf_counter()
-    sc_c, sc_r = guided_divergence.scene0()
-    n = len(guided_divergence.starts("oracle"))
-    x0s = torch.from_numpy(guided_divergence.starts("oracle")).to(dev)
-    cen = torch.from_numpy(np.repeat(sc_c[None], n, axis=0)).to(dev)
-    rad = torch.from_numpy(np.repeat(sc_r[None], n, axis=0)).to(dev)
-    s_noise = bench_scene_student.start_noise(n, N_G_LOOP, 1, dev, seed=40)
-    oloop, oroute = scene_conditioned_quadrotor.teacher_loop(tpacked, cen, rad, N_G_LOOP, dev,
-                                                             True, route=unets[32])
-    bloop, broute = scene_conditioned_quadrotor.teacher_loop(tpacked, cen, rad, N_G_LOOP, dev,
-                                                             False, route=chains[16])
+    prs = scene_conditioned_quadrotor.Pairs(gys.N_SCENES, gys.N_STARTS, dev)
+    n = len(prs)
+    s_noise = bench_scene_student.start_noise(n, N_G_LOOP, 1, dev, seed=41)
+    chain_h = make_fused_cfg_chain(tpacked, schedule, n_samples=n, w=W, n_tail=N_TAIL, device=dev)
+    oloop, oroute = scene_conditioned_quadrotor.teacher_loop(
+        tpacked, prs.centers, prs.radii, N_G_LOOP, dev, True, route=unets[2 * n])
+    bloop, broute = scene_conditioned_quadrotor.teacher_loop(
+        tpacked, prs.centers, prs.radii, N_G_LOOP, dev, False, route=chain_h)
     reset(oroute, broute)
     t1 = time.perf_counter()
-    ores = oloop(x0s, s_noise)
+    ores = oloop(prs.x0, s_noise)
     torch.cuda.synchronize()
     o_ms = 1e3 * (time.perf_counter() - t1) / N_G_LOOP
     t1 = time.perf_counter()
-    bres = bloop(x0s, s_noise)
+    bres = bloop(prs.x0, s_noise)
     torch.cuda.synchronize()
     b_ms = 1e3 * (time.perf_counter() - t1) / N_G_LOOP
     s_counts = counts(oroute, broute)
@@ -1685,21 +1739,37 @@ def guided_phases(dev) -> dict:
         raise RuntimeError(f"scene rows: counts {s_counts}, expected {want_counts}")
     if not (torch.isfinite(ores.x_track).all() and torch.isfinite(bres.x_track).all()):
         raise RuntimeError("scene rows: non-finite tracks")
+    zloop, _ = fq.serving_loop(tpacked, (ins, cond), quadrotor_cost(), n, 1, dev,
+                               guide_builder=lambda x0: torch.zeros_like,
+                               t_start_guide=gys.T_START_SCENE, route=unets[2 * n])
+    zres = zloop(prs.x0, s_noise[:, :1])
+    first = {tag: guided_divergence.plan_clearance(res.x_track[:, 0], res.u_horizons[:, 0],
+                                                   prs.centers, prs.radii)
+             for tag, res in (("oracle", ores), ("blind", bres), ("zero", zres))}
+    paired = gys.paired(first["oracle"], first["blind"])
+    zero_paired = gys.paired(first["zero"], first["blind"])
+    gate = "heldout_first_plans"
+    if not gys.paired_within(paired, gate) or gys.paired_within(zero_paired, gate):
+        raise RuntimeError(f"the paired gate on the held-out first plans: guided {paired} (within "
+                           f"{gys.paired_within(paired, gate)}), a zero guide {zero_paired} "
+                           f"(within {gys.paired_within(zero_paired, gate)}); the JAX package's "
+                           f"{gys.PAIRED[gate]}, bounds {gys.PAIRED_BOUNDS[gate]}")
     # one batched guide call of the oracle (12 per replan), timed and traced
-    oguide = scene_conditioned_quadrotor.scene_guide_builder(plant, ins, 0.1, cen, rad)(x0s)
+    oguide = scene_conditioned_quadrotor.scene_guide_builder(plant, ins, 0.1, prs.centers,
+                                                             prs.radii)(prs.x0)
     u_o = torch.zeros((n, 48, 4), device=dev)
     oguide_ms = cuda_ms(lambda: oguide(u_o), n=2, warmup=1)
     o1 = busy_ms(lambda: oguide(u_o))
     n_guided = sum(1 for i in range(T - 1, -N_TAIL - 1, -1) if i < gys.T_START_SCENE)
-    clear = quadrotor_task.min_clearance_torch(ores.x_track, cen, rad)
-    log("guided-study", t0, f"scene 0 of the 8-scene draw, {n} starts x {N_G_LOOP} replans as one "
+    log("guided-study", t0, f"the held-out protocol's {n} pairs x {N_G_LOOP} replans as one "
         f"batched loop each: the per-scene guided oracle through fused_unet (B={2 * n}) "
         f"{o_ms:.1f} ms per replan, the scene-blind teacher through cfg_chain (B={n}) "
         f"{b_ms:.2f}; launches {s_counts}; one batched guide call {oguide_ms:.1f} ms, traced: "
         f"{o1['kernels']} kernels, {o1['busy_ms']:.2f} ms of device time, the host's share "
         f"{1 - o1['busy_ms'] / oguide_ms:.4f}; the {n_guided} guide calls "
-        f"{n_guided * oguide_ms / o_ms:.3f} of the replan; min clearance after {N_G_LOOP} "
-        f"replans {clear.min().item():.4f}")
+        f"{n_guided * oguide_ms / o_ms:.3f} of the replan; the paired gate on the first plans "
+        f"{paired} (JAX {gys.PAIRED[gate]}, bounds {gys.PAIRED_BOUNDS[gate]}), a zero guide "
+        f"{zero_paired}, outside them")
 
     # the kernels line's entries at H = 48, context 12: the chain at B = 1 (one replan), the pass
     # at B = 2 (backbone only, one pass), this run's inputs
@@ -1732,7 +1802,234 @@ def guided_phases(dev) -> dict:
                    "oracle_guide_trace": o1,
                    "oracle_guide_host_share": 1 - o1["busy_ms"] / oguide_ms,
                    "oracle_guide_share_of_replan": n_guided * oguide_ms / o_ms,
+                   "paired_gate_first_plans": paired, "paired_gate_zero_guide": zero_paired,
                    "replans": N_G_LOOP, "nvidia_smi": nvidia_smi()}}
+
+
+def near_threshold(out: dict, clear_margin: float = 0.05,
+                   progress_keep: float = 0.85) -> torch.Tensor:
+    """The rows of a sampling chunk within KEEP_NEAR of one of the curation's thresholds."""
+    return (((out["clear"] - clear_margin).abs() <= KEEP_NEAR)
+            | ((out["d1"] - progress_keep * out["d0"]).abs() <= KEEP_NEAR)
+            | ((out["d0"] - 0.5).abs() <= KEEP_NEAR))
+
+
+def making_phases(dev, work: Path) -> dict:
+    """Phases 41-42 on ``dev``: the scene study's making half. The guided sampling chunk through
+    the U-Net pass kernel against the plain denoiser and at the script's chunk size, the --quick
+    making half within its yardstick (its student and dataset written to ``work``), the
+    labeler through the CFG chain kernel against its plain version, and the toy onpolicy_scene
+    within its yardstick. Returns the kernels line's ``b4096`` entries of rows 1 and 2 and the
+    ``making`` line."""
+    dev = resolve_device(dev)
+    scq = scene_conditioned_quadrotor
+    t0 = time.perf_counter()
+    tpacked = flagship_quadrotor.teacher(dev)
+    pool = scq.load_pool(gys.TEACHER.parent / "dataset.npz", dev)
+    rng = np.random.RandomState(scq.POOL_SEED)
+    sc_c, sc_r = (torch.from_numpy(a).to(dev) for a in quadrotor_task.sample_scenes(
+        MK_FULL_B, seed=scq.SCENE_DRAW_SEED))
+    # 41. one chunk of MK_CHECK_B rows through the kernel at 2 B rows against the plain
+    # denoiser on the same staged noise: plans, keep mask, 30 launches
+    idx = torch.from_numpy(rng.randint(0, len(pool), MK_FULL_B)).to(dev)
+    args_ = lambda b: (pool.condition[idx[:b]], pool.condition_normalized[idx[:b]], sc_c[:b],
+                       sc_r[:b], scq.chunk_noise(0, b, dev))
+    fu = make_fused_unet(tpacked, 2 * MK_CHECK_B, device=dev)
+    reset(fu)
+    got = scq.sample_chunk(fu, *args_(MK_CHECK_B))
+    torch.cuda.synchronize()
+    check_counts = counts(fu)
+    want = scq.sample_chunk(tpacked.model, *args_(MK_CHECK_B))
+    # the guide's gradient through a 48-step rollout is ill-conditioned at some rows (deep in a
+    # sphere, near tan(theta)'s pole), where the chain amplifies fp32 differences of the
+    # denoiser: the plain denoiser with every eps moved by a relative 1e-6 (a fixed sign pattern)
+    # finds those rows, which the gates leave out (at most MK_CHAOTIC_SHARE of them)
+    signs = torch.sign(torch.sin(torch.arange(2 * MK_CHECK_B * 48 * 4, device=dev,
+                                              dtype=torch.float32))).reshape(2 * MK_CHECK_B, 48, 4)
+    moved = scq.sample_chunk(lambda x, t, c, m: tpacked.model(x, t, c, m) * (1 + 1e-6 * signs),
+                             *args_(MK_CHECK_B))
+    chaotic = (moved["u_norm"] - want["u_norm"]).abs().flatten(1).amax(1) > CHAIN_TOL / 10
+    calm = ~chaotic
+    plan_err = assert_close(f"guided sampling chunk B={MK_CHECK_B}, kernel vs plain denoiser, "
+                            f"the {int(calm.sum())} calm rows", got["u_norm"][calm],
+                            want["u_norm"][calm], CHAIN_TOL)
+    keep_g = scq.keep_mask(got["clear"], got["d0"], got["d1"], 0.05, 0.85)
+    keep_w = scq.keep_mask(want["clear"], want["d0"], want["d1"], 0.05, 0.85)
+    near = near_threshold(got) | near_threshold(want)
+    differ = (keep_g != keep_w) & ~near & calm
+    if (check_counts != [(T + N_TAIL, 0)] or differ.any()
+            or chaotic.float().mean().item() > MK_CHAOTIC_SHARE):
+        raise RuntimeError(f"guided sampling chunk: launches {check_counts}, keep masks differ "
+                           f"away from a threshold at {differ.sum().item()} calm rows, "
+                           f"{int(chaotic.sum())} chaotic rows of {MK_CHECK_B}")
+    chaos_err = (got["u_norm"] - want["u_norm"]).abs().max().item()
+    ctx_err = assert_close("ctx24, kernel vs plain route", got["ctx24"], want["ctx24"], 0.0)
+    # one chunk at the script's size, 2 x MK_FULL_B rows through the kernel, timed
+    fu_full = make_fused_unet(tpacked, 2 * MK_FULL_B, device=dev)
+    reset(fu_full)
+    t1 = time.perf_counter()
+    full = scq.sample_chunk(fu_full, *args_(MK_FULL_B))
+    torch.cuda.synchronize()
+    chunk_s = time.perf_counter() - t1
+    full_counts = counts(fu_full)
+    if full_counts != [(T + N_TAIL, 0)] or not torch.isfinite(full["u_norm"]).all():
+        raise RuntimeError(f"guided sampling chunk B={MK_FULL_B}: launches {full_counts}, finite "
+                           f"{bool(torch.isfinite(full['u_norm']).all())}")
+    n_keep_full = int(scq.keep_mask(full["clear"], full["d0"], full["d1"], 0.05, 0.85).sum())
+    u_in = (torch.randn((2 * MK_FULL_B, 48, 4), generator=torch.Generator(device=dev)
+                        .manual_seed(41), device=dev),
+            torch.full((2 * MK_FULL_B,), 10, device=dev),
+            torch.cat([pool.condition_normalized[idx]] * 2),
+            (torch.arange(2 * MK_FULL_B, device=dev) >= MK_FULL_B).float()[:, None])
+    unet_err = assert_close(f"fused_unet H=48 context 12 B={2 * MK_FULL_B}",
+                            fu_full.kernel(*u_in), tpacked.model(*u_in), UNET_TOL)
+    unet_ms = cuda_ms(lambda: fu_full.kernel(*u_in), n=3, warmup=1)
+    unet_plain_ms = cuda_ms(lambda: tpacked.model(*u_in), n=3, warmup=1)
+    # the --quick making half through the script's entry point (the teacher's rows left out:
+    # data/guided_yardstick.py holds them), within data/scene_making_yardstick.py's bounds
+    rep = scq.main(["--make", "--quick", "--no-teacher-rows", "--out",
+                    str(work / "report.json")])
+    making = {"n_kept": rep["n_kept"], "final_loss": rep["final_loss"],
+              **{m: rep["making"][m] for m in ("keep_fraction", "kept_clearance_mean",
+                                               "first_losses")}}
+    rows_ = dict(rep["held_out"], canonical_scene_student=rep["canonical_scene_student"])
+    quick_gaps = mys.gaps(making, rows_)
+    quick_launches = rep["making"]["sample_launches"]
+    if not mys.within(making, rows_) or quick_launches != 2 * (T + N_TAIL):
+        raise RuntimeError(f"--quick making half: gaps {quick_gaps} against bounds "
+                           f"{mys.BOUNDS}; sampling launches {quick_launches}")
+    log("scene-making", t0, f"guided sampling with per-row scenes on the quadrotor teacher: "
+        f"B={MK_CHECK_B} through fused_unet at {2 * MK_CHECK_B} rows against the plain denoiser "
+        f"{plan_err:.3e} on the {int(calm.sum())} calm rows (tol {CHAIN_TOL:.0e}; "
+        f"{int(chaotic.sum())} chaotic rows, which moved by up to {chaos_err:.3e}), keep masks "
+        f"equal away from the thresholds ({int(near.sum())} rows near one), launches "
+        f"{check_counts}; B={MK_FULL_B} "
+        f"({2 * MK_FULL_B} rows) {chunk_s:.2f} s per chunk, kept {n_keep_full}/{MK_FULL_B}, "
+        f"one pass {unet_ms:.3f} ms (TemporalUnet {unet_plain_ms:.3f}, max |diff| "
+        f"{unet_err:.3e}); --quick making: kept {making['n_kept']}/{rep['n_drawn']}, final loss "
+        f"{making['final_loss']:.5f}, sample {rep['sample_seconds']} s, fine-tune "
+        f"{rep['finetune_seconds']} s, within data/scene_making_yardstick.py's bounds")
+
+    # 42. onpolicy_scene's labeler: LABEL_ROWS rows x LABEL_K candidates through the chain at
+    # LABEL_ROWS LABEL_K samples against its plain version, the LQR plan appended, the same
+    # choices but near-ties; then the toy run within its yardstick
+    t0 = time.perf_counter()
+    spacked = pack_unet(load_scene_student(sys_.STUDENT, device=dev), dev)
+    lqr = quadrotor_task.make_lqr_hover_plan(quadrotor(), quadrotor_cost(), scene_stats()[0],
+                                             48, dev)
+    labeler = onpolicy_scene.Labeler(spacked, LABEL_K, onpolicy_scene.LABEL_ROWS, dev, 0.0, lqr)
+    n_rows = onpolicy_scene.LABEL_ROWS
+    lx = torch.from_numpy(eval_start_states(n_rows, seed=60)).to(dev)
+    lc, lr = (torch.from_numpy(a).to(dev) for a in quadrotor_task.sample_scenes(n_rows, seed=500))
+    l_noise = torch.randn((T + N_TAIL + 1, n_rows * LABEL_K, 48, 4),
+                          generator=torch.Generator(device=dev).manual_seed(42), device=dev)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+
+    def timed_chain(ctx_, noise_):
+        """The labeler's own chain call, between two CUDA events."""
+        ev[0].record()
+        out = labeler.chain(ctx_, noise_)
+        ev[1].record()
+        return out
+
+    reset(labeler.chain)
+    t1 = time.perf_counter()
+    _, pick_k, _, cand_k = labeler.batch(lx, lc, lr, l_noise, sample=timed_chain)
+    torch.cuda.synchronize()
+    label_s = time.perf_counter() - t1
+    chain_ms = ev[0].elapsed_time(ev[1])
+    label_counts = counts(labeler.chain)
+    ctx_l = labeler.context(lx, lc, lr).repeat_interleave(LABEL_K, dim=0)
+    plain_out = {}
+    chain_plain_ms = cuda_ms(lambda: plain_out.update(x=labeler.chain.plain(ctx_l, l_noise)),
+                             n=1, warmup=0)
+    _, pick_p, score_p, cand_p = labeler.batch(lx, lc, lr, l_noise,
+                                               sample=lambda c, nz: plain_out["x"])
+    # as in phase 41: the chain's clip amplifies fp32 differences at some samples (the plain
+    # chain with eps moved by a relative 1e-6 moved 11 of 1,024 samples past 1e-5 on the CPU, 5
+    # past 1e-4); such chaotic samples, at most MK_CHAOTIC_SHARE, are left out of the gates, and
+    # the picks compared on the rows whose every candidate is calm
+    plain_model = labeler.chain.plain_model
+    signs = torch.sign(torch.sin(torch.arange(2 * n_rows * LABEL_K * 48 * 4, device=dev,
+                                              dtype=torch.float32))).reshape(-1, 48, 4)
+    labeler.chain.plain_model = lambda x, t, c, m: plain_model(x, t, c, m) * (1 + 1e-6 * signs)
+    moved = labeler.chain.plain(ctx_l, l_noise)
+    labeler.chain.plain_model = plain_model
+    l_chaotic = (moved - plain_out["x"]).abs().flatten(1).amax(1) > CHAIN_TOL / 10
+    calm_rows = ~l_chaotic.reshape(n_rows, LABEL_K).any(1)
+    ties = [i for i in range(n_rows) if near_tie(score_p[i])]
+    diff_picks = [i for i in range(n_rows) if pick_k[i] != pick_p[i] and i not in ties
+                  and calm_rows[i]]
+    # the chain's candidates (the LQR plan after them overflows from a start far from hover,
+    # and its NaN score loses, the labeler's rule)
+    calm_s = ~l_chaotic
+    label_err = assert_close(f"labeler candidates, cfg_chain at {n_rows * LABEL_K} samples vs "
+                             f"plain, the {int(calm_s.sum())} calm samples",
+                             cand_k[:, :LABEL_K].reshape(-1, 48, 4)[calm_s],
+                             cand_p[:, :LABEL_K].reshape(-1, 48, 4)[calm_s], CHAIN_TOL)
+    label_chaos_err = (cand_k[:, :LABEL_K] - cand_p[:, :LABEL_K]).abs().max().item()
+    if (label_counts != [(1, 0)] or diff_picks
+            or l_chaotic.float().mean().item() > MK_CHAOTIC_SHARE):
+        raise RuntimeError(f"labeler: launches {label_counts}, choices differ away from a "
+                           f"near-tie at calm rows {diff_picks}, {int(l_chaotic.sum())} chaotic "
+                           f"samples of {n_rows * LABEL_K}")
+    toy = onpolicy_scene.main(["--scene-dir", str(work), "--out", str(work / "toy"),
+                               *oys.TOY_ARGS])
+    toy_got = {"pairs": toy["iterations"][0]["pairs"],
+               "rows": {f"{r['student']}_k{r['K']}": r for r in toy["rows"]}}
+    toy_launches = (toy["iterations"][0]["collect_launches"]
+                    + toy["iterations"][0]["label_launches"]
+                    + sum(r["launches"] for r in toy["rows"]))
+    if not oys.within(toy_got):
+        raise RuntimeError(f"toy onpolicy_scene: gaps {oys.gaps(toy_got)} against bounds "
+                           f"{oys.BOUNDS}")
+    log("onpolicy-scene", t0, f"the labeler at {n_rows} rows x K={LABEL_K} (+ the LQR plan): "
+        f"cfg_chain at {n_rows * LABEL_K} samples against plain {label_err:.3e} on the "
+        f"{int(calm_s.sum())} calm samples (tol {CHAIN_TOL:.0e}; {int(l_chaotic.sum())} chaotic, "
+        f"up to {label_chaos_err:.3e}), choices equal on the {int(calm_rows.sum())} calm rows but "
+        f"{len(ties)} near-ties, launches {label_counts}, "
+        f"{label_s:.2f} s per batch, the chain {chain_ms:.1f} ms (plain {chain_plain_ms:.1f}); "
+        f"toy onpolicy_scene: {toy_got['pairs']} pairs, {toy_launches} chain launches, within "
+        f"data/onpolicy_scene_yardstick.py's bounds")
+    # the kernels line's entries at this slice's batch sizes, this run's inputs: the U-Net pass
+    # at 2 MK_FULL_B rows (backbone only, one pass), the chain at n_rows LABEL_K samples (one
+    # replan, context 24)
+    weights, meta_n = tpacked.weights.numel(), tpacked.meta.numel()
+    seg = lambda pk, *prefixes: sum(math.prod(shape_) for name, (_, shape_) in pk.segments.items()
+                                    if name.split(".")[0] in prefixes)
+    un_flops = 2 * MK_FULL_B * (tpacked.flops_per_pass - tpacked.flops_final_1x1)
+    un_bytes = 4 * (weights - seg(tpacked, "films", "final1x1") + meta_n
+                    + fu_full.films(tpacked.model.conditioning(*u_in[1:])).numel()
+                    + u_in[0].numel() + 2 * MK_FULL_B * 48 * tpacked.model.unet_input_dim)
+    ch = labeler.chain
+    ch_flops = spacked.flops_per_pass * 2 * ch.n_total * ch.n_samples
+    ch_bytes = 4 * (spacked.weights.numel() - seg(spacked, "films") + spacked.meta.numel()
+                    + ch.films(ctx_l).numel() + l_noise.numel() + ch.coefs.numel()
+                    + ch.n_samples * 48 * 4)
+    common = {"library_ms": None, "horizon": 48}
+    return {
+        "fused_unet": {"launches": full_counts[0][0] + check_counts[0][0] + quick_launches,
+                       "max_abs_err": max(unet_err, plan_err), "ms": unet_ms,
+                       "plain_ms": unet_plain_ms, **bound(un_flops, un_bytes), "batch":
+                       2 * MK_FULL_B, "whole_call": True, "model": "flagship_quadrotor",
+                       "context_dim": 12, "chunk_seconds": chunk_s, **common},
+        "cfg_chain": {"launches": label_counts[0][0] + toy_launches, "max_abs_err": label_err,
+                      "ms": chain_ms, "plain_ms": chain_plain_ms, **bound(ch_flops, ch_bytes),
+                      "n_samples": ch.n_samples, "model": "scene_conditioned",
+                      "context_dim": 24, "label_batch_seconds": label_s, **common},
+        "making": {"plan_err": plan_err, "chaotic_rows": int(chaotic.sum()),
+                   "chaotic_max_err": chaos_err, "ctx24_err": ctx_err, "rows_near_threshold":
+                   int(near.sum()), "chunk_seconds": chunk_s, "kept_full_chunk": n_keep_full,
+                   "quick": making, "quick_rows": {r: {m: rows_[r][m] for m in oys.METRICS_KEYS}
+                                                   for r in mys.ROWS},
+                   "quick_gaps": quick_gaps, "sample_seconds": rep["sample_seconds"],
+                   "finetune_seconds": rep["finetune_seconds"], "label_err": label_err,
+                   "label_chaotic_samples": int(l_chaotic.sum()),
+                   "label_chaotic_max_err": label_chaos_err,
+                   "label_near_ties": len(ties), "label_batch_seconds": label_s,
+                   "toy": {"pairs": toy_got["pairs"], "gaps": oys.gaps(toy_got),
+                           "iteration": toy["iterations"][0]},
+                   "nvidia_smi": nvidia_smi()}}
 
 
 SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize")
@@ -2535,6 +2832,7 @@ def main() -> None:
     # with bench.py's counts; then the other four combinations in this process, cut
     t0 = time.perf_counter()
     env = {k: v for k, v in os.environ.items() if k not in ("BENCH_FUSED", "BENCH_BF16")}
+    env["BENCH_N_BEST"] = str(N_BENCH_BEST)
     proc = subprocess.run([sys.executable, "-m", "mpc_via_diffusion_model_tpu_torch.bench"],
                           cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
     if proc.returncode != 0:
@@ -2728,6 +3026,10 @@ def main() -> None:
     quad_line = quadrotor_phases(dev)
     scene_line = scene_phases(dev)
     guided_line = guided_phases(dev)
+    making_dir = ROOT / "build" / "chip_smoke_making"
+    shutil.rmtree(making_dir, ignore_errors=True)
+    making_line = making_phases(dev, making_dir)
+    shutil.rmtree(making_dir, ignore_errors=True)
 
     packed = chain.packed
     seg = lambda *prefixes: sum(math.prod(shape) for name, (_, shape) in packed.segments.items()
@@ -2895,6 +3197,11 @@ def main() -> None:
     for i, name in ((0, "cfg_chain"), (1, "fused_unet")):
         rows[i]["h48_ctx12"] = {"name": name, "route": "cuda", "source": rows[i]["source"],
                                 "replaces": rows[i]["replaces"], **guided_line[name]}
+    # the scene study's making half (phases 41-42): the U-Net pass at 2 x 2,048 rows and the
+    # CFG chain at 256 x 16 samples under rows 2's and 1's "b4096"
+    for i, name in ((0, "cfg_chain"), (1, "fused_unet")):
+        rows[i]["b4096"] = {"name": name, "route": "cuda", "source": rows[i]["source"],
+                            "replaces": rows[i]["replaces"], **making_line[name]}
     rows[2]["bench_closed_loop_control_hz"] = bench_line["value"]
     rows[2]["bench_pipelined_hz"] = bench_line["pipelined_hz"]
     print(json.dumps({"training": training_line}), flush=True)
@@ -2903,6 +3210,7 @@ def main() -> None:
           flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"guided": guided_line["guided"]}), flush=True)
+    print(json.dumps({"making": making_line["making"]}), flush=True)
     print(json.dumps({"phase_seconds": PHASE_SECONDS}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}),

@@ -212,10 +212,12 @@ def main() -> BenchResult:
     """Runs the protocol on the card with ``bench.py``'s counts, the mode
     from ``BENCH_FUSED`` (default ``episode``) and bf16 weights where
     ``BENCH_BF16`` is ``1``; prints the mode and the card, then the JSON
-    line last."""
+    line last. ``BENCH_N_BEST`` cuts the sustained chains the best is taken
+    of (bench.py's 3), as ``chip_smoke.py`` does to keep within its time."""
     mode = os.environ.get("BENCH_FUSED", "episode")
     bf16 = os.environ.get("BENCH_BF16", "0") == "1"
-    res = run(mode, bf16)
+    cut = {"n_best": int(os.environ["BENCH_N_BEST"])} if "BENCH_N_BEST" in os.environ else {}
+    res = run(mode, bf16, **cut)
     print(f"bench: BENCH_FUSED={mode} weights={'bf16' if res.bf16 else 'fp32'} kernel="
           f"{res.wrapper} launches={res.launches} on {res.device}; nvidia-smi: {nvidia_smi()}",
           flush=True)

@@ -8,7 +8,7 @@ fitted per field over the flattened data, and the normalized copies beside
 them, all on the device. Minibatches are drawn i.i.d. with replacement, by
 an index gather on the device. ``.npz`` files hold the JAX package's keys
 (``inputs``, ``condition``); its ``.css`` store and ``load_reference_pt``
-wait for the port of ``native/`` (ROADMAP.md A7).
+wait for the port of ``native/`` (ROADMAP.md A8).
 """
 from __future__ import annotations
 

@@ -42,10 +42,13 @@ from __future__ import annotations
 from pathlib import Path
 from typing import Dict
 
+import numpy as np
+
 __all__ = ["BOUNDS", "METRICS", "ROWS", "TEACHER", "T", "N_TAIL", "W", "GUIDE_SCALE",
            "T_START_FLAGSHIP", "T_START_SCENE", "N_STARTS", "N_STEPS", "N_SCENES",
            "FLAGSHIP_START_SEED", "FLAGSHIP_KEY_SEED", "SCENE_SEED", "SCENE_START_SEED",
-           "SCENE_KEY_SEED", "gaps", "within"]
+           "SCENE_KEY_SEED", "PAIRS", "RAISE_MIN", "PAIRED", "PAIRED_BOUNDS", "gaps", "within",
+           "paired", "paired_gaps", "paired_within"]
 
 TEACHER = (Path(__file__).resolve().parents[2] / "artifacts" / "flagship_quadrotor"
            / "ema_params.pkl")
@@ -134,6 +137,58 @@ BOUNDS = {
     "blind": {"collision_free_fraction": 0.25, "min_clearance_mean": 0.058452,
         "goal_dist_mean": 0.317208, "goal_reach_fraction_0.5": 0.75, "safe_reach_fraction": 0.75},
 }
+
+# (d) The paired gates, each over two rows on the same starts and the same noise: each start's
+# gain in min clearance, guided minus unguided, as the per-start mean (gain_mean) and the count of
+# starts whose clearance the guide raised by more than RAISE_MIN (n_raised; a start whose min
+# clearance is its first state's gains nothing but rounding). "flagship" pairs the flagship's
+# guided and unguided rows, "scene0" the scene-0 oracle and blind rows, over their 60 replans
+# (PAIRS; the JAX package's values from the CLEARANCE_* literals). "heldout_first_plans" pairs the
+# oracle's and the blind teacher's first plans over all N_SCENES x N_STARTS pairs of the scene
+# study's held-out protocol, each rolled open-loop from its start and scored against its own
+# scene: the one replan a chip run can afford (a guided replan costs ~2 s there, PERF.md),
+# where the 60-replan rows cost minutes. PAIRED holds the JAX package's values; PAIRED_BOUNDS
+# twice the largest gap over scripts/guided_divergence.py's paired runs (torch seeds 0-4 and
+# seed 0's one-ulp starts; --first-plans --seeds 16 for the held-out pairs), the count's at least
+# 2. A guide that returns zeros gains nothing and lies outside every one of them.
+PAIRS = {"flagship": ("guided", "unguided"), "scene0": ("oracle", "blind")}
+RAISE_MIN = 1e-3
+
+
+def paired(clear_guided, clear_unguided) -> Dict[str, float]:
+    """The paired gate's statistics of two rows' per-start min clearances."""
+    gain = np.asarray(clear_guided, np.float64) - np.asarray(clear_unguided, np.float64)
+    return {"gain_mean": float(gain.mean()), "n_raised": int((gain > RAISE_MIN).sum())}
+
+
+PAIRED: Dict[str, Dict[str, float]] = {
+    # paired() of the CLEARANCE_* literals of each pair's rows
+    "flagship": {"gain_mean": 0.061117103323340416, "n_raised": 12},
+    "scene0": {"gain_mean": 0.0705343522131443, "n_raised": 15},
+    # the JAX package's first replans (the keys split(PRNGKey(SCENE_KEY_SEED), 128), each
+    # start's first replan key the first of its split into N_STEPS)
+    "heldout_first_plans": {"gain_mean": 0.20541866752319038, "n_raised": 35},
+}
+# The largest gaps (gain_mean, n_raised) over the runs: flagship 0.027672, 4 (the JAX package's
+# 0.061117, 12); scene0 0.018910, 3 (0.070534, 15); heldout_first_plans, over torch seeds 0-15
+# (seeds 0-4 alone spread 0.022035, 2: too few for a count over 128 pairs), 0.054988, 9
+# (0.205419, 35). So a zero guide (0, 0) lies outside all three, by both statistics.
+PAIRED_BOUNDS: Dict[str, Dict[str, float]] = {
+    "flagship": {"gain_mean": 0.055345, "n_raised": 8},
+    "scene0": {"gain_mean": 0.037821, "n_raised": 6},
+    "heldout_first_plans": {"gain_mean": 0.109977, "n_raised": 18},
+}
+
+
+def paired_gaps(stats: Dict[str, float], gate: str) -> Dict[str, float]:
+    """|statistic - the JAX package's| of a paired gate."""
+    return {m: abs(stats[m] - PAIRED[gate][m]) for m in PAIRED[gate]}
+
+
+def paired_within(stats: Dict[str, float], gate: str) -> bool:
+    """Whether a paired gate's statistics lie within PAIRED_BOUNDS of the JAX package's."""
+    return all(g <= PAIRED_BOUNDS[gate][m] for m, g in paired_gaps(stats, gate).items())
+
 
 def gaps(metrics: Dict[str, float], row: str) -> Dict[str, float]:
     """|metric - the yardstick's| for every metric that BOUNDS[row] names."""

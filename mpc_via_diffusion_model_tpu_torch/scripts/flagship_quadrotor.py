@@ -25,7 +25,9 @@ Both rows run the starts as one batched loop (``make_closed_loop`` with x0
 .manual_seed(11)`` (the JAX script splits ``PRNGKey(11)``), and report the
 ``track_metrics`` with ``cost_mean`` and ``within_yardstick``: whether they
 lie within ``data/guided_yardstick.py``'s bounds of the JAX package's rows
-on the CPU (None where the protocol differs from the yardstick's).
+on the CPU (None where the protocol differs from the yardstick's), and each
+start's min clearance; ``paired_gate`` pairs the two rows (the yardstick's
+``flagship`` gate: the guide's per-start gain in clearance).
 
 The serving rates (``bench_highdim.py:258-289``) fly one start, ``X0_Q``,
 guided and unguided: ``quadrotor_closed_loop_hz_*``, ``--rate-loops``
@@ -66,7 +68,7 @@ from ..ops.unet_pack import PackedUnet, pack_unet
 from ..utils.device import resolve_device
 from .bench_scene_student import start_noise
 from .quadrotor_task import (eval_start_states, make_loop_guide_builder, make_task_cost,
-                             track_metrics)
+                             min_clearance, track_metrics)
 
 __all__ = ["X0_Q", "teacher", "serving_loop", "flagship_loop", "row", "rates", "main"]
 
@@ -144,11 +146,13 @@ def row(packed: PackedUnet, guided: bool, starts: torch.Tensor, n_steps: int, de
     res = loop(starts, noise)
     _sync(dev)
     seconds = time.perf_counter() - t0
-    out = track_metrics(res.x_track.cpu().numpy(), res.stage_costs.cpu().numpy())
+    xt = res.x_track.cpu().numpy()
+    out = track_metrics(xt, res.stage_costs.cpu().numpy())
     name = "guided" if guided else "unguided"
     return dict(out, within_yardstick=gys.within(out, name) if protocol else None,
                 yardstick_gaps=gys.gaps(out, name), seconds=seconds, launches=route.launches,
-                kernel="fused_unet" if guided else "cfg_chain")
+                kernel="fused_unet" if guided else "cfg_chain",
+                clearance=min_clearance(xt).tolist())
 
 
 def rates(packed: PackedUnet, guided: bool, n_steps: int, n_loops: int, device) -> dict:
@@ -211,6 +215,10 @@ def main(argv=None) -> dict:
         out[name] = row(packed, guided, starts.to(dev), args.steps, dev, args.guide_scale,
                         protocol=protocol)
         print(json.dumps({name: out[name]}), flush=True)
+    stats = gys.paired(out["guided"]["clearance"], out["unguided"]["clearance"])
+    out["paired_gate"] = dict(stats, within=gys.paired_within(stats, "flagship")
+                              if protocol else None)
+    print(json.dumps({"paired_gate": out["paired_gate"]}), flush=True)
     if not args.no_rates:
         out["rates"] = {}
         for guided in (False, True):

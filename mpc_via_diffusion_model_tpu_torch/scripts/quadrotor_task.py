@@ -13,12 +13,14 @@ from typing import Callable
 import numpy as np
 import torch
 
-from ..data.normalization import NormalizerStats, unnormalize
+from ..data.normalization import NormalizerStats, normalize, unnormalize
 from ..dynamics.base import Plant, QuadraticCost, rollout
 from ..dynamics.quadrotor import SafetyFirstCost, obstacle_cost
+from ..solvers.lqr import lqr_gains
 
 __all__ = ["OBS_CENTERS", "OBS_RADII", "HOVER_THRUST", "make_task_cost", "make_select_cost",
-           "make_penalty_grad", "rows_of", "make_loop_guide_builder", "sample_scenes",
+           "make_penalty_grad", "rows_of", "make_loop_guide_builder", "make_lqr_hover_plan",
+           "sample_scenes",
            "scene_features",
            "eval_start_states", "min_clearance", "min_clearance_torch", "track_metrics"]
 
@@ -134,6 +136,38 @@ def make_loop_guide_builder(plant: Plant, in_stats: NormalizerStats,
         return lambda u_norm: per(u_norm, rows_of(x0, u_norm.shape[0]))
 
     return guide_builder
+
+
+def make_lqr_hover_plan(plant: Plant, quad_cost: QuadraticCost, in_stats: NormalizerStats,
+                        horizon: int, device="cpu") -> Callable:
+    """The hover regulator's plan ``x0 (..., 12) -> u_norm (..., horizon,
+    4)``: the plant linearized at hover (x = 0, u = [m g, 0, 0, 0]) by
+    ``torch.func.jacfwd``, the backward Riccati gains on the task's own Q, R
+    and P (``solvers.lqr.lqr_gains``), then the NONLINEAR plant rolled
+    closed-loop with ``u_t = u_hover - K_t x_t`` in float32, and the controls
+    normalized and clipped to [-1, 1]. The best-of-K labeler appends it to
+    its candidates: near the goal it holds position, which no sampled plan
+    does; far away it loses the scoring to them."""
+    dev = torch.device(device)
+    u_hover = _u_hover().to(dev)
+    x_eq = torch.zeros(plant.state_dim, dtype=torch.float32, device=dev)
+    a = torch.func.jacfwd(lambda x: plant.step(x, u_hover))(x_eq).float()
+    b = torch.func.jacfwd(lambda u: plant.step(x_eq, u))(u_hover).float()
+    cost = quad_cost.to(dev)
+    r_mat = (torch.diag(cost.r) if cost.r.dim() == 1
+             else cost.r * torch.eye(plant.control_dim, device=dev))
+    ks = lqr_gains(a, b, torch.diag(cost.q_diag), r_mat, torch.diag(cost.p_diag), horizon)
+    stats = in_stats.to(dev)
+
+    def plan(x0: torch.Tensor) -> torch.Tensor:
+        x, us = x0, []
+        for k_gain in ks:
+            u = u_hover - x @ k_gain.T
+            x = plant.step(x, u)
+            us.append(u)
+        return torch.clamp(normalize(stats, torch.stack(us, dim=-2)), -1.0, 1.0)
+
+    return plan
 
 
 def sample_scenes(n: int, seed: int = 0):

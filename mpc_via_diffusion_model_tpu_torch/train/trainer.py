@@ -27,7 +27,7 @@ Adam's moments in the flax layout, ``opt_state`` in optax's structure,
 ``step``, ``extra``), written atomically; ``load_checkpoint`` also reads one
 that the JAX package wrote, its optax classes mapped to the stand-ins below
 without importing optax. The tracer of ``native/`` and the data-parallel
-step wait for their ports (ROADMAP.md A7, A9).
+step wait for their ports (ROADMAP.md A8, A9).
 """
 from __future__ import annotations
 

@@ -108,3 +108,24 @@ def test_bench_refuses_to_run_without_a_card_unless_asked():
         pytest.skip("a card is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         bench.run("episode", False)
+
+
+def test_main_cuts_the_best_of_with_bench_n_best(monkeypatch, capsys):
+    """``BENCH_N_BEST`` (chip_smoke.py's cut of the protocol) reaches ``run``
+    as ``n_best``; without it ``run`` gets bench.py's own counts."""
+    seen = []
+    line = {"metric": "closed_loop_control_hz", "value": 1.0, "unit": "Hz", "vs_baseline": 0.01}
+
+    def fake_run(mode, bf16, **cut):
+        seen.append(cut)
+        return bench.BenchResult(line, bf16, "card", None, 0, 0, [1.0])
+
+    monkeypatch.setattr(bench, "run", fake_run)
+    monkeypatch.setattr(bench, "nvidia_smi", lambda: "NVIDIA H100, 700.00 W")
+    for name in ("BENCH_FUSED", "BENCH_BF16", "BENCH_N_BEST"):
+        monkeypatch.delenv(name, raising=False)
+    bench.main()
+    monkeypatch.setenv("BENCH_N_BEST", "1")
+    bench.main()
+    assert seen == [{}, {"n_best": 1}]
+    assert bench.expected_calls("episode", n_best=1) == 21

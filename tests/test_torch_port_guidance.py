@@ -29,10 +29,12 @@ import pytest
 import torch
 
 from mpc_via_diffusion_model_tpu.control import make_closed_loop as jax_closed_loop
+from mpc_via_diffusion_model_tpu.control.runtime import make_replan_fn as jax_make_replan_fn
 from mpc_via_diffusion_model_tpu.core.schedules import make_schedule as jax_make_schedule
 from mpc_via_diffusion_model_tpu.data.normalization import NormalizerStats as JaxStats
 from mpc_via_diffusion_model_tpu.diffusion import GaussianDiffusion as JaxDiffusion
 from mpc_via_diffusion_model_tpu.dynamics import get_plant as jax_get_plant
+from mpc_via_diffusion_model_tpu.dynamics.base import rollout as jax_rollout
 from mpc_via_diffusion_model_tpu.models import TemporalUnet as JaxUnet
 from mpc_via_diffusion_model_tpu_torch.control import make_closed_loop, make_replan_fn
 from mpc_via_diffusion_model_tpu_torch.core import make_schedule
@@ -134,9 +136,11 @@ def test_guided_ddpm_cfg_sample_matches_jax(small, scale_grad_by_std):
     plain = diff.ddpm_cfg_sample(tfn, (3, 8, 2), torch.from_numpy(ctx), w=0.3,
                                  n_diffusion_steps_without_noise=N_TAIL, noise=noise)
     assert (plain - got_x).abs().max() > 1e-4  # the guide acted
-    step = JaxDiffusion(schedule=jax_make_schedule("exponential", T)).ddpm_cfg_step(
-        jfn, want_chain[3], jnp.int32(2), jnp.asarray(noise[4].numpy()), jnp.asarray(ctx), 0.3, guide=jg,
-        n_guide_steps=2, t_start_guide=3.5, scale_grad_by_std=scale_grad_by_std)
+    step = jax.jit(lambda x_, n_, c_: JaxDiffusion(
+        schedule=jax_make_schedule("exponential", T)).ddpm_cfg_step(
+            jfn, x_, jnp.int32(2), n_, c_, 0.3, guide=jg, n_guide_steps=2, t_start_guide=3.5,
+            scale_grad_by_std=scale_grad_by_std))(want_chain[3], jnp.asarray(noise[4].numpy()),
+                                                   jnp.asarray(ctx))
     with torch.no_grad():
         got_step = diff.ddpm_cfg_step(tfn, torch.from_numpy(_np(want_chain[3])), 2, noise[4],
                                       torch.from_numpy(ctx), 0.3, guide=tg, n_guide_steps=2,
@@ -280,9 +284,10 @@ N_LOOP = 3
 
 def _jax_start_noise(keys, k: int, n_rows: int) -> np.ndarray:
     """(N, n_steps, n_rows, K, 48, 4): each start's replan keys split from
-    its key, each replan's draw as the JAX sampler makes it."""
-    return np.stack([np.stack([_np(jax.random.normal(kk, (n_rows, k, 48, 4)))
-                               for kk in jax.random.split(key, N_LOOP)]) for key in keys])
+    its key, each replan's draw as the JAX sampler makes it (one program)."""
+    draw = jax.jit(jax.vmap(lambda key: jax.vmap(
+        lambda kk: jax.random.normal(kk, (n_rows, k, 48, 4)))(jax.random.split(key, N_LOOP))))
+    return _np(draw(keys))
 
 
 def _starts(n: int) -> np.ndarray:
@@ -468,8 +473,10 @@ def test_widen_film_params_matches_jax_script():
 
 def test_scripts_run_on_the_cpu_and_refuse(tmp_path):
     """Both scripts at a few rows and one replan on the CPU (the plain
-    versions of the kernels), their reports outside ``artifacts/``, and the
-    refusals of the halves that wait (ROADMAP.md A6, A3)."""
+    versions of the kernels), their reports outside ``artifacts/``, the
+    scene study's making keys None without ``--make`` (its making half:
+    ``test_torch_port_scene_making.py``), and the refusals of the flagship's
+    halves that wait (ROADMAP.md A6)."""
     out = fq.main(["--eval-starts", "2", "--steps", "1", "--no-rates", "--device", "cpu",
                    "--out", str(tmp_path / "f.json")])
     assert out["guided"]["within_yardstick"] is None and out["guided"]["kernel"] == "fused_unet"
@@ -481,8 +488,9 @@ def test_scripts_run_on_the_cpu_and_refuse(tmp_path):
     assert len(rep["held_out"]["teacher_scene_blind"]["per_scene_cf"]) == 2
     assert rep["warm_start_max_err"] < 1e-5
     assert rep["scene0_yardstick"]["teacher_per_scene_guided_oracle"]["within_yardstick"] is None
-    for main, flag, item in ((fq.main, "--collect", "A6"), (fq.main, "--expert", "A6"),
-                             (scq.main, "--finetune", "A3")):
+    assert rep["n_kept"] is None and rep["final_loss"] is None and rep["making"] is None
+    assert out["paired_gate"]["within"] is None
+    for main, flag, item in ((fq.main, "--collect", "A6"), (fq.main, "--expert", "A6")):
         with pytest.raises(SystemExit, match=item):
             main([flag, "--device", "cpu"])
     with pytest.raises(SystemExit, match="not artifacts/"):
@@ -517,7 +525,8 @@ def test_fused_unet_kernel_matches_plain_at_the_teachers_shape():
 @pytest.mark.slow
 def test_guided_yardstick_regenerates():
     """The JAX package's four rows on the CPU give every literal of (a) and
-    (b) of data/guided_yardstick.py (~2.5 minutes)."""
+    (b) of data/guided_yardstick.py, and the JAX package's values of its
+    paired gates (d) (~3.5 minutes)."""
     with open(gys.TEACHER, "rb") as f:
         params = pickle.load(f)
     jm = JaxUnet(conditioning_type="default", cfg_indicator=True, **QUADROTOR_TEACHER_CONFIG)
@@ -563,6 +572,32 @@ def test_guided_yardstick_regenerates():
             gys, f"CLEARANCE_{row.upper()}")
         assert tuple(float(v) for v in np.linalg.norm(xt[:, -1, :3], axis=-1)) == getattr(
             gys, f"GOAL_DIST_{row.upper()}")
+    for gate, (a, b) in gys.PAIRS.items():  # (d): the paired gates of the rows above
+        assert gys.PAIRED[gate] == gys.paired(getattr(gys, f"CLEARANCE_{a.upper()}"),
+                                              getattr(gys, f"CLEARANCE_{b.upper()}"))
+    # (d): the held-out protocol's first plans, the oracle against the blind teacher, each
+    # pair's first replan key the first of its key's split into N_STEPS, as the loop splits it
+    E, S = gys.N_SCENES, gys.N_STARTS
+    ev_c, ev_r = jax_task.sample_scenes(E, seed=gys.SCENE_SEED)
+    starts = jnp.asarray(jax_task.eval_start_states(S, seed=gys.SCENE_START_SEED))
+    pc, pr = jnp.repeat(jnp.asarray(ev_c), S, axis=0), jnp.repeat(jnp.asarray(ev_r), S, axis=0)
+    pk = jax.random.split(jax.random.PRNGKey(gys.SCENE_KEY_SEED), E * S)
+    per_grad = jax_task.make_penalty_grad(jplant, ins, gys.GUIDE_SCALE, scene_args=True)
+    first = {}
+    for row in ("oracle", "blind"):
+        def first_plan(cen, rad, x, k, guided=row == "oracle"):
+            def guide_builder(xc):
+                return lambda u: jax.vmap(lambda uu: per_grad(uu, xc, cen, rad))(u)
+
+            replan = jax_make_replan_fn(diffusion, jm.apply, ins, cond, 48, 4, gys.W, gys.N_TAIL,
+                                        1, jplant, jqcost,
+                                        guide_builder=guide_builder if guided else None,
+                                        n_guide_steps=1, t_start_guide=gys.T_START_SCENE)
+            u_hor, _ = replan(params, x, jax.random.split(k, gys.N_STEPS)[0])
+            return jax_task.min_clearance_jax(jax_rollout(jplant, x, u_hor), cen, rad)
+
+        first[row] = np.asarray(jax.jit(jax.vmap(first_plan))(pc, pr, jnp.tile(starts, (E, 1)), pk))
+    assert gys.paired(first["oracle"], first["blind"]) == gys.PAIRED["heldout_first_plans"]
 
 
 def test_divergence_runs_the_scripts_loops():
