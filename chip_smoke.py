@@ -10,7 +10,8 @@ the LMPC parity workload's in ``artifacts/flagship_lmpc/`` (``ema_params.pkl``,
 ``artifacts/flagship_modality/ema_params.pkl``, the quadrotor student in
 ``artifacts/onpolicy_quadrotor/student_1eval.pkl``, the scene-conditioned student in
 ``artifacts/scene_conditioned/scene_student_ema.pkl``, the quadrotor flagship's teacher in
-``artifacts/flagship_quadrotor/`` (``ema_params.pkl``, ``dataset.npz``), and writes nothing but
+``artifacts/flagship_quadrotor/`` (``ema_params.pkl``, ``dataset.npz``), the panda student in
+``artifacts/onpolicy_panda/student_1eval.pkl``, and writes nothing but
 the kernel builds under ``build/torch_kernels/`` and, for a moment, phase 26's checkpoint under
 ``build/chip_smoke_train/`` and phases 41-42's student and data under
 ``build/chip_smoke_making/``. Phases,
@@ -354,6 +355,30 @@ The scene study's making half (``scripts/scene_conditioned_quadrotor.py
     yardstick's toy size on phase 41's output within
     ``data/onpolicy_scene_yardstick.py``'s bounds.
 
+The panda arm's student (the JAX package's ``scripts/bench_panda_student.py``): the on-policy
+1-eval student at horizon 128 with 7 channels and a 20-dim context (``make_panda_context``: q,
+qd and the end effector's position and velocity), the rigid-body arm (``dynamics/arm.py``) and
+``data/panda_stats.py``, on the one-row-set plan of shared memory (154,764 B per CTA; the CFG
+kernels' two-row-set plan does not fit one block there and is refused, ROADMAP.md B4):
+
+43. panda kernels: the U-Net pass at B = 2 and 16 and the DDIM chain at B = 1 and 16 on [23]
+    and B = 1 on [23, 15, 7] against their plain versions (1e-4), and kernel 2's path,
+    ``bench_kernels``' panda rows (the U-Net pass and the 3-eval chain within 1e-4 of their
+    twins, the CFG chain's refusal recorded); the pass's and the chain's times.
+44. chain split: the bench's K = 1 row, its 10 episodes of 80 replans as one batched loop
+    through the DDIM chain (80 launches), and its K = 16, sel_h 32 row over the 10 episodes'
+    first 20 replans (20 launches at 160 samples; the eager arm's rollouts are launch-bound),
+    the counts set to 0 just before and read just after; the mean cost within
+    ``data/panda_yardstick.py``'s bounds of the JAX package's on the CPU; the first 2 replans
+    of each against the loop through the plain chain (controls 1e-4 in normalized units, the
+    rest 1e-3).
+45. panda episode: ``ddim_episode_panda`` (``PandaRbd`` and ``PandaContext`` of
+    ``plants.cuh`` inside the DDIM episode) at K = 1 and at K = 4 with selection horizon 16,
+    one launch per episode over the 10 episodes (20 launches), their mean costs within the
+    yardstick's bounds; against the plain twin (``panda_rbd_unrolled``) over 10 replans at
+    K = 1 and 2 at K = 4 on the same staged noise (phase 32's gate); K = 4 at selection
+    horizon 1 beside 16 for the time of the scorer's serial arm steps.
+
 It then prints the ``training`` JSON line, the ``ilqr`` JSON line, the
 ``distill`` JSON line, the ``kernels`` JSON line (rows 1 and 3 carry their bf16
 entries under ``bf16``, row 1 its H = 8 times under ``h8``, rows 3, 4 and 5 their
@@ -365,7 +390,8 @@ context 24 times under ``h48`` (phase 36) and ``cfg_episode_quadrotor`` a row
 of its own as a further entry of kernel 3, rows 1 and 2 their times on the
 quadrotor teacher, H = 48 and context 12, under ``h48_ctx12``, phases 38-40, and
 the U-Net pass at 4,096 rows and the CFG chain at 4,096 samples under ``b4096``,
-phases 41-42), the ``guided`` JSON line (phases 38-40), the ``making`` JSON line
+phases 41-42, rows 2 and 4 their panda times under ``panda`` and ``ddim_episode_panda`` a row of
+its own as a further entry of kernel 5, phases 43-45), the ``guided`` JSON line (phases 38-40), the ``making`` JSON line
 (phases 41-42), the
 ``phase_seconds`` line (each phase's seconds), the nvidia-smi line and,
 last, the result line. Any failure raises, and the exit code is then not 0.
@@ -406,6 +432,8 @@ from mpc_via_diffusion_model_tpu_torch.data import guided_yardstick as gys
 from mpc_via_diffusion_model_tpu_torch.data import onpolicy_scene_yardstick as oys
 from mpc_via_diffusion_model_tpu_torch.data import scene_making_yardstick as mys
 from mpc_via_diffusion_model_tpu_torch.data import scene_yardstick as sys_
+from mpc_via_diffusion_model_tpu_torch.data import panda_yardstick as pys
+from mpc_via_diffusion_model_tpu_torch.data.panda_stats import panda_stats
 from mpc_via_diffusion_model_tpu_torch.data.quadrotor_stats import quadrotor_stats
 from mpc_via_diffusion_model_tpu_torch.data.scene_stats import scene_stats
 from mpc_via_diffusion_model_tpu_torch.data.teacher_stats import teacher_stats
@@ -416,12 +444,15 @@ from mpc_via_diffusion_model_tpu_torch.dynamics import (cartpole_lmpc, cartpole_
                                                         cartpole_virtual_cost,
                                                         cartpole_virtual_swingup, quadrotor,
                                                         quadrotor_cost, theta_to_red_theta)
+from mpc_via_diffusion_model_tpu_torch.dynamics.arm import (make_panda_context, panda_cost,
+                                                            panda_rbd)
 from mpc_via_diffusion_model_tpu_torch.dynamics.base import rollout
 from mpc_via_diffusion_model_tpu_torch.dynamics.quadrotor import obstacle_cost
 from mpc_via_diffusion_model_tpu_torch.eval.timing import pipelined_time_fn
 from mpc_via_diffusion_model_tpu_torch.models import (LMPC_CONFIG, TEACHER_CONFIG, AMPCNet,
                                                       TemporalUnet, from_flax_params,
                                                       load_flagship, load_lmpc,
+                                                      load_panda_student,
                                                       load_quadrotor_student, load_scene_student,
                                                       load_student,
                                                       mlp_from_flax_params, to_flax_params)
@@ -432,13 +463,14 @@ from mpc_via_diffusion_model_tpu_torch.ops.fused_denoise import (
 from mpc_via_diffusion_model_tpu_torch.ops.fused_episode import (
     cfg_episode_bf16_max_active_clusters, cfg_episode_lmpc_max_active_clusters,
     cfg_episode_max_active_clusters, cfg_episode_quadrotor_max_active_clusters,
-    ddim_episode_max_active_clusters,
+    ddim_episode_max_active_clusters, ddim_episode_panda_max_active_clusters,
     ddim_episode_quadrotor_draw_max_active_clusters, ddim_episode_quadrotor_max_active_clusters,
     make_fused_cfg_episode, make_fused_ddim_episode)
 from mpc_via_diffusion_model_tpu_torch.ops.fused_unet import (fused_unet_max_active_clusters,
                                                               make_fused_unet)
 from mpc_via_diffusion_model_tpu_torch.ops.unet_pack import CLUSTER, pack_unet
-from mpc_via_diffusion_model_tpu_torch.scripts import (bench_kernels, bench_scene_student,
+from mpc_via_diffusion_model_tpu_torch.scripts import (bench_kernels, bench_panda_student,
+                                                       bench_scene_student,
                                                        conv_timing, distill_divergence,
                                                        flagship_lmpc, flagship_parity,
                                                        flagship_quadrotor, guided_divergence,
@@ -1050,7 +1082,7 @@ def distill_phases(dev) -> dict:
         f"{dys.AMPC_BOUNDS})")
 
     # each kernel's row at horizon 64, the keys of the kernels line
-    weights, meta_n = spacked.weights.numel(), spacked.meta.numel()
+    weights, meta_n = spacked.weights.numel(), spacked.metas[1].numel()
     film_w = sum(math.prod(shape) for name, (_, shape) in spacked.segments.items()
                  if name.split(".")[0] == "films")
     film_flops = 2 * 2 * int(spacked.films_w.shape[1]) * sum(
@@ -1065,7 +1097,7 @@ def distill_phases(dev) -> dict:
                      + sep.consts.numel() + tail)
     tpacked = tep.packed
     tep_flops = N_TEACHER_EP * tep.n_total * (2 * tpacked.flops_per_pass + film_flops)
-    tep_bytes = 4 * (tpacked.weights.numel() + tpacked.meta.numel() + tep.t_embs.numel()
+    tep_bytes = 4 * (tpacked.weights.numel() + tpacked.metas[1].numel() + tep.t_embs.numel()
                      + t_noise.numel() + tep.coefs.numel() + tep.consts.numel() + 5
                      + (N_TEACHER_EP + 1) * 5 + N_TEACHER_EP * 3)
     h64 = {
@@ -1310,7 +1342,7 @@ def quadrotor_phases(dev) -> dict:
         f"{ {k: round(v, 1) for k, v in rates.items()} } replans/s")
 
     # each row of the kernels line; bytes and operations of this run's inputs
-    weights, meta_n = qpacked.weights.numel(), qpacked.meta.numel()
+    weights, meta_n = qpacked.weights.numel(), qpacked.metas[1].numel()
     film_w = sum(math.prod(shape_) for name, (_, shape_) in qpacked.segments.items()
                  if name.split(".")[0] == "films")
     film_flops = 2 * 2 * int(qpacked.films_w.shape[1]) * sum(
@@ -1514,7 +1546,7 @@ def scene_phases(dev) -> dict:
         f"chained episodes); launches {q_launches}")
 
     # each row of the kernels line; bytes and operations of this run's inputs
-    weights, meta_n = spacked.weights.numel(), spacked.meta.numel()
+    weights, meta_n = spacked.weights.numel(), spacked.metas[1].numel()
     film_w = sum(math.prod(shape_) for name, (_, shape_) in spacked.segments.items()
                  if name.split(".")[0] == "films")
     film_flops = 2 * 2 * int(spacked.films_w.shape[1]) * sum(
@@ -1773,7 +1805,7 @@ def guided_phases(dev) -> dict:
 
     # the kernels line's entries at H = 48, context 12: the chain at B = 1 (one replan), the pass
     # at B = 2 (backbone only, one pass), this run's inputs
-    weights, meta_n = tpacked.weights.numel(), tpacked.meta.numel()
+    weights, meta_n = tpacked.weights.numel(), tpacked.metas[1].numel()
     seg = lambda *prefixes: sum(math.prod(shape_) for name, (_, shape_) in tpacked.segments.items()
                                 if name.split(".")[0] in prefixes)
     ch = chains[1]
@@ -1994,7 +2026,7 @@ def making_phases(dev, work: Path) -> dict:
     # the kernels line's entries at this slice's batch sizes, this run's inputs: the U-Net pass
     # at 2 MK_FULL_B rows (backbone only, one pass), the chain at n_rows LABEL_K samples (one
     # replan, context 24)
-    weights, meta_n = tpacked.weights.numel(), tpacked.meta.numel()
+    weights, meta_n = tpacked.weights.numel(), tpacked.metas[1].numel()
     seg = lambda pk, *prefixes: sum(math.prod(shape_) for name, (_, shape_) in pk.segments.items()
                                     if name.split(".")[0] in prefixes)
     un_flops = 2 * MK_FULL_B * (tpacked.flops_per_pass - tpacked.flops_final_1x1)
@@ -2003,7 +2035,7 @@ def making_phases(dev, work: Path) -> dict:
                     + u_in[0].numel() + 2 * MK_FULL_B * 48 * tpacked.model.unet_input_dim)
     ch = labeler.chain
     ch_flops = spacked.flops_per_pass * 2 * ch.n_total * ch.n_samples
-    ch_bytes = 4 * (spacked.weights.numel() - seg(spacked, "films") + spacked.meta.numel()
+    ch_bytes = 4 * (spacked.weights.numel() - seg(spacked, "films") + spacked.metas[1].numel()
                     + ch.films(ctx_l).numel() + l_noise.numel() + ch.coefs.numel()
                     + ch.n_samples * 48 * 4)
     common = {"library_ms": None, "horizon": 48}
@@ -2030,6 +2062,272 @@ def making_phases(dev, work: Path) -> dict:
                    "toy": {"pairs": toy_got["pairs"], "gaps": oys.gaps(toy_got),
                            "iteration": toy["iterations"][0]},
                    "nvidia_smi": nvidia_smi()}}
+
+
+# The panda arm's student (phases 43-45; the JAX package's scripts/bench_panda_student.py): the
+# on-policy 1-eval student at horizon 128 with 7 channels and a 20-dim context (the shifted
+# 14-state's q, qd and the end effector's position and velocity, make_panda_context), the
+# rigid-body arm (dynamics/arm.py) and data/panda_stats.py, on the one-row-set plan of shared
+# memory (154,764 B per CTA for the pass and the chain; the two-row-set plan, 304,780 B, does not
+# fit one block). Phase 43 holds kernels 2 and 4 at that shape to their plain versions (the U-Net
+# pass at P_UNET_B rows, the DDIM chain at B = 1 and 16 on [23] and at B = 1 on [23, 15, 7]) and
+# runs bench_kernels' panda rows, kernel 2's path; phase 44 the chain split's K = 1 row over its
+# 10 episodes (80 replans, one batched loop) and its K = 16, sel_h 32 row over the 10 episodes'
+# first P_K16_STEPS replans (the eager arm's rollouts are launch-bound: the full row is
+# scripts/bench_panda_student.py's), each within data/panda_yardstick.py's bounds, and the first
+# P_CHECK replans of each against the loop through the plain chain; phase 45 the episode kernel's
+# panda entry at K = 1 and K = 4 (sel_h 16) over the 10 episodes within the bounds, against its
+# plain twin over P_EP_CHECK (K = 1) and P_EP4_CHECK (K = 4) replans on the same staged noise, and
+# K = 4 at selection horizon 1 beside 16, whose difference is 15 serial arm steps of the scorer.
+PANDA_STUDENT = ROOT / "artifacts" / "onpolicy_panda" / "student_1eval.pkl"
+P_UNET_B, P_K16, P_SEL_H, P_K16_STEPS = (2, 16), 16, 32, 20
+# (3, 20 and 4 took phases 43-45 26.1 s on an H100 and 45.2 s beside a host ~2.4x slower, the
+# plain K = 4 episode 4.0 s per replan there; hence 2, 10 and 2)
+P_CHECK, P_EP_CHECK, P_EP4_CHECK = 2, 10, 2
+# fp32 operations of one PandaRbd::step (plants.cuh), counted from its code: eight RNE passes of
+# 1,596 (7 outward links of 174: eight cross products of 9, five 3 x 3 products of 15, the adds
+# and the mass's 3; then 6 inward links of 42 and 7 of 18), the links' 77, q's 7, the
+# symmetrisation's 98, the right side's 21, the Cholesky factor's 140, the two solves' 98 and the
+# Euler step's 28 (sin and cos counted as one each); the context's FK is left out
+PANDA_STEP_FLOPS = 8 * 1596 + 77 + 7 + 98 + 21 + 140 + 98 + 28
+
+
+def panda_phases(dev) -> dict:
+    """Phases 43-45 on ``dev``: the panda student's serving path (kernels 2 and 4 at horizon
+    128, the chain split's rows, the episode kernel's panda entry) against the plain versions
+    and the JAX package's yardstick. Returns each kernel's row of the kernels line: ``panda``
+    under the U-Net pass and the DDIM chain, ``ddim_episode_panda`` a row of its own."""
+    dev = resolve_device(dev)
+    schedule = make_schedule("exponential", T)
+    ins, cond = (st.to(dev) for st in panda_stats())
+    u_unit = 0.5 * (ins.maxs - ins.mins)
+    x0 = torch.from_numpy(pys.x0()).to(dev)
+    xs = x0.expand(pys.N_SEEDS, 14)
+    gen = torch.Generator(device=dev).manual_seed(43)
+    # 43. kernels 2 and 4 at the panda shape against their plain versions, and kernel 2's path:
+    # bench_kernels' panda rows
+    t0 = time.perf_counter()
+    student = load_panda_student(PANDA_STUDENT, device=dev)
+    unets = {b: make_fused_unet(student, batch_size=b, device=dev) for b in P_UNET_B}
+    ppacked = unets[2].packed
+    chains = {(tuple(times), b): make_fused_ddim_chain(ppacked, schedule, times, n_samples=b,
+                                                       device=dev)
+              for times, b in ((GRID, 1), (GRID, P_K16), (GRID3, 1))}
+    unet_err, unet_in = 0.0, {}
+    for b, un in unets.items():
+        args = (torch.randn((b, pys.H, 7), generator=gen, device=dev),
+                torch.full((b,), GRID[0], dtype=torch.long, device=dev),
+                torch.rand((b, 20), generator=gen, device=dev) * 2 - 1,
+                torch.zeros((b, 1), device=dev))
+        got, want = un.kernel(*args), un.plain(*args)
+        torch.cuda.synchronize()
+        unet_err = max(unet_err, assert_close(f"fused_unet H=128 B={b}", got, want, UNET_TOL))
+        unet_in[b] = args
+    ctx0 = normalize(cond, make_panda_context()(x0))[None]
+    chain_err, chain_in = 0.0, {}
+    for (times, b), ch in chains.items():
+        for ctx in (ctx0.expand(b, 20).contiguous(),
+                    torch.rand((b, 20), generator=gen, device=dev) * 2 - 1):
+            x_init = torch.randn(ch.noise_shape, generator=gen, device=dev)
+            got, want = ch.kernel(ctx, x_init), ch.plain(ctx, x_init)
+            torch.cuda.synchronize()
+            chain_err = max(chain_err, assert_close(f"ddim_chain H=128 {list(times)} B={b}", got,
+                                                    want, CHAIN_TOL))
+            chain_in[times, b] = (ctx, x_init)
+    bench_rows = bench_kernels.bench_panda(dev, quick=True)
+    torch.cuda.synchronize()
+    unet_launches = next(r["launches"] for r in bench_rows if r["kernel"] == "unet_forward")
+    if not unet_launches or any(r["kernel_us"] is None for r in bench_rows
+                                if r["kernel"] != "cfg_chain_30step"):
+        raise RuntimeError(f"bench_kernels' panda rows: {bench_rows}")
+    un2 = unets[2]
+    films2 = un2.films(student.conditioning(*unet_in[2][1:])).contiguous()
+    y2 = torch.empty((2, pys.H, student.unet_input_dim), device=dev)
+    unet_launch_ms = cuda_ms(lambda: un2._launch(un2.cluster.weights, films2, unet_in[2][0], y2),
+                             n=20, warmup=3)
+    unet_ms = cuda_ms(lambda: un2.kernel(*unet_in[2]), n=20, warmup=3)
+    unet16_ms = cuda_ms(lambda: unets[16].kernel(*unet_in[16]), n=10, warmup=2)
+    unet_plain_ms = cuda_ms(lambda: un2.plain(*unet_in[2]), n=10, warmup=2)
+    ch1 = chains[tuple(GRID), 1]
+    ch_ms = cuda_ms(lambda: ch1.kernel(*chain_in[tuple(GRID), 1]), n=20, warmup=3)
+    ch16_ms = cuda_ms(lambda: chains[tuple(GRID), P_K16].kernel(*chain_in[tuple(GRID), P_K16]),
+                      n=10, warmup=2)
+    ch3_ms = cuda_ms(lambda: chains[tuple(GRID3), 1].kernel(*chain_in[tuple(GRID3), 1]), n=10,
+                     warmup=2)
+    ch_plain_ms = cuda_ms(lambda: ch1.plain(*chain_in[tuple(GRID), 1]), n=10, warmup=2)
+    log("panda-kernels", t0, f"H=128, 7 channels, context 20, the one-row-set plan "
+        f"({un2.smem_bytes} B per CTA; two row-sets {ppacked.chain_smem_bytes(2)} B): fused_unet "
+        f"max |kernel - plain| {unet_err:.3e} at B in {P_UNET_B}, ddim_chain {chain_err:.3e} over "
+        f"2 contexts at B = 1 and {P_K16} on {GRID} and B = 1 on {GRID3} (tol {CHAIN_TOL:.0e}); "
+        f"fused_unet at B=2 {unet_launch_ms:.4f} ms by launch alone, {unet_ms:.4f} by whole call, "
+        f"{unet16_ms:.4f} at B=16 (plain {unet_plain_ms:.3f}); ddim_chain {ch_ms:.4f} ms at B=1, "
+        f"{ch16_ms:.4f} at B={P_K16}, {ch3_ms:.4f} on {GRID3} (plain {ch_plain_ms:.3f}); "
+        f"bench_kernels' panda rows: " + "; ".join(
+            f"{r['kernel']} " + (f"refused ({r['refused'][:60]}...)" if "refused" in r else
+                                 f"{r['max_abs_err']:.3e}, {r['kernel_us']:.1f} us (plain "
+                                 f"{r['plain_us']:.1f})") for r in bench_rows)
+        + f"; fused_unet launches there {unet_launches}")
+
+    # 44. the chain split's rows (the JAX script's XLA rows): K = 1 over the 10 episodes, K = 16
+    # at sel_h 32 over their first P_K16_STEPS replans, one batched loop each
+    t0 = time.perf_counter()
+    loop1, chain1 = bench_panda_student.chain_loop(student, 1, None, pys.N_STEPS, pys.N_SEEDS, dev)
+    loop16, chain16 = bench_panda_student.chain_loop(student, P_K16, P_SEL_H, P_K16_STEPS,
+                                                     pys.N_SEEDS, dev)
+    noise1 = bench_panda_student.staged_noise(pys.N_SEEDS, pys.N_STEPS, 1, dev, 44)
+    noise16 = bench_panda_student.staged_noise(pys.N_SEEDS, P_K16_STEPS, P_K16, dev, 45)
+    reset(chain1, chain16)
+    t1 = time.perf_counter()
+    res1 = loop1(xs, noise1)
+    torch.cuda.synchronize()
+    loop1_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    res16 = loop16(xs, noise16)
+    torch.cuda.synchronize()
+    loop16_s = time.perf_counter() - t1
+    split_launches = counts(chain1, chain16)
+    if split_launches != [(pys.N_STEPS, 0), (P_K16_STEPS, 0)]:
+        raise RuntimeError(f"panda chain split: counts {split_launches}, expected "
+                           f"[({pys.N_STEPS}, 0), ({P_K16_STEPS}, 0)]")
+    costs1 = res1.stage_costs.double().sum(-1).cpu().numpy()
+    prefix16 = res16.stage_costs.double().sum(-1).cpu().numpy()
+    for name, res in (("K=1", res1), (f"K={P_K16}", res16)):
+        if not all(torch.isfinite(getattr(res, n)).all() for n in ("x_track", "u_track")):
+            raise RuntimeError(f"panda chain split {name}: non-finite tracks")
+    gaps1, gaps16 = pys.gaps("k1", costs1), pys.gaps("k16_selh32", None, prefix16)
+    if not (pys.within("k1", costs1) and pys.within("k16_selh32", None, prefix16)):
+        raise RuntimeError(f"panda chain split: gaps from the yardstick K=1 {gaps1}, K={P_K16} "
+                           f"{gaps16}; bounds {pys.BOUNDS['k1']}, {pys.BOUNDS['k16_selh32']}")
+    split_err = 0.0
+    for name, loop_kw, res, noise in (
+            ("K=1", dict(k=1, sel_h=None, chain=chain1), res1, noise1),
+            (f"K={P_K16}", dict(k=P_K16, sel_h=P_SEL_H, chain=chain16), res16, noise16)):
+        plain_loop = make_closed_loop(
+            GaussianDiffusion(schedule), student, ins, cond, panda_rbd(), panda_cost(),
+            horizon=pys.H, n_steps=P_CHECK, n_candidates=loop_kw["k"],
+            state_to_condition=make_panda_context(), sample_override=loop_kw["chain"].plain,
+            selection_horizon=loop_kw["sel_h"], noise_shape=(loop_kw["k"], pys.H, 7), device=dev)
+        ref = plain_loop(xs, noise[:, :P_CHECK])
+        for n in ("x_track", "u_track", "u_horizons", "stage_costs"):
+            got = getattr(res, n)
+            split_err = max(split_err, student_close(
+                f"panda chain loop {name} {n}", got[:, :getattr(ref, n).shape[1]],
+                getattr(ref, n), u_unit))
+    log("panda-chain-split", t0, f"{pys.N_SEEDS} episodes from x0 = 0.3 rad as one batched loop "
+        f"through ddim_chain (launches {split_launches}): K=1 {pys.N_STEPS} replans, mean cost "
+        f"{costs1.mean():.6f} (yardstick {pys.MEAN10['k1']:.6f}, gaps {gaps1}, bounds "
+        f"{pys.BOUNDS['k1']}); K={P_K16} sel_h {P_SEL_H} the first {P_K16_STEPS} replans, mean "
+        f"cost {prefix16.mean():.6f} (yardstick {np.mean(pys.PREFIX_COSTS['k16_selh32']):.6f}, "
+        f"gaps {gaps16}, bounds {pys.BOUNDS['k16_selh32']}); the first {P_CHECK} replans of each "
+        f"against the loop through the plain chain {split_err:.3e} (controls {CHAIN_TOL:.0e} in "
+        f"normalized units, the rest {TRACK_TOL:.0e}); {1e3 * loop1_s / pys.N_STEPS:.3f} ms per "
+        f"replan at K=1 ({pys.N_SEEDS} episodes), {1e3 * loop16_s / P_K16_STEPS:.3f} at K={P_K16} by the "
+        "host clock")
+
+    # 45. the episode kernel's panda entry: K = 1 and K = 4 (sel_h 16) over the 10 episodes, each
+    # one launch, then against its plain twin, and the scorer's serial arm steps
+    t0 = time.perf_counter()
+    ep = lambda k, sel_h, n: bench_panda_student.episode(student, k, sel_h, n, dev)
+    ep1, ep4 = ep(1, None, pys.N_STEPS), ep(4, 16, pys.N_STEPS)
+    noise4 = bench_panda_student.staged_noise(pys.N_SEEDS, pys.N_STEPS, 4, dev, 46)
+    reset(ep1, ep4)
+    out1 = [ep1.kernel(x0, noise1[i]) for i in range(pys.N_SEEDS)]
+    out4 = [ep4.kernel(x0, noise4[i]) for i in range(pys.N_SEEDS)]
+    torch.cuda.synchronize()
+    ep_launches = counts(ep1, ep4)
+    if ep_launches != [(pys.N_SEEDS, 0), (pys.N_SEEDS, 0)]:
+        raise RuntimeError(f"panda episode: counts {ep_launches}, expected {pys.N_SEEDS} each")
+    ecosts1 = np.array([float(o[2].double().sum()) for o in out1])
+    ecosts4 = np.array([float(o[2].double().sum()) for o in out4])
+    if not all(torch.isfinite(o[0]).all() for o in out1 + out4):
+        raise RuntimeError("panda episode: non-finite tracks")
+    egaps1, egaps4 = pys.gaps("episode", ecosts1), pys.gaps("episode_k4_selh16", ecosts4)
+    if not (pys.within("episode", ecosts1) and pys.within("episode_k4_selh16", ecosts4)):
+        raise RuntimeError(f"panda episode: gaps from the yardstick K=1 {egaps1}, K=4 {egaps4}; "
+                           f"bounds {pys.BOUNDS['episode']}, {pys.BOUNDS['episode_k4_selh16']}")
+    vs_loop = float((out1[0][0] - res1.x_track[0]).abs().max())  # the other plant: recorded
+    ties, ep_err, plain_ms = [], 0.0, {}
+    checks = {}
+    for k, sel_h, n in ((1, None, P_EP_CHECK), (4, 16, P_EP4_CHECK)):
+        e = ep(k, sel_h, n)
+        nz = (noise1 if k == 1 else noise4)[0, :n]
+        got = e.kernel(x0, nz)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        want = e.plain(x0, nz)
+        torch.cuda.synchronize()
+        plain_ms[k] = 1e3 * (time.perf_counter() - t1)
+        ep_err = max(ep_err, episode_gate(f"ddim_episode_panda K={k}", e, got, want, u_unit, ties))
+        checks[k] = (e, nz)
+    e1_ms = cuda_ms(lambda: checks[1][0].kernel(x0, checks[1][1]), n=3, warmup=1)
+    e4_ms = cuda_ms(lambda: checks[4][0].kernel(x0, checks[4][1]), n=3, warmup=1)
+    full1_ms = cuda_ms(lambda: ep1.kernel(x0, noise1[0]), n=2, warmup=1)
+    full4_ms = cuda_ms(lambda: ep4.kernel(x0, noise4[0]), n=2, warmup=1)
+    sel1 = ep(4, 1, P_EP4_CHECK)
+    sel1_ms = cuda_ms(lambda: sel1.kernel(x0, checks[4][1]), n=3, warmup=1)
+    arm_step_ms = (e4_ms - sel1_ms) / P_EP4_CHECK / 15  # 15 more serial steps per replan
+    log("panda-episode", t0, f"ddim_episode_panda over {pys.N_SEEDS} episodes (launches "
+        f"{ep_launches}): K=1 mean cost {ecosts1.mean():.6f} (yardstick "
+        f"{pys.MEAN10['episode']:.6f}, gaps {egaps1}, bounds {pys.BOUNDS['episode']}), K=4 sel_h "
+        f"16 {ecosts4.mean():.6f} (yardstick {pys.MEAN10['episode_k4_selh16']:.6f}, gaps {egaps4}, "
+        f"bounds {pys.BOUNDS['episode_k4_selh16']}); against the plain twin over {P_EP_CHECK} "
+        f"(K=1) and {P_EP4_CHECK} (K=4) replans {ep_err:.3e} (controls {CHAIN_TOL:.0e} in "
+        f"normalized units, the rest {TRACK_TOL:.0e}); K=1 episode vs the chain split's first "
+        f"episode (panda_rbd_unrolled against panda_rbd, recorded) {vs_loop:.3e}; "
+        f"{full1_ms / pys.N_STEPS:.4f} ms per replan at K=1, {full4_ms / pys.N_STEPS:.4f} at K=4 "
+        f"(plain {plain_ms[1] / P_EP_CHECK:.3f} and {plain_ms[4] / P_EP4_CHECK:.3f} by the host "
+        f"clock); one serial arm step of the scorer {1e3 * arm_step_ms:.2f} us (K=4 at sel_h 16 "
+        f"against sel_h 1); near-ties (not gated): {len(ties)}: " + " | ".join(ties))
+
+    # each row of the kernels line; bytes and operations of this run's inputs
+    weights, meta_n = ppacked.weights.numel(), ppacked.metas[1].numel()
+    seg = lambda *prefixes: sum(math.prod(shape) for name, (_, shape) in ppacked.segments.items()
+                                if name.split(".")[0] in prefixes)
+    film_flops = 2 * 2 * int(ppacked.films_w.shape[1]) * sum(
+        rb.cond_mlp[1].out_features for rb in student.res_blocks())
+    unet_flops = 2 * (ppacked.flops_per_pass - ppacked.flops_final_1x1)
+    unet_bytes = 4 * (weights - seg("films", "final1x1") + meta_n + films2.numel()
+                      + unet_in[2][0].numel() + y2.numel())
+    ctx1, xi1 = chain_in[tuple(GRID), 1]
+    ch_flops = ppacked.flops_per_pass * ch1.n_total
+    ch_bytes = 4 * (weights - seg("films") + meta_n + ch1.films(ctx1).numel() + xi1.numel()
+                    + ch1.coefs.numel() + xi1.numel())
+    e1 = checks[1][0]
+    e_flops = P_EP_CHECK * (e1.n_total * (ppacked.flops_per_pass + film_flops / 2)
+                            + PANDA_STEP_FLOPS)
+    e_bytes = 4 * (weights + meta_n + e1.t_embs.numel() + checks[1][1].numel() + e1.coefs.numel()
+                   + e1.consts.numel() + 14 + (P_EP_CHECK + 1) * 14 + P_EP_CHECK * 9)
+    e4 = checks[4][0]
+    e4_bound = bound(P_EP4_CHECK * (4 * e4.n_total * (ppacked.flops_per_pass + film_flops / 2)
+                                    + (4 * 16 + 1) * PANDA_STEP_FLOPS),
+                     4 * (weights + meta_n + checks[4][1].numel()))["bound_ms"]
+    panda = {"model": "onpolicy_panda", "horizon": pys.H, "context_dim": 20}
+    return {
+        "fused_unet": {"launches": unet_launches, "max_abs_err": unet_err, "ms": unet_ms,
+                       "launch_ms": unet_launch_ms, "plain_ms": unet_plain_ms,
+                       **bound(unet_flops, unet_bytes), "library_ms": None, "batch": 2,
+                       "b16_ms": unet16_ms, "smem_bytes": un2.smem_bytes, **panda},
+        "ddim_chain": {"launches": split_launches[0][0] + split_launches[1][0],
+                       "max_abs_err": chain_err, "ms": ch_ms, "plain_ms": ch_plain_ms,
+                       **bound(ch_flops, ch_bytes), "library_ms": None, "times": GRID,
+                       "b16_ms": ch16_ms, "grid3_ms": ch3_ms, "smem_bytes": ch1.smem_bytes,
+                       "k1_cost_mean10": float(costs1.mean()), "k1_gaps": gaps1,
+                       f"k{P_K16}_prefix{P_K16_STEPS}_cost_mean10": float(prefix16.mean()),
+                       f"k{P_K16}_gaps": gaps16, "k1_ms_per_replan": 1e3 * loop1_s / pys.N_STEPS,
+                       f"k{P_K16}_ms_per_replan": 1e3 * loop16_s / P_K16_STEPS, **panda},
+        "row": {"name": "ddim_episode_panda", "route": "cuda",
+                "source": "mpc_via_diffusion_model_tpu_torch/ops/csrc/ddim_episode_panda.cu",
+                "replaces": "mpc_via_diffusion_model_tpu/ops/fused_episode.py:142",
+                "entry_of": "ddim_episode", "plant": "panda_rbd", "scorer": "quadratic",
+                "condition": "panda_context", "launches": ep_launches[0][0] + ep_launches[1][0],
+                "max_abs_err": ep_err, "ms": e1_ms, "plain_ms": plain_ms[1],
+                **bound(e_flops, e_bytes), "library_ms": None, "times": GRID,
+                "replans": P_EP_CHECK, "ms_per_replan": full1_ms / pys.N_STEPS,
+                "k4_ms_per_replan": full4_ms / pys.N_STEPS, "k4_bound_ms": e4_bound,
+                "k4_check_ms": e4_ms, "k4_plain_ms": plain_ms[4], "arm_step_us": 1e3 * arm_step_ms,
+                "cost_mean10": float(ecosts1.mean()), "gaps": egaps1,
+                "k4_cost_mean10": float(ecosts4.mean()), "k4_gaps": egaps4,
+                "vs_chain_split_max_abs_err": vs_loop, **panda}}
 
 
 SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize")
@@ -2158,25 +2456,31 @@ def main() -> None:
         print(f"  {name}: nvcc {b.seconds:.3f}s -> {b.path.name}\n{b.report}", flush=True)
     # the cluster kernels: their registers and spills (from cuobjdump when the build was reused),
     # and how many of their clusters fit at once at full width
+    # each kernel's plan: the CFG kernels' two row-sets, the U-Net pass's and the DDIM kernels' one
     packed_cpu = pack_unet(load_flagship(FLAGSHIP, device="cpu"), "cpu")
-    ep_smem = [packed_cpu.episode_smem_bytes(k) for k in (1, K4)]
-    lmpc_smem = [pack_unet(load_lmpc(LMPC, device="cpu"), "cpu").episode_smem_bytes(k)
+    panda_cpu = pack_unet(load_panda_student(PANDA_STUDENT, device="cpu"), "cpu")
+    ep_smem = [packed_cpu.episode_smem_bytes(k, 2) for k in (1, K4)]
+    sep_smem = [packed_cpu.episode_smem_bytes(k, 1) for k in (1, K4)]
+    lmpc_smem = [pack_unet(load_lmpc(LMPC, device="cpu"), "cpu").episode_smem_bytes(k, 2)
                  for k in (1, K8)]
     quad_smem = [pack_unet(load_quadrotor_student(QUADROTOR_STUDENT, device="cpu"),
-                           "cpu").episode_smem_bytes(k) for k in (1, 16)]
+                           "cpu").episode_smem_bytes(k, 1) for k in (1, 16)]
     scene_smem = [pack_unet(load_scene_student(sys_.STUDENT, device="cpu"),
-                            "cpu").episode_smem_bytes(k) for k in (1, 16)]
+                            "cpu").episode_smem_bytes(k, 2) for k in (1, 16)]
+    panda_smem = [panda_cpu.episode_smem_bytes(k, 1) for k in (1, K4, 16)]
+    one_smem = [packed_cpu.chain_smem_bytes(1), panda_cpu.chain_smem_bytes(1)]
     cluster_kernels = {  # entry: (occupancy query, shared memory per CTA of each launch shape)
-        "cfg_chain": (cfg_chain_max_active_clusters, [packed_cpu.smem_bytes]),
-        "cfg_chain_bf16": (cfg_chain_bf16_max_active_clusters, [packed_cpu.smem_bytes]),
-        "fused_unet": (fused_unet_max_active_clusters, [packed_cpu.smem_bytes]),
+        "cfg_chain": (cfg_chain_max_active_clusters, [packed_cpu.chain_smem_bytes(2)]),
+        "cfg_chain_bf16": (cfg_chain_bf16_max_active_clusters, [packed_cpu.chain_smem_bytes(2)]),
+        "fused_unet": (fused_unet_max_active_clusters, one_smem),
         "cfg_episode": (cfg_episode_max_active_clusters, ep_smem),
         "cfg_episode_bf16": (cfg_episode_bf16_max_active_clusters, ep_smem),
-        "ddim_chain": (ddim_chain_max_active_clusters, [packed_cpu.smem_bytes]),
-        "ddim_episode": (ddim_episode_max_active_clusters, ep_smem),
+        "ddim_chain": (ddim_chain_max_active_clusters, one_smem),
+        "ddim_episode": (ddim_episode_max_active_clusters, sep_smem),
         "cfg_episode_lmpc": (cfg_episode_lmpc_max_active_clusters, lmpc_smem),
         "ddim_episode_quadrotor": (ddim_episode_quadrotor_max_active_clusters, quad_smem),
-        "cfg_episode_quadrotor": (cfg_episode_quadrotor_max_active_clusters, scene_smem)}
+        "cfg_episode_quadrotor": (cfg_episode_quadrotor_max_active_clusters, scene_smem),
+        "ddim_episode_panda": (ddim_episode_panda_max_active_clusters, panda_smem)}
     def resources(entry: str):
         """(registers, spills) of each kernel of an entry, from nvcc's report or, when the
         build was reused, cuobjdump's: the bf16 entries (``<source>_bf16``) are their
@@ -2223,14 +2527,18 @@ def main() -> None:
     lines.append(f"fused_conv registers {conv_regs}, spill stores and loads (or local bytes) "
                  f"{conv_spills}")
     log("build", t0, f"{len(built)} libraries; " + "; ".join(lines)
-        + f" (the chains' and the pass's plan at every batch; episodes at K = 1 and K = {K4}, "
-        f"cfg_episode_lmpc at K = 1 and K = {K8} on the LMPC model, ddim_episode_quadrotor at "
-        "K = 1 and 16 on the quadrotor student, cfg_episode_quadrotor at K = 1 and 16 on the "
-        "scene student; the _bf16 entries are the bf16 instantiations of "
+        + f" (the chains' and the pass's plan at every batch: the CFG chain's on two row-sets, "
+        f"the pass's and the DDIM chain's on one, on the flagship and on the panda student; "
+        f"episodes at K = 1 and K = {K4}, the CFG episode's plan on two row-sets, the DDIM "
+        f"episode's on one; cfg_episode_lmpc at K = 1 and K = {K8} on the LMPC model, "
+        "ddim_episode_quadrotor at K = 1 and 16 on the quadrotor student, cfg_episode_quadrotor "
+        f"at K = 1 and 16 on the scene student, ddim_episode_panda at K = 1, {K4} and 16 on the "
+        "panda student; the _bf16 entries are the bf16 instantiations of "
         "cfg_chain.cu and cfg_episode.cu, cfg_episode_lmpc is cfg_episode.cu compiled for the "
         "linear cart-pole, cfg_episode_quadrotor cfg_episode.cu for the quadrotor with the "
         "context map and the safety-first scorer, ddim_episode_quadrotor ddim_episode.cuh for the "
-        "quadrotor, its "
+        "quadrotor, ddim_episode_panda ddim_episode.cuh for the arm with its context map, "
+        "ddim_episode_quadrotor's "
         "registers those of its staged and drawing instantiations and of the draw's two test "
         "kernels)")
 
@@ -2637,7 +2945,7 @@ def main() -> None:
     t0 = time.perf_counter()
     wrappers.append(fused_conv1d_gn_mish)
     reset(*wrappers)
-    bench_rows = bench_kernels.main(["--quick"])
+    bench_rows = bench_kernels.main(["--quick", "--skip-panda"])  # the panda rows: phase 43
     torch.cuda.synchronize()
     conv_launches = fused_conv1d_gn_mish.launches
     conv_rows = [r for r in bench_rows if r["kernel"] == "conv1d_gn_mish"]
@@ -3030,6 +3338,7 @@ def main() -> None:
     shutil.rmtree(making_dir, ignore_errors=True)
     making_line = making_phases(dev, making_dir)
     shutil.rmtree(making_dir, ignore_errors=True)
+    panda_line = panda_phases(dev)
 
     packed = chain.packed
     seg = lambda *prefixes: sum(math.prod(shape) for name, (_, shape) in packed.segments.items()
@@ -3037,7 +3346,7 @@ def main() -> None:
     weights = packed.weights.numel()
     backbone_w = weights - seg("films", "final1x1")
     chain_weights = weights - seg("films")
-    meta_n = packed.meta.numel()
+    meta_n = packed.metas[1].numel()
     # cfg_chain: one replan, B = 1 (conv FLOPs of both row-sets at every step)
     chain_flops = packed.flops_per_pass * 2 * chain.n_samples * n_total
     chain_bytes = 4 * (chain_weights + meta_n + chain.films(ctx).numel() + noise.numel()
@@ -3059,7 +3368,7 @@ def main() -> None:
                     + ep1.consts.numel() + 5 + (N_STEPS + 1) * 5 + N_STEPS * 3)
     # ddim_chain: one replan on the student's grid, B = 1 (one row-set per step); the student
     # has the flagship's architecture, so the weight counts above are its own
-    if spacked.weights.numel() != weights or spacked.meta.numel() != meta_n:
+    if spacked.weights.numel() != weights or spacked.metas[1].numel() != meta_n:
         raise RuntimeError("the student's packed U-Net differs in size from the flagship's")
     schain_flops = spacked.flops_per_pass * schain.n_samples * schain.n_total
     schain_bytes = 4 * (chain_weights + meta_n + schain.films(sctx).numel() + sx_init.numel()
@@ -3146,7 +3455,7 @@ def main() -> None:
     # the LMPC workload: cfg_episode_lmpc, a further entry of kernel 3, at phase 22's 10-replan
     # K = 1 episode; the CFG chain at horizon 8 (under row 1's "h8"), one replan at B = 1
     lpacked = lchain.packed
-    l_weights, l_meta = lpacked.weights.numel(), lpacked.meta.numel()
+    l_weights, l_meta = lpacked.weights.numel(), lpacked.metas[1].numel()
     l_film_w = sum(math.prod(shape) for name, (_, shape) in lpacked.segments.items()
                    if name.split(".")[0] == "films")
     l_film_flops = 2 * 2 * int(lpacked.films_w.shape[1]) * sum(
@@ -3202,6 +3511,13 @@ def main() -> None:
     for i, name in ((0, "cfg_chain"), (1, "fused_unet")):
         rows[i]["b4096"] = {"name": name, "route": "cuda", "source": rows[i]["source"],
                             "replaces": rows[i]["replaces"], **making_line[name]}
+    # the panda student at horizon 128 (phases 43-45): the U-Net pass and the DDIM chain under
+    # their rows' "panda", the arm's episode entry a row of its own
+    for i, name in ((1, "fused_unet"), (3, "ddim_chain")):
+        rows[i]["panda"] = {"name": name, "route": "cuda", "source": rows[i]["source"],
+                            "replaces": rows[i]["replaces"], **panda_line[name]}
+    rows.append({**panda_line["row"], "cluster_ctas": CLUSTER,
+                 **cluster_info["ddim_episode_panda"]})
     rows[2]["bench_closed_loop_control_hz"] = bench_line["value"]
     rows[2]["bench_pipelined_hz"] = bench_line["pipelined_hz"]
     print(json.dumps({"training": training_line}), flush=True)

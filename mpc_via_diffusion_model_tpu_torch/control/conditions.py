@@ -5,8 +5,10 @@ kernel; CUDA cannot trace Python, so each map the CUDA episodes run is a
 class here with its device counterpart in ``ops/csrc/plants.cuh``: ``kind``
 names that counterpart (``ops/fused_episode.py::condition_kind``) and
 ``device_consts`` are the float32 numbers it reads from the episode's consts
-table, as ``SafetyFirstCost`` carries its scorer's. Any other callable still
-runs in ``make_closed_loop`` and in the episodes' plain versions.
+table, as ``SafetyFirstCost`` carries its scorer's: ``ConcatFeatures``
+here, and the panda arm's ``PandaContext`` (``dynamics/arm.py``, beside
+the forward kinematics it runs). Any other callable still runs in
+``make_closed_loop`` and in the episodes' plain versions.
 """
 from __future__ import annotations
 
@@ -14,7 +16,9 @@ from typing import Tuple
 
 import torch
 
-__all__ = ["ConcatFeatures"]
+from ..dynamics.arm import PandaContext
+
+__all__ = ["ConcatFeatures", "PandaContext"]
 
 
 class ConcatFeatures:

@@ -1,3 +1,7 @@
+from .arm import (PANDA_READY_POSE, PandaContext, make_panda_context, panda_context, panda_cost,
+                  panda_ee_velocity, panda_fk, panda_inverse_dynamics,
+                  panda_inverse_dynamics_unrolled, panda_link_transforms, panda_mass_matrix,
+                  panda_rbd, panda_rbd_unrolled, panda_surrogate)
 from .base import Plant, QuadraticCost, reference_mpc_cost, rollout, rollout_with_cost
 from .cartpole import (cartpole_lmpc, cartpole_lmpc_cost, cartpole_virtual_collect_cost,
                        cartpole_virtual_cost, cartpole_virtual_stabilized,
@@ -5,10 +9,13 @@ from .cartpole import (cartpole_lmpc, cartpole_lmpc_cost, cartpole_virtual_colle
 from .quadrotor import (SafetyFirstCost, obstacle_cost, obstacle_cost_single, quadrotor,
                         quadrotor_cost)
 
-__all__ = ["PLANTS", "Plant", "QuadraticCost", "SafetyFirstCost", "cartpole_lmpc",
+__all__ = ["PANDA_READY_POSE", "PLANTS", "PandaContext", "Plant", "QuadraticCost", "SafetyFirstCost", "cartpole_lmpc",
            "cartpole_lmpc_cost", "cartpole_virtual_collect_cost", "cartpole_virtual_cost",
            "cartpole_virtual_stabilized", "cartpole_virtual_swingup", "get_plant",
-           "obstacle_cost", "obstacle_cost_single", "quadrotor", "quadrotor_cost",
+           "make_panda_context", "obstacle_cost", "obstacle_cost_single", "panda_context",
+           "panda_cost", "panda_ee_velocity", "panda_fk", "panda_inverse_dynamics",
+           "panda_inverse_dynamics_unrolled", "panda_link_transforms", "panda_mass_matrix",
+           "panda_rbd", "panda_rbd_unrolled", "panda_surrogate", "quadrotor", "quadrotor_cost",
            "reference_mpc_cost", "rollout", "rollout_with_cost", "theta_to_red_theta"]
 
 # the JAX package's registry (mpc_via_diffusion_model_tpu/dynamics/__init__.py), as far as ported
@@ -17,8 +24,10 @@ PLANTS = {
     "cartpole_virtual_swingup": (cartpole_virtual_swingup, cartpole_virtual_cost),
     "cartpole_virtual_stabilized": (cartpole_virtual_stabilized, cartpole_virtual_cost),
     "quadrotor": (quadrotor, quadrotor_cost),
+    "panda_surrogate": (panda_surrogate, panda_cost),
+    "panda": (panda_rbd, panda_cost),
 }
-_NOT_PORTED = ("pendulum", "double_integrator", "acrobot", "panda_surrogate", "panda")
+_NOT_PORTED = ("pendulum", "double_integrator", "acrobot")
 
 
 def get_plant(name: str, **kwargs):

@@ -32,7 +32,10 @@ layout), and ``load_quadrotor_student`` the quadrotor's 1-eval student
 (``QUADROTOR_STUDENT_CONFIG``, the students' layout), and
 ``load_quadrotor_teacher`` the quadrotor flagship's guided teacher
 (``artifacts/flagship_quadrotor/ema_params.pkl``,
-``QUADROTOR_TEACHER_CONFIG``, the ``{'params'}`` layout). All are plain dicts of float32 numpy arrays that need neither jax
+``QUADROTOR_TEACHER_CONFIG``, the ``{'params'}`` layout), and
+``load_panda_student`` the panda arm's on-policy 1-eval student
+(``artifacts/onpolicy_panda/student_1eval.pkl``, ``PANDA_STUDENT_CONFIG``).
+All are plain dicts of float32 numpy arrays that need neither jax
 nor flax to unpickle.
 
 The MLPs (``AMPCNet``, any module of ``nn.Linear`` layers): flax numbers
@@ -54,10 +57,11 @@ from ..utils.device import resolve_device
 from .ampc import AMPCNet
 from .temporal_unet import TemporalUnet
 
-__all__ = ["FLAGSHIP_CONFIG", "LMPC_CONFIG", "QUADROTOR_STUDENT_CONFIG",
+__all__ = ["FLAGSHIP_CONFIG", "LMPC_CONFIG", "PANDA_STUDENT_CONFIG", "QUADROTOR_STUDENT_CONFIG",
            "QUADROTOR_TEACHER_CONFIG", "SCENE_STUDENT_CONFIG", "TEACHER_CONFIG",
            "from_flax_params", "init_like_flax", "init_mlp_like_flax", "load_ampc",
-           "load_flagship", "load_lmpc", "load_quadrotor_student", "load_quadrotor_teacher",
+           "load_flagship", "load_lmpc", "load_panda_student", "load_quadrotor_student",
+           "load_quadrotor_teacher",
            "load_scene_student",
            "load_student", "load_teacher", "mlp_from_flax_params", "mlp_to_flax_params",
            "to_flax_params"]
@@ -81,6 +85,10 @@ QUADROTOR_TEACHER_CONFIG = dict(QUADROTOR_STUDENT_CONFIG)
 # artifacts/scene_conditioned/scene_student_ema.pkl: the quadrotor's widths, context 12 + 12
 # scene features
 SCENE_STUDENT_CONFIG = dict(QUADROTOR_STUDENT_CONFIG, context_dim=24)
+# artifacts/onpolicy_panda/student_1eval.pkl (scripts/bench_panda_student.py:82-84 of the JAX
+# package): horizon 128, the 7 joint torques, widths 32/64/128, the 20-dim arm context
+PANDA_STUDENT_CONFIG = dict(state_dim=7, n_support_points=128, unet_input_dim=32,
+                            dim_mults=(1, 2, 4), time_emb_dim=32, context_dim=20)
 
 
 def _unet_layers(n_levels: int) -> List[Tuple[str, Tuple[str, ...], str]]:
@@ -292,6 +300,14 @@ def load_scene_student(path, device=None) -> TemporalUnet:
     ``SCENE_STUDENT_CONFIG``: context 24, the 12-state then 12 scene
     features, the context-present bit), from its ``{'params'}`` pickle."""
     return _load_unet(path, "params", True, device, SCENE_STUDENT_CONFIG)
+
+
+def load_panda_student(path, device=None) -> TemporalUnet:
+    """The panda arm's on-policy (DAgger) 1-eval student,
+    ``artifacts/onpolicy_panda/student_1eval.pkl`` (1,016,615 params,
+    ``PANDA_STUDENT_CONFIG``: horizon 128, 7 channels, context 20, the
+    context-present bit), from its ``{'params'}`` pickle."""
+    return _load_unet(path, "params", True, device, PANDA_STUDENT_CONFIG)
 
 
 def load_lmpc(path, device=None) -> TemporalUnet:

@@ -27,7 +27,8 @@ from typing import Callable, Optional
 
 import torch
 
-from .unet_pack import CLUSTER, ClusterSplit, PackedUnet, cluster_split, cluster_weights
+from .unet_pack import (CLUSTER, SMEM_LIMIT, ClusterSplit, PackedUnet, cluster_split,
+                        cluster_weights)
 
 __all__ = ["BuildResult", "build", "build_all", "load", "bind", "launch", "max_active_clusters",
            "ClusterLaunch", "BUILD_DIR", "KERNELS", "NVCC_FLAGS"]
@@ -39,7 +40,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 NVCC_TIMEOUT_S = 600
 KERNELS = ("cfg_chain", "fused_unet", "cfg_episode", "ddim_chain", "ddim_episode",
            "fused_conv", "cfg_episode_lmpc", "ddim_episode_quadrotor",
-           "cfg_episode_quadrotor")  # csrc/<name>.cu
+           "cfg_episode_quadrotor", "ddim_episode_panda")  # csrc/<name>.cu
 
 
 @dataclasses.dataclass(frozen=True)
@@ -226,8 +227,13 @@ class ClusterLaunch:
         return self._weights_bf16
 
     def require_fit(self, smem_bytes: int, device) -> None:
-        """Raises unless a cluster of CLUSTER CTAs with ``smem_bytes`` of
-        shared memory each fits on ``device``; asks CUDA the first time only."""
+        """Raises ``ValueError`` when the kernel's plan, ``smem_bytes`` of
+        shared memory per CTA, is more than a block may take (SMEM_LIMIT),
+        and ``RuntimeError`` unless a cluster of CLUSTER CTAs with that
+        much each fits on ``device``; asks CUDA the first time only."""
+        if smem_bytes > SMEM_LIMIT:
+            raise ValueError(f"the {self.name} kernel's plan needs {smem_bytes} B of shared memory "
+                             f"per CTA, over the {SMEM_LIMIT} B a block may take")
         if self.slots is None:
             slots = self._query(smem_bytes)
             if not slots:

@@ -41,8 +41,8 @@
 // loop, the step loop and the candidate loop run inside the cluster, every trip count is
 // fixed by the launch's arguments, and cluster barriers are the only synchronisation
 // between CTAs (the hardware co-schedules a cluster's CTAs; no grid-wide sync, no
-// cooperative launch, no spin-wait). Activations reuse the one-block plan of the other
-// kernels in every CTA; the FiLM vectors of the current step (n_res x 2 x max_c), the K
+// cooperative launch, no spin-wait). Activations reuse the CFG chain's two-row-set plan
+// (ops/unet_pack.py, metas[2]) in every CTA; the FiLM vectors of the current step (n_res x 2 x max_c), the K
 // candidate chains (K x H x D), the state and the candidate scores sit beside it. Weights
 // stay in device memory, served from L2. The step's coefficients and the 1x1 conv's
 // pointers are read after the body, where they are used (read before it, they made the

@@ -35,7 +35,8 @@
 // clusters run side by side. The FiLM table (n_total, n_res, B, max_c) comes from torch and
 // is read from device memory, row `sample`. Weights stay in device memory, served from L2,
 // with the body's conv kernels rank-major (ops/unet_pack.py::cluster_weights). Activations
-// use the one-block plan (ops/unet_pack.py, sized for two row-sets, half used) in every CTA.
+// use the one-row-set plan (ops/unet_pack.py, metas[1]) in every CTA: 154,764 B per CTA at the
+// panda arm's horizon 128, where the two-row-set plan (304,780 B) does not fit one block.
 // As in the episodes, the step's coefficients and the 1x1 conv's pointers are read after
 // the body, where they are used, so that nothing extra stays live across its conv loops.
 //

@@ -41,10 +41,11 @@
 // of each replan; only rank 0 writes the tracks. The replan, step and candidate loops run
 // inside the cluster, every trip count fixed by the launch's arguments, and cluster
 // barriers are the only synchronisation between CTAs (no grid-wide sync, no cooperative
-// launch, no spin-wait). It uses the episode kernels' shared-memory plan (ops/unet_pack.py)
-// in every CTA: its one FiLM group takes the first n_res x max_c floats of the FiLM region
-// and the first cond_dim of the mish(c_emb) region; the activation buffers, sized for two
-// row-sets, are half used. Weights stay in device memory, served from L2, with the body's
+// launch, no spin-wait). It uses the episode kernels' shared-memory plan on one row-set
+// (ops/unet_pack.py, metas[1]) in every CTA: the activation buffers, the skips and eps hold one
+// row-set, the FiLM region the one group's n_res x max_c floats and the mish(c_emb) region its
+// cond_dim. At the panda arm's horizon 128 (ddim_episode_panda.cu) that plan is what fits one
+// block: the two-row-set plan of the CFG episode would need 321,360 B per CTA at K = 1. Weights stay in device memory, served from L2, with the body's
 // conv kernels rank-major (ops/unet_pack.py::cluster_weights). As in cfg_episode.cu, the
 // step's coefficients and the 1x1 conv's pointers are read after the body, where they are
 // used. K candidates still run one after another.

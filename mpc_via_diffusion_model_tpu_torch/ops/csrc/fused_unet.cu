@@ -29,8 +29,9 @@
 // one wave of up to 132 rows at ~0.42 ms, is as fast. The main path's batch is 2, the CFG
 // pair of BENCH_FUSED=1: two clusters on 16 SMs. Weights
 // stay in device memory, served from L2, with the body's conv kernels rank-major
-// (ops/unet_pack.py::cluster_weights). Activations use the one-block plan (ops/unet_pack.py)
-// in every CTA.
+// (ops/unet_pack.py::cluster_weights). Activations use the one-row-set plan (ops/unet_pack.py,
+// metas[1]) in every CTA: 154,764 B per CTA at the panda arm's horizon 128, where the CFG
+// kernels' two-row-set plan (304,780 B) is more than a block may take.
 //
 // fused_unet_max_active_clusters answers cudaOccupancyMaxActiveClusters at the pass's shared
 // memory: the wrapper refuses to launch when it is 0.

@@ -125,6 +125,180 @@ struct Quadrotor {
   }
 };
 
+// The 7-DoF Franka Panda arm (mpc_via_diffusion_model_tpu_torch/dynamics/arm.py,
+// panda_rbd_unrolled): state x = (q - q_ref (7), qd (7)), controls the joint torques (7). One
+// step, in the torch step's order:
+//   q = x[:7] + q_ref; the seven link transforms (R_i, P_i) at q
+//   bias = RNE(q, qd, 0, g); column j of M = RNE(q, 0, e_j, 0); M = 0.5 (M + M^T)
+//   rhs = (u - bias) - viscous qd; qdd = M^-1 rhs by the unrolled Cholesky solve
+//   qd' = qd + qdd dt; q' = x[:7] + qd' dt
+// RNE is panda_inverse_dynamics_unrolled: the outward pass of the angular velocity and
+// acceleration, the linear acceleration and the link forces and moments, then the inward pass
+// of the forces and moments, every cross product and 3-vector product written out in the
+// torch version's order (zeros added where it adds them). The link transforms depend on q
+// alone and are computed once for the eight RNE passes, as the torch version shares them.
+// pc[1 ..] hold the link table (7 x a, cos alpha, sin alpha, -d sin alpha, d cos alpha), the
+// masses (7), the COMs (7 x 3), the inertia tensors (7 x 3 x 3, row-major), the viscous gains
+// (7) and q_ref (7), in fp32 (arm.py, panda_device_consts). The step is one thread's serial
+// work (about 13,000 fp32 operations), kept out of line (__noinline__) so that its local arrays
+// do not weigh on the registers of the kernel around it.
+struct PandaRbd {
+  static constexpr int DX = 14;
+  static constexpr int DU = 7;
+  static constexpr int N_CONSTS = 35 + 7 + 21 + 63 + 7 + 7;
+
+  // the links' rotations R (7 x 9, row-major) and offsets P (7 x 3) at joint angles q
+  static __device__ void links(const float* q, const float* __restrict__ lk, float* R, float* P) {
+    for (int i = 0; i < 7; ++i) {
+      const float* l = lk + 5 * i;
+      const float ca = __ldg(l + 1), sa = __ldg(l + 2);
+      const float cq = cosf(q[i]), sq = sinf(q[i]);
+      float* r = R + 9 * i;
+      r[0] = cq; r[1] = -sq; r[2] = 0.f;
+      r[3] = __fmul_rn(sq, ca); r[4] = __fmul_rn(cq, ca); r[5] = __fsub_rn(0.f, sa);
+      r[6] = __fmul_rn(sq, sa); r[7] = __fmul_rn(cq, sa); r[8] = __fadd_rn(0.f, ca);
+      P[3 * i] = __fadd_rn(0.f, __ldg(l));
+      P[3 * i + 1] = __fadd_rn(0.f, __ldg(l + 3));
+      P[3 * i + 2] = __fadd_rn(0.f, __ldg(l + 4));
+    }
+  }
+
+  static __device__ __forceinline__ void cross(const float* a, const float* b, float* o) {
+    o[0] = __fsub_rn(__fmul_rn(a[1], b[2]), __fmul_rn(a[2], b[1]));
+    o[1] = __fsub_rn(__fmul_rn(a[2], b[0]), __fmul_rn(a[0], b[2]));
+    o[2] = __fsub_rn(__fmul_rn(a[0], b[1]), __fmul_rn(a[1], b[0]));
+  }
+
+  // r v (transposed: r^T v), each row's three products summed left to right
+  static __device__ __forceinline__ void matvec(const float* r, const float* v, float* o,
+                                                bool transposed) {
+    for (int i = 0; i < 3; ++i) {
+      const float r0 = transposed ? r[i] : r[3 * i];
+      const float r1 = transposed ? r[3 + i] : r[3 * i + 1];
+      const float r2 = transposed ? r[6 + i] : r[3 * i + 2];
+      o[i] = __fadd_rn(__fadd_rn(__fmul_rn(r0, v[0]), __fmul_rn(r1, v[1])), __fmul_rn(r2, v[2]));
+    }
+  }
+
+  static __device__ __forceinline__ void add3(const float* a, const float* b, float* o) {
+    for (int i = 0; i < 3; ++i) o[i] = __fadd_rn(a[i], b[i]);
+  }
+
+  // joint torques tau of the motion (q, qd, qdd) at the links (R, P), gravity g (0 or 9.81):
+  // panda_inverse_dynamics_unrolled. pc points at dt.
+  static __device__ void rne(const float* R, const float* P, const float* __restrict__ pc,
+                             const float* qd, const float* qdd, float g, float* tau) {
+    const float* mass = pc + 36;
+    const float* com = pc + 43;
+    const float* inr = pc + 64;
+    float omega[3] = {0.f, 0.f, 0.f}, omegad[3] = {0.f, 0.f, 0.f}, vd[3] = {0.f, 0.f, g};
+    float F[7][3], N[7][3];
+    float t1[3], t2[3], t3[3], v[3];
+    for (int i = 0; i < 7; ++i) {
+      const float* r = R + 9 * i;
+      const float* p = P + 3 * i;
+      float c[3], in[9];
+      for (int j = 0; j < 3; ++j) c[j] = __ldg(com + 3 * i + j);
+      for (int j = 0; j < 9; ++j) in[j] = __ldg(inr + 9 * i + j);
+      cross(omegad, p, t1);
+      cross(omega, p, t2);
+      cross(omega, t2, t3);
+      add3(vd, t1, v);
+      add3(v, t3, v);
+      matvec(r, v, vd, true);
+      float omega_r[3];
+      matvec(r, omega, omega_r, true);
+      const float qdz[3] = {0.f, 0.f, qd[i]};
+      matvec(r, omegad, t1, true);
+      cross(omega_r, qdz, t2);
+      add3(t1, t2, t1);
+      omegad[0] = __fadd_rn(t1[0], 0.f);
+      omegad[1] = __fadd_rn(t1[1], 0.f);
+      omegad[2] = __fadd_rn(t1[2], qdd[i]);
+      add3(omega_r, qdz, omega);
+      float vdc[3];
+      cross(omegad, c, t1);
+      add3(vd, t1, vdc);
+      cross(omega, c, t2);
+      cross(omega, t2, t3);
+      add3(vdc, t3, vdc);
+      const float mi = __ldg(mass + i);
+      for (int j = 0; j < 3; ++j) F[i][j] = __fmul_rn(mi, vdc[j]);
+      matvec(in, omegad, t1, false);
+      matvec(in, omega, t2, false);
+      cross(omega, t2, t3);
+      add3(t1, t3, N[i]);
+    }
+    float f_next[3] = {0.f, 0.f, 0.f}, n_next[3] = {0.f, 0.f, 0.f};
+    for (int i = 6; i >= 0; --i) {
+      float fc[3] = {0.f, 0.f, 0.f}, nc[3] = {0.f, 0.f, 0.f};
+      if (i < 6) {
+        matvec(R + 9 * (i + 1), f_next, fc, false);
+        matvec(R + 9 * (i + 1), n_next, t1, false);
+        cross(P + 3 * (i + 1), fc, t2);
+        add3(t1, t2, nc);
+      }
+      float c[3];
+      for (int j = 0; j < 3; ++j) c[j] = __ldg(com + 3 * i + j);
+      add3(fc, F[i], f_next);
+      add3(N[i], nc, t1);
+      cross(c, F[i], t2);
+      add3(t1, t2, n_next);
+      tau[i] = n_next[2];
+    }
+  }
+
+  static __device__ __noinline__ void step(const float* x, const float* u,
+                                           const float* __restrict__ pc, float* xn) {
+    const float dt = __ldg(pc);
+    const float* visc = pc + 127;
+    const float* qref = pc + 134;
+    float q[7], qd[7], zero[7], unit[7], R[63], P[21], bias[7], M[49], col[7];
+    for (int i = 0; i < 7; ++i) {
+      q[i] = __fadd_rn(x[i], __ldg(qref + i));
+      qd[i] = x[7 + i];
+      zero[i] = unit[i] = 0.f;
+    }
+    links(q, pc + 1, R, P);
+    rne(R, P, pc, qd, zero, 9.81f, bias);
+    for (int j = 0; j < 7; ++j) {  // column j of M: the unit acceleration e_j at rest, no gravity
+      unit[j] = 1.f;
+      rne(R, P, pc, zero, unit, 0.f, col);
+      unit[j] = 0.f;
+      for (int i = 0; i < 7; ++i) M[7 * i + j] = col[i];
+    }
+    float S[49], rhs[7];
+    for (int i = 0; i < 7; ++i) {
+      for (int j = 0; j < 7; ++j) S[7 * i + j] = __fmul_rn(0.5f, __fadd_rn(M[7 * i + j], M[7 * j + i]));
+      rhs[i] = __fsub_rn(__fsub_rn(u[i], bias[i]), __fmul_rn(__ldg(visc + i), qd[i]));
+    }
+    // the unrolled Cholesky factor L (lower, row-major in M's storage) and the two solves
+    float* L = M;
+    for (int i = 0; i < 7; ++i)
+      for (int j = 0; j <= i; ++j) {
+        float acc = S[7 * i + j];
+        for (int k = 0; k < j; ++k) acc = __fsub_rn(acc, __fmul_rn(L[7 * i + k], L[7 * j + k]));
+        L[7 * i + j] = i == j ? __fsqrt_rn(acc) : __fdiv_rn(acc, L[7 * j + j]);
+      }
+    float y[7], qdd[7];
+    for (int i = 0; i < 7; ++i) {
+      float acc = rhs[i];
+      for (int k = 0; k < i; ++k) acc = __fsub_rn(acc, __fmul_rn(L[7 * i + k], y[k]));
+      y[i] = __fdiv_rn(acc, L[7 * i + i]);
+    }
+    for (int i = 6; i >= 0; --i) {
+      float acc = y[i];
+      for (int k = i + 1; k < 7; ++k) acc = __fsub_rn(acc, __fmul_rn(L[7 * k + i], qdd[k]));
+      qdd[i] = __fdiv_rn(acc, L[7 * i + i]);
+    }
+    for (int i = 0; i < 7; ++i) {
+      const float v = __fadd_rn(qd[i], __fmul_rn(qdd[i], dt));
+      xn[7 + i] = v;
+      xn[i] = __fadd_rn(x[i], __fmul_rn(v, dt));
+    }
+  }
+};
+
 // The episode's reported stage cost, unrolled as the JAX kernel writes it
 // (fused_episode.py:617-618): sum_i (q_i * x_i) * x_i, then + sum_j (r_j * u_j) * u_j.
 template <int DX, int DU>
@@ -258,5 +432,66 @@ struct ConcatFeatures {
   static __device__ __forceinline__ float map(const float* x, const float* __restrict__ pc,
                                               int i) {
     return i < DX ? x[i] : __ldg(pc + (i - DX));
+  }
+};
+
+// The panda arm's context (mpc_via_diffusion_model_tpu_torch/dynamics/arm.py, PandaContext,
+// the JAX package's make_panda_context) from its shifted 14-state: DC = 20 entries
+// (q | qd | ee position | ee velocity), q = x[:7] + q_ref. pc holds q_ref (7), then the FK's
+// link table (7 x a, cos alpha, sin alpha, -d sin alpha, d cos alpha) and the flange's d. Each
+// thread computes its entry: an entry of q or qd alone; an entry of the end effector's position
+// or velocity through the whole FK chain, carried in forward mode with its derivative along
+// qd, which is J(q) qd (the torch version takes the same directional derivative by
+// torch.func.jvp): per link [R | P] <- [R R_i | R P_i + P] and [dR | dP] <- [dR R_i + R dR_i |
+// dR P_i + dP], with dR_i = (dR_i / dq_i) qd_i; then the flange's offset along R's third
+// column. Six threads run the chain, the rest of the kernel waits at its next barrier.
+struct PandaContext {
+  static constexpr int DC = 20;
+  static constexpr int N_CONSTS = 7 + 35 + 1;
+
+  static __device__ float map(const float* x, const float* __restrict__ pc, int i) {
+    if (i < 7) return __fadd_rn(x[i], __ldg(pc + i));
+    if (i < 14) return x[i];
+    const float* lk = pc + 7;
+    float R[9] = {1.f, 0.f, 0.f, 0.f, 1.f, 0.f, 0.f, 0.f, 1.f}, P[3] = {0.f, 0.f, 0.f};
+    float dR[9] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f}, dP[3] = {0.f, 0.f, 0.f};
+    for (int l = 0; l < 7; ++l) {
+      const float a = __ldg(lk + 5 * l), ca = __ldg(lk + 5 * l + 1), sa = __ldg(lk + 5 * l + 2);
+      const float p1 = __ldg(lk + 5 * l + 3), p2 = __ldg(lk + 5 * l + 4);
+      const float q = __fadd_rn(x[l], __ldg(pc + l)), w = x[7 + l];
+      const float cq = cosf(q), sq = sinf(q);
+      const float ri[9] = {cq, -sq, 0.f, __fmul_rn(sq, ca), __fmul_rn(cq, ca), -sa,
+                           __fmul_rn(sq, sa), __fmul_rn(cq, sa), ca};
+      const float dri[9] = {__fmul_rn(-sq, w), __fmul_rn(-cq, w), 0.f,
+                            __fmul_rn(__fmul_rn(cq, ca), w), __fmul_rn(__fmul_rn(-sq, ca), w), 0.f,
+                            __fmul_rn(__fmul_rn(cq, sa), w), __fmul_rn(__fmul_rn(-sq, sa), w), 0.f};
+      const float pi[3] = {a, p1, p2};
+      float Rn[9], dRn[9], Pn[3], dPn[3];
+      for (int r = 0; r < 3; ++r) {
+        for (int c = 0; c < 3; ++c) {
+          float s = 0.f, ds = 0.f;
+          for (int k = 0; k < 3; ++k) {
+            s = __fadd_rn(s, __fmul_rn(R[3 * r + k], ri[3 * k + c]));
+            ds = __fadd_rn(ds, __fadd_rn(__fmul_rn(dR[3 * r + k], ri[3 * k + c]),
+                                         __fmul_rn(R[3 * r + k], dri[3 * k + c])));
+          }
+          Rn[3 * r + c] = s;
+          dRn[3 * r + c] = ds;
+        }
+        float s = P[r], ds = dP[r];
+        for (int k = 0; k < 3; ++k) {
+          s = __fadd_rn(s, __fmul_rn(R[3 * r + k], pi[k]));
+          ds = __fadd_rn(ds, __fmul_rn(dR[3 * r + k], pi[k]));
+        }
+        Pn[r] = s;
+        dPn[r] = ds;
+      }
+      for (int k = 0; k < 9; ++k) { R[k] = Rn[k]; dR[k] = dRn[k]; }
+      for (int k = 0; k < 3; ++k) { P[k] = Pn[k]; dP[k] = dPn[k]; }
+    }
+    const float fd = __ldg(pc + 42);
+    const int r = (i - 14) % 3;
+    return i < 17 ? __fadd_rn(P[r], __fmul_rn(R[3 * r + 2], fd))
+                  : __fadd_rn(dP[r], __fmul_rn(dR[3 * r + 2], fd));
   }
 };

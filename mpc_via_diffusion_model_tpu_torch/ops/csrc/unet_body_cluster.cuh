@@ -30,7 +30,9 @@
 //   next block's scratch is the third buffer, not `cur`.
 //
 // Inside a CTA, a conv's share is rows x (cout / CLUSTER) outputs with a reduction over
-// ks * cin inputs: 256 outputs at every level of the flagship, for NT = 512 threads. An item
+// ks * cin inputs: 256 outputs at every level of the flagship and 512 at the panda arm's
+// horizon 128 (128 x 32 / 8, 64 x 64 / 8, 32 x 128 / 8), for NT = 512 threads; items, lanes and
+// trip counts follow each conv's rows and channels, and nothing here is sized by H. An item
 // is CL_RPT consecutive rows of one channel; its reduction is split over S neighbouring
 // lanes (the largest power of two, at most CL_SPLIT, with items * S <= NT), each lane
 // taking every S-th input, and summed with shuffles that halve the rows a lane holds at each

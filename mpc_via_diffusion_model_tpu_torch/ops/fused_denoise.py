@@ -13,11 +13,15 @@ plain version there.
 Both kernels run each sample on a thread-block cluster of 8 CTAs that
 splits the U-Net body by output channel, one GroupNorm group per CTA
 (``csrc/unet_body_cluster.cuh``), as the episodes do: the CFG chain on the
-sample's two row-sets, the DDIM chain on its one. They need a card with
-clusters (sm_90) and a model whose convs and GroupNorms
+sample's two row-sets, the DDIM chain on its one, each on the plan of
+shared memory for its row-sets (``unet_pack``, ``metas``). They need a card
+with clusters (sm_90) and a model whose convs and GroupNorms
 ``unet_pack.cluster_split`` accepts. Both are checked where the kernel
 would be launched (``_build.ClusterLaunch``), so the plain versions on
-the CPU take any model.
+the CPU take any model. The DDIM chain's plan is checked there too; the
+CFG chain's two-row-set plan is checked when it is built: at the panda
+arm's horizon 128 it needs 304,780 B per CTA, more than a block may take,
+and ``make_fused_cfg_chain`` refuses it (``ValueError``, ROADMAP.md B4).
 
 As in the JAX package, the FiLM biases of every (step, ResidualTemporalBlock,
 row) depend only on the timestep and the context, so they are computed in
@@ -51,12 +55,23 @@ from ..models.bf16 import bf16_conv_copy
 from ..models.layers import mish
 from ..models.temporal_unet import TemporalUnet
 from . import _build
-from .unet_pack import CLUSTER, M_LEN, PackedUnet, packed_on
+from .unet_pack import CLUSTER, M_LEN, SMEM_LIMIT, PackedUnet, packed_on
 
 __all__ = ["FusedCfgChain", "FusedDdimChain", "make_fused_cfg_chain", "make_fused_ddim_chain",
            "step_coefficients", "ddim_step_coefficients", "film_table", "is_bf16",
            "cfg_chain_max_active_clusters", "cfg_chain_bf16_max_active_clusters",
-           "ddim_chain_max_active_clusters"]
+           "ddim_chain_max_active_clusters", "refuse_cfg_plan"]
+
+
+def refuse_cfg_plan(smem_bytes: int, what: str) -> None:
+    """Raises ``ValueError`` naming ROADMAP.md B4 when a CFG kernel's
+    two-row-set plan, ``smem_bytes`` per CTA, is more than a block may take:
+    such a shape (the panda arm's H = 128 model) needs the CFG kernels
+    redesigned, and nothing falls back to another path."""
+    if smem_bytes > SMEM_LIMIT:
+        raise ValueError(f"the {what} holds two row-sets, {smem_bytes} B of shared memory per CTA "
+                         f"at this model's shape, over the {SMEM_LIMIT} B a block may take: the "
+                         "two-row-set redesign is ROADMAP.md B4")
 
 
 def is_bf16(weights_dtype) -> bool:
@@ -178,6 +193,9 @@ class FusedCfgChain:
         with torch.no_grad():
             self.t_embs = self.model.time_mlp(self.t_eff)  # (n_total, time_emb_dim)
         self.entry = "cfg_chain_bf16" if self.bf16 else "cfg_chain"
+        # the two-row-set plan: the meta table the kernel reads and its shared memory per CTA
+        self.meta, self.smem_bytes = packed.metas[2], packed.chain_smem_bytes(2)
+        refuse_cfg_plan(self.smem_bytes, "CFG chain kernel")
         self.cluster = _build.ClusterLaunch(
             packed, self.entry,
             cfg_chain_bf16_max_active_clusters if self.bf16 else cfg_chain_max_active_clusters)
@@ -219,15 +237,15 @@ class FusedCfgChain:
             raise ValueError(f"the {self.entry} kernel takes tensors on the packed weights' CUDA "
                              "device")
         weights = [self.cluster.weights] + ([self.cluster.weights_bf16] if self.bf16 else [])
-        self.cluster.require_fit(self.packed.smem_bytes, context.device)
+        self.cluster.require_fit(self.smem_bytes, context.device)
         films = self.films(context).contiguous()
         noise_tab = torch.cat([noise[1:], noise[:1]], dim=0).contiguous()
         out = torch.empty((self.n_samples, self.packed.horizon, self.packed.state_dim),
                           dtype=torch.float32, device=context.device)
         _build.launch(
             _cfg_bf16_lib() if self.bf16 else _cfg_lib(), self.entry,
-            *(wt.data_ptr() for wt in weights), self.packed.meta.data_ptr(),
-            self.packed.smem_bytes, films.data_ptr(), noise_tab.data_ptr(), self.coefs.data_ptr(),
+            *(wt.data_ptr() for wt in weights), self.meta.data_ptr(),
+            self.smem_bytes, films.data_ptr(), noise_tab.data_ptr(), self.coefs.data_ptr(),
             out.data_ptr(), self.n_total, self.n_samples, self.w, float(np.float32(1.0 + self.w)),
             torch.cuda.current_stream(context.device).cuda_stream)
         self.launches += 1
@@ -263,7 +281,8 @@ def make_fused_cfg_chain(model_or_packed: Union[TemporalUnet, PackedUnet],
     """Build the CFG chain of one replan on ``device`` (``cuda`` unless
     given), with float32 or bfloat16 conv weights (``weights_dtype``; any
     other type raises ``NotImplementedError``). A ``TemporalUnet`` is moved
-    to the device and packed."""
+    to the device and packed. Raises ``ValueError`` (ROADMAP.md B4) where
+    the kernel's two-row-set plan does not fit one block."""
     is_bf16(weights_dtype)
     return FusedCfgChain(packed_on(model_or_packed, device), schedule, n_samples, w, n_tail,
                          weights_dtype)
@@ -293,6 +312,8 @@ class FusedDdimChain:
         with torch.no_grad():
             self.t_embs = self.model.time_mlp(self.t_eval)  # (n_total, time_emb_dim)
         self._sample = make_student_ddim_sampler(schedule, self.model, times)
+        # the one-row-set plan: the meta table the kernel reads and its shared memory per CTA
+        self.meta, self.smem_bytes = packed.metas[1], packed.chain_smem_bytes(1)
         self.cluster = _build.ClusterLaunch(packed, "ddim_chain", ddim_chain_max_active_clusters)
         self.launches = 0
         self.plain_calls = 0
@@ -326,12 +347,13 @@ class FusedDdimChain:
     def kernel(self, context: torch.Tensor, x_init: torch.Tensor) -> torch.Tensor:
         """Launch ``csrc/ddim_chain.cu``, one cluster of 8 CTAs per sample, on
         the current stream; raises when the body cannot be split over the
-        cluster or no cluster fits on the card."""
+        cluster, its plan is more than a block may take or no cluster fits
+        on the card."""
         self._check(context, x_init)
         if not context.is_cuda or context.device != self.packed.weights.device:
             raise ValueError("the ddim_chain kernel takes tensors on the packed weights' CUDA device")
         weights = self.cluster.weights
-        self.cluster.require_fit(self.packed.smem_bytes, context.device)
+        self.cluster.require_fit(self.smem_bytes, context.device)
         out = torch.empty(self.noise_shape, dtype=torch.float32, device=context.device)
         self._launch(weights, self.films(context).contiguous(), x_init.contiguous(), out)
         return out
@@ -343,7 +365,7 @@ class FusedDdimChain:
         out (B, H, D)."""
         _build.launch(
             _ddim_lib(), "ddim_chain",
-            weights.data_ptr(), self.packed.meta.data_ptr(), self.packed.smem_bytes,
+            weights.data_ptr(), self.meta.data_ptr(), self.smem_bytes,
             films.data_ptr(), x_init.data_ptr(), self.coefs.data_ptr(), out.data_ptr(),
             self.n_total, self.n_samples, torch.cuda.current_stream(out.device).cuda_stream)
         self.launches += 1

@@ -15,7 +15,9 @@ plain version.
 Both episode kernels are a thread-block cluster of 8 CTAs that splits the
 U-Net body by output channel, one GroupNorm group per CTA
 (``csrc/unet_body_cluster.cuh``; two row-sets in the CFG episode, one in the
-DDIM episode): they need a card with clusters (sm_90), and a model whose
+DDIM episode, each on its plan of shared memory, ``unet_pack.metas``; the
+CFG episode refuses to be built where its plan is more than a block may
+take, ROADMAP.md B4): they need a card with clusters (sm_90), and a model whose
 convs and GroupNorms ``unet_pack.cluster_split`` accepts, which each
 wrapper checks where its kernel would be launched, so that its plain version
 on the CPU takes any model. Before its first launch each wrapper asks CUDA
@@ -37,8 +39,9 @@ do not: the plants written as device functions in ``csrc/plants.cuh``, a
 ``QuadraticCost`` for the stage cost, the candidate scorers written there
 (a ``QuadraticCost``, or the quadrotor task's ``SafetyFirstCost``, as each
 entry's ``Scorer``), the state-to-condition maps written there (the identity,
-or ``control/conditions.py::ConcatFeatures``, as each entry's
-``Condition``), and staged noise but for the quadrotor's DDIM episode. Each
+``control/conditions.py::ConcatFeatures``, or the panda arm's
+``PandaContext``, as each entry's ``Condition``), and staged noise but for
+the quadrotor's DDIM episode. Each
 (plant, weights) pair the CFG episode runs is an entry of its own
 (``CFG_ENTRIES``): the cart-pole swing-up with float32 weights
 (``cfg_episode``) or bfloat16 ones (``bench.py``'s ``BENCH_BF16``: the
@@ -55,9 +58,13 @@ spheres lie in the consts table, so that one build serves every scene). The
 DDIM episode runs
 float32 weights and ``clip_denoised=True`` only, one entry per plant
 (``DDIM_ENTRIES``): the swing-up (``ddim_episode``, a ``QuadraticCost``
-scorer) and the quadrotor (``ddim_episode_quadrotor``, ``csrc/
+scorer), the quadrotor (``ddim_episode_quadrotor``, ``csrc/
 ddim_episode_quadrotor.cu``: its m and inertia follow dt in the consts
-table, then the safety-first scorer's constants). The quadrotor's entry also
+table, then the safety-first scorer's constants) and the panda arm
+(``ddim_episode_panda``, ``csrc/ddim_episode_panda.cu``: ``PandaRbd``, the
+rigid-body plant of ``dynamics/arm.py::panda_rbd_unrolled``, whose tables
+follow dt, a ``QuadraticCost`` scorer, and the context of
+``make_panda_context``, whose q_ref and FK table follow the plant's). The quadrotor's entry also
 draws its noise in the kernel (``inkernel_noise``, the ``_draw`` entry of
 its library): ``episode(x0, seed)`` takes a (2,) int32 seed, as the JAX
 package's ``_key_to_seeds`` gives, and every CTA computes each replan's
@@ -85,7 +92,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..control.conditions import ConcatFeatures
+from ..control.conditions import ConcatFeatures, PandaContext
 from ..core.schedules import DiffusionSchedule
 from ..data.normalization import NormalizerStats
 from ..diffusion.distillation import make_student_ddim_sampler
@@ -95,9 +102,9 @@ from ..models.bf16 import bf16_conv_copy
 from ..models.layers import mish
 from ..models.temporal_unet import TemporalUnet
 from . import _build, philox
-from .fused_denoise import (ddim_step_coefficients, is_bf16, refuse_unported_ddim_options,
-                            step_coefficients)
-from .unet_pack import CLUSTER, M_LEN, SMEM_LIMIT, PackedUnet, packed_on
+from .fused_denoise import (ddim_step_coefficients, is_bf16, refuse_cfg_plan,
+                            refuse_unported_ddim_options, step_coefficients)
+from .unet_pack import CLUSTER, M_LEN, PackedUnet, packed_on
 
 __all__ = ["FusedCfgEpisode", "FusedDdimEpisode", "make_fused_cfg_episode",
            "make_fused_ddim_episode", "affine_consts", "episode_choice", "CFG_ENTRIES",
@@ -106,8 +113,10 @@ __all__ = ["FusedCfgEpisode", "FusedDdimEpisode", "make_fused_cfg_episode",
            "cfg_episode_lmpc_max_active_clusters", "ddim_episode_max_active_clusters",
            "ddim_episode_quadrotor_max_active_clusters",
            "ddim_episode_quadrotor_draw_max_active_clusters",
+           "ddim_episode_panda_max_active_clusters",
            "cfg_episode_quadrotor_max_active_clusters", "cluster_split_features", "scorer_kind",
-           "condition_kind", "CFG_KINDS", "CONDITION_CONSTS"]
+           "condition_kind", "CFG_KINDS", "DDIM_CONDITIONS", "CONDITION_CONSTS",
+           "CONDITION_EXTRA_DIMS"]
 
 # the entry of each episode kernel for (plant name, bf16 weights): plants written in
 # csrc/plants.cuh, each entry with its own library symbols and occupancy query
@@ -115,6 +124,9 @@ CFG_ENTRIES = {("cartpole_virtual_swingup", False): "cfg_episode",
                ("cartpole_virtual_swingup", True): "cfg_episode_bf16",
                ("cartpole_lmpc", False): "cfg_episode_lmpc",
                ("quadrotor", False): "cfg_episode_quadrotor"}
+# the plants whose CFG episode entry is still to come, and why
+CFG_PENDING = {"panda_rbd": "its model's two-row-set plan needs the CFG kernels redesigned, and "
+                            "its entry the in-kernel draw (ROADMAP.md B4)"}
 # the kinds of selection cost and of state-to-condition map each CFG entry's Scorer and
 # Condition compute (csrc/plants.cuh); an entry not named here scores with a QuadraticCost and
 # conditions on the state
@@ -123,14 +135,22 @@ CFG_KINDS = {"cfg_episode_quadrotor": ("safety_first", "concat_features")}
 # its scorer computes (csrc/plants.cuh: QuadScorer, SafetyFirstScorer), and the entry that
 # draws the noise in the kernel, where one exists
 DDIM_ENTRIES = {"cartpole_virtual_swingup": ("ddim_episode", "quadratic"),
-                "quadrotor": ("ddim_episode_quadrotor", "safety_first")}
+                "quadrotor": ("ddim_episode_quadrotor", "safety_first"),
+                "panda_rbd": ("ddim_episode_panda", "quadratic")}
 DDIM_DRAW_ENTRIES = {"ddim_episode_quadrotor": "ddim_episode_quadrotor_draw"}
+# the kind of state-to-condition map each DDIM entry's Condition computes; an entry not named
+# here conditions on the state
+DDIM_CONDITIONS = {"ddim_episode_panda": "panda_context"}
 # the constants each scorer reads after the plant's (its N_CONSTS): the safety-first scorer's
 # u_hover (4), factor, weight, the 3 spheres' centers and radii
 SCORER_CONSTS = {"quadratic": 0, "safety_first": 4 + 2 + 4 * 3}
 # the constants each condition map reads after the plant's (its N_CONSTS): the 12 scene
-# features of ConcatFeatures<12, 12>
-CONDITION_CONSTS = {"identity": 0, "concat_features": 12}
+# features of ConcatFeatures<12, 12>; the panda's q_ref (7), its FK's link table (7 x 5) and
+# the flange's offset
+CONDITION_CONSTS = {"identity": 0, "concat_features": 12, "panda_context": 7 + 35 + 1}
+# how much wider than the state each map's context is (DC - DX): the scene's 12 features; the
+# end effector's position and velocity
+CONDITION_EXTRA_DIMS = {"identity": 0, "concat_features": 12, "panda_context": 6}
 _QUERIES = ("consts_len", "plant_dims")
 
 
@@ -147,10 +167,10 @@ def scorer_kind(cost) -> Optional[str]:
 def condition_kind(state_to_condition) -> Optional[str]:
     """The kind of device map that computes ``state_to_condition`` (a key of
     ``CONDITION_CONSTS``): ``identity`` for None, the map's ``kind`` for a
-    ``ConcatFeatures``; None where no device map does."""
+    ``ConcatFeatures`` or a ``PandaContext``; None where no device map does."""
     if state_to_condition is None:
         return "identity"
-    if isinstance(state_to_condition, ConcatFeatures):
+    if isinstance(state_to_condition, (ConcatFeatures, PandaContext)):
         return state_to_condition.kind
     return None
 
@@ -263,12 +283,28 @@ def ddim_episode_quadrotor_draw_max_active_clusters(smem_bytes: int) -> int:
                                       smem_bytes)
 
 
+@functools.lru_cache(maxsize=None)
+def _ddim_panda_lib() -> ctypes.CDLL:
+    """The built ``csrc/ddim_episode_panda.cu``: the DDIM episode for the panda
+    arm, which also answers the width of its condition map's context
+    (``condition_dims``)."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    return _build.bind("ddim_episode_panda", [p, p, i, p, p, p, p, p, p, p, p, p, i, i, i, i, p],
+                       M_LEN, (*_QUERIES, "condition_dims"), cluster=CLUSTER)
+
+
+def ddim_episode_panda_max_active_clusters(smem_bytes: int) -> int:
+    """The same query for the panda arm's DDIM episode entry."""
+    return _build.max_active_clusters(_ddim_panda_lib(), "ddim_episode_panda", smem_bytes)
+
+
 # each DDIM entry's library and occupancy query
 _DDIM_LIBS = {"ddim_episode": (_ddim_lib, ddim_episode_max_active_clusters),
               "ddim_episode_quadrotor": (_ddim_quadrotor_lib,
                                          ddim_episode_quadrotor_max_active_clusters),
               "ddim_episode_quadrotor_draw": (_ddim_quadrotor_draw_lib,
-                                              ddim_episode_quadrotor_draw_max_active_clusters)}
+                                              ddim_episode_quadrotor_draw_max_active_clusters),
+              "ddim_episode_panda": (_ddim_panda_lib, ddim_episode_panda_max_active_clusters)}
 
 
 def affine_consts(stats: NormalizerStats, dim: int):
@@ -312,6 +348,7 @@ class _Episode:
     lib: Callable[[], ctypes.CDLL]  # its built library, the entry declared
     query: Callable[[int], int]  # its <name>_max_active_clusters
     bf16 = False  # bf16 conv weights: the bf16 entry, which also reads cluster.weights_bf16
+    row_sets = 1  # the row-sets of its U-Net body: its plan of shared memory (unet_pack.metas)
 
     scorer = "quadratic"  # the kind of selection cost the entry's scorer computes
 
@@ -352,10 +389,10 @@ class _Episode:
             np.float32([plant.dt]), np.float32(plant.device_consts), cond_consts,
             sc]).astype(np.float32)).to(device)
         self.cost, self.selection_cost = cost.to(device), selection_cost.to(device)
-        self.smem_bytes = packed.episode_smem_bytes(self.n_candidates)
-        if self.smem_bytes > SMEM_LIMIT:
-            raise ValueError(f"the episode kernel needs {self.smem_bytes} B of shared memory at "
-                             f"K = {self.n_candidates}, over {SMEM_LIMIT}")
+        # the plan of its row-sets: the meta table the kernel reads and its shared memory per CTA,
+        # checked where the kernel would launch (ClusterLaunch.require_fit)
+        self.meta = packed.metas[self.row_sets]
+        self.smem_bytes = packed.episode_smem_bytes(self.n_candidates, self.row_sets)
         self.launches = 0
         self.plain_calls = 0
         self.plain_scores: Optional[torch.Tensor] = None
@@ -413,7 +450,7 @@ class _Episode:
         x0 = x0.contiguous()
         _build.launch(
             lib, self.name,
-            *(wt.data_ptr() for wt in weights), self.packed.meta.data_ptr(), self.smem_bytes,
+            *(wt.data_ptr() for wt in weights), self.meta.data_ptr(), self.smem_bytes,
             self.t_embs.data_ptr(), noise_tab.data_ptr(), self.coefs.data_ptr(),
             self.consts.data_ptr(), x0.data_ptr(), x_track.data_ptr(), u_track.data_ptr(),
             costs.data_ptr(), chosen.data_ptr(), self.n_steps, self.n_total, self.n_candidates,
@@ -486,8 +523,13 @@ class FusedCfgEpisode(_Episode):
     entry ``cfg_episode_bf16``, whose ``plain`` runs ``plain_model``, the
     U-Net with bf16 convs (``models/bf16.py``); with the linear cart-pole
     ``cfg_episode_lmpc``; with the quadrotor ``cfg_episode_quadrotor``,
-    whose context is ``state_to_condition(x)``, a ``ConcatFeatures``.
+    whose context is ``state_to_condition(x)``, a ``ConcatFeatures``. Its
+    U-Net body holds two row-sets; where their plan is more than a block may
+    take (the panda arm's H = 128 model) it refuses to be built
+    (``ValueError``, ROADMAP.md B4).
     """
+
+    row_sets = 2
 
     def __init__(self, packed: PackedUnet, schedule: DiffusionSchedule,
                  inputs_stats: NormalizerStats, condition_stats: NormalizerStats, plant: Plant,
@@ -501,6 +543,7 @@ class FusedCfgEpisode(_Episode):
         super().__init__(packed, inputs_stats, condition_stats, plant, cost, n_steps,
                          n_candidates, selection_cost, selection_horizon,
                          *step_coefficients(schedule, n_tail), state_to_condition)
+        refuse_cfg_plan(self.smem_bytes, f"CFG episode kernel at K = {self.n_candidates}")
         self.plain_model = bf16_conv_copy(self.model) if self.bf16 else self.model
         self.w = float(w)
 
@@ -614,14 +657,14 @@ class FusedDdimEpisode(_Episode):
     def __init__(self, packed: PackedUnet, schedule: DiffusionSchedule, times: Sequence[int],
                  inputs_stats: NormalizerStats, condition_stats: NormalizerStats, plant: Plant,
                  cost: QuadraticCost, n_steps: int, n_candidates: int, selection_cost,
-                 selection_horizon: int, inkernel_noise: bool = False):
+                 selection_horizon: int, inkernel_noise: bool = False, state_to_condition=None):
         entry, self.scorer = DDIM_ENTRIES[plant.name]
         self.inkernel_noise = bool(inkernel_noise)
         self.name = DDIM_DRAW_ENTRIES[entry] if self.inkernel_noise else entry
         self.lib, self.query = _DDIM_LIBS[self.name]
         super().__init__(packed, inputs_stats, condition_stats, plant, cost, n_steps,
                          n_candidates, selection_cost, selection_horizon,
-                         *ddim_step_coefficients(schedule, times))
+                         *ddim_step_coefficients(schedule, times), state_to_condition)
         self._sample = make_student_ddim_sampler(schedule, self.model, times)
 
     @property
@@ -651,10 +694,11 @@ class FusedDdimEpisode(_Episode):
 
     @torch.no_grad()
     def kernel(self, x0: torch.Tensor, noise: torch.Tensor):
-        """Launch the entry's kernel (``csrc/ddim_episode.cu`` or
-        ``csrc/ddim_episode_quadrotor.cu``), one cluster of 8 CTAs, on the
-        current stream; raises when the body cannot be split over the
-        cluster or no cluster fits on the card."""
+        """Launch the entry's kernel (``csrc/ddim_episode.cu``,
+        ``csrc/ddim_episode_quadrotor.cu`` or ``csrc/ddim_episode_panda.cu``),
+        one cluster of 8 CTAs, on the current stream; raises when the body
+        cannot be split over the cluster, the plan at this K is more than a
+        block may take or no cluster fits on the card."""
         self._check(x0, noise)
         return self._launch(x0, noise.contiguous())
 
@@ -705,9 +749,9 @@ def _episode_packed(model_or_packed: Union[TemporalUnet, PackedUnet], plant: Pla
                                   f"scores candidates with a {scorer} cost, not a {kind} one")
     cond = condition_kind(state_to_condition)
     if cond is None:
-        raise NotImplementedError("the episode kernel runs the identity state_to_condition or a "
-                                  "ConcatFeatures (control/conditions.py) only, not "
-                                  f"{type(state_to_condition).__name__}")
+        raise NotImplementedError("the episode kernel runs the identity state_to_condition, a "
+                                  "ConcatFeatures or a PandaContext (control/conditions.py) only, "
+                                  f"not {type(state_to_condition).__name__}")
     if cond != condition:
         raise NotImplementedError(f"the episode kernel's entry for the plant '{plant.name}' maps "
                                   f"the state to its condition by {condition}, not {cond}")
@@ -721,7 +765,7 @@ def _episode_packed(model_or_packed: Union[TemporalUnet, PackedUnet], plant: Pla
     packed = packed_on(model_or_packed, device)
     if packed.state_dim != plant.control_dim:
         raise ValueError("the episode denoises control sequences: state_dim must be control_dim")
-    dc = plant.state_dim + n_cond  # the context width of the entry's Condition (DC)
+    dc = plant.state_dim + CONDITION_EXTRA_DIMS[condition]  # the entry's Condition's DC
     if packed.model.context_dim != dc:
         raise ValueError(f"the episode conditions on the {condition} map of the plant state: "
                          f"context_dim must be {dc}, got {packed.model.context_dim}")
@@ -751,6 +795,9 @@ def make_fused_cfg_episode(model_or_packed: Union[TemporalUnet, PackedUnet],
     ``ConcatFeatures`` and its ``selection_cost`` as a ``SafetyFirstCost``;
     a scene is their constants. Raises ``NotImplementedError`` for what the
     kernel cannot run."""
+    if plant.name in CFG_PENDING:
+        raise NotImplementedError(f"the CFG episode has no entry for the plant '{plant.name}': "
+                                  f"{CFG_PENDING[plant.name]}")
     entry = CFG_ENTRIES.get((plant.name, is_bf16(weights_dtype)))
     scorer, condition = CFG_KINDS.get(entry, ("quadratic", "identity"))
     packed, k, sel_h = _episode_packed(model_or_packed, plant, cost, selection_cost,
@@ -784,6 +831,8 @@ def make_fused_ddim_episode(model_or_packed: Union[TemporalUnet, PackedUnet],
     packed, k, sel_h = _episode_packed(model_or_packed, plant, cost, selection_cost,
                                        selection_horizon, n_candidates, state_to_condition,
                                        inkernel_noise, device, DDIM_ENTRIES, entry, scorer,
-                                       entry in DDIM_DRAW_ENTRIES)
+                                       entry in DDIM_DRAW_ENTRIES,
+                                       condition=DDIM_CONDITIONS.get(entry, "identity"))
     return FusedDdimEpisode(packed, schedule, times, inputs_stats, condition_stats, plant, cost,
-                            n_steps, k, selection_cost or cost, sel_h, inkernel_noise)
+                            n_steps, k, selection_cost or cost, sel_h, inkernel_noise,
+                            state_to_condition)

@@ -17,10 +17,12 @@ doubling of one sample).
 
 The kernel runs each batch row on a thread-block cluster of 8 CTAs that
 splits the U-Net body by output channel, one GroupNorm group per CTA
-(``csrc/unet_body_cluster.cuh``): it needs a card with clusters (sm_90) and
-a model whose convs and GroupNorms ``unet_pack.cluster_split`` accepts.
-Both are checked where the kernel would be launched
-(``_build.ClusterLaunch``), so the plain version on the CPU takes any model.
+(``csrc/unet_body_cluster.cuh``), on the one-row-set plan of shared memory
+(``unet_pack``, ``metas[1]``): it needs a card with clusters (sm_90), a
+model whose convs and GroupNorms ``unet_pack.cluster_split`` accepts and a
+plan that one block can hold. All three are checked where the kernel would
+be launched (``_build.ClusterLaunch``), so the plain version on the CPU
+takes any model.
 """
 from __future__ import annotations
 
@@ -37,6 +39,8 @@ from . import _build
 from .unet_pack import CLUSTER, M_LEN, PackedUnet, packed_on
 
 __all__ = ["FusedUnet", "make_fused_unet", "fused_unet_max_active_clusters"]
+
+ROW_SETS = 1  # the kernel's row-sets: one batch row per cluster
 
 
 @functools.lru_cache(maxsize=None)
@@ -68,6 +72,8 @@ class FusedUnet(nn.Module):
         self.packed = packed
         self.model = packed.model
         self.batch_size = int(batch_size)
+        # the one-row-set plan: the meta table the kernel reads and its shared memory per CTA
+        self.meta, self.smem_bytes = packed.metas[ROW_SETS], packed.chain_smem_bytes(ROW_SETS)
         self.cluster = _build.ClusterLaunch(packed, "fused_unet", fused_unet_max_active_clusters)
         self.launches = 0
         self.plain_calls = 0
@@ -105,12 +111,13 @@ class FusedUnet(nn.Module):
                context_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The conv backbone through ``csrc/fused_unet.cu``, one cluster of 8
         CTAs per batch row, on the current stream; raises when the body
-        cannot be split over the cluster or no cluster fits on the card."""
+        cannot be split over the cluster, its plan is more than a block may
+        take or no cluster fits on the card."""
         self._check(x, context)
         if not x.is_cuda or x.device != self.packed.weights.device:
             raise ValueError("the fused_unet kernel takes tensors on the packed weights' CUDA device")
         weights = self.cluster.weights
-        self.cluster.require_fit(self.packed.smem_bytes, x.device)
+        self.cluster.require_fit(self.smem_bytes, x.device)
         films = self.films(self.model.conditioning(t, context, context_mask)).contiguous()
         y = torch.empty((self.batch_size, self.packed.horizon, self.model.unet_input_dim),
                         dtype=torch.float32, device=x.device)
@@ -124,7 +131,7 @@ class FusedUnet(nn.Module):
         y (B, H, unet_input_dim)."""
         _build.launch(
             _kernel_lib(), "fused_unet",
-            weights.data_ptr(), self.packed.meta.data_ptr(), self.packed.smem_bytes,
+            weights.data_ptr(), self.meta.data_ptr(), self.smem_bytes,
             films.data_ptr(), x.data_ptr(), y.data_ptr(), self.batch_size,
             torch.cuda.current_stream(y.device).cuda_stream)
         self.launches += 1

@@ -20,11 +20,18 @@ the kernel: Downsample1d is ``out[t] = sum_k w[k] x[2t+k-1]`` and Upsample1d
 (flax ConvTranspose k4 s2, no kernel flip) is
 ``out[2t] = w0 x[t-1] + w2 x[t]``, ``out[2t+1] = w1 x[t] + w3 x[t+1]``.
 
-Activations in the kernel's shared memory are (2, h + 2*HALO, c): the
-conditional and unconditional copy of one sample, each with HALO zero rows
-above and below, so that the 'same' convs need no edge masks. The U-Net
-pass kernel and the DDIM kernels, whose samples are conditional only, use
-the same plan with one row-set.
+Activations in the kernel's shared memory are (NB, h + 2*HALO, c): NB
+row-sets, each with HALO zero rows above and below, so that the 'same'
+convs need no edge masks. The CFG kernels (the chain and the episode) hold
+NB = 2 row-sets, the conditional and unconditional copy of one sample; the
+U-Net pass kernel and the DDIM kernels, whose samples are conditional only,
+hold NB = 1. ``pack_unet`` makes a plan of shared memory for each count,
+one meta table each (``PackedUnet.metas``): the tables differ only in the
+plan's offsets (M_BUF, M_SKIP, M_XS, M_EPS, M_STATS, M_SMEM and the M_EP_*
+regions), so every kernel reads its own plan through the same indices. A
+plan may exceed what a block can take (the panda arm's H = 128 model at NB
+= 2); packing does not refuse it, the kernel that would launch with it
+does.
 """
 from __future__ import annotations
 
@@ -39,13 +46,14 @@ from ..models.temporal_unet import TemporalUnet
 from ..utils.device import resolve_device
 
 __all__ = ["PackedUnet", "pack_unet", "packed_on", "align4", "ClusterSplit", "cluster_split",
-           "cluster_weights", "CLUSTER"]
+           "cluster_weights", "CLUSTER", "ROW_SETS"]
 
 HALO = 2
 MAX_LEVELS = 4
 MAX_RES = 4 * MAX_LEVELS
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper
 CLUSTER = 8  # CTAs of the cluster kernels' clusters (csrc/unet_body_cluster.cuh)
+ROW_SETS = (1, 2)  # the row-set counts a plan is made for: the DDIM kernels' and the CFG kernels'
 
 # meta layout; ops/csrc/unet_body.cuh mirrors every index below
 (M_H, M_D, M_NLEV, M_NRES, M_MAXC, M_BUF, M_XS, M_EPS, M_STATS, M_SMEM) = range(10)
@@ -84,21 +92,25 @@ def align4(n: int) -> int:
 class PackedUnet:
     model: TemporalUnet
     weights: torch.Tensor          # (n_floats,) fp32, every conv-backbone weight
-    meta: torch.Tensor             # (M_LEN,) int32
+    metas: Dict[int, torch.Tensor]  # row-sets (ROW_SETS) -> (M_LEN,) int32 meta table of that plan
     segments: Dict[str, Tuple[int, Tuple[int, ...]]]  # name -> (offset, flax shape)
-    smem_bytes: int                # dynamic shared memory of each CTA of the chains and the pass
     films_w: torch.Tensor          # (n_res, cond_dim, max_c) FiLM Dense kernels, zero-padded
     films_b: torch.Tensor          # (n_res, max_c)
     flops_per_pass: int            # conv FLOPs of one U-Net pass over one batch element
     flops_final_1x1: int           # of which the final 1x1 conv, outside the U-Net pass kernel
 
-    def episode_smem_bytes(self, n_candidates: int) -> int:
-        """Dynamic shared memory of each CTA of either episode kernel's
-        cluster. The DDIM episode runs one
-        row-set: its one FiLM group fills the first n_res x max_c floats of
-        the FiLM region (M_EP_FILM), and the first cond_dim of the
-        mish(c_emb) region (M_EP_MC)."""
-        m = self.meta
+    def chain_smem_bytes(self, row_sets: int) -> int:
+        """Dynamic shared memory of each CTA of a chain or the U-Net pass
+        on ``row_sets`` row-sets: the plan up to its meta copy, then the copy."""
+        return 4 * (int(self.metas[row_sets][M_SMEM]) + M_LEN)
+
+    def episode_smem_bytes(self, n_candidates: int, row_sets: int) -> int:
+        """Dynamic shared memory of each CTA of an episode kernel's cluster on
+        ``row_sets`` row-sets (the CFG episode 2, the DDIM episode 1): the
+        plan's FiLM (n_res x row_sets x max_c floats at M_EP_FILM) and
+        mish(c_emb) (row_sets x cond_dim at M_EP_MC) regions, its misc region
+        and meta copy, then the K candidate chains and their scores."""
+        m = self.metas[row_sets]
         n = (int(m[M_EP_SMEM]) + align4(M_LEN) + align4(n_candidates * self.horizon * self.state_dim)
              + align4(n_candidates))
         return 4 * n
@@ -199,47 +211,14 @@ def pack_unet(model: TemporalUnet, device) -> PackedUnet:
     meta[M_FW] = push("films.w", films_w.cpu().numpy())
     meta[M_FB] = push("films.b", films_b.cpu().numpy())
 
-    # shared-memory plan: three rotating activation buffers sized for the
-    # largest (2, h + 2*HALO, c) the body writes, the skips the up path
-    # reads (levels >= 1), x, eps, the GroupNorm statistics, then meta.
-    act = lambda h, c: 2 * (h + 2 * HALO) * c
-    sizes = [act(horizon, d)]
-    for lvl in range(n_levels):
-        sizes.append(act(hs[lvl], dims[lvl + 1]))
-        if lvl < n_levels - 1:
-            sizes.append(act(hs[lvl + 1], dims[lvl + 1]))
-    for u, (din, dout) in enumerate(reversed(in_out[1:])):
-        h = hs[n_levels - 1 - u]
-        sizes += [act(h, 2 * dout), act(h, din), act(2 * h, din)]
-    sizes.append(act(horizon, dims[1]))
-    align = align4
-    buf = align(max(sizes))
-    off = 3 * buf
-    for lvl in range(1, n_levels):
-        meta[M_SKIP + lvl] = off
-        off += align(act(hs[lvl], dims[lvl + 1]))
-    meta[M_XS] = off
-    off += align(horizon * d)
-    meta[M_EPS] = off
-    off += align(2 * horizon * d)
-    meta[M_STATS] = off
     max_groups = max(group_norm_n_groups(c) for c in dims[1:])
-    off += align(4 * max_groups)
-    meta[M_SMEM] = off
-    smem_bytes = 4 * (off + M_LEN)
-    if smem_bytes > SMEM_LIMIT:
-        raise ValueError(f"the chain kernel needs {smem_bytes} B of shared memory, over {SMEM_LIMIT}")
-    # the episode kernel: its regions start where the chain's meta copy does
-    meta[M_EP_FILM] = off
-    off += align4(len(res) * 2 * max_c)
-    meta[M_EP_MC] = off
-    off += align4(2 * cond_dim)
-    meta[M_EP_MISC] = off
-    off += ep_misc_len(model.context_dim)
-    meta[M_EP_SMEM] = off
-    meta[[M_H, M_D, M_NLEV, M_NRES, M_MAXC, M_BUF]] = [
-        horizon, d, n_levels, len(res), max(dims[1:]), buf]
+    meta[[M_H, M_D, M_NLEV, M_NRES, M_MAXC]] = [horizon, d, n_levels, len(res), max(dims[1:])]
     meta[M_DIMS:M_DIMS + n_levels + 1] = dims
+    metas = {}
+    for nb in ROW_SETS:
+        metas[nb] = meta.copy()
+        _plan(metas[nb], nb, hs, dims, in_out, max_groups, len(res), max_c, cond_dim,
+              model.context_dim)
 
     # conv FLOPs of one pass over one batch element (GroupNorm, Mish and the
     # adds are elementwise and left out)
@@ -258,14 +237,55 @@ def pack_unet(model: TemporalUnet, device) -> PackedUnet:
     return PackedUnet(
         model=model,
         weights=torch.from_numpy(np.concatenate(chunks)).to(device),
-        meta=torch.from_numpy(meta).to(device),
+        metas={nb: torch.from_numpy(m).to(device) for nb, m in metas.items()},
         segments=segments,
-        smem_bytes=smem_bytes,
         films_w=films_w.contiguous().to(device),
         films_b=films_b.contiguous().to(device),
         flops_per_pass=flops,
         flops_final_1x1=2 * horizon * dims[1] * d,
     )
+
+
+def _plan(meta: np.ndarray, nb: int, hs, dims, in_out, max_groups: int, n_res: int, max_c: int,
+          cond_dim: int, context_dim: int) -> None:
+    """Writes the shared-memory plan of ``nb`` row-sets into ``meta``: three
+    rotating activation buffers sized for the largest (nb, h + 2*HALO, c)
+    the body writes, the skips the up path reads (levels >= 1), x (one
+    sample, H x D), eps (nb, H, D), the GroupNorm statistics, then the
+    chains' meta copy (M_SMEM); the episodes' regions start there: the FiLM
+    of one step (n_res, nb, max_c), mish(c_emb) of the nb groups, the misc
+    region (state, context, first control, choice) and their meta copy."""
+    horizon, d, n_levels = hs[0], dims[0], len(hs)
+    act = lambda h, c: nb * (h + 2 * HALO) * c
+    sizes = [act(horizon, d)]
+    for lvl in range(n_levels):
+        sizes.append(act(hs[lvl], dims[lvl + 1]))
+        if lvl < n_levels - 1:
+            sizes.append(act(hs[lvl + 1], dims[lvl + 1]))
+    for u, (din, dout) in enumerate(reversed(in_out[1:])):
+        h = hs[n_levels - 1 - u]
+        sizes += [act(h, 2 * dout), act(h, din), act(2 * h, din)]
+    sizes.append(act(horizon, dims[1]))
+    buf = align4(max(sizes))
+    meta[M_BUF] = buf
+    off = 3 * buf
+    for lvl in range(1, n_levels):
+        meta[M_SKIP + lvl] = off
+        off += align4(act(hs[lvl], dims[lvl + 1]))
+    meta[M_XS] = off
+    off += align4(horizon * d)
+    meta[M_EPS] = off
+    off += align4(nb * horizon * d)
+    meta[M_STATS] = off
+    off += align4(4 * max_groups)
+    meta[M_SMEM] = off
+    meta[M_EP_FILM] = off
+    off += align4(n_res * nb * max_c)
+    meta[M_EP_MC] = off
+    off += align4(nb * cond_dim)
+    meta[M_EP_MISC] = off
+    off += ep_misc_len(context_dim)
+    meta[M_EP_SMEM] = off
 
 
 def packed_on(model_or_packed: Union[TemporalUnet, PackedUnet], device=None) -> PackedUnet:
@@ -306,7 +326,7 @@ def cluster_split(packed: PackedUnet, n_ranks: int = CLUSTER) -> ClusterSplit:
     table as the kernel reads it. Raises ``ValueError`` unless ``n_ranks``
     divides every conv's output channels and every GroupNorm has exactly
     ``n_ranks`` groups: the kernel keeps each group inside one CTA."""
-    m = packed.meta.cpu().numpy()
+    m = packed.metas[1].cpu().numpy()  # the architecture, the same in every plan
     n_levels, dims = int(m[M_NLEV]), [int(v) for v in m[M_DIMS:M_DIMS + int(m[M_NLEV]) + 1]]
     convs, norms = {}, {}
     for r in range(int(m[M_NRES])):

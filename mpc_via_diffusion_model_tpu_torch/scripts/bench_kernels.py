@@ -1,7 +1,8 @@
 """Per-kernel microbenchmarks of the port: every CUDA kernel against its plain
 PyTorch twin, on the card. Port of ``scripts/bench_kernels.py``.
 
-    python -m mpc_via_diffusion_model_tpu_torch.scripts.bench_kernels [--quick] [--skip-conv] [--device cpu]
+    python -m mpc_via_diffusion_model_tpu_torch.scripts.bench_kernels [--quick] [--skip-conv] \
+        [--skip-panda] [--device cpu]
 
 Rows, one JSON line each, with the JAX script's keys (``pallas_us`` becomes
 ``kernel_us``, ``xla_us`` becomes ``plain_us``) and the device's name:
@@ -24,10 +25,19 @@ Rows, one JSON line each, with the JAX script's keys (``pallas_us`` becomes
   episode takes seconds, so it runs ``plain_reps`` times, each synchronised,
   and its best time is kept; every other time is pipelined (``eval.timing``).
 
+- At the panda arm's shape (``panda_h128_7ch_ctx20``: horizon 128, 7
+  channels, context 20): ``unet_forward`` (batch 2) and
+  ``ddim_chain_3eval``, on the committed on-policy student
+  (``artifacts/onpolicy_panda/student_1eval.pkl``), the architecture of the
+  JAX script's panda rows, so the same work, both on the kernels'
+  one-row-set plan; ``cfg_chain_30step`` records the CFG chain's refusal:
+  its two-row-set plan does not fit one block at horizon 128 (ROADMAP.md
+  B4). The JAX script skips the panda ``cfg_episode_80step``, and so does
+  this one.
+
 ``--quick`` runs one batch of the fewest repetitions. ``--device cpu`` runs
 the plain twins only, with ``kernel_us`` and ``max_abs_err`` null; without
-it the script runs on ``cuda`` or raises. The panda rows of the JAX script
-are not ported: they need the arm plant and a U-Net body that fits H = 128.
+it the script runs on ``cuda`` or raises.
 """
 from __future__ import annotations
 
@@ -43,7 +53,7 @@ from ..core import make_schedule
 from ..data import NormalizerStats
 from ..dynamics import cartpole_virtual_cost, cartpole_virtual_swingup, theta_to_red_theta
 from ..eval.timing import Timer, pipelined_time_fn
-from ..models import load_flagship
+from ..models import load_flagship, load_panda_student
 from ..ops import fused_conv1d_gn_mish
 from ..ops.fused_denoise import make_fused_cfg_chain, make_fused_ddim_chain
 from ..ops.fused_episode import make_fused_cfg_episode
@@ -51,6 +61,8 @@ from ..ops.fused_unet import make_fused_unet
 from ..utils.device import resolve_device
 
 FLAGSHIP = Path(__file__).resolve().parents[2] / "artifacts" / "flagship" / "ema_params.pkl"
+PANDA_STUDENT = (Path(__file__).resolve().parents[2] / "artifacts" / "onpolicy_panda"
+                 / "student_1eval.pkl")
 CONV_SHAPES = [(2, 32, 1, 32), (2, 32, 32, 32), (2, 16, 32, 64), (2, 8, 64, 128),
                (64, 32, 32, 32), (64, 8, 64, 128)]
 PRE_BIAS_SHAPE = (2, 32, 32, 32)  # the flagship's level-0 FiLM-biased block at the CFG pair
@@ -193,6 +205,55 @@ def bench_round2(dev: torch.device, quick: bool) -> List[dict]:
     return rows
 
 
+def bench_panda(dev: torch.device, quick: bool) -> List[dict]:
+    """The JAX script's panda rows on the committed student: the U-Net pass at
+    batch 2 and the 3-eval DDIM chain against their plain twins, and the CFG
+    chain's refusal of the shape."""
+    on_card = dev.type == "cuda"
+    tag, horizon, channels, ctx_dim = "panda_h128_7ch_ctx20", 128, 7, 20
+    model = load_panda_student(PANDA_STUDENT, device=dev)
+    schedule = make_schedule("exponential", T)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    rows = []
+
+    def twin(name, wrapper, args_list, n_batches, extra=None):
+        want = wrapper.plain(*args_list[0])
+        err = _maxerr(wrapper.kernel(*args_list[0]), want) if on_card else None
+        kernel_us = _us(wrapper.kernel, args_list, n_batches) if on_card else None
+        rows.append(_check({
+            "kernel": name, "config": tag, "rows": 2 * horizon, "device": _device_name(dev),
+            "plain_us": _us(wrapper.plain, args_list, n_batches), "kernel_us": kernel_us,
+            "max_abs_err": err, "tol": KERNEL_TOL, "launches": wrapper.launches,
+            "smem_bytes": wrapper.smem_bytes, "reps": [len(args_list), n_batches],
+            **(extra or {})}))
+
+    n, nb = _reps(quick, 30)
+    unet = make_fused_unet(model, batch_size=2, device=dev)
+    x = torch.randn((2, horizon, channels), generator=gen, device=dev) * 0.3
+    t = torch.tensor([5, 5], device=dev)
+    ctx = torch.randn((2, ctx_dim), generator=gen, device=dev) * 0.3
+    mask = torch.tensor([[0.0], [1.0]], device=dev)
+    twin("unet_forward", unet, [(x, t, ctx, mask)] * n, nb)
+
+    n, nb = _reps(quick, 20)
+    cond = ctx[:1].contiguous()
+    try:
+        make_fused_cfg_chain(unet.packed, schedule, n_samples=1, w=W, n_tail=N_TAIL, device=dev)
+        raise RuntimeError("the CFG chain took the panda shape: its two-row-set plan was to be "
+                           "refused")
+    except ValueError as e:
+        if "ROADMAP.md B4" not in str(e):
+            raise
+        rows.append(_check({"kernel": "cfg_chain_30step", "config": tag, "rows": 2 * horizon,
+                            "device": _device_name(dev), "plain_us": None, "kernel_us": None,
+                            "max_abs_err": None, "tol": KERNEL_TOL, "launches": 0,
+                            "refused": str(e)}))
+    ddim = make_fused_ddim_chain(unet.packed, schedule, GRID3, n_samples=1, device=dev)
+    x_inits = [torch.randn(ddim.noise_shape, generator=gen, device=dev) for _ in range(n)]
+    twin("ddim_chain_3eval", ddim, [(cond, xi) for xi in x_inits], nb, {"times": GRID3})
+    return rows
+
+
 def _sync(dev: torch.device) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -207,11 +268,13 @@ def main(argv: Optional[List[str]] = None) -> List[dict]:
     p.add_argument("--device", default=None, help="cuda (default) or cpu: the plain twins only")
     p.add_argument("--quick", action="store_true", help="one batch, the fewest repetitions")
     p.add_argument("--skip-conv", action="store_true")
+    p.add_argument("--skip-panda", action="store_true")
     args = p.parse_args(argv)
     dev = resolve_device(args.device)
     print(f"device: {_device_name(dev)}", flush=True)
     rows = [] if args.skip_conv else bench_conv_blocks(dev, args.quick)
-    return rows + bench_round2(dev, args.quick)
+    rows += bench_round2(dev, args.quick)
+    return rows if args.skip_panda else rows + bench_panda(dev, args.quick)
 
 
 if __name__ == "__main__":

@@ -15,6 +15,7 @@ from mpc_via_diffusion_model_tpu_torch.scripts import bench_kernels
 torch.set_num_threads(1)
 
 ROUND2 = ["unet_forward", "cfg_chain_30step", "ddim_chain_3eval", "cfg_episode_80step"]
+PANDA = ["unet_forward", "cfg_chain_30step", "ddim_chain_3eval"]
 
 
 @pytest.mark.parametrize("skip_conv", [False, True])
@@ -28,7 +29,13 @@ def test_bench_kernels_cpu_quick_rows(monkeypatch, capsys, skip_conv):
     assert lines[0] == "device: cpu"
     assert [json.loads(line) for line in lines[1:]] == rows
     conv_rows = [] if skip_conv else rows[:3]
-    assert [r["kernel"] for r in rows] == ["conv1d_gn_mish"] * len(conv_rows) + ROUND2
+    assert [r["kernel"] for r in rows] == ["conv1d_gn_mish"] * len(conv_rows) + ROUND2 + PANDA
+    rows, panda = rows[:-len(PANDA)], rows[-len(PANDA):]
+    # the panda rows: the CFG chain's two-row-set plan refused at horizon 128 (ROADMAP.md B4)
+    assert all(r["config"] == "panda_h128_7ch_ctx20" and r["rows"] == 256 for r in panda)
+    assert "ROADMAP.md B4" in panda[1]["refused"] and panda[1]["plain_us"] is None
+    for r in (panda[0], panda[2]):
+        assert r["plain_us"] > 0 and r["kernel_us"] is None and r["smem_bytes"] == 154_764
     for r in conv_rows:
         assert {"shape", "groups", "pre_bias", "torch_seq_us", "torch_seq_max_abs_err"} <= set(r)
         assert r["torch_seq_max_abs_err"] <= r["tol"] and r["torch_seq_us"] > 0

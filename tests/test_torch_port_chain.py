@@ -53,7 +53,7 @@ def test_unet_pack_segments_match_module(flagship):
     the offset the meta table gives the kernel."""
     packed = up.pack_unet(flagship, "cpu")
     W = packed.weights.numpy()
-    m = packed.meta.numpy()
+    m = packed.metas[2].numpy()
     seen = 0
     for name, (off, shape) in packed.segments.items():
         assert off % 4 == 0
@@ -120,7 +120,7 @@ def test_unet_pack_segments_match_module(flagship):
     assert m[up.M_NRES] == 12 and m[up.M_MAXC] == 128
     assert (m[up.M_COND], m[up.M_TEMB], m[up.M_CTX]) == (38, 32, 5)
     assert list(m[up.M_DIMS:up.M_DIMS + 4]) == [1, 32, 64, 128]
-    assert packed.smem_bytes <= up.SMEM_LIMIT
+    assert packed.chain_smem_bytes(2) <= up.SMEM_LIMIT
 
 
 @pytest.mark.parametrize("which", ["small", "flagship"])

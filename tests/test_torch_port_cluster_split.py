@@ -192,11 +192,11 @@ def test_cluster_split_refuses_what_8_ranks_cannot_split(case):
 
 @pytest.mark.parametrize("k", [1, 4])
 def test_cluster_episode_shared_memory_under_limit(k):
-    """Each CTA holds the whole one-block plan (replicated activations,
+    """Each CTA holds the whole two-row-set plan (replicated activations,
     skips, halos) plus the episode's regions: at the flagship's widths and
     K = 1 or 4 it fits one block's shared memory."""
     ep = _episode(load_flagship(FLAGSHIP, device="cpu"), k=k)
-    assert ep.smem_bytes == ep.packed.episode_smem_bytes(k) <= up.SMEM_LIMIT
+    assert ep.smem_bytes == ep.packed.episode_smem_bytes(k, 2) <= up.SMEM_LIMIT
     assert ep.cluster.split.n_ranks == 8
 
 
@@ -301,8 +301,9 @@ def test_ddim_chain_cluster_program_is_race_free_and_matches_plain(dim_mults, b,
                               "episode_1eval_k4"])
 def test_ddim_programs_at_the_teachers_horizon_64(kind, times, b):
     """The DDIM chain's and episode's programs at the full width of the
-    distillation's teacher (horizon 64, 163,724 B of shared memory per CTA
-    for the chain, 176,720 and 177,488 for the episode at K = 1 and 4), on
+    distillation's teacher (horizon 64, on the one-row-set plan 82,572 B of
+    shared memory per CTA for the chain, 89,280 and 90,048 for the episode at
+    K = 1 and 4), on
     its own weights: the race check on 8 NaN-filled images, the output
     against the plain version (1e-4), and the barrier counts of
     three levels."""
@@ -317,7 +318,7 @@ def test_ddim_programs_at_the_teachers_horizon_64(kind, times, b):
             films = chain.films(ctx).numpy()
         got, barriers = emulate_ddim_chain_kernel(chain.packed, chain.cluster.weights, films,
                                                   x_init.numpy(), chain.coefs.numpy())
-        assert chain.packed.smem_bytes == 163_724
+        assert chain.smem_bytes == 82_572
         np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
         assert barriers == [2 + _barriers_per_pass((1, 2, 4)) * len(times)] * b
         return
@@ -329,7 +330,7 @@ def test_ddim_programs_at_the_teachers_horizon_64(kind, times, b):
                                                  noise.numpy(), ep.coefs.numpy(),
                                                  ep.consts.numpy(), X0, b, ep.selection_horizon,
                                                  n_steps)
-    assert ep.packed.episode_smem_bytes(b) == {1: 176_720, 4: 177_488}[b]
+    assert ep.smem_bytes == {1: 89_280, 4: 90_048}[b]
     for name, g, w_ in zip(("x_track", "u_track", "stage_costs"), got, want):
         np.testing.assert_allclose(g, w_.numpy(), rtol=1e-4, atol=1e-4, err_msg=name)
     np.testing.assert_array_equal(got[3], want[3].numpy())
@@ -365,10 +366,11 @@ def test_unet_pass_cluster_program_is_race_free_and_matches_plain(dim_mults, bat
                                       ("ddim_episode", 1), ("ddim_episode", 4)])
 def test_cluster_kernels_shared_memory_under_limit(kernel, k):
     """Each CTA of the chains', the U-Net pass's and the student's episode's
-    clusters holds the whole one-block plan (and the episode's regions) at
-    the full width: the chains' and the pass's plan does not grow with the
-    batch (checked at B = 1, 4 and 2), the episode's at K = 1 and 4, within
-    one block's shared memory, on a body the cluster splits."""
+    clusters holds the whole plan of its row-sets (two for the CFG chain,
+    one for the others; and the episode's regions) at the full width: the
+    chains' and the pass's plan does not grow with the batch (checked at B =
+    1, 4 and 2), the episode's at K = 1 and 4, within one block's shared
+    memory, on a body the cluster splits."""
     if kernel in ("cfg_chain", "fused_unet", "ddim_chain"):
         if kernel == "cfg_chain":
             wrapper = _chain(load_flagship(FLAGSHIP, device="cpu"))
@@ -377,11 +379,12 @@ def test_cluster_kernels_shared_memory_under_limit(kernel, k):
                                       device="cpu")
         else:
             wrapper = _ddim_chain(load_student(STUDENT, device="cpu"), [23], b=k)
-        smem, cluster = wrapper.packed.smem_bytes, wrapper.cluster
+        smem, cluster = wrapper.smem_bytes, wrapper.cluster
+        assert smem == wrapper.packed.chain_smem_bytes(2 if kernel == "cfg_chain" else 1)
     else:
         ep = _ddim_episode(load_student(STUDENT, device="cpu"), [23], k=k)
         smem, cluster = ep.smem_bytes, ep.cluster
-        assert smem == ep.packed.episode_smem_bytes(k)
+        assert smem == ep.packed.episode_smem_bytes(k, 1)
     assert smem <= up.SMEM_LIMIT
     assert cluster.split.n_ranks == 8 and cluster.weights.shape == cluster.packed.weights.shape
 
@@ -435,7 +438,9 @@ def test_cluster_occupancy_query_on_gpu(kernel):
              "ddim_episode": ddim_episode_max_active_clusters,
              "ddim_chain": ddim_chain_max_active_clusters,
              "fused_unet": fused_unet_max_active_clusters}[kernel]
-    smem = packed.episode_smem_bytes(1) if kernel.endswith("episode") else packed.smem_bytes
+    nb = 2 if kernel.startswith("cfg") else 1
+    smem = (packed.episode_smem_bytes(1, nb) if kernel.endswith("episode")
+            else packed.chain_smem_bytes(nb))
     assert query(smem) >= 1
 
 

@@ -183,7 +183,7 @@ def test_episode_kernel_program_emulation_matches_plain(models, which, k, sel_h)
         assert np.all(np.isfinite(g)), name
         np.testing.assert_allclose(g, w_.numpy(), rtol=TOL, atol=TOL, err_msg=name)
     np.testing.assert_array_equal(got[3], want[3].numpy())
-    m = ep.packed.meta.numpy()
+    m = ep.meta.numpy()
     assert m[up.M_COND] == tm.time_emb_dim + tm.context_dim + 1
     assert ep.smem_bytes <= up.SMEM_LIMIT
 

@@ -36,7 +36,9 @@ for name in ('ops.fused_unet', 'ops.fused_episode', 'ops.fused_denoise', 'ops._b
              'scripts.flagship_quadrotor', 'scripts.scene_conditioned_quadrotor',
              'scripts.guided_divergence', 'scripts.guided_profile', 'scripts.onpolicy_scene',
              'data.scene_making_yardstick', 'data.onpolicy_scene_yardstick',
-             'scripts.scene_making_divergence'):
+             'scripts.scene_making_divergence', 'dynamics.arm', 'data.panda_stats',
+             'data.panda_yardstick', 'scripts.panda_divergence', 'scripts.bench_panda_student',
+             'scripts.plan_timing'):
     assert pkg.__name__ + '.' + name in names, name
 import chip_smoke  # as a module: main() does not run
 loaded = [k for k, v in sys.modules.items() if v is not None
@@ -51,7 +53,7 @@ def test_port_and_chip_smoke_import_without_jax():
     proc = subprocess.run([sys.executable, "-c", _GUARDED], cwd=ROOT, capture_output=True,
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip().splitlines()[-1]) >= 61  # every module of the port
+    assert int(proc.stdout.strip().splitlines()[-1]) >= 67  # every module of the port
 
 
 def test_port_sources_name_no_jax_import():
@@ -74,7 +76,8 @@ def test_port_sources_name_no_jax_import():
             "guided_yardstick.py", "flagship_quadrotor.py", "scene_conditioned_quadrotor.py",
             "guided_divergence.py", "guided_profile.py", "onpolicy_scene.py",
             "scene_making_yardstick.py", "onpolicy_scene_yardstick.py",
-            "scene_making_divergence.py"} <= {
+            "scene_making_divergence.py", "arm.py", "panda_stats.py", "panda_yardstick.py",
+            "panda_divergence.py", "bench_panda_student.py", "plan_timing.py"} <= {
                 f.name for f in files}
     offenders = [str(f.relative_to(ROOT)) for f in files if pattern.search(f.read_text())]
     assert not offenders

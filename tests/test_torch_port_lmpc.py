@@ -55,10 +55,13 @@ def test_zoh_discretization_equals_jax_exactly():
             np.testing.assert_array_equal(g, w)
 
 
-@pytest.mark.parametrize("name", sorted(PLANTS))
+@pytest.mark.parametrize("name", sorted(set(PLANTS) - {"panda"}))
 def test_plant_and_cost_match_jax(name):
     """The step of every ported plant and its registry cost's stage and
-    terminal on 64 seeded states and controls."""
+    terminal on 64 seeded states and controls. The rigid-body arm
+    (``panda``), whose float32 mass-matrix solve carries the libraries'
+    last-bit differences of M and the bias into the step by M's condition,
+    is held to JAX's in tests/test_torch_port_panda.py."""
     plant, cost = get_plant(name)
     jplant, jcost = jax_get_plant(name)
     assert (plant.state_dim, plant.control_dim, plant.dt) == (jplant.state_dim, jplant.control_dim,
@@ -95,15 +98,17 @@ def test_lmpc_matrices_are_the_zoh_in_float32():
     ("cartpole_lmpc", None), ("cartpole_virtual_swingup", None),
     ("cartpole_virtual_stabilized", None), ("pendulum", NotImplementedError),
     ("double_integrator", NotImplementedError), ("acrobot", NotImplementedError),
-    ("quadrotor", None), ("panda_surrogate", NotImplementedError),
-    ("panda", NotImplementedError), ("no_such_plant", ValueError)])
+    ("quadrotor", None), ("panda_surrogate", None), ("panda", None),
+    ("no_such_plant", ValueError)])
 def test_get_plant(name, error):
-    """Every ported plant by its name, each other plant of the JAX
-    registry refused as not ported, an unknown name refused as in JAX."""
+    """Every ported plant by its name (the plant named as JAX's: ``panda``
+    is the rigid-body ``panda_rbd``), each other plant of the JAX registry
+    refused as not ported, an unknown name refused as in JAX."""
     assert (name in JAX_PLANTS) == (error is not ValueError)
     if error is None:
         plant, cost = get_plant(name)
-        assert plant.name == name and cost.q_diag.shape == (plant.state_dim,)
+        assert plant.name == jax_get_plant(name)[0].name == {"panda": "panda_rbd"}.get(name, name)
+        assert cost.q_diag.shape == (plant.state_dim,)
         assert get_plant(name, dt=0.02)[0].dt == 0.02
         return
     with pytest.raises(error, match="ROADMAP.md A5" if error is NotImplementedError else "unknown"):

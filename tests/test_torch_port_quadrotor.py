@@ -210,8 +210,8 @@ def test_load_quadrotor_student_matches_jax_forward_and_splits():
     split = up.cluster_split(packed)  # widths 32/64/128, 8 groups: the cluster kernels take it
     assert len(split.convs) > 0
     # the misc region holds the 12-state and its context (episode.cuh's X_* offsets)
-    assert packed.episode_smem_bytes(16) - packed.episode_smem_bytes(1) == 4 * 15 * 48 * 4 + 4 * 12
-    assert packed.episode_smem_bytes(16) <= up.SMEM_LIMIT
+    assert packed.episode_smem_bytes(16, 1) - packed.episode_smem_bytes(1, 1) == 4 * 15 * 48 * 4 + 4 * 12
+    assert packed.episode_smem_bytes(16, 1) <= up.SMEM_LIMIT
 
 
 def _jax_stats():

@@ -131,7 +131,7 @@ def test_load_scene_student_matches_jax_forward_and_splits(student):
     packed = up.pack_unet(tm, "cpu")
     assert len(up.cluster_split(packed).convs) > 0
     # the misc region holds the 12-state and the 24-wide context (episode.cuh's X_* offsets)
-    assert [packed.episode_smem_bytes(k) for k in (1, 4, 16)] == [146_288, 148_592, 157_856]
+    assert [packed.episode_smem_bytes(k, 2) for k in (1, 4, 16)] == [146_288, 148_592, 157_856]
 
 
 def _scene(index: int = 0):

@@ -128,6 +128,156 @@ def quadrotor_step_f32(x, u, pc, sin=np.sin, cos=np.cos):
     return (x + xdot * dt).astype(f)
 
 
+def _f(v):
+    return np.float32(v)
+
+
+def _cross_f32(a, b):
+    return [_f(_f(a[1] * b[2]) - _f(a[2] * b[1])), _f(_f(a[2] * b[0]) - _f(a[0] * b[2])),
+            _f(_f(a[0] * b[1]) - _f(a[1] * b[0]))]
+
+
+def _matvec_f32(r, v, transposed=False):
+    out = []
+    for i in range(3):
+        row = [r[i], r[3 + i], r[6 + i]] if transposed else r[3 * i:3 * i + 3]
+        out.append(_f(_f(_f(row[0] * v[0]) + _f(row[1] * v[1])) + _f(row[2] * v[2])))
+    return out
+
+
+def _add_f32(a, b):
+    return [_f(x + y) for x, y in zip(a, b)]
+
+
+def _panda_rne_f32(R, P, pc, qd, qdd, g):
+    """``csrc/plants.cuh``'s PandaRbd::rne in float32 numpy, step by step."""
+    mass, com, inr = pc[36:43], pc[43:64], pc[64:127]
+    omega, omegad, vd = [_f(0)] * 3, [_f(0)] * 3, [_f(0), _f(0), _f(g)]
+    F, N = [], []
+    for i in range(7):
+        r, p = R[9 * i:9 * i + 9], P[3 * i:3 * i + 3]
+        c, inn = com[3 * i:3 * i + 3], inr[9 * i:9 * i + 9]
+        v = _add_f32(_add_f32(vd, _cross_f32(omegad, p)), _cross_f32(omega, _cross_f32(omega, p)))
+        vd = _matvec_f32(r, v, True)
+        omega_r = _matvec_f32(r, omega, True)
+        qdz = [_f(0), _f(0), _f(qd[i])]
+        t1 = _add_f32(_matvec_f32(r, omegad, True), _cross_f32(omega_r, qdz))
+        omegad = [_f(t1[0] + _f(0)), _f(t1[1] + _f(0)), _f(t1[2] + _f(qdd[i]))]
+        omega = _add_f32(omega_r, qdz)
+        vdc = _add_f32(_add_f32(vd, _cross_f32(omegad, c)), _cross_f32(omega, _cross_f32(omega, c)))
+        F.append([_f(mass[i] * x) for x in vdc])
+        N.append(_add_f32(_matvec_f32(inn, omegad), _cross_f32(omega, _matvec_f32(inn, omega))))
+    f_next, n_next, tau = [_f(0)] * 3, [_f(0)] * 3, [None] * 7
+    for i in reversed(range(7)):
+        fc, nc = [_f(0)] * 3, [_f(0)] * 3
+        if i < 6:
+            fc = _matvec_f32(R[9 * (i + 1):9 * (i + 2)], f_next)
+            nc = _add_f32(_matvec_f32(R[9 * (i + 1):9 * (i + 2)], n_next),
+                          _cross_f32(P[3 * (i + 1):3 * (i + 2)], fc))
+        c = com[3 * i:3 * i + 3]
+        f_next = _add_f32(fc, F[i])
+        n_next = _add_f32(_add_f32(N[i], nc), _cross_f32(c, F[i]))
+        tau[i] = n_next[2]
+    return tau
+
+
+def panda_rbd_step_f32(x, u, pc, sin=np.sin, cos=np.cos, sqrt=np.sqrt):
+    """``csrc/plants.cuh``'s PandaRbd::step in float32 numpy, in its order of
+    operations: ``pc`` is the consts table from dt on (dt, the link table,
+    masses, COMs, inertias, viscous gains, q_ref; ``dynamics/arm.py``,
+    ``panda_device_consts``). ``sqrt`` is numpy's, correctly rounded as the
+    kernel's __fsqrt_rn, unless given: torch's vectorised float32 sqrt on the
+    CPU misses the nearest float in about 1 value of 140. Given torch's sin,
+    cos and sqrt it is the torch ``panda_rbd_unrolled`` step's bits."""
+    pc = np.asarray(pc, np.float32)
+    dt, lk, visc, qref = pc[0], pc[1:36], pc[127:134], pc[134:141]
+    q = [_f(x[i] + qref[i]) for i in range(7)]
+    qd = [_f(x[7 + i]) for i in range(7)]
+    R, P = [], []
+    for i in range(7):
+        a, ca, sa, dsa, dca = lk[5 * i:5 * i + 5]
+        cq, sq = _f(cos(q[i])), _f(sin(q[i]))
+        R += [cq, -sq, _f(0), _f(sq * ca), _f(cq * ca), _f(0 - sa), _f(sq * sa), _f(cq * sa),
+              _f(0 + ca)]
+        P += [_f(0 + a), _f(0 + dsa), _f(0 + dca)]
+    zero = [_f(0)] * 7
+    bias = _panda_rne_f32(R, P, pc, qd, zero, 9.81)
+    M = np.zeros((7, 7), np.float32)
+    for j in range(7):
+        unit = [_f(1.0 if k == j else 0.0) for k in range(7)]
+        M[:, j] = _panda_rne_f32(R, P, pc, zero, unit, 0.0)
+    S = np.array([[_f(_f(0.5) * _f(M[i, j] + M[j, i])) for j in range(7)] for i in range(7)])
+    rhs = [_f(_f(u[i] - bias[i]) - _f(visc[i] * qd[i])) for i in range(7)]
+    L = np.zeros((7, 7), np.float32)
+    for i in range(7):
+        for j in range(i + 1):
+            acc = S[i, j]
+            for k in range(j):
+                acc = _f(acc - _f(L[i, k] * L[j, k]))
+            L[i, j] = _f(sqrt(acc)) if i == j else _f(acc / L[j, j])
+    y, qdd = [None] * 7, [None] * 7
+    for i in range(7):
+        acc = _f(rhs[i])
+        for k in range(i):
+            acc = _f(acc - _f(L[i, k] * y[k]))
+        y[i] = _f(acc / L[i, i])
+    for i in reversed(range(7)):
+        acc = y[i]
+        for k in range(i + 1, 7):
+            acc = _f(acc - _f(L[k, i] * qdd[k]))
+        qdd[i] = _f(acc / L[i, i])
+    v = [_f(qd[i] + _f(qdd[i] * dt)) for i in range(7)]
+    return np.array([_f(x[i] + _f(v[i] * dt)) for i in range(7)] + v, np.float32)
+
+
+def panda_context_f32(x, cc, sin=np.sin, cos=np.cos):
+    """``csrc/plants.cuh``'s PandaContext::map of every entry in float32
+    numpy: ``cc`` is its constants (q_ref, the FK's link table, the
+    flange's d), the forward-mode FK chain in the kernel's order."""
+    cc = np.asarray(cc, np.float32)
+    qref, lk, fd = cc[:7], cc[7:42], cc[42]
+    R = [_f(1), _f(0), _f(0), _f(0), _f(1), _f(0), _f(0), _f(0), _f(1)]
+    P, dR, dP = [_f(0)] * 3, [_f(0)] * 9, [_f(0)] * 3
+    for l in range(7):
+        a, ca, sa, p1, p2 = lk[5 * l:5 * l + 5]
+        q, w = _f(x[l] + qref[l]), _f(x[7 + l])
+        cq, sq = _f(cos(q)), _f(sin(q))
+        ri = [cq, -sq, _f(0), _f(sq * ca), _f(cq * ca), -sa, _f(sq * sa), _f(cq * sa), ca]
+        dri = [_f(-sq * w), _f(-cq * w), _f(0), _f(_f(cq * ca) * w), _f(_f(-sq * ca) * w), _f(0),
+               _f(_f(cq * sa) * w), _f(_f(-sq * sa) * w), _f(0)]
+        pi = [a, p1, p2]
+        Rn, dRn, Pn, dPn = [None] * 9, [None] * 9, [None] * 3, [None] * 3
+        for r in range(3):
+            for c in range(3):
+                s_, ds = _f(0), _f(0)
+                for k in range(3):
+                    s_ = _f(s_ + _f(R[3 * r + k] * ri[3 * k + c]))
+                    ds = _f(ds + _f(_f(dR[3 * r + k] * ri[3 * k + c]) + _f(R[3 * r + k] * dri[3 * k + c])))
+                Rn[3 * r + c], dRn[3 * r + c] = s_, ds
+            s_, ds = P[r], dP[r]
+            for k in range(3):
+                s_ = _f(s_ + _f(R[3 * r + k] * pi[k]))
+                ds = _f(ds + _f(dR[3 * r + k] * pi[k]))
+            Pn[r], dPn[r] = s_, ds
+        R, dR, P, dP = Rn, dRn, Pn, dPn
+    pos = [_f(P[r] + _f(R[3 * r + 2] * fd)) for r in range(3)]
+    vel = [_f(dP[r] + _f(dR[3 * r + 2] * fd)) for r in range(3)]
+    q = [_f(x[i] + qref[i]) for i in range(7)]
+    return np.array(q + list(np.asarray(x[7:14], np.float32)) + pos + vel, np.float32)
+
+
+def panda_plant_step(x, u, pc):
+    """``PandaRbd::step`` for ``_emulate_episode`` (its consts from dt on)."""
+    return panda_rbd_step_f32(x, u, pc)
+
+
+def panda_context_condition(n_plant_consts=140):
+    """``plants.cuh``'s PandaContext map for ``_emulate_episode``: its
+    constants follow the plant's in ``pc``."""
+    o = 1 + n_plant_consts
+    return lambda x, pc: panda_context_f32(x, pc[o:o + 43])
+
+
 def _seq(terms):
     acc = terms[0]
     for t in terms[1:]:
@@ -211,11 +361,11 @@ def _emulate_episode(packed, t_embs, consts, x0, n_candidates, selection_horizon
     the state width is x0's), and the scorer ``select`` = (stage(x, u, sq,
     sr, pc), terminal(x, sp, pc)), the selection QuadraticCost by default,
     and the state-to-condition map ``condition(x, pc)`` (the identity by
-    default), whose context is the model's context_dim wide. The shared image is sized by the episode plan
-    and filled with NaN, so a region that overlaps another or is read before
+    default), whose context is the model's context_dim wide. The shared image is sized by the
+    episode plan of ``n_groups`` row-sets (the CFG episode's 2, the DDIM episode's 1) and filled with NaN, so a region that overlaps another or is read before
     it is written shows."""
     W = packed.weights.cpu().numpy()
-    m = packed.meta.cpu().numpy()
+    m = packed.metas[n_groups].cpu().numpy()
     K, sel_h = n_candidates, selection_horizon
     H, D, n_res, maxc = (int(m[k]) for k in (up.M_H, up.M_D, up.M_NRES, up.M_MAXC))
     cond, temb, dctx = (int(m[k]) for k in (up.M_COND, up.M_TEMB, up.M_CTX))
@@ -226,7 +376,7 @@ def _emulate_episode(packed, t_embs, consts, x0, n_candidates, selection_horizon
     cn_shift, cn_scale, un_shift, un_scale, q, r, sq, sr, sp, pc = parts
     Fw = W[m[up.M_FW]:m[up.M_FW] + n_res * cond * maxc].reshape(n_res, cond, maxc)
     Fb = W[m[up.M_FB]:m[up.M_FB] + n_res * maxc].reshape(n_res, maxc)
-    smem = _image(packed.episode_smem_bytes(K) // 4)
+    smem = _image(packed.episode_smem_bytes(K, n_groups) // 4)
     films = smem[m[up.M_EP_FILM]:m[up.M_EP_FILM] + n_res * n_groups * maxc].reshape(n_res, n_groups, maxc)
     mc = smem[m[up.M_EP_MC]:m[up.M_EP_MC] + n_groups * cond].reshape(n_groups, cond)
     cand_off = int(m[up.M_EP_SMEM]) + up.align4(up.M_LEN)
@@ -507,17 +657,17 @@ def _ddim_update(x, eps, coefs_si):
 def emulate_fused_unet_kernel(packed, weights, films, x, n_ranks=up.CLUSTER):
     """Runs ``csrc/fused_unet.cu``'s program in numpy: per batch row one
     cluster of ``n_ranks`` CTAs (``_Cluster``, NaN-filled images of the
-    pass's plan), a cluster barrier once every CTA has started, the cluster
+    pass's one-row-set plan), a cluster barrier once every CTA has started, the cluster
     body on the row (``_emulate_cluster_body``, one row-set, FiLM row b of
     films (n_res, B, max_c) in device memory), rank 0 reading y out, and a
     cluster barrier before exit. ``weights`` is the buffer the kernel reads
     (``FusedUnet.cluster.weights``). Returns y (B, H, dims[1]) and each
     row's cluster-barrier count."""
     cluster_w = weights.cpu().numpy()
-    m = packed.meta.cpu().numpy()
+    m = packed.metas[1].cpu().numpy()
     ys, barriers = [], []
     for b in range(x.shape[0]):
-        cl = _Cluster(packed.smem_bytes // 4, n_ranks)
+        cl = _Cluster(packed.chain_smem_bytes(1) // 4, n_ranks)
         cl.barrier()
         ys.append(_emulate_cluster_body(cluster_w, m, cl, 1, lambda r, rr, sl: films[rr][[b]][:, sl],
                                         x[b:b + 1], next_pass=False)[0])
@@ -529,7 +679,7 @@ def emulate_fused_unet_kernel(packed, weights, films, x, n_ranks=up.CLUSTER):
 def emulate_ddim_chain_kernel(packed, weights, films, x_init, coefs, n_ranks=up.CLUSTER):
     """Runs ``csrc/ddim_chain.cu``'s program in numpy: per sample one
     cluster of ``n_ranks`` CTAs (``_Cluster``, NaN-filled images of the
-    chain's plan), a cluster barrier once every CTA has started, then per
+    chain's one-row-set plan), a cluster barrier once every CTA has started, then per
     step the cluster body on the sample's one row-set
     (``_emulate_cluster_body``, FiLM row ``sample`` of the step's (n_res, B,
     max_c) table in device memory), the final 1x1 conv and the DDIM lines,
@@ -539,11 +689,11 @@ def emulate_ddim_chain_kernel(packed, weights, films, x_init, coefs, n_ranks=up.
     (B, H, D) and each sample's cluster-barrier count."""
     W = packed.weights.cpu().numpy()
     cluster_w = weights.cpu().numpy()
-    m = packed.meta.cpu().numpy()
+    m = packed.metas[1].cpu().numpy()
     out = np.empty_like(x_init)
     barriers = []
     for sample in range(x_init.shape[0]):
-        cl = _Cluster(packed.smem_bytes // 4, n_ranks)
+        cl = _Cluster(packed.chain_smem_bytes(1) // 4, n_ranks)
         xs = x_init[sample].copy()
         cl.barrier()
         for si in range(coefs.shape[0]):
@@ -568,7 +718,7 @@ def emulate_cfg_chain_kernel(packed, weights, films, noise_tab, coefs, w, n_rank
                              weights_bf16=None, dtype=np.float32):
     """Runs ``csrc/cfg_chain.cu``'s program in numpy: per sample one cluster
     of ``n_ranks`` CTAs (``_Cluster``, NaN-filled images of the chain's
-    plan), a cluster barrier once every CTA has started, then per step the
+    two-row-set plan), a cluster barrier once every CTA has started, then per step the
     cluster body on the two row-sets (``_emulate_cluster_body``, FiLM rows
     ``sample`` and ``B + sample`` of the step's (n_res, 2B, max_c) table in
     device memory), the final 1x1 conv and the CFG lines, with the kernel's
@@ -583,12 +733,12 @@ def emulate_cfg_chain_kernel(packed, weights, films, noise_tab, coefs, w, n_rank
     W = packed.weights.cpu().numpy()
     cluster_w = weights.cpu().numpy()
     wc = None if weights_bf16 is None else weights_bf16.float().cpu().numpy()
-    m = packed.meta.cpu().numpy()
+    m = packed.metas[2].cpu().numpy()
     n_total, b_all = noise_tab.shape[0] - 1, noise_tab.shape[1]
     out = np.empty((b_all,) + noise_tab.shape[2:], dtype)
     barriers = []
     for sample in range(b_all):
-        cl = _Cluster(packed.smem_bytes // 4, n_ranks, dtype)
+        cl = _Cluster(packed.chain_smem_bytes(2) // 4, n_ranks, dtype)
         xs = noise_tab[n_total, sample].astype(dtype)
         cl.barrier()
         for si in range(n_total):
@@ -620,10 +770,10 @@ def emulate_cfg_episode_kernel(packed, weights, t_embs, noise, coefs, consts, x0
     state-to-condition map (``_emulate_episode``). Returns the tracks, the
     choices and the number of cluster barriers."""
     n_total = noise.shape[1] - 1
-    m = packed.meta.cpu().numpy()
+    m = packed.metas[2].cpu().numpy()
     cluster_w = weights.cpu().numpy()
     wc = None if weights_bf16 is None else weights_bf16.float().cpu().numpy()
-    cl = _Cluster(packed.episode_smem_bytes(n_candidates) // 4, n_ranks)
+    cl = _Cluster(packed.episode_smem_bytes(n_candidates, 2) // 4, n_ranks)
     film = film_from_image(cl, m, 2, 2)
 
     def step(W, m, smem, films, x, si_step, si, k):
@@ -640,7 +790,7 @@ def emulate_ddim_episode_kernel(packed, weights, t_embs, noise, coefs, consts, x
                                 selection_horizon, n_steps, n_ranks=up.CLUSTER,
                                 plant_step=_swingup_step, select=(_quadratic_select,
                                                                   _quadratic_terminal),
-                                draw=None):
+                                draw=None, condition=None):
     """Runs ``csrc/ddim_episode.cu``'s program in numpy: ``_emulate_episode``
     with the one FiLM group, on one cluster of ``n_ranks`` CTAs that lives
     through the whole episode (a cluster barrier once every CTA has started,
@@ -650,14 +800,14 @@ def emulate_ddim_episode_kernel(packed, weights, t_embs, noise, coefs, consts, x
     the kernel's barrier when the pass ended in a buffer the next one pushes
     into. ``noise`` is (n_steps, K, H, D), each replan's initial draw;
     ``weights`` the buffer the kernel reads (``FusedDdimEpisode.weights``);
-    ``plant_step`` and ``select`` the plant's device function and the
-    scorer (``_emulate_episode``). With ``draw(rank, step)`` -> (K, H, D) in
+    ``plant_step``, ``select`` and ``condition`` the plant's device function, the
+    scorer and the state-to-condition map (``_emulate_episode``). With ``draw(rank, step)`` -> (K, H, D) in
     place of ``noise`` (None), every rank draws each replan's noise itself,
     as the in-kernel draw does, and the draws of the ranks must be equal.
     Returns the tracks, the choices and the number of cluster barriers."""
-    m = packed.meta.cpu().numpy()
+    m = packed.metas[1].cpu().numpy()
     cluster_w = weights.cpu().numpy()
-    cl = _Cluster(packed.episode_smem_bytes(n_candidates) // 4, n_ranks)
+    cl = _Cluster(packed.episode_smem_bytes(n_candidates, 1) // 4, n_ranks)
     film = film_from_image(cl, m, 1, 1)
 
     def step(W, m, smem, films, x, si_step, si, k):
@@ -675,7 +825,7 @@ def emulate_ddim_episode_kernel(packed, weights, t_embs, noise, coefs, consts, x
 
     cl.barrier()
     out = _emulate_episode(packed, t_embs, consts, x0, n_candidates, selection_horizon, n_steps,
-                           1, first_plans, step, plant_step, select)
+                           1, first_plans, step, plant_step, select, condition)
     cl.barrier()
     return out + (cl.barriers,)
 
