@@ -11,7 +11,8 @@ the LMPC parity workload's in ``artifacts/flagship_lmpc/`` (``ema_params.pkl``,
 ``artifacts/onpolicy_quadrotor/student_1eval.pkl``, the scene-conditioned student in
 ``artifacts/scene_conditioned/scene_student_ema.pkl``, the quadrotor flagship's teacher in
 ``artifacts/flagship_quadrotor/`` (``ema_params.pkl``, ``dataset.npz``), the panda student in
-``artifacts/onpolicy_panda/student_1eval.pkl``, and writes nothing but
+``artifacts/onpolicy_panda/student_1eval.pkl``, its CFG teacher in
+``artifacts/flagship_panda_rbd/ema_params.pkl``, and writes nothing but
 the kernel builds under ``build/torch_kernels/`` and, for a moment, phase 26's checkpoint under
 ``build/chip_smoke_train/`` and phases 41-42's student and data under
 ``build/chip_smoke_making/``. Phases,
@@ -290,7 +291,7 @@ scene 0 of ``sample_scenes(1, seed=99)``, T = 25 + 5, w = 0.01:
 
 35. scene episode: ``cfg_episode_quadrotor`` (the CFG episode with the
     quadrotor, the context map and the scene's safety-first scorer in the
-    kernel) at K = 1 over 20 replans and at K = 16 over 3, one launch each,
+    kernel) at K = 1 over 10 replans and at K = 16 over 3, one launch each,
     against its plain version (controls in normalized units at 1e-4, the
     rest at 1e-3; the choices equal wherever the plain version's best two
     scores are more than 1e-5 apart, each near-tie printed); scene 1
@@ -359,12 +360,13 @@ The panda arm's student (the JAX package's ``scripts/bench_panda_student.py``): 
 1-eval student at horizon 128 with 7 channels and a 20-dim context (``make_panda_context``: q,
 qd and the end effector's position and velocity), the rigid-body arm (``dynamics/arm.py``) and
 ``data/panda_stats.py``, on the one-row-set plan of shared memory (154,764 B per CTA; the CFG
-kernels' two-row-set plan does not fit one block there and is refused, ROADMAP.md B4):
+kernels' two-row-set plan does not fit one block there, and they run their two passes in turn,
+phases 46-48):
 
 43. panda kernels: the U-Net pass at B = 2 and 16 and the DDIM chain at B = 1 and 16 on [23]
     and B = 1 on [23, 15, 7] against their plain versions (1e-4), and kernel 2's path,
     ``bench_kernels``' panda rows (the U-Net pass and the 3-eval chain within 1e-4 of their
-    twins, the CFG chain's refusal recorded); the pass's and the chain's times.
+    twins, the CFG chain on the teacher in turns); the pass's and the chain's times.
 44. chain split: the bench's K = 1 row, its 10 episodes of 80 replans as one batched loop
     through the DDIM chain (80 launches), and its K = 16, sel_h 32 row over the 10 episodes'
     first 20 replans (20 launches at 160 samples; the eager arm's rollouts are launch-bound),
@@ -379,6 +381,37 @@ kernels' two-row-set plan does not fit one block there and is refused, ROADMAP.m
     K = 1 and 2 at K = 4 on the same staged noise (phase 32's gate); K = 4 at selection
     horizon 1 beside 16 for the time of the scorer's serial arm steps.
 
+The panda arm's CFG teacher (the JAX package's ``scripts/bench_highdim.py`` panda rows;
+``artifacts/flagship_panda_rbd/ema_params.pkl``, the student's architecture): the CFG kernels on
+the plan in turns (the conditional and the unconditional pass one after the other on one
+row-set's activations; 158,348 B per CTA for the chain, 174,928 B for the episode at K = 1):
+
+46. panda CFG chain: ``cfg_chain_turns`` at B = 1 (the protocol's x0) and 16 against its plain
+    version (1e-4 over the calm samples; the chaotic ones, whose chain's clip amplifies fp32
+    differences, found as in phase 41, at most 15% and listed), ``cfg_chain_turns_bf16`` at one
+    pass over 64 samples (on the flagship phase 19's gate; at the panda shape, where nearly
+    every sample flips a rounding, nearer its plain version than three known-wrong functions'
+    plain versions, with the fp32 entry's output put through the same gate as a control that
+    must fail it) and at full depth (phase 19's 8e-2), their times; on the flagship, the chain
+    in turns against its two-row-set kernel and its plain version on the same noise (1e-4),
+    their times taken in turns; the counted runs: the teacher's chain split through the bf16
+    entry (and the fp32 one) and the flagship's per-replan loop through its entry in turns
+    (against its two-row-set kernel, 1e-3), 3 replans each.
+47. panda CFG episode: ``cfg_episode_panda`` against its plain twin (``panda_rbd_unrolled``) on
+    staged noise over 3 replans at K = 1 and 2 at K = 4 (sel_h 16), the choices equal but at
+    near-ties; ``cfg_episode_panda_draw`` over 3 replans against the plain episode on
+    ``cfg_normal_table``'s draw of the seed, one seed twice giving the same bits; the chain
+    split (kernel 1 with ``panda_rbd`` in torch, 3 launches) against the staged episode's tracks
+    (one launch) on the same noise, within 1.6e-5 (controls in normalized units), the counts
+    set to 0 just before and read just after.
+48. teacher quality: 10 episodes of the yardstick's first 20 replans through the drawing entry
+    (10 launches, the counts set to 0 just before and read just after), each seeded by
+    ``seed_from_generator``; their mean cost within ``data/panda_teacher_yardstick.py``'s bounds
+    of the JAX package's on the CPU, and each episode within the yardstick's paired bound of the
+    port's plain episode on the CPU on the same seed; the same path at w = 0 on the first seed,
+    a control, must lie outside that bound. The full 80-replan gate is
+    ``scripts/bench_highdim.py``'s.
+
 It then prints the ``training`` JSON line, the ``ilqr`` JSON line, the
 ``distill`` JSON line, the ``kernels`` JSON line (rows 1 and 3 carry their bf16
 entries under ``bf16``, row 1 its H = 8 times under ``h8``, rows 3, 4 and 5 their
@@ -391,7 +424,10 @@ of its own as a further entry of kernel 3, rows 1 and 2 their times on the
 quadrotor teacher, H = 48 and context 12, under ``h48_ctx12``, phases 38-40, and
 the U-Net pass at 4,096 rows and the CFG chain at 4,096 samples under ``b4096``,
 phases 41-42, rows 2 and 4 their panda times under ``panda`` and ``ddim_episode_panda`` a row of
-its own as a further entry of kernel 5, phases 43-45), the ``guided`` JSON line (phases 38-40), the ``making`` JSON line
+its own as a further entry of kernel 5, phases 43-45, row 1 its panda times in turns under
+``panda`` and the flagship's in turns under ``flagship_turns``, and ``cfg_episode_panda`` a row
+of its own as a further entry of kernel 3, its draw under ``inkernel_noise``, phases 46-48), the
+``guided`` JSON line (phases 38-40), the ``making`` JSON line
 (phases 41-42), the
 ``phase_seconds`` line (each phase's seconds), the nvidia-smi line and,
 last, the result line. Any failure raises, and the exit code is then not 0.
@@ -402,6 +438,7 @@ with its dataset's own.
 """
 from __future__ import annotations
 
+import copy
 import json
 import math
 import os
@@ -432,6 +469,7 @@ from mpc_via_diffusion_model_tpu_torch.data import guided_yardstick as gys
 from mpc_via_diffusion_model_tpu_torch.data import onpolicy_scene_yardstick as oys
 from mpc_via_diffusion_model_tpu_torch.data import scene_making_yardstick as mys
 from mpc_via_diffusion_model_tpu_torch.data import scene_yardstick as sys_
+from mpc_via_diffusion_model_tpu_torch.data import panda_teacher_yardstick as tys
 from mpc_via_diffusion_model_tpu_torch.data import panda_yardstick as pys
 from mpc_via_diffusion_model_tpu_torch.data.panda_stats import panda_stats
 from mpc_via_diffusion_model_tpu_torch.data.quadrotor_stats import quadrotor_stats
@@ -445,31 +483,34 @@ from mpc_via_diffusion_model_tpu_torch.dynamics import (cartpole_lmpc, cartpole_
                                                         cartpole_virtual_swingup, quadrotor,
                                                         quadrotor_cost, theta_to_red_theta)
 from mpc_via_diffusion_model_tpu_torch.dynamics.arm import (make_panda_context, panda_cost,
-                                                            panda_rbd)
+                                                            panda_rbd, panda_rbd_unrolled)
 from mpc_via_diffusion_model_tpu_torch.dynamics.base import rollout
 from mpc_via_diffusion_model_tpu_torch.dynamics.quadrotor import obstacle_cost
 from mpc_via_diffusion_model_tpu_torch.eval.timing import pipelined_time_fn
 from mpc_via_diffusion_model_tpu_torch.models import (LMPC_CONFIG, TEACHER_CONFIG, AMPCNet,
                                                       TemporalUnet, from_flax_params,
                                                       load_flagship, load_lmpc,
-                                                      load_panda_student,
+                                                      load_panda_student, load_panda_teacher,
                                                       load_quadrotor_student, load_scene_student,
                                                       load_student,
                                                       mlp_from_flax_params, to_flax_params)
+from mpc_via_diffusion_model_tpu_torch.models.bf16 import bf16_conv_copy
 from mpc_via_diffusion_model_tpu_torch.ops import _build, fused_conv1d_gn_mish, philox
 from mpc_via_diffusion_model_tpu_torch.ops.fused_denoise import (
     cfg_chain_bf16_max_active_clusters, cfg_chain_max_active_clusters,
-    ddim_chain_max_active_clusters, make_fused_cfg_chain, make_fused_ddim_chain)
+    ddim_chain_max_active_clusters, FusedCfgChain, make_fused_cfg_chain, make_fused_ddim_chain)
 from mpc_via_diffusion_model_tpu_torch.ops.fused_episode import (
     cfg_episode_bf16_max_active_clusters, cfg_episode_lmpc_max_active_clusters,
-    cfg_episode_max_active_clusters, cfg_episode_quadrotor_max_active_clusters,
+    cfg_episode_max_active_clusters, cfg_episode_panda_draw_max_active_clusters,
+    cfg_episode_panda_max_active_clusters, cfg_episode_quadrotor_max_active_clusters,
     ddim_episode_max_active_clusters, ddim_episode_panda_max_active_clusters,
     ddim_episode_quadrotor_draw_max_active_clusters, ddim_episode_quadrotor_max_active_clusters,
     make_fused_cfg_episode, make_fused_ddim_episode)
 from mpc_via_diffusion_model_tpu_torch.ops.fused_unet import (fused_unet_max_active_clusters,
                                                               make_fused_unet)
-from mpc_via_diffusion_model_tpu_torch.ops.unet_pack import CLUSTER, pack_unet
-from mpc_via_diffusion_model_tpu_torch.scripts import (bench_kernels, bench_panda_student,
+from mpc_via_diffusion_model_tpu_torch.ops.unet_pack import CLUSTER, TURNS, pack_unet
+from mpc_via_diffusion_model_tpu_torch.scripts import (bench_highdim, bench_kernels,
+                                                       bench_panda_student,
                                                        bench_scene_student,
                                                        conv_timing, distill_divergence,
                                                        flagship_lmpc, flagship_parity,
@@ -2137,8 +2178,7 @@ def panda_phases(dev) -> dict:
     bench_rows = bench_kernels.bench_panda(dev, quick=True)
     torch.cuda.synchronize()
     unet_launches = next(r["launches"] for r in bench_rows if r["kernel"] == "unet_forward")
-    if not unet_launches or any(r["kernel_us"] is None for r in bench_rows
-                                if r["kernel"] != "cfg_chain_30step"):
+    if not unet_launches or any(r["kernel_us"] is None for r in bench_rows):
         raise RuntimeError(f"bench_kernels' panda rows: {bench_rows}")
     un2 = unets[2]
     films2 = un2.films(student.conditioning(*unet_in[2][1:])).contiguous()
@@ -2156,16 +2196,16 @@ def panda_phases(dev) -> dict:
                      warmup=2)
     ch_plain_ms = cuda_ms(lambda: ch1.plain(*chain_in[tuple(GRID), 1]), n=10, warmup=2)
     log("panda-kernels", t0, f"H=128, 7 channels, context 20, the one-row-set plan "
-        f"({un2.smem_bytes} B per CTA; two row-sets {ppacked.chain_smem_bytes(2)} B): fused_unet "
+        f"({un2.smem_bytes} B per CTA; two row-sets {ppacked.chain_smem_bytes(2)}, in turns "
+        f"{ppacked.chain_smem_bytes(TURNS)} B): fused_unet "
         f"max |kernel - plain| {unet_err:.3e} at B in {P_UNET_B}, ddim_chain {chain_err:.3e} over "
         f"2 contexts at B = 1 and {P_K16} on {GRID} and B = 1 on {GRID3} (tol {CHAIN_TOL:.0e}); "
         f"fused_unet at B=2 {unet_launch_ms:.4f} ms by launch alone, {unet_ms:.4f} by whole call, "
         f"{unet16_ms:.4f} at B=16 (plain {unet_plain_ms:.3f}); ddim_chain {ch_ms:.4f} ms at B=1, "
         f"{ch16_ms:.4f} at B={P_K16}, {ch3_ms:.4f} on {GRID3} (plain {ch_plain_ms:.3f}); "
         f"bench_kernels' panda rows: " + "; ".join(
-            f"{r['kernel']} " + (f"refused ({r['refused'][:60]}...)" if "refused" in r else
-                                 f"{r['max_abs_err']:.3e}, {r['kernel_us']:.1f} us (plain "
-                                 f"{r['plain_us']:.1f})") for r in bench_rows)
+            f"{r['kernel']} {r['max_abs_err']:.3e}, {r['kernel_us']:.1f} us (plain "
+            f"{r['plain_us']:.1f})" for r in bench_rows)
         + f"; fused_unet launches there {unet_launches}")
 
     # 44. the chain split's rows (the JAX script's XLA rows): K = 1 over the 10 episodes, K = 16
@@ -2330,6 +2370,424 @@ def panda_phases(dev) -> dict:
                 "vs_chain_split_max_abs_err": vs_loop, **panda}}
 
 
+# Phases 46-48, the panda arm's CFG teacher (the JAX package's scripts/bench_highdim.py panda
+# rows) on the plans in turns: kernel 1 at B = 1 and PC_B16 against its plain version, the
+# samples whose chain's clip amplifies fp32 differences (found as in phase 41) left out of the
+# gate, at most MK_CHAOTIC_SHARE of them, and listed; kernel 3's panda entries over PC_EP_CHECK
+# replans at K = 1 and PC_EP4_CHECK at K = 4 (sel_h PC_SEL_H) against their plain twins; the
+# chain split against the episode over PC_EP_CHECK replans within PC_ARM_TOL, the gap PR 22
+# measured between the unrolled arm and the scanned one over 80 replans of the student; phase 48
+# the mean cost of 10 draw-seeded episodes over the yardstick's first PREFIX_STEPS replans.
+# (phases 46-48 took 18.2-21.5 s on an H100, over the 15 s they were given; 6-8 s of it the
+# plain K = 4 episode, ~3.3 s per replan of ~9,000 eager ops per arm step)
+PC_B16, PC_EP_CHECK, PC_EP4_CHECK, PC_SEL_H, PC_ARM_TOL = 16, 3, 2, 16, 1.6e-5
+# bf16 at one pass at the panda shape: the plain versions of the known-wrong functions the bf16
+# kernel must lie farther from than from its own plain version (on the CPU, elementwise median
+# |wrong - plain|: the fp32 U-Net 4.8e-5, bf16 weights on fp32 activations 3.7e-5, the final 1x1
+# conv's input left unrounded 1.8e-5 in float64, against 9.0e-6 for the correct plain version
+# in float64)
+PC_BF16_WRONG = ("fp32", "bf16_weights_fp32_activations", "final_1x1_input_unrounded")
+
+
+class TurnsChain(FusedCfgChain):
+    """The CFG chain on the plan in turns at any shape (the flagship's checks of the two plans
+    against each other)."""
+    _plans = (TURNS,)
+
+
+def bf16_plains(chain, teacher, ctx: torch.Tensor, noise: torch.Tensor) -> dict:
+    """The one-pass chain's plain versions at the panda shape on (ctx, noise): ``bf16`` its own,
+    ``bf16_f64`` the same function summed in float64 (a correct version in other orders), and
+    each of PC_BF16_WRONG's known-wrong functions."""
+    wrong_final = bf16_conv_copy(teacher)
+    wrong_final.final_conv[1]._forward_pre_hooks.clear()
+    wrong_acts = bf16_conv_copy(teacher)
+    for module in wrong_acts.modules():
+        module._forward_pre_hooks.clear()
+    model64 = bf16_conv_copy(copy.deepcopy(teacher).double())
+    models = {"bf16_f64": lambda x, t, c, m: model64(x.double(), t, c.double(),
+                                                     m.double()).float(),
+              "fp32": teacher, "bf16_weights_fp32_activations": wrong_acts,
+              "final_1x1_input_unrounded": wrong_final}
+    out = {"bf16": chain.plain(ctx, noise)}
+    plain_model = chain.plain_model
+    try:
+        for name, model in models.items():
+            chain.plain_model = model
+            out[name] = chain.plain(ctx, noise)
+    finally:
+        chain.plain_model = plain_model
+    return out
+
+
+def bf16_nearest_gate(got: torch.Tensor, plains: dict) -> dict:
+    """The bf16 gate at one pass at the panda shape, where nearly every sample flips a rounding
+    (two correct plain versions part by ~2.7e-4 per sample): the elementwise median |got -
+    plain| at most twice the plain versions' own (bf16 against bf16_f64), smaller than to each
+    known-wrong function's plain version (PC_BF16_WRONG), and every element within
+    ONE_PASS_MAX. Returns the readings and ``passed``."""
+    med = lambda a, b: float((a.double() - b.double()).abs().median())
+    dist = {name: med(got, want) for name, want in plains.items()}
+    g = {"median_to": dist, "spread": med(plains["bf16_f64"], plains["bf16"]),
+         "max": float((got.double() - plains["bf16"].double()).abs().max()), "n": got.shape[0]}
+    g["passed"] = bool(torch.isfinite(got).all() and g["max"] <= ONE_PASS_MAX
+                       and dist["bf16"] <= 2 * g["spread"]
+                       and all(dist["bf16"] < dist[name] for name in PC_BF16_WRONG))
+    return g
+
+
+def clip_moved(chain, ctx: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
+    """The plain CFG chain with every eps moved by a relative 1e-6 (a fixed sign pattern): the
+    samples it moves past CHAIN_TOL / 10 are those whose chain's clip amplifies fp32 differences
+    (phase 41's test)."""
+    plain_model = chain.plain_model
+    rows = 2 * ctx.shape[0]
+    n = rows * chain.packed.horizon * chain.packed.state_dim
+    signs = torch.sign(torch.sin(torch.arange(n, device=ctx.device, dtype=torch.float32)))
+    signs = signs.reshape(rows, chain.packed.horizon, chain.packed.state_dim)
+    chain.plain_model = lambda x, t, c, m: plain_model(x, t, c, m) * (1 + 1e-6 * signs)
+    try:
+        return chain.plain(ctx, noise)
+    finally:
+        chain.plain_model = plain_model
+
+
+def panda_cfg_phases(dev) -> dict:
+    """Phases 46-48 on ``dev``: the panda arm's CFG teacher (kernel 1 in turns at horizon 128 in
+    fp32 and bf16, kernel 3's panda entries staged and drawing, the chain split, the teacher's
+    quality against the JAX package's yardstick), and kernel 1's plan in turns on the flagship
+    against its two-row-set kernel. Returns the kernels line's rows: ``panda`` and
+    ``flagship_turns`` under the CFG chain, ``cfg_episode_panda`` a row of its own with its draw
+    entry under ``inkernel_noise``."""
+    dev = resolve_device(dev)
+    schedule = make_schedule("exponential", T)
+    ins, cond = (st.to(dev) for st in panda_stats())
+    u_unit = 0.5 * (ins.maxs - ins.mins)
+    x0 = torch.from_numpy(tys.x0()).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(46)
+    # 46. kernel 1 at the panda shape in turns, fp32 and bf16, and on the flagship beside its
+    # two-row-set kernel
+    t0 = time.perf_counter()
+    teacher = load_panda_teacher(tys.TEACHER, device=dev)
+    chains = {b: bench_highdim.panda_chain(teacher, b, dev) for b in (1, PC_B16)}
+    tpacked = chains[1].packed
+    ctx0 = normalize(cond, make_panda_context()(x0))[None]
+    chain_err, n_checked, chaotic, chain_in = 0.0, 0, [], {}
+    marks = {"load": time.perf_counter() - t0}  # seconds since the phase began, for its log
+    for b, ch in chains.items():
+        if (ch.plan, ch.entry, ch.smem_bytes) != (TURNS, "cfg_chain_turns",
+                                                  tpacked.chain_smem_bytes(TURNS)):
+            raise RuntimeError(f"the panda CFG chain chose {ch.plan}, {ch.entry}, {ch.smem_bytes} B")
+        ctx = torch.cat([ctx0, torch.rand((b - 1, 20), generator=gen, device=dev) * 2 - 1])
+        noise = torch.randn((ch.n_total + 1, b, tys.H, 7), generator=gen, device=dev)
+        got, want = ch.kernel(ctx, noise), ch.plain(ctx, noise)
+        torch.cuda.synchronize()
+        chaos = (clip_moved(ch, ctx, noise) - want).abs().flatten(1).amax(1) > CHAIN_TOL / 10
+        calm = ~chaos
+        chain_err = max(chain_err, assert_close(
+            f"cfg_chain_turns H=128 B={b}, the {int(calm.sum())} calm samples", got[calm],
+            want[calm], CHAIN_TOL))
+        chaotic += [f"B={b} sample {i}: {float((got[i] - want[i]).abs().max()):.3e}"
+                    for i in chaos.nonzero().flatten().tolist()]
+        n_checked += b
+        chain_in[b] = (ctx, noise)
+        marks[f"b{b}"] = time.perf_counter() - t0
+    if len(chaotic) > MK_CHAOTIC_SHARE * n_checked:
+        raise RuntimeError(f"cfg_chain_turns: {len(chaotic)} chaotic samples of {n_checked}: "
+                           f"{chaotic}")
+    fmodel = load_flagship(FLAGSHIP, device=dev)
+    two = make_fused_cfg_chain(fmodel, schedule, n_samples=1, w=W, n_tail=N_TAIL, device=dev)
+    turns = TurnsChain(two.packed, schedule, 1, W, N_TAIL)
+    if (two.plan, two.entry, turns.plan, turns.entry) != (2, "cfg_chain", TURNS, "cfg_chain_turns"):
+        raise RuntimeError(f"the flagship's chains chose {two.entry}, {turns.entry}")
+    # bf16 at one pass: PR 13's rule (phase 19) where it tells a correct kernel from a wrong one,
+    # the flagship's shape, on the same entry in turns; at the panda shape nearly every sample
+    # sees a flipped rounding, so there the entry must lie nearer its own plain version than the
+    # known-wrong functions' (bf16_nearest_gate), and the fp32 entry's output, put through the
+    # same gate as a control, must fail it
+    bf16 = torch.bfloat16
+    bf = bench_highdim.panda_chain(teacher, 1, dev, bf16)
+    sched1 = make_schedule("exponential", 1)  # one step: u_norm = clip(x - 0.01 eps_cfg)
+    one_gate = {}
+    for name, packed, cdim, h, d in (("flagship", two.packed, 5, HORIZON, 1),
+                                     ("panda", tpacked, 20, tys.H, 7)):
+        one = TurnsChain(packed, sched1, N_ONE_PASS, W, 0, weights_dtype=bf16)
+        if one.entry != "cfg_chain_turns_bf16" or (name == "panda" and bf.entry != one.entry):
+            raise RuntimeError(f"the {name} bf16 chain chose {one.entry}, {bf.entry}")
+        ctx_one = torch.rand((N_ONE_PASS, cdim), generator=gen, device=dev) * 2 - 1
+        noise_one = torch.randn((2, N_ONE_PASS, h, d), generator=gen, device=dev)
+        got = one.kernel(ctx_one, noise_one)
+        torch.cuda.synchronize()
+        if name == "flagship":
+            one_gate[name] = one_pass_gate("cfg_chain_turns_bf16 one pass, flagship", got,
+                                           one.plain(ctx_one, noise_one))
+            continue
+        plains = bf16_plains(one, teacher, ctx_one, noise_one)
+        one32 = TurnsChain(packed, sched1, N_ONE_PASS, W, 0)
+        control = bf16_nearest_gate(one32.kernel(ctx_one, noise_one), plains)
+        g = bf16_nearest_gate(got, plains)
+        one_gate[name], one_gate["panda_control_fp32_entry"] = g, control
+        if not g["passed"] or control["passed"]:
+            raise RuntimeError(f"cfg_chain_turns_bf16 one pass, panda: {g}; the fp32 entry "
+                               f"through the same gate (must fail): {control}")
+    bf_got = bf.kernel(*chain_in[1])
+    torch.cuda.synchronize()
+    # full depth: the flips cascade, so the bound is JAX's own of bf16 against fp32 (phase 19's)
+    bf_full = assert_close("cfg_chain_turns_bf16 full depth B=1", bf_got, bf.plain(*chain_in[1]),
+                           BF16_VS_FP32)
+    # the counted run of each chain in turns on a main path: the teacher's chain-split loop
+    # through the bf16 entry (beside the fp32 one) and the flagship's per-replan loop through
+    # its entry in turns (beside its two-row-set kernel), the counts set to 0 just before
+    snz = torch.randn((PC_EP_CHECK, chains[1].n_total + 1, 1, tys.H, 7), generator=gen,
+                      device=dev)
+    fplant, fcost = cartpole_virtual_swingup(), cartpole_virtual_cost()
+    fins = NormalizerStats("limits", torch.full((1,), -30.0), torch.full((1,), 30.0)).to(dev)
+    fcond = NormalizerStats("limits", torch.full((5,), -10.0), torch.full((5,), 10.0)).to(dev)
+    floop = lambda chain: make_closed_loop(
+        GaussianDiffusion(schedule), fmodel, fins, fcond, fplant, fcost, horizon=HORIZON,
+        n_steps=PC_EP_CHECK, w=W, n_diffusion_steps_without_noise=N_TAIL,
+        sample_override=chain, device=dev)
+    fx0 = torch.tensor([0.0, 0.0, 3.0, 0.0, theta_to_red_theta(3.0)], device=dev)
+    fnz = torch.randn((PC_EP_CHECK, two.n_total + 1, 1, HORIZON, 1), generator=gen, device=dev)
+    bsplit = bench_highdim.panda_chain_loop(teacher, PC_EP_CHECK, 1, dev, bf)
+    fsplit = bench_highdim.panda_chain_loop(teacher, PC_EP_CHECK, 1, dev, chains[1])
+    reset(bf, chains[1], turns, two)
+    r_bf, r_fp = bsplit(x0, snz), fsplit(x0, snz)
+    r_turns, r_two = floop(turns)(fx0, fnz), floop(two)(fx0, fnz)
+    torch.cuda.synchronize()
+    loop_counts = counts(bf, chains[1], turns, two)
+    if loop_counts != [(PC_EP_CHECK, 0)] * 4:
+        raise RuntimeError(f"the chains' counted loops: counts {loop_counts}")
+    f_loop_err = 0.0
+    for name in ("x_track", "u_track", "stage_costs"):
+        if not torch.isfinite(getattr(r_bf, name)).all():
+            raise RuntimeError(f"the teacher's chain split through {bf.entry}: non-finite {name}")
+        f_loop_err = max(f_loop_err, assert_close(
+            f"the flagship's loop in turns against two row-sets {name}", getattr(r_turns, name),
+            getattr(r_two, name), TRACK_TOL))
+    bf_loop_du = float(((r_bf.u_track - r_fp.u_track) / u_unit).abs().max())  # recorded
+    marks["bf16"] = time.perf_counter() - t0
+    ch1 = chains[1]  # every wrapper below has run once: the timings need no warm-up
+    ch_ms = cuda_ms(lambda: ch1.kernel(*chain_in[1]), n=5, warmup=0)
+    ch16_ms = cuda_ms(lambda: chains[PC_B16].kernel(*chain_in[PC_B16]), n=2, warmup=0)
+    bf_ms = cuda_ms(lambda: bf.kernel(*chain_in[1]), n=5, warmup=0)
+    ch_plain_ms = cuda_ms(lambda: ch1.plain(*chain_in[1]), n=1, warmup=0)
+    bf_plain_ms = cuda_ms(lambda: bf.plain(*chain_in[1]), n=1, warmup=0)
+    fctx = torch.randn((1, 5), generator=gen, device=dev)
+    fnoise = torch.randn((two.n_total + 1, 1, HORIZON, 1), generator=gen, device=dev)
+    f_two, f_turns = two.kernel(fctx, fnoise), turns.kernel(fctx, fnoise)
+    torch.cuda.synchronize()
+    f_plain = turns.plain(fctx, fnoise)
+    flag_err = max(assert_close("flagship cfg_chain_turns vs cfg_chain", f_turns, f_two, CHAIN_TOL),
+                   assert_close("flagship cfg_chain_turns vs plain", f_turns, f_plain, CHAIN_TOL))
+    flag_ms = {"cfg_chain": [], "cfg_chain_turns": []}
+    for w_ in (two, turns, turns, two):  # in turns
+        flag_ms[w_.entry].append(cuda_ms(lambda: w_.kernel(fctx, fnoise), n=10, warmup=1))
+    f_plain_ms = cuda_ms(lambda: turns.plain(fctx, fnoise), n=1, warmup=0)
+    marks["timing"] = time.perf_counter() - t0
+    log("panda-cfg-chain", t0, f"the teacher at H=128: {ch1.entry} on the plan in turns "
+        f"({ch1.smem_bytes} B per CTA; two row-sets {tpacked.chain_smem_bytes(2)} B) max |kernel - "
+        f"plain| {chain_err:.3e} over the calm samples at B = 1 and {PC_B16} (tol "
+        f"{CHAIN_TOL:.0e}); chaotic samples (left out, at most {MK_CHAOTIC_SHARE:.0%}): "
+        f"{len(chaotic)} of {n_checked} {chaotic}; {bf.entry} one pass on the flagship "
+        f"{fmt_gate(one_gate['flagship'])}, at the panda shape {one_gate['panda']}, the fp32 entry "
+        f"through the same gate (fails, as it must) {one_gate['panda_control_fp32_entry']} (gate: "
+        f"every element within {ONE_PASS_MAX:.0e}, the elementwise median to the plain version "
+        f"at most twice the spread and below that to each of {PC_BF16_WRONG}), full depth B=1 "
+        f"{bf_full:.3e} (tol {BF16_VS_FP32:.0e}); counted loops {loop_counts} (the teacher's "
+        f"chain split through {bf.entry} and {ch1.entry}, {PC_EP_CHECK} replans, bf16 against "
+        f"fp32 {bf_loop_du:.3e} in u_norm, recorded; the flagship's loop through "
+        f"cfg_chain_turns against cfg_chain {f_loop_err:.3e}, tol {TRACK_TOL:.0e}); "
+        f"{ch_ms:.4f} ms per replan at B=1, "
+        f"{ch16_ms:.4f} at B={PC_B16}, bf16 {bf_ms:.4f} (plain {ch_plain_ms:.3f}, bf16 "
+        f"{bf_plain_ms:.3f}); the flagship in turns against its two-row-set kernel "
+        f"{flag_err:.3e} (and against plain), ms in turns (two, turns, turns, two): "
+        f"{flag_ms['cfg_chain'][0]:.4f}, {flag_ms['cfg_chain_turns'][0]:.4f}, "
+        f"{flag_ms['cfg_chain_turns'][1]:.4f}, {flag_ms['cfg_chain'][1]:.4f}; seconds into the "
+        f"phase: {marks}")
+
+    # 47. kernel 3's panda entries against their plain twins; the chain split against the episode
+    t0 = time.perf_counter()
+    ep_of = lambda k, sel_h, n, draw=False: make_fused_cfg_episode(
+        tpacked, schedule, ins, cond, panda_rbd_unrolled(), panda_cost(), n_steps=n, w=W,
+        n_diffusion_steps_without_noise=N_TAIL, n_candidates=k, selection_horizon=sel_h,
+        state_to_condition=make_panda_context(), inkernel_noise=draw, device=dev)
+    ties, ep_err, plain_ms, checks = [], 0.0, {}, {}
+    marks = {}
+    for k, sel_h, n in ((1, None, PC_EP_CHECK), (4, PC_SEL_H, PC_EP4_CHECK)):
+        e = ep_of(k, sel_h, n)
+        if (e.name, e.plan) != ("cfg_episode_panda", TURNS):
+            raise RuntimeError(f"the panda CFG episode chose {e.name}, {e.plan}")
+        nz = torch.randn(e.noise_shape, generator=gen, device=dev)
+        got = e.kernel(x0, nz)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        want = e.plain(x0, nz)
+        torch.cuda.synchronize()
+        plain_ms[k] = 1e3 * (time.perf_counter() - t1)
+        ep_err = max(ep_err, episode_gate(f"cfg_episode_panda K={k}", e, got, want, u_unit, ties))
+        checks[k] = (e, nz)
+        marks[f"k{k}"] = time.perf_counter() - t0
+    d1 = ep_of(1, None, PC_EP_CHECK, True)
+    seed = philox.seed_from_generator(torch.Generator().manual_seed(47)).to(dev)
+    dgot, dgot2 = d1.kernel(x0, seed), d1.kernel(x0, seed)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(dgot, dgot2)):
+        raise RuntimeError("cfg_episode_panda_draw: one seed gave two different episodes")
+    t1 = time.perf_counter()
+    dwant = d1.plain(x0, seed)
+    torch.cuda.synchronize()
+    plain_ms["draw"] = 1e3 * (time.perf_counter() - t1)
+    draw_err = episode_gate("cfg_episode_panda_draw K=1", d1, dgot, dwant, u_unit, ties)
+    marks["draw"] = time.perf_counter() - t0
+    e1, nz1 = checks[1]
+    split_chain = bench_highdim.panda_chain(teacher, 1, dev)
+    split = bench_highdim.panda_chain_loop(teacher, PC_EP_CHECK, 1, dev, split_chain)
+    reset(split_chain, e1)
+    res = split(x0, nz1)
+    ep_out = e1.kernel(x0, nz1)
+    torch.cuda.synchronize()
+    split_counts = counts(split_chain, e1)
+    if split_counts != [(PC_EP_CHECK, 0), (1, 0)]:
+        raise RuntimeError(f"panda chain split and episode: counts {split_counts}")
+    arm_err = max(float((res.x_track - ep_out[0]).abs().max()),
+                  float(((res.u_track - ep_out[1]) / u_unit).abs().max()))
+    if not arm_err <= PC_ARM_TOL:
+        raise RuntimeError(f"the panda chain split against the episode: {arm_err:.3e} > "
+                           f"{PC_ARM_TOL:.1e}")
+    marks["split"] = time.perf_counter() - t0
+    e1_ms = cuda_ms(lambda: e1.kernel(x0, nz1), n=2, warmup=0)
+    e4, nz4 = checks[4]
+    e4_ms = cuda_ms(lambda: e4.kernel(x0, nz4), n=2, warmup=0)
+    d1_ms = cuda_ms(lambda: d1.kernel(x0, seed), n=2, warmup=0)
+    log("panda-cfg-episode", t0, f"cfg_episode_panda on the plan in turns ({e1.smem_bytes} B per "
+        f"CTA at K = 1, {e4.smem_bytes} at K = 4) against its plain twin over {PC_EP_CHECK} (K=1) "
+        f"and {PC_EP4_CHECK} (K=4, sel_h {PC_SEL_H}) replans {ep_err:.3e}, "
+        f"cfg_episode_panda_draw over {PC_EP_CHECK} against the plain episode on the Philox table "
+        f"{draw_err:.3e} (controls {CHAIN_TOL:.0e} in normalized units, the rest {TRACK_TOL:.0e}), "
+        f"one seed twice the same bits; the chain split (launches {split_counts}) against the "
+        f"episode {arm_err:.3e} (tol {PC_ARM_TOL:.1e}); {e1_ms / PC_EP_CHECK:.4f} ms per replan at "
+        f"K=1, {e4_ms / PC_EP4_CHECK:.4f} at K=4, drawing {d1_ms / PC_EP_CHECK:.4f} (plain "
+        f"{plain_ms[1] / PC_EP_CHECK:.3f}, {plain_ms[4] / PC_EP4_CHECK:.3f}, "
+        f"{plain_ms['draw'] / PC_EP_CHECK:.3f} by the host clock); seconds into the phase: "
+        f"{marks}; near-ties (not gated): {len(ties)}: " + " | ".join(ties))
+
+    # 48. the teacher's quality: 10 draw-seeded episodes over the yardstick's first PREFIX_STEPS
+    t0 = time.perf_counter()
+    ep20 = ep_of(1, None, tys.PREFIX_STEPS, True)
+    seeds = bench_highdim.draw_seeds(tys.N_SEEDS, tys.PAIRED_SEED_BASE, dev)
+    reset(ep20)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    t1 = time.perf_counter()
+    ev[0].record()
+    outs = [ep20(x0, sd) for sd in seeds]
+    ev[1].record()
+    torch.cuda.synchronize()
+    q_s = time.perf_counter() - t1
+    q_counts = counts(ep20)
+    if q_counts != [(tys.N_SEEDS, 0)]:
+        raise RuntimeError(f"panda teacher quality: counts {q_counts}")
+    if not all(torch.isfinite(o[0]).all() and torch.isfinite(o[1]).all() for o in outs):
+        raise RuntimeError("panda teacher quality: non-finite tracks")
+    prefix = np.array([float(o[2].double().sum()) for o in outs])
+    gaps = tys.gaps("episode", None, prefix)
+    pgaps = tys.paired_gaps(prefix)
+    if not (tys.within("episode", None, prefix) and tys.paired_within(prefix)):
+        raise RuntimeError(f"panda teacher quality: the mean cost of the first {tys.PREFIX_STEPS} "
+                           f"replans {prefix.mean():.6f}, gaps {gaps}, bounds "
+                           f"{tys.BOUNDS['episode']}; each episode's gap from the plain episode "
+                           f"on the CPU {pgaps} (bound {tys.PAIRED_BOUND:.3e})")
+    e20_ms = ev[0].elapsed_time(ev[1]) / tys.N_SEEDS  # per 20-replan episode, by CUDA events
+    # the control: the same path at w = 0 on the first seed must fail the paired gate (on the
+    # CPU it moved that episode by 6.2e-3, the most of the 10)
+    ctl = make_fused_cfg_episode(
+        tpacked, schedule, ins, cond, panda_rbd_unrolled(), panda_cost(),
+        n_steps=tys.PREFIX_STEPS, w=0.0, n_diffusion_steps_without_noise=N_TAIL,
+        state_to_condition=make_panda_context(), inkernel_noise=True, device=dev)
+    ctl_gap = abs(float(ctl(x0, seeds[0])[2].double().sum()) - tys.PAIRED_PREFIX[0])
+    if not ctl_gap > tys.PAIRED_BOUND:
+        raise RuntimeError(f"panda teacher quality: w = 0 lies {ctl_gap:.3e} from the plain "
+                           f"episode at w = {W}, within the paired bound {tys.PAIRED_BOUND:.3e}")
+    log("panda-teacher-quality", t0, f"{tys.N_SEEDS} draw-seeded episodes of "
+        f"{tys.PREFIX_STEPS} replans through cfg_episode_panda_draw (launches {q_counts}): mean "
+        f"cost {prefix.mean():.6f} (yardstick {tys.PREFIX_MEAN10['episode']:.6f}, gaps {gaps}, "
+        f"bounds {tys.BOUNDS['episode']}); each episode against the port's plain episode on the "
+        f"CPU on the same seed (the paired gate, bound {tys.PAIRED_BOUND:.3e}): max gap "
+        f"{max(pgaps):.3e}, gaps {[float(f'{g:.3e}') for g in pgaps]}; the control (w = 0, the "
+        f"first seed) {ctl_gap:.3e} from it, outside the bound as it must be; "
+        f"{e20_ms / tys.PREFIX_STEPS:.4f} ms per replan, {q_s:.3f} s for the 10 by the host "
+        f"clock")
+
+    # each row of the kernels line; bytes and operations of this run's inputs
+    weights, meta_n = tpacked.weights.numel(), tpacked.metas[1].numel()
+    seg = lambda *prefixes: sum(math.prod(shape) for name, (_, shape) in tpacked.segments.items()
+                                if name.split(".")[0] in prefixes)
+    film_flops = 2 * 2 * int(tpacked.films_w.shape[1]) * sum(
+        rb.cond_mlp[1].out_features for rb in teacher.res_blocks())
+    ch_flops = tpacked.flops_per_pass * 2 * ch1.n_total
+    ctx1, nz_c = chain_in[1]
+    ch_bytes = 4 * (weights - seg("films") + meta_n + ch1.films(ctx1).numel() + nz_c.numel()
+                    + ch1.coefs.numel() + tys.H * 7)
+    conv_w = sum(math.prod(tpacked.segments[name][1])
+                 for name in [*bf.cluster.split.convs, "final1x1.w"])
+    replan_flops = ch1.n_total * (2 * tpacked.flops_per_pass + film_flops) + PANDA_STEP_FLOPS
+    ep_bytes = lambda e, n, noise_n: 4 * (weights + meta_n + e.t_embs.numel() + noise_n
+                                          + e.coefs.numel() + e.consts.numel() + 14
+                                          + (n + 1) * 14 + n * 9)
+    fp = two.packed
+    f_flops = fp.flops_per_pass * 2 * two.n_total
+    f_bytes = 4 * (fp.weights.numel() - sum(math.prod(shape) for name, (_, shape)
+                                            in fp.segments.items() if name.startswith("films"))
+                   + fp.metas[1].numel() + two.films(fctx).numel() + fnoise.numel()
+                   + two.coefs.numel() + HORIZON)
+    panda = {"model": "flagship_panda_rbd", "horizon": tys.H, "context_dim": 20}
+    src = "mpc_via_diffusion_model_tpu_torch/ops/csrc/"
+    chain_row = {"name": "cfg_chain_turns", "route": "cuda",
+                 "source": src + "cfg_chain_turns.cu",
+                 "replaces": "mpc_via_diffusion_model_tpu/ops/fused_denoise.py:47"}
+    return {
+        "cfg_chain": {
+            **chain_row, "launches": split_counts[0][0], "max_abs_err": chain_err, "ms": ch_ms,
+            "plain_ms": ch_plain_ms, **bound(ch_flops, ch_bytes), "library_ms": None,
+            "plan": TURNS, "smem_bytes": ch1.smem_bytes, "b16_ms": ch16_ms,
+            "chaotic_samples": chaotic, "checked_samples": n_checked, **panda,
+            "bf16": {**chain_row, "name": bf.entry, "launches": loop_counts[0][0],
+                     "max_abs_err": one_gate["panda"]["max"],
+                     "ms": bf_ms, "plain_ms": bf_plain_ms,
+                     **bound(ch_flops, ch_bytes - 2 * conv_w), "library_ms": None,
+                     "one_pass": one_gate, "full_depth_max_abs_err": bf_full,
+                     "chain_split_du_vs_fp32": bf_loop_du, "weights_dtype": "bfloat16"}},
+        "flagship_turns": {
+            **chain_row, "launches": loop_counts[2][0], "max_abs_err": flag_err,
+            "ms": statistics.mean(flag_ms["cfg_chain_turns"]), "plain_ms": f_plain_ms,
+            **bound(f_flops, f_bytes), "library_ms": None, "ms_in_turns": flag_ms,
+            "smem_bytes": turns.smem_bytes, "two_row_set_smem_bytes": two.smem_bytes,
+            "loop_vs_two_row_sets_max_abs_err": f_loop_err,
+            "model": "flagship", "horizon": HORIZON},
+        "row": {
+            "name": "cfg_episode_panda", "route": "cuda", "source": src + "cfg_episode_panda.cu",
+            "replaces": "mpc_via_diffusion_model_tpu/ops/fused_episode.py:410",
+            "entry_of": "cfg_episode", "plant": "panda_rbd", "scorer": "quadratic",
+            "condition": "panda_context", "launches": split_counts[1][0], "max_abs_err": ep_err,
+            "ms": e1_ms, "plain_ms": plain_ms[1],
+            **bound(PC_EP_CHECK * replan_flops, ep_bytes(e1, PC_EP_CHECK, nz1.numel())),
+            "library_ms": None, "replans": PC_EP_CHECK, "plan": TURNS, "smem_bytes": e1.smem_bytes,
+            "k4_ms_per_replan": e4_ms / PC_EP4_CHECK, "k4_plain_ms": plain_ms[4],
+            "k4_smem_bytes": e4.smem_bytes, "vs_chain_split_max_abs_err": arm_err, **panda,
+            "inkernel_noise": {
+                "name": "cfg_episode_panda_draw", "route": "cuda",
+                "source": src + "cfg_episode_panda.cu",
+                "replaces": "mpc_via_diffusion_model_tpu/ops/fused_episode.py:410",
+                "launches": q_counts[0][0], "max_abs_err": draw_err, "ms": d1_ms,
+                "plain_ms": plain_ms["draw"],
+                **bound(PC_EP_CHECK * replan_flops, ep_bytes(d1, PC_EP_CHECK, 2)),
+                "library_ms": None, "replans": PC_EP_CHECK,
+                "ms_per_replan": e20_ms / tys.PREFIX_STEPS,
+                f"prefix{tys.PREFIX_STEPS}_cost_mean10": float(prefix.mean()), "gaps": gaps,
+                "paired_max_gap": max(pgaps), "paired_bound": tys.PAIRED_BOUND,
+                "control_w0_gap": ctl_gap}}}
+
+
 SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize")
 
 
@@ -2469,6 +2927,9 @@ def main() -> None:
                             "cpu").episode_smem_bytes(k, 2) for k in (1, 16)]
     panda_smem = [panda_cpu.episode_smem_bytes(k, 1) for k in (1, K4, 16)]
     one_smem = [packed_cpu.chain_smem_bytes(1), panda_cpu.chain_smem_bytes(1)]
+    # the plan in turns: the panda teacher's (the student's architecture) and the flagship's chain
+    turns_smem = [panda_cpu.chain_smem_bytes(TURNS), packed_cpu.chain_smem_bytes(TURNS)]
+    pcfg_smem = [panda_cpu.episode_smem_bytes(k, TURNS) for k in (1, K4, 16)]
     cluster_kernels = {  # entry: (occupancy query, shared memory per CTA of each launch shape)
         "cfg_chain": (cfg_chain_max_active_clusters, [packed_cpu.chain_smem_bytes(2)]),
         "cfg_chain_bf16": (cfg_chain_bf16_max_active_clusters, [packed_cpu.chain_smem_bytes(2)]),
@@ -2480,20 +2941,45 @@ def main() -> None:
         "cfg_episode_lmpc": (cfg_episode_lmpc_max_active_clusters, lmpc_smem),
         "ddim_episode_quadrotor": (ddim_episode_quadrotor_max_active_clusters, quad_smem),
         "cfg_episode_quadrotor": (cfg_episode_quadrotor_max_active_clusters, scene_smem),
-        "ddim_episode_panda": (ddim_episode_panda_max_active_clusters, panda_smem)}
+        "ddim_episode_panda": (ddim_episode_panda_max_active_clusters, panda_smem),
+        "cfg_chain_turns": (lambda b: cfg_chain_max_active_clusters(b, "cfg_chain_turns"),
+                            turns_smem),
+        "cfg_chain_turns_bf16": (
+            lambda b: cfg_chain_max_active_clusters(b, "cfg_chain_turns_bf16"), turns_smem),
+        "cfg_episode_panda": (cfg_episode_panda_max_active_clusters, pcfg_smem),
+        "cfg_episode_panda_draw": (cfg_episode_panda_draw_max_active_clusters, pcfg_smem)}
+    # the library of each entry that is one instantiation of another library's kernel, and the
+    # template arguments that pick it (bf16 weights; the kernel's bool arguments: the plan in
+    # turns, then the in-kernel draw); every other entry is its library's float kernels
+    instances = {"cfg_chain": ("cfg_chain", False, (False,)),
+                 "cfg_chain_bf16": ("cfg_chain", True, (False,)),
+                 "cfg_chain_turns": ("cfg_chain_turns", False, (True,)),
+                 "cfg_chain_turns_bf16": ("cfg_chain_turns", True, (True,)),
+                 "cfg_episode": ("cfg_episode", False, (False, False)),
+                 "cfg_episode_bf16": ("cfg_episode", True, (False, False)),
+                 "cfg_episode_panda": ("cfg_episode_panda", False, (True, False)),
+                 "cfg_episode_panda_draw": ("cfg_episode_panda", False, (True, True))}
+
+    def template_args(kernel: str):
+        """(bf16, the bool arguments) of a kernel's mangled template arguments."""
+        m = re.search(r"_kernelI(.+?)Ev", kernel)
+        targs = m.group(1) if m else ""
+        return "13__nv_bfloat16" in targs, tuple(v == "1" for v in re.findall(r"Lb([01])E", targs))
+
     def resources(entry: str):
         """(registers, spills) of each kernel of an entry, from nvcc's report or, when the
-        build was reused, cuobjdump's: the bf16 entries (``<source>_bf16``) are their
-        library's __nv_bfloat16 instantiation, every other entry its library's other
-        kernels."""
-        name, bf16 = entry.removesuffix("_bf16"), entry.endswith("_bf16")
+        build was reused, cuobjdump's: an entry of ``instances`` is the one instantiation of
+        its library's kernel that its template arguments pick, every other entry its
+        library's float kernels."""
+        name, bf16, flags = instances.get(entry, (entry, False, None))
         report = built[name].report or subprocess.run(
             [str(Path(_build._nvcc()).with_name("cuobjdump")), "--dump-resource-usage",
              str(built[name].path)], capture_output=True, text=True, timeout=60).stdout
         marks = list(re.finditer(r"Compiling entry function '(\w+)'|Function (\w+):", report))
         regs, spills = [], []
         for mark, nxt in zip(marks, marks[1:] + [None]):
-            if ("I13__nv_bfloat16E" in (mark.group(1) or mark.group(2))) != bf16:
+            got_bf16, got_flags = template_args(mark.group(1) or mark.group(2))
+            if got_bf16 != bf16 or (flags is not None and got_flags != flags):
                 continue
             part = report[mark.end():nxt.start() if nxt else len(report)]
             regs += [int(a or b) for a, b in re.findall(r"Used (\d+) registers|REG:(\d+)", part)]
@@ -2533,7 +3019,9 @@ def main() -> None:
         f"episode's on one; cfg_episode_lmpc at K = 1 and K = {K8} on the LMPC model, "
         "ddim_episode_quadrotor at K = 1 and 16 on the quadrotor student, cfg_episode_quadrotor "
         f"at K = 1 and 16 on the scene student, ddim_episode_panda at K = 1, {K4} and 16 on the "
-        "panda student; the _bf16 entries are the bf16 instantiations of "
+        f"panda student; cfg_chain_turns and its bf16 entry on the plan in turns at the panda "
+        f"shape and the flagship's, cfg_episode_panda and its draw at K = 1, {K4} and 16 in turns; "
+        "the _bf16 entries are the bf16 instantiations of "
         "cfg_chain.cu and cfg_episode.cu, cfg_episode_lmpc is cfg_episode.cu compiled for the "
         "linear cart-pole, cfg_episode_quadrotor cfg_episode.cu for the quadrotor with the "
         "context map and the safety-first scorer, ddim_episode_quadrotor ddim_episode.cuh for the "
@@ -3339,6 +3827,7 @@ def main() -> None:
     making_line = making_phases(dev, making_dir)
     shutil.rmtree(making_dir, ignore_errors=True)
     panda_line = panda_phases(dev)
+    panda_cfg_line = panda_cfg_phases(dev)
 
     packed = chain.packed
     seg = lambda *prefixes: sum(math.prod(shape) for name, (_, shape) in packed.segments.items()
@@ -3518,6 +4007,16 @@ def main() -> None:
                             "replaces": rows[i]["replaces"], **panda_line[name]}
     rows.append({**panda_line["row"], "cluster_ctas": CLUSTER,
                  **cluster_info["ddim_episode_panda"]})
+    # the panda teacher (phases 46-48): the CFG chain in turns at horizon 128 under row 1's "panda"
+    # (its bf16 entry under "bf16" there) and on the flagship under "flagship_turns", kernel 3's
+    # panda entry a row of its own with its drawing entry under "inkernel_noise"
+    rows[0]["panda"] = {**panda_cfg_line["cfg_chain"], "cluster_ctas": CLUSTER,
+                        **cluster_info["cfg_chain_turns"]}
+    rows[0]["panda"]["bf16"].update(cluster_info["cfg_chain_turns_bf16"])
+    rows[0]["flagship_turns"] = panda_cfg_line["flagship_turns"]
+    rows.append({**panda_cfg_line["row"], "cluster_ctas": CLUSTER,
+                 **cluster_info["cfg_episode_panda"]})
+    rows[-1]["inkernel_noise"].update(cluster_info["cfg_episode_panda_draw"])
     rows[2]["bench_closed_loop_control_hz"] = bench_line["value"]
     rows[2]["bench_pipelined_hz"] = bench_line["pipelined_hz"]
     print(json.dumps({"training": training_line}), flush=True)

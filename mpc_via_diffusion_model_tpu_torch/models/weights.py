@@ -34,7 +34,9 @@ layout), and ``load_quadrotor_student`` the quadrotor's 1-eval student
 (``artifacts/flagship_quadrotor/ema_params.pkl``,
 ``QUADROTOR_TEACHER_CONFIG``, the ``{'params'}`` layout), and
 ``load_panda_student`` the panda arm's on-policy 1-eval student
-(``artifacts/onpolicy_panda/student_1eval.pkl``, ``PANDA_STUDENT_CONFIG``).
+(``artifacts/onpolicy_panda/student_1eval.pkl``, ``PANDA_STUDENT_CONFIG``),
+and ``load_panda_teacher`` its CFG teacher
+(``artifacts/flagship_panda_rbd/ema_params.pkl``, the same architecture).
 All are plain dicts of float32 numpy arrays that need neither jax
 nor flax to unpickle.
 
@@ -60,7 +62,8 @@ from .temporal_unet import TemporalUnet
 __all__ = ["FLAGSHIP_CONFIG", "LMPC_CONFIG", "PANDA_STUDENT_CONFIG", "QUADROTOR_STUDENT_CONFIG",
            "QUADROTOR_TEACHER_CONFIG", "SCENE_STUDENT_CONFIG", "TEACHER_CONFIG",
            "from_flax_params", "init_like_flax", "init_mlp_like_flax", "load_ampc",
-           "load_flagship", "load_lmpc", "load_panda_student", "load_quadrotor_student",
+           "load_flagship", "load_lmpc", "load_panda_student", "load_panda_teacher",
+           "load_quadrotor_student",
            "load_quadrotor_teacher",
            "load_scene_student",
            "load_student", "load_teacher", "mlp_from_flax_params", "mlp_to_flax_params",
@@ -308,6 +311,14 @@ def load_panda_student(path, device=None) -> TemporalUnet:
     ``PANDA_STUDENT_CONFIG``: horizon 128, 7 channels, context 20, the
     context-present bit), from its ``{'params'}`` pickle."""
     return _load_unet(path, "params", True, device, PANDA_STUDENT_CONFIG)
+
+
+def load_panda_teacher(path, device=None) -> TemporalUnet:
+    """The panda arm's CFG teacher, ``artifacts/flagship_panda_rbd/ema_params.pkl``
+    (1,016,615 params, the student's ``PANDA_STUDENT_CONFIG``), from its
+    ``{'ema_params', 'step', 'cfg_indicator'}`` pickle, as the JAX package's
+    ``scripts/bench_highdim.py`` builds it."""
+    return _load_unet(path, "ema_params", "cfg_indicator", device, PANDA_STUDENT_CONFIG)
 
 
 def load_lmpc(path, device=None) -> TemporalUnet:

@@ -40,7 +40,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 NVCC_TIMEOUT_S = 600
 KERNELS = ("cfg_chain", "fused_unet", "cfg_episode", "ddim_chain", "ddim_episode",
            "fused_conv", "cfg_episode_lmpc", "ddim_episode_quadrotor",
-           "cfg_episode_quadrotor", "ddim_episode_panda")  # csrc/<name>.cu
+           "cfg_episode_quadrotor", "ddim_episode_panda", "cfg_episode_panda",
+           "cfg_chain_turns")  # csrc/<name>.cu
 
 
 @dataclasses.dataclass(frozen=True)

@@ -43,12 +43,29 @@
 // cfg_chain_max_active_clusters answers cudaOccupancyMaxActiveClusters at the chain's
 // shared memory: the wrapper refuses to launch when it is 0.
 //
+// The plan in turns (TURNS, the panda arm's horizon 128): the two-row-set plan above needs
+// 304,780 B per CTA at that shape, more than the 232,448 B a block may take. There the kernel
+// runs each step's conditional pass and then its unconditional pass through cunet_body<1> on
+// the one-row-set plan of activations and skips (ops/unet_pack.py, metas["turns"]: 158,348 B
+// per CTA), each pass with its own FiLM row (`sample`, then n_samples + sample) and its final
+// 1x1 conv writing its own half of eps (2, H, D); the CFG lines then combine the halves as the
+// two-row-set kernel does. GroupNorm and every conv act per row-set, so this is the same
+// arithmetic as the doubled batch. Between the passes stands the barrier that stands between
+// steps: the second pass pushes into the two buffers other than `in` before its first cluster
+// barrier. The skips and the GroupNorm statistics are each CTA's own copies of replicated
+// data, never pushed into, so the second pass overwrites them freely. At that width a rank's
+// share of each conv is already 512 outputs, which fills its NT = 512 threads, so running the
+// two row-sets one after the other costs little against running them together.
+//
 // bf16 weights (the JAX builder's weights_dtype=jnp.bfloat16): the kernel is a template on
 // the conv kernels' element type WT. cfg_chain_launch runs the float instantiation, and
 // cfg_chain_bf16_launch the __nv_bfloat16 one, which reads the conv kernels and the final 1x1
 // kernel from the bf16 copy Wh of the buffer and rounds each product's activation operand to
 // bf16 (unet_body_cluster.cuh), as fused_denoise.py:106 rounds y before the final 1x1 conv.
-// Each entry has its own occupancy query; neither falls back to the other.
+// Entries: cfg_chain and cfg_chain_bf16 on two row-sets here; cfg_chain_turns and
+// cfg_chain_turns_bf16 in turns in cfg_chain_turns.cu, which includes this file, so that the
+// two libraries build in parallel. Each entry has its own occupancy query; none falls back
+// to another.
 
 #include "unet_body_cluster.cuh"
 
@@ -57,7 +74,7 @@
 // other parameters keep their offsets). films (n_total, n_res, 2B, max_c); noise
 // (n_total + 1, B, H, D) with row n_total = x_T; coefs (n_total, 5) = sra, srm, c1, c2,
 // sigma * gate; out (B, H, D).
-template <typename WT>
+template <typename WT, bool TURNS>
 __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(NT, 1)
 cfg_chain_kernel(const float* __restrict__ W, const int* __restrict__ meta,
                  const float* __restrict__ films, const float* __restrict__ noise,
@@ -78,31 +95,38 @@ cfg_chain_kernel(const float* __restrict__ W, const int* __restrict__ meta,
     xs[i] = __ldg(noise + (size_t)n_total * noise_step + (size_t)sample * hd + i);
   cg::this_cluster().sync();  // every CTA has started before any writes into its shared memory
 
+  // two row-sets in one pass, or (TURNS) one row-set in each of two passes
+  constexpr int NB = TURNS ? 1 : 2, PASSES = TURNS ? 2 : 1;
   for (int si = 0; si < n_total; ++si) {
-    float* in = smem;
-    for (int i = threadIdx.x; i < 2 * hd; i += NT) {  // x twice: cond rows, uncond rows
-      const int d = i % D, rr = i / D, b = rr / H, t = rr - b * H;
-      in[row_off(b, H, t, D) + d] = xs[t * D + d];
+    for (int g = 0; g < PASSES; ++g) {
+      float* in = smem;
+      for (int i = threadIdx.x; i < NB * hd; i += NT) {  // x once per row-set
+        const int d = i % D, rr = i / D, b = rr / H, t = rr - b * H;
+        in[row_off(b, H, t, D) + d] = xs[t * D + d];
+      }
+      zero_halo<NB>(in, H, D);
+      __syncthreads();
+      // FiLM rows: row-set 0 the conditional row (the unconditional one in the second turn)
+      const int row0 = g == 0 ? sample : n_samples + sample;
+      const float* y = cunet_body<NB, WT>(m, W, Wh, smem, in, smem + buf, smem + 2 * buf,
+                                          films + (size_t)si * n_res * 2 * n_samples * maxc,
+                                          2 * n_samples, row0, n_samples + sample, stats, rank);
+      const WT* w1 = conv_weights<WT>(W, Wh) + m[M_F1];
+      const float* b1 = W + m[M_F1 + 1];
+      float* eg = eps + g * hd;  // this pass's half of eps (all of it on two row-sets)
+      for (int i = threadIdx.x; i < NB * hd; i += NT) {  // final 1x1 conv
+        const int d = i % D, rr = i / D, b = rr / H, t = rr - b * H;
+        const float* yr = y + row_off(b, H, t, cf);
+        float acc = 0.f;
+        for (int ci = 0; ci < cf; ++ci)
+          acc = fmaf(round_operand<WT>(yr[ci]), wload(w1 + ci * D + d), acc);
+        eg[i] = acc + __ldg(b1 + d);
+      }
+      // The next pass pushes into the two buffers other than `in` before its first cluster
+      // barrier: when y is one of them, every CTA must have read it first.
+      if (y != in) cg::this_cluster().sync();
+      else __syncthreads();
     }
-    zero_halo<2>(in, H, D);
-    __syncthreads();
-    const float* y = cunet_body<2, WT>(m, W, Wh, smem, in, smem + buf, smem + 2 * buf,
-                                   films + (size_t)si * n_res * 2 * n_samples * maxc,
-                                   2 * n_samples, sample, n_samples + sample, stats, rank);
-    const WT* w1 = conv_weights<WT>(W, Wh) + m[M_F1];
-    const float* b1 = W + m[M_F1 + 1];
-    for (int i = threadIdx.x; i < 2 * hd; i += NT) {  // final 1x1 conv
-      const int d = i % D, rr = i / D, b = rr / H, t = rr - b * H;
-      const float* yr = y + row_off(b, H, t, cf);
-      float acc = 0.f;
-      for (int ci = 0; ci < cf; ++ci)
-        acc = fmaf(round_operand<WT>(yr[ci]), wload(w1 + ci * D + d), acc);
-      eps[i] = acc + __ldg(b1 + d);
-    }
-    // The next pass pushes into the two buffers other than `in` before its first cluster
-    // barrier: when y is one of them, every CTA must have read it first.
-    if (y != in) cg::this_cluster().sync();
-    else __syncthreads();
     const float* cs = coefs + (size_t)si * 5;
     const float sra = __ldg(cs), srm = __ldg(cs + 1), c1 = __ldg(cs + 2), c2 = __ldg(cs + 3),
                 sg = __ldg(cs + 4);
@@ -128,37 +152,53 @@ cfg_chain_kernel(const float* __restrict__ W, const int* __restrict__ meta,
 // the whole process (the loader unifies it across libraries), and cfg_chain.cu, cfg_episode.cu
 // and cfg_episode_lmpc.cu each need their own record of their own kernel.
 namespace {
-template <typename WT>
+template <typename WT, bool TURNS>
 struct SmemSet {
   static int set[MAX_DEVICES];
 };
-template <typename WT>
-int SmemSet<WT>::set[MAX_DEVICES];
+template <typename WT, bool TURNS>
+int SmemSet<WT, TURNS>::set[MAX_DEVICES];
 }  // namespace
 
-template <typename WT>
+template <typename WT, bool TURNS>
 static int launch(const float* W, const __nv_bfloat16* Wh, const int* meta, int smem_bytes,
                   const float* films, const float* noise, const float* coefs, float* out,
                   int n_total, int n_samples, float w, float wp1, void* stream) {
-  cudaError_t e = reserve_smem(cfg_chain_kernel<WT>, smem_bytes, SmemSet<WT>::set);
+  cudaError_t e =
+      reserve_smem(cfg_chain_kernel<WT, TURNS>, smem_bytes, SmemSet<WT, TURNS>::set);
   if (e != cudaSuccess) return (int)e;
-  cfg_chain_kernel<WT><<<CLUSTER * n_samples, NT, smem_bytes, (cudaStream_t)stream>>>(
+  cfg_chain_kernel<WT, TURNS><<<CLUSTER * n_samples, NT, smem_bytes, (cudaStream_t)stream>>>(
       W, meta, films, noise, coefs, out, n_total, w, wp1, Wh);
   return (int)cudaGetLastError();
 }
 
-template <typename WT>
+template <typename WT, bool TURNS>
 static int max_active_clusters(int smem_bytes, int* n_clusters) {
   *n_clusters = 0;
-  cudaError_t e = reserve_smem(cfg_chain_kernel<WT>, smem_bytes, SmemSet<WT>::set);
+  cudaError_t e =
+      reserve_smem(cfg_chain_kernel<WT, TURNS>, smem_bytes, SmemSet<WT, TURNS>::set);
   if (e != cudaSuccess) return (int)e;
   cudaLaunchConfig_t config = {};
   config.gridDim = dim3(CLUSTER);
   config.blockDim = dim3(NT);
   config.dynamicSmemBytes = smem_bytes;  // the cluster shape is the kernel's __cluster_dims__
-  return (int)cudaOccupancyMaxActiveClusters(n_clusters, (void*)cfg_chain_kernel<WT>, &config);
+  return (int)cudaOccupancyMaxActiveClusters(n_clusters, (void*)cfg_chain_kernel<WT, TURNS>,
+                                             &config);
 }
 
+// Each entry's C interface: <entry>_launch, _max_active_clusters, _cluster_size,
+// _error_string, _meta_len.
+#define CFG_CHAIN_QUERIES(ENTRY, WT_, TURNS_)                                                 \
+  int ENTRY##_max_active_clusters(int smem_bytes, int* n_clusters) {                          \
+    return max_active_clusters<WT_, TURNS_>(smem_bytes, n_clusters);                          \
+  }                                                                                           \
+  int ENTRY##_cluster_size(void) { return CLUSTER; }                                          \
+  const char* ENTRY##_error_string(int code) {                                                \
+    return cudaGetErrorString((cudaError_t)code);                                             \
+  }                                                                                           \
+  int ENTRY##_meta_len(void) { return M_LEN; }
+
+#ifndef CFG_CHAIN_TURNS_ENTRIES
 extern "C" {
 
 // Launches the chain, one cluster per sample, on `stream`; returns the CUDA error code
@@ -166,8 +206,8 @@ extern "C" {
 int cfg_chain_launch(const float* W, const int* meta, int smem_bytes, const float* films,
                      const float* noise, const float* coefs, float* out, int n_total,
                      int n_samples, float w, float wp1, void* stream) {
-  return launch<float>(W, nullptr, meta, smem_bytes, films, noise, coefs, out, n_total,
-                       n_samples, w, wp1, stream);
+  return launch<float, false>(W, nullptr, meta, smem_bytes, films, noise, coefs, out, n_total,
+                              n_samples, w, wp1, stream);
 }
 
 // The same with bf16 conv kernels: Wh is the bf16 copy of W (same element offsets).
@@ -175,30 +215,15 @@ int cfg_chain_bf16_launch(const float* W, const __nv_bfloat16* Wh, const int* me
                           int smem_bytes, const float* films, const float* noise,
                           const float* coefs, float* out, int n_total, int n_samples, float w,
                           float wp1, void* stream) {
-  return launch<__nv_bfloat16>(W, Wh, meta, smem_bytes, films, noise, coefs, out, n_total,
-                               n_samples, w, wp1, stream);
+  return launch<__nv_bfloat16, false>(W, Wh, meta, smem_bytes, films, noise, coefs, out,
+                                      n_total, n_samples, w, wp1, stream);
 }
 
-// cudaOccupancyMaxActiveClusters for one sample's cluster at smem_bytes of dynamic shared
-// memory per CTA, into *n_clusters; returns the CUDA error code (0 = answered).
-int cfg_chain_max_active_clusters(int smem_bytes, int* n_clusters) {
-  return max_active_clusters<float>(smem_bytes, n_clusters);
-}
-
-int cfg_chain_bf16_max_active_clusters(int smem_bytes, int* n_clusters) {
-  return max_active_clusters<__nv_bfloat16>(smem_bytes, n_clusters);
-}
-
-int cfg_chain_cluster_size(void) { return CLUSTER; }
-
-int cfg_chain_bf16_cluster_size(void) { return CLUSTER; }
-
-const char* cfg_chain_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
-
-const char* cfg_chain_bf16_error_string(int code) { return cfg_chain_error_string(code); }
-
-int cfg_chain_meta_len(void) { return M_LEN; }
-
-int cfg_chain_bf16_meta_len(void) { return M_LEN; }
+// <entry>_max_active_clusters: cudaOccupancyMaxActiveClusters for one sample's cluster at
+// smem_bytes of dynamic shared memory per CTA, into *n_clusters; returns the CUDA error code
+// (0 = answered).
+CFG_CHAIN_QUERIES(cfg_chain, float, false)
+CFG_CHAIN_QUERIES(cfg_chain_bf16, __nv_bfloat16, false)
 
 }  // extern "C"
+#endif  // CFG_CHAIN_TURNS_ENTRIES

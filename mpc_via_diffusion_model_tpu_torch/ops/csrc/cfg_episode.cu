@@ -65,22 +65,41 @@
 // activation operand to bf16 (unet_body_cluster.cuh), as fused_episode.py:587 rounds y before
 // the final 1x1 conv; the FiLM Dense weights stay fp32, as append_film_weights keeps them.
 // Each entry has its own occupancy query; neither falls back to the other.
+//
+// The plan in turns (TURNS, cfg_episode_panda.cu at the panda arm's horizon 128, where the
+// two-row-set plan needs 321,360 B per CTA at K = 1): each candidate's conditional and
+// unconditional passes run one after the other through cunet_body<1> on one row-set's
+// activations and skips (ops/unet_pack.py, metas["turns"]: 174,928 B per CTA at K = 1), with
+// FiLM rows 0 and 1 of the step's (n_res, 2, max_c) table, each writing its own half of eps;
+// cfg_chain.cu says why that is the same arithmetic and where the barriers stand. The FiLM of
+// a step is still computed once, for both groups, before the candidates.
+//
+// The in-kernel draw (DRAW, the JAX builder's inkernel_noise, fused_episode.py:550-554): the
+// noise argument is the episode's (2,) int32 seed, and every CTA computes each replan's x_T and
+// each injected draw itself, counter-based (philox.cuh), where the staged kernel loads them:
+// the normal at (replan s, draw j, candidate k, row t, channel d) is the Philox normal of the
+// counter (s * (n_total + 1) + j, k, t, d), j = n_total the x_T draw, as the JAX kernel counts
+// its draws (fused_episode.py:554, :599, :602). The replan loop then reads no noise table.
 
 #include "episode.cuh"
+#include "philox.cuh"
 #include "unet_body_cluster.cuh"
+
+#include <type_traits>
 
 // W is the packed buffer with the body's conv kernels rank-major (cluster_weights), Wh its
 // bf16 copy (read in the bf16 instantiation only; last, so that the float instantiation's
 // other parameters keep their offsets). t_embs (n_total, temb); noise (n_steps, n_total + 1,
-// K, H, D) with row n_total = x_T; coefs (n_total, 5) = sra, srm, c1, c2, sigma * gate;
+// K, H, D) with row n_total = x_T, or with DRAW the (2,) seed words of the draw; coefs (n_total, 5) = sra, srm, c1, c2, sigma * gate;
 // consts (C_LEN); x0 (DX).
 // Outputs: x_track (n_steps + 1, DX), u_track (n_steps, DU), costs (n_steps),
 // chosen (n_steps) = index of the applied candidate, K when none was chosen. Rank 0 writes
 // the outputs.
-template <typename WT>
+template <typename WT, bool TURNS, bool DRAW>
 __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(NT, 1)
 cfg_episode_kernel(const float* __restrict__ W, const int* __restrict__ meta,
-                   const float* __restrict__ t_embs, const float* __restrict__ noise,
+                   const float* __restrict__ t_embs,
+                   const std::conditional_t<DRAW, int, float>* __restrict__ noise,
                    const float* __restrict__ coefs, const float* __restrict__ consts,
                    const float* __restrict__ x0, float* __restrict__ x_track,
                    float* __restrict__ u_track, float* __restrict__ costs,
@@ -110,10 +129,27 @@ cfg_episode_kernel(const float* __restrict__ W, const int* __restrict__ meta,
   }
   cg::this_cluster().sync();  // every CTA has started before any writes into its shared memory
 
+  // two row-sets in one pass, or (TURNS) one row-set in each of two passes
+  constexpr int NB = TURNS ? 1 : 2, PASSES = TURNS ? 2 : 1;
   for (int step = 0; step < n_steps; ++step) {
-    const float* nz_step = noise + (size_t)step * (n_total + 1) * khd;
+    const float* nz_step = nullptr;
+    uint32_t k0 = 0, k1 = 0;
+    if constexpr (DRAW) {
+      k0 = (uint32_t)__ldg(noise);
+      k1 = (uint32_t)__ldg(noise + 1);
+    } else {
+      nz_step = noise + (size_t)step * (n_total + 1) * khd;
+    }
+    const int draw0 = step * (n_total + 1);  // the replan's first Philox counter (DRAW)
     episode_context(consts, xst, ctx, dctx);
-    for (int i = threadIdx.x; i < khd; i += NT) cand[i] = __ldg(nz_step + (size_t)n_total * khd + i);
+    for (int i = threadIdx.x; i < khd; i += NT) {  // x_T of every candidate
+      if constexpr (DRAW) {
+        const int d = i % D, t = (i / D) % H, k = i / hd;
+        cand[i] = philox_normal(draw0 + n_total, k, t, d, k0, k1);
+      } else {
+        cand[i] = __ldg(nz_step + (size_t)n_total * khd + i);
+      }
+    }
     __syncthreads();
 
     for (int si = 0; si < n_total; ++si) {
@@ -121,33 +157,38 @@ cfg_episode_kernel(const float* __restrict__ W, const int* __restrict__ meta,
       episode_films_rank<2>(m, W, t_embs + (size_t)si * temb, ctx, mc, films, rank, CLUSTER);
       for (int k = 0; k < K; ++k) {
         float* xs = cand + (size_t)k * hd;
-        float* in = smem;
-        for (int i = threadIdx.x; i < 2 * hd; i += NT) {  // x twice: cond rows, uncond rows
-          const int d = i % D, rr = i / D, b = rr / H, t = rr - b * H;
-          in[row_off(b, H, t, D) + d] = xs[t * D + d];
+        for (int g = 0; g < PASSES; ++g) {
+          float* in = smem;
+          for (int i = threadIdx.x; i < NB * hd; i += NT) {  // x once per row-set
+            const int d = i % D, rr = i / D, b = rr / H, t = rr - b * H;
+            in[row_off(b, H, t, D) + d] = xs[t * D + d];
+          }
+          zero_halo<NB>(in, H, D);
+          __syncthreads();
+          // FiLM row of row-set 0: the conditional group (the unconditional one in the second turn)
+          const float* y = cunet_body<NB, WT>(m, W, Wh, smem, in, smem + buf, smem + 2 * buf,
+                                              films, 2, g, 1, stats, rank);
+          const WT* w1 = conv_weights<WT>(W, Wh) + m[M_F1];
+          const float* b1 = W + m[M_F1 + 1];
+          float* eg = eps + g * hd;  // this pass's half of eps (all of it on two row-sets)
+          for (int i = threadIdx.x; i < NB * hd; i += NT) {  // final 1x1 conv
+            const int d = i % D, rr = i / D, b = rr / H, t = rr - b * H;
+            const float* yr = y + row_off(b, H, t, cf);
+            float acc = 0.f;
+            for (int ci = 0; ci < cf; ++ci)
+              acc = fmaf(round_operand<WT>(yr[ci]), wload(w1 + ci * D + d), acc);
+            eg[i] = acc + __ldg(b1 + d);
+          }
+          // The next pass pushes into the two buffers other than `in` before its first cluster
+          // barrier: when y is one of them, every CTA must have read it first.
+          if (y != in) cg::this_cluster().sync();
+          else __syncthreads();
         }
-        zero_halo<2>(in, H, D);
-        __syncthreads();
-        const float* y = cunet_body<2, WT>(m, W, Wh, smem, in, smem + buf, smem + 2 * buf, films,
-                                           2, 0, 1, stats, rank);
-        const WT* w1 = conv_weights<WT>(W, Wh) + m[M_F1];
-        const float* b1 = W + m[M_F1 + 1];
-        for (int i = threadIdx.x; i < 2 * hd; i += NT) {  // final 1x1 conv
-          const int d = i % D, rr = i / D, b = rr / H, t = rr - b * H;
-          const float* yr = y + row_off(b, H, t, cf);
-          float acc = 0.f;
-          for (int ci = 0; ci < cf; ++ci)
-            acc = fmaf(round_operand<WT>(yr[ci]), wload(w1 + ci * D + d), acc);
-          eps[i] = acc + __ldg(b1 + d);
-        }
-        // The next pass pushes into the two buffers other than `in` before its first cluster
-        // barrier: when y is one of them, every CTA must have read it first.
-        if (y != in) cg::this_cluster().sync();
-        else __syncthreads();
         const float* cs = coefs + (size_t)si * 5;
         const float sra = __ldg(cs), srm = __ldg(cs + 1), c1 = __ldg(cs + 2), c2 = __ldg(cs + 3),
                     sg = __ldg(cs + 4);
-        const float* nz = nz_step + ((size_t)si * K + k) * hd;
+        const float* nz = nullptr;
+        if constexpr (!DRAW) nz = nz_step + ((size_t)si * K + k) * hd;
         for (int i = threadIdx.x; i < hd; i += NT) {
           const float x = xs[i];
           const float rc = __fsub_rn(__fmul_rn(sra, x), __fmul_rn(srm, eps[i]));
@@ -155,7 +196,10 @@ cfg_episode_kernel(const float* __restrict__ W, const int* __restrict__ meta,
           float rec = __fsub_rn(__fmul_rn(wp1, rc), __fmul_rn(w, ru));
           rec = fminf(fmaxf(rec, -1.f), 1.f);
           const float mean = __fadd_rn(__fmul_rn(c1, rec), __fmul_rn(c2, x));
-          xs[i] = __fadd_rn(mean, __fmul_rn(sg, __ldg(nz + i)));
+          float z;
+          if constexpr (DRAW) z = philox_normal(draw0 + si, k, i / D, i % D, k0, k1);
+          else z = __ldg(nz + i);
+          xs[i] = __fadd_rn(mean, __fmul_rn(sg, z));
         }
         __syncthreads();
       }
@@ -173,43 +217,45 @@ cfg_episode_kernel(const float* __restrict__ W, const int* __restrict__ meta,
 // cfg_episode.cu, cfg_episode_lmpc.cu and cfg_episode_quadrotor.cu each need their own record
 // of their own kernel.
 namespace {
-template <typename WT>
+template <typename WT, bool TURNS, bool DRAW>
 struct SmemSet {
   static int set[MAX_DEVICES];
 };
-template <typename WT>
-int SmemSet<WT>::set[MAX_DEVICES];
+template <typename WT, bool TURNS, bool DRAW>
+int SmemSet<WT, TURNS, DRAW>::set[MAX_DEVICES];
 }  // namespace
 
-template <typename WT>
+template <typename WT, bool TURNS = false, bool DRAW = false>
 static int launch(const float* W, const __nv_bfloat16* Wh, const int* meta, int smem_bytes,
-                  const float* t_embs, const float* noise, const float* coefs,
-                  const float* consts, const float* x0, float* x_track, float* u_track,
-                  float* costs, int* chosen, int n_steps, int n_total, int K, int sel_h, float w,
-                  float wp1, void* stream) {
-  cudaError_t e = reserve_smem(cfg_episode_kernel<WT>, smem_bytes, SmemSet<WT>::set);
+                  const float* t_embs, const std::conditional_t<DRAW, int, float>* noise,
+                  const float* coefs, const float* consts, const float* x0, float* x_track,
+                  float* u_track, float* costs, int* chosen, int n_steps, int n_total, int K,
+                  int sel_h, float w, float wp1, void* stream) {
+  cudaError_t e = reserve_smem(cfg_episode_kernel<WT, TURNS, DRAW>, smem_bytes,
+                               SmemSet<WT, TURNS, DRAW>::set);
   if (e != cudaSuccess) return (int)e;
-  cfg_episode_kernel<WT><<<CLUSTER, NT, smem_bytes, (cudaStream_t)stream>>>(
+  cfg_episode_kernel<WT, TURNS, DRAW><<<CLUSTER, NT, smem_bytes, (cudaStream_t)stream>>>(
       W, meta, t_embs, noise, coefs, consts, x0, x_track, u_track, costs, chosen, n_steps,
       n_total, K, sel_h, w, wp1, Wh);
   return (int)cudaGetLastError();
 }
 
-template <typename WT>
+template <typename WT, bool TURNS = false, bool DRAW = false>
 static int max_active_clusters(int smem_bytes, int* n_clusters) {
   *n_clusters = 0;
-  cudaError_t e = reserve_smem(cfg_episode_kernel<WT>, smem_bytes, SmemSet<WT>::set);
+  cudaError_t e = reserve_smem(cfg_episode_kernel<WT, TURNS, DRAW>, smem_bytes,
+                               SmemSet<WT, TURNS, DRAW>::set);
   if (e != cudaSuccess) return (int)e;
   cudaLaunchConfig_t config = {};
   config.gridDim = dim3(CLUSTER);
   config.blockDim = dim3(NT);
   config.dynamicSmemBytes = smem_bytes;  // the cluster shape is the kernel's __cluster_dims__
-  return (int)cudaOccupancyMaxActiveClusters(n_clusters, (void*)cfg_episode_kernel<WT>,
-                                             &config);
+  return (int)cudaOccupancyMaxActiveClusters(
+      n_clusters, (void*)cfg_episode_kernel<WT, TURNS, DRAW>, &config);
 }
 
-// cfg_episode_lmpc.cu and cfg_episode_quadrotor.cu include this file for another plant and
-// declare their own entries.
+// cfg_episode_lmpc.cu, cfg_episode_quadrotor.cu and cfg_episode_panda.cu include this file for
+// another plant and declare their own entries.
 #ifndef EPISODE_PLANT_ENTRIES
 extern "C" {
 

@@ -18,10 +18,15 @@ shared memory for its row-sets (``unet_pack``, ``metas``). They need a card
 with clusters (sm_90) and a model whose convs and GroupNorms
 ``unet_pack.cluster_split`` accepts. Both are checked where the kernel
 would be launched (``_build.ClusterLaunch``), so the plain versions on
-the CPU take any model. The DDIM chain's plan is checked there too; the
-CFG chain's two-row-set plan is checked when it is built: at the panda
-arm's horizon 128 it needs 304,780 B per CTA, more than a block may take,
-and ``make_fused_cfg_chain`` refuses it (``ValueError``, ROADMAP.md B4).
+the CPU take any model. The DDIM chain's plan is checked there too. The
+CFG chain's plan is chosen when it is built, once, by shape
+(``cfg_plan``): the two-row-set plan where it fits one block, as for every
+cart-pole and quadrotor model, else the plan in turns (``unet_pack.TURNS``:
+the conditional and unconditional passes one after the other on one
+row-set; 158,348 B per CTA at the panda arm's horizon 128, where two
+row-sets need 304,780 B), each with entries of its own (``CFG_CHAIN_ENTRIES``);
+where neither fits it raises ``ValueError``. The wrapper records the choice
+(``plan``, ``entry``); nothing falls back to another plan at launch.
 
 As in the JAX package, the FiLM biases of every (step, ResidualTemporalBlock,
 row) depend only on the timestep and the context, so they are computed in
@@ -35,16 +40,16 @@ it reordered so that its row ``n_total`` is x_T. The DDIM chain is
 deterministic: its only noise is its initial draw ``x_init`` (B, H, D).
 
 The CFG chain takes the JAX builder's ``weights_dtype``: float32, or
-bfloat16, which launches the kernel's bf16 entry (``cfg_chain_bf16``: conv
-kernels read as bf16, every product's activation operand rounded to bf16)
-and gives ``plain`` the U-Net of ``models/bf16.py``. The DDIM chain takes
-float32 only.
+bfloat16, which launches the kernel's bf16 entry of its plan
+(``cfg_chain_bf16``; ``cfg_chain_turns_bf16`` of ``csrc/cfg_chain_turns.cu``: conv kernels read as bf16,
+every product's activation operand rounded to bf16) and gives ``plain`` the
+U-Net of ``models/bf16.py``. The DDIM chain takes float32 only.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Sequence, Tuple, Union
+from typing import Callable, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -55,23 +60,34 @@ from ..models.bf16 import bf16_conv_copy
 from ..models.layers import mish
 from ..models.temporal_unet import TemporalUnet
 from . import _build
-from .unet_pack import CLUSTER, M_LEN, SMEM_LIMIT, PackedUnet, packed_on
+from .unet_pack import CLUSTER, M_LEN, SMEM_LIMIT, TURNS, PackedUnet, Plan, packed_on
 
 __all__ = ["FusedCfgChain", "FusedDdimChain", "make_fused_cfg_chain", "make_fused_ddim_chain",
            "step_coefficients", "ddim_step_coefficients", "film_table", "is_bf16",
            "cfg_chain_max_active_clusters", "cfg_chain_bf16_max_active_clusters",
-           "ddim_chain_max_active_clusters", "refuse_cfg_plan"]
+           "ddim_chain_max_active_clusters", "cfg_plan", "CFG_CHAIN_ENTRIES", "CFG_CHAIN_PLANS"]
+
+# the CFG chain's entry for each (plan, bf16 weights): csrc/cfg_chain.cu's instantiations
+CFG_CHAIN_ENTRIES = {(2, False): "cfg_chain", (2, True): "cfg_chain_bf16",
+                     (TURNS, False): "cfg_chain_turns", (TURNS, True): "cfg_chain_turns_bf16"}
+CFG_CHAIN_PLANS = (2, TURNS)  # the plans the chain runs, in the order cfg_plan tries them
 
 
-def refuse_cfg_plan(smem_bytes: int, what: str) -> None:
-    """Raises ``ValueError`` naming ROADMAP.md B4 when a CFG kernel's
-    two-row-set plan, ``smem_bytes`` per CTA, is more than a block may take:
-    such a shape (the panda arm's H = 128 model) needs the CFG kernels
-    redesigned, and nothing falls back to another path."""
-    if smem_bytes > SMEM_LIMIT:
-        raise ValueError(f"the {what} holds two row-sets, {smem_bytes} B of shared memory per CTA "
-                         f"at this model's shape, over the {SMEM_LIMIT} B a block may take: the "
-                         "two-row-set redesign is ROADMAP.md B4")
+def cfg_plan(smem_of: Callable[[Plan], int], what: str,
+             plans: Sequence[Plan] = CFG_CHAIN_PLANS) -> Tuple[Plan, int]:
+    """The plan a CFG kernel launches with, chosen once by shape: the first
+    of ``plans`` (the chain's: the two-row-set plan before the plan in
+    turns; an episode entry's: the one plan it was compiled for) whose
+    shared memory per CTA, ``smem_of(plan)``, fits one block, and that many
+    bytes. Raises ``ValueError`` naming each plan's bytes and the limit
+    where none fits."""
+    sizes = {plan: int(smem_of(plan)) for plan in plans}
+    for plan, n in sizes.items():
+        if n <= SMEM_LIMIT:
+            return plan, n
+    raise ValueError(f"the {what} needs " + ", ".join(
+        f"{n} B of shared memory per CTA on the plan {plan!r}" for plan, n in sizes.items())
+        + f", over the {SMEM_LIMIT} B a block may take")
 
 
 def is_bf16(weights_dtype) -> bool:
@@ -126,31 +142,28 @@ def film_table(packed: PackedUnet, t_embs: torch.Tensor, context: torch.Tensor,
 
 
 @functools.lru_cache(maxsize=None)
-def _cfg_lib() -> ctypes.CDLL:
-    """The built ``csrc/cfg_chain.cu``."""
+def _cfg_lib(entry: str = "cfg_chain") -> ctypes.CDLL:
+    """The built ``csrc/cfg_chain.cu`` (the entries in turns:
+    ``csrc/cfg_chain_turns.cu``), ``entry`` (``CFG_CHAIN_ENTRIES``) declared;
+    a bf16 entry takes the bf16 copy of the weights second."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    return _build.bind("cfg_chain", [p, p, i, p, p, p, p, i, i, f, f, p], M_LEN, cluster=CLUSTER)
+    weights = [p, p] if entry.endswith("_bf16") else [p]
+    return _build.bind(entry, [*weights, p, i, p, p, p, p, i, i, f, f, p], M_LEN, cluster=CLUSTER,
+                       source="cfg_chain_turns" if "_turns" in entry else "cfg_chain")
 
 
-def cfg_chain_max_active_clusters(smem_bytes: int) -> int:
-    """How many clusters of the CFG chain kernel (one per sample) fit on the
-    current CUDA device at once with ``smem_bytes`` of dynamic shared memory
-    per CTA (``cudaOccupancyMaxActiveClusters``); raises with CUDA's text
-    when the query fails. Builds the kernel first if needed."""
-    return _build.max_active_clusters(_cfg_lib(), "cfg_chain", smem_bytes)
-
-
-@functools.lru_cache(maxsize=None)
-def _cfg_bf16_lib() -> ctypes.CDLL:
-    """The built ``csrc/cfg_chain.cu``, its bf16 entry declared."""
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    return _build.bind("cfg_chain_bf16", [p, p, p, i, p, p, p, p, i, i, f, f, p], M_LEN,
-                       cluster=CLUSTER, source="cfg_chain")
+def cfg_chain_max_active_clusters(smem_bytes: int, entry: str = "cfg_chain") -> int:
+    """How many clusters of the CFG chain kernel's ``entry`` (one per
+    sample) fit on the current CUDA device at once with ``smem_bytes`` of
+    dynamic shared memory per CTA (``cudaOccupancyMaxActiveClusters``);
+    raises with CUDA's text when the query fails. Builds the kernel first if
+    needed."""
+    return _build.max_active_clusters(_cfg_lib(entry), entry, smem_bytes)
 
 
 def cfg_chain_bf16_max_active_clusters(smem_bytes: int) -> int:
     """The same query for the chain kernel's bf16 instantiation."""
-    return _build.max_active_clusters(_cfg_bf16_lib(), "cfg_chain_bf16", smem_bytes)
+    return cfg_chain_max_active_clusters(smem_bytes, "cfg_chain_bf16")
 
 
 @functools.lru_cache(maxsize=None)
@@ -174,10 +187,16 @@ class FusedCfgChain:
     ``launches`` counts kernel launches and ``plain_calls`` calls of the
     plain version; callers reset them to 0 to count one run. ``cluster``
     holds the rank-major weights the kernel reads and its occupancy check.
-    With ``weights_dtype`` bfloat16 it launches the bf16 entry
-    (``entry``), and ``plain`` runs ``plain_model``, the U-Net with bf16
-    convs (``models/bf16.py``).
+    ``plan`` is the plan of shared memory ``cfg_plan`` chose (two row-sets,
+    else in turns; a subclass that sets ``_plans`` to ``(TURNS,)`` runs in
+    turns at any shape, as the checks of the two entries against each other
+    do) and ``entry`` the kernel's entry
+    for it (``CFG_CHAIN_ENTRIES``); with ``weights_dtype`` bfloat16 that is
+    the plan's bf16 entry, and ``plain`` runs ``plain_model``, the U-Net
+    with bf16 convs (``models/bf16.py``).
     """
+
+    _plans: Sequence[Plan] = CFG_CHAIN_PLANS
 
     def __init__(self, packed: PackedUnet, schedule: DiffusionSchedule, n_samples: int,
                  w: float, n_tail: int, weights_dtype=torch.float32):
@@ -192,13 +211,13 @@ class FusedCfgChain:
         self.t_eff = torch.as_tensor(t_eff, device=device)
         with torch.no_grad():
             self.t_embs = self.model.time_mlp(self.t_eff)  # (n_total, time_emb_dim)
-        self.entry = "cfg_chain_bf16" if self.bf16 else "cfg_chain"
-        # the two-row-set plan: the meta table the kernel reads and its shared memory per CTA
-        self.meta, self.smem_bytes = packed.metas[2], packed.chain_smem_bytes(2)
-        refuse_cfg_plan(self.smem_bytes, "CFG chain kernel")
+        # the plan: the meta table the kernel reads and its shared memory per CTA
+        self.plan, self.smem_bytes = cfg_plan(packed.chain_smem_bytes, "CFG chain kernel",
+                                              self._plans)
+        self.meta = packed.metas[self.plan]
+        self.entry = CFG_CHAIN_ENTRIES[self.plan, self.bf16]
         self.cluster = _build.ClusterLaunch(
-            packed, self.entry,
-            cfg_chain_bf16_max_active_clusters if self.bf16 else cfg_chain_max_active_clusters)
+            packed, self.entry, functools.partial(cfg_chain_max_active_clusters, entry=self.entry))
         self.launches = 0
         self.plain_calls = 0
 
@@ -228,10 +247,10 @@ class FusedCfgChain:
 
     @torch.no_grad()
     def kernel(self, context: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
-        """Launch ``csrc/cfg_chain.cu`` (its bf16 entry for bf16 weights),
-        one cluster of 8 CTAs per sample, on the current stream; raises when
-        the body cannot be split over the cluster or no cluster fits on the
-        card."""
+        """Launch ``csrc/cfg_chain.cu``'s ``entry`` (its plan's, bf16 for
+        bf16 weights), one cluster of 8 CTAs per sample, on the current
+        stream; raises when the body cannot be split over the cluster or no
+        cluster fits on the card."""
         self._check(context, noise)
         if not context.is_cuda or context.device != self.packed.weights.device:
             raise ValueError(f"the {self.entry} kernel takes tensors on the packed weights' CUDA "
@@ -243,7 +262,7 @@ class FusedCfgChain:
         out = torch.empty((self.n_samples, self.packed.horizon, self.packed.state_dim),
                           dtype=torch.float32, device=context.device)
         _build.launch(
-            _cfg_bf16_lib() if self.bf16 else _cfg_lib(), self.entry,
+            _cfg_lib(self.entry), self.entry,
             *(wt.data_ptr() for wt in weights), self.meta.data_ptr(),
             self.smem_bytes, films.data_ptr(), noise_tab.data_ptr(), self.coefs.data_ptr(),
             out.data_ptr(), self.n_total, self.n_samples, self.w, float(np.float32(1.0 + self.w)),
@@ -281,8 +300,9 @@ def make_fused_cfg_chain(model_or_packed: Union[TemporalUnet, PackedUnet],
     """Build the CFG chain of one replan on ``device`` (``cuda`` unless
     given), with float32 or bfloat16 conv weights (``weights_dtype``; any
     other type raises ``NotImplementedError``). A ``TemporalUnet`` is moved
-    to the device and packed. Raises ``ValueError`` (ROADMAP.md B4) where
-    the kernel's two-row-set plan does not fit one block."""
+    to the device and packed. The plan is the first that fits one block
+    (``cfg_plan``: two row-sets, else in turns); raises ``ValueError`` where
+    none fits."""
     is_bf16(weights_dtype)
     return FusedCfgChain(packed_on(model_or_packed, device), schedule, n_samples, w, n_tail,
                          weights_dtype)

@@ -14,10 +14,12 @@ plain version.
 
 Both episode kernels are a thread-block cluster of 8 CTAs that splits the
 U-Net body by output channel, one GroupNorm group per CTA
-(``csrc/unet_body_cluster.cuh``; two row-sets in the CFG episode, one in the
-DDIM episode, each on its plan of shared memory, ``unet_pack.metas``; the
-CFG episode refuses to be built where its plan is more than a block may
-take, ROADMAP.md B4): they need a card with clusters (sm_90), and a model whose
+(``csrc/unet_body_cluster.cuh``; two row-sets in the CFG episode, or, for
+its panda entries, its two passes in turn on one row-set, and one row-set in
+the DDIM episode, each on its plan of shared memory, ``unet_pack.metas``;
+the CFG episode refuses to be built where its entry's plan is more than a
+block may take, ``fused_denoise.cfg_plan``): they need a card with clusters
+(sm_90), and a model whose
 convs and GroupNorms ``unet_pack.cluster_split`` accepts, which each
 wrapper checks where its kernel would be launched, so that its plain version
 on the CPU takes any model. Before its first launch each wrapper asks CUDA
@@ -41,7 +43,8 @@ do not: the plants written as device functions in ``csrc/plants.cuh``, a
 entry's ``Scorer``), the state-to-condition maps written there (the identity,
 ``control/conditions.py::ConcatFeatures``, or the panda arm's
 ``PandaContext``, as each entry's ``Condition``), and staged noise but for
-the quadrotor's DDIM episode. Each
+the quadrotor's DDIM episode and the panda arm's CFG episode, which also
+draw in the kernel. Each
 (plant, weights) pair the CFG episode runs is an entry of its own
 (``CFG_ENTRIES``): the cart-pole swing-up with float32 weights
 (``cfg_episode``) or bfloat16 ones (``bench.py``'s ``BENCH_BF16``: the
@@ -54,7 +57,15 @@ on the state; and the scene-conditioned quadrotor student with float32
 weights (``cfg_episode_quadrotor``, ``csrc/cfg_episode_quadrotor.cu``: the
 quadrotor, its context the state followed by a ``ConcatFeatures``' 12 scene
 features, scored by the scene's ``SafetyFirstCost``; the features and the
-spheres lie in the consts table, so that one build serves every scene). The
+spheres lie in the consts table, so that one build serves every scene); and
+the panda arm's CFG teacher with float32 weights (``cfg_episode_panda``,
+``csrc/cfg_episode_panda.cu``: ``PandaRbd``, ``PandaContext`` and a
+``QuadraticCost`` scorer, on the plan in turns, ``CFG_PLANS``), whose
+``inkernel_noise`` launches ``cfg_episode_panda_draw``: every CTA computes
+each replan's x_T and injected draws by Philox4x32-10 counted by (replan x
+(n_total + 1) + draw, candidate, row, channel), the JAX kernel's draw index,
+and ``plain`` runs on the table that draw produces
+(``ops/philox.py::cfg_normal_table``). The
 DDIM episode runs
 float32 weights and ``clip_denoised=True`` only, one entry per plant
 (``DDIM_ENTRIES``): the swing-up (``ddim_episode``, a ``QuadraticCost``
@@ -102,14 +113,15 @@ from ..models.bf16 import bf16_conv_copy
 from ..models.layers import mish
 from ..models.temporal_unet import TemporalUnet
 from . import _build, philox
-from .fused_denoise import (ddim_step_coefficients, is_bf16, refuse_cfg_plan,
+from .fused_denoise import (cfg_plan, ddim_step_coefficients, is_bf16,
                             refuse_unported_ddim_options, step_coefficients)
-from .unet_pack import CLUSTER, M_LEN, PackedUnet, packed_on
+from .unet_pack import CLUSTER, M_LEN, TURNS, PackedUnet, Plan, packed_on
 
 __all__ = ["FusedCfgEpisode", "FusedDdimEpisode", "make_fused_cfg_episode",
            "make_fused_ddim_episode", "affine_consts", "episode_choice", "CFG_ENTRIES",
-           "DDIM_ENTRIES", "DDIM_DRAW_ENTRIES", "SCORER_CONSTS",
+           "CFG_DRAW_ENTRIES", "CFG_PLANS", "DDIM_ENTRIES", "DDIM_DRAW_ENTRIES", "SCORER_CONSTS",
            "cfg_episode_max_active_clusters", "cfg_episode_bf16_max_active_clusters",
+           "cfg_episode_panda_max_active_clusters", "cfg_episode_panda_draw_max_active_clusters",
            "cfg_episode_lmpc_max_active_clusters", "ddim_episode_max_active_clusters",
            "ddim_episode_quadrotor_max_active_clusters",
            "ddim_episode_quadrotor_draw_max_active_clusters",
@@ -123,14 +135,18 @@ __all__ = ["FusedCfgEpisode", "FusedDdimEpisode", "make_fused_cfg_episode",
 CFG_ENTRIES = {("cartpole_virtual_swingup", False): "cfg_episode",
                ("cartpole_virtual_swingup", True): "cfg_episode_bf16",
                ("cartpole_lmpc", False): "cfg_episode_lmpc",
-               ("quadrotor", False): "cfg_episode_quadrotor"}
-# the plants whose CFG episode entry is still to come, and why
-CFG_PENDING = {"panda_rbd": "its model's two-row-set plan needs the CFG kernels redesigned, and "
-                            "its entry the in-kernel draw (ROADMAP.md B4)"}
+               ("quadrotor", False): "cfg_episode_quadrotor",
+               ("panda_rbd", False): "cfg_episode_panda"}
+# the CFG entry that draws the noise in the kernel, where one exists
+CFG_DRAW_ENTRIES = {"cfg_episode_panda": "cfg_episode_panda_draw"}
+# the plan of shared memory each CFG entry was compiled for; an entry not named here runs two
+# row-sets
+CFG_PLANS = {"cfg_episode_panda": TURNS, "cfg_episode_panda_draw": TURNS}
 # the kinds of selection cost and of state-to-condition map each CFG entry's Scorer and
 # Condition compute (csrc/plants.cuh); an entry not named here scores with a QuadraticCost and
 # conditions on the state
-CFG_KINDS = {"cfg_episode_quadrotor": ("safety_first", "concat_features")}
+CFG_KINDS = {"cfg_episode_quadrotor": ("safety_first", "concat_features"),
+             "cfg_episode_panda": ("quadratic", "panda_context")}
 # the DDIM episode's entry for each plant (float32 weights), with the kind of selection cost
 # its scorer computes (csrc/plants.cuh: QuadScorer, SafetyFirstScorer), and the entry that
 # draws the noise in the kernel, where one exists
@@ -234,12 +250,37 @@ def cfg_episode_quadrotor_max_active_clusters(smem_bytes: int) -> int:
     return _build.max_active_clusters(_cfg_quadrotor_lib(), "cfg_episode_quadrotor", smem_bytes)
 
 
+@functools.lru_cache(maxsize=None)
+def _cfg_panda_lib(entry: str = "cfg_episode_panda") -> ctypes.CDLL:
+    """The built ``csrc/cfg_episode_panda.cu``: the CFG episode of the panda
+    arm's teacher on the plan in turns, ``entry`` declared (the draw's takes
+    the int32 seed in place of the noise), which also answers the width of
+    its condition map's context (``condition_dims``)."""
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    return _build.bind(entry, [p, p, i, p, p, p, p, p, p, p, p, p, i, i, i, i, f, f, p], M_LEN,
+                       (*_QUERIES, "condition_dims"), cluster=CLUSTER, source="cfg_episode_panda")
+
+
+def cfg_episode_panda_max_active_clusters(smem_bytes: int) -> int:
+    """The same query for the panda arm's CFG episode entry."""
+    return _build.max_active_clusters(_cfg_panda_lib(), "cfg_episode_panda", smem_bytes)
+
+
+def cfg_episode_panda_draw_max_active_clusters(smem_bytes: int) -> int:
+    """The same query for the panda arm's CFG episode with the in-kernel draw."""
+    return _build.max_active_clusters(_cfg_panda_lib("cfg_episode_panda_draw"),
+                                      "cfg_episode_panda_draw", smem_bytes)
+
+
 # each CFG entry's library and occupancy query
 _CFG_LIBS = {"cfg_episode": (_cfg_lib, cfg_episode_max_active_clusters),
              "cfg_episode_bf16": (_cfg_bf16_lib, cfg_episode_bf16_max_active_clusters),
              "cfg_episode_lmpc": (_cfg_lmpc_lib, cfg_episode_lmpc_max_active_clusters),
              "cfg_episode_quadrotor": (_cfg_quadrotor_lib,
-                                       cfg_episode_quadrotor_max_active_clusters)}
+                                       cfg_episode_quadrotor_max_active_clusters),
+             "cfg_episode_panda": (_cfg_panda_lib, cfg_episode_panda_max_active_clusters),
+             "cfg_episode_panda_draw": (functools.partial(_cfg_panda_lib, "cfg_episode_panda_draw"),
+                                        cfg_episode_panda_draw_max_active_clusters)}
 
 
 @functools.lru_cache(maxsize=None)
@@ -348,7 +389,8 @@ class _Episode:
     lib: Callable[[], ctypes.CDLL]  # its built library, the entry declared
     query: Callable[[int], int]  # its <name>_max_active_clusters
     bf16 = False  # bf16 conv weights: the bf16 entry, which also reads cluster.weights_bf16
-    row_sets = 1  # the row-sets of its U-Net body: its plan of shared memory (unet_pack.metas)
+    plan: Plan = 1  # its plan of shared memory (unet_pack.metas): the row-sets, or TURNS
+    inkernel_noise = False  # the entry draws its noise in the kernel from a (2,) int32 seed
 
     scorer = "quadratic"  # the kind of selection cost the entry's scorer computes
 
@@ -389,10 +431,10 @@ class _Episode:
             np.float32([plant.dt]), np.float32(plant.device_consts), cond_consts,
             sc]).astype(np.float32)).to(device)
         self.cost, self.selection_cost = cost.to(device), selection_cost.to(device)
-        # the plan of its row-sets: the meta table the kernel reads and its shared memory per CTA,
-        # checked where the kernel would launch (ClusterLaunch.require_fit)
-        self.meta = packed.metas[self.row_sets]
-        self.smem_bytes = packed.episode_smem_bytes(self.n_candidates, self.row_sets)
+        # its plan: the meta table the kernel reads and its shared memory per CTA, checked where
+        # the kernel would launch (ClusterLaunch.require_fit)
+        self.meta = packed.metas[self.plan]
+        self.smem_bytes = packed.episode_smem_bytes(self.n_candidates, self.plan)
         self.launches = 0
         self.plain_calls = 0
         self.plain_scores: Optional[torch.Tensor] = None
@@ -404,7 +446,23 @@ class _Episode:
         conv kernels rank-major."""
         return self.cluster.weights
 
+    @property
+    def noise_shape(self) -> Tuple[int, ...]:
+        """The episode's second argument: the staged noise (``table_shape``),
+        or the (2,) int32 seed of the in-kernel draw."""
+        return (2,) if self.inkernel_noise else self.table_shape
+
     def _check(self, x0: torch.Tensor, noise: torch.Tensor) -> None:
+        if self.inkernel_noise:
+            if tuple(x0.shape) != (self.plant.state_dim,) or x0.dtype != torch.float32:
+                raise ValueError(f"x0 must be ({self.plant.state_dim},) float32, got "
+                                 f"{tuple(x0.shape)} {x0.dtype}")
+            if tuple(noise.shape) != (2,) or noise.dtype != torch.int32:
+                raise ValueError(f"the seed must be (2,) int32, got {tuple(noise.shape)} "
+                                 f"{noise.dtype}")
+            if x0.device != noise.device:
+                raise ValueError("x0 and the seed must lie on one device")
+            return
         if tuple(x0.shape) != (self.plant.state_dim,):
             raise ValueError(f"x0 must be ({self.plant.state_dim},), got {tuple(x0.shape)}")
         if tuple(noise.shape) != self.noise_shape:
@@ -514,6 +572,9 @@ class _Episode:
 class FusedCfgEpisode(_Episode):
     """``episode(x0 (dx,), noise (n_steps, n_total+1, K, H, du)) ->
     (x_track (n_steps+1, dx), u_track (n_steps, du), stage_costs (n_steps,))``.
+    With ``inkernel_noise`` (the panda entry's) the second argument is a (2,)
+    int32 seed and the kernel draws every x_T and injected normal itself
+    (``ops/philox.py``); ``noise_table(seed)`` is that draw staged.
 
     ``kernel`` and ``plain`` also return the index of the applied candidate
     at every replan (K where none was chosen). ``launches`` counts kernel
@@ -523,44 +584,57 @@ class FusedCfgEpisode(_Episode):
     entry ``cfg_episode_bf16``, whose ``plain`` runs ``plain_model``, the
     U-Net with bf16 convs (``models/bf16.py``); with the linear cart-pole
     ``cfg_episode_lmpc``; with the quadrotor ``cfg_episode_quadrotor``,
-    whose context is ``state_to_condition(x)``, a ``ConcatFeatures``. Its
-    U-Net body holds two row-sets; where their plan is more than a block may
-    take (the panda arm's H = 128 model) it refuses to be built
-    (``ValueError``, ROADMAP.md B4).
+    whose context is ``state_to_condition(x)``, a ``ConcatFeatures``; with
+    the panda arm ``cfg_episode_panda`` (``cfg_episode_panda_draw`` with
+    ``inkernel_noise``), whose context is a ``PandaContext``. ``plan`` is
+    the entry's plan of shared memory (``CFG_PLANS``: two row-sets; the
+    panda entries' in turns); where it is more than a block may take the
+    episode refuses to be built (``cfg_plan``'s ``ValueError``).
     """
-
-    row_sets = 2
 
     def __init__(self, packed: PackedUnet, schedule: DiffusionSchedule,
                  inputs_stats: NormalizerStats, condition_stats: NormalizerStats, plant: Plant,
                  cost: QuadraticCost, n_steps: int, w: float, n_tail: int, n_candidates: int,
                  selection_cost: QuadraticCost, selection_horizon: int,
-                 weights_dtype=torch.float32, state_to_condition=None):
+                 weights_dtype=torch.float32, state_to_condition=None,
+                 inkernel_noise: bool = False):
         self.bf16 = is_bf16(weights_dtype)
-        self.name = CFG_ENTRIES[plant.name, self.bf16]
+        entry = CFG_ENTRIES[plant.name, self.bf16]
+        self.scorer = CFG_KINDS.get(entry, ("quadratic",))[0]
+        self.inkernel_noise = bool(inkernel_noise)
+        self.name = CFG_DRAW_ENTRIES[entry] if self.inkernel_noise else entry
         self.lib, self.query = _CFG_LIBS[self.name]
-        self.scorer = CFG_KINDS.get(self.name, ("quadratic",))[0]
+        self.plan, _ = cfg_plan(lambda plan: packed.episode_smem_bytes(n_candidates, plan),
+                                f"{self.name} kernel at K = {n_candidates}",
+                                (CFG_PLANS.get(self.name, 2),))
         super().__init__(packed, inputs_stats, condition_stats, plant, cost, n_steps,
                          n_candidates, selection_cost, selection_horizon,
                          *step_coefficients(schedule, n_tail), state_to_condition)
-        refuse_cfg_plan(self.smem_bytes, f"CFG episode kernel at K = {self.n_candidates}")
         self.plain_model = bf16_conv_copy(self.model) if self.bf16 else self.model
         self.w = float(w)
 
     @property
-    def noise_shape(self) -> Tuple[int, ...]:
+    def table_shape(self) -> Tuple[int, ...]:
+        """The staged noise of one episode: (n_steps, n_total + 1, K, H, du)."""
         return (self.n_steps, self.n_total + 1, self.n_candidates, self.packed.horizon,
                 self.packed.state_dim)
+
+    def noise_table(self, seed: torch.Tensor) -> torch.Tensor:
+        """The in-kernel draw of an episode seeded ``seed``, staged
+        (``table_shape``), on the seed's device (``ops/philox.py``)."""
+        return philox.cfg_normal_table(seed, self.n_steps, self.n_total, self.n_candidates,
+                                       self.packed.horizon, self.packed.state_dim)
 
     @torch.no_grad()
     def kernel(self, x0: torch.Tensor, noise: torch.Tensor):
         """Launch the entry's kernel (``csrc/cfg_episode.cu``, its bf16 entry
-        for bf16 weights, ``csrc/cfg_episode_lmpc.cu`` or
-        ``csrc/cfg_episode_quadrotor.cu``), one cluster of 8 CTAs, on the
-        current stream; raises when the body
+        for bf16 weights, ``csrc/cfg_episode_lmpc.cu``,
+        ``csrc/cfg_episode_quadrotor.cu`` or ``csrc/cfg_episode_panda.cu``),
+        one cluster of 8 CTAs, on the current stream; raises when the body
         cannot be split over the cluster or no cluster fits on the card."""
         self._check(x0, noise)
-        noise_tab = torch.cat([noise[:, 1:], noise[:, :1]], dim=1).contiguous()
+        noise_tab = (noise.contiguous() if self.inkernel_noise
+                     else torch.cat([noise[:, 1:], noise[:, :1]], dim=1).contiguous())
         return self._launch(x0, noise_tab, self.w, float(np.float32(1.0 + self.w)))
 
     @torch.no_grad()
@@ -568,8 +642,11 @@ class FusedCfgEpisode(_Episode):
         """The same episode in plain PyTorch, replaying the kernel's
         arithmetic; the chain runs ``plain_model`` on the doubled batch of
         the K candidates (FiLM from mish([t_emb, ctx, bit]) inside its
-        ResidualTemporalBlocks)."""
+        ResidualTemporalBlocks). With ``inkernel_noise`` on
+        ``noise_table(seed)``."""
         self._check(x0, noise)
+        if self.inkernel_noise:
+            noise = self.noise_table(noise)
         k = self.n_candidates
         dev = x0.device
         mask2 = torch.cat([torch.zeros((k, 1), device=dev), torch.ones((k, 1), device=dev)])
@@ -672,25 +749,10 @@ class FusedDdimEpisode(_Episode):
         """The staged noise of one episode: (n_steps, K, H, du)."""
         return (self.n_steps, self.n_candidates, self.packed.horizon, self.packed.state_dim)
 
-    @property
-    def noise_shape(self) -> Tuple[int, ...]:
-        return (2,) if self.inkernel_noise else self.table_shape
-
     def noise_table(self, seed: torch.Tensor) -> torch.Tensor:
         """The in-kernel draw of an episode seeded ``seed``, staged (n_steps,
         K, H, du), on the seed's device (``ops/philox.py``)."""
         return philox.normal_table(seed, self.table_shape)
-
-    def _check(self, x0: torch.Tensor, noise: torch.Tensor) -> None:
-        if not self.inkernel_noise:
-            return super()._check(x0, noise)
-        if tuple(x0.shape) != (self.plant.state_dim,) or x0.dtype != torch.float32:
-            raise ValueError(f"x0 must be ({self.plant.state_dim},) float32, got "
-                             f"{tuple(x0.shape)} {x0.dtype}")
-        if tuple(noise.shape) != (2,) or noise.dtype != torch.int32:
-            raise ValueError(f"the seed must be (2,) int32, got {tuple(noise.shape)} {noise.dtype}")
-        if x0.device != noise.device:
-            raise ValueError("x0 and the seed must lie on one device")
 
     @torch.no_grad()
     def kernel(self, x0: torch.Tensor, noise: torch.Tensor):
@@ -793,21 +855,22 @@ def make_fused_cfg_episode(model_or_packed: Union[TemporalUnet, PackedUnet],
     ``BENCH_BF16=1``'s). A ``TemporalUnet`` is moved to the device and
     packed. The quadrotor's entry takes its ``state_to_condition`` as a
     ``ConcatFeatures`` and its ``selection_cost`` as a ``SafetyFirstCost``;
-    a scene is their constants. Raises ``NotImplementedError`` for what the
-    kernel cannot run."""
-    if plant.name in CFG_PENDING:
-        raise NotImplementedError(f"the CFG episode has no entry for the plant '{plant.name}': "
-                                  f"{CFG_PENDING[plant.name]}")
+    a scene is their constants. The panda arm's entry takes a
+    ``PandaContext``, and ``inkernel_noise`` (its entry only) makes the
+    episode take a (2,) int32 seed (``ops/philox.py::seed_from_generator``)
+    in place of staged noise. Raises ``NotImplementedError`` for what the
+    kernel cannot run, and ``ValueError`` where the entry's plan does not
+    fit one block at this K."""
     entry = CFG_ENTRIES.get((plant.name, is_bf16(weights_dtype)))
     scorer, condition = CFG_KINDS.get(entry, ("quadratic", "identity"))
     packed, k, sel_h = _episode_packed(model_or_packed, plant, cost, selection_cost,
                                        selection_horizon, n_candidates, state_to_condition,
                                        inkernel_noise, device, {p for p, _ in CFG_ENTRIES},
-                                       entry, scorer, False,
+                                       entry, scorer, entry in CFG_DRAW_ENTRIES,
                                        "bf16" if is_bf16(weights_dtype) else "float32", condition)
     return FusedCfgEpisode(packed, schedule, inputs_stats, condition_stats, plant, cost, n_steps,
                            w, n_diffusion_steps_without_noise, k, selection_cost or cost, sel_h,
-                           weights_dtype, state_to_condition)
+                           weights_dtype, state_to_condition, inkernel_noise)
 
 
 def make_fused_ddim_episode(model_or_packed: Union[TemporalUnet, PackedUnet],

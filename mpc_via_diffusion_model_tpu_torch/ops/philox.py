@@ -14,6 +14,14 @@ philox4x32_10((s, k, t, d), (k0, k1))``. ``normal_table`` expands a seed
 into the staged table (n_steps, K, H, D) that the draw produces, so the
 kernel with in-kernel noise is held to the plain episode on that table.
 
+The CFG episode draws n_total + 1 normals per replan, candidate, row and
+channel: x_T and one injected at each step. Its counter's first word is the
+JAX kernel's draw index ``step * (n_total + 1) + j`` (fused_episode.py:554,
+:599, :602), j = n_total for x_T: the normal at (replan s, draw j,
+candidate k, row t, channel d) comes from ``philox4x32_10((s (n_total + 1)
++ j, k, t, d), (k0, k1))``, which at n_total + 1 = 1 is the DDIM draw's
+counter. ``cfg_normal_table`` stages it as the CFG episode takes noise.
+
 uint32 words are held in int64 tensors and masked; a 32 x 32-bit product is
 taken in 16-bit halves so that no intermediate passes 2^49.
 
@@ -34,7 +42,8 @@ import torch
 
 from . import _build
 
-__all__ = ["philox4x32_10", "bits_to_normal", "normal_table", "seed_from_generator",
+__all__ = ["philox4x32_10", "bits_to_normal", "normal_table", "cfg_normal_table",
+           "seed_from_generator",
            "seed_words", "words", "table", "LAUNCHES"]
 
 MASK32 = 0xFFFFFFFF
@@ -96,11 +105,25 @@ def normal_table(seed: torch.Tensor, shape: Tuple[int, int, int, int], device=No
     H, D) float32, entry (s, k, t, d) the normal of counter (s, k, t, d)
     under the key of ``seed`` ((2,) int32, as ``_key_to_seeds`` gives), on
     ``device`` (the seed's by default)."""
+    n_steps, k, h, d = shape
+    return cfg_normal_table(seed, n_steps, 0, k, h, d, device)[:, 0]
+
+
+def cfg_normal_table(seed: torch.Tensor, n_steps: int, n_total: int, n_candidates: int,
+                     horizon: int, dim: int, device=None) -> torch.Tensor:
+    """The CFG episode's in-kernel draw of a whole episode, staged as the
+    episode takes noise: (n_steps, n_total + 1, K, H, D) float32, with
+    ``[:, 0]`` the x_T draw (j = n_total) and ``[:, 1 + j]`` the draw
+    injected at step j; entry (s, i, k, t, d) the normal of counter
+    (s (n_total + 1) + j, k, t, d), j = (i - 1) mod (n_total + 1), under the
+    key of ``seed``, on ``device`` (the seed's by default)."""
     k0, k1 = seed_words(seed)
     dev = seed.device if device is None else torch.device(device)
-    idx = [torch.arange(n, dtype=torch.int64, device=dev) for n in shape]
-    s, k, t, d = torch.meshgrid(*idx, indexing="ij")
-    w0, w1, _, _ = philox4x32_10((s, k, t, d), (k0, k1))
+    idx = [torch.arange(n, dtype=torch.int64, device=dev)
+           for n in (n_steps, n_total + 1, n_candidates, horizon, dim)]
+    s, i, k, t, d = torch.meshgrid(*idx, indexing="ij")
+    j = (i + n_total) % (n_total + 1)
+    w0, w1, _, _ = philox4x32_10((s * (n_total + 1) + j, k, t, d), (k0, k1))
     return bits_to_normal(w0, w1)
 
 

@@ -29,9 +29,13 @@ hold NB = 1. ``pack_unet`` makes a plan of shared memory for each count,
 one meta table each (``PackedUnet.metas``): the tables differ only in the
 plan's offsets (M_BUF, M_SKIP, M_XS, M_EPS, M_STATS, M_SMEM and the M_EP_*
 regions), so every kernel reads its own plan through the same indices. A
-plan may exceed what a block can take (the panda arm's H = 128 model at NB
-= 2); packing does not refuse it, the kernel that would launch with it
-does.
+third plan, ``TURNS``, is the CFG kernels' where two row-sets do not fit
+one block (the panda arm's H = 128 model: 304,780 B per CTA for the chain):
+the conditional and the unconditional pass run one after the other on one
+row-set's activations and skips, and only what outlives a pass is sized
+for the two groups: eps (2, H, D), the episode's FiLM (n_res, 2, max_c)
+and mish(c_emb) (2, cond_dim). A plan may exceed what a block can take;
+packing does not refuse it, the kernel that would launch with it does.
 """
 from __future__ import annotations
 
@@ -46,7 +50,7 @@ from ..models.temporal_unet import TemporalUnet
 from ..utils.device import resolve_device
 
 __all__ = ["PackedUnet", "pack_unet", "packed_on", "align4", "ClusterSplit", "cluster_split",
-           "cluster_weights", "CLUSTER", "ROW_SETS"]
+           "cluster_weights", "CLUSTER", "ROW_SETS", "TURNS", "PLANS", "plan_row_sets"]
 
 HALO = 2
 MAX_LEVELS = 4
@@ -54,6 +58,14 @@ MAX_RES = 4 * MAX_LEVELS
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper
 CLUSTER = 8  # CTAs of the cluster kernels' clusters (csrc/unet_body_cluster.cuh)
 ROW_SETS = (1, 2)  # the row-set counts a plan is made for: the DDIM kernels' and the CFG kernels'
+TURNS = "turns"  # the CFG kernels' plan of one row-set, its two passes in turn
+PLANS = (*ROW_SETS, TURNS)
+Plan = Union[int, str]
+
+
+def plan_row_sets(plan: Plan) -> int:
+    """The row-sets a plan's activations hold: 1 for ``TURNS``."""
+    return 1 if plan == TURNS else int(plan)
 
 # meta layout; ops/csrc/unet_body.cuh mirrors every index below
 (M_H, M_D, M_NLEV, M_NRES, M_MAXC, M_BUF, M_XS, M_EPS, M_STATS, M_SMEM) = range(10)
@@ -92,25 +104,26 @@ def align4(n: int) -> int:
 class PackedUnet:
     model: TemporalUnet
     weights: torch.Tensor          # (n_floats,) fp32, every conv-backbone weight
-    metas: Dict[int, torch.Tensor]  # row-sets (ROW_SETS) -> (M_LEN,) int32 meta table of that plan
+    metas: Dict[Plan, torch.Tensor]  # plan (PLANS) -> (M_LEN,) int32 meta table of that plan
     segments: Dict[str, Tuple[int, Tuple[int, ...]]]  # name -> (offset, flax shape)
     films_w: torch.Tensor          # (n_res, cond_dim, max_c) FiLM Dense kernels, zero-padded
     films_b: torch.Tensor          # (n_res, max_c)
     flops_per_pass: int            # conv FLOPs of one U-Net pass over one batch element
     flops_final_1x1: int           # of which the final 1x1 conv, outside the U-Net pass kernel
 
-    def chain_smem_bytes(self, row_sets: int) -> int:
+    def chain_smem_bytes(self, plan: Plan) -> int:
         """Dynamic shared memory of each CTA of a chain or the U-Net pass
-        on ``row_sets`` row-sets: the plan up to its meta copy, then the copy."""
-        return 4 * (int(self.metas[row_sets][M_SMEM]) + M_LEN)
+        on ``plan`` (a row-set count, or ``TURNS``): the plan up to its meta
+        copy, then the copy."""
+        return 4 * (int(self.metas[plan][M_SMEM]) + M_LEN)
 
-    def episode_smem_bytes(self, n_candidates: int, row_sets: int) -> int:
+    def episode_smem_bytes(self, n_candidates: int, plan: Plan) -> int:
         """Dynamic shared memory of each CTA of an episode kernel's cluster on
-        ``row_sets`` row-sets (the CFG episode 2, the DDIM episode 1): the
-        plan's FiLM (n_res x row_sets x max_c floats at M_EP_FILM) and
-        mish(c_emb) (row_sets x cond_dim at M_EP_MC) regions, its misc region
+        ``plan`` (the CFG episode 2 or ``TURNS``, the DDIM episode 1): the
+        plan's FiLM (n_res x groups x max_c floats at M_EP_FILM) and
+        mish(c_emb) (groups x cond_dim at M_EP_MC) regions, its misc region
         and meta copy, then the K candidate chains and their scores."""
-        m = self.metas[row_sets]
+        m = self.metas[plan]
         n = (int(m[M_EP_SMEM]) + align4(M_LEN) + align4(n_candidates * self.horizon * self.state_dim)
              + align4(n_candidates))
         return 4 * n
@@ -215,10 +228,10 @@ def pack_unet(model: TemporalUnet, device) -> PackedUnet:
     meta[[M_H, M_D, M_NLEV, M_NRES, M_MAXC]] = [horizon, d, n_levels, len(res), max(dims[1:])]
     meta[M_DIMS:M_DIMS + n_levels + 1] = dims
     metas = {}
-    for nb in ROW_SETS:
-        metas[nb] = meta.copy()
-        _plan(metas[nb], nb, hs, dims, in_out, max_groups, len(res), max_c, cond_dim,
-              model.context_dim)
+    for plan in PLANS:
+        metas[plan] = meta.copy()
+        _plan(metas[plan], plan_row_sets(plan), 1 if plan == 1 else 2, hs, dims, in_out,
+              max_groups, len(res), max_c, cond_dim, model.context_dim)
 
     # conv FLOPs of one pass over one batch element (GroupNorm, Mish and the
     # adds are elementwise and left out)
@@ -237,7 +250,7 @@ def pack_unet(model: TemporalUnet, device) -> PackedUnet:
     return PackedUnet(
         model=model,
         weights=torch.from_numpy(np.concatenate(chunks)).to(device),
-        metas={nb: torch.from_numpy(m).to(device) for nb, m in metas.items()},
+        metas={plan: torch.from_numpy(m).to(device) for plan, m in metas.items()},
         segments=segments,
         films_w=films_w.contiguous().to(device),
         films_b=films_b.contiguous().to(device),
@@ -246,15 +259,16 @@ def pack_unet(model: TemporalUnet, device) -> PackedUnet:
     )
 
 
-def _plan(meta: np.ndarray, nb: int, hs, dims, in_out, max_groups: int, n_res: int, max_c: int,
-          cond_dim: int, context_dim: int) -> None:
-    """Writes the shared-memory plan of ``nb`` row-sets into ``meta``: three
-    rotating activation buffers sized for the largest (nb, h + 2*HALO, c)
-    the body writes, the skips the up path reads (levels >= 1), x (one
-    sample, H x D), eps (nb, H, D), the GroupNorm statistics, then the
-    chains' meta copy (M_SMEM); the episodes' regions start there: the FiLM
-    of one step (n_res, nb, max_c), mish(c_emb) of the nb groups, the misc
-    region (state, context, first control, choice) and their meta copy."""
+def _plan(meta: np.ndarray, nb: int, groups: int, hs, dims, in_out, max_groups: int, n_res: int,
+          max_c: int, cond_dim: int, context_dim: int) -> None:
+    """Writes the shared-memory plan of ``nb`` row-sets and ``groups`` FiLM
+    groups into ``meta``: three rotating activation buffers sized for the
+    largest (nb, h + 2*HALO, c) the body writes, the skips the up path reads
+    (levels >= 1), x (one sample, H x D), eps (groups, H, D), the GroupNorm
+    statistics, then the chains' meta copy (M_SMEM); the episodes' regions
+    start there: the FiLM of one step (n_res, groups, max_c), mish(c_emb) of
+    the groups, the misc region (state, context, first control, choice) and
+    their meta copy. The in-turn plan is nb = 1 with groups = 2."""
     horizon, d, n_levels = hs[0], dims[0], len(hs)
     act = lambda h, c: nb * (h + 2 * HALO) * c
     sizes = [act(horizon, d)]
@@ -275,14 +289,14 @@ def _plan(meta: np.ndarray, nb: int, hs, dims, in_out, max_groups: int, n_res: i
     meta[M_XS] = off
     off += align4(horizon * d)
     meta[M_EPS] = off
-    off += align4(nb * horizon * d)
+    off += align4(groups * horizon * d)
     meta[M_STATS] = off
     off += align4(4 * max_groups)
     meta[M_SMEM] = off
     meta[M_EP_FILM] = off
-    off += align4(n_res * nb * max_c)
+    off += align4(n_res * groups * max_c)
     meta[M_EP_MC] = off
-    off += align4(nb * cond_dim)
+    off += align4(groups * cond_dim)
     meta[M_EP_MISC] = off
     off += ep_misc_len(context_dim)
     meta[M_EP_SMEM] = off

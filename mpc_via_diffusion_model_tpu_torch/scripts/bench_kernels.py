@@ -30,10 +30,11 @@ Rows, one JSON line each, with the JAX script's keys (``pallas_us`` becomes
   ``ddim_chain_3eval``, on the committed on-policy student
   (``artifacts/onpolicy_panda/student_1eval.pkl``), the architecture of the
   JAX script's panda rows, so the same work, both on the kernels'
-  one-row-set plan; ``cfg_chain_30step`` records the CFG chain's refusal:
-  its two-row-set plan does not fit one block at horizon 128 (ROADMAP.md
-  B4). The JAX script skips the panda ``cfg_episode_80step``, and so does
-  this one.
+  one-row-set plan; ``cfg_chain_30step`` (25 + 5 steps, w = 0.01, B = 1)
+  on the CFG teacher (``artifacts/flagship_panda_rbd/ema_params.pkl``, the
+  same architecture), on the chain's plan in turns: its two-row-set plan
+  does not fit one block at horizon 128. The JAX script skips the panda
+  ``cfg_episode_80step``, and so does this one.
 
 ``--quick`` runs one batch of the fewest repetitions. ``--device cpu`` runs
 the plain twins only, with ``kernel_us`` and ``max_abs_err`` null; without
@@ -53,7 +54,7 @@ from ..core import make_schedule
 from ..data import NormalizerStats
 from ..dynamics import cartpole_virtual_cost, cartpole_virtual_swingup, theta_to_red_theta
 from ..eval.timing import Timer, pipelined_time_fn
-from ..models import load_flagship, load_panda_student
+from ..models import load_flagship, load_panda_student, load_panda_teacher
 from ..ops import fused_conv1d_gn_mish
 from ..ops.fused_denoise import make_fused_cfg_chain, make_fused_ddim_chain
 from ..ops.fused_episode import make_fused_cfg_episode
@@ -63,6 +64,8 @@ from ..utils.device import resolve_device
 FLAGSHIP = Path(__file__).resolve().parents[2] / "artifacts" / "flagship" / "ema_params.pkl"
 PANDA_STUDENT = (Path(__file__).resolve().parents[2] / "artifacts" / "onpolicy_panda"
                  / "student_1eval.pkl")
+PANDA_TEACHER = (Path(__file__).resolve().parents[2] / "artifacts" / "flagship_panda_rbd"
+                 / "ema_params.pkl")
 CONV_SHAPES = [(2, 32, 1, 32), (2, 32, 32, 32), (2, 16, 32, 64), (2, 8, 64, 128),
                (64, 32, 32, 32), (64, 8, 64, 128)]
 PRE_BIAS_SHAPE = (2, 32, 32, 32)  # the flagship's level-0 FiLM-biased block at the CFG pair
@@ -206,9 +209,9 @@ def bench_round2(dev: torch.device, quick: bool) -> List[dict]:
 
 
 def bench_panda(dev: torch.device, quick: bool) -> List[dict]:
-    """The JAX script's panda rows on the committed student: the U-Net pass at
-    batch 2 and the 3-eval DDIM chain against their plain twins, and the CFG
-    chain's refusal of the shape."""
+    """The JAX script's panda rows: the U-Net pass at batch 2 and the 3-eval
+    DDIM chain on the committed student, and the CFG chain on the teacher in
+    turns, against their plain twins."""
     on_card = dev.type == "cuda"
     tag, horizon, channels, ctx_dim = "panda_h128_7ch_ctx20", 128, 7, 20
     model = load_panda_student(PANDA_STUDENT, device=dev)
@@ -237,17 +240,12 @@ def bench_panda(dev: torch.device, quick: bool) -> List[dict]:
 
     n, nb = _reps(quick, 20)
     cond = ctx[:1].contiguous()
-    try:
-        make_fused_cfg_chain(unet.packed, schedule, n_samples=1, w=W, n_tail=N_TAIL, device=dev)
-        raise RuntimeError("the CFG chain took the panda shape: its two-row-set plan was to be "
-                           "refused")
-    except ValueError as e:
-        if "ROADMAP.md B4" not in str(e):
-            raise
-        rows.append(_check({"kernel": "cfg_chain_30step", "config": tag, "rows": 2 * horizon,
-                            "device": _device_name(dev), "plain_us": None, "kernel_us": None,
-                            "max_abs_err": None, "tol": KERNEL_TOL, "launches": 0,
-                            "refused": str(e)}))
+    chain = make_fused_cfg_chain(load_panda_teacher(PANDA_TEACHER, device=dev), schedule,
+                                 n_samples=1, w=W, n_tail=N_TAIL, device=dev)
+    noises = [torch.randn((chain.n_total + 1, 1, horizon, channels), generator=gen, device=dev)
+              for _ in range(n)]
+    twin("cfg_chain_30step", chain, [(cond, nz) for nz in noises], nb,
+         {"model": "flagship_panda_rbd", "plan": chain.plan, "entry": chain.entry})
     ddim = make_fused_ddim_chain(unet.packed, schedule, GRID3, n_samples=1, device=dev)
     x_inits = [torch.randn(ddim.noise_shape, generator=gen, device=dev) for _ in range(n)]
     twin("ddim_chain_3eval", ddim, [(cond, xi) for xi in x_inits], nb, {"times": GRID3})

@@ -90,11 +90,11 @@ def instrument(csrc: Path, out: Path) -> None:
              "  const int rank = (int)cg::this_cluster().block_rank();\n"
              "  if (threadIdx.x == 0 && blockIdx.x == 0) g_last = clock64();\n")
     e = _sub(e, "films, rank, CLUSTER);\n", f"films, rank, CLUSTER);\n      PROF({k('film')});\n")
-    e = _sub(e, "        const float* y = cunet_body<2, WT>(",
-             f"        PROF({k('pass_input')});\n        const float* y = cunet_body<2, WT>(")
-    e = _sub(e, "          xs[i] = __fadd_rn(mean, __fmul_rn(sg, __ldg(nz + i)));\n        }\n"
+    e = _sub(e, "          const float* y = cunet_body<NB, WT>(",
+             f"          PROF({k('pass_input')});\n          const float* y = cunet_body<NB, WT>(")
+    e = _sub(e, "          xs[i] = __fadd_rn(mean, __fmul_rn(sg, z));\n        }\n"
                 "        __syncthreads();\n",
-             "          xs[i] = __fadd_rn(mean, __fmul_rn(sg, __ldg(nz + i)));\n        }\n"
+             "          xs[i] = __fadd_rn(mean, __fmul_rn(sg, z));\n        }\n"
              f"        __syncthreads();\n        PROF({k('pass_end')});\n")
     e = _sub(e, "costs, chosen, rank == 0);\n",
              f"costs, chosen, rank == 0);\n    PROF({k('replan_end')});\n")

@@ -38,7 +38,8 @@ for name in ('ops.fused_unet', 'ops.fused_episode', 'ops.fused_denoise', 'ops._b
              'data.scene_making_yardstick', 'data.onpolicy_scene_yardstick',
              'scripts.scene_making_divergence', 'dynamics.arm', 'data.panda_stats',
              'data.panda_yardstick', 'scripts.panda_divergence', 'scripts.bench_panda_student',
-             'scripts.plan_timing'):
+             'scripts.plan_timing', 'data.panda_teacher_yardstick',
+             'scripts.panda_teacher_divergence', 'scripts.bench_highdim'):
     assert pkg.__name__ + '.' + name in names, name
 import chip_smoke  # as a module: main() does not run
 loaded = [k for k, v in sys.modules.items() if v is not None
@@ -77,7 +78,8 @@ def test_port_sources_name_no_jax_import():
             "guided_divergence.py", "guided_profile.py", "onpolicy_scene.py",
             "scene_making_yardstick.py", "onpolicy_scene_yardstick.py",
             "scene_making_divergence.py", "arm.py", "panda_stats.py", "panda_yardstick.py",
-            "panda_divergence.py", "bench_panda_student.py", "plan_timing.py"} <= {
+            "panda_divergence.py", "bench_panda_student.py", "plan_timing.py",
+            "panda_teacher_yardstick.py", "panda_teacher_divergence.py", "bench_highdim.py"} <= {
                 f.name for f in files}
     offenders = [str(f.relative_to(ROOT)) for f in files if pattern.search(f.read_text())]
     assert not offenders

@@ -189,7 +189,7 @@ def test_episode_refuses_plants_and_weights_without_an_entry(models):
     ins, cs = lmpc_stats()
     sched = make_schedule("exponential", T)
     assert set(CFG_ENTRIES.values()) == {"cfg_episode", "cfg_episode_bf16", "cfg_episode_lmpc",
-                                         "cfg_episode_quadrotor"}
+                                         "cfg_episode_quadrotor", "cfg_episode_panda"}
     with pytest.raises(NotImplementedError, match="cartpole_virtual_stabilized"):
         make_fused_cfg_episode(tm, sched, ins, cs, cartpole_virtual_stabilized(),
                                cartpole_virtual_cost(), device="cpu")

@@ -4,7 +4,8 @@ mass matrix, the plants and the kernel's unrolled forms), the dataset's
 statistics (``data/panda_stats.py``), the student's forward, the plans of
 shared memory on one and two row-sets at horizon 128 (``ops/unet_pack.py``:
 the U-Net pass and the DDIM chain on one row-set emulated with the cluster
-race check against ``TemporalUnet``; the CFG builders' refusal), the numpy
+race check against ``TemporalUnet``; the CFG builders' plan in turns and
+their refusal past the limit), the numpy
 twins of the kernel's ``PandaRbd`` and ``PandaContext``
 (``tests/torch_port_util.py``) against the torch versions and through the
 emulated episode program, the student's closed loop through the chain
@@ -218,21 +219,32 @@ def test_load_panda_student_matches_jax_forward_and_plans(student):
 
 
 def test_cfg_builders_refuse_the_panda_shape_and_ddim_kernels_take_one_row_set(student):
-    """The CFG chain and episode hold two row-sets: at the panda shape their
-    plan does not fit one block, and their builders refuse it (ValueError
-    naming ROADMAP.md B4), on the CPU too. The U-Net pass, the DDIM chain
-    and the DDIM episode launch with the one-row-set plan."""
+    """At the panda shape the CFG chain's two-row-set plan does not fit one
+    block, so its builder takes the plan in turns (158,348 B per CTA), and
+    the CFG episode's panda entry runs in turns (174,928 B at K = 1); past
+    K = 17 its plan does not fit either, and the builder refuses it
+    (ValueError naming the bytes and the limit), on the CPU too, as it
+    refuses a cart-pole entry, which runs two row-sets only, at horizon 128.
+    The U-Net pass, the DDIM chain and the DDIM episode launch with the
+    one-row-set plan."""
     tm = student[2]
     sched = make_schedule("exponential", 25)
     plant, cost = get_plant("panda")
-    with pytest.raises(ValueError, match="ROADMAP.md B4"):
-        make_fused_cfg_chain(tm, sched, n_samples=1, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md B4"):  # kernel 3's panda entry
-        make_fused_cfg_episode(tm, sched, *ps.panda_stats(), plant, cost, n_steps=2, device="cpu")
-    # the CFG episode's plan at horizon 128 for a plant it has an entry for
+    chain = make_fused_cfg_chain(tm, sched, n_samples=1, device="cpu")
+    assert (chain.plan, chain.entry, chain.smem_bytes) == (up.TURNS, "cfg_chain_turns", 158_348)
+    ctx = arm.make_panda_context()
+    cfg_ep = make_fused_cfg_episode(chain.packed, sched, *ps.panda_stats(), plant, cost, n_steps=2,
+                                    state_to_condition=ctx, device="cpu")
+    assert (cfg_ep.name, cfg_ep.plan, cfg_ep.smem_bytes) == ("cfg_episode_panda", up.TURNS,
+                                                             174_928)
+    assert cfg_ep.meta is chain.packed.metas[up.TURNS]
+    with pytest.raises(ValueError, match="over the 232448 B"):  # K = 18: past the limit
+        make_fused_cfg_episode(chain.packed, sched, *ps.panda_stats(), plant, cost, n_steps=2,
+                               n_candidates=18, state_to_condition=ctx, device="cpu")
+    # the CFG episode's plan at horizon 128 for a plant whose entry runs two row-sets only
     wide = TemporalUnet(state_dim=1, n_support_points=128, unet_input_dim=32, dim_mults=(1, 2, 4),
                         context_dim=5, cfg_indicator=True)
-    with pytest.raises(ValueError, match="ROADMAP.md B4"):
+    with pytest.raises(ValueError, match="over the 232448 B"):
         make_fused_cfg_episode(wide, sched, *_swingup_stats(), *_swingup(), n_steps=2,
                                device="cpu")
     packed = up.pack_unet(tm, "cpu")

@@ -348,7 +348,7 @@ def concat_features_condition(n_features, n_plant_consts=4):
 
 def _emulate_episode(packed, t_embs, consts, x0, n_candidates, selection_horizon, n_steps,
                      n_groups, first_plans, chain_step, plant_step=_swingup_step,
-                     select=(_quadratic_select, _quadratic_terminal), condition=None):
+                     select=(_quadratic_select, _quadratic_terminal), condition=None, plan=None):
     """The program both episode kernels share (``csrc/episode.cuh`` and the
     kernels' replan loops), in numpy: the affine normalize, the per-step
     FiLM of ``n_groups`` groups from the FiLM weights the meta table points
@@ -362,10 +362,12 @@ def _emulate_episode(packed, t_embs, consts, x0, n_candidates, selection_horizon
     sr, pc), terminal(x, sp, pc)), the selection QuadraticCost by default,
     and the state-to-condition map ``condition(x, pc)`` (the identity by
     default), whose context is the model's context_dim wide. The shared image is sized by the
-    episode plan of ``n_groups`` row-sets (the CFG episode's 2, the DDIM episode's 1) and filled with NaN, so a region that overlaps another or is read before
-    it is written shows."""
+    episode plan ``plan`` (by default that of ``n_groups`` row-sets: the CFG episode's 2, the
+    DDIM episode's 1; the CFG episode's ``unet_pack.TURNS``) and filled with NaN, so a region
+    that overlaps another or is read before it is written shows."""
     W = packed.weights.cpu().numpy()
-    m = packed.metas[n_groups].cpu().numpy()
+    plan = n_groups if plan is None else plan
+    m = packed.metas[plan].cpu().numpy()
     K, sel_h = n_candidates, selection_horizon
     H, D, n_res, maxc = (int(m[k]) for k in (up.M_H, up.M_D, up.M_NRES, up.M_MAXC))
     cond, temb, dctx = (int(m[k]) for k in (up.M_COND, up.M_TEMB, up.M_CTX))
@@ -376,7 +378,7 @@ def _emulate_episode(packed, t_embs, consts, x0, n_candidates, selection_horizon
     cn_shift, cn_scale, un_shift, un_scale, q, r, sq, sr, sp, pc = parts
     Fw = W[m[up.M_FW]:m[up.M_FW] + n_res * cond * maxc].reshape(n_res, cond, maxc)
     Fb = W[m[up.M_FB]:m[up.M_FB] + n_res * maxc].reshape(n_res, maxc)
-    smem = _image(packed.episode_smem_bytes(K, n_groups) // 4)
+    smem = _image(packed.episode_smem_bytes(K, plan) // 4)
     films = smem[m[up.M_EP_FILM]:m[up.M_EP_FILM] + n_res * n_groups * maxc].reshape(n_res, n_groups, maxc)
     mc = smem[m[up.M_EP_MC]:m[up.M_EP_MC] + n_groups * cond].reshape(n_groups, cond)
     cand_off = int(m[up.M_EP_SMEM]) + up.align4(up.M_LEN)
@@ -618,12 +620,13 @@ def _emulate_cluster_body(W, m, cl, nb, film, x_rows, eps=1e-5, next_pass=True, 
     return y
 
 
-def film_from_image(cl, m, nb, n_rows):
+def film_from_image(cl, m, nb, n_rows, row0=0):
     """The episodes' FiLM reader for ``_emulate_cluster_body``: rank r reads
-    block rr's channels sl of row-sets 0..nb-1 from its own image at
+    block rr's channels sl of rows row0..row0+nb-1 from its own image at
     M_EP_FILM, laid out (n_res, n_rows, max_c)."""
     off, maxc = int(m[up.M_EP_FILM]), int(m[up.M_MAXC])
-    return lambda r, rr, sl: cl.read(r, off + (rr * n_rows + np.arange(nb)[:, None]) * maxc + sl[None, :])
+    return lambda r, rr, sl: cl.read(
+        r, off + (rr * n_rows + row0 + np.arange(nb)[:, None]) * maxc + sl[None, :])
 
 
 def _write_films_rank(cl, m, films):
@@ -783,6 +786,94 @@ def emulate_cfg_episode_kernel(packed, weights, t_embs, noise, coefs, consts, x0
 
     out = _emulate_episode(packed, t_embs, consts, x0, n_candidates, selection_horizon, n_steps,
                            2, lambda s: noise[s, n_total], step, plant_step, select, condition)
+    return out + (cl.barriers,)
+
+
+def _eps_in_turns(W, cluster_w, m, cl, film_of, x):
+    """The two passes of a CFG step on the plan in turns (``unet_pack.TURNS``):
+    for g = 0 (conditional) and 1 (unconditional) the cluster body on one
+    row-set of x (``_emulate_cluster_body``, FiLM ``film_of(g)``) and the
+    final 1x1 conv, whose output every CTA writes into half g of eps at
+    M_EPS of its own image; then every CTA reads both halves back for the
+    CFG lines, so a region that the second pass overwrites shows. Returns
+    eps (2, H, D), alike in every CTA."""
+    hd = x.size
+    at = int(m[up.M_EPS]) + np.arange(2 * hd)
+    for g in range(2):
+        y = _emulate_cluster_body(cluster_w, m, cl, 1, film_of(g), x[None])
+        eps_g = _final_1x1(W, m, y)[0].ravel()
+        for r in range(cl.n):
+            cl.write(r, r, at[g * hd:(g + 1) * hd], eps_g)
+    eps = [cl.read(r, at) for r in range(cl.n)]
+    for other in eps[1:]:
+        np.testing.assert_array_equal(other, eps[0])
+    return eps[0].reshape(2, *x.shape)
+
+
+def emulate_cfg_chain_turns_kernel(packed, weights, films, noise_tab, coefs, w,
+                                   n_ranks=up.CLUSTER):
+    """Runs ``csrc/cfg_chain.cu``'s program in turns (``cfg_chain_turns``) in
+    numpy: per sample one cluster of ``n_ranks`` CTAs (``_Cluster``,
+    NaN-filled images of the plan in turns), a cluster barrier once every
+    CTA has started, then per step the conditional and the unconditional
+    pass one after the other (``_eps_in_turns``: FiLM rows ``sample`` and
+    ``B + sample`` of the step's (n_res, 2B, max_c) table in device memory),
+    each with the kernel's barrier when it ended in a buffer the next pass
+    pushes into, then the CFG lines; a cluster barrier before exit. Returns
+    the output (B, H, D) and each sample's cluster-barrier count."""
+    W = packed.weights.cpu().numpy()
+    cluster_w = weights.cpu().numpy()
+    m = packed.metas[up.TURNS].cpu().numpy()
+    n_total, b_all = noise_tab.shape[0] - 1, noise_tab.shape[1]
+    out = np.empty((b_all,) + noise_tab.shape[2:], np.float32)
+    barriers = []
+    for sample in range(b_all):
+        cl = _Cluster(packed.chain_smem_bytes(up.TURNS) // 4, n_ranks)
+        xs = noise_tab[n_total, sample].astype(np.float32)
+        cl.barrier()
+        for si in range(n_total):
+            rows = films[si][:, [sample, b_all + sample]]  # (n_res, 2, max_c)
+            eps = _eps_in_turns(W, cluster_w, m, cl,
+                                lambda g: (lambda r, rr, sl: rows[rr][[g]][:, sl]), xs)
+            xs = _cfg_update(xs, eps, coefs[si], noise_tab[si, sample], w)
+        cl.barrier()
+        out[sample] = xs
+        barriers.append(cl.barriers)
+    return out, barriers
+
+
+def emulate_cfg_episode_turns_kernel(packed, weights, t_embs, noise, coefs, consts, x0, w,
+                                     n_candidates, selection_horizon, n_steps, n_ranks=up.CLUSTER,
+                                     plant_step=_swingup_step,
+                                     select=(_quadratic_select, _quadratic_terminal),
+                                     condition=None):
+    """Runs ``csrc/cfg_episode.cu``'s program in turns (``cfg_episode_panda``)
+    in numpy: ``_emulate_episode`` on the plan in turns with the two FiLM
+    groups, on one cluster of ``n_ranks`` CTAs that lives through the whole
+    episode (a cluster barrier once every CTA has started, another before
+    exit); every chain step writes each rank's own channels of the step's
+    FiLM (``episode_films_rank<2>``), runs each candidate's two passes in
+    turn (``_eps_in_turns``, FiLM rows 0 and 1 of the (n_res, 2, max_c)
+    table in each CTA's image), then the CFG lines. ``noise`` has the
+    wrapper's kernel layout (n_steps, n_total + 1, K, H, D) with row n_total
+    = x_T; ``plant_step``, ``select`` and ``condition`` are
+    ``_emulate_episode``'s. Returns the tracks, the choices and the number
+    of cluster barriers."""
+    n_total = noise.shape[1] - 1
+    m = packed.metas[up.TURNS].cpu().numpy()
+    cluster_w = weights.cpu().numpy()
+    cl = _Cluster(packed.episode_smem_bytes(n_candidates, up.TURNS) // 4, n_ranks)
+
+    def step(W, m_, smem, films, x, si_step, si, k):
+        _write_films_rank(cl, m, films)
+        eps = _eps_in_turns(W, cluster_w, m, cl, lambda g: film_from_image(cl, m, 1, 2, g), x)
+        return _cfg_update(x, eps, coefs[si], noise[si_step, si, k], w)
+
+    cl.barrier()
+    out = _emulate_episode(packed, t_embs, consts, x0, n_candidates, selection_horizon, n_steps,
+                           2, lambda s: noise[s, n_total], step, plant_step, select, condition,
+                           plan=up.TURNS)
+    cl.barrier()
     return out + (cl.barriers,)
 
 
