@@ -12,7 +12,8 @@ the LMPC parity workload's in ``artifacts/flagship_lmpc/`` (``ema_params.pkl``,
 ``artifacts/scene_conditioned/scene_student_ema.pkl``, the quadrotor flagship's teacher in
 ``artifacts/flagship_quadrotor/`` (``ema_params.pkl``, ``dataset.npz``), the panda student in
 ``artifacts/onpolicy_panda/student_1eval.pkl``, its CFG teacher in
-``artifacts/flagship_panda_rbd/ema_params.pkl``, and writes nothing but
+``artifacts/flagship_panda_rbd/ema_params.pkl`` (with its ``dataset.npz``), the distilled
+panda student in ``artifacts/distilled_panda/student_3eval.pkl``, and writes nothing but
 the kernel builds under ``build/torch_kernels/`` and, for a moment, phase 26's checkpoint under
 ``build/chip_smoke_train/`` and phases 41-42's student and data under
 ``build/chip_smoke_making/``. Phases,
@@ -149,14 +150,16 @@ and the port's bench:
     and their differences printed; K = 4 over 8 replans prints both
     versions' choices.
 20. the flagship's quality through the bf16 episode, phase 17's protocol
-    over 5 seeds: recorded, not gated (no bf16 report exists).
+    over 3 seeds: recorded, not gated (no bf16 report exists).
 21. the port's bench: ``python3 -m mpc_via_diffusion_model_tpu_torch.bench``
-    in a process of its own with ``bench.py``'s counts (the default mode,
-    61 episode launches), its last line parsed and its keys checked; then
+    in a process of its own with ``bench.py``'s protocol cut
+    (``BENCH_SMOKE=1``, the bench's ``SMOKE_CUT``: one sustained chain of 2
+    dependent episodes and 2 independent episodes for the pipelined rate;
+    5 episode launches), its last line parsed and its keys checked; then
     ``bench.run`` in this process for the episode in bf16 (one repetition
-    per measure), for ``chain`` and ``chain`` in bf16 (one episode each)
-    and for ``1`` (one episode of 10 replans), each launch count exact.
-    Then the bf16 entries' times.
+    per measure), for ``chain`` and ``chain`` in bf16 (one episode of 20
+    replans each) and for ``1`` (one episode of 5 replans), each launch
+    count exact. Then the bf16 entries' times.
 
 The LMPC parity workload (``scripts/lmpc_parity.py``: the linear cart-pole
 at horizon 8, context 4, against its LQR expert; the committed weights and
@@ -199,11 +202,11 @@ Training on the card (``train/trainer.py``; the yardstick
     step 1's statistics: the CFG chain at H = 8 on three contexts (1e-4)
     and ``cfg_episode_lmpc`` from the sweep's first state, 10 replans at K
     = 1 (tracks 1e-3), each against its plain version; 3 and 1 launches.
-26. the training rate: ``Trainer.fit`` chunked (125), batch 512, 250
+26. the training rate: ``Trainer.fit`` chunked (32), batch 512, 64
     steps under ``cudnn.deterministic``, steps per second by the host clock
     and ms per step by CUDA events, beside step 1's collection time; a
-    checkpoint and the generator's state taken after step 125, and a fresh
-    ``Trainer`` resumed from it runs the last 125 steps again on the same
+    checkpoint and the generator's state taken after step 32, and a fresh
+    ``Trainer`` resumed from it runs the last 32 steps again on the same
     draws: the mean loss, params, EMA and Adam's moments equal the
     uninterrupted run's.
 
@@ -412,6 +415,39 @@ row-set's activations; 158,348 B per CTA for the chain, 174,928 B for the episod
     a control, must lie outside that bound. The full 80-replan gate is
     ``scripts/bench_highdim.py``'s.
 
+ROADMAP.md's B1 (bf16 weights in kernels 2, 4 and 5; ``clip_denoised=False``
+in kernels 1, 3, 4 and 5), carried by the panda arm's distillation recipe:
+
+49. bf16 at one pass: ``fused_unet_bf16``, ``ddim_chain_bf16`` and
+    ``ddim_episode_bf16`` on the flagship's shape (the flagship, the
+    cart-pole student, 64 samples or replans) and ``fused_unet_bf16``,
+    ``ddim_chain_bf16`` and ``ddim_episode_panda_bf16`` on the panda's (the
+    distilled 3-eval student at H = 128; 64 samples, 16 replans), each
+    through ``bf16_nearest_gate`` against the known-wrong functions of
+    ``B1_WRONG`` (the pass keeps its final 1x1 conv fp32, the DDIM kernels
+    round theirs), the pass on raw eps within ``UNET_BF16_ONE_PASS_MAX``
+    elementwise, the chain and the episode's controls (against the plain
+    chain's from the kernel's own states) within 1e-3; each fp32 entry
+    through the same gate, a control,
+    must fail it; at full depth ([23, 15, 7]) within phase 19's 8e-2; the
+    launches exact; each bf16 entry timed in turns with its fp32 entry.
+50. ``clip_denoised=False``: the CFG chain (B = 4) and episode and the DDIM
+    chain (B = 4) and episode (3 replans each) on the flagship's weights
+    against their plain versions (chains 1e-4 relative to their largest
+    magnitude past 1, episodes' controls 1e-4 in normalized units), on
+    inputs where the clip binds (the share of reconstructions beyond +-1,
+    printed, must be above 0; the DDIM draws scaled by 3); each clip-on
+    kernel, a control, must lie outside the tolerance.
+51. ``distill_panda``: the recipe's serving rows (``scripts/distill_panda.py``)
+    on the committed 3-eval student, fp32 and bf16, 10 episodes of 20
+    replans through the chain split (20 launches each, the counts set to 0
+    just before and read just after): each fp32 episode within
+    ``data/distilled_panda_yardstick.py``'s paired bound of the port's plain
+    chain split on the CPU, the bf16 row (another function) outside it, both
+    means within the bound of the JAX package's; then 5 distill steps from
+    the teacher on its dataset (batch 256), each loss within the
+    yardstick's relative bound of the JAX package's.
+
 It then prints the ``training`` JSON line, the ``ilqr`` JSON line, the
 ``distill`` JSON line, the ``kernels`` JSON line (rows 1 and 3 carry their bf16
 entries under ``bf16``, row 1 its H = 8 times under ``h8``, rows 3, 4 and 5 their
@@ -426,7 +462,10 @@ the U-Net pass at 4,096 rows and the CFG chain at 4,096 samples under ``b4096``,
 phases 41-42, rows 2 and 4 their panda times under ``panda`` and ``ddim_episode_panda`` a row of
 its own as a further entry of kernel 5, phases 43-45, row 1 its panda times in turns under
 ``panda`` and the flagship's in turns under ``flagship_turns``, and ``cfg_episode_panda`` a row
-of its own as a further entry of kernel 3, its draw under ``inkernel_noise``, phases 46-48), the
+of its own as a further entry of kernel 3, its draw under ``inkernel_noise``, phases 46-48;
+rows 2, 5 and ``ddim_episode_panda`` their bf16 entries under ``bf16`` and row 4 its panda bf16
+entry under ``panda_bf16`` with the recipe's rows under ``distill_panda``, and rows 1, 3, 4 and 5
+their clip-off runs under ``clip_off``, phases 49-51), the
 ``guided`` JSON line (phases 38-40), the ``making`` JSON line
 (phases 41-42), the
 ``phase_seconds`` line (each phase's seconds), the nvidia-smi line and,
@@ -471,12 +510,15 @@ from mpc_via_diffusion_model_tpu_torch.data import scene_making_yardstick as mys
 from mpc_via_diffusion_model_tpu_torch.data import scene_yardstick as sys_
 from mpc_via_diffusion_model_tpu_torch.data import panda_teacher_yardstick as tys
 from mpc_via_diffusion_model_tpu_torch.data import panda_yardstick as pys
+from mpc_via_diffusion_model_tpu_torch.data import distilled_panda_yardstick as dpy
 from mpc_via_diffusion_model_tpu_torch.data.panda_stats import panda_stats
 from mpc_via_diffusion_model_tpu_torch.data.quadrotor_stats import quadrotor_stats
 from mpc_via_diffusion_model_tpu_torch.data.scene_stats import scene_stats
 from mpc_via_diffusion_model_tpu_torch.data.teacher_stats import teacher_stats
 from mpc_via_diffusion_model_tpu_torch.diffusion import (GaussianDiffusion, ddim_time_grid,
                                                          distill_loss, halve_times)
+from mpc_via_diffusion_model_tpu_torch.diffusion.distillation import (ddim_affine_coefs,
+                                                                      make_student_ddim_sampler)
 from mpc_via_diffusion_model_tpu_torch.dynamics import (cartpole_lmpc, cartpole_lmpc_cost,
                                                         cartpole_virtual_collect_cost,
                                                         cartpole_virtual_cost,
@@ -508,11 +550,12 @@ from mpc_via_diffusion_model_tpu_torch.ops.fused_episode import (
     make_fused_cfg_episode, make_fused_ddim_episode)
 from mpc_via_diffusion_model_tpu_torch.ops.fused_unet import (fused_unet_max_active_clusters,
                                                               make_fused_unet)
-from mpc_via_diffusion_model_tpu_torch.ops.unet_pack import CLUSTER, TURNS, pack_unet
+from mpc_via_diffusion_model_tpu_torch.ops.unet_pack import CLUSTER, TURNS, cluster_split, pack_unet
 from mpc_via_diffusion_model_tpu_torch.scripts import (bench_highdim, bench_kernels,
                                                        bench_panda_student,
                                                        bench_scene_student,
                                                        conv_timing, distill_divergence,
+                                                       distill_panda, distill_panda_divergence,
                                                        flagship_lmpc, flagship_parity,
                                                        flagship_quadrotor, guided_divergence,
                                                        lmpc_parity, onpolicy_scene,
@@ -534,7 +577,9 @@ STUDENT_REPORT = ROOT / "artifacts" / "onpolicy_cartpole" / "report.json"
 LMPC = ROOT / "artifacts" / "flagship_lmpc" / "ema_params.pkl"
 GRID, GRID3 = [23], [23, 15, 7]   # the 1-eval student's times grid; the 3-eval grid
 N_QUALITY = 10             # seeds of the student's quality check
-N_BF16_QUALITY = 5         # seeds of phase 20's bf16 quality record (10 until phases 35-37)
+N_BF16_QUALITY = 3         # seeds of phase 20's bf16 quality record (5 until phases 49-51, 10
+                           # until phases 35-37)
+N_TIMED_LOOP = 20          # replans of phase 14's timed per-replan loops (80 until phases 49-51)
 QUALITY_MEAN_MAX = 1.05    # mean cost over the expert's (report: 1.0064 over 10 seeds)
 # The flagship's mean cost over its expert's: the JAX package's expert on the CPU, 784,750.03
 # (data/flagship_expert_yardstick.py; report.json: 784,747.4 over 784,750.6 on the TPU)
@@ -549,8 +594,6 @@ N_BF16_EP = 10             # replans of phase 19's full-depth bf16 episode (at 8
 K4, SEL_H, N_STEPS_K4 = 4, 8, 8
 N_CHAIN = 10               # dependent episodes of the sustained protocol
 N_UNET_LOOP = 10           # replans of the BENCH_FUSED=1 loop
-N_BENCH_BEST = 1           # phase 21's bench process: chains of the sustained protocol, the best
-                           # taken (bench.py's 3 until phases 41-42: 61 episode launches, now 21)
 # Kernel vs plain version, u_norm after one chain: fp32 sums in other orders
 # (FMA loops vs cuDNN), ~1e-6 expected; 1e-4 is the JAX suite's chain
 # tolerance. The first step's 1e6 coefficients are clipped right after and
@@ -582,8 +625,10 @@ ONE_PASS_MEDIAN_MAX, ONE_PASS_MAX = 5e-6, 1e-3
 BF16_VS_FP32 = 8e-2
 U_HALF_RANGE = 30.0        # bench.py's control limits +-30: u_norm = u / 30
 BENCH_EPISODE_KEYS = ["metric", "value", "unit", "vs_baseline", "pipelined_hz", "protocol"]
-# H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, HBM3
+# H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, dense bf16 on the tensor
+# cores, HBM3
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 # The LMPC parity workload (phases 22-23): horizon 8, context 4, the linear cart-pole
 LMPC_H, K8 = 8, 8
@@ -613,11 +658,11 @@ YS_HEAD, YS_HEAD_RTOL = 10, 1e-4     # steps 1-10
 YS_EARLY, YS_EARLY_RTOL = 50, 1e-2   # steps 1-50
 YS_STEP_RTOL = 1.5                   # every step
 YS_TAIL, YS_TAIL_RTOL = 20, 0.16     # the mean of the last 20
-# phase 26: Trainer.fit's steps in chunks of FIT_CHUNK, of which the last are resumed; 126 in
-# chunks of 63 since phases 41-42 were added (250 in chunks of 125 since phases 35-37, 500 in the
-# recipe's chunks of 250 since phases 29-31, 1,000 before: 30-49 s of the 335 s the script may
-# take)
-N_FIT, N_RESUME, FIT_CHUNK = 126, 63, 63
+# phase 26: Trainer.fit's steps in chunks of FIT_CHUNK, of which the last are resumed; 64 in
+# chunks of 32 since phases 49-51 were added (126 in chunks of 63 since phases 41-42, 250 in
+# chunks of 125 since phases 35-37, 500 in the recipe's chunks of 250 since phases 29-31, 1,000
+# before: 30-49 s of the 335 s the script may take)
+N_FIT, N_RESUME, FIT_CHUNK = 64, 32, 32
 # The flagship's iLQR expert (phases 27-28; data/flagship_expert_yardstick.py, the JAX package on
 # the CPU): the first step's 400 nominal solves beside N_NOISY replicas of each, and the first
 # N_NMPC_PREFIX steps of the NMPC expert, within the yardstick's bounds (EXPERT_BOUNDS,
@@ -706,10 +751,14 @@ def nvidia_smi() -> str:
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
 
 
-def bound(flops: float, n_bytes: float) -> dict:
-    """The least time the card could take: the larger of the operations over
-    the fp32 peak and the bytes over the memory rate."""
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, n_bytes / PEAK_BYTES_PER_S
+def bound(flops: float, n_bytes: float, bf16_flops: float = 0.0) -> dict:
+    """The least time the card could take: the largest of the fp32 operations
+    over the fp32 peak, the bf16 products (a bf16 entry's conv products, bf16
+    weights on bf16-rounded activations) over the dense bf16 peak, and the
+    bytes over the memory rate. The two kinds of operations run on different
+    units, so their times are not added."""
+    t_ops = max(flops / PEAK_FP32_FLOPS, bf16_flops / PEAK_BF16_FLOPS)
+    t_bytes = n_bytes / PEAK_BYTES_PER_S
     return {"bound_ms": 1e3 * max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
@@ -2420,19 +2469,21 @@ def bf16_plains(chain, teacher, ctx: torch.Tensor, noise: torch.Tensor) -> dict:
     return out
 
 
-def bf16_nearest_gate(got: torch.Tensor, plains: dict) -> dict:
+def bf16_nearest_gate(got: torch.Tensor, plains: dict, wrong=PC_BF16_WRONG,
+                      max_abs: float = ONE_PASS_MAX) -> dict:
     """The bf16 gate at one pass at the panda shape, where nearly every sample flips a rounding
     (two correct plain versions part by ~2.7e-4 per sample): the elementwise median |got -
     plain| at most twice the plain versions' own (bf16 against bf16_f64), smaller than to each
-    known-wrong function's plain version (PC_BF16_WRONG), and every element within
-    ONE_PASS_MAX. Returns the readings and ``passed``."""
+    known-wrong function's plain version (``wrong``, PC_BF16_WRONG by default), and every
+    element within ``max_abs`` (ONE_PASS_MAX by default). Returns the readings and
+    ``passed``."""
     med = lambda a, b: float((a.double() - b.double()).abs().median())
     dist = {name: med(got, want) for name, want in plains.items()}
     g = {"median_to": dist, "spread": med(plains["bf16_f64"], plains["bf16"]),
          "max": float((got.double() - plains["bf16"].double()).abs().max()), "n": got.shape[0]}
-    g["passed"] = bool(torch.isfinite(got).all() and g["max"] <= ONE_PASS_MAX
+    g["passed"] = bool(torch.isfinite(got).all() and g["max"] <= max_abs
                        and dist["bf16"] <= 2 * g["spread"]
-                       and all(dist["bf16"] < dist[name] for name in PC_BF16_WRONG))
+                       and all(dist["bf16"] < dist[name] for name in wrong))
     return g
 
 
@@ -2754,7 +2805,7 @@ def panda_cfg_phases(dev) -> dict:
             "bf16": {**chain_row, "name": bf.entry, "launches": loop_counts[0][0],
                      "max_abs_err": one_gate["panda"]["max"],
                      "ms": bf_ms, "plain_ms": bf_plain_ms,
-                     **bound(ch_flops, ch_bytes - 2 * conv_w), "library_ms": None,
+                     **bound(0, ch_bytes - 2 * conv_w, bf16_flops=ch_flops), "library_ms": None,
                      "one_pass": one_gate, "full_depth_max_abs_err": bf_full,
                      "chain_split_du_vs_fp32": bf_loop_du, "weights_dtype": "bfloat16"}},
         "flagship_turns": {
@@ -2786,6 +2837,537 @@ def panda_cfg_phases(dev) -> dict:
                 f"prefix{tys.PREFIX_STEPS}_cost_mean10": float(prefix.mean()), "gaps": gaps,
                 "paired_max_gap": max(pgaps), "paired_bound": tys.PAIRED_BOUND,
                 "control_w0_gap": ctl_gap}}}
+
+
+# Phases 49-50 (ROADMAP B1): bf16 weights in kernels 2, 4 and 5 at one pass on the flagship's
+# shape and the panda arm's, and clip_denoised=False in kernels 1, 3, 4 and 5. The distilled
+# panda student (round 2 of the JAX package's scripts/distill_panda.py, grid [23, 15, 7]) carries
+# the panda shape; B1_EP replans for the episode checks at full depth and without the clip.
+DISTILLED_PANDA = ROOT / "artifacts" / "distilled_panda" / "student_3eval.pkl"
+B1_EP, B1_PANDA_ONE_PASS, B1_CLIP_SCALE, B1_TIMED_EP = 3, 16, 3.0, 10
+CLIP_REPLACES = {"cfg_chain": "mpc_via_diffusion_model_tpu/ops/fused_denoise.py:47",
+                 "cfg_episode": "mpc_via_diffusion_model_tpu/ops/fused_episode.py:410",
+                 "ddim_chain": "mpc_via_diffusion_model_tpu/ops/fused_denoise.py:164",
+                 "ddim_episode": "mpc_via_diffusion_model_tpu/ops/fused_episode.py:142"}
+# the known-wrong functions of the bf16 gate: kernel 2 runs its final 1x1 conv outside the
+# kernel in fp32 on an unrounded y (JAX fused_unet.py:450), kernels 4 and 5 inside it in bf16 on
+# a rounded y (fused_denoise.py:213, fused_episode.py:339): each is held off the other's choice
+# kernel 2's elementwise bound on raw eps at phase 49's shapes: twice the largest gap of its
+# plain version (bf16_conv_copy(model, False)) from the same function summed in float64 on the
+# CPU, 4 seeds of 64 rows (distill_panda_divergence --unet-pass: flagship 1.296e-2, panda 3.600e-2)
+UNET_BF16_ONE_PASS_MAX = {"flagship": 2.6e-2, "panda": 7.2e-2}
+B1_WRONG = {"fused_unet": ("fp32", "bf16_weights_fp32_activations", "final_1x1_rounded"),
+            "ddim": ("fp32", "bf16_weights_fp32_activations", "final_1x1_fp32")}
+
+
+def bf16_variants(model, final_rounded: bool) -> dict:
+    """The U-Nets of phase 49's gate, each ``(x, t, context, mask) -> eps``: ``bf16`` the right
+    function (bf16 convs; the final 1x1 conv rounded too where ``final_rounded``), ``bf16_f64``
+    the same summed in float64 (a right version in other orders), and the known-wrong functions
+    of B1_WRONG: the fp32 U-Net, bf16 weights on fp32 activations, and the right one with its
+    final 1x1 conv the other way."""
+    acts = bf16_conv_copy(model, final_rounded)
+    for module in acts.modules():
+        module._forward_pre_hooks.clear()
+    m64 = bf16_conv_copy(copy.deepcopy(model).double(), final_rounded)
+    return {"bf16": bf16_conv_copy(model, final_rounded),
+            "bf16_f64": lambda x, t, c, m: m64(x.double(), t, c.double(), m.double()).float(),
+            "fp32": model, "bf16_weights_fp32_activations": acts,
+            "final_1x1_fp32" if final_rounded else "final_1x1_rounded":
+                bf16_conv_copy(model, not final_rounded)}
+
+
+def ddim_first_controls(ep, model, schedule, times, states: torch.Tensor,
+                        noise: torch.Tensor) -> torch.Tensor:
+    """Each replan's applied control of a K = 1 DDIM episode ``ep``, computed by the plain chain
+    with the U-Net ``model`` from the state ``states[s]`` and the draw ``noise[s]``, all replans
+    as one batch: the episode's arithmetic at the kernel's own states, so that a flipped bf16
+    rounding in one replan does not carry into the next."""
+    c, dc, du = ep.consts, ep.context_dim, ep.plant.control_dim
+    to_cond = ep.state_to_condition or (lambda v: v)
+    ctx = (to_cond(states) - c[:dc]) * c[dc:2 * dc]
+    u = make_student_ddim_sampler(schedule, model, times, ep.clip_denoised)(ctx, noise[:, 0])
+    return (torch.clamp(u, -1.0, 1.0) * c[2 * dc + du:2 * dc + 2 * du] + c[2 * dc:2 * dc + du])[:, 0]
+
+
+def ddim_recon_share(model, schedule, times, ctx: torch.Tensor, x_init: torch.Tensor) -> float:
+    """The share of the DDIM chain's x0 reconstructions sra x - srm eps beyond [-1, 1] on (ctx,
+    x_init) with the clip off: where the clip would bind."""
+    tab = ddim_affine_coefs(schedule, times)
+    x, mask, beyond, n = x_init, torch.zeros((ctx.shape[0], 1), device=ctx.device), 0, 0
+    with torch.no_grad():
+        for i, t in enumerate(tab["t"].tolist()):
+            eps = model(x, torch.full((ctx.shape[0],), t, device=ctx.device), ctx, mask)
+            rec = float(tab["sra"][i]) * x - float(tab["srm"][i]) * eps
+            beyond, n = beyond + int((rec.abs() > 1).sum()), n + rec.numel()
+            x = float(tab["c1"][i]) * rec + float(tab["c2"][i]) * x
+    return beyond / n
+
+
+def cfg_recon_share(chain, ctx: torch.Tensor, noise: torch.Tensor) -> float:
+    """The same share for the CFG chain ``chain`` (its plain version's arithmetic, the clip off):
+    the CFG combination of the two reconstructions at every step."""
+    b, w = ctx.shape[0], chain.w
+    ctx2 = torch.cat([ctx, ctx])
+    mask2 = torch.cat([torch.zeros((b, 1), device=ctx.device), torch.ones((b, 1), device=ctx.device)])
+    x, beyond, n = noise[0], 0, 0
+    with torch.no_grad():
+        for si in range(chain.n_total):
+            sra, srm, c1, c2, sg = chain.coefs[si]
+            x2 = torch.cat([x, x])
+            r2 = sra * x2 - srm * chain.plain_model(x2, chain.t_eff[si].expand(2 * b), ctx2, mask2)
+            rec = (1.0 + w) * r2[:b] - w * r2[b:]
+            beyond, n = beyond + int((rec.abs() > 1).sum()), n + rec.numel()
+            x = c1 * rec + c2 * x + sg * noise[si + 1]
+    return beyond / n
+
+
+@torch.no_grad()
+def b1_phases(dev) -> dict:
+    """Phase 49 on ``dev``: the bf16 entries of kernels 2, 4 and 5 at one pass on the
+    flagship's shape and the panda arm's, each through its gate with its fp32 entry as the
+    control that must fail it, and at full depth. Returns the gates' readings, the times, the
+    launches and the timed wrappers (``fused_unet_bf16``, ``ddim_chain_bf16``,
+    ``ddim_episode_bf16``, ``ddim_episode_panda_bf16``)."""
+    dev = resolve_device(dev)
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(49)
+    schedule, sched1 = make_schedule("exponential", T), make_schedule("exponential", 1)
+    t0 = time.perf_counter()
+    flagship = load_flagship(FLAGSHIP, device=dev)
+    student = load_student(STUDENT, device=dev)
+    pstudent = load_panda_student(DISTILLED_PANDA, device=dev)
+    fins, fcond = (st.to(dev) for st in teacher_stats())
+    pins, pcond = (st.to(dev) for st in panda_stats())
+    fx0 = torch.tensor([0.0, 0.0, 3.0, 0.0, theta_to_red_theta(3.0)], device=dev)
+    shapes = {  # the unet of kernel 2, the student of kernels 4 and 5, and the episode's plant
+        "flagship": dict(unet=flagship, student=student, plant=cartpole_virtual_swingup(),
+                         cost=cartpole_virtual_collect_cost(), ins=fins, cond=fcond, cmap=None,
+                         x0=fx0, h=HORIZON, d=1, c=5, n_ep=N_ONE_PASS),
+        "panda": dict(unet=pstudent, student=pstudent, plant=panda_rbd_unrolled(),
+                      cost=panda_cost(), ins=pins, cond=pcond, cmap=make_panda_context(),
+                      x0=torch.from_numpy(pys.x0()).to(dev), h=pys.H, d=7, c=20,
+                      n_ep=B1_PANDA_ONE_PASS)}
+    gates, wrappers, expected, objs, failures = {}, [], [], {}, []
+
+    def gate(name, kind, got, plains, got_control, plains_control=None, max_abs=ONE_PASS_MAX):
+        """The bf16 entry's ``bf16_nearest_gate`` and, as the control that must fail it, the
+        fp32 entry's (against its own plain versions where given), with phase 19's
+        ``one_pass_gate`` read beside it and recorded, not gated: at the flagship's shape the
+        DDIM chain's one-step outputs flip a rounding in over half the samples (per-sample max
+        median 5.7e-6 against its 5e-6 on the H100), at the panda's nearly every sample does.
+        A failure is raised once every gate of the phase has been read."""
+        g = bf16_nearest_gate(got, plains, B1_WRONG[kind], max_abs)
+        ctl = bf16_nearest_gate(got_control, plains_control or plains, B1_WRONG[kind], max_abs)
+        for reading, a, b in ((g, got, plains), (ctl, got_control, plains_control or plains)):
+            try:
+                reading["one_pass"] = fmt_gate(one_pass_gate(name, a, b["bf16"]))
+                reading["one_pass_passed"] = True
+            except RuntimeError as e:
+                reading["one_pass"], reading["one_pass_passed"] = str(e), False
+        if not g["passed"] or ctl["passed"]:
+            failures.append(name)
+        gates[name] = {**g, "control_fp32_entry": ctl}
+
+    # 49. one pass
+    for shape, s in shapes.items():
+        n, h, d, c = N_ONE_PASS, s["h"], s["d"], s["c"]
+        # kernel 2: one U-Net pass at batch N_ONE_PASS, half the rows masked
+        un = make_fused_unet(s["unet"], n, weights_dtype=bf16, device=dev)
+        un32 = make_fused_unet(un.packed, n, device=dev)
+        x = torch.randn((n, h, d), generator=gen, device=dev)
+        t = torch.randint(0, T, (n,), generator=gen, device=dev)
+        ctx = torch.rand((n, c), generator=gen, device=dev) * 2 - 1
+        mask = (torch.rand((n, 1), generator=gen, device=dev) < 0.5).float()
+        reset(un, un32)
+        got, got32 = un.kernel(x, t, ctx, mask), un32.kernel(x, t, ctx, mask)
+        torch.cuda.synchronize()
+        wrappers += [un, un32]
+        expected += [(1, 0), (1, 0)]
+        objs[shape] = {"unet_args": (x, t, ctx, mask)}
+        plains = {k: f(x, t, ctx, mask) for k, f in bf16_variants(s["unet"], False).items()}
+        gate(f"fused_unet_bf16 {shape}", "fused_unet", got, plains, got32,
+             max_abs=UNET_BF16_ONE_PASS_MAX[shape])
+        objs[shape]["packed"] = un.packed
+        # kernel 4: the chain on the one-step grid [0], u = clip(sra x - srm eps)
+        ch = make_fused_ddim_chain(s["student"], sched1, [0], n, weights_dtype=bf16, device=dev)
+        ch32 = make_fused_ddim_chain(ch.packed, sched1, [0], n, device=dev)
+        objs[shape]["spacked"] = ch.packed
+        x_init = torch.randn((n, h, d), generator=gen, device=dev)
+        reset(ch, ch32)
+        got, got32 = ch.kernel(ctx, x_init), ch32.kernel(ctx, x_init)
+        torch.cuda.synchronize()
+        wrappers += [ch, ch32]
+        expected += [(1, 0), (1, 0)]
+        plains = {k: make_student_ddim_sampler(sched1, f, [0])(ctx, x_init)
+                  for k, f in bf16_variants(s["student"], True).items()}
+        gate(f"ddim_chain_bf16 {shape}", "ddim", got, plains, got32)
+        # kernel 5: an episode of one-step chains; each replan's control against the plain
+        # chain's from the kernel's own states
+        ep_of = lambda n_steps, times, sched, wd=torch.float32: make_fused_ddim_episode(
+            ch.packed, sched, times, s["ins"], s["cond"], s["plant"], s["cost"], n_steps=n_steps,
+            weights_dtype=wd, state_to_condition=s["cmap"], device=dev)
+        ep, ep32 = ep_of(s["n_ep"], [0], sched1, bf16), ep_of(s["n_ep"], [0], sched1)
+        nz = torch.randn(ep.noise_shape, generator=gen, device=dev)
+        reset(ep, ep32)
+        got, got32 = ep.kernel(s["x0"], nz), ep32.kernel(s["x0"], nz)
+        torch.cuda.synchronize()
+        wrappers += [ep, ep32]
+        expected += [(1, 0), (1, 0)]
+        u_unit = 0.5 * (s["ins"].maxs - s["ins"].mins)
+        variants = bf16_variants(s["student"], True)
+        first = lambda states: {k: ddim_first_controls(ep, f, sched1, [0], states, nz) / u_unit
+                                for k, f in variants.items()}
+        gate(f"{ep.name} {shape}", "ddim", got[1] / u_unit, first(got[0][:-1]),
+             got32[1] / u_unit, first(got32[0][:-1]))
+        # full depth on [23, 15, 7]: flips cascade, so only BF16_VS_FP32 (phase 19's)
+        chf = make_fused_ddim_chain(ch.packed, schedule, GRID3, 4, weights_dtype=bf16, device=dev)
+        ctx4 = torch.rand((4, c), generator=gen, device=dev) * 2 - 1
+        x4 = torch.randn((4, h, d), generator=gen, device=dev)
+        epf = ep_of(B1_EP, GRID3, schedule, bf16)
+        nzf = torch.randn(epf.noise_shape, generator=gen, device=dev)
+        reset(chf, epf)
+        gotc, gote = chf.kernel(ctx4, x4), epf.kernel(s["x0"], nzf)
+        torch.cuda.synchronize()
+        wrappers += [chf, epf]
+        expected += [(1, 1), (1, 1)]  # and one plain call each, below
+        t1 = time.perf_counter()
+        wante = epf.plain(s["x0"], nzf)
+        torch.cuda.synchronize()
+        objs[shape]["ep_plain_ms"] = 1e3 * (time.perf_counter() - t1)
+        gates[f"full_depth {shape}"] = {
+            "ddim_chain_bf16": assert_close(f"ddim_chain_bf16 {shape} full depth", gotc,
+                                            chf.plain(ctx4, x4), BF16_VS_FP32),
+            epf.name: assert_close(f"{epf.name} {shape} {B1_EP} replans u_norm",
+                                   gote[1] / u_unit, wante[1] / u_unit, BF16_VS_FP32)}
+    if failures:
+        raise RuntimeError(f"phase 49's bf16 gates failed (or their fp32 controls passed): "
+                           f"{failures}; every reading: {gates}")
+    b1_counts = counts(*wrappers)
+    if b1_counts != expected:
+        raise RuntimeError(f"phase 49's launches {b1_counts}, expected {expected}")
+    # times, each bf16 entry in turns with its fp32 entry (fp32, bf16, bf16, fp32) at the main
+    # paths' shapes: kernel 2 at the flagship's batch 2 by its launch alone, kernel 4 at the
+    # panda's one sample on [23, 15, 7], kernel 5 over B1_TIMED_EP replans of the swing-up on
+    # [23] and B1_EP of the panda on [23, 15, 7]; every wrapper below runs once before
+    fl, pa = objs["flagship"], objs["panda"]
+    in_turns = lambda calls, n: {wd: [cuda_ms(calls[w_], n=n, warmup=1) for w_ in
+                                      (torch.float32, bf16, bf16, torch.float32) if w_ == wd]
+                                 for wd in calls}
+    ux, ut, uc, um = (a[:2].contiguous() for a in fl["unet_args"])
+    uns = {wd: make_fused_unet(fl["packed"], 2, weights_dtype=wd, device=dev)
+           for wd in (torch.float32, bf16)}
+    u_films = uns[bf16].films(uns[bf16].model.conditioning(ut, uc, um)).contiguous()
+    u_y = torch.empty((2, HORIZON, uns[bf16].model.unet_input_dim), device=dev)
+    for u in uns.values():
+        u.cluster.require_fit(u.smem_bytes, dev)
+    unet_ms = in_turns({wd: (lambda u=u: u._launch(u.cluster.weights, u_films, ux, u_y))
+                        for wd, u in uns.items()}, 100)
+    unet_plain_ms = cuda_ms(lambda: uns[bf16].plain(ux, ut, uc, um), n=5, warmup=1)
+    pctx = torch.rand((1, 20), generator=gen, device=dev) * 2 - 1
+    px = torch.randn((1, pys.H, 7), generator=gen, device=dev)
+    chs = {wd: make_fused_ddim_chain(pa["spacked"], schedule, GRID3, 1, weights_dtype=wd,
+                                     device=dev) for wd in (torch.float32, bf16)}
+    chain_ms = in_turns({wd: (lambda c=c: c.kernel(pctx, px)) for wd, c in chs.items()}, 10)
+    chain_plain_ms = cuda_ms(lambda: chs[bf16].plain(pctx, px), n=2, warmup=1)
+    eps_ = {}
+    for name, shape, times, n_steps in (("ddim_episode_bf16", "flagship", GRID, B1_TIMED_EP),
+                                        ("ddim_episode_panda_bf16", "panda", GRID3, B1_EP)):
+        s_ = shapes[shape]
+        eps_[name] = {wd: make_fused_ddim_episode(
+            objs[shape]["spacked"], schedule, times, s_["ins"], s_["cond"], s_["plant"],
+            s_["cost"], n_steps=n_steps, weights_dtype=wd, state_to_condition=s_["cmap"],
+            device=dev) for wd in (torch.float32, bf16)}
+        nz = torch.randn(eps_[name][bf16].noise_shape, generator=gen, device=dev)
+        # the panda's plain episode at this shape ran at full depth above, on the host's clock
+        plain_ms = (objs[shape]["ep_plain_ms"] if shape == "panda" else
+                    cuda_ms(lambda e=eps_[name][bf16]: e.plain(shapes[shape]["x0"], nz), n=1,
+                            warmup=0))
+        eps_[name] = (eps_[name], nz, in_turns({wd: (lambda e=e: e.kernel(shapes[shape]["x0"], nz))
+                                                 for wd, e in eps_[name].items()}, 3), plain_ms)
+    # each bf16 row's bound: the fp32 entry's operations, the conv products (the final 1x1's
+    # where it is in the kernel) at the bf16 rate, its bytes less 2 per conv weight
+    def sizes(packed, model, final_in_kernel):
+        seg = lambda *pre: sum(math.prod(shape) for name, (_, shape) in packed.segments.items()
+                               if name.split(".")[0] in pre)
+        conv_w = sum(math.prod(packed.segments[name][1]) for name in
+                     [*cluster_split(packed).convs] + (["final1x1.w"] if final_in_kernel else []))
+        film1 = 2 * int(packed.films_w.shape[1]) * sum(rb.cond_mlp[1].out_features
+                                                       for rb in model.res_blocks())
+        return seg, conv_w, film1
+    seg, conv_w, _ = sizes(fl["packed"], flagship, False)
+    meta_n = fl["packed"].metas[1].numel()
+    unet_row = bound(0, 4 * (fl["packed"].weights.numel() - seg("films", "final1x1") + meta_n
+                             + u_films.numel() + ux.numel() + u_y.numel()) - 2 * conv_w,
+                     bf16_flops=2 * (fl["packed"].flops_per_pass - fl["packed"].flops_final_1x1))
+    seg, conv_w, film1 = sizes(pa["spacked"], pstudent, True)
+    ch_b = chs[bf16]
+    chain_row = bound(0, 4 * (pa["spacked"].weights.numel() - seg("films") + meta_n
+                              + ch_b.films(pctx).numel() + px.numel() + ch_b.coefs.numel()
+                              + pys.H * 7) - 2 * conv_w,
+                      bf16_flops=pa["spacked"].flops_per_pass * ch_b.n_total)
+    ep_rows = {}
+    for name, shape, model, step_flops in (("ddim_episode_bf16", "flagship", student, 0),
+                                           ("ddim_episode_panda_bf16", "panda", pstudent,
+                                            PANDA_STEP_FLOPS)):
+        (e32_bf, nz, turns, plain_ms) = eps_[name]
+        e = e32_bf[bf16]
+        seg, conv_w, film1 = sizes(e.packed, model, True)
+        dx, du = e.plant.state_dim, e.plant.control_dim
+        ep_rows[name] = {
+            "ms": statistics.mean(turns[bf16]), "plain_ms": plain_ms,
+            **bound(e.n_steps * (e.n_total * film1 + step_flops),
+                    4 * (e.packed.weights.numel() + meta_n + e.t_embs.numel() + nz.numel()
+                         + e.coefs.numel() + e.consts.numel() + dx + (e.n_steps + 1) * dx
+                         + e.n_steps * (du + 2)) - 2 * conv_w,
+                    bf16_flops=e.n_steps * e.n_total * e.packed.flops_per_pass),
+            "replans": e.n_steps, "times": GRID if shape == "flagship" else GRID3,
+            "ms_per_replan": statistics.mean(turns[bf16]) / e.n_steps,
+            "ms_in_turns": {"fp32": turns[torch.float32], "bf16": turns[bf16]},
+            "one_pass": gates[f"{name} {shape}"],
+            "full_depth_max_abs_err_u_norm": gates[f"full_depth {shape}"][name]}
+    src = "mpc_via_diffusion_model_tpu_torch/ops/csrc/"
+    common = {"route": "cuda", "library_ms": None, "weights_dtype": "bfloat16"}
+    rows = {
+        "fused_unet_bf16": {
+            "name": "fused_unet_bf16", "source": src + "fused_unet.cu",
+            "replaces": "mpc_via_diffusion_model_tpu/ops/fused_unet.py:387",
+            "launches": b1_counts[0][0] + b1_counts[8][0],
+            "max_abs_err": max(gates[f"fused_unet_bf16 {k}"]["max"] for k in shapes),
+            "ms": statistics.mean(unet_ms[bf16]), "plain_ms": unet_plain_ms, **unet_row,
+            "batch": 2, "ms_in_turns": {"fp32": unet_ms[torch.float32], "bf16": unet_ms[bf16]},
+            "one_pass": {k: gates[f"fused_unet_bf16 {k}"] for k in shapes}, **common},
+        "ddim_chain_bf16": {
+            "name": "ddim_chain_bf16", "source": src + "ddim_chain.cu",
+            "replaces": "mpc_via_diffusion_model_tpu/ops/fused_denoise.py:164",
+            "launches": sum(b1_counts[i][0] for i in (2, 6, 10, 14)),
+            "max_abs_err": gates["ddim_chain_bf16 panda"]["max"],
+            "ms": statistics.mean(chain_ms[bf16]), "plain_ms": chain_plain_ms, **chain_row,
+            "times": GRID3, "horizon": pys.H, "model": "distilled_panda student_3eval",
+            "ms_in_turns": {"fp32": chain_ms[torch.float32], "bf16": chain_ms[bf16]},
+            "one_pass": {k: gates[f"ddim_chain_bf16 {k}"] for k in shapes},
+            "full_depth_max_abs_err": {k: gates[f"full_depth {k}"]["ddim_chain_bf16"]
+                                       for k in shapes}, **common},
+        **{name: {"name": name, "source": src + ("ddim_episode.cu" if name == "ddim_episode_bf16"
+                                                  else "ddim_episode_panda.cu"),
+                  "replaces": "mpc_via_diffusion_model_tpu/ops/fused_episode.py:142",
+                  "launches": b1_counts[4 if name == "ddim_episode_bf16" else 12][0]
+                  + b1_counts[7 if name == "ddim_episode_bf16" else 15][0],
+                  "max_abs_err": row["one_pass"]["max"], **row, **common}
+           for name, row in ep_rows.items()}}
+    log("bf16-b1", t0, f"one pass (the fp32 entry as the control that must fail its gate): "
+        + "; ".join(f"{k} (phase 19's one-pass gate, recorded: {g['one_pass']}): median to "
+                    f"{g['median_to']}, spread {g['spread']:.3e}, max {g['max']:.3e}; the fp32 "
+                    f"entry: median to {g['control_fp32_entry']['median_to']}"
+                    for k, g in gates.items() if "median_to" in g)
+        + f"; full depth (tol {BF16_VS_FP32:.0e}): "
+        + "; ".join(f"{k} {v}" for k, v in gates.items() if k.startswith("full_depth"))
+        + f"; launches {b1_counts}; ms in turns (fp32, bf16, bf16, fp32 as two lists): "
+        + "; ".join(f"{k} {r['ms_in_turns']} (plain {r['plain_ms']:.4f}, bound {r['bound_ms']:.5f} "
+                    f"by {r['bound_by']})" for k, r in rows.items()))
+    return rows
+
+
+@torch.no_grad()
+def clip_phases(dev) -> dict:
+    """Phase 50 on ``dev``: kernels 1, 3, 4 and 5 with the clip off (``clip_denoised=False``)
+    against their plain versions on the flagship's weights and shape, on inputs where the
+    clip binds (the share of reconstructions beyond [-1, 1] read and required above 0), the
+    clip-on kernel as the control that must fail. Returns each kernel's row."""
+    dev = resolve_device(dev)
+    gen = torch.Generator(device=dev).manual_seed(50)
+    schedule = make_schedule("exponential", T)
+    t0 = time.perf_counter()
+    flagship = load_flagship(FLAGSHIP, device=dev)
+    student = load_student(STUDENT, device=dev)
+    fins, fcond = (st.to(dev) for st in teacher_stats())
+    fx0 = torch.tensor([0.0, 0.0, 3.0, 0.0, theta_to_red_theta(3.0)], device=dev)
+    u_f = 0.5 * (fins.maxs - fins.mins)
+    ctx4 = torch.randn((4, 5), generator=gen, device=dev)
+    clip_rows = {}
+    cfg = {c: make_fused_cfg_chain(flagship, schedule, n_samples=4, w=W, n_tail=N_TAIL,
+                                   clip_denoised=c, device=dev) for c in (False, True)}
+    ddim = {c: make_fused_ddim_chain(student, schedule, GRID3, 4, clip_denoised=c, device=dev)
+            for c in (False, True)}
+    cfg_ep = {c: make_fused_cfg_episode(cfg[False].packed, schedule, fins, fcond,
+                                        cartpole_virtual_swingup(), cartpole_virtual_cost(),
+                                        n_steps=B1_EP, w=W, n_diffusion_steps_without_noise=N_TAIL,
+                                        clip_denoised=c, device=dev) for c in (False, True)}
+    ddim_ep = {c: make_fused_ddim_episode(ddim[False].packed, schedule, GRID3, fins, fcond,
+                                          cartpole_virtual_swingup(),
+                                          cartpole_virtual_collect_cost(), n_steps=B1_EP,
+                                          clip_denoised=c, device=dev) for c in (False, True)}
+    nz_c = torch.randn((cfg[False].n_total + 1, 4, HORIZON, 1), generator=gen, device=dev)
+    # the trained student's reconstructions of standard draws stay inside [-1, 1] on [23, 15, 7]
+    # (the clip never binds there), so its draws are scaled by B1_CLIP_SCALE
+    x_d = B1_CLIP_SCALE * torch.randn((4, HORIZON, 1), generator=gen, device=dev)
+    nz_ce = torch.randn(cfg_ep[False].noise_shape, generator=gen, device=dev)
+    nz_de = B1_CLIP_SCALE * torch.randn(ddim_ep[False].noise_shape, generator=gen, device=dev)
+    runs = {"cfg_chain": (cfg, (ctx4, nz_c)), "ddim_chain": (ddim, (ctx4, x_d)),
+            "cfg_episode": (cfg_ep, (fx0, nz_ce)), "ddim_episode": (ddim_ep, (fx0, nz_de))}
+    reset(*(w_ for ws, _ in runs.values() for w_ in ws.values()))
+    got = {name: {c: ws[c].kernel(*inp) for c in ws} for name, (ws, inp) in runs.items()}
+    torch.cuda.synchronize()
+    clip_counts = {name: counts(*ws.values()) for name, (ws, _) in runs.items()}
+    if any(cn != [(1, 0), (1, 0)] for cn in clip_counts.values()):
+        raise RuntimeError(f"phase 50's launches {clip_counts}")
+    ties = []
+    for name, (ws, inp) in runs.items():
+        off = ws[False]
+        t1 = time.perf_counter()
+        want = off.plain(*inp)
+        torch.cuda.synchronize()
+        plain_ms = 1e3 * (time.perf_counter() - t1)
+        if name.endswith("chain"):
+            # relative to the plain output's largest magnitude where that passes 1: unclipped,
+            # the CFG chain's first step (sra = srm = 1e6) leaves x at ~1e5
+            scale = max(1.0, float(want.abs().max()))
+            err = assert_close(f"{name} clip_denoised=False (over {scale:.3e})",
+                               got[name][False] / scale, want / scale, CHAIN_TOL)
+            ctl = float((got[name][True] - want).abs().max()) / scale
+            ctl_tol = CHAIN_TOL
+        else:
+            err = episode_gate(f"{name} clip_denoised=False", off, got[name][False], want, u_f,
+                               ties)
+            ctl = max(float(((got[name][True][1] - want[1]) / u_f).abs().max()),
+                      float((got[name][True][0] - want[0]).abs().max()) * CHAIN_TOL / TRACK_TOL)
+            ctl_tol = CHAIN_TOL
+        if not ctl > ctl_tol:
+            raise RuntimeError(f"{name}: the clip-on kernel lies {ctl:.3e} from the clip-off plain "
+                               f"version, within the tolerance {ctl_tol:.0e}: the check cannot "
+                               "see the flag")
+        # where the clip binds: the chain's inputs, the episode's first replan
+        if name == "cfg_chain":
+            share = cfg_recon_share(off, *inp)
+        elif name == "ddim_chain":
+            share = ddim_recon_share(student, schedule, GRID3, *inp)
+        elif name == "cfg_episode":
+            ctx1 = normalize(fcond, fx0)[None]
+            share = cfg_recon_share(make_fused_cfg_chain(off.packed, schedule, 1, W, N_TAIL,
+                                                         clip_denoised=False, device=dev),
+                                    ctx1, nz_ce[0])
+        else:
+            share = ddim_recon_share(student, schedule, GRID3, normalize(fcond, fx0)[None],
+                                     nz_de[0])
+        if not share > 0:
+            raise RuntimeError(f"{name}: no reconstruction beyond [-1, 1]: the clip never binds")
+        pk = off.packed
+        seg = lambda *pre: sum(math.prod(shape) for n_, (_, shape) in pk.segments.items()
+                               if n_.split(".")[0] in pre)
+        film1 = 2 * int(pk.films_w.shape[1]) * sum(rb.cond_mlp[1].out_features
+                                                   for rb in pk.model.res_blocks())
+        rows_per_pass = 2 if name.startswith("cfg") else 1  # the CFG kernels' doubled batch
+        if name.endswith("chain"):
+            b = inp[0].shape[0]
+            flops = pk.flops_per_pass * rows_per_pass * b * off.n_total
+            n_bytes = 4 * (pk.weights.numel() - seg("films") + pk.metas[1].numel()
+                           + off.films(inp[0]).numel() + inp[1].numel() + off.coefs.numel()
+                           + b * HORIZON)
+        else:
+            flops = off.n_steps * off.n_total * (rows_per_pass * pk.flops_per_pass
+                                                 + rows_per_pass * film1)
+            n_bytes = 4 * (pk.weights.numel() + pk.metas[1].numel() + off.t_embs.numel()
+                           + inp[1].numel() + off.coefs.numel() + off.consts.numel() + 5
+                           + (off.n_steps + 1) * 5 + off.n_steps * 3)
+        clip_rows[name] = {"name": name, "route": "cuda",
+                           "source": f"mpc_via_diffusion_model_tpu_torch/ops/csrc/{name}.cu",
+                           "replaces": CLIP_REPLACES[name], **bound(flops, n_bytes),
+                           "library_ms": None, "clip_denoised": False,
+                           "max_abs_err": err, "plain_ms": plain_ms,
+                           "ms": cuda_ms(lambda off=off, inp=inp: off.kernel(*inp), n=3, warmup=0),
+                           "ms_clip_on": cuda_ms(lambda w_=ws[True], inp=inp: w_.kernel(*inp),
+                                                 n=3, warmup=0),
+                           "recon_beyond_share": share, "control_clip_on_err": ctl,
+                           "launches": clip_counts[name][0][0]}
+    log("clip-off", t0, f"clip_denoised=False against the plain versions (chains {CHAIN_TOL:.0e} "
+        f"relative to max(1, max |plain|), "
+        f"episodes' controls {CHAIN_TOL:.0e} in u_norm and tracks {TRACK_TOL:.0e}): "
+        + "; ".join(f"{k} {v['max_abs_err']:.3e} (reconstructions beyond +-1: {v['recon_beyond_share']:.3f}; "
+                    f"the clip-on kernel {v['control_clip_on_err']:.3e} off, as it must be; ms "
+                    f"{v['ms']:.4f} clip off, {v['ms_clip_on']:.4f} on)" for k, v in clip_rows.items())
+        + f"; launches {clip_counts}; near-ties {ties}")
+    return clip_rows
+
+
+def distill_panda_phases(dev) -> dict:
+    """Phase 51 on ``dev``: the port of the panda arm's distillation recipe
+    (``scripts/distill_panda.py``). Its serving rows on the committed 3-eval student, fp32 and
+    bf16 (kernel 4's ``ddim_chain`` and ``ddim_chain_bf16`` as the chain split's sampler, the
+    10 paired episodes as one batch, cut to ``dpy.PREFIX_STEPS`` replans; the counts set to 0
+    just before): each fp32 episode within ``dpy.PAIRED_BOUND`` of the port's plain chain split
+    on the CPU on the same draws, the bf16 row outside it (the control: bf16 is another
+    function), both rows' mean within ``dpy.BOUNDS['prefix']`` of the JAX package's. Then
+    (b)'s distill steps from the teacher on its dataset, each loss within ``dpy.LOSS_BOUND`` of
+    JAX's, relative. Returns the kernels line's fields of the bf16 row."""
+    dev = resolve_device(dev)
+    t0 = time.perf_counter()
+    n, steps = dpy.N_SEEDS, dpy.PREFIX_STEPS
+    with torch.no_grad():
+        student = load_panda_student(dpy.STUDENT, device=dev)
+        ins, cond = (st.to(dev) for st in panda_stats())
+        noise = distill_panda.seeded_draws(range(dpy.PAIRED_SEED_BASE, dpy.PAIRED_SEED_BASE + n),
+                                           steps, dpy.H, dev)
+        start = torch.from_numpy(dpy.x0()).to(dev).expand(n, 14)
+        loops = {tag: distill_panda.chain_loop(student, dpy.TIMES, n, steps, dpy.H, dev, ins,
+                                               cond, wd)
+                 for tag, wd in (("fp32", torch.float32), ("bf16", torch.bfloat16))}
+        chains = [chain for _, chain in loops.values()]
+        reset(*chains)
+        res, secs = {}, {}
+        for tag, (loop, _) in loops.items():
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            res[tag] = loop(start, noise)
+            torch.cuda.synchronize()
+            secs[tag] = time.perf_counter() - t1
+        serve_counts = counts(*chains)
+    if serve_counts != [(steps, 0)] * 2 or [c.entry for c in chains] != ["ddim_chain",
+                                                                           "ddim_chain_bf16"]:
+        raise RuntimeError(f"distill_panda's serving rows: counts {serve_counts}, entries "
+                           f"{[c.entry for c in chains]}")
+    if not all(torch.isfinite(r.x_track).all() and torch.isfinite(r.u_track).all()
+               for r in res.values()):
+        raise RuntimeError("distill_panda's serving rows: non-finite tracks")
+    prefix = {tag: [float(c) for c in r.stage_costs.double().sum(-1).cpu()]
+              for tag, r in res.items()}
+    pgaps = {tag: dpy.paired_gaps(c) for tag, c in prefix.items()}
+    mgaps = {tag: dpy.gaps(prefix_costs=c) for tag, c in prefix.items()}
+    if not (dpy.paired_within(prefix["fp32"]) and not dpy.paired_within(prefix["bf16"])
+            and all(dpy.within(prefix_costs=c) for c in prefix.values())):
+        raise RuntimeError(f"distill_panda's serving rows over {steps} replans: each episode's "
+                           f"gap from the port's plain chain split on the CPU {pgaps} (fp32 "
+                           f"within {dpy.PAIRED_BOUND:.3e}, bf16 outside it); the means' gaps "
+                           f"from the JAX package's {mgaps} (bound {dpy.BOUNDS['prefix']})")
+    # kernel 4 at the rows' shape: 10 samples on [23, 15, 7], one launch per replan
+    ctx = normalize(cond, make_panda_context()(start))
+    k_ms = {tag: cuda_ms(lambda c=chain: c.kernel(ctx, noise[:, 0, 0]), n=5, warmup=0)
+            for tag, chain in zip(loops, chains)}
+    marks = {"serving": time.perf_counter() - t0}
+    dl = distill_panda_divergence.distill_losses(dev)
+    lgaps = dpy.loss_gaps(dl["losses"])
+    if not max(lgaps) <= dpy.LOSS_BOUND:
+        raise RuntimeError(f"distill_panda's steps: losses {dl['losses']} against the JAX "
+                           f"package's {list(dpy.LOSSES)}, relative gaps {lgaps} (bound "
+                           f"{dpy.LOSS_BOUND:.3e})")
+    log("distill-panda", t0, f"the committed 3-eval student's serving rows, {n} episodes x "
+        f"{steps} replans through the chain split (launches {serve_counts}): fp32 each episode "
+        f"{max(pgaps['fp32']):.3e} at most from the port's plain chain split on the CPU (bound "
+        f"{dpy.PAIRED_BOUND:.3e}), bf16 (the control) {min(pgaps['bf16']):.3e} at least; mean "
+        f"cost fp32 {np.mean(prefix['fp32']):.6f}, bf16 {np.mean(prefix['bf16']):.6f} (JAX "
+        f"{dpy.PREFIX_MEAN10:.6f}, gaps {mgaps}, bound {dpy.BOUNDS['prefix']:.3f}); "
+        f"{1e3 * secs['fp32'] / steps:.3f} and {1e3 * secs['bf16'] / steps:.3f} ms per replan of "
+        f"the {n} episodes by the host clock; ddim_chain at B={n} {k_ms['fp32']:.4f} ms, bf16 "
+        f"{k_ms['bf16']:.4f}; {dpy.N_DISTILL_STEPS} distill steps from the teacher at batch "
+        f"{dpy.BATCH}: losses {dl['losses']}, relative gaps from JAX's {lgaps} (bound "
+        f"{dpy.LOSS_BOUND:.3e}), {dl['ms_per_step']:.3f} ms per step; seconds into the phase "
+        f"{marks}")
+    return {"launches": serve_counts[1][0], "fp32_launches": serve_counts[0][0],
+            "prefix_cost_mean10": {tag: float(np.mean(c)) for tag, c in prefix.items()},
+            "paired_max_gap_fp32": max(pgaps["fp32"]), "paired_min_gap_bf16": min(pgaps["bf16"]),
+            "paired_bound": dpy.PAIRED_BOUND, "mean_gaps": mgaps, "b10_ms": k_ms,
+            "ms_per_replan_host": {tag: 1e3 * s / steps for tag, s in secs.items()},
+            "distill_losses": dl["losses"], "distill_loss_gaps": lgaps,
+            "distill_ms_per_step": dl["ms_per_step"]}
 
 
 SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize")
@@ -2947,7 +3529,16 @@ def main() -> None:
         "cfg_chain_turns_bf16": (
             lambda b: cfg_chain_max_active_clusters(b, "cfg_chain_turns_bf16"), turns_smem),
         "cfg_episode_panda": (cfg_episode_panda_max_active_clusters, pcfg_smem),
-        "cfg_episode_panda_draw": (cfg_episode_panda_draw_max_active_clusters, pcfg_smem)}
+        "cfg_episode_panda_draw": (cfg_episode_panda_draw_max_active_clusters, pcfg_smem),
+        "fused_unet_bf16": (lambda b: fused_unet_max_active_clusters(b, "fused_unet_bf16"),
+                            one_smem),
+        "ddim_chain_bf16": (lambda b: ddim_chain_max_active_clusters(b, "ddim_chain_bf16"),
+                            one_smem),
+        "ddim_episode_bf16": (lambda b: ddim_episode_max_active_clusters(b, "ddim_episode_bf16"),
+                              sep_smem),
+        "ddim_episode_panda_bf16": (
+            lambda b: ddim_episode_panda_max_active_clusters(b, "ddim_episode_panda_bf16"),
+            panda_smem)}
     # the library of each entry that is one instantiation of another library's kernel, and the
     # template arguments that pick it (bf16 weights; the kernel's bool arguments: the plan in
     # turns, then the in-kernel draw); every other entry is its library's float kernels
@@ -2958,7 +3549,11 @@ def main() -> None:
                  "cfg_episode": ("cfg_episode", False, (False, False)),
                  "cfg_episode_bf16": ("cfg_episode", True, (False, False)),
                  "cfg_episode_panda": ("cfg_episode_panda", False, (True, False)),
-                 "cfg_episode_panda_draw": ("cfg_episode_panda", False, (True, True))}
+                 "cfg_episode_panda_draw": ("cfg_episode_panda", False, (True, True)),
+                 "fused_unet_bf16": ("fused_unet", True, None),
+                 "ddim_chain_bf16": ("ddim_chain", True, None),
+                 "ddim_episode_bf16": ("ddim_episode", True, None),
+                 "ddim_episode_panda_bf16": ("ddim_episode_panda", True, None)}
 
     def template_args(kernel: str):
         """(bf16, the bool arguments) of a kernel's mangled template arguments."""
@@ -3021,14 +3616,15 @@ def main() -> None:
         f"at K = 1 and 16 on the scene student, ddim_episode_panda at K = 1, {K4} and 16 on the "
         f"panda student; cfg_chain_turns and its bf16 entry on the plan in turns at the panda "
         f"shape and the flagship's, cfg_episode_panda and its draw at K = 1, {K4} and 16 in turns; "
-        "the _bf16 entries are the bf16 instantiations of "
-        "cfg_chain.cu and cfg_episode.cu, cfg_episode_lmpc is cfg_episode.cu compiled for the "
+        "the _bf16 entries are the bf16 instantiations of their libraries' kernels, "
+        "cfg_episode_lmpc is cfg_episode.cu compiled for the "
         "linear cart-pole, cfg_episode_quadrotor cfg_episode.cu for the quadrotor with the "
         "context map and the safety-first scorer, ddim_episode_quadrotor ddim_episode.cuh for the "
         "quadrotor, ddim_episode_panda ddim_episode.cuh for the arm with its context map, "
         "ddim_episode_quadrotor's "
         "registers those of its staged and drawing instantiations and of the draw's two test "
-        "kernels)")
+        "kernels); nvcc seconds per library, all started together: "
+        + json.dumps({name: round(b.seconds, 1) for name, b in built.items()}))
 
     # 3. kernels vs plain versions, flagship weights, full width
     t0 = time.perf_counter()
@@ -3227,8 +3823,8 @@ def main() -> None:
     # 10. the student's per-replan path: 80 replans through the DDIM chain kernel
     t0 = time.perf_counter()
     wrappers = [chain, unet, ep1, ep4, schain, sunet]
-    s_loop = lambda sampler: make_closed_loop(
-        diffusion, student, s_ins, s_cond, plant, s_cost, horizon=HORIZON, n_steps=N_STEPS,
+    s_loop = lambda sampler, n_steps=N_STEPS: make_closed_loop(
+        diffusion, student, s_ins, s_cond, plant, s_cost, horizon=HORIZON, n_steps=n_steps,
         sample_override=sampler, noise_shape=schain.noise_shape, device=dev)
     s_noise = torch.randn((N_STEPS,) + schain.noise_shape, generator=gen, device=dev)
     reset(*wrappers)
@@ -3341,10 +3937,10 @@ def main() -> None:
     unet_ms = cuda_ms(lambda: unet._launch(unet.cluster.weights, u_films, args[0], u_y), n=200,
                       warmup=10)
     unet_call_ms = cuda_ms(lambda: unet(*args), n=200, warmup=10)
-    unet_plain_ms = cuda_ms(lambda: unet.plain(*args), n=50, warmup=5)
-    episode_ms = cuda_ms(lambda: ep1.kernel(x0, ep_noise), n=2, warmup=0)
+    unet_plain_ms = cuda_ms(lambda: unet.plain(*args), n=10, warmup=2)
+    episode_ms = cuda_ms(lambda: ep1.kernel(x0, ep_noise), n=1, warmup=0)
     ep_p_plain_ms = 1e3 * plain_episode_s / N_PLAIN_LOOP  # phase 5's plain episode, per replan
-    episode4_ms = cuda_ms(lambda: ep4.kernel(x0, noise4), n=2, warmup=0)
+    episode4_ms = cuda_ms(lambda: ep4.kernel(x0, noise4), n=1, warmup=0)
     # the DDIM chain: the launch alone and the whole call on [23], B = 1; the launch alone on
     # [23, 15, 7] and at B = 4 (clusters side by side)
     def launch_alone(ch, ctx_, x_):
@@ -3353,7 +3949,7 @@ def main() -> None:
 
     schain_ms = cuda_ms(launch_alone(schain, sctx, sx_init), n=200, warmup=10)
     schain_call_ms = cuda_ms(lambda: schain(sctx, sx_init), n=200, warmup=10)
-    schain_plain_ms = cuda_ms(lambda: schain.plain(sctx, sx_init), n=50, warmup=5)
+    schain_plain_ms = cuda_ms(lambda: schain.plain(sctx, sx_init), n=10, warmup=2)
     schain4 = ddim(GRID, K4)
     x4 = torch.randn(schain4.noise_shape, generator=gen, device=dev)
     schain3_ms = cuda_ms(launch_alone(ddim(GRID3, 1), sctx, sx_init), n=100, warmup=5)
@@ -3367,15 +3963,15 @@ def main() -> None:
     sep4_ms = cuda_ms(lambda: sep4.kernel(x0, s_noise4), n=5, warmup=1)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    loop_kernel(x0, ep_noise)
+    loop(N_TIMED_LOOP, sample_override=chain)(x0, ep_noise[:N_TIMED_LOOP])
     torch.cuda.synchronize()
-    per_replan_hz = N_STEPS / (time.perf_counter() - t1)
-    s_loop_kernel = s_loop(schain)
+    per_replan_hz = N_TIMED_LOOP / (time.perf_counter() - t1)
+    s_loop_kernel = s_loop(schain, N_TIMED_LOOP)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    s_loop_kernel(x0, s_noise)
+    s_loop_kernel(x0, s_noise[:N_TIMED_LOOP])
     torch.cuda.synchronize()
-    s_per_replan_hz = N_STEPS / (time.perf_counter() - t1)
+    s_per_replan_hz = N_TIMED_LOOP / (time.perf_counter() - t1)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     loop_unet(x0, ep_noise[:N_UNET_LOOP])
@@ -3513,11 +4109,11 @@ def main() -> None:
         bsz, h, cin, cout = shape
         alone = conv_timing.launch_alone(fused_conv1d_gn_mish, c_args)
         row = {"shape": list(shape), "launch_ms": conv_timing.graph_ms(alone),
-               "ms": cuda_ms(lambda: fused_conv1d_gn_mish.kernel(*c_args), 200, 10),
+               "ms": cuda_ms(lambda: fused_conv1d_gn_mish.kernel(*c_args), 50, 3),
                "profiler_ms": (conv_timing.profiler_ms(alone) if shape == CONV_SHAPES[-1]
                                else None),
-               "plain_ms": cuda_ms(lambda: fused_conv1d_gn_mish.plain(*c_args), 50, 5),
-               "torch_seq_ms": cuda_ms(torch_seq, 200, 10), "torch_seq_max_abs_err": seq_err,
+               "plain_ms": cuda_ms(lambda: fused_conv1d_gn_mish.plain(*c_args), 10, 2),
+               "torch_seq_ms": cuda_ms(torch_seq, 50, 3), "torch_seq_max_abs_err": seq_err,
                **bound(2 * bsz * h * 5 * cin * cout,
                        4 * (bsz * h * cin + 5 * cin * cout + 3 * cout + bsz * h * cout))}
         row["bound_share"] = row["bound_ms"] / row["launch_ms"]
@@ -3625,10 +4221,11 @@ def main() -> None:
         f"{epq_bf['modality']}")
 
     # 21. the port's bench: the default mode by its own entry point, in a process of its own,
-    # with bench.py's counts; then the other four combinations in this process, cut
+    # with bench.py's protocol cut (BENCH_SMOKE=1); then the
+    # other four combinations in this process, cut
     t0 = time.perf_counter()
     env = {k: v for k, v in os.environ.items() if k not in ("BENCH_FUSED", "BENCH_BF16")}
-    env["BENCH_N_BEST"] = str(N_BENCH_BEST)
+    env["BENCH_SMOKE"] = "1"
     proc = subprocess.run([sys.executable, "-m", "mpc_via_diffusion_model_tpu_torch.bench"],
                           cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
     if proc.returncode != 0:
@@ -3642,8 +4239,9 @@ def main() -> None:
     print(bench_lines[-1], flush=True)
     bench_runs = {}
     for mode, use_bf16, cut in (("episode", True, dict(n_rep=1, n_chain=1, n_best=1)),
-                                ("chain", False, dict(n_rep=1)), ("chain", True, dict(n_rep=1)),
-                                ("1", False, dict(n_rep=1, n_steps=10))):
+                                ("chain", False, dict(n_rep=1, n_steps=20)),
+                                ("chain", True, dict(n_rep=1, n_steps=20)),
+                                ("1", False, dict(n_rep=1, n_steps=5))):
         r = port_bench.run(mode, use_bf16, dev, **cut)
         if r.launches != port_bench.expected_calls(mode, **cut) or r.plain_calls:
             raise RuntimeError(f"bench {mode} bf16={use_bf16}: {r.launches} launches, "
@@ -3828,6 +4426,9 @@ def main() -> None:
     shutil.rmtree(making_dir, ignore_errors=True)
     panda_line = panda_phases(dev)
     panda_cfg_line = panda_cfg_phases(dev)
+    b1_line = b1_phases(dev)
+    clip_line = clip_phases(dev)
+    distill_panda_line = distill_panda_phases(dev)
 
     packed = chain.packed
     seg = lambda *prefixes: sum(math.prod(shape) for name, (_, shape) in packed.segments.items()
@@ -3850,7 +4451,6 @@ def main() -> None:
         rb.cond_mlp[1].out_features for rb in model.res_blocks())
     ep_flops = N_STEPS * n_total * (chain_flops / n_total + film_flops)
     # the bf16 episode of phase 19: N_BF16_EP replans
-    bf_ep_flops = N_BF16_EP * n_total * (chain_flops / n_total + film_flops)
     bf_ep_bytes = 4 * (weights + meta_n + ep1.t_embs.numel() + bf_noise.numel() + ep1.coefs.numel()
                        + ep1.consts.numel() + 5 + (N_BF16_EP + 1) * 5 + N_BF16_EP * 3)
     ep_bytes = 4 * (weights + meta_n + ep1.t_embs.numel() + ep_noise.numel() + ep1.coefs.numel()
@@ -3867,13 +4467,15 @@ def main() -> None:
     sep_bytes = 4 * (weights + meta_n + sep1.t_embs.numel() + s_noise.numel() + sep1.coefs.numel()
                      + sep1.consts.numel() + 5 + (N_STEPS + 1) * 5 + N_STEPS * 3)
     # the bf16 entries read every conv kernel (the body's and the final 1x1) as 2 bytes, the rest
-    # as 4: the same operations, fewer bytes
+    # as 4: the same operations, fewer bytes, the conv products at the bf16 rate
     conv_w = sum(math.prod(packed.segments[name][1])
                  for name in [*chain_bf.cluster.split.convs, "final1x1.w"])
-    bf16_row = lambda name, source_row, launches, err, ms, plain_ms, flops, n_bytes, **extra: {
+    bf16_row = lambda name, source_row, launches, err, ms, plain_ms, conv_flops, fp32_flops, \
+            n_bytes, **extra: {
         "name": name, "route": "cuda", "source": source_row["source"],
         "replaces": source_row["replaces"], "launches": launches, "max_abs_err": err, "ms": ms,
-        "plain_ms": plain_ms, **bound(flops, n_bytes - 2 * conv_w), "library_ms": None,
+        "plain_ms": plain_ms, **bound(fp32_flops, n_bytes - 2 * conv_w, bf16_flops=conv_flops),
+        "library_ms": None,
         "weights_dtype": "bfloat16", "bf16_weight_bytes_saved": 2 * conv_w,
         "registers": cluster_info[name]["registers"],
         "spill_bytes": cluster_info[name]["spill_bytes"],
@@ -3931,11 +4533,12 @@ def main() -> None:
     ]
     rows[0]["bf16"] = bf16_row(
         "cfg_chain_bf16", rows[0], bench_runs["chain", True].launches, one_chain["max"],
-        chain_bf_ms, chain_bf_plain_ms, chain_flops, chain_bytes, one_pass=one_chain,
+        chain_bf_ms, chain_bf_plain_ms, chain_flops, 0, chain_bytes, one_pass=one_chain,
         full_depth_max_abs_err=chain_bf_err, bench_chain_hz=bench_runs["chain", True].line["value"])
     rows[2]["bf16"] = bf16_row(
         "cfg_episode_bf16", rows[2], bench_runs["episode", True].launches, one_ep[1]["max"],
-        ep_bf_ms, 1e3 * plain_bf_episode_s, bf_ep_flops, bf_ep_bytes, replans=N_BF16_EP,
+        ep_bf_ms, 1e3 * plain_bf_episode_s, N_BF16_EP * chain_flops,
+        N_BF16_EP * n_total * film_flops, bf_ep_bytes, replans=N_BF16_EP,
         one_pass=one_ep[1],
         one_pass_k4=one_ep[K4], full_depth_max_abs_err_u_norm=du_bf,
         full_depth_max_abs_err_x=dx_bf, k4_full_depth_chosen_equal=same4,
@@ -4017,6 +4620,21 @@ def main() -> None:
     rows.append({**panda_cfg_line["row"], "cluster_ctas": CLUSTER,
                  **cluster_info["cfg_episode_panda"]})
     rows[-1]["inkernel_noise"].update(cluster_info["cfg_episode_panda_draw"])
+    # ROADMAP B1 (phases 49-51): the bf16 entries of kernels 2, 4 and 5, each under its fp32
+    # row's "bf16" (kernel 4's at the panda's horizon under "panda_bf16", its launches those of
+    # the distillation recipe's bf16 serving row, phase 51); the clip-off runs of kernels 1, 3, 4
+    # and 5 under their rows' "clip_off"
+    rows[1]["bf16"] = {**b1_line["fused_unet_bf16"], **cluster_info["fused_unet_bf16"]}
+    rows[3]["panda_bf16"] = {**b1_line["ddim_chain_bf16"], **cluster_info["ddim_chain_bf16"],
+                             "launches": distill_panda_line["launches"],
+                             "phase49_launches": b1_line["ddim_chain_bf16"]["launches"],
+                             "distill_panda": distill_panda_line}
+    rows[4]["bf16"] = {**b1_line["ddim_episode_bf16"], **cluster_info["ddim_episode_bf16"]}
+    panda_row = next(r for r in rows if r["name"] == "ddim_episode_panda")
+    panda_row["bf16"] = {**b1_line["ddim_episode_panda_bf16"],
+                         **cluster_info["ddim_episode_panda_bf16"]}
+    for i, name in ((0, "cfg_chain"), (2, "cfg_episode"), (3, "ddim_chain"), (4, "ddim_episode")):
+        rows[i]["clip_off"] = clip_line[name]
     rows[2]["bench_closed_loop_control_hz"] = bench_line["value"]
     rows[2]["bench_pipelined_hz"] = bench_line["pipelined_hz"]
     print(json.dumps({"training": training_line}), flush=True)

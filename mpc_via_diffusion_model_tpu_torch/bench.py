@@ -75,6 +75,7 @@ FLAGSHIP = Path(__file__).resolve().parents[1] / "artifacts" / "flagship" / "ema
 BASELINE_CONTROL_HZ = 100.0
 N_STEPS, HORIZON, N_DIFFUSION_STEPS, N_TAIL, CFG_W = 80, 32, 25, 5, 0.01
 N_REP, N_CHAIN, N_BEST, SEED = 10, 10, 3, 42
+SMOKE_CUT = {"n_best": 1, "n_rep": 2, "n_chain": 2}   # BENCH_SMOKE=1
 PROTOCOL = "sustained_800step_dependent_chain"
 
 
@@ -212,12 +213,13 @@ def main() -> BenchResult:
     """Runs the protocol on the card with ``bench.py``'s counts, the mode
     from ``BENCH_FUSED`` (default ``episode``) and bf16 weights where
     ``BENCH_BF16`` is ``1``; prints the mode and the card, then the JSON
-    line last. ``BENCH_N_BEST`` cuts the sustained chains the best is taken
-    of (bench.py's 3), as ``chip_smoke.py`` does to keep within its time."""
+    line last. ``BENCH_SMOKE=1`` cuts the protocol as ``chip_smoke.py`` runs
+    it, to keep within its time (``SMOKE_CUT``): one sustained chain of 2
+    dependent episodes, not the best of bench.py's 3 chains of 10, and 2
+    independent episodes for the pipelined rate, not 10."""
     mode = os.environ.get("BENCH_FUSED", "episode")
     bf16 = os.environ.get("BENCH_BF16", "0") == "1"
-    cut = {"n_best": int(os.environ["BENCH_N_BEST"])} if "BENCH_N_BEST" in os.environ else {}
-    res = run(mode, bf16, **cut)
+    res = run(mode, bf16, **(SMOKE_CUT if os.environ.get("BENCH_SMOKE", "0") == "1" else {}))
     print(f"bench: BENCH_FUSED={mode} weights={'bf16' if res.bf16 else 'fp32'} kernel="
           f"{res.wrapper} launches={res.launches} on {res.device}; nvidia-smi: {nvidia_smi()}",
           flush=True)

@@ -12,6 +12,12 @@ biases, GroupNorm, the FiLM Dense layers and the time MLP stay fp32. The
 product of two bf16 numbers is exact in fp32, so a float32 conv on
 bf16-rounded weights and inputs computes the same function up to the order
 of its fp32 sums.
+
+One JAX builder leaves the final 1x1 conv out of that: ``make_fused_unet``
+runs the conv backbone in the kernel and its final 1x1 conv outside it in
+fp32, on the raw weights and an unrounded y (``y @ f1_w[0] + f1_w[1]``,
+fused_unet.py:450). ``bf16_conv_copy(model, round_final_1x1=False)`` is that
+function.
 """
 from __future__ import annotations
 
@@ -35,12 +41,17 @@ def _round_input(module: nn.Module, args):
 
 
 @torch.no_grad()
-def bf16_conv_copy(model: TemporalUnet) -> TemporalUnet:
+def bf16_conv_copy(model: TemporalUnet, round_final_1x1: bool = True) -> TemporalUnet:
     """A copy of ``model`` whose ``Conv1d`` and ``ConvTranspose1d`` layers
     hold bf16-rounded weights and round their input to bf16; their biases and
-    every other layer are ``model``'s own values. ``model`` is unchanged."""
+    every other layer are ``model``'s own values. With ``round_final_1x1``
+    False the final 1x1 conv (``final_conv[1]``) keeps its fp32 weights and
+    its input, as the U-Net pass builder computes it. ``model`` is unchanged."""
     out = copy.deepcopy(model)
+    keep = None if round_final_1x1 else out.final_conv[1]
     for module in out.modules():
+        if module is keep:
+            continue
         if isinstance(module, (nn.Conv1d, nn.ConvTranspose1d)):
             module.weight.copy_(round_bf16(module.weight))
             module.register_forward_pre_hook(_round_input)

@@ -141,9 +141,11 @@ def bind(name: str, launch_argtypes, meta_len: int, queries=(), cluster: int = 0
     as thread-block clusters of ``cluster`` CTAs (when not 0) also declares
     ``<name>_max_active_clusters(smem_bytes, int*)`` and
     ``<name>_cluster_size()``, which must answer ``cluster``. A library
-    with two instantiations of its kernel (``cfg_chain.cu``'s and
-    ``cfg_episode.cu``'s float and bf16 weights) exports each as an entry
-    of its own, ``<source>`` and ``<source>_bf16``."""
+    with two instantiations of its kernel (the float and bf16 weights of
+    ``cfg_chain.cu``, ``cfg_episode.cu``, ``fused_unet.cu``,
+    ``ddim_chain.cu``, ``ddim_episode.cu`` and ``ddim_episode_panda.cu``) exports each as an entry
+    of its own, ``<source>`` and ``<source>_bf16``, each with its
+    occupancy query."""
     if cluster:
         queries = (*queries, "cluster_size")
     lib = load(source or name)
@@ -189,8 +191,8 @@ class ClusterLaunch:
     """What the wrappers of the five cluster kernels (``cfg_chain``,
     ``fused_unet``, ``cfg_episode``, ``ddim_chain``, ``ddim_episode``)
     share: the body's split and the rank-major buffer the kernel reads
-    (and its bf16 copy, which the bf16 entries ``cfg_chain_bf16`` and
-    ``cfg_episode_bf16`` read beside it), made when first asked for, so
+    (and its bf16 copy, which every ``_bf16`` entry reads beside it), made
+    when first asked for, so
     that a body the cluster cannot split raises ``ValueError`` where the
     kernel would be launched and not on the CPU path; and the kernel's
     occupancy query (``query(smem_bytes)``, its wrapper module's

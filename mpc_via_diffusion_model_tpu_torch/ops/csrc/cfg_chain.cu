@@ -66,6 +66,10 @@
 // cfg_chain_turns_bf16 in turns in cfg_chain_turns.cu, which includes this file, so that the
 // two libraries build in parallel. Each entry has its own occupancy query; none falls back
 // to another.
+//
+// clip_denoised (the JAX builder's, fused_denoise.py:54, :116) is every entry's `clip` argument,
+// not an instantiation: 0 leaves the CFG reconstruction unclipped, anything else clips it to
+// [-1, 1].
 
 #include "unet_body_cluster.cuh"
 
@@ -79,7 +83,7 @@ __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(NT, 1)
 cfg_chain_kernel(const float* __restrict__ W, const int* __restrict__ meta,
                  const float* __restrict__ films, const float* __restrict__ noise,
                  const float* __restrict__ coefs, float* __restrict__ out, int n_total,
-                 float w, float wp1, const __nv_bfloat16* __restrict__ Wh) {
+                 float w, float wp1, int clip, const __nv_bfloat16* __restrict__ Wh) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int rank = (int)cg::this_cluster().block_rank();
@@ -136,7 +140,7 @@ cfg_chain_kernel(const float* __restrict__ W, const int* __restrict__ meta,
       const float rc = __fsub_rn(__fmul_rn(sra, x), __fmul_rn(srm, eps[i]));
       const float ru = __fsub_rn(__fmul_rn(sra, x), __fmul_rn(srm, eps[hd + i]));
       float rec = __fsub_rn(__fmul_rn(wp1, rc), __fmul_rn(w, ru));
-      rec = fminf(fmaxf(rec, -1.f), 1.f);
+      if (clip) rec = fminf(fmaxf(rec, -1.f), 1.f);
       const float mean = __fadd_rn(__fmul_rn(c1, rec), __fmul_rn(c2, x));
       xs[i] = __fadd_rn(mean, __fmul_rn(sg, __ldg(nz + i)));
     }
@@ -163,12 +167,12 @@ int SmemSet<WT, TURNS>::set[MAX_DEVICES];
 template <typename WT, bool TURNS>
 static int launch(const float* W, const __nv_bfloat16* Wh, const int* meta, int smem_bytes,
                   const float* films, const float* noise, const float* coefs, float* out,
-                  int n_total, int n_samples, float w, float wp1, void* stream) {
+                  int n_total, int n_samples, float w, float wp1, int clip, void* stream) {
   cudaError_t e =
       reserve_smem(cfg_chain_kernel<WT, TURNS>, smem_bytes, SmemSet<WT, TURNS>::set);
   if (e != cudaSuccess) return (int)e;
   cfg_chain_kernel<WT, TURNS><<<CLUSTER * n_samples, NT, smem_bytes, (cudaStream_t)stream>>>(
-      W, meta, films, noise, coefs, out, n_total, w, wp1, Wh);
+      W, meta, films, noise, coefs, out, n_total, w, wp1, clip, Wh);
   return (int)cudaGetLastError();
 }
 
@@ -205,18 +209,18 @@ extern "C" {
 // (0 = launched).
 int cfg_chain_launch(const float* W, const int* meta, int smem_bytes, const float* films,
                      const float* noise, const float* coefs, float* out, int n_total,
-                     int n_samples, float w, float wp1, void* stream) {
+                     int n_samples, float w, float wp1, int clip, void* stream) {
   return launch<float, false>(W, nullptr, meta, smem_bytes, films, noise, coefs, out, n_total,
-                              n_samples, w, wp1, stream);
+                              n_samples, w, wp1, clip, stream);
 }
 
 // The same with bf16 conv kernels: Wh is the bf16 copy of W (same element offsets).
 int cfg_chain_bf16_launch(const float* W, const __nv_bfloat16* Wh, const int* meta,
                           int smem_bytes, const float* films, const float* noise,
                           const float* coefs, float* out, int n_total, int n_samples, float w,
-                          float wp1, void* stream) {
+                          float wp1, int clip, void* stream) {
   return launch<__nv_bfloat16, false>(W, Wh, meta, smem_bytes, films, noise, coefs, out,
-                                      n_total, n_samples, w, wp1, stream);
+                                      n_total, n_samples, w, wp1, clip, stream);
 }
 
 // <entry>_max_active_clusters: cudaOccupancyMaxActiveClusters for one sample's cluster at

@@ -18,18 +18,18 @@ extern "C" {
 // table; returns the CUDA error code (0 = launched).
 int cfg_chain_turns_launch(const float* W, const int* meta, int smem_bytes, const float* films,
                            const float* noise, const float* coefs, float* out, int n_total,
-                           int n_samples, float w, float wp1, void* stream) {
+                           int n_samples, float w, float wp1, int clip, void* stream) {
   return launch<float, true>(W, nullptr, meta, smem_bytes, films, noise, coefs, out, n_total,
-                             n_samples, w, wp1, stream);
+                             n_samples, w, wp1, clip, stream);
 }
 
 // The same with bf16 conv kernels: Wh is the bf16 copy of W (same element offsets).
 int cfg_chain_turns_bf16_launch(const float* W, const __nv_bfloat16* Wh, const int* meta,
                                 int smem_bytes, const float* films, const float* noise,
                                 const float* coefs, float* out, int n_total, int n_samples,
-                                float w, float wp1, void* stream) {
+                                float w, float wp1, int clip, void* stream) {
   return launch<__nv_bfloat16, true>(W, Wh, meta, smem_bytes, films, noise, coefs, out,
-                                     n_total, n_samples, w, wp1, stream);
+                                     n_total, n_samples, w, wp1, clip, stream);
 }
 
 // <entry>_max_active_clusters: cudaOccupancyMaxActiveClusters for one sample's cluster at

@@ -80,6 +80,10 @@
 // the normal at (replan s, draw j, candidate k, row t, channel d) is the Philox normal of the
 // counter (s * (n_total + 1) + j, k, t, d), j = n_total the x_T draw, as the JAX kernel counts
 // its draws (fused_episode.py:554, :599, :602). The replan loop then reads no noise table.
+//
+// clip_denoised (the JAX builder's, fused_episode.py:425, :596) is every entry's `clip`
+// argument, not an instantiation: 0 leaves the CFG reconstruction unclipped. The unnormalize
+// clip of the plans (episode.cuh) stays.
 
 #include "episode.cuh"
 #include "philox.cuh"
@@ -104,7 +108,7 @@ cfg_episode_kernel(const float* __restrict__ W, const int* __restrict__ meta,
                    const float* __restrict__ x0, float* __restrict__ x_track,
                    float* __restrict__ u_track, float* __restrict__ costs,
                    int* __restrict__ chosen, int n_steps, int n_total, int K, int sel_h,
-                   float w, float wp1, const __nv_bfloat16* __restrict__ Wh) {
+                   float w, float wp1, int clip, const __nv_bfloat16* __restrict__ Wh) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int rank = (int)cg::this_cluster().block_rank();
@@ -194,7 +198,7 @@ cfg_episode_kernel(const float* __restrict__ W, const int* __restrict__ meta,
           const float rc = __fsub_rn(__fmul_rn(sra, x), __fmul_rn(srm, eps[i]));
           const float ru = __fsub_rn(__fmul_rn(sra, x), __fmul_rn(srm, eps[hd + i]));
           float rec = __fsub_rn(__fmul_rn(wp1, rc), __fmul_rn(w, ru));
-          rec = fminf(fmaxf(rec, -1.f), 1.f);
+          if (clip) rec = fminf(fmaxf(rec, -1.f), 1.f);
           const float mean = __fadd_rn(__fmul_rn(c1, rec), __fmul_rn(c2, x));
           float z;
           if constexpr (DRAW) z = philox_normal(draw0 + si, k, i / D, i % D, k0, k1);
@@ -230,13 +234,13 @@ static int launch(const float* W, const __nv_bfloat16* Wh, const int* meta, int 
                   const float* t_embs, const std::conditional_t<DRAW, int, float>* noise,
                   const float* coefs, const float* consts, const float* x0, float* x_track,
                   float* u_track, float* costs, int* chosen, int n_steps, int n_total, int K,
-                  int sel_h, float w, float wp1, void* stream) {
+                  int sel_h, float w, float wp1, int clip, void* stream) {
   cudaError_t e = reserve_smem(cfg_episode_kernel<WT, TURNS, DRAW>, smem_bytes,
                                SmemSet<WT, TURNS, DRAW>::set);
   if (e != cudaSuccess) return (int)e;
   cfg_episode_kernel<WT, TURNS, DRAW><<<CLUSTER, NT, smem_bytes, (cudaStream_t)stream>>>(
       W, meta, t_embs, noise, coefs, consts, x0, x_track, u_track, costs, chosen, n_steps,
-      n_total, K, sel_h, w, wp1, Wh);
+      n_total, K, sel_h, w, wp1, clip, Wh);
   return (int)cudaGetLastError();
 }
 
@@ -264,9 +268,9 @@ int cfg_episode_launch(const float* W, const int* meta, int smem_bytes, const fl
                        const float* noise, const float* coefs, const float* consts,
                        const float* x0, float* x_track, float* u_track, float* costs,
                        int* chosen, int n_steps, int n_total, int K, int sel_h, float w,
-                       float wp1, void* stream) {
+                       float wp1, int clip, void* stream) {
   return launch<float>(W, nullptr, meta, smem_bytes, t_embs, noise, coefs, consts, x0, x_track,
-                       u_track, costs, chosen, n_steps, n_total, K, sel_h, w, wp1, stream);
+                       u_track, costs, chosen, n_steps, n_total, K, sel_h, w, wp1, clip, stream);
 }
 
 // The same with bf16 conv kernels: Wh is the bf16 copy of W (same element offsets).
@@ -274,11 +278,11 @@ int cfg_episode_bf16_launch(const float* W, const __nv_bfloat16* Wh, const int* 
                             int smem_bytes, const float* t_embs, const float* noise,
                             const float* coefs, const float* consts, const float* x0,
                             float* x_track, float* u_track, float* costs, int* chosen,
-                            int n_steps, int n_total, int K, int sel_h, float w, float wp1,
+                            int n_steps, int n_total, int K, int sel_h, float w, float wp1, int clip,
                             void* stream) {
   return launch<__nv_bfloat16>(W, Wh, meta, smem_bytes, t_embs, noise, coefs, consts, x0,
                                x_track, u_track, costs, chosen, n_steps, n_total, K, sel_h, w,
-                               wp1, stream);
+                               wp1, clip, stream);
 }
 
 // cudaOccupancyMaxActiveClusters for one episode's cluster at smem_bytes of dynamic shared

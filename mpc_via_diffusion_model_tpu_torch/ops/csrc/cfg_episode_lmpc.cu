@@ -25,9 +25,9 @@ int cfg_episode_lmpc_launch(const float* W, const int* meta, int smem_bytes,
                             const float* t_embs, const float* noise, const float* coefs,
                             const float* consts, const float* x0, float* x_track,
                             float* u_track, float* costs, int* chosen, int n_steps, int n_total,
-                            int K, int sel_h, float w, float wp1, void* stream) {
+                            int K, int sel_h, float w, float wp1, int clip, void* stream) {
   return launch<float>(W, nullptr, meta, smem_bytes, t_embs, noise, coefs, consts, x0, x_track,
-                       u_track, costs, chosen, n_steps, n_total, K, sel_h, w, wp1, stream);
+                       u_track, costs, chosen, n_steps, n_total, K, sel_h, w, wp1, clip, stream);
 }
 
 // cudaOccupancyMaxActiveClusters for one episode's cluster at smem_bytes of dynamic shared

@@ -58,10 +58,10 @@ int cfg_episode_panda_launch(const float* W, const int* meta, int smem_bytes,
                              const float* t_embs, const float* noise, const float* coefs,
                              const float* consts, const float* x0, float* x_track,
                              float* u_track, float* costs, int* chosen, int n_steps, int n_total,
-                             int K, int sel_h, float w, float wp1, void* stream) {
+                             int K, int sel_h, float w, float wp1, int clip, void* stream) {
   return launch<float, true, false>(W, nullptr, meta, smem_bytes, t_embs, noise, coefs, consts,
                                     x0, x_track, u_track, costs, chosen, n_steps, n_total, K,
-                                    sel_h, w, wp1, stream);
+                                    sel_h, w, wp1, clip, stream);
 }
 
 // The same drawing its noise in the kernel: seed is the episode's (2,) int32 seed.
@@ -69,11 +69,11 @@ int cfg_episode_panda_draw_launch(const float* W, const int* meta, int smem_byte
                                   const float* t_embs, const int* seed, const float* coefs,
                                   const float* consts, const float* x0, float* x_track,
                                   float* u_track, float* costs, int* chosen, int n_steps,
-                                  int n_total, int K, int sel_h, float w, float wp1,
+                                  int n_total, int K, int sel_h, float w, float wp1, int clip,
                                   void* stream) {
   return launch<float, true, true>(W, nullptr, meta, smem_bytes, t_embs, seed, coefs, consts, x0,
                                    x_track, u_track, costs, chosen, n_steps, n_total, K, sel_h, w,
-                                   wp1, stream);
+                                   wp1, clip, stream);
 }
 
 // <entry>_max_active_clusters: cudaOccupancyMaxActiveClusters for one episode's cluster at

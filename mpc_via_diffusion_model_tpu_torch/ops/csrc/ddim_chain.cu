@@ -42,16 +42,30 @@
 //
 // ddim_chain_max_active_clusters answers cudaOccupancyMaxActiveClusters at the chain's
 // shared memory: the wrapper refuses to launch when it is 0.
+//
+// bf16 weights (the JAX builder's weights_dtype=jnp.bfloat16): the kernel is a template on
+// the conv kernels' element type WT, as cfg_chain.cu's is. ddim_chain_launch runs the float
+// instantiation and ddim_chain_bf16_launch the __nv_bfloat16 one, which reads the body's conv
+// kernels and the final 1x1 kernel from the bf16 copy Wh of the buffer and rounds each
+// product's activation operand to bf16 (unet_body_cluster.cuh), as fused_denoise.py:213 rounds
+// y before the final 1x1 conv; the 1x1 conv's bias stays fp32. Each entry has its own
+// occupancy query; neither falls back to the other.
+//
+// clip_denoised (the JAX builder's, fused_denoise.py:220) is the launch's `clip` argument, not
+// an instantiation: 0 leaves the reconstruction unclipped, anything else clips it to [-1, 1].
 
 #include "unet_body_cluster.cuh"
 
-// W is the packed buffer with the body's conv kernels rank-major (cluster_weights).
-// films (n_total, n_res, B, max_c); x_init (B, H, D); coefs (n_total, 4) = sra, srm, c1, c2;
-// out (B, H, D).
+// W is the packed buffer with the body's conv kernels rank-major (cluster_weights), Wh its
+// bf16 copy (read in the bf16 instantiation only; last, so that the float instantiation's
+// other parameters keep their offsets). films (n_total, n_res, B, max_c); x_init (B, H, D);
+// coefs (n_total, 4) = sra, srm, c1, c2; out (B, H, D); clip: clip the reconstruction.
+template <typename WT>
 __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(NT, 1)
 ddim_chain_kernel(const float* __restrict__ W, const int* __restrict__ meta,
                   const float* __restrict__ films, const float* __restrict__ x_init,
-                  const float* __restrict__ coefs, float* __restrict__ out, int n_total) {
+                  const float* __restrict__ coefs, float* __restrict__ out, int n_total, int clip,
+                  const __nv_bfloat16* __restrict__ Wh) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int rank = (int)cg::this_cluster().block_rank();
@@ -73,16 +87,17 @@ ddim_chain_kernel(const float* __restrict__ W, const int* __restrict__ meta,
     }
     zero_halo<1>(in, H, D);
     __syncthreads();
-    const float* y = cunet_body<1, float>(m, W, nullptr, smem, in, smem + buf, smem + 2 * buf,
-                                          films + (size_t)si * n_res * n_samples * maxc,
-                                          n_samples, sample, sample, stats, rank);
-    const float* w1 = W + m[M_F1];
+    const float* y = cunet_body<1, WT>(m, W, Wh, smem, in, smem + buf, smem + 2 * buf,
+                                       films + (size_t)si * n_res * n_samples * maxc,
+                                       n_samples, sample, sample, stats, rank);
+    const WT* w1 = conv_weights<WT>(W, Wh) + m[M_F1];
     const float* b1 = W + m[M_F1 + 1];
     for (int i = threadIdx.x; i < hd; i += NT) {  // final 1x1 conv
       const int d = i % D, t = i / D;
       const float* yr = y + row_off(0, H, t, cf);
       float acc = 0.f;
-      for (int ci = 0; ci < cf; ++ci) acc = fmaf(yr[ci], __ldg(w1 + ci * D + d), acc);
+      for (int ci = 0; ci < cf; ++ci)
+        acc = fmaf(round_operand<WT>(yr[ci]), wload(w1 + ci * D + d), acc);
       eps[i] = acc + __ldg(b1 + d);
     }
     // The next pass pushes into the two buffers other than `in` before its first cluster
@@ -94,7 +109,7 @@ ddim_chain_kernel(const float* __restrict__ W, const int* __restrict__ meta,
     for (int i = threadIdx.x; i < hd; i += NT) {
       const float x = xs[i];
       float rec = __fsub_rn(__fmul_rn(sra, x), __fmul_rn(srm, eps[i]));
-      rec = fminf(fmaxf(rec, -1.f), 1.f);
+      if (clip) rec = fminf(fmaxf(rec, -1.f), 1.f);
       xs[i] = __fadd_rn(__fmul_rn(c1, rec), __fmul_rn(c2, x));
     }
     __syncthreads();
@@ -104,8 +119,51 @@ ddim_chain_kernel(const float* __restrict__ W, const int* __restrict__ meta,
   cg::this_cluster().sync();  // no CTA leaves while another may still write into it
 }
 
-// reserve_smem's record of the shared-memory limit set for the kernel on each device
-static int smem_set[MAX_DEVICES];
+// reserve_smem's record of the shared-memory limit set for each instantiation on each device,
+// in an anonymous namespace: a template's static member of external linkage is one object in
+// the whole process (the loader unifies it across libraries).
+namespace {
+template <typename WT>
+struct SmemSet {
+  static int set[MAX_DEVICES];
+};
+template <typename WT>
+int SmemSet<WT>::set[MAX_DEVICES];
+}  // namespace
+
+template <typename WT>
+static int launch(const float* W, const __nv_bfloat16* Wh, const int* meta, int smem_bytes,
+                  const float* films, const float* x_init, const float* coefs, float* out,
+                  int n_total, int n_samples, int clip, void* stream) {
+  cudaError_t e = reserve_smem(ddim_chain_kernel<WT>, smem_bytes, SmemSet<WT>::set);
+  if (e != cudaSuccess) return (int)e;
+  ddim_chain_kernel<WT><<<CLUSTER * n_samples, NT, smem_bytes, (cudaStream_t)stream>>>(
+      W, meta, films, x_init, coefs, out, n_total, clip, Wh);
+  return (int)cudaGetLastError();
+}
+
+template <typename WT>
+static int max_active_clusters(int smem_bytes, int* n_clusters) {
+  *n_clusters = 0;
+  cudaError_t e = reserve_smem(ddim_chain_kernel<WT>, smem_bytes, SmemSet<WT>::set);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(CLUSTER);
+  config.blockDim = dim3(NT);
+  config.dynamicSmemBytes = smem_bytes;  // the cluster shape is the kernel's __cluster_dims__
+  return (int)cudaOccupancyMaxActiveClusters(n_clusters, (void*)ddim_chain_kernel<WT>, &config);
+}
+
+// Each entry's C interface besides <entry>_launch.
+#define DDIM_CHAIN_QUERIES(ENTRY, WT_)                                                        \
+  int ENTRY##_max_active_clusters(int smem_bytes, int* n_clusters) {                          \
+    return max_active_clusters<WT_>(smem_bytes, n_clusters);                                  \
+  }                                                                                           \
+  int ENTRY##_cluster_size(void) { return CLUSTER; }                                          \
+  const char* ENTRY##_error_string(int code) {                                                \
+    return cudaGetErrorString((cudaError_t)code);                                             \
+  }                                                                                           \
+  int ENTRY##_meta_len(void) { return M_LEN; }
 
 extern "C" {
 
@@ -113,31 +171,24 @@ extern "C" {
 // (0 = launched).
 int ddim_chain_launch(const float* W, const int* meta, int smem_bytes, const float* films,
                       const float* x_init, const float* coefs, float* out, int n_total,
-                      int n_samples, void* stream) {
-  cudaError_t e = reserve_smem(ddim_chain_kernel, smem_bytes, smem_set);
-  if (e != cudaSuccess) return (int)e;
-  ddim_chain_kernel<<<CLUSTER * n_samples, NT, smem_bytes, (cudaStream_t)stream>>>(
-      W, meta, films, x_init, coefs, out, n_total);
-  return (int)cudaGetLastError();
+                      int n_samples, int clip, void* stream) {
+  return launch<float>(W, nullptr, meta, smem_bytes, films, x_init, coefs, out, n_total,
+                       n_samples, clip, stream);
 }
 
-// cudaOccupancyMaxActiveClusters for one sample's cluster at smem_bytes of dynamic shared
-// memory per CTA, into *n_clusters; returns the CUDA error code (0 = answered).
-int ddim_chain_max_active_clusters(int smem_bytes, int* n_clusters) {
-  *n_clusters = 0;
-  cudaError_t e = reserve_smem(ddim_chain_kernel, smem_bytes, smem_set);
-  if (e != cudaSuccess) return (int)e;
-  cudaLaunchConfig_t config = {};
-  config.gridDim = dim3(CLUSTER);
-  config.blockDim = dim3(NT);
-  config.dynamicSmemBytes = smem_bytes;  // the cluster shape is the kernel's __cluster_dims__
-  return (int)cudaOccupancyMaxActiveClusters(n_clusters, (void*)ddim_chain_kernel, &config);
+// The same with bf16 conv kernels: Wh is the bf16 copy of W (same element offsets).
+int ddim_chain_bf16_launch(const float* W, const __nv_bfloat16* Wh, const int* meta,
+                           int smem_bytes, const float* films, const float* x_init,
+                           const float* coefs, float* out, int n_total, int n_samples, int clip,
+                           void* stream) {
+  return launch<__nv_bfloat16>(W, Wh, meta, smem_bytes, films, x_init, coefs, out, n_total,
+                               n_samples, clip, stream);
 }
 
-int ddim_chain_cluster_size(void) { return CLUSTER; }
-
-const char* ddim_chain_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
-
-int ddim_chain_meta_len(void) { return M_LEN; }
+// <entry>_max_active_clusters: cudaOccupancyMaxActiveClusters for one sample's cluster at
+// smem_bytes of dynamic shared memory per CTA, into *n_clusters; returns the CUDA error code
+// (0 = answered).
+DDIM_CHAIN_QUERIES(ddim_chain, float)
+DDIM_CHAIN_QUERIES(ddim_chain_bf16, __nv_bfloat16)
 
 }  // extern "C"

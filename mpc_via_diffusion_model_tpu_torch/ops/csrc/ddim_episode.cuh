@@ -52,6 +52,15 @@
 //
 // Each entry's <entry>_max_active_clusters answers cudaOccupancyMaxActiveClusters at the
 // episode's shared memory: the wrapper refuses to launch when it is 0.
+//
+// bf16 weights (the JAX builder's weights_dtype=jnp.bfloat16): the kernel is a template on the
+// conv kernels' element type WT beside DRAW. The __nv_bfloat16 instantiation (the entries
+// ddim_episode_bf16 and ddim_episode_panda_bf16) reads the body's conv kernels and the final 1x1
+// kernel from the bf16 copy Wh of the buffer and rounds each product's activation operand to
+// bf16 (unet_body_cluster.cuh), as fused_episode.py:339 rounds y before the final 1x1 conv; the
+// FiLM Dense weights and every bias stay fp32. clip_denoised (fused_episode.py:346) is the
+// launch's `clip` argument, not an instantiation: 0 leaves each reconstruction unclipped. The
+// unnormalize clip of the plans (episode.cuh) stays.
 
 #pragma once
 
@@ -66,8 +75,9 @@
 // in-kernel draw (philox.cuh); coefs (n_total, 4) = sra, srm, c1, c2; consts (C_LEN); x0 (DX).
 // Outputs: x_track (n_steps + 1, DX), u_track (n_steps, DU), costs (n_steps), chosen
 // (n_steps) = index of the applied candidate, K when none was chosen. Rank 0 writes the
-// outputs.
-template <bool DRAW>
+// outputs. Wh is W's bf16 copy (read in the bf16 instantiation only; last, so that the float
+// instantiation's other parameters keep their offsets); clip: clip each reconstruction.
+template <typename WT, bool DRAW>
 __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(NT, 1)
 ddim_episode_kernel(const float* __restrict__ W, const int* __restrict__ meta,
                     const float* __restrict__ t_embs,
@@ -75,7 +85,8 @@ ddim_episode_kernel(const float* __restrict__ W, const int* __restrict__ meta,
                     const float* __restrict__ coefs, const float* __restrict__ consts,
                     const float* __restrict__ x0, float* __restrict__ x_track,
                     float* __restrict__ u_track, float* __restrict__ costs,
-                    int* __restrict__ chosen, int n_steps, int n_total, int K, int sel_h) {
+                    int* __restrict__ chosen, int n_steps, int n_total, int K, int sel_h,
+                    int clip, const __nv_bfloat16* __restrict__ Wh) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int rank = (int)cg::this_cluster().block_rank();
@@ -125,15 +136,16 @@ ddim_episode_kernel(const float* __restrict__ W, const int* __restrict__ meta,
         }
         zero_halo<1>(in, H, D);
         __syncthreads();
-        const float* y = cunet_body<1, float>(m, W, nullptr, smem, in, smem + buf,
-                                              smem + 2 * buf, films, 1, 0, 0, stats, rank);
-        const float* w1 = W + m[M_F1];
+        const float* y = cunet_body<1, WT>(m, W, Wh, smem, in, smem + buf, smem + 2 * buf,
+                                           films, 1, 0, 0, stats, rank);
+        const WT* w1 = conv_weights<WT>(W, Wh) + m[M_F1];
         const float* b1 = W + m[M_F1 + 1];
         for (int i = threadIdx.x; i < hd; i += NT) {  // final 1x1 conv
           const int d = i % D, t = i / D;
           const float* yr = y + row_off(0, H, t, cf);
           float acc = 0.f;
-          for (int ci = 0; ci < cf; ++ci) acc = fmaf(yr[ci], __ldg(w1 + ci * D + d), acc);
+          for (int ci = 0; ci < cf; ++ci)
+            acc = fmaf(round_operand<WT>(yr[ci]), wload(w1 + ci * D + d), acc);
           eps[i] = acc + __ldg(b1 + d);
         }
         // The next pass pushes into the two buffers other than `in` before its first cluster
@@ -145,7 +157,7 @@ ddim_episode_kernel(const float* __restrict__ W, const int* __restrict__ meta,
         for (int i = threadIdx.x; i < hd; i += NT) {
           const float x = xs[i];
           float rec = __fsub_rn(__fmul_rn(sra, x), __fmul_rn(srm, eps[i]));
-          rec = fminf(fmaxf(rec, -1.f), 1.f);
+          if (clip) rec = fminf(fmaxf(rec, -1.f), 1.f);
           xs[i] = __fadd_rn(__fmul_rn(c1, rec), __fmul_rn(c2, x));
         }
         __syncthreads();
@@ -163,40 +175,56 @@ ddim_episode_kernel(const float* __restrict__ W, const int* __restrict__ meta,
 // is one object in the whole process (the loader unifies it across libraries), and
 // ddim_episode.cu and ddim_episode_quadrotor.cu each need their own record of their own kernel.
 namespace {
-template <bool DRAW>
+template <typename WT, bool DRAW>
 struct SmemSet {
   static int set[MAX_DEVICES];
 };
-template <bool DRAW>
-int SmemSet<DRAW>::set[MAX_DEVICES];
+template <typename WT, bool DRAW>
+int SmemSet<WT, DRAW>::set[MAX_DEVICES];
 }  // namespace
 
 // Launches one episode, one cluster, on `stream`; returns the CUDA error code (0 = launched).
-template <bool DRAW>
-static int launch(const float* W, const int* meta, int smem_bytes, const float* t_embs,
-                  const std::conditional_t<DRAW, int, float>* noise, const float* coefs,
-                  const float* consts, const float* x0, float* x_track, float* u_track,
-                  float* costs, int* chosen, int n_steps, int n_total, int K, int sel_h,
-                  void* stream) {
-  cudaError_t e = reserve_smem(ddim_episode_kernel<DRAW>, smem_bytes, SmemSet<DRAW>::set);
+template <typename WT, bool DRAW>
+static int launch(const float* W, const __nv_bfloat16* Wh, const int* meta, int smem_bytes,
+                  const float* t_embs, const std::conditional_t<DRAW, int, float>* noise,
+                  const float* coefs, const float* consts, const float* x0, float* x_track,
+                  float* u_track, float* costs, int* chosen, int n_steps, int n_total, int K,
+                  int sel_h, int clip, void* stream) {
+  cudaError_t e =
+      reserve_smem(ddim_episode_kernel<WT, DRAW>, smem_bytes, SmemSet<WT, DRAW>::set);
   if (e != cudaSuccess) return (int)e;
-  ddim_episode_kernel<DRAW><<<CLUSTER, NT, smem_bytes, (cudaStream_t)stream>>>(
+  ddim_episode_kernel<WT, DRAW><<<CLUSTER, NT, smem_bytes, (cudaStream_t)stream>>>(
       W, meta, t_embs, noise, coefs, consts, x0, x_track, u_track, costs, chosen, n_steps,
-      n_total, K, sel_h);
+      n_total, K, sel_h, clip, Wh);
   return (int)cudaGetLastError();
 }
 
 // cudaOccupancyMaxActiveClusters for one episode's cluster at smem_bytes of dynamic shared
 // memory per CTA, into *n_clusters; returns the CUDA error code (0 = answered).
-template <bool DRAW>
+template <typename WT, bool DRAW>
 static int max_active_clusters(int smem_bytes, int* n_clusters) {
   *n_clusters = 0;
-  cudaError_t e = reserve_smem(ddim_episode_kernel<DRAW>, smem_bytes, SmemSet<DRAW>::set);
+  cudaError_t e =
+      reserve_smem(ddim_episode_kernel<WT, DRAW>, smem_bytes, SmemSet<WT, DRAW>::set);
   if (e != cudaSuccess) return (int)e;
   cudaLaunchConfig_t config = {};
   config.gridDim = dim3(CLUSTER);
   config.blockDim = dim3(NT);
   config.dynamicSmemBytes = smem_bytes;  // the cluster shape is the kernel's __cluster_dims__
-  return (int)cudaOccupancyMaxActiveClusters(n_clusters, (void*)ddim_episode_kernel<DRAW>,
+  return (int)cudaOccupancyMaxActiveClusters(n_clusters, (void*)ddim_episode_kernel<WT, DRAW>,
                                              &config);
 }
+
+// Each entry's C interface besides <entry>_launch: the occupancy query, the cluster size, the
+// error text, the meta and consts lengths and the plant's dimensions.
+#define DDIM_EPISODE_QUERIES(ENTRY, WT_, DRAW_)                                               \
+  int ENTRY##_max_active_clusters(int smem_bytes, int* n_clusters) {                          \
+    return max_active_clusters<WT_, DRAW_>(smem_bytes, n_clusters);                           \
+  }                                                                                           \
+  int ENTRY##_cluster_size(void) { return CLUSTER; }                                          \
+  const char* ENTRY##_error_string(int code) {                                                \
+    return cudaGetErrorString((cudaError_t)code);                                             \
+  }                                                                                           \
+  int ENTRY##_meta_len(void) { return M_LEN; }                                                \
+  int ENTRY##_consts_len(void) { return C_LEN; }                                              \
+  int ENTRY##_plant_dims(void) { return DX * 100 + DU; }

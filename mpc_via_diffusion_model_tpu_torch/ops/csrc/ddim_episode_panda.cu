@@ -3,8 +3,9 @@
 // Cholesky solve of dynamics/arm.py::panda_rbd_unrolled, its tables read from the consts table
 // after dt), conditioned on the arm's 20-dim context (plants.cuh, PandaContext: q, qd and the
 // end effector's position and velocity through the FK chain, its q_ref and FK table after the
-// plant's), scoring best-of-K candidates by the selection QuadraticCost, fp32 weights, staged
-// noise.
+// plant's), scoring best-of-K candidates by the selection QuadraticCost, staged noise. Entries:
+// ddim_episode_panda (fp32 weights) and ddim_episode_panda_bf16 (bf16 weights, the JAX builder's
+// weights_dtype=jnp.bfloat16).
 //
 // Replaces the TPU kernel mpc_via_diffusion_model_tpu/ops/fused_episode.py::
 // make_fused_ddim_episode (pallas_call at fused_episode.py:392) traced with
@@ -36,29 +37,31 @@ int ddim_episode_panda_launch(const float* W, const int* meta, int smem_bytes,
                               const float* t_embs, const float* noise, const float* coefs,
                               const float* consts, const float* x0, float* x_track, float* u_track,
                               float* costs, int* chosen, int n_steps, int n_total, int K,
-                              int sel_h, void* stream) {
-  return launch<false>(W, meta, smem_bytes, t_embs, noise, coefs, consts, x0, x_track, u_track,
-                       costs, chosen, n_steps, n_total, K, sel_h, stream);
+                              int sel_h, int clip, void* stream) {
+  return launch<float, false>(W, nullptr, meta, smem_bytes, t_embs, noise, coefs, consts, x0,
+                              x_track, u_track, costs, chosen, n_steps, n_total, K, sel_h, clip,
+                              stream);
 }
 
-// cudaOccupancyMaxActiveClusters for one episode's cluster at smem_bytes of dynamic shared
-// memory per CTA, into *n_clusters; returns the CUDA error code (0 = answered).
-int ddim_episode_panda_max_active_clusters(int smem_bytes, int* n_clusters) {
-  return max_active_clusters<false>(smem_bytes, n_clusters);
+// The same with bf16 conv kernels: Wh is the bf16 copy of W (same element offsets).
+int ddim_episode_panda_bf16_launch(const float* W, const __nv_bfloat16* Wh, const int* meta,
+                                   int smem_bytes, const float* t_embs, const float* noise,
+                                   const float* coefs, const float* consts, const float* x0,
+                                   float* x_track, float* u_track, float* costs, int* chosen,
+                                   int n_steps, int n_total, int K, int sel_h, int clip,
+                                   void* stream) {
+  return launch<__nv_bfloat16, false>(W, Wh, meta, smem_bytes, t_embs, noise, coefs, consts, x0,
+                                      x_track, u_track, costs, chosen, n_steps, n_total, K,
+                                      sel_h, clip, stream);
 }
 
-int ddim_episode_panda_cluster_size(void) { return CLUSTER; }
-
-const char* ddim_episode_panda_error_string(int code) {
-  return cudaGetErrorString((cudaError_t)code);
-}
-
-int ddim_episode_panda_meta_len(void) { return M_LEN; }
-
-int ddim_episode_panda_consts_len(void) { return C_LEN; }
-
-int ddim_episode_panda_plant_dims(void) { return DX * 100 + DU; }
+// <entry>_max_active_clusters: cudaOccupancyMaxActiveClusters for one episode's cluster at
+// smem_bytes of dynamic shared memory per CTA, into *n_clusters; returns the CUDA error code
+// (0 = answered).
+DDIM_EPISODE_QUERIES(ddim_episode_panda, float, false)
+DDIM_EPISODE_QUERIES(ddim_episode_panda_bf16, __nv_bfloat16, false)
 
 int ddim_episode_panda_condition_dims(void) { return DC; }
+int ddim_episode_panda_bf16_condition_dims(void) { return DC; }
 
 }  // extern "C"

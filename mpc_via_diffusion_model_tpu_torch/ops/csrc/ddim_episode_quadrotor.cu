@@ -55,9 +55,10 @@ int ddim_episode_quadrotor_launch(const float* W, const int* meta, int smem_byte
                                   const float* t_embs, const float* noise, const float* coefs,
                                   const float* consts, const float* x0, float* x_track,
                                   float* u_track, float* costs, int* chosen, int n_steps,
-                                  int n_total, int K, int sel_h, void* stream) {
-  return launch<false>(W, meta, smem_bytes, t_embs, noise, coefs, consts, x0, x_track, u_track,
-                       costs, chosen, n_steps, n_total, K, sel_h, stream);
+                                  int n_total, int K, int sel_h, int clip, void* stream) {
+  return launch<float, false>(W, nullptr, meta, smem_bytes, t_embs, noise, coefs, consts, x0,
+                              x_track, u_track, costs, chosen, n_steps, n_total, K, sel_h, clip,
+                              stream);
 }
 
 // The same with the in-kernel draw: seed holds the episode's two seed words.
@@ -65,19 +66,20 @@ int ddim_episode_quadrotor_draw_launch(const float* W, const int* meta, int smem
                                        const float* t_embs, const int* seed, const float* coefs,
                                        const float* consts, const float* x0, float* x_track,
                                        float* u_track, float* costs, int* chosen, int n_steps,
-                                       int n_total, int K, int sel_h, void* stream) {
-  return launch<true>(W, meta, smem_bytes, t_embs, seed, coefs, consts, x0, x_track, u_track,
-                      costs, chosen, n_steps, n_total, K, sel_h, stream);
+                                       int n_total, int K, int sel_h, int clip, void* stream) {
+  return launch<float, true>(W, nullptr, meta, smem_bytes, t_embs, seed, coefs, consts, x0,
+                             x_track, u_track, costs, chosen, n_steps, n_total, K, sel_h, clip,
+                             stream);
 }
 
 // cudaOccupancyMaxActiveClusters for one episode's cluster at smem_bytes of dynamic shared
 // memory per CTA, into *n_clusters; returns the CUDA error code (0 = answered).
 int ddim_episode_quadrotor_max_active_clusters(int smem_bytes, int* n_clusters) {
-  return max_active_clusters<false>(smem_bytes, n_clusters);
+  return max_active_clusters<float, false>(smem_bytes, n_clusters);
 }
 
 int ddim_episode_quadrotor_draw_max_active_clusters(int smem_bytes, int* n_clusters) {
-  return max_active_clusters<true>(smem_bytes, n_clusters);
+  return max_active_clusters<float, true>(smem_bytes, n_clusters);
 }
 
 int ddim_episode_quadrotor_cluster_size(void) { return CLUSTER; }

@@ -35,15 +35,26 @@
 //
 // fused_unet_max_active_clusters answers cudaOccupancyMaxActiveClusters at the pass's shared
 // memory: the wrapper refuses to launch when it is 0.
+//
+// bf16 weights (the JAX builder's weights_dtype=jnp.bfloat16, fused_unet.py:387-388): the
+// kernel is a template on the conv kernels' element type WT. fused_unet_launch runs the float
+// instantiation and fused_unet_bf16_launch the __nv_bfloat16 one, which reads the body's conv
+// kernels from the bf16 copy Wh of the buffer and rounds each product's activation operand to
+// bf16 (unet_body_cluster.cuh). The final 1x1 conv stays outside the kernel in fp32 on an
+// unrounded y, as the JAX builder computes it (`y @ f1_w[0] + f1_w[1]`, fused_unet.py:450, with
+// f1_w taken raw from build_unet_ops). Each entry has its own occupancy query.
 
 #include "unet_body_cluster.cuh"
 
-// W is the packed buffer with the body's conv kernels rank-major (cluster_weights).
-// x (B, H, D); films (n_res, B, max_c); out (B, H, dims[1]).
+// W is the packed buffer with the body's conv kernels rank-major (cluster_weights), Wh its
+// bf16 copy (read in the bf16 instantiation only; last, so that the float instantiation's
+// other parameters keep their offsets). x (B, H, D); films (n_res, B, max_c);
+// out (B, H, dims[1]).
+template <typename WT>
 __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(NT, 1)
 fused_unet_kernel(const float* __restrict__ W, const int* __restrict__ meta,
                   const float* __restrict__ films, const float* __restrict__ x,
-                  float* __restrict__ out) {
+                  float* __restrict__ out, const __nv_bfloat16* __restrict__ Wh) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int rank = (int)cg::this_cluster().block_rank();
@@ -59,8 +70,8 @@ fused_unet_kernel(const float* __restrict__ W, const int* __restrict__ meta,
   }
   zero_halo<1>(in, H, D);
   __syncthreads();
-  const float* y = cunet_body<1, float>(m, W, nullptr, smem, in, smem + buf, smem + 2 * buf,
-                                        films, batch, b, b, smem + m[M_STATS], rank);
+  const float* y = cunet_body<1, WT>(m, W, Wh, smem, in, smem + buf, smem + 2 * buf, films,
+                                     batch, b, b, smem + m[M_STATS], rank);
   if (rank == 0)
     for (int i = threadIdx.x; i < H * cf; i += NT) {
       const int ch = i % cf, t = i / cf;
@@ -69,8 +80,50 @@ fused_unet_kernel(const float* __restrict__ W, const int* __restrict__ meta,
   cg::this_cluster().sync();  // no CTA leaves while another may still write into it
 }
 
-// reserve_smem's record of the shared-memory limit set for the kernel on each device
-static int smem_set[MAX_DEVICES];
+// reserve_smem's record of the shared-memory limit set for each instantiation on each device,
+// in an anonymous namespace: a template's static member of external linkage is one object in
+// the whole process (the loader unifies it across libraries).
+namespace {
+template <typename WT>
+struct SmemSet {
+  static int set[MAX_DEVICES];
+};
+template <typename WT>
+int SmemSet<WT>::set[MAX_DEVICES];
+}  // namespace
+
+template <typename WT>
+static int launch(const float* W, const __nv_bfloat16* Wh, const int* meta, int smem_bytes,
+                  const float* films, const float* x, float* out, int batch, void* stream) {
+  cudaError_t e = reserve_smem(fused_unet_kernel<WT>, smem_bytes, SmemSet<WT>::set);
+  if (e != cudaSuccess) return (int)e;
+  fused_unet_kernel<WT><<<CLUSTER * batch, NT, smem_bytes, (cudaStream_t)stream>>>(
+      W, meta, films, x, out, Wh);
+  return (int)cudaGetLastError();
+}
+
+template <typename WT>
+static int max_active_clusters(int smem_bytes, int* n_clusters) {
+  *n_clusters = 0;
+  cudaError_t e = reserve_smem(fused_unet_kernel<WT>, smem_bytes, SmemSet<WT>::set);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(CLUSTER);
+  config.blockDim = dim3(NT);
+  config.dynamicSmemBytes = smem_bytes;  // the cluster shape is the kernel's __cluster_dims__
+  return (int)cudaOccupancyMaxActiveClusters(n_clusters, (void*)fused_unet_kernel<WT>, &config);
+}
+
+// Each entry's C interface besides <entry>_launch.
+#define FUSED_UNET_QUERIES(ENTRY, WT_)                                                        \
+  int ENTRY##_max_active_clusters(int smem_bytes, int* n_clusters) {                          \
+    return max_active_clusters<WT_>(smem_bytes, n_clusters);                                  \
+  }                                                                                           \
+  int ENTRY##_cluster_size(void) { return CLUSTER; }                                          \
+  const char* ENTRY##_error_string(int code) {                                                \
+    return cudaGetErrorString((cudaError_t)code);                                             \
+  }                                                                                           \
+  int ENTRY##_meta_len(void) { return M_LEN; }
 
 extern "C" {
 
@@ -78,30 +131,20 @@ extern "C" {
 // (0 = launched).
 int fused_unet_launch(const float* W, const int* meta, int smem_bytes, const float* films,
                       const float* x, float* out, int batch, void* stream) {
-  cudaError_t e = reserve_smem(fused_unet_kernel, smem_bytes, smem_set);
-  if (e != cudaSuccess) return (int)e;
-  fused_unet_kernel<<<CLUSTER * batch, NT, smem_bytes, (cudaStream_t)stream>>>(W, meta, films,
-                                                                              x, out);
-  return (int)cudaGetLastError();
+  return launch<float>(W, nullptr, meta, smem_bytes, films, x, out, batch, stream);
 }
 
-// cudaOccupancyMaxActiveClusters for one row's cluster at smem_bytes of dynamic shared
-// memory per CTA, into *n_clusters; returns the CUDA error code (0 = answered).
-int fused_unet_max_active_clusters(int smem_bytes, int* n_clusters) {
-  *n_clusters = 0;
-  cudaError_t e = reserve_smem(fused_unet_kernel, smem_bytes, smem_set);
-  if (e != cudaSuccess) return (int)e;
-  cudaLaunchConfig_t config = {};
-  config.gridDim = dim3(CLUSTER);
-  config.blockDim = dim3(NT);
-  config.dynamicSmemBytes = smem_bytes;  // the cluster shape is the kernel's __cluster_dims__
-  return (int)cudaOccupancyMaxActiveClusters(n_clusters, (void*)fused_unet_kernel, &config);
+// The same with bf16 conv kernels: Wh is the bf16 copy of W (same element offsets).
+int fused_unet_bf16_launch(const float* W, const __nv_bfloat16* Wh, const int* meta,
+                           int smem_bytes, const float* films, const float* x, float* out,
+                           int batch, void* stream) {
+  return launch<__nv_bfloat16>(W, Wh, meta, smem_bytes, films, x, out, batch, stream);
 }
 
-int fused_unet_cluster_size(void) { return CLUSTER; }
-
-const char* fused_unet_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
-
-int fused_unet_meta_len(void) { return M_LEN; }
+// <entry>_max_active_clusters: cudaOccupancyMaxActiveClusters for one row's cluster at
+// smem_bytes of dynamic shared memory per CTA, into *n_clusters; returns the CUDA error code
+// (0 = answered).
+FUSED_UNET_QUERIES(fused_unet, float)
+FUSED_UNET_QUERIES(fused_unet_bf16, __nv_bfloat16)
 
 }  // extern "C"

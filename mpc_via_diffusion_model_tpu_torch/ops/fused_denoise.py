@@ -39,11 +39,15 @@ H, D): ``[0]`` is x_T and ``[1 + s]`` is injected at step s. The kernel gets
 it reordered so that its row ``n_total`` is x_T. The DDIM chain is
 deterministic: its only noise is its initial draw ``x_init`` (B, H, D).
 
-The CFG chain takes the JAX builder's ``weights_dtype``: float32, or
-bfloat16, which launches the kernel's bf16 entry of its plan
-(``cfg_chain_bf16``; ``cfg_chain_turns_bf16`` of ``csrc/cfg_chain_turns.cu``: conv kernels read as bf16,
-every product's activation operand rounded to bf16) and gives ``plain`` the
-U-Net of ``models/bf16.py``. The DDIM chain takes float32 only.
+Both chains take the JAX builders' ``weights_dtype``: float32, or
+bfloat16, which launches the kernel's bf16 entry (the CFG chain's of its
+plan, ``cfg_chain_bf16`` or ``cfg_chain_turns_bf16`` of
+``csrc/cfg_chain_turns.cu``; the DDIM chain's ``ddim_chain_bf16``: conv
+kernels and the final 1x1 conv read as bf16, every product's activation
+operand rounded to bf16) and gives ``plain`` the U-Net of
+``models/bf16.py``. Both take ``clip_denoised`` (True by default, as in
+JAX): False leaves each x0 reconstruction unclipped, a runtime argument of
+every entry.
 """
 from __future__ import annotations
 
@@ -91,10 +95,10 @@ def cfg_plan(smem_of: Callable[[Plan], int], what: str,
 
 
 def is_bf16(weights_dtype) -> bool:
-    """Whether the CFG kernels' ``weights_dtype`` is bfloat16; raises
+    """Whether the kernels' ``weights_dtype`` is bfloat16; raises
     ``NotImplementedError`` for a type other than float32 and bfloat16."""
     if weights_dtype not in (torch.float32, torch.bfloat16):
-        raise NotImplementedError(f"the CFG kernels take float32 or bfloat16 weights, not "
+        raise NotImplementedError(f"the kernels take float32 or bfloat16 weights, not "
                                   f"{weights_dtype}")
     return weights_dtype == torch.bfloat16
 
@@ -148,8 +152,9 @@ def _cfg_lib(entry: str = "cfg_chain") -> ctypes.CDLL:
     a bf16 entry takes the bf16 copy of the weights second."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     weights = [p, p] if entry.endswith("_bf16") else [p]
-    return _build.bind(entry, [*weights, p, i, p, p, p, p, i, i, f, f, p], M_LEN, cluster=CLUSTER,
-                       source="cfg_chain_turns" if "_turns" in entry else "cfg_chain")
+    source = "cfg_chain_turns" if "_turns" in entry else "cfg_chain"
+    return _build.bind(entry, [*weights, p, i, p, p, p, p, i, i, f, f, i, p], M_LEN,
+                       cluster=CLUSTER, source=source)
 
 
 def cfg_chain_max_active_clusters(smem_bytes: int, entry: str = "cfg_chain") -> int:
@@ -167,18 +172,23 @@ def cfg_chain_bf16_max_active_clusters(smem_bytes: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def _ddim_lib() -> ctypes.CDLL:
-    """The built ``csrc/ddim_chain.cu``."""
+def _ddim_lib(entry: str = "ddim_chain") -> ctypes.CDLL:
+    """The built ``csrc/ddim_chain.cu``, ``entry`` declared (``ddim_chain``,
+    or ``ddim_chain_bf16``, which takes the bf16 copy of the weights
+    second)."""
     p, i = ctypes.c_void_p, ctypes.c_int
-    return _build.bind("ddim_chain", [p, p, i, p, p, p, p, i, i, p], M_LEN, cluster=CLUSTER)
+    weights = [p, p] if entry.endswith("_bf16") else [p]
+    return _build.bind(entry, [*weights, p, i, p, p, p, p, i, i, i, p], M_LEN, cluster=CLUSTER,
+                       source="ddim_chain")
 
 
-def ddim_chain_max_active_clusters(smem_bytes: int) -> int:
-    """How many clusters of the DDIM chain kernel (one per sample) fit on
-    the current CUDA device at once with ``smem_bytes`` of dynamic shared
-    memory per CTA (``cudaOccupancyMaxActiveClusters``); raises with CUDA's
-    text when the query fails. Builds the kernel first if needed."""
-    return _build.max_active_clusters(_ddim_lib(), "ddim_chain", smem_bytes)
+def ddim_chain_max_active_clusters(smem_bytes: int, entry: str = "ddim_chain") -> int:
+    """How many clusters of the DDIM chain kernel's ``entry`` (one per
+    sample) fit on the current CUDA device at once with ``smem_bytes`` of
+    dynamic shared memory per CTA (``cudaOccupancyMaxActiveClusters``);
+    raises with CUDA's text when the query fails. Builds the kernel first if
+    needed."""
+    return _build.max_active_clusters(_ddim_lib(entry), entry, smem_bytes)
 
 
 class FusedCfgChain:
@@ -193,15 +203,17 @@ class FusedCfgChain:
     do) and ``entry`` the kernel's entry
     for it (``CFG_CHAIN_ENTRIES``); with ``weights_dtype`` bfloat16 that is
     the plan's bf16 entry, and ``plain`` runs ``plain_model``, the U-Net
-    with bf16 convs (``models/bf16.py``).
+    with bf16 convs (``models/bf16.py``). ``clip_denoised`` False leaves the
+    CFG reconstruction unclipped in both.
     """
 
     _plans: Sequence[Plan] = CFG_CHAIN_PLANS
 
     def __init__(self, packed: PackedUnet, schedule: DiffusionSchedule, n_samples: int,
-                 w: float, n_tail: int, weights_dtype=torch.float32):
+                 w: float, n_tail: int, weights_dtype=torch.float32, clip_denoised: bool = True):
         self.packed, self.model = packed, packed.model
         self.bf16 = is_bf16(weights_dtype)
+        self.clip_denoised = bool(clip_denoised)
         self.plain_model = bf16_conv_copy(self.model) if self.bf16 else self.model
         self.n_samples, self.w = n_samples, float(w)
         device = packed.weights.device
@@ -266,7 +278,7 @@ class FusedCfgChain:
             *(wt.data_ptr() for wt in weights), self.meta.data_ptr(),
             self.smem_bytes, films.data_ptr(), noise_tab.data_ptr(), self.coefs.data_ptr(),
             out.data_ptr(), self.n_total, self.n_samples, self.w, float(np.float32(1.0 + self.w)),
-            torch.cuda.current_stream(context.device).cuda_stream)
+            int(self.clip_denoised), torch.cuda.current_stream(context.device).cuda_stream)
         self.launches += 1
         return out
 
@@ -275,7 +287,8 @@ class FusedCfgChain:
         """The same chain in plain PyTorch: ``TemporalUnet.forward`` on the
         doubled batch at every step (``plain_model``'s), then the kernel's
         per-step arithmetic in the same order
-        (mpc_via_diffusion_model_tpu/ops/fused_denoise.py:114-120)."""
+        (mpc_via_diffusion_model_tpu/ops/fused_denoise.py:114-120), the
+        clip with ``clip_denoised`` only."""
         self._check(context, noise)
         self.plain_calls += 1
         b = self.n_samples
@@ -288,7 +301,9 @@ class FusedCfgChain:
             x2 = torch.cat([x, x], dim=0)
             eps2 = self.plain_model(x2, self.t_eff[si].expand(2 * b), ctx2, mask2)
             recon2 = sra * x2 - srm * eps2
-            recon = torch.clamp((1.0 + self.w) * recon2[:b] - self.w * recon2[b:], -1.0, 1.0)
+            recon = (1.0 + self.w) * recon2[:b] - self.w * recon2[b:]
+            if self.clip_denoised:
+                recon = torch.clamp(recon, -1.0, 1.0)
             x = c1 * recon + c2 * x + sg * noise[si + 1]
         return x
 
@@ -296,16 +311,17 @@ class FusedCfgChain:
 def make_fused_cfg_chain(model_or_packed: Union[TemporalUnet, PackedUnet],
                          schedule: DiffusionSchedule, n_samples: int = 1, w: float = 0.01,
                          n_tail: int = 5, weights_dtype=torch.float32,
-                         device=None) -> FusedCfgChain:
+                         clip_denoised: bool = True, device=None) -> FusedCfgChain:
     """Build the CFG chain of one replan on ``device`` (``cuda`` unless
     given), with float32 or bfloat16 conv weights (``weights_dtype``; any
-    other type raises ``NotImplementedError``). A ``TemporalUnet`` is moved
-    to the device and packed. The plan is the first that fits one block
+    other type raises ``NotImplementedError``); ``clip_denoised`` False
+    leaves the reconstruction unclipped. A ``TemporalUnet`` is moved to the
+    device and packed. The plan is the first that fits one block
     (``cfg_plan``: two row-sets, else in turns); raises ``ValueError`` where
     none fits."""
     is_bf16(weights_dtype)
     return FusedCfgChain(packed_on(model_or_packed, device), schedule, n_samples, w, n_tail,
-                         weights_dtype)
+                         weights_dtype, clip_denoised)
 
 
 class FusedDdimChain:
@@ -317,13 +333,20 @@ class FusedDdimChain:
     its ``sample_override``. ``launches`` counts kernel launches and
     ``plain_calls`` calls of the plain version; callers reset them to 0 to
     count one run. ``cluster`` holds the rank-major weights the kernel reads
-    and its occupancy check.
+    and its occupancy check. ``entry`` is the kernel's entry:
+    ``ddim_chain_bf16`` for bf16 weights, whose ``plain`` runs
+    ``plain_model``, the U-Net with bf16 convs (``models/bf16.py``).
+    ``clip_denoised`` False leaves each reconstruction unclipped in both.
     """
 
     def __init__(self, packed: PackedUnet, schedule: DiffusionSchedule, times: Sequence[int],
-                 n_samples: int):
+                 n_samples: int, weights_dtype=torch.float32, clip_denoised: bool = True):
         self.packed, self.model = packed, packed.model
         self.n_samples = int(n_samples)
+        self.bf16 = is_bf16(weights_dtype)
+        self.plain_model = bf16_conv_copy(self.model) if self.bf16 else self.model
+        self.clip_denoised = bool(clip_denoised)
+        self.entry = "ddim_chain_bf16" if self.bf16 else "ddim_chain"
         device = packed.weights.device
         coefs, t_eval = ddim_step_coefficients(schedule, times)
         self.n_total = len(t_eval)
@@ -331,10 +354,12 @@ class FusedDdimChain:
         self.t_eval = torch.from_numpy(t_eval).to(device)
         with torch.no_grad():
             self.t_embs = self.model.time_mlp(self.t_eval)  # (n_total, time_emb_dim)
-        self._sample = make_student_ddim_sampler(schedule, self.model, times)
+        self._sample = make_student_ddim_sampler(schedule, self.plain_model, times,
+                                                 self.clip_denoised)
         # the one-row-set plan: the meta table the kernel reads and its shared memory per CTA
         self.meta, self.smem_bytes = packed.metas[1], packed.chain_smem_bytes(1)
-        self.cluster = _build.ClusterLaunch(packed, "ddim_chain", ddim_chain_max_active_clusters)
+        self.cluster = _build.ClusterLaunch(
+            packed, self.entry, functools.partial(ddim_chain_max_active_clusters, entry=self.entry))
         self.launches = 0
         self.plain_calls = 0
 
@@ -365,13 +390,14 @@ class FusedDdimChain:
 
     @torch.no_grad()
     def kernel(self, context: torch.Tensor, x_init: torch.Tensor) -> torch.Tensor:
-        """Launch ``csrc/ddim_chain.cu``, one cluster of 8 CTAs per sample, on
-        the current stream; raises when the body cannot be split over the
-        cluster, its plan is more than a block may take or no cluster fits
-        on the card."""
+        """Launch ``csrc/ddim_chain.cu``'s ``entry``, one cluster of 8 CTAs per
+        sample, on the current stream; raises when the body cannot be split
+        over the cluster, its plan is more than a block may take or no
+        cluster fits on the card."""
         self._check(context, x_init)
         if not context.is_cuda or context.device != self.packed.weights.device:
-            raise ValueError("the ddim_chain kernel takes tensors on the packed weights' CUDA device")
+            raise ValueError(f"the {self.entry} kernel takes tensors on the packed weights' CUDA "
+                             "device")
         weights = self.cluster.weights
         self.cluster.require_fit(self.smem_bytes, context.device)
         out = torch.empty(self.noise_shape, dtype=torch.float32, device=context.device)
@@ -381,19 +407,22 @@ class FusedDdimChain:
     def _launch(self, weights: torch.Tensor, films: torch.Tensor, x_init: torch.Tensor,
                 out: torch.Tensor) -> None:
         """The launch alone, on ``kernel``'s checked and prepared tensors:
-        the rank-major weights, films (n_total, n_res, B, max_c), x_init and
-        out (B, H, D)."""
+        the rank-major weights (the bf16 entry also reads their bf16 copy,
+        ``cluster.weights_bf16``), films (n_total, n_res, B, max_c), x_init
+        and out (B, H, D)."""
+        bf16 = [self.cluster.weights_bf16.data_ptr()] if self.bf16 else []
         _build.launch(
-            _ddim_lib(), "ddim_chain",
-            weights.data_ptr(), self.meta.data_ptr(), self.smem_bytes,
+            _ddim_lib(self.entry), self.entry,
+            weights.data_ptr(), *bf16, self.meta.data_ptr(), self.smem_bytes,
             films.data_ptr(), x_init.data_ptr(), self.coefs.data_ptr(), out.data_ptr(),
-            self.n_total, self.n_samples, torch.cuda.current_stream(out.device).cuda_stream)
+            self.n_total, self.n_samples, int(self.clip_denoised),
+            torch.cuda.current_stream(out.device).cuda_stream)
         self.launches += 1
 
     @torch.no_grad()
     def plain(self, context: torch.Tensor, x_init: torch.Tensor) -> torch.Tensor:
         """The same chain in plain PyTorch: ``make_student_ddim_sampler``
-        with the ``TemporalUnet``, in the kernel's order of arithmetic."""
+        with ``plain_model``, in the kernel's order of arithmetic."""
         self._check(context, x_init)
         self.plain_calls += 1
         return self._sample(context, x_init)
@@ -404,18 +433,10 @@ def make_fused_ddim_chain(model_or_packed: Union[TemporalUnet, PackedUnet],
                           weights_dtype=torch.float32, clip_denoised: bool = True,
                           device=None) -> FusedDdimChain:
     """Build a distilled student's DDIM chain of one replan over ``times``
-    on ``device`` (``cuda`` unless given). A ``TemporalUnet`` is moved to the
-    device and packed. Raises ``NotImplementedError`` for the options of the
-    JAX function that the kernel does not run: bf16 weights and ``clip_denoised=False``."""
-    refuse_unported_ddim_options(weights_dtype, clip_denoised)
-    return FusedDdimChain(packed_on(model_or_packed, device), schedule, times, n_samples)
-
-
-def refuse_unported_ddim_options(weights_dtype, clip_denoised: bool) -> None:
-    """Raises ``NotImplementedError`` for the options of the JAX DDIM
-    functions that the DDIM kernels do not run."""
-    if weights_dtype != torch.float32:
-        raise NotImplementedError(f"the DDIM kernels take float32 weights, not {weights_dtype}")
-    if not clip_denoised:
-        raise NotImplementedError("the DDIM kernels clip the reconstruction; clip_denoised=False "
-                                  "is not ported")
+    on ``device`` (``cuda`` unless given), with float32 or bfloat16 weights
+    (``weights_dtype``; any other type raises ``NotImplementedError``);
+    ``clip_denoised`` False leaves each reconstruction unclipped. A
+    ``TemporalUnet`` is moved to the device and packed."""
+    is_bf16(weights_dtype)
+    return FusedDdimChain(packed_on(model_or_packed, device), schedule, times, n_samples,
+                          weights_dtype, clip_denoised)

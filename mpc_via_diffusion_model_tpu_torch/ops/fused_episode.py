@@ -66,16 +66,23 @@ each replan's x_T and injected draws by Philox4x32-10 counted by (replan x
 (n_total + 1) + draw, candidate, row, channel), the JAX kernel's draw index,
 and ``plain`` runs on the table that draw produces
 (``ops/philox.py::cfg_normal_table``). The
-DDIM episode runs
-float32 weights and ``clip_denoised=True`` only, one entry per plant
-(``DDIM_ENTRIES``): the swing-up (``ddim_episode``, a ``QuadraticCost``
-scorer), the quadrotor (``ddim_episode_quadrotor``, ``csrc/
+DDIM episode has one entry per plant and weights (``DDIM_ENTRIES``): the
+swing-up (``ddim_episode``, a ``QuadraticCost`` scorer, and its bf16 entry
+``ddim_episode_bf16``), the quadrotor (``ddim_episode_quadrotor``, ``csrc/
 ddim_episode_quadrotor.cu``: its m and inertia follow dt in the consts
 table, then the safety-first scorer's constants) and the panda arm
 (``ddim_episode_panda``, ``csrc/ddim_episode_panda.cu``: ``PandaRbd``, the
 rigid-body plant of ``dynamics/arm.py::panda_rbd_unrolled``, whose tables
 follow dt, a ``QuadraticCost`` scorer, and the context of
-``make_panda_context``, whose q_ref and FK table follow the plant's). The quadrotor's entry also
+``make_panda_context``, whose q_ref and FK table follow the plant's; and its
+bf16 entry ``ddim_episode_panda_bf16``);
+the quadrotor has no bf16 entry
+(ROADMAP.md B1). A bf16 entry reads the conv kernels and the final 1x1 conv
+as bf16 and rounds every product's activation operand, and its ``plain``
+runs the U-Net of ``models/bf16.py``. Both episodes take
+``clip_denoised`` (True by default, as in JAX): False leaves each x0
+reconstruction unclipped, a runtime argument of every entry; the clip of
+the plans before unnormalizing stays. The quadrotor's entry also
 draws its noise in the kernel (``inkernel_noise``, the ``_draw`` entry of
 its library): ``episode(x0, seed)`` takes a (2,) int32 seed, as the JAX
 package's ``_key_to_seeds`` gives, and every CTA computes each replan's
@@ -113,8 +120,7 @@ from ..models.bf16 import bf16_conv_copy
 from ..models.layers import mish
 from ..models.temporal_unet import TemporalUnet
 from . import _build, philox
-from .fused_denoise import (cfg_plan, ddim_step_coefficients, is_bf16,
-                            refuse_unported_ddim_options, step_coefficients)
+from .fused_denoise import cfg_plan, ddim_step_coefficients, is_bf16, step_coefficients
 from .unet_pack import CLUSTER, M_LEN, TURNS, PackedUnet, Plan, packed_on
 
 __all__ = ["FusedCfgEpisode", "FusedDdimEpisode", "make_fused_cfg_episode",
@@ -147,16 +153,19 @@ CFG_PLANS = {"cfg_episode_panda": TURNS, "cfg_episode_panda_draw": TURNS}
 # conditions on the state
 CFG_KINDS = {"cfg_episode_quadrotor": ("safety_first", "concat_features"),
              "cfg_episode_panda": ("quadratic", "panda_context")}
-# the DDIM episode's entry for each plant (float32 weights), with the kind of selection cost
+# the DDIM episode's entry for each (plant name, bf16 weights), with the kind of selection cost
 # its scorer computes (csrc/plants.cuh: QuadScorer, SafetyFirstScorer), and the entry that
 # draws the noise in the kernel, where one exists
-DDIM_ENTRIES = {"cartpole_virtual_swingup": ("ddim_episode", "quadratic"),
-                "quadrotor": ("ddim_episode_quadrotor", "safety_first"),
-                "panda_rbd": ("ddim_episode_panda", "quadratic")}
+DDIM_ENTRIES = {("cartpole_virtual_swingup", False): ("ddim_episode", "quadratic"),
+                ("cartpole_virtual_swingup", True): ("ddim_episode_bf16", "quadratic"),
+                ("quadrotor", False): ("ddim_episode_quadrotor", "safety_first"),
+                ("panda_rbd", False): ("ddim_episode_panda", "quadratic"),
+                ("panda_rbd", True): ("ddim_episode_panda_bf16", "quadratic")}
 DDIM_DRAW_ENTRIES = {"ddim_episode_quadrotor": "ddim_episode_quadrotor_draw"}
 # the kind of state-to-condition map each DDIM entry's Condition computes; an entry not named
 # here conditions on the state
-DDIM_CONDITIONS = {"ddim_episode_panda": "panda_context"}
+DDIM_CONDITIONS = {"ddim_episode_panda": "panda_context",
+                   "ddim_episode_panda_bf16": "panda_context"}
 # the constants each scorer reads after the plant's (its N_CONSTS): the safety-first scorer's
 # u_hover (4), factor, weight, the 3 spheres' centers and radii
 SCORER_CONSTS = {"quadratic": 0, "safety_first": 4 + 2 + 4 * 3}
@@ -195,7 +204,7 @@ def condition_kind(state_to_condition) -> Optional[str]:
 def _cfg_lib() -> ctypes.CDLL:
     """The built ``csrc/cfg_episode.cu``."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    return _build.bind("cfg_episode", [p, p, i, p, p, p, p, p, p, p, p, p, i, i, i, i, f, f, p],
+    return _build.bind("cfg_episode", [p, p, i, p, p, p, p, p, p, p, p, p, i, i, i, i, f, f, i, p],
                        M_LEN, _QUERIES, cluster=CLUSTER)
 
 
@@ -212,7 +221,7 @@ def _cfg_bf16_lib() -> ctypes.CDLL:
     """The built ``csrc/cfg_episode.cu``, its bf16 entry declared."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     return _build.bind("cfg_episode_bf16",
-                       [p, p, p, i, p, p, p, p, p, p, p, p, p, i, i, i, i, f, f, p],
+                       [p, p, p, i, p, p, p, p, p, p, p, p, p, i, i, i, i, f, f, i, p],
                        M_LEN, _QUERIES, cluster=CLUSTER, source="cfg_episode")
 
 
@@ -225,8 +234,9 @@ def cfg_episode_bf16_max_active_clusters(smem_bytes: int) -> int:
 def _cfg_lmpc_lib() -> ctypes.CDLL:
     """The built ``csrc/cfg_episode_lmpc.cu``: the CFG episode for the linear cart-pole."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    return _build.bind("cfg_episode_lmpc", [p, p, i, p, p, p, p, p, p, p, p, p, i, i, i, i, f, f, p],
-                       M_LEN, _QUERIES, cluster=CLUSTER)
+    return _build.bind("cfg_episode_lmpc",
+                       [p, p, i, p, p, p, p, p, p, p, p, p, i, i, i, i, f, f, i, p], M_LEN,
+                       _QUERIES, cluster=CLUSTER)
 
 
 def cfg_episode_lmpc_max_active_clusters(smem_bytes: int) -> int:
@@ -241,7 +251,7 @@ def _cfg_quadrotor_lib() -> ctypes.CDLL:
     its condition map's context (``condition_dims``)."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     return _build.bind("cfg_episode_quadrotor",
-                       [p, p, i, p, p, p, p, p, p, p, p, p, i, i, i, i, f, f, p], M_LEN,
+                       [p, p, i, p, p, p, p, p, p, p, p, p, i, i, i, i, f, f, i, p], M_LEN,
                        (*_QUERIES, "condition_dims"), cluster=CLUSTER)
 
 
@@ -257,7 +267,7 @@ def _cfg_panda_lib(entry: str = "cfg_episode_panda") -> ctypes.CDLL:
     the int32 seed in place of the noise), which also answers the width of
     its condition map's context (``condition_dims``)."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    return _build.bind(entry, [p, p, i, p, p, p, p, p, p, p, p, p, i, i, i, i, f, f, p], M_LEN,
+    return _build.bind(entry, [p, p, i, p, p, p, p, p, p, p, p, p, i, i, i, i, f, f, i, p], M_LEN,
                        (*_QUERIES, "condition_dims"), cluster=CLUSTER, source="cfg_episode_panda")
 
 
@@ -283,25 +293,35 @@ _CFG_LIBS = {"cfg_episode": (_cfg_lib, cfg_episode_max_active_clusters),
                                         cfg_episode_panda_draw_max_active_clusters)}
 
 
-@functools.lru_cache(maxsize=None)
-def _ddim_lib() -> ctypes.CDLL:
-    """The built ``csrc/ddim_episode.cu``."""
+def _ddim_bind(entry: str, source: str, queries=_QUERIES) -> ctypes.CDLL:
+    """``_build.bind`` of a DDIM episode ``entry`` of ``csrc/<source>.cu``; a bf16 entry takes
+    the bf16 copy of the weights second."""
     p, i = ctypes.c_void_p, ctypes.c_int
-    return _build.bind("ddim_episode", [p, p, i, p, p, p, p, p, p, p, p, p, i, i, i, i, p],
-                       M_LEN, _QUERIES, cluster=CLUSTER)
-
-
-def ddim_episode_max_active_clusters(smem_bytes: int) -> int:
-    """The same query for the DDIM episode kernel's cluster."""
-    return _build.max_active_clusters(_ddim_lib(), "ddim_episode", smem_bytes)
+    weights = [p, p] if entry.endswith("_bf16") else [p]
+    return _build.bind(entry, [*weights, p, i, p, p, p, p, p, p, p, p, p, i, i, i, i, i, p], M_LEN,
+                       queries, cluster=CLUSTER, source=source)
 
 
 @functools.lru_cache(maxsize=None)
-def _ddim_quadrotor_lib() -> ctypes.CDLL:
-    """The built ``csrc/ddim_episode_quadrotor.cu``: the DDIM episode for the quadrotor."""
-    p, i = ctypes.c_void_p, ctypes.c_int
-    return _build.bind("ddim_episode_quadrotor", [p, p, i, p, p, p, p, p, p, p, p, p, i, i, i, i, p],
-                       M_LEN, _QUERIES, cluster=CLUSTER)
+def _ddim_lib(entry: str = "ddim_episode") -> ctypes.CDLL:
+    """The built ``csrc/ddim_episode.cu``, ``entry`` (``ddim_episode`` or
+    ``ddim_episode_bf16``) declared."""
+    return _ddim_bind(entry, "ddim_episode")
+
+
+def ddim_episode_max_active_clusters(smem_bytes: int, entry: str = "ddim_episode") -> int:
+    """The same query for the DDIM episode kernel's cluster (``entry``: the
+    swing-up's fp32 or bf16 entry)."""
+    return _build.max_active_clusters(_ddim_lib(entry), entry, smem_bytes)
+
+
+@functools.lru_cache(maxsize=None)
+def _ddim_quadrotor_lib(entry: str = "ddim_episode_quadrotor") -> ctypes.CDLL:
+    """The built ``csrc/ddim_episode_quadrotor.cu``: the DDIM episode for the
+    quadrotor, ``entry`` declared (``ddim_episode_quadrotor``, or
+    ``ddim_episode_quadrotor_draw``, which takes the int32 seed in place of
+    the noise)."""
+    return _ddim_bind(entry, "ddim_episode_quadrotor")
 
 
 def ddim_episode_quadrotor_max_active_clusters(smem_bytes: int) -> int:
@@ -309,43 +329,41 @@ def ddim_episode_quadrotor_max_active_clusters(smem_bytes: int) -> int:
     return _build.max_active_clusters(_ddim_quadrotor_lib(), "ddim_episode_quadrotor", smem_bytes)
 
 
-@functools.lru_cache(maxsize=None)
-def _ddim_quadrotor_draw_lib() -> ctypes.CDLL:
-    """The built ``csrc/ddim_episode_quadrotor.cu``, its in-kernel draw's entry declared."""
-    p, i = ctypes.c_void_p, ctypes.c_int
-    return _build.bind("ddim_episode_quadrotor_draw",
-                       [p, p, i, p, p, p, p, p, p, p, p, p, i, i, i, i, p], M_LEN, _QUERIES,
-                       cluster=CLUSTER, source="ddim_episode_quadrotor")
-
-
 def ddim_episode_quadrotor_draw_max_active_clusters(smem_bytes: int) -> int:
     """The same query for the quadrotor's DDIM episode with the in-kernel draw."""
-    return _build.max_active_clusters(_ddim_quadrotor_draw_lib(), "ddim_episode_quadrotor_draw",
-                                      smem_bytes)
+    return _build.max_active_clusters(_ddim_quadrotor_lib("ddim_episode_quadrotor_draw"),
+                                      "ddim_episode_quadrotor_draw", smem_bytes)
 
 
 @functools.lru_cache(maxsize=None)
-def _ddim_panda_lib() -> ctypes.CDLL:
-    """The built ``csrc/ddim_episode_panda.cu``: the DDIM episode for the panda
-    arm, which also answers the width of its condition map's context
-    (``condition_dims``)."""
-    p, i = ctypes.c_void_p, ctypes.c_int
-    return _build.bind("ddim_episode_panda", [p, p, i, p, p, p, p, p, p, p, p, p, i, i, i, i, p],
-                       M_LEN, (*_QUERIES, "condition_dims"), cluster=CLUSTER)
+def _ddim_panda_lib(entry: str = "ddim_episode_panda") -> ctypes.CDLL:
+    """The built ``csrc/ddim_episode_panda.cu``: the DDIM episode for the
+    panda arm, ``entry`` declared (``ddim_episode_panda`` or its bf16 entry
+    ``ddim_episode_panda_bf16``), which also answers the width of its
+    condition map's context (``condition_dims``)."""
+    return _ddim_bind(entry, "ddim_episode_panda", (*_QUERIES, "condition_dims"))
 
 
-def ddim_episode_panda_max_active_clusters(smem_bytes: int) -> int:
-    """The same query for the panda arm's DDIM episode entry."""
-    return _build.max_active_clusters(_ddim_panda_lib(), "ddim_episode_panda", smem_bytes)
+def ddim_episode_panda_max_active_clusters(smem_bytes: int,
+                                           entry: str = "ddim_episode_panda") -> int:
+    """The same query for the panda arm's DDIM episode entry (fp32 or bf16)."""
+    return _build.max_active_clusters(_ddim_panda_lib(entry), entry, smem_bytes)
 
 
 # each DDIM entry's library and occupancy query
-_DDIM_LIBS = {"ddim_episode": (_ddim_lib, ddim_episode_max_active_clusters),
-              "ddim_episode_quadrotor": (_ddim_quadrotor_lib,
-                                         ddim_episode_quadrotor_max_active_clusters),
-              "ddim_episode_quadrotor_draw": (_ddim_quadrotor_draw_lib,
-                                              ddim_episode_quadrotor_draw_max_active_clusters),
-              "ddim_episode_panda": (_ddim_panda_lib, ddim_episode_panda_max_active_clusters)}
+_DDIM_LIBS = {
+    "ddim_episode": (_ddim_lib, ddim_episode_max_active_clusters),
+    "ddim_episode_bf16": (functools.partial(_ddim_lib, "ddim_episode_bf16"),
+                          functools.partial(ddim_episode_max_active_clusters,
+                                            entry="ddim_episode_bf16")),
+    "ddim_episode_quadrotor": (_ddim_quadrotor_lib, ddim_episode_quadrotor_max_active_clusters),
+    "ddim_episode_quadrotor_draw": (functools.partial(_ddim_quadrotor_lib,
+                                                      "ddim_episode_quadrotor_draw"),
+                                    ddim_episode_quadrotor_draw_max_active_clusters),
+    "ddim_episode_panda": (_ddim_panda_lib, ddim_episode_panda_max_active_clusters),
+    "ddim_episode_panda_bf16": (functools.partial(_ddim_panda_lib, "ddim_episode_panda_bf16"),
+                                functools.partial(ddim_episode_panda_max_active_clusters,
+                                                  entry="ddim_episode_panda_bf16"))}
 
 
 def affine_consts(stats: NormalizerStats, dim: int):
@@ -391,6 +409,7 @@ class _Episode:
     bf16 = False  # bf16 conv weights: the bf16 entry, which also reads cluster.weights_bf16
     plan: Plan = 1  # its plan of shared memory (unet_pack.metas): the row-sets, or TURNS
     inkernel_noise = False  # the entry draws its noise in the kernel from a (2,) int32 seed
+    clip_denoised = True  # clip each x0 reconstruction to [-1, 1] (the entry's `clip` argument)
 
     scorer = "quadratic"  # the kind of selection cost the entry's scorer computes
 
@@ -512,7 +531,8 @@ class _Episode:
             self.t_embs.data_ptr(), noise_tab.data_ptr(), self.coefs.data_ptr(),
             self.consts.data_ptr(), x0.data_ptr(), x_track.data_ptr(), u_track.data_ptr(),
             costs.data_ptr(), chosen.data_ptr(), self.n_steps, self.n_total, self.n_candidates,
-            self.selection_horizon, *scalars, torch.cuda.current_stream(dev).cuda_stream)
+            self.selection_horizon, *scalars, int(self.clip_denoised),
+            torch.cuda.current_stream(dev).cuda_stream)
         self.launches += 1
         return x_track, u_track, costs, chosen
 
@@ -590,6 +610,7 @@ class FusedCfgEpisode(_Episode):
     the entry's plan of shared memory (``CFG_PLANS``: two row-sets; the
     panda entries' in turns); where it is more than a block may take the
     episode refuses to be built (``cfg_plan``'s ``ValueError``).
+    ``clip_denoised`` False leaves the CFG reconstruction unclipped.
     """
 
     def __init__(self, packed: PackedUnet, schedule: DiffusionSchedule,
@@ -597,8 +618,9 @@ class FusedCfgEpisode(_Episode):
                  cost: QuadraticCost, n_steps: int, w: float, n_tail: int, n_candidates: int,
                  selection_cost: QuadraticCost, selection_horizon: int,
                  weights_dtype=torch.float32, state_to_condition=None,
-                 inkernel_noise: bool = False):
+                 inkernel_noise: bool = False, clip_denoised: bool = True):
         self.bf16 = is_bf16(weights_dtype)
+        self.clip_denoised = bool(clip_denoised)
         entry = CFG_ENTRIES[plant.name, self.bf16]
         self.scorer = CFG_KINDS.get(entry, ("quadratic",))[0]
         self.inkernel_noise = bool(inkernel_noise)
@@ -659,7 +681,9 @@ class FusedCfgEpisode(_Episode):
                 x2 = torch.cat([u, u], dim=0)
                 eps2 = self.plain_model(x2, self.t_eval[si].expand(2 * k), ctx2, mask2)
                 recon2 = sra * x2 - srm * eps2
-                recon = torch.clamp((1.0 + self.w) * recon2[:k] - self.w * recon2[k:], -1.0, 1.0)
+                recon = (1.0 + self.w) * recon2[:k] - self.w * recon2[k:]
+                if self.clip_denoised:
+                    recon = torch.clamp(recon, -1.0, 1.0)
                 u = c1 * recon + c2 * u + sg * nz[si + 1]
             return u
 
@@ -727,22 +751,30 @@ class FusedDdimEpisode(_Episode):
     ``kernel`` and ``plain`` also return the index of the applied candidate
     at every replan (K where none was chosen). ``launches`` counts kernel
     launches and ``plain_calls`` calls of the plain version; callers reset
-    them to 0 to count one run. ``name`` is the entry the plant and the draw
-    pick (``DDIM_ENTRIES``, ``DDIM_DRAW_ENTRIES``).
+    them to 0 to count one run. ``name`` is the entry the plant, the weights
+    and the draw pick (``DDIM_ENTRIES``, ``DDIM_DRAW_ENTRIES``): with
+    ``weights_dtype`` bfloat16 the plant's bf16 entry, whose ``plain`` runs
+    ``plain_model``, the U-Net with bf16 convs (``models/bf16.py``).
+    ``clip_denoised`` False leaves each reconstruction unclipped.
     """
 
     def __init__(self, packed: PackedUnet, schedule: DiffusionSchedule, times: Sequence[int],
                  inputs_stats: NormalizerStats, condition_stats: NormalizerStats, plant: Plant,
                  cost: QuadraticCost, n_steps: int, n_candidates: int, selection_cost,
-                 selection_horizon: int, inkernel_noise: bool = False, state_to_condition=None):
-        entry, self.scorer = DDIM_ENTRIES[plant.name]
+                 selection_horizon: int, inkernel_noise: bool = False, state_to_condition=None,
+                 weights_dtype=torch.float32, clip_denoised: bool = True):
+        self.bf16 = is_bf16(weights_dtype)
+        self.clip_denoised = bool(clip_denoised)
+        entry, self.scorer = DDIM_ENTRIES[plant.name, self.bf16]
         self.inkernel_noise = bool(inkernel_noise)
         self.name = DDIM_DRAW_ENTRIES[entry] if self.inkernel_noise else entry
         self.lib, self.query = _DDIM_LIBS[self.name]
         super().__init__(packed, inputs_stats, condition_stats, plant, cost, n_steps,
                          n_candidates, selection_cost, selection_horizon,
                          *ddim_step_coefficients(schedule, times), state_to_condition)
-        self._sample = make_student_ddim_sampler(schedule, self.model, times)
+        self.plain_model = bf16_conv_copy(self.model) if self.bf16 else self.model
+        self._sample = make_student_ddim_sampler(schedule, self.plain_model, times,
+                                                 self.clip_denoised)
 
     @property
     def table_shape(self) -> Tuple[int, ...]:
@@ -757,7 +789,8 @@ class FusedDdimEpisode(_Episode):
     @torch.no_grad()
     def kernel(self, x0: torch.Tensor, noise: torch.Tensor):
         """Launch the entry's kernel (``csrc/ddim_episode.cu``,
-        ``csrc/ddim_episode_quadrotor.cu`` or ``csrc/ddim_episode_panda.cu``),
+        ``csrc/ddim_episode_quadrotor.cu`` or ``csrc/ddim_episode_panda.cu``;
+        the swing-up's and the panda's bf16 entries for bf16 weights),
         one cluster of 8 CTAs, on the current stream; raises when the body
         cannot be split over the cluster, the plan at this K is more than a
         block may take or no cluster fits on the card."""
@@ -767,7 +800,7 @@ class FusedDdimEpisode(_Episode):
     @torch.no_grad()
     def plain(self, x0: torch.Tensor, noise: torch.Tensor):
         """The same episode in plain PyTorch; each replan's chain is
-        ``make_student_ddim_sampler`` over the K candidates, ``TemporalUnet``
+        ``make_student_ddim_sampler`` over the K candidates, ``plain_model``
         with the context-present bit 1 (FiLM from mish([t_emb, ctx, 1])
         inside its ResidualTemporalBlocks). With ``inkernel_noise`` on
         ``noise_table(seed)``."""
@@ -848,7 +881,8 @@ def make_fused_cfg_episode(model_or_packed: Union[TemporalUnet, PackedUnet],
                            selection_cost=None, selection_horizon: Optional[int] = None,
                            weights_dtype=torch.float32,
                            state_to_condition: Optional[Callable] = None,
-                           inkernel_noise: bool = False, device=None) -> FusedCfgEpisode:
+                           inkernel_noise: bool = False, clip_denoised: bool = True,
+                           device=None) -> FusedCfgEpisode:
     """Build the whole CFG closed loop of one episode on ``device`` (``cuda``
     unless given). Defaults are ``bench.py``'s: 80 replans, T + 5 tail
     steps, w = 0.01, K = 1, float32 weights (``weights_dtype`` bfloat16 is
@@ -858,7 +892,8 @@ def make_fused_cfg_episode(model_or_packed: Union[TemporalUnet, PackedUnet],
     a scene is their constants. The panda arm's entry takes a
     ``PandaContext``, and ``inkernel_noise`` (its entry only) makes the
     episode take a (2,) int32 seed (``ops/philox.py::seed_from_generator``)
-    in place of staged noise. Raises ``NotImplementedError`` for what the
+    in place of staged noise. ``clip_denoised`` False leaves the CFG
+    reconstruction unclipped. Raises ``NotImplementedError`` for what the
     kernel cannot run, and ``ValueError`` where the entry's plan does not
     fit one block at this K."""
     entry = CFG_ENTRIES.get((plant.name, is_bf16(weights_dtype)))
@@ -870,7 +905,7 @@ def make_fused_cfg_episode(model_or_packed: Union[TemporalUnet, PackedUnet],
                                        "bf16" if is_bf16(weights_dtype) else "float32", condition)
     return FusedCfgEpisode(packed, schedule, inputs_stats, condition_stats, plant, cost, n_steps,
                            w, n_diffusion_steps_without_noise, k, selection_cost or cost, sel_h,
-                           weights_dtype, state_to_condition, inkernel_noise)
+                           weights_dtype, state_to_condition, inkernel_noise, clip_denoised)
 
 
 def make_fused_ddim_episode(model_or_packed: Union[TemporalUnet, PackedUnet],
@@ -885,17 +920,21 @@ def make_fused_ddim_episode(model_or_packed: Union[TemporalUnet, PackedUnet],
     """Build a distilled student's whole closed loop of one episode over the
     times grid ``times`` on ``device`` (``cuda`` unless given): 80 replans
     and K = 1 by default, as ``scripts/bench_deep_students.py`` runs it. A
-    ``TemporalUnet`` is moved to the device and packed. ``inkernel_noise``
-    (the quadrotor's entry only) makes the episode take a (2,) int32 seed
-    (``ops/philox.py::seed_from_generator``) in place of staged noise.
-    Raises ``NotImplementedError`` for what the kernel cannot run."""
-    refuse_unported_ddim_options(weights_dtype, clip_denoised)
-    entry, scorer = DDIM_ENTRIES.get(plant.name, (None, None))
+    ``TemporalUnet`` is moved to the device and packed. ``weights_dtype``
+    bfloat16 runs the plant's bf16 entry (the swing-up's and the panda
+    arm's); ``clip_denoised`` False leaves each reconstruction unclipped.
+    ``inkernel_noise`` (the quadrotor's entry only) makes the episode take a
+    (2,) int32 seed (``ops/philox.py::seed_from_generator``) in place of
+    staged noise. Raises ``NotImplementedError`` for what the kernel cannot
+    run."""
+    bf16 = is_bf16(weights_dtype)
+    entry, scorer = DDIM_ENTRIES.get((plant.name, bf16), (None, None))
     packed, k, sel_h = _episode_packed(model_or_packed, plant, cost, selection_cost,
                                        selection_horizon, n_candidates, state_to_condition,
-                                       inkernel_noise, device, DDIM_ENTRIES, entry, scorer,
-                                       entry in DDIM_DRAW_ENTRIES,
-                                       condition=DDIM_CONDITIONS.get(entry, "identity"))
+                                       inkernel_noise, device, {p for p, _ in DDIM_ENTRIES},
+                                       entry, scorer, entry in DDIM_DRAW_ENTRIES,
+                                       "bf16" if bf16 else "float32",
+                                       DDIM_CONDITIONS.get(entry, "identity"))
     return FusedDdimEpisode(packed, schedule, times, inputs_stats, condition_stats, plant, cost,
                             n_steps, k, selection_cost or cost, sel_h, inkernel_noise,
-                            state_to_condition)
+                            state_to_condition, weights_dtype, clip_denoised)

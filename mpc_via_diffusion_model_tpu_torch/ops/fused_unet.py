@@ -23,6 +23,14 @@ model whose convs and GroupNorms ``unet_pack.cluster_split`` accepts and a
 plan that one block can hold. All three are checked where the kernel would
 be launched (``_build.ClusterLaunch``), so the plain version on the CPU
 takes any model.
+
+``make_fused_unet`` takes the JAX builder's ``weights_dtype``: float32, or
+bfloat16, which launches the kernel's bf16 entry (``fused_unet_bf16``: the
+body's conv kernels read as bf16, every product's activation operand
+rounded to bf16) and gives ``plain`` the backbone of
+``models/bf16.py::bf16_conv_copy(model, round_final_1x1=False)``. The final
+1x1 conv stays fp32 on an unrounded y in both, as the JAX builder computes
+it outside its kernel (fused_unet.py:450).
 """
 from __future__ import annotations
 
@@ -33,9 +41,11 @@ from typing import Optional, Union
 import torch
 from torch import nn
 
+from ..models.bf16 import bf16_conv_copy
 from ..models.layers import mish
 from ..models.temporal_unet import TemporalUnet
 from . import _build
+from .fused_denoise import is_bf16
 from .unet_pack import CLUSTER, M_LEN, PackedUnet, packed_on
 
 __all__ = ["FusedUnet", "make_fused_unet", "fused_unet_max_active_clusters"]
@@ -44,18 +54,23 @@ ROW_SETS = 1  # the kernel's row-sets: one batch row per cluster
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel_lib() -> ctypes.CDLL:
-    """The built ``csrc/fused_unet.cu``."""
+def _kernel_lib(entry: str = "fused_unet") -> ctypes.CDLL:
+    """The built ``csrc/fused_unet.cu``, ``entry`` declared (``fused_unet``,
+    or ``fused_unet_bf16``, which takes the bf16 copy of the weights
+    second)."""
     p, i = ctypes.c_void_p, ctypes.c_int
-    return _build.bind("fused_unet", [p, p, i, p, p, p, i, p], M_LEN, cluster=CLUSTER)
+    weights = [p, p] if entry.endswith("_bf16") else [p]
+    return _build.bind(entry, [*weights, p, i, p, p, p, i, p], M_LEN, cluster=CLUSTER,
+                       source="fused_unet")
 
 
-def fused_unet_max_active_clusters(smem_bytes: int) -> int:
-    """How many clusters of the U-Net pass kernel (one per batch row) fit
-    on the current CUDA device at once with ``smem_bytes`` of dynamic shared
-    memory per CTA (``cudaOccupancyMaxActiveClusters``); raises with CUDA's
-    text when the query fails. Builds the kernel first if needed."""
-    return _build.max_active_clusters(_kernel_lib(), "fused_unet", smem_bytes)
+def fused_unet_max_active_clusters(smem_bytes: int, entry: str = "fused_unet") -> int:
+    """How many clusters of the U-Net pass kernel's ``entry`` (one per batch
+    row) fit on the current CUDA device at once with ``smem_bytes`` of
+    dynamic shared memory per CTA (``cudaOccupancyMaxActiveClusters``);
+    raises with CUDA's text when the query fails. Builds the kernel first if
+    needed."""
+    return _build.max_active_clusters(_kernel_lib(entry), entry, smem_bytes)
 
 
 class FusedUnet(nn.Module):
@@ -65,16 +80,24 @@ class FusedUnet(nn.Module):
     ``launches`` counts kernel launches and ``plain_calls`` calls of the
     plain version; callers reset them to 0 to count one run. ``cluster``
     holds the rank-major weights the kernel reads and its occupancy check.
+    ``entry`` is the kernel's entry: ``fused_unet_bf16`` for bf16 weights,
+    whose ``plain`` runs the backbone of ``plain_model`` (the U-Net with bf16
+    convs but its final 1x1 conv, ``models/bf16.py``).
     """
 
-    def __init__(self, packed: PackedUnet, batch_size: int):
+    def __init__(self, packed: PackedUnet, batch_size: int, weights_dtype=torch.float32):
         super().__init__()
         self.packed = packed
         self.model = packed.model
         self.batch_size = int(batch_size)
+        self.bf16 = is_bf16(weights_dtype)
+        self.plain_model = (bf16_conv_copy(self.model, round_final_1x1=False) if self.bf16
+                            else self.model)
+        self.entry = "fused_unet_bf16" if self.bf16 else "fused_unet"
         # the one-row-set plan: the meta table the kernel reads and its shared memory per CTA
         self.meta, self.smem_bytes = packed.metas[ROW_SETS], packed.chain_smem_bytes(ROW_SETS)
-        self.cluster = _build.ClusterLaunch(packed, "fused_unet", fused_unet_max_active_clusters)
+        self.cluster = _build.ClusterLaunch(
+            packed, self.entry, functools.partial(fused_unet_max_active_clusters, entry=self.entry))
         self.launches = 0
         self.plain_calls = 0
 
@@ -109,13 +132,14 @@ class FusedUnet(nn.Module):
     @torch.no_grad()
     def kernel(self, x: torch.Tensor, t: torch.Tensor, context: torch.Tensor,
                context_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """The conv backbone through ``csrc/fused_unet.cu``, one cluster of 8
-        CTAs per batch row, on the current stream; raises when the body
-        cannot be split over the cluster, its plan is more than a block may
-        take or no cluster fits on the card."""
+        """The conv backbone through ``csrc/fused_unet.cu``'s ``entry``, one
+        cluster of 8 CTAs per batch row, on the current stream; raises when
+        the body cannot be split over the cluster, its plan is more than a
+        block may take or no cluster fits on the card."""
         self._check(x, context)
         if not x.is_cuda or x.device != self.packed.weights.device:
-            raise ValueError("the fused_unet kernel takes tensors on the packed weights' CUDA device")
+            raise ValueError(f"the {self.entry} kernel takes tensors on the packed weights' CUDA "
+                             "device")
         weights = self.cluster.weights
         self.cluster.require_fit(self.smem_bytes, x.device)
         films = self.films(self.model.conditioning(t, context, context_mask)).contiguous()
@@ -127,11 +151,13 @@ class FusedUnet(nn.Module):
     def _launch(self, weights: torch.Tensor, films: torch.Tensor, x: torch.Tensor,
                 y: torch.Tensor) -> None:
         """The launch alone, on ``kernel``'s checked and prepared tensors:
-        the rank-major weights, films (n_res, B, max_c), x (B, H, D) and
+        the rank-major weights (the bf16 entry also reads their bf16 copy,
+        ``cluster.weights_bf16``), films (n_res, B, max_c), x (B, H, D) and
         y (B, H, unet_input_dim)."""
+        bf16 = [self.cluster.weights_bf16.data_ptr()] if self.bf16 else []
         _build.launch(
-            _kernel_lib(), "fused_unet",
-            weights.data_ptr(), self.meta.data_ptr(), self.smem_bytes,
+            _kernel_lib(self.entry), self.entry,
+            weights.data_ptr(), *bf16, self.meta.data_ptr(), self.smem_bytes,
             films.data_ptr(), x.data_ptr(), y.data_ptr(), self.batch_size,
             torch.cuda.current_stream(y.device).cuda_stream)
         self.launches += 1
@@ -139,17 +165,20 @@ class FusedUnet(nn.Module):
     @torch.no_grad()
     def plain(self, x: torch.Tensor, t: torch.Tensor, context: torch.Tensor,
               context_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """The same forward with the backbone through the ``TemporalUnet``
-        modules (``TemporalUnet.features``)."""
+        """The same forward with the backbone through ``plain_model``'s
+        ``TemporalUnet`` modules (``TemporalUnet.features``)."""
         self._check(x, context)
         self.plain_calls += 1
-        y = self.model.features(x, self.model.conditioning(t, context, context_mask))
+        y = self.plain_model.features(x, self.model.conditioning(t, context, context_mask))
         return self.final_1x1(y)
 
 
 def make_fused_unet(model_or_packed: Union[TemporalUnet, PackedUnet], batch_size: int,
-                    device=None) -> FusedUnet:
+                    weights_dtype=torch.float32, device=None) -> FusedUnet:
     """Build the U-Net forward for a fixed ``batch_size`` on ``device``
-    (``cuda`` unless given). A ``TemporalUnet`` is moved to the device and
+    (``cuda`` unless given), with float32 or bfloat16 conv weights in the
+    backbone (``weights_dtype``; any other type raises
+    ``NotImplementedError``). A ``TemporalUnet`` is moved to the device and
     packed."""
-    return FusedUnet(packed_on(model_or_packed, device), batch_size)
+    is_bf16(weights_dtype)
+    return FusedUnet(packed_on(model_or_packed, device), batch_size, weights_dtype)

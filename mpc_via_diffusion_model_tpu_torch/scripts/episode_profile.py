@@ -120,7 +120,8 @@ def build_copy(src: Path) -> Tuple[ctypes.CDLL, str]:
         raise RuntimeError(f"nvcc failed on {src / 'cfg_episode.cu'}:\n{proc.stdout}{proc.stderr}")
     lib = ctypes.CDLL(str(lib_path))
     pv, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.cfg_episode_launch.argtypes = [pv, pv, i, pv, pv, pv, pv, pv, pv, pv, pv, pv, i, i, i, i, f, f, pv]
+    lib.cfg_episode_launch.argtypes = [pv, pv, i, pv, pv, pv, pv, pv, pv, pv, pv, pv, i, i, i, i, f, f, i,
+                                      pv]
     lib.cfg_episode_launch.restype = i
     lib.cfg_episode_error_string.argtypes, lib.cfg_episode_error_string.restype = [i], ctypes.c_char_p
     for query in ("plant_dims", "consts_len"):

@@ -111,8 +111,9 @@ def test_bench_refuses_to_run_without_a_card_unless_asked():
 
 
 def test_main_cuts_the_best_of_with_bench_n_best(monkeypatch, capsys):
-    """``BENCH_N_BEST`` (chip_smoke.py's cut of the protocol) reaches ``run``
-    as ``n_best``; without it ``run`` gets bench.py's own counts."""
+    """``BENCH_SMOKE=1`` (chip_smoke.py's cut of the protocol) reaches
+    ``run`` as ``SMOKE_CUT``: one chain of 2 dependent episodes and 2
+    pipelined ones; without it ``run`` gets bench.py's own counts."""
     seen = []
     line = {"metric": "closed_loop_control_hz", "value": 1.0, "unit": "Hz", "vs_baseline": 0.01}
 
@@ -122,10 +123,11 @@ def test_main_cuts_the_best_of_with_bench_n_best(monkeypatch, capsys):
 
     monkeypatch.setattr(bench, "run", fake_run)
     monkeypatch.setattr(bench, "nvidia_smi", lambda: "NVIDIA H100, 700.00 W")
-    for name in ("BENCH_FUSED", "BENCH_BF16", "BENCH_N_BEST"):
+    for name in ("BENCH_FUSED", "BENCH_BF16", "BENCH_SMOKE"):
         monkeypatch.delenv(name, raising=False)
     bench.main()
-    monkeypatch.setenv("BENCH_N_BEST", "1")
+    monkeypatch.setenv("BENCH_SMOKE", "1")
     bench.main()
-    assert seen == [{}, {"n_best": 1}]
+    assert seen == [{}, {"n_best": 1, "n_rep": 2, "n_chain": 2}]
     assert bench.expected_calls("episode", n_best=1) == 21
+    assert bench.expected_calls("episode", **bench.SMOKE_CUT) == 5

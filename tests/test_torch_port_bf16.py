@@ -366,22 +366,39 @@ def test_bf16_episode_program_is_race_free_and_matches_plain(flagship, k, sel_h)
 
 
 def test_builders_refuse_other_weight_types(small):
-    """The CFG builders take float32 and bfloat16 only; the DDIM builders
-    still take float32 only (their bf16 instantiations are not ported)."""
+    """The CFG, DDIM and U-Net pass builders take float32 and bfloat16 only.
+    The DDIM builders' bf16 entries (ddim_chain_bf16, ddim_episode_bf16),
+    refused before they were ported, run the U-Net with bf16 convs: their
+    plain versions equal the fp32 wrappers' run on bf16_conv_copy."""
     tm = small[2]
+    ins, cs = _stats("torch")
+    sched = make_schedule("exponential", 25)
+    ddim_ep = lambda model, **kw: make_fused_ddim_episode(
+        model, sched, [23, 15, 7], ins, cs, cartpole_virtual_swingup(),
+        cartpole_virtual_collect_cost(), n_steps=2, device="cpu", **kw)
     for dtype in (torch.float16, torch.float64):
         with pytest.raises(NotImplementedError, match="float32 or bfloat16"):
             _chain(tm, 1, dtype)
         with pytest.raises(NotImplementedError, match="float32 or bfloat16"):
             _episode(tm, weights_dtype=dtype)
-    ins, cs = _stats("torch")
-    sched = make_schedule("exponential", 25)
-    with pytest.raises(NotImplementedError, match="float32 weights"):
-        make_fused_ddim_chain(tm, sched, [23], weights_dtype=torch.bfloat16, device="cpu")
-    with pytest.raises(NotImplementedError, match="float32 weights"):
-        make_fused_ddim_episode(tm, sched, [23], ins, cs, cartpole_virtual_swingup(),
-                                cartpole_virtual_collect_cost(), weights_dtype=torch.bfloat16,
-                                device="cpu")
+        with pytest.raises(NotImplementedError, match="float32 or bfloat16"):
+            make_fused_ddim_chain(tm, sched, [23], weights_dtype=dtype, device="cpu")
+        with pytest.raises(NotImplementedError, match="float32 or bfloat16"):
+            ddim_ep(tm, weights_dtype=dtype)
+    bf = torch.bfloat16
+    dchain = make_fused_ddim_chain(tm, sched, [23, 15, 7], 2, weights_dtype=bf, device="cpu")
+    dep = ddim_ep(tm, weights_dtype=bf)
+    assert (dchain.entry, dep.name) == ("ddim_chain_bf16", "ddim_episode_bf16")
+    rounded = bf16_conv_copy(tm)
+    rs = np.random.RandomState(3)
+    ctx = torch.from_numpy(rs.uniform(-1, 1, (2, 5)).astype(np.float32))
+    x_init = torch.from_numpy(rs.standard_normal((2, 16, 1)).astype(np.float32))
+    torch.testing.assert_close(dchain.plain(ctx, x_init), make_fused_ddim_chain(
+        rounded, sched, [23, 15, 7], 2, device="cpu").plain(ctx, x_init), rtol=0, atol=0)
+    noise = torch.from_numpy(rs.standard_normal(dep.noise_shape).astype(np.float32))
+    for got, want in zip(dep.plain(torch.from_numpy(X0), noise),
+                         ddim_ep(rounded).plain(torch.from_numpy(X0), noise)):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
     chain, ep = _chain(tm, 1), _episode(tm)
     assert (chain.entry, ep.name) == ("cfg_chain_bf16", "cfg_episode_bf16")
     assert (_chain(tm, 1, torch.float32).entry, _episode(tm, weights_dtype=torch.float32).name) \

@@ -41,7 +41,9 @@ from mpc_via_diffusion_model_tpu_torch.diffusion import GaussianDiffusion
 from mpc_via_diffusion_model_tpu_torch.dynamics import (Plant, cartpole_virtual_collect_cost,
                                                         cartpole_virtual_swingup,
                                                         theta_to_red_theta)
+from mpc_via_diffusion_model_tpu_torch.diffusion.distillation import make_student_ddim_sampler
 from mpc_via_diffusion_model_tpu_torch.models import TemporalUnet, from_flax_params, load_student
+from mpc_via_diffusion_model_tpu_torch.models.bf16 import bf16_conv_copy
 from mpc_via_diffusion_model_tpu_torch.ops import unet_pack as up
 from mpc_via_diffusion_model_tpu_torch.ops.fused_denoise import (make_fused_cfg_chain,
                                                                  make_fused_ddim_chain)
@@ -229,12 +231,26 @@ def test_ddim_wrappers_dispatch_and_refusals(models):
         ep.kernel(torch.from_numpy(X0), noise)
     with pytest.raises(ValueError, match="noise must be"):
         ep(torch.from_numpy(X0), noise[:, :, :-1])
-    for kw, match in ((dict(weights_dtype=torch.bfloat16), "float32 weights"),
-                      (dict(clip_denoised=False), "clip_denoised")):
-        with pytest.raises(NotImplementedError, match=match):
-            make_fused_ddim_chain(tm, sched, GRIDS[0], device="cpu", **kw)
-        with pytest.raises(NotImplementedError, match=match):
-            _port_episode(tm, GRIDS[0], **kw)
+    # the options refused before they were ported: bf16 weights and clip_denoised=False build
+    # their entries, whose plain versions are the sampler on the bf16 U-Net or without the clip;
+    # weight types other than float32 and bfloat16 stay refused
+    x0 = torch.from_numpy(X0)
+    for kw, entries in ((dict(weights_dtype=torch.bfloat16), ("ddim_chain_bf16", "ddim_episode_bf16")),
+                        (dict(clip_denoised=False), ("ddim_chain", "ddim_episode"))):
+        ch = make_fused_ddim_chain(tm, sched, GRIDS[1], n_samples=2, device="cpu", **kw)
+        ep_kw = _port_episode(tm, GRIDS[1], n_steps=1, **kw)
+        assert (ch.entry, ep_kw.name) == entries
+        model = bf16_conv_copy(tm) if kw.get("weights_dtype") == torch.bfloat16 else tm
+        sampler = make_student_ddim_sampler(sched, model, GRIDS[1], kw.get("clip_denoised", True))
+        x_init = 3 * torch.randn(ch.noise_shape, generator=torch.Generator().manual_seed(1))
+        torch.testing.assert_close(ch(ctx, x_init), sampler(ctx, x_init), rtol=0, atol=0)
+        nz = 3 * torch.randn(ep_kw.noise_shape, generator=torch.Generator().manual_seed(2))
+        assert all(torch.isfinite(v).all() for v in ep_kw(x0, nz))
+        assert (ep_kw.bf16, ep_kw.clip_denoised) == (ch.bf16, ch.clip_denoised)
+    with pytest.raises(NotImplementedError, match="float32 or bfloat16"):
+        make_fused_ddim_chain(tm, sched, GRIDS[0], weights_dtype=torch.float16, device="cpu")
+    with pytest.raises(NotImplementedError, match="float32 or bfloat16"):
+        _port_episode(tm, GRIDS[0], weights_dtype=torch.float16)
     other = Plant("pendulum", 2, 1, 0.05, lambda x, u: x)
     ins, cs = _stats("torch")
     for kw, match in ((dict(plant=other), "pendulum"),

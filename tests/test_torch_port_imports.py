@@ -39,7 +39,9 @@ for name in ('ops.fused_unet', 'ops.fused_episode', 'ops.fused_denoise', 'ops._b
              'scripts.scene_making_divergence', 'dynamics.arm', 'data.panda_stats',
              'data.panda_yardstick', 'scripts.panda_divergence', 'scripts.bench_panda_student',
              'scripts.plan_timing', 'data.panda_teacher_yardstick',
-             'scripts.panda_teacher_divergence', 'scripts.bench_highdim'):
+             'scripts.panda_teacher_divergence', 'scripts.bench_highdim',
+             'data.distilled_panda_yardstick', 'scripts.distill_panda',
+             'scripts.distill_panda_divergence'):
     assert pkg.__name__ + '.' + name in names, name
 import chip_smoke  # as a module: main() does not run
 loaded = [k for k, v in sys.modules.items() if v is not None
@@ -79,7 +81,8 @@ def test_port_sources_name_no_jax_import():
             "scene_making_yardstick.py", "onpolicy_scene_yardstick.py",
             "scene_making_divergence.py", "arm.py", "panda_stats.py", "panda_yardstick.py",
             "panda_divergence.py", "bench_panda_student.py", "plan_timing.py",
-            "panda_teacher_yardstick.py", "panda_teacher_divergence.py", "bench_highdim.py"} <= {
+            "panda_teacher_yardstick.py", "panda_teacher_divergence.py", "bench_highdim.py",
+            "distilled_panda_yardstick.py", "distill_panda.py", "distill_panda_divergence.py"} <= {
                 f.name for f in files}
     offenders = [str(f.relative_to(ROOT)) for f in files if pattern.search(f.read_text())]
     assert not offenders

@@ -650,36 +650,46 @@ def _final_1x1(W, m, y, Wc=None):
             + W[m[up.M_F1 + 1]:m[up.M_F1 + 1] + D])
 
 
-def _ddim_update(x, eps, coefs_si):
-    """The recon, clip and affine lines of the DDIM kernels."""
+def _ddim_update(x, eps, coefs_si, clip=True):
+    """The recon, clip (the launch's ``clip`` flag) and affine lines of the DDIM kernels."""
     sra, srm, c1, c2 = (np.float32(v) for v in coefs_si)
-    rec = np.clip(sra * x - srm * eps, -1.0, 1.0)
+    rec = sra * x - srm * eps
+    if clip:
+        rec = np.clip(rec, -1.0, 1.0)
     return c1 * rec + c2 * x
 
 
-def emulate_fused_unet_kernel(packed, weights, films, x, n_ranks=up.CLUSTER):
+def _bf16_buffer(weights_bf16):
+    """The bf16 copy of the buffer a bf16 entry reads, as float32 numpy (None for fp32)."""
+    return None if weights_bf16 is None else weights_bf16.float().cpu().numpy()
+
+
+def emulate_fused_unet_kernel(packed, weights, films, x, n_ranks=up.CLUSTER, weights_bf16=None):
     """Runs ``csrc/fused_unet.cu``'s program in numpy: per batch row one
     cluster of ``n_ranks`` CTAs (``_Cluster``, NaN-filled images of the
     pass's one-row-set plan), a cluster barrier once every CTA has started, the cluster
     body on the row (``_emulate_cluster_body``, one row-set, FiLM row b of
     films (n_res, B, max_c) in device memory), rank 0 reading y out, and a
     cluster barrier before exit. ``weights`` is the buffer the kernel reads
-    (``FusedUnet.cluster.weights``). Returns y (B, H, dims[1]) and each
-    row's cluster-barrier count."""
+    (``FusedUnet.cluster.weights``), ``weights_bf16`` its bf16 copy, which
+    the bf16 entry reads beside it (``cluster.weights_bf16``). Returns y (B,
+    H, dims[1]) and each row's cluster-barrier count."""
     cluster_w = weights.cpu().numpy()
+    wc = _bf16_buffer(weights_bf16)
     m = packed.metas[1].cpu().numpy()
     ys, barriers = [], []
     for b in range(x.shape[0]):
         cl = _Cluster(packed.chain_smem_bytes(1) // 4, n_ranks)
         cl.barrier()
         ys.append(_emulate_cluster_body(cluster_w, m, cl, 1, lambda r, rr, sl: films[rr][[b]][:, sl],
-                                        x[b:b + 1], next_pass=False)[0])
+                                        x[b:b + 1], next_pass=False, Wc=wc)[0])
         cl.barrier()
         barriers.append(cl.barriers)
     return np.stack(ys), barriers
 
 
-def emulate_ddim_chain_kernel(packed, weights, films, x_init, coefs, n_ranks=up.CLUSTER):
+def emulate_ddim_chain_kernel(packed, weights, films, x_init, coefs, n_ranks=up.CLUSTER,
+                              weights_bf16=None, clip=True):
     """Runs ``csrc/ddim_chain.cu``'s program in numpy: per sample one
     cluster of ``n_ranks`` CTAs (``_Cluster``, NaN-filled images of the
     chain's one-row-set plan), a cluster barrier once every CTA has started, then per
@@ -688,10 +698,13 @@ def emulate_ddim_chain_kernel(packed, weights, films, x_init, coefs, n_ranks=up.
     max_c) table in device memory), the final 1x1 conv and the DDIM lines,
     with the kernel's barrier when the pass ended in a buffer the next one
     pushes into; a cluster barrier before exit. ``weights`` is the buffer
-    the kernel reads (``FusedDdimChain.cluster.weights``). Returns the output
-    (B, H, D) and each sample's cluster-barrier count."""
+    the kernel reads (``FusedDdimChain.cluster.weights``), ``weights_bf16``
+    its bf16 copy, which the bf16 entry reads beside it; ``clip`` the
+    launch's clip flag. Returns the output (B, H, D) and each sample's
+    cluster-barrier count."""
     W = packed.weights.cpu().numpy()
     cluster_w = weights.cpu().numpy()
+    wc = _bf16_buffer(weights_bf16)
     m = packed.metas[1].cpu().numpy()
     out = np.empty_like(x_init)
     barriers = []
@@ -701,24 +714,26 @@ def emulate_ddim_chain_kernel(packed, weights, films, x_init, coefs, n_ranks=up.
         cl.barrier()
         for si in range(coefs.shape[0]):
             rows = films[si][:, [sample]]  # (n_res, 1, max_c)
-            y = _emulate_cluster_body(cluster_w, m, cl, 1, lambda r, rr, sl: rows[rr][:, sl], xs[None])
-            xs = _ddim_update(xs, _final_1x1(W, m, y)[0], coefs[si])
+            y = _emulate_cluster_body(cluster_w, m, cl, 1, lambda r, rr, sl: rows[rr][:, sl],
+                                      xs[None], Wc=wc)
+            xs = _ddim_update(xs, _final_1x1(W, m, y, wc)[0], coefs[si], clip)
         cl.barrier()
         out[sample] = xs
         barriers.append(cl.barriers)
     return out, barriers
 
 
-def _cfg_update(x, eps, coefs_si, noise_si, w):
-    """The recon, CFG, clip and posterior lines of the CFG kernels."""
+def _cfg_update(x, eps, coefs_si, noise_si, w, clip=True):
+    """The recon, CFG, clip (the launch's ``clip`` flag) and posterior lines of the CFG kernels."""
     sra, srm, c1, c2, sg = (np.float32(v) for v in coefs_si)
-    rec = np.clip(np.float32(1.0 + w) * (sra * x - srm * eps[0]) - np.float32(w) * (sra * x - srm * eps[1]),
-                  -1.0, 1.0)
+    rec = np.float32(1.0 + w) * (sra * x - srm * eps[0]) - np.float32(w) * (sra * x - srm * eps[1])
+    if clip:
+        rec = np.clip(rec, -1.0, 1.0)
     return (c1 * rec + c2 * x) + sg * noise_si
 
 
 def emulate_cfg_chain_kernel(packed, weights, films, noise_tab, coefs, w, n_ranks=up.CLUSTER,
-                             weights_bf16=None, dtype=np.float32):
+                             weights_bf16=None, dtype=np.float32, clip=True):
     """Runs ``csrc/cfg_chain.cu``'s program in numpy: per sample one cluster
     of ``n_ranks`` CTAs (``_Cluster``, NaN-filled images of the chain's
     two-row-set plan), a cluster barrier once every CTA has started, then per step the
@@ -731,11 +746,11 @@ def emulate_cfg_chain_kernel(packed, weights, films, noise_tab, coefs, w, n_rank
     which the bf16 instantiation reads beside it (``cluster.weights_bf16``).
     ``dtype`` is the images' and the arithmetic's type: float64 runs the
     program with fp32 sums taken exactly enough that no bf16 rounding of an
-    operand depends on their order. Returns the output (B, H, D) and each
-    sample's cluster-barrier count."""
+    operand depends on their order. ``clip`` is the launch's clip flag.
+    Returns the output (B, H, D) and each sample's cluster-barrier count."""
     W = packed.weights.cpu().numpy()
     cluster_w = weights.cpu().numpy()
-    wc = None if weights_bf16 is None else weights_bf16.float().cpu().numpy()
+    wc = _bf16_buffer(weights_bf16)
     m = packed.metas[2].cpu().numpy()
     n_total, b_all = noise_tab.shape[0] - 1, noise_tab.shape[1]
     out = np.empty((b_all,) + noise_tab.shape[2:], dtype)
@@ -748,7 +763,8 @@ def emulate_cfg_chain_kernel(packed, weights, films, noise_tab, coefs, w, n_rank
             rows = films[si][:, [sample, b_all + sample]]  # (n_res, 2, max_c)
             y = _emulate_cluster_body(cluster_w, m, cl, 2, lambda r, rr, sl: rows[rr][:, sl],
                                       np.stack([xs, xs]), Wc=wc)
-            xs = _cfg_update(xs, _final_1x1(W, m, y, wc), coefs[si], noise_tab[si, sample], w)
+            xs = _cfg_update(xs, _final_1x1(W, m, y, wc), coefs[si], noise_tab[si, sample], w,
+                             clip)
         cl.barrier()
         out[sample] = xs
         barriers.append(cl.barriers)
@@ -758,7 +774,8 @@ def emulate_cfg_chain_kernel(packed, weights, films, noise_tab, coefs, w, n_rank
 def emulate_cfg_episode_kernel(packed, weights, t_embs, noise, coefs, consts, x0, w, n_candidates,
                                selection_horizon, n_steps, n_ranks=up.CLUSTER, weights_bf16=None,
                                plant_step=_swingup_step,
-                               select=(_quadratic_select, _quadratic_terminal), condition=None):
+                               select=(_quadratic_select, _quadratic_terminal), condition=None,
+                               clip=True):
     """Runs ``csrc/cfg_episode.cu``'s program in numpy: ``_emulate_episode``
     with the two FiLM groups, and for every chain step the cluster body
     (``_emulate_cluster_body``) on the images of one cluster of ``n_ranks``
@@ -770,19 +787,20 @@ def emulate_cfg_episode_kernel(packed, weights, t_embs, noise, coefs, consts, x0
     ``weights_bf16`` its bf16 copy, which the bf16 instantiation reads beside
     it (``cluster.weights_bf16``); ``plant_step``, ``select`` and
     ``condition`` the plant's device function, the scorer and the
-    state-to-condition map (``_emulate_episode``). Returns the tracks, the
-    choices and the number of cluster barriers."""
+    state-to-condition map (``_emulate_episode``); ``clip`` the launch's clip
+    flag. Returns the tracks, the choices and the number of cluster
+    barriers."""
     n_total = noise.shape[1] - 1
     m = packed.metas[2].cpu().numpy()
     cluster_w = weights.cpu().numpy()
-    wc = None if weights_bf16 is None else weights_bf16.float().cpu().numpy()
+    wc = _bf16_buffer(weights_bf16)
     cl = _Cluster(packed.episode_smem_bytes(n_candidates, 2) // 4, n_ranks)
     film = film_from_image(cl, m, 2, 2)
 
     def step(W, m, smem, films, x, si_step, si, k):
         _write_films_rank(cl, m, films)
         y = _emulate_cluster_body(cluster_w, m, cl, 2, film, np.stack([x, x]), Wc=wc)
-        return _cfg_update(x, _final_1x1(W, m, y, wc), coefs[si], noise[si_step, si, k], w)
+        return _cfg_update(x, _final_1x1(W, m, y, wc), coefs[si], noise[si_step, si, k], w, clip)
 
     out = _emulate_episode(packed, t_embs, consts, x0, n_candidates, selection_horizon, n_steps,
                            2, lambda s: noise[s, n_total], step, plant_step, select, condition)
@@ -811,7 +829,7 @@ def _eps_in_turns(W, cluster_w, m, cl, film_of, x):
 
 
 def emulate_cfg_chain_turns_kernel(packed, weights, films, noise_tab, coefs, w,
-                                   n_ranks=up.CLUSTER):
+                                   n_ranks=up.CLUSTER, clip=True):
     """Runs ``csrc/cfg_chain.cu``'s program in turns (``cfg_chain_turns``) in
     numpy: per sample one cluster of ``n_ranks`` CTAs (``_Cluster``,
     NaN-filled images of the plan in turns), a cluster barrier once every
@@ -819,8 +837,9 @@ def emulate_cfg_chain_turns_kernel(packed, weights, films, noise_tab, coefs, w,
     pass one after the other (``_eps_in_turns``: FiLM rows ``sample`` and
     ``B + sample`` of the step's (n_res, 2B, max_c) table in device memory),
     each with the kernel's barrier when it ended in a buffer the next pass
-    pushes into, then the CFG lines; a cluster barrier before exit. Returns
-    the output (B, H, D) and each sample's cluster-barrier count."""
+    pushes into, then the CFG lines (``clip`` the launch's clip flag); a
+    cluster barrier before exit. Returns the output (B, H, D) and each
+    sample's cluster-barrier count."""
     W = packed.weights.cpu().numpy()
     cluster_w = weights.cpu().numpy()
     m = packed.metas[up.TURNS].cpu().numpy()
@@ -835,7 +854,7 @@ def emulate_cfg_chain_turns_kernel(packed, weights, films, noise_tab, coefs, w,
             rows = films[si][:, [sample, b_all + sample]]  # (n_res, 2, max_c)
             eps = _eps_in_turns(W, cluster_w, m, cl,
                                 lambda g: (lambda r, rr, sl: rows[rr][[g]][:, sl]), xs)
-            xs = _cfg_update(xs, eps, coefs[si], noise_tab[si, sample], w)
+            xs = _cfg_update(xs, eps, coefs[si], noise_tab[si, sample], w, clip)
         cl.barrier()
         out[sample] = xs
         barriers.append(cl.barriers)
@@ -846,7 +865,7 @@ def emulate_cfg_episode_turns_kernel(packed, weights, t_embs, noise, coefs, cons
                                      n_candidates, selection_horizon, n_steps, n_ranks=up.CLUSTER,
                                      plant_step=_swingup_step,
                                      select=(_quadratic_select, _quadratic_terminal),
-                                     condition=None):
+                                     condition=None, clip=True):
     """Runs ``csrc/cfg_episode.cu``'s program in turns (``cfg_episode_panda``)
     in numpy: ``_emulate_episode`` on the plan in turns with the two FiLM
     groups, on one cluster of ``n_ranks`` CTAs that lives through the whole
@@ -857,8 +876,8 @@ def emulate_cfg_episode_turns_kernel(packed, weights, t_embs, noise, coefs, cons
     table in each CTA's image), then the CFG lines. ``noise`` has the
     wrapper's kernel layout (n_steps, n_total + 1, K, H, D) with row n_total
     = x_T; ``plant_step``, ``select`` and ``condition`` are
-    ``_emulate_episode``'s. Returns the tracks, the choices and the number
-    of cluster barriers."""
+    ``_emulate_episode``'s, ``clip`` the launch's clip flag. Returns the
+    tracks, the choices and the number of cluster barriers."""
     n_total = noise.shape[1] - 1
     m = packed.metas[up.TURNS].cpu().numpy()
     cluster_w = weights.cpu().numpy()
@@ -867,7 +886,7 @@ def emulate_cfg_episode_turns_kernel(packed, weights, t_embs, noise, coefs, cons
     def step(W, m_, smem, films, x, si_step, si, k):
         _write_films_rank(cl, m, films)
         eps = _eps_in_turns(W, cluster_w, m, cl, lambda g: film_from_image(cl, m, 1, 2, g), x)
-        return _cfg_update(x, eps, coefs[si], noise[si_step, si, k], w)
+        return _cfg_update(x, eps, coefs[si], noise[si_step, si, k], w, clip)
 
     cl.barrier()
     out = _emulate_episode(packed, t_embs, consts, x0, n_candidates, selection_horizon, n_steps,
@@ -881,7 +900,7 @@ def emulate_ddim_episode_kernel(packed, weights, t_embs, noise, coefs, consts, x
                                 selection_horizon, n_steps, n_ranks=up.CLUSTER,
                                 plant_step=_swingup_step, select=(_quadratic_select,
                                                                   _quadratic_terminal),
-                                draw=None, condition=None):
+                                draw=None, condition=None, weights_bf16=None, clip=True):
     """Runs ``csrc/ddim_episode.cu``'s program in numpy: ``_emulate_episode``
     with the one FiLM group, on one cluster of ``n_ranks`` CTAs that lives
     through the whole episode (a cluster barrier once every CTA has started,
@@ -895,16 +914,19 @@ def emulate_ddim_episode_kernel(packed, weights, t_embs, noise, coefs, consts, x
     scorer and the state-to-condition map (``_emulate_episode``). With ``draw(rank, step)`` -> (K, H, D) in
     place of ``noise`` (None), every rank draws each replan's noise itself,
     as the in-kernel draw does, and the draws of the ranks must be equal.
-    Returns the tracks, the choices and the number of cluster barriers."""
+    ``weights_bf16`` is the bf16 copy of ``weights`` the bf16 entries read
+    beside it, ``clip`` the launch's clip flag. Returns the tracks, the
+    choices and the number of cluster barriers."""
     m = packed.metas[1].cpu().numpy()
     cluster_w = weights.cpu().numpy()
+    wc = _bf16_buffer(weights_bf16)
     cl = _Cluster(packed.episode_smem_bytes(n_candidates, 1) // 4, n_ranks)
     film = film_from_image(cl, m, 1, 1)
 
     def step(W, m, smem, films, x, si_step, si, k):
         _write_films_rank(cl, m, films)
-        y = _emulate_cluster_body(cluster_w, m, cl, 1, film, x[None])
-        return _ddim_update(x, _final_1x1(W, m, y)[0], coefs[si])
+        y = _emulate_cluster_body(cluster_w, m, cl, 1, film, x[None], Wc=wc)
+        return _ddim_update(x, _final_1x1(W, m, y, wc)[0], coefs[si], clip)
 
     def first_plans(s):
         if draw is None:
