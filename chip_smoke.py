@@ -13,10 +13,11 @@ the LMPC parity workload's in ``artifacts/flagship_lmpc/`` (``ema_params.pkl``,
 ``artifacts/flagship_quadrotor/`` (``ema_params.pkl``, ``dataset.npz``), the panda student in
 ``artifacts/onpolicy_panda/student_1eval.pkl``, its CFG teacher in
 ``artifacts/flagship_panda_rbd/ema_params.pkl`` (with its ``dataset.npz``), the distilled
-panda student in ``artifacts/distilled_panda/student_3eval.pkl``, and writes nothing but
-the kernel builds under ``build/torch_kernels/`` and, for a moment, phase 26's checkpoint under
+panda student in ``artifacts/distilled_panda/student_3eval.pkl``, the cart-pole's 3-eval
+student in ``artifacts/distilled/`` (``student_3eval.pkl``, ``report.json``), and writes nothing
+but the kernel builds under ``build/torch_kernels/`` and, for a moment, phase 26's checkpoint under
 ``build/chip_smoke_train/`` and phases 41-42's student and data under
-``build/chip_smoke_making/``. Phases,
+``build/chip_smoke_making/`` and phase 54's report under ``build/chip_smoke_fleet/``. Phases,
 each printing one line with its own seconds:
 
 1. device: the card's name, the device count, and nvidia-smi's name and
@@ -35,7 +36,7 @@ each printing one line with its own seconds:
    CFG episode's linear cart-pole entry (``cfg_episode_lmpc``) at K = 1 and
    K = 8 on the LMPC model, its quadrotor entry (``cfg_episode_quadrotor``)
    at K = 1 and 16 on the scene student, and the DDIM episode's quadrotor
-   entry at K = 1 and 16; and the conv
+   entry (and its bf16 entries) at K = 1 and 16; and the conv
    kernel's registers and spills (one CTA per
    GroupNorm group and batch chunk on ``mma.sync`` tf32 tiles in 3xTF32,
    one instantiation per accumulator tiles a warp holds: 1, 2, 4, 8).
@@ -121,8 +122,8 @@ The fused conv block and the port's ``bench_kernels``, the path that runs it:
     swinging left, the report's modality; the horizon cost printed beside
     the report's and the parity against that expert's tracks beside the
     report's parity. Then the same 10 seeds through the CFG episode
-    kernel (``flagship_parity.run_episode_quality``, 10 launches and nothing
-    else) under the same gate.
+    kernel as one fleet (``flagship_parity.run_episode_quality``, one launch
+    and nothing else since phases 52-54; 10 before) under the same gate.
 18. timing of the conv kernel at the six shapes: the launch alone as the
     device sees it (100 launches of ``FusedConv1dGnMish._launch`` on
     prepared tensors captured into a CUDA graph, the graph replayed between
@@ -150,7 +151,8 @@ and the port's bench:
     and their differences printed; K = 4 over 8 replans prints both
     versions' choices.
 20. the flagship's quality through the bf16 episode, phase 17's protocol
-    over 3 seeds: recorded, not gated (no bf16 report exists).
+    over 3 seeds as one fleet (one launch): recorded, not gated (no bf16
+    report exists).
 21. the port's bench: ``python3 -m mpc_via_diffusion_model_tpu_torch.bench``
     in a process of its own with ``bench.py``'s protocol cut
     (``BENCH_SMOKE=1``, the bench's ``SMOKE_CUT``: one sustained chain of 2
@@ -172,10 +174,11 @@ at horizon 8, context 4, against its LQR expert; the committed weights and
     version's best two candidate scores are more than 1e-5 apart, each
     near-tie printed with both scores and both choices); one launch each.
 23. LMPC parity: ``lmpc_parity``'s episode route over the 16 sweep states,
-    50 replans each. n = 1 (16 launches and nothing else): every track
+    50 replans each. n = 1 (one fleet launch over the 16 states since phases 52-54, 16
+    launches before, and nothing else): every track
     finite, each state's u_l1 within 1e-3 + 1% of the JAX package's loop on
     the CPU (``LMPC_U_L1``) and the mean within 1% of its mean, printed
-    beside it and ``report.json``'s. K = 8 (one launch per state; reported,
+    beside it and ``report.json``'s. K = 8 (one fleet launch; reported,
     not gated; over the first 2 states, to keep the script within its time):
     the same numbers beside the report's (over 16 states), the choices
     other than candidate 0, and the spread of the 8 candidates' first
@@ -280,7 +283,8 @@ safety-first selection cost (``scripts/quadrotor_task.py``) and
     twin's table, gated as phase 32; one seed twice gives the same bits, two
     seeds different tracks.
 34. quadrotor quality: 16 of the 64 eval starts x 60 replans at K = 1
-    (staged) and K = 8 (in-kernel draw), ``track_metrics`` printed (no
+    (staged) and K = 8 (in-kernel draw), each K's starts as one fleet (one
+    launch since phases 52-54), ``track_metrics`` printed (no
     track may diverge), ms per replan, and the sustained rate of one
     600-replan episode per launch at K = 1 (staged and drawn) and K = 8.
     The full 64-start protocol is ``scripts/bench_quadrotor_student.py``'s.
@@ -306,7 +310,8 @@ scene 0 of ``sample_scenes(1, seed=99)``, T = 25 + 5, w = 0.01:
     it over the first 10 replans of phase 35's K = 1 noise (10 launches)
     against the loop through the plain chain and against that episode.
 37. scene bench: ``scripts/bench_scene_student.py``'s K = 1 row, its 16
-    starts x 60 replans through the episode (16 launches), its metrics
+    starts x 60 replans through the episode as one fleet (one launch since phases 52-54, 16
+    before), its metrics
     within ``data/scene_yardstick.py``'s bounds; its pipelined (3 episodes)
     and sustained (3 chained episodes) rates. The K = 16 rows are the
     bench's.
@@ -379,7 +384,8 @@ phases 46-48):
     rest 1e-3).
 45. panda episode: ``ddim_episode_panda`` (``PandaRbd`` and ``PandaContext`` of
     ``plants.cuh`` inside the DDIM episode) at K = 1 and at K = 4 with selection horizon 16,
-    one launch per episode over the 10 episodes (20 launches), their mean costs within the
+    the 10 episodes of each K as one fleet (2 launches since phases 52-54; 20 before), their
+    mean costs within the
     yardstick's bounds; against the plain twin (``panda_rbd_unrolled``) over 10 replans at
     K = 1 and 2 at K = 4 on the same staged noise (phase 32's gate); K = 4 at selection
     horizon 1 beside 16 for the time of the scorer's serial arm steps.
@@ -408,7 +414,8 @@ row-set's activations; 158,348 B per CTA for the chain, 174,928 B for the episod
     (one launch) on the same noise, within 1.6e-5 (controls in normalized units), the counts
     set to 0 just before and read just after.
 48. teacher quality: 10 episodes of the yardstick's first 20 replans through the drawing entry
-    (10 launches, the counts set to 0 just before and read just after), each seeded by
+    as one fleet (one launch since phases 52-54; 10 before; the counts set to 0 just before and
+    read just after), each seeded by
     ``seed_from_generator``; their mean cost within ``data/panda_teacher_yardstick.py``'s bounds
     of the JAX package's on the CPU, and each episode within the yardstick's paired bound of the
     port's plain episode on the CPU on the same seed; the same path at w = 0 on the first seed,
@@ -448,6 +455,28 @@ in kernels 1, 3, 4 and 5), carried by the panda arm's distillation recipe:
     the teacher on its dataset (batch 256), each loss within the
     yardstick's relative bound of the JAX package's.
 
+The episodes' grid axis (ROADMAP B5: a fleet of independent episodes as one launch, the JAX
+package's ``jax.vmap`` of an episode kernel) and the scripts that run it:
+
+52. kernel 5's fleet: every DDIM entry (the swing-up's, the quadrotor's staged and drawing, the
+    panda's, each fp32 and bf16) as a fleet of 2 x (its clusters that fit) + 1 episodes, so that
+    it crosses two waves, of 3 replans at K = 1 on distinct starts and draws (the bf16 entries
+    16 replans of one-step chains on [0], phase 49's protocol), and the swing-up's at K = 4:
+    exactly one launch per fleet; every episode bit-equal to its own single-episode launch (or,
+    where two single launches differ, within their spread); the singles of episodes 0 and 1
+    swapped, the control, must fail that gate; the first and last episodes against the plain
+    episode (``episode_gate``; the bf16 entries by ``bf16_nearest_gate``, which their fp32
+    entries on the same inputs must fail).
+53. kernel 3's fleet: every CFG entry (the swing-up's fp32 and bf16 at N = 16, the linear
+    cart-pole's, the scene quadrotor's, the panda's staged and drawing in turns) at (its
+    clusters that fit) + 1 episodes of 2 replans, gated as phase 52's (the bf16 entry's plain
+    gate phase 19's full-depth bound).
+54. the scripts: ``scripts/bench_throughput.py`` in process at its cut (``SMOKE_CUT``): the
+    JAX script's seven rows, the serving row's 64 episodes one fleet launch per run, its first
+    episode bit-equal to the same episode launched alone; ``scripts/bench_quadrotor_student.py
+    --fleet 64 --fleet-only`` (the quality rows cut): 64 episodes of 60 replans, one launch
+    per run, the aggregate control steps per second.
+
 It then prints the ``training`` JSON line, the ``ilqr`` JSON line, the
 ``distill`` JSON line, the ``kernels`` JSON line (rows 1 and 3 carry their bf16
 entries under ``bf16``, row 1 its H = 8 times under ``h8``, rows 3, 4 and 5 their
@@ -465,7 +494,10 @@ its own as a further entry of kernel 5, phases 43-45, row 1 its panda times in t
 of its own as a further entry of kernel 3, its draw under ``inkernel_noise``, phases 46-48;
 rows 2, 5 and ``ddim_episode_panda`` their bf16 entries under ``bf16`` and row 4 its panda bf16
 entry under ``panda_bf16`` with the recipe's rows under ``distill_panda``, and rows 1, 3, 4 and 5
-their clip-off runs under ``clip_off``, phases 49-51), the
+their clip-off runs under ``clip_off``, phases 49-51; rows 3 and 5 and every row or record of
+an entry of theirs the entry's fleet under ``fleet``, and ``ddim_episode_quadrotor`` its bf16
+entries under ``bf16`` and ``inkernel_noise_bf16``, phases 52-53), the ``throughput`` JSON line
+(phase 54), the
 ``guided`` JSON line (phases 38-40), the ``making`` JSON line
 (phases 41-42), the
 ``phase_seconds`` line (each phase's seconds), the nvidia-smi line and,
@@ -546,13 +578,14 @@ from mpc_via_diffusion_model_tpu_torch.ops.fused_episode import (
     cfg_episode_max_active_clusters, cfg_episode_panda_draw_max_active_clusters,
     cfg_episode_panda_max_active_clusters, cfg_episode_quadrotor_max_active_clusters,
     ddim_episode_max_active_clusters, ddim_episode_panda_max_active_clusters,
-    ddim_episode_quadrotor_draw_max_active_clusters, ddim_episode_quadrotor_max_active_clusters,
-    make_fused_cfg_episode, make_fused_ddim_episode)
+    ddim_episode_quadrotor_max_active_clusters,
+    FusedCfgEpisode, make_fused_cfg_episode, make_fused_ddim_episode)
 from mpc_via_diffusion_model_tpu_torch.ops.fused_unet import (fused_unet_max_active_clusters,
                                                               make_fused_unet)
 from mpc_via_diffusion_model_tpu_torch.ops.unet_pack import CLUSTER, TURNS, cluster_split, pack_unet
 from mpc_via_diffusion_model_tpu_torch.scripts import (bench_highdim, bench_kernels,
                                                        bench_panda_student,
+                                                       bench_quadrotor_student, bench_throughput,
                                                        bench_scene_student,
                                                        conv_timing, distill_divergence,
                                                        distill_panda, distill_panda_divergence,
@@ -1402,14 +1435,18 @@ def quadrotor_phases(dev) -> dict:
     t0 = time.perf_counter()
     q1 = qep(GRID, 1, N_Q_STEPS)
     q8 = qep(GRID, K8, N_Q_STEPS, inkernel_noise=True)
-    tracks = {1: [], K8: []}
-    for i in range(N_Q_STARTS):
-        g = torch.Generator(device=dev).manual_seed(340 + i)
-        tracks[1].append(q1(starts[i], torch.randn(q1.noise_shape, generator=g, device=dev))[0])
-        tracks[K8].append(q8(starts[i], philox.seed_from_generator(
-            torch.Generator().manual_seed(340 + i)).to(dev))[0])
-    metrics = {k: quadrotor_task.track_metrics(torch.stack(v).cpu().numpy())
-               for k, v in tracks.items()}
+    # each K's starts as one fleet (one launch since phases 52-54), each start's draw as before
+    nz = torch.stack([torch.randn(q1.noise_shape, device=dev,
+                                  generator=torch.Generator(device=dev).manual_seed(340 + i))
+                      for i in range(N_Q_STARTS)])
+    sd = torch.stack([philox.seed_from_generator(torch.Generator().manual_seed(340 + i))
+                      for i in range(N_Q_STARTS)]).to(dev)
+    reset(q1, q8)
+    tracks = {1: q1.fleet(starts[:N_Q_STARTS].contiguous(), nz)[0],
+              K8: q8.fleet(starts[:N_Q_STARTS].contiguous(), sd)[0]}
+    if counts(q1, q8) != [(1, 0), (1, 0)]:
+        raise RuntimeError(f"quadrotor quality: counts {counts(q1, q8)}, expected one fleet each")
+    metrics = {k: quadrotor_task.track_metrics(v.cpu().numpy()) for k, v in tracks.items()}
     if any("diverged_fraction" in m for m in metrics.values()):
         raise RuntimeError(f"quadrotor quality: diverged tracks {metrics}")
     rates = {}
@@ -1598,18 +1635,18 @@ def scene_phases(dev) -> dict:
         f"({loop_hz:.1f} replans/s by the host clock), against the loop through the plain chain "
         f"and against the K=1 episode on the same noise ({vs_loop:.3e}); launches {c_launches}")
 
-    # 37. the bench's K = 1 row: its 16 starts x 60 replans through the episode within the
-    # yardstick's bounds, its pipelined and sustained rates (cut)
+    # 37. the bench's K = 1 row: its 16 starts x 60 replans through the episode as one fleet
+    # within the yardstick's bounds, its pipelined and sustained rates (cut)
     t0 = time.perf_counter()
     n = sys_.N_STARTS
     noise = bss.start_noise(n, sys_.N_STEPS, 1, dev)
     q1 = bss.episode(spacked, sc0, 1, sys_.N_STEPS, dev)
     reset(q1)
-    tracks = torch.stack([q1(starts[i], noise[i])[0] for i in range(n)])
+    tracks = q1.fleet(starts[:n].contiguous(), noise)[0]
     torch.cuda.synchronize()
     q_launches = counts(q1)
-    if q_launches != [(n, 0)]:
-        raise RuntimeError(f"scene bench row: counts {q_launches}, expected [({n}, 0)]")
+    if q_launches != [(1, 0)]:
+        raise RuntimeError(f"scene bench row: counts {q_launches}, expected one fleet launch")
     metrics = quadrotor_task.track_metrics(tracks.cpu().numpy(), centers=sc0.centers.cpu(),
                                            radii=sc0.radii.cpu())
     if not sys_.within(metrics, 1):
@@ -2314,18 +2351,19 @@ def panda_phases(dev) -> dict:
         "host clock")
 
     # 45. the episode kernel's panda entry: K = 1 and K = 4 (sel_h 16) over the 10 episodes, each
-    # one launch, then against its plain twin, and the scorer's serial arm steps
+    # K's as one fleet launch, then against its plain twin, and the scorer's serial arm steps
     t0 = time.perf_counter()
     ep = lambda k, sel_h, n: bench_panda_student.episode(student, k, sel_h, n, dev)
     ep1, ep4 = ep(1, None, pys.N_STEPS), ep(4, 16, pys.N_STEPS)
     noise4 = bench_panda_student.staged_noise(pys.N_SEEDS, pys.N_STEPS, 4, dev, 46)
     reset(ep1, ep4)
-    out1 = [ep1.kernel(x0, noise1[i]) for i in range(pys.N_SEEDS)]
-    out4 = [ep4.kernel(x0, noise4[i]) for i in range(pys.N_SEEDS)]
+    x0s = x0[None].expand(pys.N_SEEDS, -1).contiguous()
+    out1 = list(zip(*ep1.fleet_kernel(x0s, noise1[:pys.N_SEEDS].contiguous())))
+    out4 = list(zip(*ep4.fleet_kernel(x0s, noise4)))
     torch.cuda.synchronize()
     ep_launches = counts(ep1, ep4)
-    if ep_launches != [(pys.N_SEEDS, 0), (pys.N_SEEDS, 0)]:
-        raise RuntimeError(f"panda episode: counts {ep_launches}, expected {pys.N_SEEDS} each")
+    if ep_launches != [(1, 0), (1, 0)]:
+        raise RuntimeError(f"panda episode: counts {ep_launches}, expected one fleet each")
     ecosts1 = np.array([float(o[2].double().sum()) for o in out1])
     ecosts4 = np.array([float(o[2].double().sum()) for o in out4])
     if not all(torch.isfinite(o[0]).all() for o in out1 + out4):
@@ -2475,14 +2513,23 @@ def bf16_nearest_gate(got: torch.Tensor, plains: dict, wrong=PC_BF16_WRONG,
     (two correct plain versions part by ~2.7e-4 per sample): the elementwise median |got -
     plain| at most twice the plain versions' own (bf16 against bf16_f64), smaller than to each
     known-wrong function's plain version (``wrong``, PC_BF16_WRONG by default), and every
-    element within ``max_abs`` (ONE_PASS_MAX by default). Returns the readings and
+    element within ``max_abs`` (ONE_PASS_MAX by default). Where ``plains`` also holds
+    ``bf16_cpu`` (the same function through the CPU's fp32 convs, a third order of sums), the
+    first clause reads the three correct versions alike: the median to the nearest of them
+    at most twice the largest median between two of them. Returns the readings and
     ``passed``."""
     med = lambda a, b: float((a.double() - b.double()).abs().median())
     dist = {name: med(got, want) for name, want in plains.items()}
-    g = {"median_to": dist, "spread": med(plains["bf16_f64"], plains["bf16"]),
+    right = [k for k in ("bf16", "bf16_f64", "bf16_cpu") if k in plains]
+    if "bf16_cpu" in plains:
+        spread = max(med(plains[a], plains[b]) for i, a in enumerate(right) for b in right[i + 1:])
+        nearest = min(dist[k] for k in right)
+    else:
+        spread, nearest = med(plains["bf16_f64"], plains["bf16"]), dist["bf16"]
+    g = {"median_to": dist, "spread": spread, "nearest_right": nearest,
          "max": float((got.double() - plains["bf16"].double()).abs().max()), "n": got.shape[0]}
     g["passed"] = bool(torch.isfinite(got).all() and g["max"] <= max_abs
-                       and dist["bf16"] <= 2 * g["spread"]
+                       and nearest <= 2 * spread
                        and all(dist["bf16"] < dist[name] for name in wrong))
     return g
 
@@ -2731,13 +2778,13 @@ def panda_cfg_phases(dev) -> dict:
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
     t1 = time.perf_counter()
     ev[0].record()
-    outs = [ep20(x0, sd) for sd in seeds]
+    outs = list(zip(*ep20.fleet(x0.expand(tys.N_SEEDS, -1).contiguous(), torch.stack(seeds))))
     ev[1].record()
     torch.cuda.synchronize()
     q_s = time.perf_counter() - t1
     q_counts = counts(ep20)
-    if q_counts != [(tys.N_SEEDS, 0)]:
-        raise RuntimeError(f"panda teacher quality: counts {q_counts}")
+    if q_counts != [(1, 0)]:
+        raise RuntimeError(f"panda teacher quality: counts {q_counts}, expected one fleet launch")
     if not all(torch.isfinite(o[0]).all() and torch.isfinite(o[1]).all() for o in outs):
         raise RuntimeError("panda teacher quality: non-finite tracks")
     prefix = np.array([float(o[2].double().sum()) for o in outs])
@@ -2748,7 +2795,7 @@ def panda_cfg_phases(dev) -> dict:
                            f"replans {prefix.mean():.6f}, gaps {gaps}, bounds "
                            f"{tys.BOUNDS['episode']}; each episode's gap from the plain episode "
                            f"on the CPU {pgaps} (bound {tys.PAIRED_BOUND:.3e})")
-    e20_ms = ev[0].elapsed_time(ev[1]) / tys.N_SEEDS  # per 20-replan episode, by CUDA events
+    fleet20_ms = ev[0].elapsed_time(ev[1])  # the fleet of N_SEEDS 20-replan episodes, CUDA events
     # the control: the same path at w = 0 on the first seed must fail the paired gate (on the
     # CPU it moved that episode by 6.2e-3, the most of the 10)
     ctl = make_fused_cfg_episode(
@@ -2766,8 +2813,8 @@ def panda_cfg_phases(dev) -> dict:
         f"CPU on the same seed (the paired gate, bound {tys.PAIRED_BOUND:.3e}): max gap "
         f"{max(pgaps):.3e}, gaps {[float(f'{g:.3e}') for g in pgaps]}; the control (w = 0, the "
         f"first seed) {ctl_gap:.3e} from it, outside the bound as it must be; "
-        f"{e20_ms / tys.PREFIX_STEPS:.4f} ms per replan, {q_s:.3f} s for the 10 by the host "
-        f"clock")
+        f"the {tys.N_SEEDS} as one fleet launch in {fleet20_ms:.3f} ms ({q_s:.3f} s by the host "
+        f"clock)")
 
     # each row of the kernels line; bytes and operations of this run's inputs
     weights, meta_n = tpacked.weights.numel(), tpacked.metas[1].numel()
@@ -2833,7 +2880,7 @@ def panda_cfg_phases(dev) -> dict:
                 "plain_ms": plain_ms["draw"],
                 **bound(PC_EP_CHECK * replan_flops, ep_bytes(d1, PC_EP_CHECK, 2)),
                 "library_ms": None, "replans": PC_EP_CHECK,
-                "ms_per_replan": e20_ms / tys.PREFIX_STEPS,
+                f"fleet{tys.N_SEEDS}_ms": fleet20_ms,
                 f"prefix{tys.PREFIX_STEPS}_cost_mean10": float(prefix.mean()), "gaps": gaps,
                 "paired_max_gap": max(pgaps), "paired_bound": tys.PAIRED_BOUND,
                 "control_w0_gap": ctl_gap}}}
@@ -3370,6 +3417,332 @@ def distill_panda_phases(dev) -> dict:
             "distill_ms_per_step": dl["ms_per_step"]}
 
 
+# Phases 52-53 (ROADMAP B5): the episode kernels' grid axis, a fleet of independent episodes as
+# one launch (the JAX package's jax.vmap of an episode). Every entry of kernels 5 and 3 runs a
+# fleet that crosses a wave: N = 2 x (clusters that fit) + 1 for kernel 5, N = (clusters that
+# fit) + 1 for kernel 3 (at least FLEET_CFG_FLAGSHIP_N on the flagship), each episode on its own
+# x0 and noise; FLEET_REPLANS replans per episode (FLEET_CFG_REPLANS for kernel 3, whose panda
+# entries take 20-23 ms per replan), the bf16 DDIM entries at the one-pass protocol of phase 49
+# (FLEET_BF16_REPLANS replans of one-step chains on the grid [0]).
+FLEET_REPLANS, FLEET_CFG_REPLANS, FLEET_BF16_REPLANS, FLEET_CFG_FLAGSHIP_N = 3, 2, 16, 16
+FLEET_SEED = 52
+
+
+def fleet_outputs_equal(a, b) -> bool:
+    """Whether two episodes' (x_track, u_track, costs, chosen) are bit-equal."""
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def fleet_gap(a, b) -> float:
+    """The largest |a - b| over two episodes' tracks and costs, inf where the choices differ."""
+    if not torch.equal(a[3], b[3]):
+        return math.inf
+    return max((x.double() - y.double()).abs().max().item() for x, y in zip(a[:3], b[:3]))
+
+
+def fmt_gap(gap) -> str:
+    return gap if isinstance(gap, str) else f"{gap:.3e}"
+
+
+def fleet_check(name: str, ep, x0s: torch.Tensor, noise: torch.Tensor, plain_gate,
+                bf16_flops_per_replan: float = 0.0) -> dict:
+    """One entry's fleet, ``ep.fleet(x0s, noise)``, gated: exactly one launch; every episode
+    bit-equal to its own single-episode launch on the same inputs (the same code in the same
+    order), or, where a pair differs, within the spread of two single launches of that episode,
+    which must then be above 0; the control, the singles of episodes 0 and 1 swapped, must fail
+    that gate; ``plain_gate(fleet_out, plains)`` holds the first and last episodes to the
+    entry's gate of its plain version, ``plains`` the plain episodes ``ep.plain`` of those two
+    (by episode index), and returns its readings. Returns the fleet's record for the kernels
+    line: N, the clusters that fit, the waves, ms per fleet and per single episode (CUDA
+    events), ms per plain episode (``ep.plain`` alone on the first and last episodes, their
+    mean by the host clock, to set beside the single episode's), the aggregate replans per
+    second, the bound (N times the single episode's work) and the launches."""
+    n = x0s.shape[0]
+    reset(ep)
+    out = ep.fleet(x0s, noise)
+    torch.cuda.synchronize()
+    fleet = (*out, ep.last_chosen)
+    launches = counts(ep)
+    if launches != [(1, 0)]:
+        raise RuntimeError(f"{name} fleet of {n}: counts {launches}, expected one launch")
+    singles = [ep.kernel(x0s[e], noise[e]) for e in range(n)]
+    torch.cuda.synchronize()
+    of = lambda e: tuple(f[e] for f in fleet)
+    unequal = [e for e in range(n) if not fleet_outputs_equal(of(e), singles[e])]
+    spread = gap = 0.0
+    if unequal:
+        again = {e: ep.kernel(x0s[e], noise[e]) for e in unequal}
+        spread = max(fleet_gap(singles[e], again[e]) for e in unequal)
+        gap = max(fleet_gap(of(e), singles[e]) for e in unequal)
+        if not (0 < spread < math.inf and gap <= spread):
+            raise RuntimeError(f"{name} fleet of {n}: episodes {unequal} differ from their single "
+                               f"launches by {gap:.3e}; two single launches by {spread:.3e}")
+    swapped = max(fleet_gap(of(0), singles[1]), fleet_gap(of(1), singles[0]))
+    if fleet_outputs_equal(of(0), singles[1]) or not swapped > spread:
+        raise RuntimeError(f"{name} fleet of {n}: the control (episodes 0 and 1 swapped) passed "
+                           f"the gate ({swapped:.3e} against the spread {spread:.3e})")
+    plains = {}
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for e in (0, n - 1):
+        plains[e] = ep.plain(x0s[e], noise[e])
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t1) / 2
+    plain = plain_gate(fleet, plains)
+    fleet_ms = cuda_ms(lambda: ep.fleet_kernel(x0s, noise), n=1, warmup=0)
+    single_ms = cuda_ms(lambda: ep.kernel(x0s[0], noise[0]), n=1, warmup=0)
+    slots = ep.cluster.slots
+    p, film = ep.packed, ep.model
+    film1 = 2 * int(p.films_w.shape[1]) * sum(rb.cond_mlp[1].out_features
+                                             for rb in film.res_blocks())
+    passes = 2 if isinstance(ep, FusedCfgEpisode) else 1
+    replan_flops = ep.n_total * passes * (p.flops_per_pass * ep.n_candidates + film1)
+    n_bytes = 4 * (p.weights.numel() + ep.meta.numel() + ep.t_embs.numel() + ep.coefs.numel()
+                   + ep.consts.numel() + noise.numel() + fleet[0].numel() + fleet[1].numel()
+                   + 2 * fleet[2].numel())
+    flops = n * ep.n_steps * replan_flops
+    conv = n * ep.n_steps * ep.n_total * passes * p.flops_per_pass * ep.n_candidates
+    if ep.bf16:
+        n_bytes -= 2 * sum(math.prod(p.segments[s][1])
+                           for s in [*ep.cluster.split.convs, "final1x1.w"])
+        bound_ = bound(flops - conv, n_bytes, bf16_flops=conv)
+    else:
+        bound_ = bound(flops, n_bytes)
+    return {"n": n, "clusters_fit": slots, "waves": -(-n // slots), "replans": ep.n_steps,
+            "k": ep.n_candidates, "launches": launches[0][0], "ms": fleet_ms,
+            "single_ms": single_ms, "replans_per_s": 1e3 * n * ep.n_steps / fleet_ms,
+            "vs_n_singles": n * single_ms / fleet_ms, "plain_ms_per_episode": plain_ms,
+            **bound_, "library_ms": None, "max_abs_err": plain["max_abs_err"],
+            "bit_equal_to_singles": not unequal, "singles_spread": spread,
+            "swapped_control_gap": swapped if math.isfinite(swapped) else "choices differ",
+            "plain_gate": plain}
+
+
+@torch.no_grad()
+def fleet_phases(dev) -> dict:
+    """Phases 52-53 on ``dev``: a fleet of every entry of kernel 5 (52) and of kernel 3 (53),
+    each through ``fleet_check``. Returns each entry's fleet record by entry."""
+    dev = resolve_device(dev)
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(FLEET_SEED)
+    seed_gen = torch.Generator().manual_seed(FLEET_SEED)
+    schedule, sched1 = make_schedule("exponential", T), make_schedule("exponential", 1)
+    records, ties, failures = {}, [], []  # a bf16 gate's failure is raised after phase 53
+
+    def fleet_n(ep, cfg: bool) -> int:
+        ep.cluster.require_fit(ep.smem_bytes, dev)
+        slots = ep.cluster.slots
+        return max(slots + 1, FLEET_CFG_FLAGSHIP_N if ep.name.startswith("cfg_episode_bf16")
+                   or ep.name == "cfg_episode" else 0) if cfg else 2 * slots + 1
+
+    def inputs(ep, x0, spread):
+        """N distinct starts (x0 with its first coordinates moved over +-spread) and N
+        draws (seeds for a drawing entry) for ep's fleet."""
+        n = fleet_n(ep, isinstance(ep, FusedCfgEpisode))
+        x0s = x0[None].repeat(n, 1)
+        x0s[:, 0] += torch.linspace(-spread, spread, n, device=dev)
+        if ep.inkernel_noise:
+            noise = torch.stack([philox.seed_from_generator(seed_gen) for _ in range(n)]).to(dev)
+        else:
+            noise = torch.randn((n, *ep.noise_shape), generator=gen, device=dev)
+        return x0s, noise
+
+    def fp32_gate(name, ep, u_unit):
+        """The first and last episodes against the plain episode (``episode_gate``)."""
+        def gate(fleet, plains):
+            err = max(episode_gate(f"{name} fleet episode {e}", ep, tuple(f[e] for f in fleet),
+                                   plain, u_unit, ties) for e, plain in plains.items())
+            return {"max_abs_err": err}
+        return gate
+
+    ep_x0s, ep_noise = {}, {}
+
+    def run(name, ep, x0, spread, gate):
+        t1 = time.perf_counter()
+        x0s, noise = inputs(ep, x0, spread)
+        ep_x0s[name], ep_noise[name] = x0s, noise
+        records[name] = {**fleet_check(name, ep, x0s, noise, gate),
+                         "seconds": time.perf_counter() - t1}
+
+    # 52. kernel 5: every DDIM entry
+    t0 = time.perf_counter()
+    fins, fcond = (st.to(dev) for st in teacher_stats())
+    qins, qcond = (st.to(dev) for st in quadrotor_stats())
+    pins, pcond = (st.to(dev) for st in panda_stats())
+    fx0 = torch.tensor([0.0, 0.0, 3.0, 0.0, theta_to_red_theta(3.0)], device=dev)
+    qx0 = torch.from_numpy(eval_start_states(1)[0]).to(dev)
+    px0 = torch.from_numpy(pys.x0()).to(dev)
+    plants = {  # the packed student, its statistics, the plant, its cost, the context map, x0,
+        # the spread of the starts
+        "swingup": (pack_unet(load_student(STUDENT, device=dev), dev), fins, fcond,
+                    cartpole_virtual_swingup(), cartpole_virtual_collect_cost(), None, fx0, 0.5),
+        "quadrotor": (pack_unet(load_quadrotor_student(QUADROTOR_STUDENT, device=dev), dev), qins,
+                      qcond, quadrotor(), quadrotor_cost(), None, qx0, 0.5),
+        "panda": (pack_unet(load_panda_student(PANDA_STUDENT, device=dev), dev), pins, pcond,
+                  panda_rbd_unrolled(), panda_cost(), make_panda_context(), px0, 0.2)}
+    # phase 49's models of the bf16 gate: the panda's is the distilled 3-eval student
+    bf16_packed = {"swingup": plants["swingup"][0], "quadrotor": plants["quadrotor"][0],
+                   "panda": pack_unet(load_panda_student(DISTILLED_PANDA, device=dev), dev)}
+    ddim_of = lambda plant, n_steps, wd=torch.float32, draw=False, k=1, times=GRID, sched=None, \
+        model=None: \
+        make_fused_ddim_episode(model or plants[plant][0], sched or schedule, times,
+                                *plants[plant][1:5],
+                                n_steps=n_steps, n_candidates=k,
+                                selection_horizon=SEL_H if k > 1 else None,
+                                state_to_condition=plants[plant][5], inkernel_noise=draw,
+                                weights_dtype=wd, device=dev)
+    for plant, draws in (("swingup", (False,)), ("quadrotor", (False, True)), ("panda", (False,))):
+        packed, ins = bf16_packed[plant], plants[plant][1]
+        model = packed.model
+        u_unit = 0.5 * (ins.maxs - ins.mins)
+        x0, spread = plants[plant][6:8]
+        for draw in draws:
+            ep = ddim_of(plant, FLEET_REPLANS, draw=draw)
+            run(ep.name, ep, x0, spread, fp32_gate(ep.name, ep, u_unit))
+            # the bf16 entry at phase 49's one-pass protocol, held by bf16_nearest_gate, which
+            # its fp32 entry on the same inputs must fail
+            eb = ddim_of(plant, FLEET_BF16_REPLANS, bf16, draw, times=[0], sched=sched1,
+                         model=packed)
+            e32 = ddim_of(plant, FLEET_BF16_REPLANS, draw=draw, times=[0], sched=sched1,
+                          model=packed)
+            variants = bf16_variants(model, True)
+            cpu_model = bf16_conv_copy(copy.deepcopy(model).cpu())
+            variants["bf16_cpu"] = lambda x, t, c_, m, cpu_model=cpu_model: cpu_model(
+                x.cpu(), t.cpu(), c_.cpu(), m.cpu()).to(dev)
+
+            def first_controls(e_, fleet, name=eb.name, variants=variants, u_unit=u_unit):
+                """The plain chain's controls from the kernel's own states of episodes 0 and
+                N - 1, by each variant, against the kernel's."""
+                n = fleet[0].shape[0]
+                got, want = [], {k: [] for k in variants}
+                for e in (0, n - 1):
+                    nz = ep_noise[name][e]
+                    nz = e_.noise_table(nz) if e_.inkernel_noise else nz
+                    got.append(fleet[1][e] / u_unit)
+                    for k, f in variants.items():
+                        want[k].append(ddim_first_controls(e_, f, sched1, [0], fleet[0][e][:-1],
+                                                           nz) / u_unit)
+                return torch.cat(got), {k: torch.cat(v) for k, v in want.items()}
+
+            def bf16_gate(fleet, plains, eb=eb, e32=e32, first_controls=first_controls):
+                got, plains = first_controls(eb, fleet)
+                g = bf16_nearest_gate(got, plains, B1_WRONG["ddim"])
+                ctl_fleet = e32.fleet(ep_x0s[eb.name], ep_noise[eb.name])
+                ctl = bf16_nearest_gate(*first_controls(e32, (*ctl_fleet, e32.last_chosen)),
+                                        B1_WRONG["ddim"])
+                if not g["passed"] or ctl["passed"]:
+                    failures.append(f"{eb.name} fleet: bf16_nearest_gate {g}; the fp32 entry (the "
+                                    f"control that must fail it) {ctl}")
+                return {"max_abs_err": g["max"], "bf16_nearest_gate": g,
+                        "control_fp32_entry": ctl}
+
+            run(eb.name, eb, x0, spread, bf16_gate)
+    # K = 4 with selection_horizon SEL_H on the swing-up's entry, choices gated
+    ep4 = ddim_of("swingup", FLEET_REPLANS, k=K4)
+    run("ddim_episode k4", ep4, fx0, 0.5, fp32_gate("ddim_episode k4", ep4,
+                                                     0.5 * (fins.maxs - fins.mins)))
+    log("fleet-ddim", t0, "kernel 5's fleets, one launch each, every episode against its own "
+        "single launch and the first and last against the plain version: " + "; ".join(
+            f"{k} N={r['n']} ({r['waves']} waves of {r['clusters_fit']}), {r['replans']} replans: "
+            f"{r['ms']:.4f} ms per fleet ({r['single_ms']:.4f} per single episode, the plain version "
+            f"{r['plain_ms_per_episode']:.3f} per episode, "
+            f"{r['vs_n_singles']:.2f}x N singles), {r['replans_per_s']:.1f} replans/s, bit-equal "
+            f"{r['bit_equal_to_singles']} (spread {r['singles_spread']:.3e}), swapped control "
+            f"{fmt_gap(r['swapped_control_gap'])}, plain {r['max_abs_err']:.3e}, "
+            f"{r['seconds']:.2f} s"
+            for k, r in records.items()) + f"; near-ties (not gated): {len(ties)}: "
+        + " | ".join(ties))
+
+    # 53. kernel 3: every CFG entry
+    t0 = time.perf_counter()
+    n52 = len(records)
+    b_ins = NormalizerStats("limits", torch.full((1,), -30.0), torch.full((1,), 30.0)).to(dev)
+    b_cond = NormalizerStats("limits", torch.full((5,), -10.0), torch.full((5,), 10.0)).to(dev)
+    l_ins, l_cond = (st.to(dev) for st in lmpc_stats())
+    sc0 = bench_scene_student.scene(0, dev)
+    s_ins, s_cond = (st.to(dev) for st in scene_stats())
+    flagship = pack_unet(load_flagship(FLAGSHIP, device=dev), dev)
+    cfg_of = lambda model, ins, cond, plant, cost, **kw: make_fused_cfg_episode(
+        model, schedule, ins, cond, plant, cost, n_steps=FLEET_CFG_REPLANS, w=W,
+        n_diffusion_steps_without_noise=N_TAIL, device=dev, **kw)
+    cfgs = [  # the episode, x0, the spread of the starts, u_unit
+        (cfg_of(flagship, b_ins, b_cond, cartpole_virtual_swingup(), cartpole_virtual_cost()),
+         fx0, 0.5, b_ins),
+        (cfg_of(flagship, b_ins, b_cond, cartpole_virtual_swingup(), cartpole_virtual_cost(),
+                weights_dtype=bf16), fx0, 0.5, b_ins),
+        (cfg_of(load_lmpc(LMPC, device=dev), l_ins, l_cond, cartpole_lmpc(),
+                cartpole_lmpc_cost()), lmpc_parity.sweep_states(1)[0].to(dev), 0.2, l_ins),
+        (cfg_of(load_scene_student(sys_.STUDENT, device=dev), s_ins, s_cond, quadrotor(),
+                quadrotor_cost(), state_to_condition=sc0.to_cond),
+         torch.from_numpy(sys_.eval_starts()[0]).to(dev), 0.5, s_ins)]
+    teacher = pack_unet(load_panda_teacher(tys.TEACHER, device=dev), dev)
+    for draw in (False, True):
+        cfgs.append((cfg_of(teacher, pins, pcond, panda_rbd_unrolled(), panda_cost(),
+                            state_to_condition=make_panda_context(), inkernel_noise=draw),
+                     px0, 0.2, pins))
+    for ep, x0, spread, ins in cfgs:
+        u_unit = 0.5 * (ins.maxs - ins.mins)
+        if ep.bf16:  # phase 19's full-depth bound of bf16 against its plain version
+            def gate(fleet, plains, ep=ep, u_unit=u_unit):
+                err = max(assert_close(f"{ep.name} fleet episode {e} u_norm", fleet[1][e] / u_unit,
+                                       plain[1] / u_unit, BF16_VS_FP32)
+                          for e, plain in plains.items())
+                return {"max_abs_err": err, "tol": BF16_VS_FP32}
+        else:
+            gate = fp32_gate(ep.name, ep, u_unit)
+        run(ep.name, ep, x0, spread, gate)
+    log("fleet-cfg", t0, "kernel 3's fleets, one launch each, gated as phase 52's: " + "; ".join(
+        f"{k} N={r['n']} ({r['waves']} waves of {r['clusters_fit']}), {r['replans']} replans: "
+        f"{r['ms']:.4f} ms per fleet ({r['single_ms']:.4f} per single episode, the plain version "
+        f"{r['plain_ms_per_episode']:.3f} per episode, "
+        f"{r['vs_n_singles']:.2f}x N singles), {r['replans_per_s']:.1f} replans/s, bit-equal "
+        f"{r['bit_equal_to_singles']} (spread {r['singles_spread']:.3e}), swapped control "
+        f"{fmt_gap(r['swapped_control_gap'])}, plain {r['max_abs_err']:.3e}, {r['seconds']:.2f} s"
+        for k, r in list(records.items())[n52:]))
+    if failures:
+        raise RuntimeError("phase 52's bf16 gates failed (or their fp32 controls passed): "
+                           + " | ".join(failures))
+    return records
+
+
+def throughput_phases(dev) -> dict:
+    """Phase 54 on ``dev``: ``scripts/bench_throughput.py`` at its cut, in process, every row
+    present and its fleet's first episode bit-equal to the single episode, then
+    ``scripts/bench_quadrotor_student.py --fleet 64 --fleet-only`` (its report under
+    ``build/chip_smoke_fleet/``, removed after). Returns the ``throughput`` line."""
+    dev = resolve_device(dev)
+    t0 = time.perf_counter()
+    rows = bench_throughput.run(dev, cut=True, emit=lambda line: None)
+    k = bench_throughput.SMOKE_CUT["candidates"]
+    want = ["ddim_closed_loop_hz", f"candidates{k}_closed_loop_hz",
+            "pendulum_pointunet_closed_loop_hz", "distilled_3eval_fused_episode_hz",
+            f"serving_{bench_throughput.N_FLEET}loops_control_steps_per_sec",
+            "production_cfg30_flagship_bf16_hz", "distilled_3eval_sustained_hz"]
+    if list(rows) != want or not all(math.isfinite(r["value"]) and r["value"] > 0
+                                     for r in rows.values()):
+        raise RuntimeError(f"bench_throughput: rows {list(rows)}, expected {want}: {rows}")
+    serving = rows[want[4]]
+    if serving["first_episode_vs_single_max_abs_err"] != 0:
+        raise RuntimeError(f"bench_throughput: the fleet's first episode is "
+                           f"{serving['first_episode_vs_single_max_abs_err']:.3e} from the "
+                           f"single episode")
+    work = ROOT / "build" / "chip_smoke_fleet"
+    try:
+        quad = bench_quadrotor_student.main(["--fleet", "64", "--fleet-only", "--device", str(dev),
+                                             "--out", str(work / "bench.json")])
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    if not (quad["fleet64_steps_per_sec"] > 0 and quad["fleet64_launches"] == 4):
+        raise RuntimeError(f"bench_quadrotor_student --fleet 64: {quad}")
+    log("throughput", t0, f"bench_throughput at its cut ({bench_throughput.SMOKE_CUT}): "
+        + "; ".join(f"{r['metric']} {r['value']:.1f} {r['unit']}" for r in rows.values())
+        + f" (the fleet's first episode bit-equal to the single); bench_quadrotor_student "
+        f"--fleet 64 --fleet-only: {quad['fleet64_steps_per_sec']:.1f} control steps/s over 64 x "
+        f"{quad['n_steps']} replans ({quad['fleet64_launches']} launches: warm-up and 3 runs)")
+    return {"bench_throughput_cut": rows, "quadrotor_fleet64_control_steps_per_sec":
+            quad["fleet64_steps_per_sec"], "quadrotor_fleet64_launches": quad["fleet64_launches"]}
+
+
 SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize")
 
 
@@ -3538,7 +3911,10 @@ def main() -> None:
                               sep_smem),
         "ddim_episode_panda_bf16": (
             lambda b: ddim_episode_panda_max_active_clusters(b, "ddim_episode_panda_bf16"),
-            panda_smem)}
+            panda_smem),
+        **{entry: (lambda b, entry=entry: ddim_episode_quadrotor_max_active_clusters(b, entry),
+                   quad_smem)
+           for entry in ("ddim_episode_quadrotor_bf16", "ddim_episode_quadrotor_draw_bf16")}}
     # the library of each entry that is one instantiation of another library's kernel, and the
     # template arguments that pick it (bf16 weights; the kernel's bool arguments: the plan in
     # turns, then the in-kernel draw); every other entry is its library's float kernels
@@ -3553,7 +3929,10 @@ def main() -> None:
                  "fused_unet_bf16": ("fused_unet", True, None),
                  "ddim_chain_bf16": ("ddim_chain", True, None),
                  "ddim_episode_bf16": ("ddim_episode", True, None),
-                 "ddim_episode_panda_bf16": ("ddim_episode_panda", True, None)}
+                 "ddim_episode_panda_bf16": ("ddim_episode_panda", True, None),
+                 "ddim_episode_quadrotor_bf16": ("ddim_episode_quadrotor_bf16", True, (False,)),
+                 "ddim_episode_quadrotor_draw_bf16": ("ddim_episode_quadrotor_bf16", True,
+                                                      (True,))}
 
     def template_args(kernel: str):
         """(bf16, the bool arguments) of a kernel's mangled template arguments."""
@@ -3597,7 +3976,8 @@ def main() -> None:
                      f"clusters of {CLUSTER} CTAs that fit at once "
                      + ", ".join(f"{n} at {b} B per CTA" for n, b in zip(slots, smems)))
     # the quadrotor entry's in-kernel draw: the same library's other instantiation
-    draw_slots = [ddim_episode_quadrotor_draw_max_active_clusters(b) for b in quad_smem]
+    draw_slots = [ddim_episode_quadrotor_max_active_clusters(b, "ddim_episode_quadrotor_draw")
+                  for b in quad_smem]
     if not all(draw_slots):
         raise RuntimeError(f"ddim_episode_quadrotor_draw: no cluster fits: {draw_slots}")
     cluster_info["ddim_episode_quadrotor"]["draw_clusters_fit"] = draw_slots
@@ -4067,10 +4447,10 @@ def main() -> None:
                            f"{par['modality']} (expected {FLAGSHIP_MODALITY})")
     reset(*wrappers)
     epq = flagship_parity.run_episode_quality(dev, n_seeds=N_QUALITY, n_steps=N_STEPS)
-    if counts(*wrappers) != [(0, 0)] * len(wrappers) or epq["episode_launches"] != N_QUALITY:
+    if counts(*wrappers) != [(0, 0)] * len(wrappers) or epq["episode_launches"] != 1:
         raise RuntimeError(f"flagship quality, episode: {epq['episode_launches']} episode "
-                           f"launches, counts {counts(*wrappers)}; expected {N_QUALITY} launches "
-                           f"of its own episode and nothing else")
+                           f"launches, counts {counts(*wrappers)}; expected one fleet launch of "
+                           f"its own episode and nothing else")
     if not all(math.isfinite(c) for c in epq["closed_loop_costs"]):
         raise RuntimeError(f"flagship quality, episode: non-finite costs {epq['closed_loop_costs']}")
     if not epq["cost_over_expert"] <= FLAGSHIP_MEAN_MAX or epq["modality"] != FLAGSHIP_MODALITY:
@@ -4087,7 +4467,8 @@ def main() -> None:
         f"{par['horizon_cost_mean']:.1f} (report {par['horizon_cost_report']}, expert "
         f"{par['horizon_cost_nmpc']}); seed 0's parity with the JAX expert's tracks "
         f"{ {k: round(v, 5) for k, v in par['parity'].items()} } (report {par['parity_report']}); "
-        f"through cfg_episode ({epq['episode_launches']} launches): closed-loop costs "
+        f"through cfg_episode as one fleet of {N_QUALITY} ({epq['episode_launches']} launch): "
+        f"closed-loop costs "
         f"{[round(c, 3) for c in epq['closed_loop_costs']]}; mean {epq['closed_loop_cost_mean']:.3f}, "
         f"over the expert's {epq['cost_over_expert']:.6f} (at most {FLAGSHIP_MEAN_MAX}); modality "
         f"{epq['modality']}")
@@ -4206,15 +4587,14 @@ def main() -> None:
     reset(*wrappers)
     epq_bf = flagship_parity.run_episode_quality(dev, n_seeds=N_BF16_QUALITY, n_steps=N_STEPS,
                                                  weights_dtype=bf16)
-    if (counts(*wrappers) != [(0, 0)] * len(wrappers)
-            or epq_bf["episode_launches"] != N_BF16_QUALITY):
+    if counts(*wrappers) != [(0, 0)] * len(wrappers) or epq_bf["episode_launches"] != 1:
         raise RuntimeError(f"bf16 quality: {epq_bf['episode_launches']} episode launches, counts "
-                           f"{counts(*wrappers)}; expected {N_BF16_QUALITY} launches of its own "
-                           f"episode and nothing else")
+                           f"{counts(*wrappers)}; expected one fleet launch of its own episode "
+                           f"and nothing else")
     if not all(math.isfinite(c) for c in epq_bf["closed_loop_costs"]):
         raise RuntimeError(f"bf16 quality: non-finite costs {epq_bf['closed_loop_costs']}")
-    log("bf16-quality", t0, f"{N_BF16_QUALITY} seeds through cfg_episode_bf16 "
-        f"({epq_bf['episode_launches']} launches), the flagship's statistics: closed-loop costs "
+    log("bf16-quality", t0, f"{N_BF16_QUALITY} seeds through cfg_episode_bf16 as one fleet "
+        f"({epq_bf['episode_launches']} launch), the flagship's statistics: closed-loop costs "
         f"{[round(c, 3) for c in epq_bf['closed_loop_costs']]}; mean "
         f"{epq_bf['closed_loop_cost_mean']:.3f}, over the expert's "
         f"{epq_bf['cost_over_expert']:.6f} (fp32 {epq['cost_over_expert']:.6f}); modality "
@@ -4331,10 +4711,10 @@ def main() -> None:
     lpar = lmpc_parity.run(dev, "episode", candidates=(1,))
     n_states = lpar["n_states"]
     if counts(*wrappers, *lwrappers) != [(0, 0)] * (len(wrappers) + 4) or \
-            lpar["launches"][1] != n_states:
+            lpar["launches"][1] != 1:
         raise RuntimeError(f"LMPC parity: {lpar['launches']} episode launches, counts "
-                           f"{counts(*wrappers, *lwrappers)}; expected {n_states} launches of its "
-                           f"own episode and nothing else")
+                           f"{counts(*wrappers, *lwrappers)}; expected one fleet launch of its "
+                           f"own episode over the {n_states} states and nothing else")
     for x_tr, u_tr, _ in lpar["tracks"][1]:
         if not (torch.isfinite(x_tr).all() and torch.isfinite(u_tr).all()):
             raise RuntimeError("LMPC parity: non-finite tracks")
@@ -4351,7 +4731,7 @@ def main() -> None:
     lpar8 = lmpc_parity.run(dev, "episode", n_states=N_LMPC_STATES_K8, candidates=(K8,))
     k8_s = time.perf_counter() - t1
     if counts(*wrappers, *lwrappers) != [(0, 0)] * (len(wrappers) + 4) or \
-            lpar8["launches"][K8] != N_LMPC_STATES_K8:
+            lpar8["launches"][K8] != 1:
         raise RuntimeError(f"LMPC parity K={K8}: {lpar8['launches']} episode launches, counts "
                            f"{counts(*wrappers, *lwrappers)}")
     k8_tracks = lpar8["tracks"][K8]
@@ -4429,6 +4809,8 @@ def main() -> None:
     b1_line = b1_phases(dev)
     clip_line = clip_phases(dev)
     distill_panda_line = distill_panda_phases(dev)
+    fleet_line = fleet_phases(dev)
+    throughput_line = throughput_phases(dev)
 
     packed = chain.packed
     seg = lambda *prefixes: sum(math.prod(shape) for name, (_, shape) in packed.segments.items()
@@ -4635,6 +5017,32 @@ def main() -> None:
                          **cluster_info["ddim_episode_panda_bf16"]}
     for i, name in ((0, "cfg_chain"), (2, "cfg_episode"), (3, "ddim_chain"), (4, "ddim_episode")):
         rows[i]["clip_off"] = clip_line[name]
+    # ROADMAP B5 (phases 52-53): each entry's fleet under its row's or record's "fleet"; the
+    # quadrotor's bf16 DDIM entries, which run only as phase 52's fleets, under its row's "bf16"
+    # and "inkernel_noise_bf16" as their fleet records
+    src = "mpc_via_diffusion_model_tpu_torch/ops/csrc/"
+    fleet_of = lambda entry, row, source=None: {
+        "name": entry, "route": "cuda", "source": source or row["source"],
+        "replaces": row["replaces"], **fleet_line[entry]}
+    by_name = {r["name"]: r for r in rows}
+    quad_row = by_name["ddim_episode_quadrotor"]
+    for entry, bf16_key in (("ddim_episode_quadrotor_bf16", "bf16"),
+                            ("ddim_episode_quadrotor_draw_bf16", "inkernel_noise_bf16")):
+        quad_row[bf16_key] = {**fleet_of(entry, quad_row, src + "ddim_episode_quadrotor_bf16.cu"),
+                              "weights_dtype": "bfloat16", **cluster_info[entry]}
+    records = {"cfg_episode": rows[2], "cfg_episode_bf16": rows[2]["bf16"],
+               "ddim_episode": rows[4], "ddim_episode_bf16": rows[4]["bf16"],
+               "cfg_episode_lmpc": by_name["cfg_episode_lmpc"],
+               "cfg_episode_quadrotor": by_name["cfg_episode_quadrotor"],
+               "ddim_episode_quadrotor": quad_row,
+               "ddim_episode_quadrotor_draw": quad_row["inkernel_noise"],
+               "ddim_episode_panda": by_name["ddim_episode_panda"],
+               "ddim_episode_panda_bf16": by_name["ddim_episode_panda"]["bf16"],
+               "cfg_episode_panda": by_name["cfg_episode_panda"],
+               "cfg_episode_panda_draw": by_name["cfg_episode_panda"]["inkernel_noise"]}
+    for entry, record in records.items():
+        record["fleet"] = fleet_of(entry, record)
+    rows[4]["fleet_k4"] = fleet_of("ddim_episode k4", rows[4])
     rows[2]["bench_closed_loop_control_hz"] = bench_line["value"]
     rows[2]["bench_pipelined_hz"] = bench_line["pipelined_hz"]
     print(json.dumps({"training": training_line}), flush=True)
@@ -4644,6 +5052,7 @@ def main() -> None:
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"guided": guided_line["guided"]}), flush=True)
     print(json.dumps({"making": making_line["making"]}), flush=True)
+    print(json.dumps({"throughput": throughput_line}), flush=True)
     print(json.dumps({"phase_seconds": PHASE_SECONDS}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}),

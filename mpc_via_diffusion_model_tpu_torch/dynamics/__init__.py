@@ -8,14 +8,17 @@ from .cartpole import (cartpole_lmpc, cartpole_lmpc_cost, cartpole_virtual_colle
                        cartpole_virtual_swingup, theta_to_red_theta)
 from .quadrotor import (SafetyFirstCost, obstacle_cost, obstacle_cost_single, quadrotor,
                         quadrotor_cost)
+from .simple_plants import double_integrator, double_integrator_cost, pendulum, pendulum_cost
 
 __all__ = ["PANDA_READY_POSE", "PLANTS", "PandaContext", "Plant", "QuadraticCost", "SafetyFirstCost", "cartpole_lmpc",
            "cartpole_lmpc_cost", "cartpole_virtual_collect_cost", "cartpole_virtual_cost",
-           "cartpole_virtual_stabilized", "cartpole_virtual_swingup", "get_plant",
+           "cartpole_virtual_stabilized", "cartpole_virtual_swingup", "double_integrator",
+           "double_integrator_cost", "get_plant",
            "make_panda_context", "obstacle_cost", "obstacle_cost_single", "panda_context",
            "panda_cost", "panda_ee_velocity", "panda_fk", "panda_inverse_dynamics",
            "panda_inverse_dynamics_unrolled", "panda_link_transforms", "panda_mass_matrix",
-           "panda_rbd", "panda_rbd_unrolled", "panda_surrogate", "quadrotor", "quadrotor_cost",
+           "panda_rbd", "panda_rbd_unrolled", "panda_surrogate", "pendulum", "pendulum_cost",
+           "quadrotor", "quadrotor_cost",
            "reference_mpc_cost", "rollout", "rollout_with_cost", "theta_to_red_theta"]
 
 # the JAX package's registry (mpc_via_diffusion_model_tpu/dynamics/__init__.py), as far as ported
@@ -24,10 +27,12 @@ PLANTS = {
     "cartpole_virtual_swingup": (cartpole_virtual_swingup, cartpole_virtual_cost),
     "cartpole_virtual_stabilized": (cartpole_virtual_stabilized, cartpole_virtual_cost),
     "quadrotor": (quadrotor, quadrotor_cost),
+    "pendulum": (pendulum, pendulum_cost),
+    "double_integrator": (double_integrator, double_integrator_cost),
     "panda_surrogate": (panda_surrogate, panda_cost),
     "panda": (panda_rbd, panda_cost),
 }
-_NOT_PORTED = ("pendulum", "double_integrator", "acrobot")
+_NOT_PORTED = ("acrobot",)
 
 
 def get_plant(name: str, **kwargs):

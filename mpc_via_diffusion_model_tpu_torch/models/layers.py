@@ -27,6 +27,8 @@ __all__ = [
     "ResidualTemporalBlock",
     "Downsample1d",
     "Upsample1d",
+    "MLP",
+    "TemporalBlockMLP",
 ]
 
 
@@ -148,3 +150,32 @@ class Upsample1d(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.conv(x)
+
+
+class MLP(nn.Module):
+    """Linear(hidden), act, Linear(out): the JAX package's ``MLP`` with ``n_layers=0``, the
+    only form its ``PointUnet`` builds. ``act`` is a callable (``mish`` in a block, the
+    identity in ``PointUnet.final``). ``first`` and ``last`` are flax's ``Dense_0`` and
+    ``Dense_1``."""
+
+    def __init__(self, in_dim: int, out_dim: int, hidden_dim: int, act=lambda x: x):
+        super().__init__()
+        self.act = act
+        self.first = nn.Linear(in_dim, hidden_dim)
+        self.last = nn.Linear(hidden_dim, out_dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.last(self.act(self.first(x)))
+
+
+class TemporalBlockMLP(nn.Module):
+    """mish(MLP(x) + Linear(mish(c))), the MLP one hidden layer of ``out_channels`` with mish:
+    the JAX package's ``TemporalBlockMLP``, a block of ``PointUnet``."""
+
+    def __init__(self, in_channels: int, out_channels: int, cond_dim: int):
+        super().__init__()
+        self.mlp = MLP(in_channels, out_channels, hidden_dim=out_channels, act=mish)
+        self.cond = nn.Linear(cond_dim, out_channels)
+
+    def forward(self, x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+        return mish(self.mlp(x) + self.cond(mish(c)))

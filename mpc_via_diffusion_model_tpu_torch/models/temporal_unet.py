@@ -1,5 +1,6 @@
 """The temporal 1-D conv U-Net denoiser with 'default' (FiLM) conditioning:
-port of ``mpc_via_diffusion_model_tpu/models/temporal_unet.py::TemporalUnet``.
+port of ``mpc_via_diffusion_model_tpu/models/temporal_unet.py::TemporalUnet``;
+and ``PointUnet``, its MLP counterpart for a horizon of one point.
 
 Input and output are (batch, horizon, state_dim), the JAX package's layout.
 A dropped context (``context_mask`` = 1) is zeroed; with ``cfg_indicator``
@@ -12,10 +13,10 @@ from typing import Dict, Optional, Sequence
 import torch
 from torch import nn
 
-from .layers import (Conv1dBlock, Downsample1d, ResidualTemporalBlock, TimeEncoder,
-                     Upsample1d, group_norm_n_groups)
+from .layers import (MLP, Conv1dBlock, Downsample1d, ResidualTemporalBlock, TemporalBlockMLP,
+                     TimeEncoder, Upsample1d, group_norm_n_groups)
 
-__all__ = ["TemporalUnet"]
+__all__ = ["TemporalUnet", "PointUnet"]
 
 
 class TemporalUnet(nn.Module):
@@ -145,3 +146,56 @@ class TemporalUnet(nn.Module):
         for blocks in self.ups:
             out += [blocks[0], blocks[1]]
         return out
+
+
+class PointUnet(nn.Module):
+    """The MLP 'U-Net' for a horizon of one point: port of
+    ``mpc_via_diffusion_model_tpu/models/temporal_unet.py::PointUnet``. x (B, 1, D) -> (B, 1,
+    D). ``conditioning_type`` 'default' conditions every block on cat(t_emb, context), a
+    dropped context (``context_mask`` = 1) zeroed; 'concatenate' appends the context to the
+    input; None conditions on the time alone. The blocks are ``downs`` (one per dim_mult),
+    ``mid``, ``ups`` (one per level but the first, on cat(h, skip)), then ``final``, an MLP
+    with no activation: flax's ``TemporalBlockMLP_0, 1, ...`` in that order and ``MLP_0``
+    (``models/weights.py::point_unet_from_flax_params``)."""
+
+    def __init__(self, state_dim: int, dim: int = 32, dim_mults: Sequence[int] = (1, 2, 4),
+                 time_emb_dim: int = 32, context_dim: int = 0,
+                 conditioning_type: Optional[str] = None):
+        super().__init__()
+        self.state_dim, self.dim, self.dim_mults = state_dim, dim, tuple(dim_mults)
+        self.time_emb_dim, self.context_dim = time_emb_dim, context_dim
+        self.conditioning_type = (None if conditioning_type in (None, "None")
+                                  else conditioning_type)
+        default = self.conditioning_type == "default"
+        in_dim = state_dim + (context_dim if self.conditioning_type == "concatenate" else 0)
+        cond_dim = time_emb_dim + (context_dim if default else 0)
+        dims = [in_dim] + [dim * m for m in self.dim_mults]
+        in_out = list(zip(dims[:-1], dims[1:]))
+        self.time_mlp = TimeEncoder(32, time_emb_dim)
+        self.downs = nn.ModuleList([TemporalBlockMLP(a, b, cond_dim) for a, b in in_out])
+        self.mid = TemporalBlockMLP(dims[-1], dims[-1], cond_dim)
+        ups, width = [], dims[-1]
+        for dim_in, dim_out in reversed(in_out[1:]):
+            ups.append(TemporalBlockMLP(width + dim_out, dim_in, cond_dim))
+            width = dim_in
+        self.ups = nn.ModuleList(ups)
+        self.final = MLP(width, state_dim, hidden_dim=dim)
+
+    def forward(self, x: torch.Tensor, time: torch.Tensor, context: Optional[torch.Tensor] = None,
+                context_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        h = x[:, 0, :]
+        if context is not None and context_mask is not None:
+            context = context * (1.0 - context_mask)
+        c = self.time_mlp(time)
+        if self.conditioning_type == "default":
+            c = torch.cat([c, context], dim=-1)
+        elif self.conditioning_type == "concatenate":
+            h = torch.cat([h, context], dim=-1)
+        skips = []
+        for block in self.downs:
+            h = block(h, c)
+            skips.append(h)
+        h = self.mid(h, c)
+        for block in self.ups:
+            h = block(torch.cat([h, skips.pop()], dim=-1), c)
+        return self.final(h)[:, None, :]

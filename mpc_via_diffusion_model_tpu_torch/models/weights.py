@@ -46,6 +46,12 @@ order of the module's ``nn.Linear`` layers; ``mlp_from_flax_params`` and
 ``mlp_to_flax_params`` carry them both ways (kernel (in, out) = weight.T),
 ``init_mlp_like_flax`` draws flax's Dense init, and ``load_ampc`` reads the
 ``ampc.ckpt`` that ``scripts/train_ampc.py`` writes.
+
+``PointUnet`` (the pendulum row of ``scripts/bench_throughput.py``):
+``point_unet_from_flax_params`` carries the JAX ``PointUnet``'s params
+(``TimeEncoder_0``, ``TemporalBlockMLP_i`` each an ``MLP_0`` and a ``Dense_0``,
+then ``MLP_0``) into the port's state dict, and ``init_like_flax`` draws
+flax's default init for it as for the ``TemporalUnet``.
 """
 from __future__ import annotations
 
@@ -57,7 +63,7 @@ import torch
 
 from ..utils.device import resolve_device
 from .ampc import AMPCNet
-from .temporal_unet import TemporalUnet
+from .temporal_unet import PointUnet, TemporalUnet
 
 __all__ = ["FLAGSHIP_CONFIG", "LMPC_CONFIG", "PANDA_STUDENT_CONFIG", "QUADROTOR_STUDENT_CONFIG",
            "QUADROTOR_TEACHER_CONFIG", "SCENE_STUDENT_CONFIG", "TEACHER_CONFIG",
@@ -67,7 +73,7 @@ __all__ = ["FLAGSHIP_CONFIG", "LMPC_CONFIG", "PANDA_STUDENT_CONFIG", "QUADROTOR_
            "load_quadrotor_teacher",
            "load_scene_student",
            "load_student", "load_teacher", "mlp_from_flax_params", "mlp_to_flax_params",
-           "to_flax_params"]
+           "point_unet_from_flax_params", "to_flax_params"]
 
 # artifacts/flagship/args.yaml: horizon 32, unet_input_dim 32, dim_mults (1,2,4), context 5
 FLAGSHIP_CONFIG = dict(state_dim=1, n_support_points=32, unet_input_dim=32,
@@ -217,16 +223,55 @@ def _truncated_normal(generator, shape: Tuple[int, ...]) -> np.ndarray:
     return x.cpu().numpy().reshape(shape)
 
 
+def _point_unet_layers(model: PointUnet) -> List[Tuple[str, Tuple[str, ...]]]:
+    """(torch module path, flax module path) of every Dense of a ``PointUnet``, in flax's
+    order: the time encoder, the blocks (down, mid, up), the final MLP."""
+    mlp = lambda torch_path, flax_path: [(f"{torch_path}.first", (*flax_path, "Dense_0")),
+                                         (f"{torch_path}.last", (*flax_path, "Dense_1"))]
+    out = [("time_mlp.encoder.1", ("TimeEncoder_0", "Dense_0")),
+           ("time_mlp.encoder.3", ("TimeEncoder_0", "Dense_1"))]
+    blocks = ([f"downs.{i}" for i in range(len(model.downs))] + ["mid"]
+              + [f"ups.{i}" for i in range(len(model.ups))])
+    for i, path in enumerate(blocks):
+        name = f"TemporalBlockMLP_{i}"
+        out += mlp(f"{path}.mlp", (name, "MLP_0")) + [(f"{path}.cond", (name, "Dense_0"))]
+    return out + mlp("final", ("MLP_0",))
+
+
+def point_unet_from_flax_params(params: Mapping, model: PointUnet,
+                                dtype=np.float32) -> Dict[str, torch.Tensor]:
+    """The JAX ``PointUnet``'s flax params (``{'params': ...}`` or the inner dict, numpy or
+    array leaves) -> a state dict for ``model``, a port ``PointUnet`` of the same widths."""
+    p = params["params"] if "params" in params else params
+    arr = lambda a: torch.from_numpy(np.ascontiguousarray(np.asarray(a, dtype)))
+    sd: Dict[str, torch.Tensor] = {}
+    for key, path in _point_unet_layers(model):
+        d = _subtree(p, path)
+        if d is None:
+            raise ValueError(f"point_unet_from_flax_params: no flax layer {'/'.join(path)}")
+        sd[key + ".weight"] = arr(np.asarray(d["kernel"]).T)
+        sd[key + ".bias"] = arr(d["bias"])
+    return sd
+
+
 @torch.no_grad()
-def init_like_flax(model: TemporalUnet, generator) -> TemporalUnet:
+def init_like_flax(model, generator):
     """Sets ``model``'s parameters in place, on its device, to what flax's
-    default initializers draw for the JAX ``TemporalUnet``: every Dense,
-    Conv and ConvTranspose kernel lecun_normal (fan_in the kernel's input
-    count times its width, in flax's kernel layout), every bias 0, every
-    GroupNorm scale 1 and bias 0. ``generator`` is a numpy ``RandomState``
-    or a ``torch.Generator``; the kernels are drawn in flax's layer order,
-    each in flax's kernel layout. Returns the model."""
+    default initializers draw for the JAX ``TemporalUnet`` (or ``PointUnet``):
+    every Dense, Conv and ConvTranspose kernel lecun_normal (fan_in the
+    kernel's input count times its width, in flax's kernel layout), every
+    bias 0, every GroupNorm scale 1 and bias 0. ``generator`` is a numpy
+    ``RandomState`` or a ``torch.Generator``; the kernels are drawn in flax's
+    layer order, each in flax's kernel layout. Returns the model."""
     sd = dict(model.named_parameters())
+    if isinstance(model, PointUnet):
+        for key, _ in _point_unet_layers(model):
+            fan_in = sd[key + ".weight"].shape[1]
+            k = _truncated_normal(generator, (fan_in, sd[key + ".weight"].shape[0]))
+            sd[key + ".weight"].copy_(torch.from_numpy(
+                (k * (np.sqrt(1.0 / fan_in) / TRUNC_STD)).astype(np.float32).T.copy()))
+            sd[key + ".bias"].zero_()
+        return model
     flax: Dict[str, Dict] = {}
     for key, path, kind in _unet_layers(len(model.downs)):
         if key + ".weight" not in sd:

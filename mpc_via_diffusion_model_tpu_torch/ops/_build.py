@@ -41,7 +41,7 @@ NVCC_TIMEOUT_S = 600
 KERNELS = ("cfg_chain", "fused_unet", "cfg_episode", "ddim_chain", "ddim_episode",
            "fused_conv", "cfg_episode_lmpc", "ddim_episode_quadrotor",
            "cfg_episode_quadrotor", "ddim_episode_panda", "cfg_episode_panda",
-           "cfg_chain_turns")  # csrc/<name>.cu
+           "cfg_chain_turns", "ddim_episode_quadrotor_bf16")  # csrc/<name>.cu
 
 
 @dataclasses.dataclass(frozen=True)

@@ -30,7 +30,8 @@
 // layers (36 MFLOP per pass of both row-sets), which one SM runs at best at its ~0.5 TFLOP/s.
 //
 // What the design does about it: one episode is one thread-block cluster of CLUSTER = 8
-// CTAs on 8 SMs (__cluster_dims__, grid = 8), and the U-Net body is split over them by
+// CTAs on 8 SMs (__cluster_dims__, grid = 8 x n_episodes, the episode e = blockIdx.x / CLUSTER
+// of a fleet, episode.cuh), and the U-Net body is split over them by
 // output channel, one GroupNorm group per rank (unet_body_cluster.cuh): each rank computes an
 // eighth of every conv and pushes its final slices into every CTA's shared memory, with two
 // cluster barriers per residual block. Everything outside the body runs redundantly in
@@ -51,6 +52,13 @@
 // cfg_episode_max_active_clusters answers cudaOccupancyMaxActiveClusters at the episode's
 // shared memory: the wrapper refuses to launch when it is 0 (a card without clusters, or
 // not enough shared memory for 8 CTAs at once).
+//
+// A fleet (the JAX builder's kernel under jax.vmap, which maps x0 and the key only): one launch
+// of n_episodes clusters, each an independent episode on its own x0, noise and output rows
+// (episode_offsets), every other argument shared, the scene's features and spheres in the consts
+// table included, so every episode of a fleet sees one scene; one episode is the fleet of one.
+// Clusters never wait on each other: the cluster barrier stays the only synchronisation, and a
+// fleet larger than the clusters that fit at once runs in waves as clusters finish.
 //
 // The in-kernel FiLM and the end of each replan (unnormalize, best-of-K, stage cost, plant
 // step) are in episode.cuh, shared with ddim_episode.cu. The plant is episode.cuh's Plant: the
@@ -93,12 +101,13 @@
 
 // W is the packed buffer with the body's conv kernels rank-major (cluster_weights), Wh its
 // bf16 copy (read in the bf16 instantiation only; last, so that the float instantiation's
-// other parameters keep their offsets). t_embs (n_total, temb); noise (n_steps, n_total + 1,
-// K, H, D) with row n_total = x_T, or with DRAW the (2,) seed words of the draw; coefs (n_total, 5) = sra, srm, c1, c2, sigma * gate;
-// consts (C_LEN); x0 (DX).
-// Outputs: x_track (n_steps + 1, DX), u_track (n_steps, DU), costs (n_steps),
-// chosen (n_steps) = index of the applied candidate, K when none was chosen. Rank 0 writes
-// the outputs.
+// other parameters keep their offsets). t_embs (n_total, temb); noise (n_episodes, n_steps,
+// n_total + 1, K, H, D) with row n_total = x_T, or with DRAW the (n_episodes, 2) seed words of
+// the draw; coefs (n_total, 5) = sra, srm, c1, c2, sigma * gate; consts (C_LEN); x0
+// (n_episodes, DX). Outputs: x_track (n_episodes, n_steps + 1, DX), u_track (n_episodes,
+// n_steps, DU), costs and chosen (n_episodes, n_steps), chosen the index of the applied
+// candidate, K when none was chosen. Cluster e reads and writes episode e's rows
+// (episode_offsets); its rank 0 writes them.
 template <typename WT, bool TURNS, bool DRAW>
 __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(NT, 1)
 cfg_episode_kernel(const float* __restrict__ W, const int* __restrict__ meta,
@@ -126,6 +135,17 @@ cfg_episode_kernel(const float* __restrict__ W, const int* __restrict__ meta,
   float* ctx = misc + X_CTX;
   float* cand = smem + ep_meta + ((M_LEN + 3) / 4) * 4;  // (K, H, D) chains, then plans
   float* score = cand + ((khd + 3) / 4) * 4;            // (K,) candidate scores
+  {  // this cluster's episode of the fleet
+    const EpisodeOffsets o =
+        episode_offsets((int)blockIdx.x / CLUSTER, n_steps,
+                        DRAW ? (size_t)2 : (size_t)n_steps * (n_total + 1) * khd);
+    x0 += o.x0;
+    noise += o.noise;
+    x_track += o.x_track;
+    u_track += o.u_track;
+    costs += o.costs;
+    chosen += o.chosen;
+  }
 
   if (threadIdx.x < DX) {
     xst[threadIdx.x] = __ldg(x0 + threadIdx.x);
@@ -234,11 +254,13 @@ static int launch(const float* W, const __nv_bfloat16* Wh, const int* meta, int 
                   const float* t_embs, const std::conditional_t<DRAW, int, float>* noise,
                   const float* coefs, const float* consts, const float* x0, float* x_track,
                   float* u_track, float* costs, int* chosen, int n_steps, int n_total, int K,
-                  int sel_h, float w, float wp1, int clip, void* stream) {
+                  int sel_h, float w, float wp1, int clip, int n_episodes, void* stream) {
+  if (n_episodes < 1) return (int)cudaErrorInvalidValue;
   cudaError_t e = reserve_smem(cfg_episode_kernel<WT, TURNS, DRAW>, smem_bytes,
                                SmemSet<WT, TURNS, DRAW>::set);
   if (e != cudaSuccess) return (int)e;
-  cfg_episode_kernel<WT, TURNS, DRAW><<<CLUSTER, NT, smem_bytes, (cudaStream_t)stream>>>(
+  cfg_episode_kernel<WT, TURNS, DRAW>
+      <<<CLUSTER * n_episodes, NT, smem_bytes, (cudaStream_t)stream>>>(
       W, meta, t_embs, noise, coefs, consts, x0, x_track, u_track, costs, chosen, n_steps,
       n_total, K, sel_h, w, wp1, clip, Wh);
   return (int)cudaGetLastError();
@@ -263,14 +285,16 @@ static int max_active_clusters(int smem_bytes, int* n_clusters) {
 #ifndef EPISODE_PLANT_ENTRIES
 extern "C" {
 
-// Launches one episode on `stream`; returns the CUDA error code (0 = launched).
+// Launches a fleet of n_episodes episodes, one cluster each, on `stream`; returns the CUDA
+// error code (0 = launched).
 int cfg_episode_launch(const float* W, const int* meta, int smem_bytes, const float* t_embs,
                        const float* noise, const float* coefs, const float* consts,
                        const float* x0, float* x_track, float* u_track, float* costs,
                        int* chosen, int n_steps, int n_total, int K, int sel_h, float w,
-                       float wp1, int clip, void* stream) {
+                       float wp1, int clip, int n_episodes, void* stream) {
   return launch<float>(W, nullptr, meta, smem_bytes, t_embs, noise, coefs, consts, x0, x_track,
-                       u_track, costs, chosen, n_steps, n_total, K, sel_h, w, wp1, clip, stream);
+                       u_track, costs, chosen, n_steps, n_total, K, sel_h, w, wp1, clip,
+                       n_episodes, stream);
 }
 
 // The same with bf16 conv kernels: Wh is the bf16 copy of W (same element offsets).
@@ -279,10 +303,10 @@ int cfg_episode_bf16_launch(const float* W, const __nv_bfloat16* Wh, const int* 
                             const float* coefs, const float* consts, const float* x0,
                             float* x_track, float* u_track, float* costs, int* chosen,
                             int n_steps, int n_total, int K, int sel_h, float w, float wp1, int clip,
-                            void* stream) {
+                            int n_episodes, void* stream) {
   return launch<__nv_bfloat16>(W, Wh, meta, smem_bytes, t_embs, noise, coefs, consts, x0,
                                x_track, u_track, costs, chosen, n_steps, n_total, K, sel_h, w,
-                               wp1, clip, stream);
+                               wp1, clip, n_episodes, stream);
 }
 
 // cudaOccupancyMaxActiveClusters for one episode's cluster at smem_bytes of dynamic shared

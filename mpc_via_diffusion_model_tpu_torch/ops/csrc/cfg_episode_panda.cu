@@ -52,28 +52,29 @@
 
 extern "C" {
 
-// Launches one episode on staged noise, one cluster, on `stream`; returns the CUDA error code
-// (0 = launched).
+// Launches a fleet of n_episodes episodes on staged noise, one cluster each, on `stream`;
+// returns the CUDA error code (0 = launched).
 int cfg_episode_panda_launch(const float* W, const int* meta, int smem_bytes,
                              const float* t_embs, const float* noise, const float* coefs,
                              const float* consts, const float* x0, float* x_track,
                              float* u_track, float* costs, int* chosen, int n_steps, int n_total,
-                             int K, int sel_h, float w, float wp1, int clip, void* stream) {
+                             int K, int sel_h, float w, float wp1, int clip, int n_episodes,
+                             void* stream) {
   return launch<float, true, false>(W, nullptr, meta, smem_bytes, t_embs, noise, coefs, consts,
                                     x0, x_track, u_track, costs, chosen, n_steps, n_total, K,
-                                    sel_h, w, wp1, clip, stream);
+                                    sel_h, w, wp1, clip, n_episodes, stream);
 }
 
-// The same drawing its noise in the kernel: seed is the episode's (2,) int32 seed.
+// The same drawing its noise in the kernel: seed holds each episode's (2,) int32 seed.
 int cfg_episode_panda_draw_launch(const float* W, const int* meta, int smem_bytes,
                                   const float* t_embs, const int* seed, const float* coefs,
                                   const float* consts, const float* x0, float* x_track,
                                   float* u_track, float* costs, int* chosen, int n_steps,
                                   int n_total, int K, int sel_h, float w, float wp1, int clip,
-                                  void* stream) {
+                                  int n_episodes, void* stream) {
   return launch<float, true, true>(W, nullptr, meta, smem_bytes, t_embs, seed, coefs, consts, x0,
                                    x_track, u_track, costs, chosen, n_steps, n_total, K, sel_h, w,
-                                   wp1, clip, stream);
+                                   wp1, clip, n_episodes, stream);
 }
 
 // <entry>_max_active_clusters: cudaOccupancyMaxActiveClusters for one episode's cluster at

@@ -27,15 +27,17 @@
 
 extern "C" {
 
-// Launches one episode on `stream`; returns the CUDA error code (0 = launched).
+// Launches a fleet of n_episodes episodes, one cluster each, on `stream`; returns the CUDA
+// error code (0 = launched). Every episode of a fleet sees the scene in consts.
 int cfg_episode_quadrotor_launch(const float* W, const int* meta, int smem_bytes,
                                  const float* t_embs, const float* noise, const float* coefs,
                                  const float* consts, const float* x0, float* x_track,
                                  float* u_track, float* costs, int* chosen, int n_steps,
                                  int n_total, int K, int sel_h, float w, float wp1, int clip,
-                                 void* stream) {
+                                 int n_episodes, void* stream) {
   return launch<float>(W, nullptr, meta, smem_bytes, t_embs, noise, coefs, consts, x0, x_track,
-                       u_track, costs, chosen, n_steps, n_total, K, sel_h, w, wp1, clip, stream);
+                       u_track, costs, chosen, n_steps, n_total, K, sel_h, w, wp1, clip,
+                       n_episodes, stream);
 }
 
 // cudaOccupancyMaxActiveClusters for one episode's cluster at smem_bytes of dynamic shared

@@ -32,8 +32,9 @@
 //
 // What the design does about it: cfg_episode.cu's design with one row-set per candidate.
 // One episode is one thread-block cluster of CLUSTER = 8 CTAs on 8 SMs (__cluster_dims__,
-// grid = 8), and the U-Net body runs split over them by output channel, one GroupNorm
-// group per rank (unet_body_cluster.cuh, cunet_body<1>): each rank computes an eighth of
+// grid = 8 x n_episodes, the episode e = blockIdx.x / CLUSTER of a fleet, episode.cuh), and the
+// U-Net body runs split over them by output channel, one GroupNorm group per rank
+// (unet_body_cluster.cuh, cunet_body<1>): each rank computes an eighth of
 // every conv and pushes its final slices into every CTA's shared memory. Everything
 // outside the body runs redundantly in every CTA, on the same replicated data in the same
 // order: the affine normalize, the FiLM vector (each rank's own channels only,
@@ -53,9 +54,15 @@
 // Each entry's <entry>_max_active_clusters answers cudaOccupancyMaxActiveClusters at the
 // episode's shared memory: the wrapper refuses to launch when it is 0.
 //
+// A fleet (the JAX builder's kernel under jax.vmap, scripts/bench_throughput.py:190-208): one
+// launch of n_episodes clusters, each an independent episode on its own x0, noise and output
+// rows (episode_offsets), every other argument shared; one episode is the fleet of one. Clusters
+// never wait on each other: the cluster barrier stays the only synchronisation, and a fleet
+// larger than the clusters that fit at once runs in waves as clusters finish.
+//
 // bf16 weights (the JAX builder's weights_dtype=jnp.bfloat16): the kernel is a template on the
 // conv kernels' element type WT beside DRAW. The __nv_bfloat16 instantiation (the entries
-// ddim_episode_bf16 and ddim_episode_panda_bf16) reads the body's conv kernels and the final 1x1
+// ddim_episode_bf16, ddim_episode_panda_bf16 and ddim_episode_quadrotor_bf16.cu's two) reads the body's conv kernels and the final 1x1
 // kernel from the bf16 copy Wh of the buffer and rounds each product's activation operand to
 // bf16 (unet_body_cluster.cuh), as fused_episode.py:339 rounds y before the final 1x1 conv; the
 // FiLM Dense weights and every bias stay fp32. clip_denoised (fused_episode.py:346) is the
@@ -71,12 +78,14 @@
 #include "unet_body_cluster.cuh"
 
 // W is the packed buffer with the body's conv kernels rank-major (cluster_weights).
-// t_embs (n_total, temb); noise (n_steps, K, H, D), or with DRAW the (2,) seed words of the
-// in-kernel draw (philox.cuh); coefs (n_total, 4) = sra, srm, c1, c2; consts (C_LEN); x0 (DX).
-// Outputs: x_track (n_steps + 1, DX), u_track (n_steps, DU), costs (n_steps), chosen
-// (n_steps) = index of the applied candidate, K when none was chosen. Rank 0 writes the
-// outputs. Wh is W's bf16 copy (read in the bf16 instantiation only; last, so that the float
-// instantiation's other parameters keep their offsets); clip: clip each reconstruction.
+// t_embs (n_total, temb); noise (n_episodes, n_steps, K, H, D), or with DRAW the (n_episodes, 2)
+// seed words of the in-kernel draw (philox.cuh); coefs (n_total, 4) = sra, srm, c1, c2; consts
+// (C_LEN); x0 (n_episodes, DX). Outputs: x_track (n_episodes, n_steps + 1, DX), u_track
+// (n_episodes, n_steps, DU), costs and chosen (n_episodes, n_steps), chosen the index of the
+// applied candidate, K when none was chosen. Cluster e reads and writes episode e's rows
+// (episode_offsets); its rank 0 writes them. Wh is W's bf16 copy (read in the bf16
+// instantiation only; last, so that the float instantiation's other parameters keep their
+// offsets); clip: clip each reconstruction.
 template <typename WT, bool DRAW>
 __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(NT, 1)
 ddim_episode_kernel(const float* __restrict__ W, const int* __restrict__ meta,
@@ -104,6 +113,16 @@ ddim_episode_kernel(const float* __restrict__ W, const int* __restrict__ meta,
   float* ctx = misc + X_CTX;
   float* cand = smem + ep_meta + ((M_LEN + 3) / 4) * 4;  // (K, H, D) chains, then plans
   float* score = cand + ((khd + 3) / 4) * 4;            // (K,) candidate scores
+  {  // this cluster's episode of the fleet
+    const EpisodeOffsets o = episode_offsets((int)blockIdx.x / CLUSTER, n_steps,
+                                             DRAW ? (size_t)2 : (size_t)n_steps * khd);
+    x0 += o.x0;
+    noise += o.noise;
+    x_track += o.x_track;
+    u_track += o.u_track;
+    costs += o.costs;
+    chosen += o.chosen;
+  }
 
   if (threadIdx.x < DX) {
     xst[threadIdx.x] = __ldg(x0 + threadIdx.x);
@@ -183,17 +202,19 @@ template <typename WT, bool DRAW>
 int SmemSet<WT, DRAW>::set[MAX_DEVICES];
 }  // namespace
 
-// Launches one episode, one cluster, on `stream`; returns the CUDA error code (0 = launched).
+// Launches a fleet of n_episodes episodes, one cluster each, on `stream`; returns the CUDA error
+// code (0 = launched).
 template <typename WT, bool DRAW>
 static int launch(const float* W, const __nv_bfloat16* Wh, const int* meta, int smem_bytes,
                   const float* t_embs, const std::conditional_t<DRAW, int, float>* noise,
                   const float* coefs, const float* consts, const float* x0, float* x_track,
                   float* u_track, float* costs, int* chosen, int n_steps, int n_total, int K,
-                  int sel_h, int clip, void* stream) {
+                  int sel_h, int clip, int n_episodes, void* stream) {
+  if (n_episodes < 1) return (int)cudaErrorInvalidValue;
   cudaError_t e =
       reserve_smem(ddim_episode_kernel<WT, DRAW>, smem_bytes, SmemSet<WT, DRAW>::set);
   if (e != cudaSuccess) return (int)e;
-  ddim_episode_kernel<WT, DRAW><<<CLUSTER, NT, smem_bytes, (cudaStream_t)stream>>>(
+  ddim_episode_kernel<WT, DRAW><<<CLUSTER * n_episodes, NT, smem_bytes, (cudaStream_t)stream>>>(
       W, meta, t_embs, noise, coefs, consts, x0, x_track, u_track, costs, chosen, n_steps,
       n_total, K, sel_h, clip, Wh);
   return (int)cudaGetLastError();
@@ -228,3 +249,31 @@ static int max_active_clusters(int smem_bytes, int* n_clusters) {
   int ENTRY##_meta_len(void) { return M_LEN; }                                                \
   int ENTRY##_consts_len(void) { return C_LEN; }                                              \
   int ENTRY##_plant_dims(void) { return DX * 100 + DU; }
+
+// An entry of the float weights: <ENTRY>_launch runs a fleet of n_episodes episodes on `stream`
+// and returns the CUDA error code (0 = launched); with DRAW_ the noise is the (n_episodes, 2) seed
+// words. Then the entry's queries.
+#define DDIM_EPISODE_ENTRY(ENTRY, DRAW_)                                                      \
+  int ENTRY##_launch(const float* W, const int* meta, int smem_bytes, const float* t_embs,    \
+                     const std::conditional_t<DRAW_, int, float>* noise, const float* coefs,  \
+                     const float* consts, const float* x0, float* x_track, float* u_track,   \
+                     float* costs, int* chosen, int n_steps, int n_total, int K, int sel_h,   \
+                     int clip, int n_episodes, void* stream) {                                \
+    return launch<float, DRAW_>(W, nullptr, meta, smem_bytes, t_embs, noise, coefs, consts,  \
+                                x0, x_track, u_track, costs, chosen, n_steps, n_total, K,    \
+                                sel_h, clip, n_episodes, stream);                             \
+  }                                                                                           \
+  DDIM_EPISODE_QUERIES(ENTRY, float, DRAW_)
+
+// The same with bf16 conv kernels: Wh is the bf16 copy of W (same element offsets).
+#define DDIM_EPISODE_BF16_ENTRY(ENTRY, DRAW_)                                                 \
+  int ENTRY##_launch(const float* W, const __nv_bfloat16* Wh, const int* meta, int smem_bytes, \
+                     const float* t_embs, const std::conditional_t<DRAW_, int, float>* noise, \
+                     const float* coefs, const float* consts, const float* x0,                \
+                     float* x_track, float* u_track, float* costs, int* chosen, int n_steps,  \
+                     int n_total, int K, int sel_h, int clip, int n_episodes, void* stream) { \
+    return launch<__nv_bfloat16, DRAW_>(W, Wh, meta, smem_bytes, t_embs, noise, coefs,       \
+                                        consts, x0, x_track, u_track, costs, chosen, n_steps, \
+                                        n_total, K, sel_h, clip, n_episodes, stream);         \
+  }                                                                                           \
+  DDIM_EPISODE_QUERIES(ENTRY, __nv_bfloat16, DRAW_)

@@ -3,15 +3,16 @@
 // best-of-K candidates by the quadrotor task's safety-first selection cost (plants.cuh,
 // SafetyFirstScorer: the hover quadratic, the control effort and the obstacle hinge against
 // three spheres, whose constants follow the plant's in the table), fp32 weights, with staged
-// noise (ddim_episode_quadrotor_*) or the in-kernel draw (ddim_episode_quadrotor_draw_*).
+// noise (ddim_episode_quadrotor_*) or the in-kernel draw (ddim_episode_quadrotor_draw_*); the bf16
+// entries are ddim_episode_quadrotor_bf16.cu's.
 //
 // Replaces the TPU kernel mpc_via_diffusion_model_tpu/ops/fused_episode.py::
 // make_fused_ddim_episode (pallas_call at fused_episode.py:392) traced with the quadrotor
 // plant and scripts/quadrotor_task.py::make_select_cost, with and without inkernel_noise: the
-// fast path of scripts/bench_quadrotor_student.py. At the student's horizon 48 the U-Net
-// body's levels hold 48, 24 and 12 rows, so the last conv item of the 12-row level (CL_RPT = 8
-// rows, unet_body_cluster.cuh) is half full; at K = 16 the staged noise is 600 x 16 x 48 x 4
-// floats (7.4 MB) for a 600-replan episode, read once per replan.
+// fast path of scripts/bench_quadrotor_student.py and, under jax.vmap, its --fleet. At the
+// student's horizon 48 the U-Net body's levels hold 48, 24 and 12 rows, so the last conv item of
+// the 12-row level (CL_RPT = 8 rows, unet_body_cluster.cuh) is half full; at K = 16 the staged
+// noise is 600 x 16 x 48 x 4 floats (7.4 MB) for a 600-replan episode, read once per replan.
 //
 // Its own library and entries, so that the swing-up entries' machine code is left as it was.
 // The philox_* entries write Philox words and the episode's normals for the tests of the draw.
@@ -50,61 +51,12 @@ __global__ void philox_normals_kernel(const int* __restrict__ seed, float* __res
 
 extern "C" {
 
-// Launches one episode, one cluster, on `stream`; returns the CUDA error code (0 = launched).
-int ddim_episode_quadrotor_launch(const float* W, const int* meta, int smem_bytes,
-                                  const float* t_embs, const float* noise, const float* coefs,
-                                  const float* consts, const float* x0, float* x_track,
-                                  float* u_track, float* costs, int* chosen, int n_steps,
-                                  int n_total, int K, int sel_h, int clip, void* stream) {
-  return launch<float, false>(W, nullptr, meta, smem_bytes, t_embs, noise, coefs, consts, x0,
-                              x_track, u_track, costs, chosen, n_steps, n_total, K, sel_h, clip,
-                              stream);
-}
-
-// The same with the in-kernel draw: seed holds the episode's two seed words.
-int ddim_episode_quadrotor_draw_launch(const float* W, const int* meta, int smem_bytes,
-                                       const float* t_embs, const int* seed, const float* coefs,
-                                       const float* consts, const float* x0, float* x_track,
-                                       float* u_track, float* costs, int* chosen, int n_steps,
-                                       int n_total, int K, int sel_h, int clip, void* stream) {
-  return launch<float, true>(W, nullptr, meta, smem_bytes, t_embs, seed, coefs, consts, x0,
-                             x_track, u_track, costs, chosen, n_steps, n_total, K, sel_h, clip,
-                             stream);
-}
-
-// cudaOccupancyMaxActiveClusters for one episode's cluster at smem_bytes of dynamic shared
-// memory per CTA, into *n_clusters; returns the CUDA error code (0 = answered).
-int ddim_episode_quadrotor_max_active_clusters(int smem_bytes, int* n_clusters) {
-  return max_active_clusters<float, false>(smem_bytes, n_clusters);
-}
-
-int ddim_episode_quadrotor_draw_max_active_clusters(int smem_bytes, int* n_clusters) {
-  return max_active_clusters<float, true>(smem_bytes, n_clusters);
-}
-
-int ddim_episode_quadrotor_cluster_size(void) { return CLUSTER; }
-
-int ddim_episode_quadrotor_draw_cluster_size(void) { return CLUSTER; }
-
-const char* ddim_episode_quadrotor_error_string(int code) {
-  return cudaGetErrorString((cudaError_t)code);
-}
-
-const char* ddim_episode_quadrotor_draw_error_string(int code) {
-  return cudaGetErrorString((cudaError_t)code);
-}
-
-int ddim_episode_quadrotor_meta_len(void) { return M_LEN; }
-
-int ddim_episode_quadrotor_draw_meta_len(void) { return M_LEN; }
-
-int ddim_episode_quadrotor_consts_len(void) { return C_LEN; }
-
-int ddim_episode_quadrotor_draw_consts_len(void) { return C_LEN; }
-
-int ddim_episode_quadrotor_plant_dims(void) { return DX * 100 + DU; }
-
-int ddim_episode_quadrotor_draw_plant_dims(void) { return DX * 100 + DU; }
+// <entry>_launch: a fleet of n_episodes episodes, one cluster each, on `stream`, returning the
+// CUDA error code (0 = launched); the _draw entries take the (n_episodes, 2) seed words in place
+// of the staged noise. <entry>_max_active_clusters: cudaOccupancyMaxActiveClusters for one
+// episode's cluster at smem_bytes of dynamic shared memory per CTA, into *n_clusters.
+DDIM_EPISODE_ENTRY(ddim_episode_quadrotor, false)
+DDIM_EPISODE_ENTRY(ddim_episode_quadrotor_draw, true)
 
 // Philox words of n (counter, key) pairs into out (n, 4), on `stream`.
 int ddim_episode_quadrotor_philox_words_launch(const uint32_t* counters, const uint32_t* keys,

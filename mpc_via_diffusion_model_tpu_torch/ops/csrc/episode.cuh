@@ -64,6 +64,23 @@ static_assert(DC >= DX, "the context holds at least the state");
 #define MISC_LEN (X_BEST + 8)
 static_assert(DU <= 8, "the misc region holds at most 8 controls");
 
+// A fleet of episodes (the JAX package's jax.vmap of an episode kernel, which lifts it to a grid
+// axis): the grid holds n_episodes clusters of CLUSTER CTAs, cluster e = blockIdx.x / CLUSTER runs
+// episode e, and each launch argument that differs per episode is one episode's stretch of a flat
+// buffer: x0 (DX), the noise (noise_len: one episode's staged table, or its two seed words),
+// x_track (n_steps + 1, DX), u_track (n_steps, DU), costs and chosen (n_steps). The weights, the
+// meta table, t_embs, coefs and consts are shared, as vmap closes over them. Offsets in elements;
+// ops/fused_episode.py::episode_offsets is the same formula.
+struct EpisodeOffsets {
+  size_t x0, noise, x_track, u_track, costs, chosen;
+};
+
+static __device__ __forceinline__ EpisodeOffsets episode_offsets(int e, int n_steps,
+                                                                 size_t noise_len) {
+  const size_t ee = (size_t)e, n = (size_t)n_steps;
+  return {ee * DX, ee * noise_len, ee * (n + 1) * DX, ee * n * DU, ee * n, ee * n};
+}
+
 // The normalized context of the state xst into ctx, one thread per entry i < dctx (the
 // model's context_dim, DC), in the JAX kernel's order (fused_episode.py:563-564):
 //   ctx_i = (Condition::map(x)_i - cn_shift_i) * cn_scale_i

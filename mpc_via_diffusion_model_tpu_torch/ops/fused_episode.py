@@ -10,7 +10,15 @@ Each maker returns a wrapper (``FusedCfgEpisode``, ``FusedDdimEpisode``);
 (``csrc/cfg_episode.cu``, ``csrc/ddim_episode.cu``) when the tensors lie on
 a CUDA device and runs its ``plain`` version when they lie on the CPU. On a
 CUDA tensor it launches the kernel or raises: it never falls back to the
-plain version.
+plain version. ``fleet(x0s (N, dx), noise (N, ...))`` runs N independent
+episodes, the JAX package's ``jax.vmap`` of the episode (which lifts its
+kernel to a grid axis): on a CUDA tensor ONE launch of N clusters, cluster e
+running episode e on its own x0, noise and output rows
+(``episode_offsets``, the kernels' ``csrc/episode.cuh::episode_offsets``)
+and sharing the weights, the tables and the consts, as vmap closes over
+them; on the CPU ``plain`` episode by episode. ``episode`` is the fleet of
+one on the same kernel code. A fleet larger than the clusters that fit at
+once (``cluster.slots``) runs in waves.
 
 Both episode kernels are a thread-block cluster of 8 CTAs that splits the
 U-Net body by output channel, one GroupNorm group per CTA
@@ -76,8 +84,8 @@ rigid-body plant of ``dynamics/arm.py::panda_rbd_unrolled``, whose tables
 follow dt, a ``QuadraticCost`` scorer, and the context of
 ``make_panda_context``, whose q_ref and FK table follow the plant's; and its
 bf16 entry ``ddim_episode_panda_bf16``);
-the quadrotor has no bf16 entry
-(ROADMAP.md B1). A bf16 entry reads the conv kernels and the final 1x1 conv
+and the quadrotor's bf16 entries
+``ddim_episode_quadrotor_bf16`` and ``ddim_episode_quadrotor_draw_bf16``. A bf16 entry reads the conv kernels and the final 1x1 conv
 as bf16 and rounds every product's activation operand, and its ``plain``
 runs the U-Net of ``models/bf16.py``. Both episodes take
 ``clip_denoised`` (True by default, as in JAX): False leaves each x0
@@ -129,8 +137,7 @@ __all__ = ["FusedCfgEpisode", "FusedDdimEpisode", "make_fused_cfg_episode",
            "cfg_episode_max_active_clusters", "cfg_episode_bf16_max_active_clusters",
            "cfg_episode_panda_max_active_clusters", "cfg_episode_panda_draw_max_active_clusters",
            "cfg_episode_lmpc_max_active_clusters", "ddim_episode_max_active_clusters",
-           "ddim_episode_quadrotor_max_active_clusters",
-           "ddim_episode_quadrotor_draw_max_active_clusters",
+           "ddim_episode_quadrotor_max_active_clusters", "episode_offsets",
            "ddim_episode_panda_max_active_clusters",
            "cfg_episode_quadrotor_max_active_clusters", "cluster_split_features", "scorer_kind",
            "condition_kind", "CFG_KINDS", "DDIM_CONDITIONS", "CONDITION_CONSTS",
@@ -159,9 +166,11 @@ CFG_KINDS = {"cfg_episode_quadrotor": ("safety_first", "concat_features"),
 DDIM_ENTRIES = {("cartpole_virtual_swingup", False): ("ddim_episode", "quadratic"),
                 ("cartpole_virtual_swingup", True): ("ddim_episode_bf16", "quadratic"),
                 ("quadrotor", False): ("ddim_episode_quadrotor", "safety_first"),
+                ("quadrotor", True): ("ddim_episode_quadrotor_bf16", "safety_first"),
                 ("panda_rbd", False): ("ddim_episode_panda", "quadratic"),
                 ("panda_rbd", True): ("ddim_episode_panda_bf16", "quadratic")}
-DDIM_DRAW_ENTRIES = {"ddim_episode_quadrotor": "ddim_episode_quadrotor_draw"}
+DDIM_DRAW_ENTRIES = {"ddim_episode_quadrotor": "ddim_episode_quadrotor_draw",
+                     "ddim_episode_quadrotor_bf16": "ddim_episode_quadrotor_draw_bf16"}
 # the kind of state-to-condition map each DDIM entry's Condition computes; an entry not named
 # here conditions on the state
 DDIM_CONDITIONS = {"ddim_episode_panda": "panda_context",
@@ -204,7 +213,7 @@ def condition_kind(state_to_condition) -> Optional[str]:
 def _cfg_lib() -> ctypes.CDLL:
     """The built ``csrc/cfg_episode.cu``."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    return _build.bind("cfg_episode", [p, p, i, p, p, p, p, p, p, p, p, p, i, i, i, i, f, f, i, p],
+    return _build.bind("cfg_episode", [p, p, i, p, p, p, p, p, p, p, p, p, i, i, i, i, f, f, i, i, p],
                        M_LEN, _QUERIES, cluster=CLUSTER)
 
 
@@ -221,7 +230,7 @@ def _cfg_bf16_lib() -> ctypes.CDLL:
     """The built ``csrc/cfg_episode.cu``, its bf16 entry declared."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     return _build.bind("cfg_episode_bf16",
-                       [p, p, p, i, p, p, p, p, p, p, p, p, p, i, i, i, i, f, f, i, p],
+                       [p, p, p, i, p, p, p, p, p, p, p, p, p, i, i, i, i, f, f, i, i, p],
                        M_LEN, _QUERIES, cluster=CLUSTER, source="cfg_episode")
 
 
@@ -235,7 +244,7 @@ def _cfg_lmpc_lib() -> ctypes.CDLL:
     """The built ``csrc/cfg_episode_lmpc.cu``: the CFG episode for the linear cart-pole."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     return _build.bind("cfg_episode_lmpc",
-                       [p, p, i, p, p, p, p, p, p, p, p, p, i, i, i, i, f, f, i, p], M_LEN,
+                       [p, p, i, p, p, p, p, p, p, p, p, p, i, i, i, i, f, f, i, i, p], M_LEN,
                        _QUERIES, cluster=CLUSTER)
 
 
@@ -251,7 +260,7 @@ def _cfg_quadrotor_lib() -> ctypes.CDLL:
     its condition map's context (``condition_dims``)."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     return _build.bind("cfg_episode_quadrotor",
-                       [p, p, i, p, p, p, p, p, p, p, p, p, i, i, i, i, f, f, i, p], M_LEN,
+                       [p, p, i, p, p, p, p, p, p, p, p, p, i, i, i, i, f, f, i, i, p], M_LEN,
                        (*_QUERIES, "condition_dims"), cluster=CLUSTER)
 
 
@@ -267,7 +276,7 @@ def _cfg_panda_lib(entry: str = "cfg_episode_panda") -> ctypes.CDLL:
     the int32 seed in place of the noise), which also answers the width of
     its condition map's context (``condition_dims``)."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    return _build.bind(entry, [p, p, i, p, p, p, p, p, p, p, p, p, i, i, i, i, f, f, i, p], M_LEN,
+    return _build.bind(entry, [p, p, i, p, p, p, p, p, p, p, p, p, i, i, i, i, f, f, i, i, p], M_LEN,
                        (*_QUERIES, "condition_dims"), cluster=CLUSTER, source="cfg_episode_panda")
 
 
@@ -298,7 +307,7 @@ def _ddim_bind(entry: str, source: str, queries=_QUERIES) -> ctypes.CDLL:
     the bf16 copy of the weights second."""
     p, i = ctypes.c_void_p, ctypes.c_int
     weights = [p, p] if entry.endswith("_bf16") else [p]
-    return _build.bind(entry, [*weights, p, i, p, p, p, p, p, p, p, p, p, i, i, i, i, i, p], M_LEN,
+    return _build.bind(entry, [*weights, p, i, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, p], M_LEN,
                        queries, cluster=CLUSTER, source=source)
 
 
@@ -320,19 +329,17 @@ def _ddim_quadrotor_lib(entry: str = "ddim_episode_quadrotor") -> ctypes.CDLL:
     """The built ``csrc/ddim_episode_quadrotor.cu``: the DDIM episode for the
     quadrotor, ``entry`` declared (``ddim_episode_quadrotor``, or
     ``ddim_episode_quadrotor_draw``, which takes the int32 seed in place of
-    the noise)."""
-    return _ddim_bind(entry, "ddim_episode_quadrotor")
+    the noise); the bf16 entry of either, ``<entry>_bf16``, is
+    ``csrc/ddim_episode_quadrotor_bf16.cu``'s."""
+    source = "ddim_episode_quadrotor_bf16" if entry.endswith("_bf16") else "ddim_episode_quadrotor"
+    return _ddim_bind(entry, source)
 
 
-def ddim_episode_quadrotor_max_active_clusters(smem_bytes: int) -> int:
-    """The same query for the quadrotor's DDIM episode entry."""
-    return _build.max_active_clusters(_ddim_quadrotor_lib(), "ddim_episode_quadrotor", smem_bytes)
-
-
-def ddim_episode_quadrotor_draw_max_active_clusters(smem_bytes: int) -> int:
-    """The same query for the quadrotor's DDIM episode with the in-kernel draw."""
-    return _build.max_active_clusters(_ddim_quadrotor_lib("ddim_episode_quadrotor_draw"),
-                                      "ddim_episode_quadrotor_draw", smem_bytes)
+def ddim_episode_quadrotor_max_active_clusters(smem_bytes: int,
+                                               entry: str = "ddim_episode_quadrotor") -> int:
+    """The same query for the quadrotor's DDIM episode entry ``entry`` (fp32
+    or bf16, staged or drawing)."""
+    return _build.max_active_clusters(_ddim_quadrotor_lib(entry), entry, smem_bytes)
 
 
 @functools.lru_cache(maxsize=None)
@@ -357,9 +364,10 @@ _DDIM_LIBS = {
                           functools.partial(ddim_episode_max_active_clusters,
                                             entry="ddim_episode_bf16")),
     "ddim_episode_quadrotor": (_ddim_quadrotor_lib, ddim_episode_quadrotor_max_active_clusters),
-    "ddim_episode_quadrotor_draw": (functools.partial(_ddim_quadrotor_lib,
-                                                      "ddim_episode_quadrotor_draw"),
-                                    ddim_episode_quadrotor_draw_max_active_clusters),
+    **{entry: (functools.partial(_ddim_quadrotor_lib, entry),
+               functools.partial(ddim_episode_quadrotor_max_active_clusters, entry=entry))
+       for entry in ("ddim_episode_quadrotor_draw", "ddim_episode_quadrotor_bf16",
+                     "ddim_episode_quadrotor_draw_bf16")},
     "ddim_episode_panda": (_ddim_panda_lib, ddim_episode_panda_max_active_clusters),
     "ddim_episode_panda_bf16": (functools.partial(_ddim_panda_lib, "ddim_episode_panda_bf16"),
                                 functools.partial(ddim_episode_panda_max_active_clusters,
@@ -385,6 +393,18 @@ def affine_consts(stats: NormalizerStats, dim: int):
     u_scale = 0.5 * rng
     u_shift = mins + 0.5 * rng
     return n_shift, n_scale, u_shift, u_scale
+
+
+def episode_offsets(e: int, n_steps: int, dx: int, du: int, noise_len: int) -> dict:
+    """Where episode ``e`` of a fleet reads and writes, in elements of the
+    flat buffers the episode kernels take (``csrc/episode.cuh::
+    episode_offsets``, the same formula): ``x0`` (dx per episode), ``noise``
+    (``noise_len``: one episode's staged table, or its 2 seed words),
+    ``x_track`` ((n_steps + 1) dx), ``u_track`` (n_steps du), ``costs`` and
+    ``chosen`` (n_steps). Cluster e of the grid runs episode e."""
+    n = int(n_steps)
+    return {"x0": e * dx, "noise": e * noise_len, "x_track": e * (n + 1) * dx,
+            "u_track": e * n * du, "costs": e * n, "chosen": e * n}
 
 
 def episode_choice(scores: torch.Tensor) -> int:
@@ -471,25 +491,27 @@ class _Episode:
         or the (2,) int32 seed of the in-kernel draw."""
         return (2,) if self.inkernel_noise else self.table_shape
 
-    def _check(self, x0: torch.Tensor, noise: torch.Tensor) -> None:
-        if self.inkernel_noise:
-            if tuple(x0.shape) != (self.plant.state_dim,) or x0.dtype != torch.float32:
-                raise ValueError(f"x0 must be ({self.plant.state_dim},) float32, got "
-                                 f"{tuple(x0.shape)} {x0.dtype}")
-            if tuple(noise.shape) != (2,) or noise.dtype != torch.int32:
-                raise ValueError(f"the seed must be (2,) int32, got {tuple(noise.shape)} "
-                                 f"{noise.dtype}")
-            if x0.device != noise.device:
-                raise ValueError("x0 and the seed must lie on one device")
-            return
-        if tuple(x0.shape) != (self.plant.state_dim,):
-            raise ValueError(f"x0 must be ({self.plant.state_dim},), got {tuple(x0.shape)}")
-        if tuple(noise.shape) != self.noise_shape:
-            raise ValueError(f"noise must be {self.noise_shape}, got {tuple(noise.shape)}")
-        if x0.dtype != torch.float32 or noise.dtype != torch.float32:
-            raise ValueError("x0 and noise must be float32")
+    def _check(self, x0: torch.Tensor, noise: torch.Tensor, fleet: bool = False) -> None:
+        """One episode's x0 (dx,) and noise (``noise_shape``), or with
+        ``fleet`` N episodes' (N, dx) and (N, *noise_shape), N >= 1 and the
+        same in both; float32 (the seed int32), on one device."""
+        lead = ()
+        if fleet:
+            n = x0.shape[0] if x0.dim() == 2 else 0
+            if n < 1 or noise.dim() == 0 or noise.shape[0] != n:
+                raise ValueError(f"a fleet takes x0s (N, {self.plant.state_dim}) and noise (N, "
+                                 f"...) with one N >= 1, got {tuple(x0.shape)} and "
+                                 f"{tuple(noise.shape)}")
+            lead = (n,)
+        if tuple(x0.shape) != lead + (self.plant.state_dim,) or x0.dtype != torch.float32:
+            raise ValueError(f"x0 must be {lead + (self.plant.state_dim,)} float32, got "
+                             f"{tuple(x0.shape)} {x0.dtype}")
+        what, dtype = ("the seed", torch.int32) if self.inkernel_noise else ("noise", torch.float32)
+        if tuple(noise.shape) != lead + self.noise_shape or noise.dtype != dtype:
+            raise ValueError(f"{what} must be {lead + self.noise_shape} {dtype}, got "
+                             f"{tuple(noise.shape)} {noise.dtype}")
         if x0.device != noise.device:
-            raise ValueError("x0 and noise must lie on one device")
+            raise ValueError(f"x0 and {what} must lie on one device")
 
     def episode(self, x0: torch.Tensor, noise: torch.Tensor):
         out = self.plain(x0, noise) if x0.device.type == "cpu" else self.kernel(x0, noise)
@@ -498,19 +520,67 @@ class _Episode:
 
     __call__ = episode
 
-    def _launch(self, x0: torch.Tensor, noise_tab: torch.Tensor, *scalars,
+    def fleet(self, x0s: torch.Tensor, noise: torch.Tensor):
+        """N independent episodes, x0s (N, dx) and noise (N, *noise_shape)
+        (the seeds (N, 2) with ``inkernel_noise``) -> (x_tracks (N, n_steps+1,
+        dx), u_tracks (N, n_steps, du), stage_costs (N, n_steps)), the JAX
+        package's ``jax.vmap`` of ``episode``: one launch of N clusters on a
+        CUDA tensor (``fleet_kernel``), ``plain`` episode by episode on the
+        CPU (``plain_scores`` then holds the last episode's). Sets
+        ``last_chosen`` (N, n_steps)."""
+        if x0s.device.type == "cpu":
+            self._check(x0s, noise, fleet=True)
+            runs = [self.plain(x0s[e], noise[e]) for e in range(x0s.shape[0])]
+            out = tuple(torch.stack(parts) for parts in zip(*runs))
+        else:
+            out = self.fleet_kernel(x0s, noise)
+        self.last_chosen = out[3]
+        return out[:3]
+
+    @torch.no_grad()
+    def kernel(self, x0: torch.Tensor, noise: torch.Tensor):
+        """One episode through the entry's kernel: the fleet of one, one
+        cluster of 8 CTAs, on the current stream; raises when the body cannot
+        be split over the cluster, the entry's plan at this K is more than a
+        block may take or no cluster fits on the card."""
+        self._check(x0, noise)
+        out = self._launch(x0[None], self._noise_tab(noise[None]), *self._scalars())
+        return tuple(o[0] for o in out)
+
+    @torch.no_grad()
+    def fleet_kernel(self, x0s: torch.Tensor, noise: torch.Tensor):
+        """N episodes through the entry's kernel in ONE launch of N clusters
+        on the current stream, each on its own x0 and noise; raises as
+        ``kernel`` does and never falls back."""
+        self._check(x0s, noise, fleet=True)
+        return self._launch(x0s, self._noise_tab(noise), *self._scalars())
+
+    def _scalars(self) -> tuple:
+        """The entry's launch arguments after n_steps, n_total, K and sel_h."""
+        return ()
+
+    def _noise_tab(self, noise: torch.Tensor) -> torch.Tensor:
+        """N episodes' noise (N, *noise_shape) in the kernel's layout."""
+        return noise.contiguous()
+
+    def _launch(self, x0s: torch.Tensor, noise_tab: torch.Tensor, *scalars,
                 lib: Optional[ctypes.CDLL] = None):
         """Checks the library (the port's ``lib()`` unless another build of
         ``<name>.cu`` is given, as the scripts that time edited copies give
         theirs) against this wrapper, asks once whether its cluster fits,
-        allocates the outputs and launches ``<name>_launch``, one cluster of
-        8 CTAs, on the current stream; returns (x_track, u_track, costs,
-        chosen)."""
-        if not x0.is_cuda or x0.device != self.packed.weights.device:
+        allocates the outputs and launches ``<name>_launch`` on the current
+        stream: N clusters of 8 CTAs for x0s (N, dx) and noise_tab (N, ...)
+        in the kernel's layout. Returns (x_tracks (N, n_steps + 1, dx),
+        u_tracks (N, n_steps, du), costs (N, n_steps), chosen (N,
+        n_steps))."""
+        if not x0s.is_cuda or x0s.device != self.packed.weights.device:
             raise ValueError(f"the {self.name} kernel takes tensors on the packed weights' CUDA device")
+        if x0s.dim() != 2 or x0s.shape[0] < 1 or noise_tab.shape[0] != x0s.shape[0]:
+            raise ValueError(f"the {self.name} kernel takes x0s (N, dx) and noise (N, ...), "
+                             f"N >= 1, got {tuple(x0s.shape)} and {tuple(noise_tab.shape)}")
         weights = [self.weights] + ([self.cluster.weights_bf16] if self.bf16 else [])
         lib = self.lib() if lib is None else lib
-        dev, dx, du = x0.device, self.plant.state_dim, self.plant.control_dim
+        dev, dx, du = x0s.device, self.plant.state_dim, self.plant.control_dim
         if getattr(lib, f"{self.name}_plant_dims")() != 100 * dx + du:
             raise RuntimeError(f"{self.name}.cu was built for another plant")
         if getattr(lib, f"{self.name}_consts_len")() != self.consts.numel():
@@ -519,19 +589,20 @@ class _Episode:
                 and getattr(lib, f"{self.name}_condition_dims")() != self.context_dim):
             raise RuntimeError(f"{self.name}.cu maps the state to another context width than "
                                f"{self.context_dim}")
-        self.cluster.require_fit(self.smem_bytes, x0.device)
-        x_track = torch.empty((self.n_steps + 1, dx), dtype=torch.float32, device=dev)
-        u_track = torch.empty((self.n_steps, du), dtype=torch.float32, device=dev)
-        costs = torch.empty((self.n_steps,), dtype=torch.float32, device=dev)
-        chosen = torch.empty((self.n_steps,), dtype=torch.int32, device=dev)
-        x0 = x0.contiguous()
+        self.cluster.require_fit(self.smem_bytes, x0s.device)
+        n = x0s.shape[0]
+        x_track = torch.empty((n, self.n_steps + 1, dx), dtype=torch.float32, device=dev)
+        u_track = torch.empty((n, self.n_steps, du), dtype=torch.float32, device=dev)
+        costs = torch.empty((n, self.n_steps), dtype=torch.float32, device=dev)
+        chosen = torch.empty((n, self.n_steps), dtype=torch.int32, device=dev)
+        x0s = x0s.contiguous()
         _build.launch(
             lib, self.name,
             *(wt.data_ptr() for wt in weights), self.meta.data_ptr(), self.smem_bytes,
             self.t_embs.data_ptr(), noise_tab.data_ptr(), self.coefs.data_ptr(),
-            self.consts.data_ptr(), x0.data_ptr(), x_track.data_ptr(), u_track.data_ptr(),
+            self.consts.data_ptr(), x0s.data_ptr(), x_track.data_ptr(), u_track.data_ptr(),
             costs.data_ptr(), chosen.data_ptr(), self.n_steps, self.n_total, self.n_candidates,
-            self.selection_horizon, *scalars, int(self.clip_denoised),
+            self.selection_horizon, *scalars, int(self.clip_denoised), n,
             torch.cuda.current_stream(dev).cuda_stream)
         self.launches += 1
         return x_track, u_track, costs, chosen
@@ -647,17 +718,19 @@ class FusedCfgEpisode(_Episode):
         return philox.cfg_normal_table(seed, self.n_steps, self.n_total, self.n_candidates,
                                        self.packed.horizon, self.packed.state_dim)
 
-    @torch.no_grad()
-    def kernel(self, x0: torch.Tensor, noise: torch.Tensor):
-        """Launch the entry's kernel (``csrc/cfg_episode.cu``, its bf16 entry
-        for bf16 weights, ``csrc/cfg_episode_lmpc.cu``,
-        ``csrc/cfg_episode_quadrotor.cu`` or ``csrc/cfg_episode_panda.cu``),
-        one cluster of 8 CTAs, on the current stream; raises when the body
-        cannot be split over the cluster or no cluster fits on the card."""
-        self._check(x0, noise)
-        noise_tab = (noise.contiguous() if self.inkernel_noise
-                     else torch.cat([noise[:, 1:], noise[:, :1]], dim=1).contiguous())
-        return self._launch(x0, noise_tab, self.w, float(np.float32(1.0 + self.w)))
+    def _scalars(self) -> tuple:
+        """w and 1 + w, the CFG lines' weights."""
+        return self.w, float(np.float32(1.0 + self.w))
+
+    def _noise_tab(self, noise: torch.Tensor) -> torch.Tensor:
+        """The staged noise (N, n_steps, n_total + 1, K, H, du) with each
+        replan's x_T moved after its injected draws, the kernel's order (the
+        seeds as they are). The kernel is the entry's: ``csrc/cfg_episode.cu``,
+        its bf16 entry for bf16 weights, ``csrc/cfg_episode_lmpc.cu``,
+        ``csrc/cfg_episode_quadrotor.cu`` or ``csrc/cfg_episode_panda.cu``."""
+        if self.inkernel_noise:
+            return noise.contiguous()
+        return torch.cat([noise[:, :, 1:], noise[:, :, :1]], dim=2).contiguous()
 
     @torch.no_grad()
     def plain(self, x0: torch.Tensor, noise: torch.Tensor):
@@ -754,7 +827,9 @@ class FusedDdimEpisode(_Episode):
     them to 0 to count one run. ``name`` is the entry the plant, the weights
     and the draw pick (``DDIM_ENTRIES``, ``DDIM_DRAW_ENTRIES``): with
     ``weights_dtype`` bfloat16 the plant's bf16 entry, whose ``plain`` runs
-    ``plain_model``, the U-Net with bf16 convs (``models/bf16.py``).
+    ``plain_model``, the U-Net with bf16 convs (``models/bf16.py``). The
+    kernel is the entry's: ``csrc/ddim_episode.cu``,
+    ``csrc/ddim_episode_quadrotor.cu`` or ``csrc/ddim_episode_panda.cu``.
     ``clip_denoised`` False leaves each reconstruction unclipped.
     """
 
@@ -785,17 +860,6 @@ class FusedDdimEpisode(_Episode):
         """The in-kernel draw of an episode seeded ``seed``, staged (n_steps,
         K, H, du), on the seed's device (``ops/philox.py``)."""
         return philox.normal_table(seed, self.table_shape)
-
-    @torch.no_grad()
-    def kernel(self, x0: torch.Tensor, noise: torch.Tensor):
-        """Launch the entry's kernel (``csrc/ddim_episode.cu``,
-        ``csrc/ddim_episode_quadrotor.cu`` or ``csrc/ddim_episode_panda.cu``;
-        the swing-up's and the panda's bf16 entries for bf16 weights),
-        one cluster of 8 CTAs, on the current stream; raises when the body
-        cannot be split over the cluster, the plan at this K is more than a
-        block may take or no cluster fits on the card."""
-        self._check(x0, noise)
-        return self._launch(x0, noise.contiguous())
 
     @torch.no_grad()
     def plain(self, x0: torch.Tensor, noise: torch.Tensor):
@@ -921,8 +985,8 @@ def make_fused_ddim_episode(model_or_packed: Union[TemporalUnet, PackedUnet],
     times grid ``times`` on ``device`` (``cuda`` unless given): 80 replans
     and K = 1 by default, as ``scripts/bench_deep_students.py`` runs it. A
     ``TemporalUnet`` is moved to the device and packed. ``weights_dtype``
-    bfloat16 runs the plant's bf16 entry (the swing-up's and the panda
-    arm's); ``clip_denoised`` False leaves each reconstruction unclipped.
+    bfloat16 runs the plant's bf16 entry (every plant has one);
+    ``clip_denoised`` False leaves each reconstruction unclipped.
     ``inkernel_noise`` (the quadrotor's entry only) makes the episode take a
     (2,) int32 seed (``ops/philox.py::seed_from_generator``) in place of
     staged noise. Raises ``NotImplementedError`` for what the kernel cannot

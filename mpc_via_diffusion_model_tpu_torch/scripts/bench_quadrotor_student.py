@@ -4,7 +4,7 @@ JSON keys, plus ``--device``.
 
     python -m mpc_via_diffusion_model_tpu_torch.scripts.bench_quadrotor_student \\
         [--eval-starts 64] [--candidates 4 8 16] [--in-kernel] [--inkernel-noise [K ...]] \\
-        [--steps 60] [--rate-steps 600] [--device cuda] [--out PATH]
+        [--steps 60] [--rate-steps 600] [--fleet N [--fleet-only]] [--device cuda] [--out PATH]
 
 The 1-eval self-distilled student (``--student-dir``, default
 ``artifacts/onpolicy_quadrotor``; times grid [23]) with the statistics of
@@ -27,15 +27,21 @@ the chip copy leaves out) flies ``--steps`` replans from each of the first
   could not compile past the TPU's VMEM; this card has no such limit);
 - ``inkernel_noise_k{K}`` for each ``--inkernel-noise`` K (no values:
   [1, 8]): the episode with the in-kernel draw (Philox, ``ops/philox.py``),
-  its sustained rate one ``--rate-steps`` episode per launch.
+  its sustained rate one ``--rate-steps`` episode per launch;
+- ``fleet{N}_steps_per_sec`` for ``--fleet N`` > 1: N independent K = 1
+  episodes of ``--steps`` replans as ONE launch of the episode kernel's grid
+  axis (``FusedDdimEpisode.fleet``, the JAX script's ``jax.vmap``), the starts
+  the eval starts tiled to N, each episode's noise drawn in turn from
+  ``torch.Generator(device).manual_seed(17)`` for the warm-up and from seed r
+  for timed run r; the best of 3 runs, each one synchronised fleet launch,
+  also printed as ``quadrotor_fleet{N}_control_steps_per_sec``.
+  ``--fleet-only`` is a cut, not the protocol: it runs that row alone.
 
 Each start's noise is drawn from ``torch.Generator(device).manual_seed(11)``
 in turn (the JAX script splits ``PRNGKey(11)``); the in-kernel draw's seeds
 from ``torch.Generator().manual_seed(11)``. Rows at K = 1 and K = 16 carry
 ``within_yardstick``: whether their metrics lie within
-``data/quadrotor_yardstick.py``'s bounds of the JAX package's on the CPU.
-``--fleet`` (a vmapped fleet of episode kernels in the JAX script) is
-refused: the port has no grid axis over episodes yet (ROADMAP.md B5). The
+``data/quadrotor_yardstick.py``'s bounds of the JAX package's on the CPU. The
 report goes to ``--out`` (``chiprun_out/bench_quadrotor_student.json`` by
 default), never under ``artifacts/``; each row is also printed as a JSON
 line, as the JAX script prints them. The full protocol, ``--eval-starts
@@ -111,13 +117,15 @@ def main(argv=None) -> dict:
                    help="also run best-of-K through the episode kernel")
     p.add_argument("--inkernel-noise", type=int, nargs="*", default=None,
                    help="K values to also run with the in-kernel draw (no values: 1 8)")
-    p.add_argument("--fleet", type=int, default=0, help="refused: see the module's docstring")
+    p.add_argument("--fleet", type=int, default=0,
+                   help="N > 1: N independent K = 1 episodes as one launch of the episode kernel")
+    p.add_argument("--fleet-only", action="store_true",
+                   help="a cut, not the protocol: run the --fleet row alone")
     p.add_argument("--device", default=None, help="cuda unless given")
     p.add_argument("--out", default=str(ROOT / "chiprun_out" / "bench_quadrotor_student.json"))
     args = p.parse_args(argv)
-    if args.fleet > 1:
-        raise SystemExit("--fleet: a grid axis over episodes has no counterpart in the port yet "
-                         "(ROADMAP.md B5)")
+    if args.fleet_only and args.fleet <= 1:
+        raise SystemExit("--fleet-only needs --fleet N > 1")
     out_path = Path(args.out).resolve()
     if (ROOT / "artifacts") in out_path.parents:
         raise SystemExit(f"--out {args.out}: the report goes under chiprun_out/, not artifacts/")
@@ -165,6 +173,32 @@ def main(argv=None) -> dict:
                                        selection_cost=sel if k > 1 else None,
                                        inkernel_noise=draw, device=dev)
 
+    def fleet_row(ep):
+        """N K = 1 episodes from the eval starts tiled to N, one launch per run."""
+        nf = args.fleet
+        x0f = starts.repeat(-(-nf // n), 1)[:nf]
+        draw = lambda seed: torch.stack([torch.randn(ep.noise_shape, generator=g_, device=dev)
+                                         for g_ in [torch.Generator(device=dev).manual_seed(seed)]
+                                         for _ in range(nf)])
+        launches = ep.launches
+        ep.fleet(x0f, draw(17))
+        _sync(dev)
+        reps = []
+        for r in range(3):
+            nz = draw(r)
+            t0 = time.perf_counter()
+            ep.fleet(x0f, nz)
+            _sync(dev)
+            reps.append(time.perf_counter() - t0)
+        out[f"fleet{nf}_steps_per_sec"] = nf * args.steps / min(reps)
+        out[f"fleet{nf}_launches"] = ep.launches - launches
+        emit(f"quadrotor_fleet{nf}_control_steps_per_sec", out[f"fleet{nf}_steps_per_sec"],
+             unit="steps/s")
+
+    if args.fleet_only:
+        fleet_row(episode(1, args.steps))
+        return _finish(out, out_path, dev)
+
     # the per-replan loop through the chain kernel (the JAX script's XLA row)
     xla_tracks = loop_row(1, "xla", "xla_hz_pipelined")
     # the episode kernel at K = 1: parity with the loop, metrics, pipelined and sustained rates
@@ -179,6 +213,8 @@ def main(argv=None) -> dict:
     rate_noise = torch.randn(ep_rate.noise_shape, generator=gen, device=dev)
     out["rate_steps"] = args.rate_steps
     out["episode_hz_sustained"] = args.rate_steps / _sustained(ep_rate, starts[0], rate_noise, dev)
+    if args.fleet > 1:
+        fleet_row(ep)
     emit("quadrotor_student_fused_episode_hz", out["episode_hz_pipelined"], unit="Hz",
          sustained=out["episode_hz_sustained"], max_err_vs_xla=out["episode_vs_xla_max_err"],
          **out["episode"])
@@ -217,6 +253,11 @@ def main(argv=None) -> dict:
         emit(f"quadrotor_student_{tag}_hz", out[f"{tag}_hz_sustained_single_dispatch"],
              unit="Hz", protocol=f"single-dispatch {args.rate_steps}-step", **out[tag])
 
+    return _finish(out, out_path, dev)
+
+
+def _finish(out: dict, out_path: Path, dev) -> dict:
+    """The report with the card's name and power limit, written to ``out_path`` and printed."""
     if dev.type == "cuda":
         out["nvidia_smi"] = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

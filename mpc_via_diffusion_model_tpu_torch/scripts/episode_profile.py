@@ -121,7 +121,7 @@ def build_copy(src: Path) -> Tuple[ctypes.CDLL, str]:
     lib = ctypes.CDLL(str(lib_path))
     pv, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.cfg_episode_launch.argtypes = [pv, pv, i, pv, pv, pv, pv, pv, pv, pv, pv, pv, i, i, i, i, f, f, i,
-                                      pv]
+                                      i, pv]
     lib.cfg_episode_launch.restype = i
     lib.cfg_episode_error_string.argtypes, lib.cfg_episode_error_string.restype = [i], ctypes.c_char_p
     for query in ("plant_dims", "consts_len"):
@@ -129,12 +129,13 @@ def build_copy(src: Path) -> Tuple[ctypes.CDLL, str]:
     return lib, (proc.stdout + proc.stderr).strip()
 
 
-def launch_copy(ep, lib: ctypes.CDLL, x0: torch.Tensor, noise_tab: torch.Tensor):
+def launch_copy(ep, lib: ctypes.CDLL, x0s: torch.Tensor, noise_tab: torch.Tensor):
     """One launch of ``ep``'s CFG episode (a ``FusedCfgEpisode``) on the
     built copy ``lib`` in place of the port's library, through the wrapper's
-    own launch path (its checks, occupancy query and outputs); ``noise_tab``
-    is the noise in the kernel's order. Returns what ``ep.kernel`` returns."""
-    return ep._launch(x0, noise_tab, ep.w, float(np.float32(1.0 + ep.w)), lib=lib)
+    own launch path (its checks, occupancy query and outputs): a fleet of
+    x0s (N, dx), ``noise_tab`` (N, ...) the noise in the kernel's order
+    (``ep._noise_tab``). Returns what ``ep.fleet_kernel`` returns."""
+    return ep._launch(x0s, noise_tab, ep.w, float(np.float32(1.0 + ep.w)), lib=lib)
 
 
 def main(argv: Optional[list] = None) -> dict:
@@ -155,7 +156,7 @@ def main(argv: Optional[list] = None) -> dict:
     x0 = torch.tensor([0.0, 0.0, 3.0, 0.0, theta_to_red_theta(3.0)], device=dev)
     noise = torch.randn(ep.noise_shape, generator=torch.Generator(device=dev).manual_seed(0),
                         device=dev)
-    noise_tab = torch.cat([noise[:, 1:], noise[:, :1]], dim=1).contiguous()
+    noise_tab = ep._noise_tab(noise[None])
     counts = (ctypes.c_longlong * 16)()
 
     def timed(fn) -> float:
@@ -170,7 +171,7 @@ def main(argv: Optional[list] = None) -> dict:
         return start.elapsed_time(end) / args.replans
 
     plain_ms = timed(lambda: ep.kernel(x0, noise))
-    marked_ms = timed(lambda: launch_copy(ep, prof, x0, noise_tab))
+    marked_ms = timed(lambda: launch_copy(ep, prof, x0[None], noise_tab))
     err = prof.cfg_episode_profile_read(counts)
     if err:
         raise RuntimeError(f"reading the counters failed: {prof.cfg_episode_error_string(err).decode()}")

@@ -99,9 +99,9 @@ def main(argv: Optional[List[str]] = None) -> List[dict]:
     x0 = torch.tensor([0.0, 0.0, 3.0, 0.0, theta_to_red_theta(3.0)], device=dev)
     noise = torch.randn(ep.noise_shape, generator=torch.Generator(device=dev).manual_seed(0),
                         device=dev)
-    noise_tab = torch.cat([noise[:, 1:], noise[:, :1]], dim=1).contiguous()
+    noise_tab = ep._noise_tab(noise[None])
     run = {own: lambda: ep.kernel(x0, noise),
-           **{n: (lambda lib=lib: launch_copy(ep, lib, x0, noise_tab))
+           **{n: (lambda lib=lib: tuple(o[0] for o in launch_copy(ep, lib, x0[None], noise_tab)))
               for n, (lib, _) in copies.items()}}
     ref = run[own]()
     rows = {}

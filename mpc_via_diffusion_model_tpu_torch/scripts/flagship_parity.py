@@ -19,7 +19,7 @@ the JAX package's iLQR expert on the CPU (``data/flagship_expert_yardstick.py``,
 expert figures (its TPU run: 784,750.6) stay beside it under
 their keys. The draws are torch's, not JAX's, so the comparison is
 distributional. ``run_episode_quality`` runs the same ten loops through the
-CFG episode kernel (one launch of 80 replans per seed) for
+CFG episode kernel (one fleet of ten 80-replan episodes, one launch) for
 ``chip_smoke.py``, with the closed-loop costs and the modality.
 """
 from __future__ import annotations
@@ -92,7 +92,8 @@ def run_episode_quality(device=None, n_seeds: int = 10, n_steps: int = 80,
     """The protocol's K = 1 loops through the CFG episode kernel on
     ``device`` (``cuda`` unless given; its plain version on the CPU), each
     seed's staged noise one draw of a ``torch.Generator`` seeded with its
-    index: the closed-loop costs, their mean over the expert's and the
+    index, all seeds as one fleet (``FusedCfgEpisode.fleet``: one launch on
+    the card): the closed-loop costs, their mean over the expert's and the
     modality, beside the report's. ``episode_launches`` counts the kernel's
     launches; ``weights_dtype`` is the episode's (bfloat16: its bf16 entry)."""
     dev = resolve_device(device)
@@ -103,10 +104,12 @@ def run_episode_quality(device=None, n_seeds: int = 10, n_steps: int = 80,
                                 n_steps=n_steps, w=W, n_diffusion_steps_without_noise=N_TAIL,
                                 weights_dtype=weights_dtype, device=dev)
     x0 = torch.tensor([0.0, 0.0, 3.0, 0.0, theta_to_red_theta(3.0)], device=dev)
-    runs = [ep(x0, torch.randn(ep.noise_shape, generator=torch.Generator(device=dev).manual_seed(seed),
-                               device=dev)) for seed in range(n_seeds)]
+    noise = torch.stack([torch.randn(ep.noise_shape, device=dev,
+                                     generator=torch.Generator(device=dev).manual_seed(seed))
+                         for seed in range(n_seeds)])
+    x_tracks, _, costs = ep.fleet(x0.expand(n_seeds, -1).contiguous(), noise)
     report = json.loads((ARTIFACTS / "report.json").read_text())
-    closed_loop = [costs.double().sum().item() for _, _, costs in runs]
+    closed_loop = [c.double().sum().item() for c in costs]
     mean = float(np.mean(closed_loop))
     return {
         "device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
@@ -114,7 +117,7 @@ def run_episode_quality(device=None, n_seeds: int = 10, n_steps: int = 80,
         "closed_loop_costs": closed_loop, "closed_loop_cost_mean": mean,
         "closed_loop_cost_nmpc": report["closed_loop_cost_nmpc"], "expert_cost": ys.EXPERT_COST,
         "cost_over_expert": mean / ys.EXPERT_COST,
-        "modality": count_swing_modes(torch.stack([x for x, _, _ in runs])),
+        "modality": count_swing_modes(x_tracks),
         "modality_report": report["modality"],
     }
 

@@ -154,8 +154,9 @@ def run(device=None, route: str = "episode", n_states: int = N_STATES, n_steps: 
     ``candidates`` over the first ``n_states`` sweep states, beside the JAX
     package's and the report's, of ``model`` (the committed weights unless
     given) with the normalizer statistics ``stats`` (inputs, condition;
-    ``lmpc_stats()`` unless given). ``launches`` counts each K's kernel
-    launches; ``tracks`` holds each K's (x_track, u_track, chosen) per state."""
+    ``lmpc_stats()`` unless given). The episode route runs the states as one
+    fleet (one launch per K); ``launches`` counts each K's kernel launches;
+    ``tracks`` holds each K's (x_track, u_track, chosen) per state."""
     dev = resolve_device(device)
     model = model if model is not None else load_lmpc(ARTIFACTS / "ema_params.pkl", device=dev)
     x0s = sweep_states(n_states).to(dev)
@@ -167,8 +168,13 @@ def run(device=None, route: str = "episode", n_states: int = N_STATES, n_steps: 
     for k in candidates:
         ctl = Controller(model, route, k, n_steps, dev, stats)
         u_l1, u_max, tracks = [], [], []
-        for i in range(n_states):
-            x_track, u_track, chosen = ctl.run(x0s[i], state_noise(i, ctl.noise_shape, dev))
+        noise = [state_noise(i, ctl.noise_shape, dev) for i in range(n_states)]
+        if route == "episode":  # every state's episode as one fleet: one launch
+            fleet = ctl.wrapper.fleet(x0s, torch.stack(noise))
+            runs = list(zip(fleet[0], fleet[1], ctl.wrapper.last_chosen))
+        else:
+            runs = [ctl.run(x0s[i], noise[i]) for i in range(n_states)]
+        for i, (x_track, u_track, chosen) in enumerate(runs):
             tracks.append((x_track, u_track, chosen))
             par = track_parity(ClosedLoopResult(x_track, u_track, None, None),
                                ClosedLoopResult(expert.x_track[i], expert.u_track[i], None, None))

@@ -394,9 +394,8 @@ def test_clip_flag_programs_match_plain(cluster_models, kernel):
 
 
 def test_bf16_entries_of_the_ddim_episode_by_plant():
-    """The DDIM episode's bf16 entries: the swing-up's and the panda arm's; the quadrotor's two
-    entries stay fp32 (ROADMAP.md B1 lists them) and refuse bf16 by name, and no bf16 entry
-    draws its noise in the kernel."""
+    """The DDIM episode's bf16 entries: the swing-up's, the panda arm's and the quadrotor's,
+    staged and drawing its noise in the kernel; the panda's bf16 entry draws none."""
     from mpc_via_diffusion_model_tpu_torch.data.panda_stats import panda_stats
     from mpc_via_diffusion_model_tpu_torch.data.quadrotor_stats import quadrotor_stats
     from mpc_via_diffusion_model_tpu_torch.dynamics import quadrotor, quadrotor_cost
@@ -412,8 +411,9 @@ def test_bf16_entries_of_the_ddim_episode_by_plant():
     assert panda(weights_dtype=BF16, clip_denoised=False).clip_denoised is False
     with pytest.raises(NotImplementedError, match="inkernel_noise"):
         panda(weights_dtype=BF16, inkernel_noise=True)
-    for kw in (dict(), dict(inkernel_noise=True)):
-        with pytest.raises(NotImplementedError, match="no bf16 entry for the plant 'quadrotor'"):
-            make_fused_ddim_episode(unet(4, 12), sched, TIMES, *quadrotor_stats(), quadrotor(),
-                                    quadrotor_cost(), n_steps=1, weights_dtype=BF16,
-                                    device="cpu", **kw)
+    for kw, name in ((dict(), "ddim_episode_quadrotor_bf16"),
+                     (dict(inkernel_noise=True), "ddim_episode_quadrotor_draw_bf16")):
+        ep = make_fused_ddim_episode(unet(4, 12), sched, TIMES, *quadrotor_stats(), quadrotor(),
+                                     quadrotor_cost(), n_steps=1, weights_dtype=BF16,
+                                     device="cpu", **kw)
+        assert ep.name == name and ep.bf16

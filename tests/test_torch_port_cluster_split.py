@@ -669,21 +669,22 @@ class _StubEpisodeLib:
 def test_episode_scripts_launch_their_copy_through_the_wrapper():
     """episode_recut.py and episode_profile.py launch their built copies
     through ``episode_profile.launch_copy``: its call binds to
-    ``FusedCfgEpisode._launch``'s signature with the copy as ``lib`` and the
-    kernel's scalars (w, float32(1 + w)), and the real launch path refuses
-    CPU tensors before it reads any library, the copy's too."""
+    ``FusedCfgEpisode._launch``'s signature with the copy as ``lib``, the
+    fleet's tensors (here a fleet of one) and the kernel's scalars (w,
+    float32(1 + w)), and the real launch path refuses CPU tensors before it
+    reads any library, the copy's too."""
     from mpc_via_diffusion_model_tpu_torch.ops.fused_episode import FusedCfgEpisode
     from mpc_via_diffusion_model_tpu_torch.scripts import episode_profile
     ep = _episode(_seeded_unet(n_support_points=8, dim_mults=(1, 2)))
-    x0 = torch.from_numpy(X0)
-    noise_tab = torch.zeros(ep.noise_shape)
+    x0 = torch.from_numpy(X0)[None]
+    noise_tab = torch.zeros((1, *ep.noise_shape))
     stub, seen = _StubEpisodeLib(), []
     signature = inspect.signature(FusedCfgEpisode._launch)
     real_launch = ep._launch
     ep._launch = lambda *a, **kw: seen.append(signature.bind(ep, *a, **kw).arguments) or "launched"
     assert episode_profile.launch_copy(ep, stub, x0, noise_tab) == "launched"
     (args,) = seen
-    assert args["lib"] is stub and args["x0"] is x0 and args["noise_tab"] is noise_tab
+    assert args["lib"] is stub and args["x0s"] is x0 and args["noise_tab"] is noise_tab
     assert args["scalars"] == (W, float(np.float32(1.0 + W)))
     ep._launch = real_launch
     with pytest.raises(ValueError, match="CUDA"):
@@ -706,11 +707,11 @@ def test_episode_launch_copy_matches_the_kernel_on_gpu():
     x0 = torch.from_numpy(X0).cuda()
     want = ep.kernel(x0, noise)
     noise_tab = torch.cat([noise[:, 1:], noise[:, :1]], dim=1).contiguous()
-    got = episode_profile.launch_copy(ep, _cfg_lib(), x0, noise_tab)
+    got = episode_profile.launch_copy(ep, _cfg_lib(), x0[None], noise_tab[None])
     torch.cuda.synchronize()
     assert ep.launches == 2
     for g, w_ in zip(got, want):
-        assert torch.equal(g, w_)
+        assert torch.equal(g[0], w_)
 
 
 @pytest.mark.gpu

@@ -96,8 +96,8 @@ def test_lmpc_matrices_are_the_zoh_in_float32():
 
 @pytest.mark.parametrize("name,error", [
     ("cartpole_lmpc", None), ("cartpole_virtual_swingup", None),
-    ("cartpole_virtual_stabilized", None), ("pendulum", NotImplementedError),
-    ("double_integrator", NotImplementedError), ("acrobot", NotImplementedError),
+    ("cartpole_virtual_stabilized", None), ("pendulum", None),
+    ("double_integrator", None), ("acrobot", NotImplementedError),
     ("quadrotor", None), ("panda_surrogate", None), ("panda", None),
     ("no_such_plant", ValueError)])
 def test_get_plant(name, error):

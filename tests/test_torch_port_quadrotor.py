@@ -16,6 +16,7 @@ Tolerances: 1e-6 for the plant and the costs (the libraries' sin and cos
 differ in the last bit); rtol = atol = 1e-4 for loops and episodes, the JAX
 suite's (tests/test_fused_episode.py:59).
 """
+import json
 import pickle
 import sys
 from pathlib import Path
@@ -363,10 +364,19 @@ def test_divergence_loop_is_the_runtime_loop_batched(student):
         assert all(qys.BOUNDS[k][m] >= 2 / 64 for m in div.METRICS if m.endswith("fraction"))
 
 
-def test_bench_script_refuses_the_fleet_and_reports_outside_artifacts():
+def test_bench_script_refuses_the_fleet_and_reports_outside_artifacts(tmp_path):
+    """``--fleet`` runs since the episode kernel has its grid axis (ROADMAP.md B5): at toy size
+    on the CPU, ``--fleet-only`` (the cut that runs that row alone) flies 3 episodes of 2 replans
+    from the eval starts tiled to 3, as one fleet per run (no launch on the CPU: the plain
+    version episode by episode); ``--fleet-only`` without a fleet and a report under
+    ``artifacts/`` are refused."""
     from mpc_via_diffusion_model_tpu_torch.scripts import bench_quadrotor_student as bench
-    with pytest.raises(SystemExit, match="ROADMAP.md B5"):
-        bench.main(["--fleet", "64", "--device", "cpu"])
+    out = bench.main(["--fleet", "3", "--fleet-only", "--eval-starts", "2", "--steps", "2",
+                      "--device", "cpu", "--out", str(tmp_path / "fleet.json")])
+    assert out["fleet3_steps_per_sec"] > 0 and out["fleet3_launches"] == 0
+    assert json.loads((tmp_path / "fleet.json").read_text())["fleet3_steps_per_sec"] > 0
+    with pytest.raises(SystemExit, match="--fleet N > 1"):
+        bench.main(["--fleet-only", "--device", "cpu"])
     with pytest.raises(SystemExit, match="not artifacts/"):
         bench.main(["--out", str(ROOT / "artifacts" / "onpolicy_quadrotor" / "bench.json"),
                     "--device", "cpu"])

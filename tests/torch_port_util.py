@@ -1159,3 +1159,52 @@ def emulate_fused_conv_kernel(x, w, b, gamma, beta, n_groups, pre_bias=None, eps
                 np.add.at(written, (bi, ti, ch), 1)
     assert np.all(written == 1), "the kernel's stores do not cover the output once"
     return out
+
+
+def emulate_episode_grid(x0s, noise, n_steps, du, offsets, run_cluster, n_ranks=up.CLUSTER):
+    """A fleet launch of an episode kernel in numpy: a grid of N = len(x0s)
+    clusters of ``n_ranks`` CTAs over FLAT buffers, as the kernels see them.
+    Every CTA of block b computes its episode e = b // n_ranks (the kernels'
+    ``blockIdx.x / CLUSTER``) and, through ``offsets(e, n_steps, dx, du,
+    noise_len)`` (``ops/fused_episode.py::episode_offsets``, the kernels'
+    formula), reads its x0 (dx values) and its noise (noise_len, one
+    episode's share of ``noise``) from the flat inputs; the CTAs of a
+    cluster must agree on both. Each cluster then runs ``run_cluster(x0,
+    noise) -> (x_track, u_track, costs, chosen)`` (one episode's program,
+    e.g. ``emulate_ddim_episode_kernel``) and its rank 0 writes them into
+    the flat outputs through the same offsets. Every output element must be
+    written exactly once, by the cluster of its own episode. Returns the
+    outputs shaped (N, ...)."""
+    n = len(x0s)
+    dx = x0s.shape[1]
+    noise_len = int(np.prod(noise.shape[1:]))
+    x0_flat, noise_flat = np.ascontiguousarray(x0s).ravel(), np.ascontiguousarray(noise).ravel()
+    lengths = {"x_track": (n_steps + 1) * dx, "u_track": n_steps * du, "costs": n_steps,
+               "chosen": n_steps}
+    outs = {name: np.full(n * size, np.nan) for name, size in lengths.items()}
+    writer = {name: np.full(n * size, -1) for name, size in lengths.items()}
+    for e in range(n):
+        reads = []
+        for b in range(e * n_ranks, (e + 1) * n_ranks):
+            o = offsets(b // n_ranks, n_steps, dx, du, noise_len)
+            reads.append((x0_flat[o["x0"]:o["x0"] + dx],
+                          noise_flat[o["noise"]:o["noise"] + noise_len]))
+        for x0_r, nz_r in reads[1:]:
+            np.testing.assert_array_equal(x0_r, reads[0][0])
+            np.testing.assert_array_equal(nz_r, reads[0][1])
+        x0_e, nz_e = reads[0]
+        assert x0_e.size == dx and nz_e.size == noise_len, f"episode {e} reads past its inputs"
+        result = run_cluster(x0_e, nz_e.reshape(noise.shape[1:]))
+        o = offsets(e, n_steps, dx, du, noise_len)
+        for name, value in zip(lengths, result):
+            at = o[name] + np.arange(lengths[name])
+            assert at.max() < writer[name].size, f"episode {e} writes past {name}"
+            assert (writer[name][at] == -1).all(), f"episode {e} writes {name} a second time"
+            writer[name][at] = e
+            outs[name][at] = np.asarray(value, np.float64).ravel()
+    for name, size in lengths.items():
+        owner = np.repeat(np.arange(n), size)
+        assert (writer[name] == owner).all(), f"{name}: an element not written by its own episode"
+    return tuple(outs[name].reshape((n, -1) if name in ("costs", "chosen") else
+                                    (n, -1, dx if name == "x_track" else du))
+                 for name in lengths)
